@@ -1,31 +1,74 @@
-// anyhit_from_t_kernel: hard-shadow occlusion rebuilt from the nearest pass.
+// The any-hit (occlusion) walks, one thread block per shadow tile.
 //
+// anyhit_from_t_kernel: hard-shadow occlusion rebuilt from the nearest pass.
 // Replaces the TPU kernel simple_raytracer_tpu/kernels/tiled_t.py::
 // _anyhit_kernel_t in its from-t form (reached through tiled_anyhit_from_t
 // from anyhit_from_t) on the fused frame's path.  Plain PyTorch version:
-// kernels/anyhit.py::tiled_anyhit_from_t_plain.
+// kernels/anyhit.py::tiled_anyhit_from_t_plain.  A shadow ray is rebuilt from
+// its pixel, the nearest pass's t and the light: p = o + t*d (t pinned to 0
+// on a miss), direction light - p, unnormalized.  Miss lanes start found = 1,
+// so they never hold back the exit; callers mask them.
 //
-// One thread block per shadow tile (the primary tile); each thread owns
-// tile/threads rays, strided like the nearest kernel.  A shadow ray is
-// rebuilt from its pixel, the nearest pass's t and the light: p = o + t*d
-// (t pinned to 0 on a miss), direction light - p, unnormalized, with no
-// max-t (the reference's quirks, simple_raytracer.cpp:321-342).  For each
-// plan entry the block stages the window's triangles and block object ids in
-// shared memory; a ray skips a block of its own object (blocks are
-// single-object by construction, accel/prepared.py) and tests the others
-// with the division-free Möller–Trumbore predicate on the numerators.  Miss
-// lanes start found = 1, so they never hold back the exit; callers mask them.
-// The block stops as soon as every ray has found an occluder
+// anyhit_rays_kernel: the same walk over explicit rays (o, d, self object).
+// Replaces the same TPU kernel in its rays-as-input form (reached through
+// tiled_anyhit_t from anyhit) on the legacy hard-shadow and the soft-shadow
+// paths.  Plain PyTorch version: kernels/anyhit.py::tiled_anyhit_plain.  A
+// tile holds M rays (S light samples x ts points when folded); M need not be
+// a multiple of the block size: lanes past M start found and are not written.
+//
+// Both run anyhit_walk: each thread owns RPT rays, strided by the block size.
+// For each plan entry the block stages the window's triangles and block
+// object ids in shared memory; a ray skips a block of its own object (blocks
+// are single-object by construction, accel/prepared.py) and tests the others
+// with srt::occludes, the division-free Möller–Trumbore predicate, with no
+// max-t unless configured (the reference's quirks, simple_raytracer.cpp:
+// 321-342).  The block stops as soon as every ray has found an occluder
 // (__syncthreads_and).
 //
-// What bounds it on the H100: the MT arithmetic of rays that stay unoccluded
-// (they walk the whole plan), not memory: a window is 4.6 KB of triangles
-// read once per tile.  The design drops the division of the nearest test,
-// skips finished rays and own-object blocks per thread, and exits per tile.
+// What bounds them on the H100: the MT arithmetic of rays that stay
+// unoccluded (they walk the whole plan), not memory: a window is 4.6 KB of
+// triangles read once per tile, and a ray is read once.  The design drops the
+// division of the nearest test, skips finished rays and own-object blocks per
+// thread, and exits per tile.
 
 #include "common.cuh"
 
 namespace {
+
+// Walk the tile's plan; found[r] |= "ray r meets a triangle of another
+// object".  Ray r has origin h[r] and direction s[r].
+template <int RPT>
+__device__ __forceinline__ void anyhit_walk(
+    const srt::TilePlan& P, const float* __restrict__ tri,
+    const int* __restrict__ block_obj, int n_windows, int wt, int bs,
+    float eps, int no_max_t, const float* hx, const float* hy,
+    const float* hz, const float* sx, const float* sy, const float* sz,
+    const int* self_obj, bool* found, float* s_tri, int* s_bobj) {
+  const int wb = wt / bs;
+  for (int k = 0; k < P.cnt; ++k) {
+    const int w = P.window(k);
+    __syncthreads();                             // shared tables free
+    if (w < 0 || w >= n_windows) continue;       // block-uniform
+    srt::stage(s_tri, tri + (size_t)w * wt * srt::kTriW, wt * srt::kTriW);
+    for (int i = threadIdx.x; i < wb; i += blockDim.x)
+      s_bobj[i] = block_obj[w * wb + i];
+    __syncthreads();
+    for (int j = 0; j < wt; ++j) {
+      const int bo = s_bobj[j / bs];
+      const srt::Tri g(s_tri + j * srt::kTriW);
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        if (found[r] || bo == self_obj[r]) continue;
+        found[r] = srt::occludes(g, hx[r], hy[r], hz[r], sx[r], sy[r], sz[r],
+                                 eps, no_max_t);
+      }
+    }
+    int all = 1;
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) all &= found[r];
+    if (__syncthreads_and(all)) break;
+  }
+}
 
 template <int RPT>
 __global__ void anyhit_from_t_kernel(
@@ -41,7 +84,6 @@ __global__ void anyhit_from_t_kernel(
   const int tid = threadIdx.x;
   const int tile = blockIdx.x;
   const int tile_r = nthr * RPT;
-  const int wb = wt / bs;
   for (int i = tid; i < srt::kCamLen; i += nthr) s_cam[i] = cam_g[i];
   __syncthreads();
   const srt::TilePlan P(plan, plan_w, tile);
@@ -67,50 +109,62 @@ __global__ void anyhit_from_t_kernel(
     self_obj[r] = obj_in[o];
     found[r] = !hit;
   }
-
-  for (int k = 0; k < P.cnt; ++k) {
-    const int w = P.window(k);
-    __syncthreads();                             // shared tables free
-    if (w < 0 || w >= n_windows) continue;       // block-uniform
-    srt::stage(s_tri, tri + (size_t)w * wt * srt::kTriW, wt * srt::kTriW);
-    for (int i = tid; i < wb; i += nthr) s_bobj[i] = block_obj[w * wb + i];
-    __syncthreads();
-    for (int j = 0; j < wt; ++j) {
-      const int bo = s_bobj[j / bs];
-      const float* g = s_tri + j * srt::kTriW;
-      const float v0x = g[0], v0y = g[1], v0z = g[2];
-      const float e1x = g[3], e1y = g[4], e1z = g[5];
-      const float e2x = g[6], e2y = g[7], e2z = g[8];
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        if (found[r] || bo == self_obj[r]) continue;
-        const float px = sy[r] * e2z - sz[r] * e2y;
-        const float py = sz[r] * e2x - sx[r] * e2z;
-        const float pz = sx[r] * e2y - sy[r] * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const float tx = hx[r] - v0x, ty = hy[r] - v0y, tz = hz[r] - v0z;
-        const float u_num = tx * px + ty * py + tz * pz;
-        const float qx = ty * e1z - tz * e1y;
-        const float qy = tz * e1x - tx * e1z;
-        const float qz = tx * e1y - ty * e1x;
-        const float v_num = sx[r] * qx + sy[r] * qy + sz[r] * qz;
-        const float t_num = e2x * qx + e2y * qy + e2z * qz;
-        const float adet = fabsf(det);
-        found[r] = adet >= eps && u_num * det >= 0.0f &&
-                   fabsf(u_num) <= adet && v_num * det >= 0.0f &&
-                   fabsf(u_num + v_num) <= adet && t_num * det >= 0.0f &&
-                   (no_max_t || fabsf(t_num) <= adet);
-      }
-    }
-    int all = 1;
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) all &= found[r];
-    if (__syncthreads_and(all)) break;
-  }
-
+  anyhit_walk<RPT>(P, tri, block_obj, n_windows, wt, bs, eps, no_max_t, hx,
+                   hy, hz, sx, sy, sz, self_obj, found, s_tri, s_bobj);
 #pragma unroll
   for (int r = 0; r < RPT; ++r)
     found_out[(size_t)tile * tile_r + tid + r * nthr] = found[r] ? 1 : 0;
+}
+
+// rays o, d [n, m, 3] f32 and self_obj [n, m] i32 -> found [n, m] u8
+template <int RPT>
+__global__ void anyhit_rays_kernel(
+    const int* __restrict__ plan, int plan_w, const float* __restrict__ tri,
+    const int* __restrict__ block_obj, int n_windows,
+    const float* __restrict__ o_in, const float* __restrict__ d_in,
+    const int* __restrict__ self_in, int m, int wt, int bs, float eps,
+    int no_max_t, unsigned char* __restrict__ found_out) {
+  extern __shared__ float s_tri[];        // wt * kTriW floats, then wt/bs ids
+  int* s_bobj = reinterpret_cast<int*>(s_tri + wt * srt::kTriW);
+  const int nthr = blockDim.x;
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x;
+  const srt::TilePlan P(plan, plan_w, tile);
+
+  float hx[RPT], hy[RPT], hz[RPT], sx[RPT], sy[RPT], sz[RPT];
+  int self_obj[RPT];
+  bool found[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int lane = tid + r * nthr;
+    const bool live = lane < m;
+    const size_t o = (size_t)tile * m + (live ? lane : 0);
+    hx[r] = o_in[3 * o + 0];
+    hy[r] = o_in[3 * o + 1];
+    hz[r] = o_in[3 * o + 2];
+    sx[r] = d_in[3 * o + 0];
+    sy[r] = d_in[3 * o + 1];
+    sz[r] = d_in[3 * o + 2];
+    self_obj[r] = self_in[o];
+    found[r] = !live;                     // tail lanes never hold the exit
+  }
+  anyhit_walk<RPT>(P, tri, block_obj, n_windows, wt, bs, eps, no_max_t, hx,
+                   hy, hz, sx, sy, sz, self_obj, found, s_tri, s_bobj);
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int lane = tid + r * nthr;
+    if (lane < m) found_out[(size_t)tile * m + lane] = found[r] ? 1 : 0;
+  }
+}
+
+bool bad_launch(int threads, int wt, int bs) {
+  return threads <= 0 || threads > 1024 || threads % 32 || bs <= 0 ||
+         wt % bs;
+}
+
+size_t walk_smem(int wt, int bs) {
+  return static_cast<size_t>(wt) * srt::kTriW * sizeof(float) +
+         static_cast<size_t>(wt / bs) * sizeof(int);
 }
 
 }  // namespace
@@ -133,11 +187,9 @@ extern "C" int srt_anyhit_from_t(
     float eps, int no_max_t, void* found, int threads, void* stream) {
   if (n_tiles == 0) return 0;
   const int tile_r = tile_px * tile_px;
-  if (threads <= 0 || threads > 1024 || threads % 32 || tile_r % threads ||
-      bs <= 0 || wt % bs)
+  if (bad_launch(threads, wt, bs) || tile_r % threads)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(wt) * srt::kTriW * sizeof(float) +
-                      static_cast<size_t>(wt / bs) * sizeof(int);
+  const size_t smem = walk_smem(wt, bs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tile_r / threads) {
     SRT_ANYHIT_CASE(1)
@@ -145,6 +197,38 @@ extern "C" int srt_anyhit_from_t(
     SRT_ANYHIT_CASE(4)
     SRT_ANYHIT_CASE(8)
     SRT_ANYHIT_CASE(16)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+#define SRT_ANYHIT_RAYS_CASE(R)                                                \
+  case R:                                                                      \
+    anyhit_rays_kernel<R><<<n_tiles, threads, smem, s>>>(                      \
+        static_cast<const int*>(plan), plan_w,                                 \
+        static_cast<const float*>(tri), static_cast<const int*>(block_obj),    \
+        n_windows, static_cast<const float*>(o_in),                            \
+        static_cast<const float*>(d_in), static_cast<const int*>(self_in), m,  \
+        wt, bs, eps, no_max_t, static_cast<unsigned char*>(found));            \
+    break;
+
+extern "C" int srt_anyhit_rays(
+    const void* plan, int plan_w, int n_tiles, const void* tri,
+    const void* block_obj, int n_windows, const void* o_in, const void* d_in,
+    const void* self_in, int m, int wt, int bs, float eps, int no_max_t,
+    void* found, int threads, void* stream) {
+  if (n_tiles == 0) return 0;
+  if (bad_launch(threads, wt, bs) || m <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = walk_smem(wt, bs);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (srt::rays_per_thread(m, threads)) {
+    SRT_ANYHIT_RAYS_CASE(1)
+    SRT_ANYHIT_RAYS_CASE(2)
+    SRT_ANYHIT_RAYS_CASE(4)
+    SRT_ANYHIT_RAYS_CASE(8)
+    SRT_ANYHIT_RAYS_CASE(16)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -62,4 +62,46 @@ __device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
 }
 
+// One staged triangle row: first vertex and the two edges.
+struct Tri {
+  float v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z;
+  __device__ explicit Tri(const float* g)
+      : v0x(g[0]), v0y(g[1]), v0z(g[2]), e1x(g[3]), e1y(g[4]), e1z(g[5]),
+        e2x(g[6]), e2y(g[7]), e2z(g[8]) {}
+};
+
+// The any-hit walks' occlusion predicate (both anyhit.cu kernels): does the
+// ray o + t*d, t >= 0 (t <= 1 too unless no_max_t), meet the triangle?
+// Division-free Möller–Trumbore on the numerators: u >= 0 <=> u_num*det >= 0,
+// u <= 1 <=> |u_num| <= |det| given the sign test, likewise for u + v and t
+// (ops/intersect.py::mt_numerators, mt_occludes).
+__device__ __forceinline__ bool occludes(const Tri& g, float ox, float oy,
+                                         float oz, float dx, float dy,
+                                         float dz, float eps, int no_max_t) {
+  const float px = dy * g.e2z - dz * g.e2y;
+  const float py = dz * g.e2x - dx * g.e2z;
+  const float pz = dx * g.e2y - dy * g.e2x;
+  const float det = g.e1x * px + g.e1y * py + g.e1z * pz;
+  const float tx = ox - g.v0x, ty = oy - g.v0y, tz = oz - g.v0z;
+  const float u_num = tx * px + ty * py + tz * pz;
+  const float qx = ty * g.e1z - tz * g.e1y;
+  const float qy = tz * g.e1x - tx * g.e1z;
+  const float qz = tx * g.e1y - ty * g.e1x;
+  const float v_num = dx * qx + dy * qy + dz * qz;
+  const float t_num = g.e2x * qx + g.e2y * qy + g.e2z * qz;
+  const float adet = fabsf(det);
+  return adet >= eps && u_num * det >= 0.0f && fabsf(u_num) <= adet &&
+         v_num * det >= 0.0f && fabsf(u_num + v_num) <= adet &&
+         t_num * det >= 0.0f && (no_max_t || fabsf(t_num) <= adet);
+}
+
+// Rays per thread for a tile of `tile_r` rays over `threads` threads: the
+// least of 1, 2, 4, 8, 16 that covers the tile (0 if none does).  The kernels
+// are instantiated for these counts; lanes past the tile are masked.
+inline int rays_per_thread(int tile_r, int threads) {
+  for (int r = 1; r <= 16; r *= 2)
+    if (r * threads >= tile_r) return r;
+  return 0;
+}
+
 }  // namespace srt

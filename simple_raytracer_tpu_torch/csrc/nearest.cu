@@ -1,13 +1,16 @@
-// nearest_shaded_kernel: nearest hit + fused Phong + per-tile shadow bounds.
+// nearest_shaded_kernel: nearest hit + fused Phong + per-tile shadow bounds,
+// or, in its fetch mode, nearest hit + the winner's attribute row.
 //
 // Replaces the TPU kernel simple_raytracer_tpu/kernels/tiled_t.py::
-// _nearest_kernel_t (reached through tiled_nearest_t from hits_shaded) on the
-// fused frame's path.  Plain PyTorch version: kernels/nearest.py::
-// tiled_nearest_shaded_plain.
+// _nearest_kernel_t, reached through tiled_nearest_t from hits_shaded (the
+// fused mode, on the fused frame's path) and from hits_attrs (the fetch mode,
+// on the soft-shadow path).  Plain PyTorch versions: kernels/nearest.py::
+// tiled_nearest_shaded_plain and tiled_nearest_attrs_plain.  The two modes
+// are one template (kShade), so their walks cannot drift apart.
 //
-// One thread block per 64x64 ray tile; each thread owns tile/threads rays,
-// strided by the block size so a warp's rays (and its output writes) are
-// adjacent.  Rays are rebuilt from the pixel index and the camera constants,
+// One thread block per ray tile (64x64 or 32x32 pixels); each thread owns
+// tile/threads rays, strided by the block size so a warp's rays (and its
+// output writes) are adjacent.  Rays are rebuilt from the pixel index and the camera constants,
 // so no ray array exists.  For each plan entry the block stages the window's
 // triangles (v0, e1, e2: 9 floats each) in shared memory and every thread runs
 // Möller–Trumbore in f32 against its rays, keeping the least t and, on equal
@@ -18,7 +21,8 @@
 // (abs(n.l), the extra n.l on specular, pow through exp/log with the
 // shininess-0 case).  Last, a block reduction writes the tile's 15-float
 // bounds row: hit-point box, any-hit flag, object min/max and the ru/rv/dw
-// extremes of the shadow directions in the shared frame.
+// extremes of the shadow directions in the shared frame.  The fetch mode
+// instead stores the winner's tri_attr row as one float4 and stops there.
 //
 // What bounds it on the H100: the MT arithmetic (about 45 f32 operations per
 // ray-triangle pair, with an IEEE division), not memory — a window is 2.3 KB,
@@ -40,7 +44,10 @@ __device__ __forceinline__ bool is_max_slot(int q) {
   return (kBoundsMaxMask >> q) & 1u;
 }
 
-template <int RPT>
+// kShade: the fused mode (obj, Phong rgb and the bounds row); otherwise the
+// fetch mode, which writes the winner's tri_attr row (flat normal, object id;
+// (0, 0, 0, -1) on a miss) to attr_out and reads no mat, obj, rgb or bounds.
+template <int RPT, bool kShade>
 __global__ void nearest_shaded_kernel(
     const int* __restrict__ plan, int plan_w,
     const float* __restrict__ tri, const float4* __restrict__ attr,
@@ -48,7 +55,8 @@ __global__ void nearest_shaded_kernel(
     const float* __restrict__ cam_g, int tile_px, int wt, float eps,
     int double_sided, int specular_nl, float* __restrict__ t_out,
     int* __restrict__ idx_out, int* __restrict__ obj_out,
-    float* __restrict__ rgb_out, float* __restrict__ bounds_out) {
+    float* __restrict__ rgb_out, float* __restrict__ bounds_out,
+    float4* __restrict__ attr_out) {
   extern __shared__ float s_tri[];               // wt * kTriW floats
   __shared__ float s_cam[srt::kCamLen];
   __shared__ float s_red[srt::kMaxWarps][kBoundsW];
@@ -118,6 +126,17 @@ __global__ void nearest_shaded_kernel(
     }
   }
 
+  if constexpr (!kShade) {
+#pragma unroll
+    for (int r = 0; r < RPT; ++r) {
+      const size_t o = (size_t)tile * tile_r + tid + r * nthr;
+      const bool hit = isfinite(bt[r]);
+      t_out[o] = bt[r];
+      idx_out[o] = hit ? bi[r] : -1;
+      attr_out[o] = hit ? attr[bi[r]] : make_float4(0.0f, 0.0f, 0.0f, -1.0f);
+    }
+    return;
+  }
   const float Lx = s_cam[12], Ly = s_cam[13], Lz = s_cam[14];
   const float fsx = s_cam[15], fsy = s_cam[16], fsz = s_cam[17];
   const float fvx = s_cam[18], fvy = s_cam[19], fvz = s_cam[20];
@@ -223,24 +242,27 @@ __global__ void nearest_shaded_kernel(
 
 }  // namespace
 
-#define SRT_NEAREST_CASE(R)                                                    \
+#define SRT_NEAREST_CASE(R, SHADE)                                             \
   case R:                                                                      \
-    nearest_shaded_kernel<R><<<n_tiles, threads, smem, s>>>(                   \
+    nearest_shaded_kernel<R, SHADE><<<n_tiles, threads, smem, s>>>(            \
         static_cast<const int*>(plan), plan_w,                                 \
         static_cast<const float*>(tri), static_cast<const float4*>(attr),      \
         n_windows, static_cast<const float*>(mat), n_obj,                      \
         static_cast<const float*>(cam), tile_px, wt, eps, double_sided,        \
         specular_nl, static_cast<float*>(t), static_cast<int*>(idx),           \
         static_cast<int*>(obj), static_cast<float*>(rgb),                      \
-        static_cast<float*>(bounds));                                          \
+        static_cast<float*>(bounds), static_cast<float4*>(attr_out));          \
     break;
 
-extern "C" int srt_nearest_shaded(
-    const void* plan, int plan_w, int n_tiles, const void* tri,
-    const void* attr, int n_windows, const void* mat, int n_obj,
-    const void* cam, int tile_px, int wt, float eps, int double_sided,
-    int specular_nl, void* t, void* idx, void* obj, void* rgb, void* bounds,
-    int threads, void* stream) {
+namespace {
+
+template <bool kShade>
+int launch_nearest(const void* plan, int plan_w, int n_tiles, const void* tri,
+                   const void* attr, int n_windows, const void* mat,
+                   int n_obj, const void* cam, int tile_px, int wt, float eps,
+                   int double_sided, int specular_nl, void* t, void* idx,
+                   void* obj, void* rgb, void* bounds, void* attr_out,
+                   int threads, void* stream) {
   if (n_tiles == 0) return 0;
   const int tile_r = tile_px * tile_px;
   if (threads <= 0 || threads > 1024 || threads % 32 || tile_r % threads)
@@ -248,13 +270,38 @@ extern "C" int srt_nearest_shaded(
   const size_t smem = static_cast<size_t>(wt) * srt::kTriW * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tile_r / threads) {
-    SRT_NEAREST_CASE(1)
-    SRT_NEAREST_CASE(2)
-    SRT_NEAREST_CASE(4)
-    SRT_NEAREST_CASE(8)
-    SRT_NEAREST_CASE(16)
+    SRT_NEAREST_CASE(1, kShade)
+    SRT_NEAREST_CASE(2, kShade)
+    SRT_NEAREST_CASE(4, kShade)
+    SRT_NEAREST_CASE(8, kShade)
+    SRT_NEAREST_CASE(16, kShade)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int srt_nearest_shaded(
+    const void* plan, int plan_w, int n_tiles, const void* tri,
+    const void* attr, int n_windows, const void* mat, int n_obj,
+    const void* cam, int tile_px, int wt, float eps, int double_sided,
+    int specular_nl, void* t, void* idx, void* obj, void* rgb, void* bounds,
+    int threads, void* stream) {
+  return launch_nearest<true>(plan, plan_w, n_tiles, tri, attr, n_windows,
+                              mat, n_obj, cam, tile_px, wt, eps, double_sided,
+                              specular_nl, t, idx, obj, rgb, bounds, nullptr,
+                              threads, stream);
+}
+
+extern "C" int srt_nearest_attrs(
+    const void* plan, int plan_w, int n_tiles, const void* tri,
+    const void* attr, int n_windows, const void* cam, int tile_px, int wt,
+    float eps, void* t, void* idx, void* attr_out, int threads,
+    void* stream) {
+  return launch_nearest<false>(plan, plan_w, n_tiles, tri, attr, n_windows,
+                               nullptr, 0, cam, tile_px, wt, eps, 0, 0, t,
+                               idx, nullptr, nullptr, nullptr, attr_out,
+                               threads, stream);
 }

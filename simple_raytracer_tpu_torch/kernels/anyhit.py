@@ -1,16 +1,19 @@
-"""Kernel 2: the hard-shadow any-hit walk, rebuilt from the nearest pass.
+"""Kernels 2 and 2′: the any-hit (occlusion) walks.
 
-``tiled_anyhit_from_t`` wraps the CUDA kernel ``anyhit_from_t_kernel``
-(csrc/anyhit.cu), which replaces the JAX package's Pallas kernel
-``kernels/tiled_t.py::_anyhit_kernel_t`` in its from-t form (reached through
-``tiled_anyhit_from_t``).  ``tiled_anyhit_from_t_plain`` is its plain
-PyTorch version: same arguments, same results.  The wrapper runs the plain
-version for tensors on the CPU and the kernel for tensors on a CUDA device;
-it adds one to ``tiled_anyhit_from_t.launches`` at each kernel launch.
+``tiled_anyhit_from_t`` wraps the CUDA kernel ``anyhit_from_t_kernel`` and
+``tiled_anyhit`` the kernel ``anyhit_rays_kernel`` (both csrc/anyhit.cu).
+They replace the JAX package's Pallas kernel
+``kernels/tiled_t.py::_anyhit_kernel_t`` in its two forms: shadow rays
+rebuilt from the nearest pass's t (reached through ``tiled_anyhit_from_t``,
+the fused frame) and explicit rays (reached through ``tiled_anyhit_t``, the
+legacy hard-shadow and soft-shadow paths).  ``tiled_anyhit_from_t_plain``
+and ``tiled_anyhit_plain`` are their plain PyTorch versions: same
+arguments, same results.  Each wrapper runs its plain version for tensors
+on the CPU and the kernel for tensors on a CUDA device; it adds one to its
+own ``launches`` at each kernel launch.
 
-``anyhit_from_t`` is the counterpart of the JAX ``tiled_t.anyhit_from_t``:
-it builds the shadow plan from the nearest kernel's bounds rows and runs the
-kernel.
+``anyhit_from_t`` and ``anyhit`` are the counterparts of the JAX
+``tiled_t.anyhit_from_t`` and ``tiled_t.anyhit``.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from ..ops.camera import tile_ray_dirs
 from ..ops.intersect import mt_numerators, mt_occludes
 from . import build, plan as pl
 
-PLAIN_CHUNK = 32        # tiles per step of the plain walk (bounds its memory)
+PLAIN_ELEMS = 1 << 24   # ray-triangle pairs per step of the plain walks
 
 
 def _check(plan, tri, block_obj, t, obj, cam, tile_px, threads):
@@ -81,23 +84,17 @@ def tiled_anyhit_from_t(plan, tri, block_obj, t, obj, cam, tile_px: int,
 tiled_anyhit_from_t.launches = 0
 
 
-def tiled_anyhit_from_t_plain(plan, tri, block_obj, t, obj, cam,
-                              tile_px: int, window_tris: int,
-                              block_size: int, eps: float,
-                              no_max_t: bool = True, threads: int = 512):
-    """Plain PyTorch version of :func:`tiled_anyhit_from_t` (same arguments
-    and results; ``threads`` is ignored).  Walks every tile's plan in step,
-    PLAIN_CHUNK tiles at a time, until each tile's rays have all found an
-    occluder."""
-    n, tile = plan.shape[0], tile_px * tile_px
+def _walk_plain(plan, tri, block_obj, p, s, self_obj, found,
+                window_tris: int, block_size: int, eps: float,
+                no_max_t: bool):
+    """The any-hit walk of both plain versions: rays (p, s) (3-tuples of
+    [n, M]) and self_obj [n, M]; ``found`` [n, M] bool is updated in place
+    and returned.  Walks every tile's plan in step, a few tiles at a time,
+    until each tile's rays have all found an occluder."""
+    n, m = found.shape
     dev = plan.device
     wt, wb = window_tris, window_tris // block_size
-    dx, dy, dz = tile_ray_dirs(cam, plan[:, 4], plan[:, 5], tile_px)
-    hit = torch.isfinite(t)
-    ts = torch.where(hit, t, 0.0)
-    p = (cam[9] + ts * dx, cam[10] + ts * dy, cam[11] + ts * dz)
-    s = (cam[12] - p[0], cam[13] - p[1], cam[14] - p[2])
-    found = ~hit
+    chunk = max(1, PLAIN_ELEMS // max(1, m * wt))
     use_list = plan[:, 3] == 1
     cnt = torch.where(use_list, plan[:, 2], plan[:, 1])
     mv = plan.shape[1] - pl.PLAN_AUX
@@ -105,7 +102,7 @@ def tiled_anyhit_from_t_plain(plan, tri, block_obj, t, obj, cam,
     done = found.all(dim=1)
     for k in range(int(cnt.max()) if n else 0):
         live = torch.nonzero((k < cnt) & ~done).flatten()
-        for ids in live.split(PLAIN_CHUNK):
+        for ids in live.split(chunk):
             e = plan[ids, pl.PLAN_AUX + min(k, mv - 1)]
             w = torch.where(use_list[ids], e & 0xFFFF, plan[ids, 0] + k)
             g = tri[(w[:, None] * wt + jt[None, :]).long()]     # [c, wt, 9]
@@ -115,11 +112,26 @@ def tiled_anyhit_from_t_plain(plan, tri, block_obj, t, obj, cam,
             num = mt_numerators(tuple(x[ids][..., None] for x in p),
                                 tuple(x[ids][..., None] for x in s),
                                 gv[0:3], gv[3:6], gv[6:9])
-            occ = mt_occludes(*num, eps, no_max_t)              # [c, tile, wt]
-            occ = occ & (bo[:, None, :] != obj[ids][..., None])
+            occ = mt_occludes(*num, eps, no_max_t)              # [c, M, wt]
+            occ = occ & (bo[:, None, :] != self_obj[ids][..., None])
             found[ids] = found[ids] | occ.any(dim=-1)
         done[live] = found[live].all(dim=1)
     return found
+
+
+def tiled_anyhit_from_t_plain(plan, tri, block_obj, t, obj, cam,
+                              tile_px: int, window_tris: int,
+                              block_size: int, eps: float,
+                              no_max_t: bool = True, threads: int = 512):
+    """Plain PyTorch version of :func:`tiled_anyhit_from_t` (same arguments
+    and results; ``threads`` is ignored)."""
+    dx, dy, dz = tile_ray_dirs(cam, plan[:, 4], plan[:, 5], tile_px)
+    hit = torch.isfinite(t)
+    ts = torch.where(hit, t, 0.0)
+    p = (cam[9] + ts * dx, cam[10] + ts * dy, cam[11] + ts * dz)
+    s = (cam[12] - p[0], cam[13] - p[1], cam[14] - p[2])
+    return _walk_plain(plan, tri, block_obj, p, s, obj, ~hit, window_tris,
+                       block_size, eps, no_max_t)
 
 
 def anyhit_from_t(prep, cfg, t, obj, bounds, light_pos, cam_spec, maxv: int,
@@ -152,3 +164,91 @@ def anyhit_from_t(prep, cfg, t, obj, bounds, light_pos, cam_spec, maxv: int,
                    prep.block_size, cfg.mt_eps, cfg.light.shadow_no_max_t,
                    cfg.kernel.threads)
     return found.reshape(-1)
+
+
+def _check_rays(plan, tri, block_obj, o, d, self_obj):
+    build.check_tensors(plan.device, plan=(plan, torch.int32),
+                        tri=(tri, torch.float32),
+                        block_obj=(block_obj, torch.int32),
+                        o=(o, torch.float32), d=(d, torch.float32),
+                        self_obj=(self_obj, torch.int32))
+    n = plan.shape[0]
+    if plan.dim() != 2 or plan.shape[1] <= pl.PLAN_AUX:
+        raise ValueError(f"plan shape {tuple(plan.shape)}")
+    if tri.dim() != 2 or tri.shape[1] != 9:
+        raise ValueError(f"tri shape {tuple(tri.shape)}")
+    if o.dim() != 3 or o.shape[0] != n or o.shape[2] != 3 \
+            or d.shape != o.shape or self_obj.shape != o.shape[:2]:
+        raise ValueError(f"o {tuple(o.shape)} / d {tuple(d.shape)} / "
+                         f"self_obj {tuple(self_obj.shape)} for {n} tiles")
+
+
+def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
+                 block_size: int, eps: float, no_max_t: bool = True,
+                 threads: int = 512):
+    """Occlusion query over explicit rays, one plan row per tile.
+
+    plan [n, W] i32 (kernels/plan.py layout, windows of ``window_tris``
+    triangles, e.g. from plan.cull_occl); tri [Tp, 9] and block_obj [NB]
+    i32 (accel/prepared.py); o, d [n, M, 3] f32 the rays o + t*d of each
+    tile (any M up to 16 * threads); self_obj [n, M] i32 each ray's own
+    object.  Returns found [n, M] bool: the ray meets a triangle of another
+    object at t >= 0 (and t <= 1 unless ``no_max_t``)."""
+    if plan.device.type == "cpu":
+        return tiled_anyhit_plain(plan, tri, block_obj, o, d, self_obj,
+                                  window_tris, block_size, eps, no_max_t,
+                                  threads)
+    if plan.device.type != "cuda":
+        raise ValueError(f"no any-hit kernel for device {plan.device}")
+    _check_rays(plan, tri, block_obj, o, d, self_obj)
+    n, m = self_obj.shape
+    threads = min(threads, -(-m // 32) * 32)
+    if threads % 32 or not 0 < m <= 16 * threads:
+        raise ValueError(f"{m} rays per tile do not split over {threads} "
+                         f"threads")
+    if window_tris % block_size:
+        raise ValueError(f"window of {window_tris} triangles is not whole "
+                         f"blocks of {block_size}")
+    found = torch.empty((n, m), dtype=torch.bool, device=plan.device)
+    with torch.cuda.device(plan.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = build.library().srt_anyhit_rays(
+            plan.data_ptr(), plan.shape[1], n, tri.data_ptr(),
+            block_obj.data_ptr(), tri.shape[0] // window_tris, o.data_ptr(),
+            d.data_ptr(), self_obj.data_ptr(), m, window_tris, block_size,
+            eps, int(no_max_t), found.data_ptr(), threads, stream)
+    build.check(rc, "anyhit_rays_kernel")
+    tiled_anyhit.launches += 1
+    return found
+
+
+tiled_anyhit.launches = 0
+
+
+def tiled_anyhit_plain(plan, tri, block_obj, o, d, self_obj,
+                       window_tris: int, block_size: int, eps: float,
+                       no_max_t: bool = True, threads: int = 512):
+    """Plain PyTorch version of :func:`tiled_anyhit` (same arguments and
+    results; ``threads`` is ignored)."""
+    p = (o[..., 0], o[..., 1], o[..., 2])
+    s = (d[..., 0], d[..., 1], d[..., 2])
+    found = torch.zeros(self_obj.shape, dtype=torch.bool, device=plan.device)
+    return _walk_plain(plan, tri, block_obj, p, s, self_obj, found,
+                       window_tris, block_size, eps, no_max_t)
+
+
+def anyhit(prep, cfg, o, d, self_obj2d, plan, tile: int,
+           kernel=tiled_anyhit):
+    """Occlusion of explicit rays (JAX kernels/tiled_t.py::anyhit): o, d
+    [R, 3] (padded here to whole tiles by repeating the last ray),
+    self_obj2d [n, tile] i32, ``plan`` from plan.cull_occl with
+    cfg.kernel.window_blocks_ah windows.  Returns found [n, tile] bool."""
+    o, d, _ = pl.pad_rays(o, d, tile)
+    n = o.shape[0] // tile
+    wt = cfg.kernel.window_blocks_ah * prep.block_size
+    return kernel(plan, prep.tri, prep.block_obj,
+                  o.reshape(n, tile, 3).contiguous(),
+                  d.reshape(n, tile, 3).contiguous(),
+                  self_obj2d.to(torch.int32).contiguous(), wt,
+                  prep.block_size, cfg.mt_eps, cfg.light.shadow_no_max_t,
+                  cfg.kernel.threads)

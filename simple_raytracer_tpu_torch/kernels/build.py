@@ -1,11 +1,12 @@
 """Build and bind the CUDA kernels in ``csrc/``.
 
-The sources have a plain C interface.  ``nvcc`` compiles them for Hopper
-(``sm_90a``) into one shared library, which is loaded with ``ctypes``.
-Nothing here runs at import: the first CUDA launch calls :func:`library`,
-which builds once per source version into ``simple_raytracer_tpu_torch/_build/``
-(a content hash names the library, so an edited source is never served a
-stale build) and loads it.
+The sources have a plain C interface.  ``nvcc`` compiles each ``.cu`` file
+for Hopper (``sm_90a``) into a shared library of its own, all of them at
+once, and each is loaded with ``ctypes``.  Nothing here runs at import: the
+first CUDA launch calls :func:`library`, which builds once per source
+version into ``simple_raytracer_tpu_torch/_build/`` (a content hash names
+each library, so an edited source is never served a stale build) and loads
+them.
 
 Floating-point contraction is off (``--fmad=false``): the kernels then round
 each multiply and add separately, as the plain PyTorch versions do, and the
@@ -21,10 +22,11 @@ import os
 import shutil
 import subprocess
 import time
+import types
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)), "_build")
-SOURCES = ("common.cuh", "nearest.cu", "anyhit.cu")
+HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
@@ -32,25 +34,43 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-# C signatures (csrc/nearest.cu, csrc/anyhit.cu); each returns cudaError_t
+# C signatures by source; each function returns a cudaError_t
 SIGNATURES = {
-    "srt_nearest_shaded": (
-        _P, _I, _I,          # plan, plan_w, n_tiles
-        _P, _P, _I,          # tri, tri_attr, n_windows
-        _P, _I,              # mat, n_obj
-        _P, _I, _I, _F,      # cam, tile_px, window_tris, eps
-        _I, _I,              # double_sided, specular_nl
-        _P, _P, _P, _P, _P,  # t, idx, obj, rgb, bounds
-        _I, _P),             # threads, stream
-    "srt_anyhit_from_t": (
-        _P, _I, _I,          # plan, plan_w, n_tiles
-        _P, _P, _I,          # tri, block_obj, n_windows
-        _P, _P,              # t, obj
-        _P, _I, _I, _I,      # cam, tile_px, window_tris, block_size
-        _F, _I,              # eps, no_max_t
-        _P,                  # found
-        _I, _P),             # threads, stream
+    "nearest.cu": {
+        "srt_nearest_shaded": (
+            _P, _I, _I,          # plan, plan_w, n_tiles
+            _P, _P, _I,          # tri, tri_attr, n_windows
+            _P, _I,              # mat, n_obj
+            _P, _I, _I, _F,      # cam, tile_px, window_tris, eps
+            _I, _I,              # double_sided, specular_nl
+            _P, _P, _P, _P, _P,  # t, idx, obj, rgb, bounds
+            _I, _P),             # threads, stream
+        "srt_nearest_attrs": (
+            _P, _I, _I,          # plan, plan_w, n_tiles
+            _P, _P, _I,          # tri, tri_attr, n_windows
+            _P, _I, _I, _F,      # cam, tile_px, window_tris, eps
+            _P, _P, _P,          # t, idx, attr_out
+            _I, _P),             # threads, stream
+    },
+    "anyhit.cu": {
+        "srt_anyhit_from_t": (
+            _P, _I, _I,          # plan, plan_w, n_tiles
+            _P, _P, _I,          # tri, block_obj, n_windows
+            _P, _P,              # t, obj
+            _P, _I, _I, _I,      # cam, tile_px, window_tris, block_size
+            _F, _I,              # eps, no_max_t
+            _P,                  # found
+            _I, _P),             # threads, stream
+        "srt_anyhit_rays": (
+            _P, _I, _I,          # plan, plan_w, n_tiles
+            _P, _P, _I,          # tri, block_obj, n_windows
+            _P, _P, _P, _I,      # o, d, self_obj, rays per tile
+            _I, _I, _F, _I,      # window_tris, block_size, eps, no_max_t
+            _P,                  # found
+            _I, _P),             # threads, stream
+    },
 }
+SOURCES = tuple(SIGNATURES)
 
 
 def nvcc_path() -> str:
@@ -61,62 +81,87 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _digest() -> str:
+def _digest(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in HEADERS + (source,):
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(f.read())
     return h.hexdigest()[:16]
 
 
+def _lib_path(source: str) -> str:
+    stem = os.path.splitext(source)[0]
+    return os.path.join(BUILD_DIR, f"libsrt_{stem}_{_digest(source)}.so")
+
+
 def build() -> dict:
-    """Compile the kernels unless this source version is built already.
-    Returns {"path", "seconds", "log", "cached"}; ``log`` holds nvcc's
-    output (with ``-Xptxas -v``: registers, shared memory and spills of
-    each kernel)."""
+    """Compile every source whose version is not built yet, one nvcc
+    process per source, all started together.  Returns {"paths" (one
+    library per source), "seconds" (wall time of the build), "log",
+    "cached"}; ``log`` holds nvcc's output (with ``-Xptxas -v``: registers,
+    shared memory and spills of each kernel)."""
     os.makedirs(BUILD_DIR, exist_ok=True)
-    path = os.path.join(BUILD_DIR, f"libsrt_kernels_{_digest()}.so")
-    log_path = path + ".log"
-    if os.path.isfile(path):
-        log = open(log_path).read() if os.path.isfile(log_path) else ""
-        return {"path": path, "seconds": 0.0, "log": log, "cached": True}
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", path + ".tmp",
-           *[os.path.join(CSRC, s) for s in SOURCES if s.endswith(".cu")]]
+    paths = {s: _lib_path(s) for s in SOURCES}
+    todo = [s for s in SOURCES if not os.path.isfile(paths[s])]
     t0 = time.time()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.time() - t0
-    log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{log}")
-    with open(log_path, "w") as f:
-        f.write(log)
-    os.replace(path + ".tmp", path)
-    return {"path": path, "seconds": seconds, "log": log, "cached": False}
+    procs = {s: subprocess.Popen(
+        [nvcc_path(), *NVCC_FLAGS, "-o", paths[s] + ".tmp",
+         os.path.join(CSRC, s)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for s in todo}
+    failed = []
+    for s, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc {s} failed ({proc.returncode}):\n{out}")
+            continue
+        with open(paths[s] + ".log", "w") as f:
+            f.write(out)
+        os.replace(paths[s] + ".tmp", paths[s])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    log = ""
+    for s in SOURCES:
+        if os.path.isfile(paths[s] + ".log"):
+            with open(paths[s] + ".log") as f:
+                log += f.read()
+    return {"paths": [paths[s] for s in SOURCES],
+            "seconds": time.time() - t0 if todo else 0.0, "log": log,
+            "cached": not todo}
 
 
 @functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """The built kernel library, loaded once per process."""
-    lib = ctypes.CDLL(build()["path"])
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+def library() -> types.SimpleNamespace:
+    """The built kernels' C functions by name, loaded once per process."""
+    build()
+    fns = {}
+    for source, sigs in SIGNATURES.items():
+        lib = ctypes.CDLL(_lib_path(source))
+        for name, argtypes in sigs.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return types.SimpleNamespace(**fns)
 
 
 def check_operands(device, tile_px: int, threads: int, **operands) -> None:
     """Raise ValueError unless every operand, given as name=(tensor, dtype),
     is a contiguous tensor of that dtype on ``device``, and a tile of
     tile_px**2 rays splits into 1, 2, 4, 8 or 16 rays per thread."""
-    for name, (x, dtype) in operands.items():
-        if x.device != device or x.dtype != dtype or not x.is_contiguous():
-            raise ValueError(f"{name}: want a contiguous {dtype} tensor on "
-                             f"{device}, got {x.dtype} on {x.device}")
+    check_tensors(device, **operands)
     tile = tile_px * tile_px
     if threads % 32 or tile % threads or tile // threads not in (1, 2, 4, 8,
                                                                  16):
         raise ValueError(f"tile {tile} does not split over {threads} threads")
+
+
+def check_tensors(device, **operands) -> None:
+    """Raise ValueError unless every operand, given as name=(tensor, dtype),
+    is a contiguous tensor of that dtype on ``device``."""
+    for name, (x, dtype) in operands.items():
+        if x.device != device or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous {dtype} tensor on "
+                             f"{device}, got {x.dtype} on {x.device}")
 
 
 def check(rc: int, what: str) -> None:

@@ -1,15 +1,19 @@
-"""Kernel 1: the nearest-hit walk with fused Phong and shadow bounds.
+"""Kernel 1: the nearest-hit walk, with fused Phong and shadow bounds or
+with the winner's attribute row.
 
 ``tiled_nearest_shaded`` wraps the CUDA kernel ``nearest_shaded_kernel``
-(csrc/nearest.cu), which replaces the JAX package's Pallas kernel
-``kernels/tiled_t.py::_nearest_kernel_t`` on the fused frame's path.
-``tiled_nearest_shaded_plain`` is its plain PyTorch version: same arguments,
-same results.  The wrapper runs the plain version for tensors on the CPU and
-the kernel for tensors on a CUDA device; it adds one to
-``tiled_nearest_shaded.launches`` at each kernel launch.
+(csrc/nearest.cu) in its fused mode, and ``tiled_nearest_attrs`` the same
+kernel in its fetch mode; together they replace the JAX package's Pallas
+kernel ``kernels/tiled_t.py::_nearest_kernel_t`` (fused on the fused
+frame's path, fetch on the soft-shadow path).  ``tiled_nearest_shaded_plain``
+and ``tiled_nearest_attrs_plain`` are their plain PyTorch versions: same
+arguments, same results.  Each wrapper runs its plain version for tensors on
+the CPU and the kernel for tensors on a CUDA device; it adds one to its own
+``launches`` at each kernel launch.
 
-``hits_shaded`` is the counterpart of the JAX ``tiled_t.hits_shaded``: it
-builds the primary plan and the per-frame constants and runs the kernel.
+``hits_shaded`` and ``hits_attrs`` are the counterparts of the JAX
+``tiled_t.hits_shaded`` and ``tiled_t.hits_attrs``: they build the primary
+plan and the per-frame constants and run the kernel.
 """
 
 from __future__ import annotations
@@ -40,12 +44,13 @@ def material_table(scene, light_color) -> torch.Tensor:
                       scene.obj_shininess[:, None]], dim=1).contiguous()
 
 
-def _check(plan, tri, tri_attr, mat, cam, tile_px, threads):
+def _check(plan, tri, tri_attr, cam, tile_px, threads, mat=None):
     f32 = torch.float32
-    build.check_operands(plan.device, tile_px, threads,
-                         plan=(plan, torch.int32), tri=(tri, f32),
-                         tri_attr=(tri_attr, f32), mat=(mat, f32),
-                         cam=(cam, f32))
+    ops = dict(plan=(plan, torch.int32), tri=(tri, f32),
+               tri_attr=(tri_attr, f32), cam=(cam, f32))
+    if mat is not None:
+        ops["mat"] = (mat, f32)
+    build.check_operands(plan.device, tile_px, threads, **ops)
     if plan.dim() != 2 or plan.shape[1] <= pl.PLAN_AUX:
         raise ValueError(f"plan shape {tuple(plan.shape)}")
     if tri.dim() != 2 or tri.shape[1] != 9 \
@@ -54,8 +59,10 @@ def _check(plan, tri, tri_attr, mat, cam, tile_px, threads):
                          f"{tuple(tri_attr.shape)}")
     if tri_attr.data_ptr() % 16:         # the kernel loads rows as float4
         raise ValueError("tri_attr is not 16-byte aligned")
-    if mat.dim() != 2 or mat.shape[1] != 8 or cam.shape != (24,):
-        raise ValueError(f"mat {tuple(mat.shape)} / cam {tuple(cam.shape)}")
+    if cam.shape != (24,) or (mat is not None
+                              and (mat.dim() != 2 or mat.shape[1] != 8)):
+        raise ValueError(f"cam {tuple(cam.shape)} / mat "
+                         f"{None if mat is None else tuple(mat.shape)}")
 
 
 def tiled_nearest_shaded(plan, tri, tri_attr, mat, cam, tile_px: int,
@@ -79,7 +86,7 @@ def tiled_nearest_shaded(plan, tri, tri_attr, mat, cam, tile_px: int,
     if plan.device.type != "cuda":
         raise ValueError(f"no nearest kernel for device {plan.device}")
     threads = min(threads, tile_px * tile_px)
-    _check(plan, tri, tri_attr, mat, cam, tile_px, threads)
+    _check(plan, tri, tri_attr, cam, tile_px, threads, mat)
     n, tile = plan.shape[0], tile_px * tile_px
     kw = dict(device=plan.device)
     t = torch.empty((n, tile), dtype=torch.float32, **kw)
@@ -102,6 +109,41 @@ def tiled_nearest_shaded(plan, tri, tri_attr, mat, cam, tile_px: int,
 
 
 tiled_nearest_shaded.launches = 0
+
+
+def tiled_nearest_attrs(plan, tri, tri_attr, cam, tile_px: int,
+                        window_tris: int, eps: float, threads: int = 512):
+    """Nearest hit + the winner's attribute row over every tile of ``plan``
+    (the fetch mode of ``nearest_shaded_kernel``).  Arguments as
+    :func:`tiled_nearest_shaded` (``cam``'s light and frame are not read).
+    Returns t [n, tile] f32 (inf on a miss), idx [n, tile] i32 (-1) and
+    attrs [n * tile, 4] f32: the winner's ``tri_attr`` row (flat normal xyz,
+    object id), (0, 0, 0, -1) on a miss."""
+    if plan.device.type == "cpu":
+        return tiled_nearest_attrs_plain(plan, tri, tri_attr, cam, tile_px,
+                                         window_tris, eps, threads)
+    if plan.device.type != "cuda":
+        raise ValueError(f"no nearest kernel for device {plan.device}")
+    threads = min(threads, tile_px * tile_px)
+    _check(plan, tri, tri_attr, cam, tile_px, threads)
+    n, tile = plan.shape[0], tile_px * tile_px
+    kw = dict(device=plan.device)
+    t = torch.empty((n, tile), dtype=torch.float32, **kw)
+    idx = torch.empty((n, tile), dtype=torch.int32, **kw)
+    attrs = torch.empty((n * tile, 4), dtype=torch.float32, **kw)
+    with torch.cuda.device(plan.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = build.library().srt_nearest_attrs(
+            plan.data_ptr(), plan.shape[1], n, tri.data_ptr(),
+            tri_attr.data_ptr(), tri.shape[0] // window_tris, cam.data_ptr(),
+            tile_px, window_tris, eps, t.data_ptr(), idx.data_ptr(),
+            attrs.data_ptr(), threads, stream)
+    build.check(rc, "nearest_shaded_kernel (fetch mode)")
+    tiled_nearest_attrs.launches += 1
+    return t, idx, attrs
+
+
+tiled_nearest_attrs.launches = 0
 
 
 def fused_phong(normal, obj, point, d, light, mat, double_sided: bool,
@@ -136,16 +178,13 @@ def _masked(x, m, fill, reduce):
     return reduce(torch.where(m, x, fill), dim=1)
 
 
-def tiled_nearest_shaded_plain(plan, tri, tri_attr, mat, cam, tile_px: int,
-                               window_tris: int, eps: float,
-                               double_sided: bool = True,
-                               specular_nl: bool = True, threads: int = 512):
-    """Plain PyTorch version of :func:`tiled_nearest_shaded` (same
-    arguments and results; ``threads`` is ignored).  Walks every tile's
-    plan in step: at step k each live tile tests the k-th window against all
-    its rays (PLAIN_CHUNK tiles at a time), keeps the least t with the lowest
-    id on ties, and stops once every ray's best t is below the next entry's
-    bound."""
+def _walk_plain(plan, tri, cam, tile_px: int, window_tris: int, eps: float):
+    """The nearest walk of both plain versions.  Walks every tile's plan in
+    step: at step k each live tile tests the k-th window against all its
+    rays (PLAIN_CHUNK tiles at a time), keeps the least t with the lowest id
+    on ties, and stops once every ray's best t is below the next entry's
+    bound.  Returns (t, idx, dx, dy, dz), each [n, tile]; misses t = inf,
+    idx = -1."""
     n, tile = plan.shape[0], tile_px * tile_px
     dev = plan.device
     wt = window_tris
@@ -181,9 +220,33 @@ def tiled_nearest_shaded_plain(plan, tri, tri_attr, mat, cam, tile_px: int,
         nb16 = plan[live, pl.PLAN_AUX + min(k + 1, mv - 1)] >> 16
         worst = ((bt[live].view(torch.int32) >> 16) & 0xFFFF).amax(dim=1)
         done[live] = use_list[live] & (k + 1 < cnt[live]) & (worst < nb16)
+    idx = torch.where(torch.isfinite(bt), bi, -1)
+    return bt, idx, dx, dy, dz
 
+
+def tiled_nearest_attrs_plain(plan, tri, tri_attr, cam, tile_px: int,
+                              window_tris: int, eps: float,
+                              threads: int = 512):
+    """Plain PyTorch version of :func:`tiled_nearest_attrs` (same arguments
+    and results; ``threads`` is ignored)."""
+    bt, idx, *_ = _walk_plain(plan, tri, cam, tile_px, window_tris, eps)
+    miss = torch.tensor([0.0, 0.0, 0.0, -1.0], device=plan.device)
+    attrs = torch.where((idx >= 0)[..., None],
+                        tri_attr[idx.clamp_min(0).long()], miss)
+    return bt, idx, attrs.reshape(-1, 4)
+
+
+def tiled_nearest_shaded_plain(plan, tri, tri_attr, mat, cam, tile_px: int,
+                               window_tris: int, eps: float,
+                               double_sided: bool = True,
+                               specular_nl: bool = True, threads: int = 512):
+    """Plain PyTorch version of :func:`tiled_nearest_shaded` (same
+    arguments and results; ``threads`` is ignored)."""
+    n, tile = plan.shape[0], tile_px * tile_px
+    bt, idx, dx, dy, dz = _walk_plain(plan, tri, cam, tile_px, window_tris,
+                                      eps)
+    o = (cam[9], cam[10], cam[11])
     hit = torch.isfinite(bt)
-    idx = torch.where(hit, bi, -1)
     a = tri_attr[idx.clamp_min(0).long()]                       # [n, tile, 4]
     obj = torch.where(hit, a[..., 3].to(torch.int32), -1)
     ts = torch.where(hit, bt, 0.0)
@@ -214,30 +277,52 @@ def tiled_nearest_shaded_plain(plan, tri, tri_attr, mat, cam, tile_px: int,
     return bt, idx, obj, rgb.reshape(n * tile, 3), bounds
 
 
+def primary_plan(prep, cfg, cam_spec, maxv: int):
+    """The primary plan of the frame (interval + projective tests from
+    O(tiles) analytic bounds) with each tile's pixel origin in columns 4/5.
+    ``cam_spec`` = (view_matrix or None, focal, width, height, tile_px)."""
+    vmx, focal, wd, hd, tpx = cam_spec
+    dev = prep.device
+    tiles_x, tiles_y = -(-wd // tpx), -(-hd // tpx)
+    n = tiles_x * tiles_y
+    plan = pl.cull(prep, maxv, cfg.kernel.window_blocks,
+                   pl.analytic_tile_bounds(cam_spec, n, dev), apex=True)
+    plan[:, 4], plan[:, 5] = pl.tile_origins(n, tiles_x, tpx, wd, hd, dev)
+    return plan
+
+
 def hits_shaded(prep, cfg, light_pos, cam_spec, maxv: int,
                 kernel=tiled_nearest_shaded):
     """Nearest hit + fused Phong over the frame's primary rays in tile-major
     order (JAX kernels/tiled_t.py::hits_shaded with want_bounds=1).
 
-    ``cam_spec`` = (view_matrix or None, focal, width, height, tile_px).
-    Builds the primary plan from O(tiles) analytic bounds, the camera
-    constants with the shared shadow frame, and runs ``kernel`` (the CUDA
-    wrapper by default).  Returns (t [R], idx [R], obj [R], rgb [R, 3],
-    bounds [n, 15]), R = n * tile_px**2, misses t = inf."""
-    vmx, focal, wd, hd, tpx = cam_spec
+    Builds the primary plan, the camera constants with the shared shadow
+    frame, and runs ``kernel`` (the CUDA wrapper by default).  Returns
+    (t [R], idx [R], obj [R], rgb [R, 3], bounds [n, 15]),
+    R = n * tile_px**2, misses t = inf."""
+    vmx, focal, _wd, _hd, tpx = cam_spec
     dev = prep.device
-    tiles_x, tiles_y = -(-wd // tpx), -(-hd // tpx)
-    n = tiles_x * tiles_y
-    wb = cfg.kernel.window_blocks
-    plan = pl.cull(prep, maxv, wb, pl.analytic_tile_bounds(cam_spec, n, dev),
-                   apex=True)
-    px0, py0 = pl.tile_origins(n, tiles_x, tpx, wd, hd, dev)
-    plan[:, 4], plan[:, 5] = px0, py0
+    plan = primary_plan(prep, cfg, cam_spec, maxv)
     frame = pl.shadow_frame(prep.block_min, prep.block_max, light_pos)
     cam = pl.make_cam(vmx, focal, light_pos, frame, dev)
     mat = material_table(prep.scene, cfg.light.color)
     t, idx, obj, rgb, bounds = kernel(
         plan, prep.tri, prep.tri_attr, mat, cam, tpx,
-        wb * prep.block_size, cfg.mt_eps, cfg.shading.double_sided_diffuse,
-        cfg.shading.specular_nl_factor, cfg.kernel.threads)
+        cfg.kernel.window_blocks * prep.block_size, cfg.mt_eps,
+        cfg.shading.double_sided_diffuse, cfg.shading.specular_nl_factor,
+        cfg.kernel.threads)
     return t.reshape(-1), idx.reshape(-1), obj.reshape(-1), rgb, bounds
+
+
+def hits_attrs(prep, cfg, cam_spec, maxv: int, kernel=tiled_nearest_attrs):
+    """Nearest hit + the winner's attribute row over the frame's primary
+    rays in tile-major order (JAX kernels/tiled_t.py::hits_attrs with the
+    iota rays of ``cam_spec``).  Returns (t [R], idx [R], attrs [R, 4]) for
+    :func:`render.integrator.records_from_attrs`; misses t = inf."""
+    vmx, focal, _wd, _hd, tpx = cam_spec
+    plan = primary_plan(prep, cfg, cam_spec, maxv)
+    cam = pl.make_cam(vmx, focal, (0.0, 0.0, 0.0), None, prep.device)
+    t, idx, attrs = kernel(plan, prep.tri, prep.tri_attr, cam, tpx,
+                           cfg.kernel.window_blocks * prep.block_size,
+                           cfg.mt_eps, cfg.kernel.threads)
+    return t.reshape(-1), idx.reshape(-1), attrs

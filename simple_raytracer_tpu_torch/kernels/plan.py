@@ -8,13 +8,15 @@ every later one, so the nearest-hit walk may stop once every ray's best t
 is below the next entry's bound.
 
 Counterparts in the JAX package: ``kernels/tiled.py`` (cull_blocks_lists,
-_visibility, _px_frame, _px_block_corners, _visibility_px,
-_visibility_px_rev, effective_tile_px, _shadow_tile, effective_cull_maxv)
-and ``kernels/tiled_t.py`` (cull, make_cam, analytic_tile_bounds,
-shadow_frame, analytic_shadow_bounds_exact).  Only the analytic (O(tiles))
-bounds of the fused frame are ported: the per-ray reductions of the
-legacy shadow path and the hourglass visibility of scenes over 131,072
-triangles are not (ROADMAP.md).
+_visibility, _visibility_hourglass, _px_frame, _px_block_corners,
+_visibility_px, _visibility_px_rev, effective_tile_px, _shadow_tile,
+effective_cull_maxv), ``utils/vma.py`` (pad_rays) and ``kernels/tiled_t.py``
+(cull, cull_occl, _hourglass_for, make_cam, analytic_tile_bounds,
+shadow_frame, analytic_shadow_bounds_exact).  Tile bounds come in two
+kinds, read by the same visibility tests: analytic O(tiles) bounds of the
+fused frame's primary and shadow tiles, and per-ray reductions
+(:func:`ray_tile_bounds`) of the explicit shadow rays of the legacy and
+soft-shadow paths.
 
 Plan layout, one int32 row of ``plan_width`` per tile (the JAX layout):
 columns 0-7 are (lo, range_cnt, list_cnt, use_list, px0, py0, 0, 0), then
@@ -56,6 +58,12 @@ def shadow_tile(cfg, tile: int, num_tris: int) -> int:
     if cfg.shadow_tile:
         return cfg.shadow_tile
     return 256 if num_tris > DENSE_TRIS and tile > 256 else tile
+
+
+def hourglass_for(prep) -> bool:
+    """Whether shadow plans use the hourglass test: scenes over 131,072
+    triangles, whose shadow lists are long (JAX tiled_t._hourglass_for)."""
+    return prep.num_blocks * prep.block_size > DENSE_TRIS
 
 
 def plan_width(num_windows: int) -> int:
@@ -123,6 +131,50 @@ def make_cam(view_matrix, focal: float, light_pos, frame=None, device=None):
     fr = (torch.zeros(9, device=device) if frame is None
           else torch.cat([f.to(device) for f in frame]))
     return torch.cat([A, B, C, o, L.reshape(3), fr]).to(torch.float32)
+
+
+def pad_rays(o: torch.Tensor, d: torch.Tensor, multiple: int):
+    """Pad the flat ray axis to a multiple, repeating the last ray (harmless
+    duplicate work).  Returns (o, d, original R)."""
+    R = o.shape[0]
+    pad = (-R) % multiple
+    if pad:
+        o = torch.cat([o, o[-1:].expand(pad, 3)])
+        d = torch.cat([d, d[-1:].expand(pad, 3)])
+    return o, d, R
+
+
+def ray_tile_bounds(o: torch.Tensor, d: torch.Tensor, tile: int,
+                    hourglass: bool = False, apex_rev: bool = False):
+    """Per-tile bounds of explicit rays o, d [R, 3] (padded to whole tiles):
+    the interval bounds omin/omax/dmin/dmax [n, 3] of :func:`visibility`;
+    with ``hourglass`` the endpoint box qmin/qmax (q = o + d) of
+    :func:`visibility_hourglass`; with ``apex_rev`` the projective data of
+    :func:`visibility_px_rev` for rays that all pass through one light:
+    frame ``px_frame(-d)``, apex o[0] + d[0], and each tile's ru/rv rect,
+    unbounded where a ray has |d.w| <= eps."""
+    o, d, _ = pad_rays(o, d, tile)
+    n = o.shape[0] // tile
+    ot, dt = o.reshape(n, tile, 3), d.reshape(n, tile, 3)
+    ab = {"omin": ot.amin(dim=1), "omax": ot.amax(dim=1),
+          "dmin": dt.amin(dim=1), "dmax": dt.amax(dim=1)}
+    if hourglass:
+        qt = ot + dt
+        ab.update(qmin=qt.amin(dim=1), qmax=qt.amax(dim=1))
+    if apex_rev:
+        s, v, w = px_frame(-d)
+        dw = d @ w
+        bad = dw.abs() <= EPS
+        dws = torch.where(bad, EPS, dw)
+        ru = ((d @ s) / dws).reshape(n, tile)
+        rv = ((d @ v) / dws).reshape(n, tile)
+        bad = bad.reshape(n, tile)
+        ab.update(s=s, v=v, w=w, apex=o[0] + d[0],
+                  ru_lo=torch.where(bad, -BIG, ru).amin(dim=1),
+                  ru_hi=torch.where(bad, BIG, ru).amax(dim=1),
+                  rv_lo=torch.where(bad, -BIG, rv).amin(dim=1),
+                  rv_hi=torch.where(bad, BIG, rv).amax(dim=1))
+    return ab
 
 
 def analytic_tile_bounds(cam_spec, n: int, device=None):
@@ -235,6 +287,54 @@ def visibility(ab, block_min, block_max, block_obj=None, excl=None):
     if block_obj is not None and excl is not None:
         visible = visible & (block_obj[None, :] != excl[:, None])
     return visible, t_lo.clamp_min(0.0)
+
+
+def visibility_hourglass(ab, block_min, block_max, block_obj=None,
+                         excl=None):
+    """Apex-aware interval test for shadow tiles, from the origin box
+    [omin, omax] and the endpoint box [qmin, qmax] (q = o + d) of
+    :func:`ray_tile_bounds`.  A ray's point o + t*d = (1-t) o + t q is
+    bounded per axis by two lines between the boxes, one branch for t <= 1
+    and one for t >= 1 (no max-t keeps rays alive past the light); each
+    "range meets the block slab" condition is linear in t, so a branch's
+    feasible t is one interval, widened by a 1e-5 relative margin against
+    f32 rounding.  Returns (visible [n, NB], entry-t lower bound [n, NB]),
+    as :func:`visibility`."""
+    olo, ohi, qlo, qhi = ab["omin"], ab["omax"], ab["qmin"], ab["qmax"]
+    n = olo.shape[0]
+    eps = 1e-5
+
+    def branch(lo0, lo1, hi0, hi1, tmin, tmax):
+        ta = torch.full((n, 1), tmin, device=olo.device)
+        tb = torch.full((n, 1), tmax, device=olo.device)
+        feas = None
+        for ax in range(3):
+            for c0t, c1t, bnd, ge in (
+                    (lo0[:, ax], lo1[:, ax], block_max[None, :, ax], False),
+                    (hi0[:, ax], hi1[:, ax], block_min[None, :, ax], True)):
+                sl = (c1t - c0t)[:, None]                 # [n, 1]
+                r = bnd - c0t[:, None]                    # [n, NB]
+                if ge:
+                    sl, r = -sl, -r
+                # sl * t <= r, thresholds widened against f32 rounding
+                thr = r / torch.where(sl == 0.0, 1.0, sl)
+                mgn = eps * (thr.abs() + 1.0)
+                tb = torch.where(sl > 0.0, torch.minimum(tb, thr + mgn), tb)
+                ta = torch.where(sl < 0.0, torch.maximum(ta, thr - mgn), ta)
+                ok = ~((sl == 0.0) & (r < -eps * (bnd.abs() + 1.0)))
+                feas = ok if feas is None else feas & ok
+        return feas & (tb >= ta), ta
+
+    vis_a, ta_a = branch(olo, qlo, ohi, qhi, 0.0, 1.0)
+    vis_b, ta_b = branch(ohi, qlo, olo, qhi, 1.0, 3.4e38)
+    visible = vis_a | vis_b
+    t_lo = torch.minimum(torch.where(vis_a, ta_a, INF),
+                         torch.where(vis_b, ta_b, INF))
+    t_lo = torch.where(visible, t_lo.clamp_min(0.0), INF)
+    t_lo = torch.where(torch.isfinite(t_lo), t_lo, 0.0)
+    if block_obj is not None and excl is not None:
+        visible = visible & (block_obj[None, :] != excl[:, None])
+    return visible, t_lo
 
 
 def _block_corners(block_min, block_max, apex):
@@ -352,12 +452,12 @@ def cull_lists(visible_b: torch.Tensor, tlo_b: torch.Tensor, wb: int,
 
 
 def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
-         apex_rev: bool = False) -> torch.Tensor:
-    """Plan of a tile set described by analytic bounds ``ab``: the interval
-    test, refined by the projective test of primary rays (``apex``) or of
-    hard-shadow rays (``apex_rev``, with ``ab`` from
-    :func:`analytic_shadow_bounds_exact`).  ``excl`` [n] drops each tile's
-    own object (see :func:`visibility`)."""
+         apex_rev: bool = False, hourglass: bool = False) -> torch.Tensor:
+    """Plan of a tile set described by bounds ``ab``: the interval test (or,
+    with ``hourglass``, :func:`visibility_hourglass`), refined by the
+    projective test of primary rays (``apex``) or of hard-shadow rays
+    (``apex_rev``).  ``excl`` [n] drops each tile's own object (see
+    :func:`visibility`).  The plan is widened to hold ``maxv`` entries."""
     NB = prep.num_blocks
     if NB % wb:
         raise ValueError(f"{NB} blocks do not split into windows of {wb}")
@@ -367,10 +467,26 @@ def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
             "(ROADMAP.md, Open items §1 item 7f)")
     pw = max(plan_width(NB // wb), -(-(PLAN_AUX + maxv) // 128) * 128)
     bobj = prep.block_obj if excl is not None else None
-    visible, tlo = visibility(ab, prep.block_min, prep.block_max, bobj, excl)
+    test = visibility_hourglass if hourglass else visibility
+    visible, tlo = test(ab, prep.block_min, prep.block_max, bobj, excl)
     if apex:
         visible = visible & visibility_px(ab, prep.block_min, prep.block_max)
     if apex_rev:
         visible = visible & visibility_px_rev(ab, prep.block_min,
                                               prep.block_max)
     return cull_lists(visible, tlo, wb, maxv, pw)
+
+
+def cull_occl(prep, o, d, tile: int, maxv: int, wb: int, excl=None,
+              apex_rev: bool = False, hourglass=None) -> torch.Tensor:
+    """Occlusion plan of explicit shadow rays o, d [R, 3] in tiles of
+    ``tile`` (JAX kernels/tiled_t.py::cull_occl): windows of ``wb`` blocks
+    (KernelConfig.window_blocks_ah); ``apex_rev`` when every ray ends at
+    one shared light (hard shadows: the light-apex test); the hourglass
+    test on dense scenes otherwise (``hourglass`` None: by
+    :func:`hourglass_for`)."""
+    if hourglass is None:
+        hourglass = hourglass_for(prep) and not apex_rev
+    ab = ray_tile_bounds(o, d, tile, hourglass=hourglass, apex_rev=apex_rev)
+    return cull(prep, maxv, wb, ab, excl=excl, apex_rev=apex_rev,
+                hourglass=hourglass)

@@ -1,12 +1,18 @@
-"""The tiled frame: primary plan -> kernel 1 -> shadow plan -> kernel 2 ->
-shadow dim -> tone map.
+"""The tiled frame and its shadow front end.
 
-Counterpart of the fused branch of the JAX package's
-``kernels/tiled.py::render_flat_tiled`` (lines 1496-1645): the branch its
-defaults take for flat, untextured scenes with one light sample, where the
-nearest kernel shades in its epilogue and the any-hit kernel rebuilds the
-shadow rays from t.  Every other branch raises NotImplementedError naming
-its ROADMAP.md item.
+Counterpart of the JAX package's ``kernels/tiled.py::render_flat_tiled``
+(lines 1496-1666) for flat, untextured scenes, in three branches:
+
+* **fused** (one light sample, shadow tile = primary tile): primary plan ->
+  K1 with fused Phong and bounds rows -> shadow plan from the bounds -> K2
+  rebuilds the shadow rays from t -> shadow dim -> tone map;
+* **legacy** (one light sample, another shadow tile, e.g. the 256-ray tiles
+  of scenes over 131,072 triangles): fused K1, then the hard shadow of
+  explicit rays from the hit points, :func:`tiled_shadow_fn` -> K2′;
+* **soft** (num_samples > 1): K1 in its fetch mode -> records ->
+  ``integrator.shade`` with the folded S-sample shadow (K2′).
+
+Every other branch raises NotImplementedError naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -15,9 +21,24 @@ import torch
 
 from ..config import RenderConfig
 from ..ops import shading as sh
+from ..render import integrator
 from . import plan as pl
-from .anyhit import anyhit_from_t, tiled_anyhit_from_t
-from .nearest import hits_shaded, tiled_nearest_shaded
+from .anyhit import (anyhit, anyhit_from_t, tiled_anyhit,
+                     tiled_anyhit_from_t, tiled_anyhit_from_t_plain,
+                     tiled_anyhit_plain)
+from .nearest import (hits_attrs, hits_shaded, tiled_nearest_attrs,
+                      tiled_nearest_attrs_plain, tiled_nearest_shaded,
+                      tiled_nearest_shaded_plain)
+
+# the kernel wrappers a frame calls, by role, and their plain versions
+KERNELS = {"nearest_shaded": tiled_nearest_shaded,
+           "nearest_attrs": tiled_nearest_attrs,
+           "anyhit_from_t": tiled_anyhit_from_t,
+           "anyhit": tiled_anyhit}
+PLAIN = {"nearest_shaded": tiled_nearest_shaded_plain,
+         "nearest_attrs": tiled_nearest_attrs_plain,
+         "anyhit_from_t": tiled_anyhit_from_t_plain,
+         "anyhit": tiled_anyhit_plain}
 
 
 def _todo(what: str, item: str):
@@ -26,43 +47,188 @@ def _todo(what: str, item: str):
 
 
 def check_supported(prep, cfg: RenderConfig, tile: int) -> None:
-    """Raise NotImplementedError unless the frame takes the ported branch."""
+    """Raise NotImplementedError unless the frame takes a ported branch."""
     if cfg.camera.normalize_dirs:
         raise _todo("normalized primary directions", "7f")
-    if prep.scene.has_textures:
-        raise _todo("the textured fused path", "7c")
-    if cfg.shading.smooth_normals:
-        raise _todo("the smooth-normal fused path", "7d")
-    if cfg.light.num_samples != 1:
-        raise _todo("soft shadows (num_samples > 1)", "7b")
     if cfg.hit_tile and cfg.hit_tile != tile:
         raise _todo("hit_tile sub-tiles", "7f")
+    textured, smooth = prep.scene.has_textures, cfg.shading.smooth_normals
+    if cfg.light.num_samples > 1 and (textured or smooth):
+        raise _todo("the gather path (soft shadows on textured or "
+                    "smooth-normal scenes)", "7e")
+    if textured:
+        raise _todo("the textured fused path", "7c")
+    if smooth:
+        raise _todo("the smooth-normal fused path", "7d")
+
+
+def frame_branch(prep, cfg: RenderConfig, tile: int) -> str:
+    """"fused", "legacy" or "soft": the branch a frame of primary tiles of
+    ``tile`` rays takes (see the module docstring)."""
+    check_supported(prep, cfg, tile)
+    if cfg.light.num_samples > 1:
+        return "soft"
     ntris = prep.num_blocks * prep.block_size
     if (cfg.light.enable_shadows and prep.scene.num_objects > 1
             and pl.shadow_tile(cfg, tile, ntris) != tile):
-        raise _todo("the sub-tile and legacy shadow paths", "7a")
+        return "legacy"
+    return "fused"
+
+
+def _first_hit_repair(p3, h2, s2):
+    """Per tile: a miss ray's origin and self id become those of the tile's
+    first hit, so the cull bounds and the tile's purity see real hits only.
+    p3 [nt, ts, 3], h2 and s2 [nt, ts] -> (p3, s2, any_hit [nt])."""
+    first = h2.to(torch.uint8).argmax(dim=1)
+    rows = torch.arange(h2.shape[0], device=h2.device)
+    p3 = torch.where(h2[..., None], p3, p3[rows, first][:, None, :])
+    s2 = torch.where(h2, s2, s2[rows, first][:, None])
+    return p3, s2, h2.any(dim=1)
+
+
+def _pure_excl(s2):
+    """Each tile's own object where every ray leaves it, else -2."""
+    pure = (s2 == s2[:, :1]).all(dim=1)
+    return torch.where(pure, s2[:, 0], -2).to(torch.int32)
+
+
+def _pad_rows(x, pad: int, fill=None):
+    """x [R, ...] with ``pad`` rows appended: ``fill`` or the last row."""
+    if not pad:
+        return x
+    tail = (x[-1:].expand(pad, *x.shape[1:]) if fill is None
+            else torch.full((pad, *x.shape[1:]), fill, dtype=x.dtype,
+                            device=x.device))
+    return torch.cat([x, tail])
+
+
+def tiled_shadow_fn(prep, cfg: RenderConfig, tile: int, maxv: int,
+                    num_samples: int = 1, kernel=tiled_anyhit):
+    """Occlusion backend of the integrator's shadow contract (JAX
+    kernels/tiled.py::tiled_shadow_fn): ``shadow(point [R, 3], light
+    [R, 3], self_obj [R], hit=None) -> found [R] bool``.
+
+    One sample (S = 1): every light row is one shared light.  Miss origins
+    and their self ids are repaired from the tile's first hit, a tile whose
+    rays all leave one object drops that object's blocks, the plan adds the
+    light-apex test, and hitless tiles walk nothing.  S > 1: rays arrive
+    sample-major and go to :func:`_shadow_folded`."""
+
+    def shadow(point, light, self_obj, hit=None):
+        S = num_samples
+        if S > 1 and point.shape[0] % S == 0:
+            return _shadow_folded(prep, cfg, tile, maxv, S, point, light,
+                                  self_obj, hit, kernel)
+        so = self_obj.to(torch.int32)
+        if hit is not None:
+            R0 = point.shape[0]
+            padn = (-R0) % tile
+            point = _pad_rows(point, padn, 0.0)
+            hit = _pad_rows(hit, padn, False)
+            so = _pad_rows(so, padn)
+            nt = point.shape[0] // tile
+            p3, s2, any_hit = _first_hit_repair(
+                point.reshape(nt, tile, 3), hit.reshape(nt, tile),
+                so.reshape(nt, tile))
+            point, so = p3.reshape(-1, 3)[:R0], s2.reshape(-1)[:R0]
+        d = light - point
+        R = point.shape[0]
+        n = -(-R // tile)
+        s2 = _pad_rows(so, n * tile - R).reshape(n, tile)
+        plan = pl.cull_occl(prep, point, d, tile, maxv,
+                            cfg.kernel.window_blocks_ah, _pure_excl(s2),
+                            apex_rev=True)
+        if hit is not None:
+            plan = torch.where(any_hit[:, None], plan, 0)
+        found = anyhit(prep, cfg, point, d, s2, plan, tile, kernel=kernel)
+        return found.reshape(-1)[:R]
+
+    return shadow
+
+
+def _shadow_folded(prep, cfg, tile, maxv, S, point, light, self_obj, hit,
+                   kernel):
+    """S-sample occlusion sharing one plan per point tile (JAX
+    kernels/tiled.py::_shadow_folded).  Rays arrive sample-major [S * R]
+    with the points repeated per sample; a kernel tile is ts points x S
+    samples, ts = max(8, min(tile, 1024 // S)), as M = S * ts rows ordered
+    sample-major within the tile.  found comes back sample-major."""
+    R = point.shape[0] // S
+    ts = max(8, min(tile, 1024 // S))
+    padn = (-R) % ts
+    p0 = _pad_rows(point[:R], padn, 0.0)
+    self0 = _pad_rows(self_obj[:R].to(torch.int32), padn)
+    lights = light.reshape(S, R, 3)
+    if padn:
+        lights = torch.cat([lights, lights[:, -1:].expand(S, padn, 3)], 1)
+    nt = p0.shape[0] // ts
+    p3 = p0.reshape(nt, ts, 3)
+    s2 = self0.reshape(nt, ts)
+    any_hit = None
+    if hit is not None:
+        h2 = _pad_rows(hit[:R], padn, False).reshape(nt, ts)
+        p3, s2, any_hit = _first_hit_repair(p3, h2, s2)
+    o_g = p3[:, None].expand(nt, S, ts, 3)
+    d_g = lights.reshape(S, nt, ts, 3).permute(1, 0, 2, 3) - o_g
+    o_f, d_f = o_g.reshape(-1, 3), d_g.reshape(-1, 3)
+    plan = pl.cull_occl(prep, o_f, d_f, S * ts, maxv,
+                        cfg.kernel.window_blocks_ah, _pure_excl(s2))
+    if any_hit is not None:
+        plan = torch.where(any_hit[:, None], plan, 0)
+    self_g = s2[:, None, :].expand(nt, S, ts).reshape(nt, S * ts)
+    found = anyhit(prep, cfg, o_f, d_f, self_g, plan, S * ts, kernel=kernel)
+    found = found.reshape(nt, S, ts).permute(1, 0, 2).reshape(S, -1)
+    return found[:, :R].reshape(-1)
 
 
 def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
-                      nearest=tiled_nearest_shaded,
-                      anyhit=tiled_anyhit_from_t):
+                      rays=None, kernels=KERNELS):
     """The frame's primary rays in tile-major order -> (radiance [R, 3]
     tone-mapped, hit [R] bool), R = n_tiles * tile_px**2.
 
     ``cam_spec`` = (view_matrix or None, focal, width, height, tile_px).
-    ``nearest`` and ``anyhit`` are the kernel wrappers; ``chip_smoke.py``
-    passes their plain versions to render the reference image on the
-    card."""
-    tpx = cam_spec[4]
-    check_supported(prep, cfg, tpx * tpx)
+    ``rays`` = (o, d) [R, 3], the tile-major primary rays
+    (ops/camera.py::primary_rays_tiled); the legacy and soft branches need
+    them (:func:`frame_branch`).  ``kernels`` maps each role of
+    :data:`KERNELS` to its wrapper; ``chip_smoke.py`` passes :data:`PLAIN`
+    to render the reference image on the card."""
+    tile = cam_spec[4] ** 2
+    branch = frame_branch(prep, cfg, tile)
+    if branch != "fused" and rays is None:
+        raise ValueError(f"the {branch} branch needs the primary rays")
     maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
                                   cfg.kernel.window_blocks)
-    t, _idx, obj, rgb, bounds = hits_shaded(prep, cfg, light_pos, cam_spec,
-                                            maxv, kernel=nearest)
+    stile = pl.shadow_tile(cfg, tile, prep.num_blocks * prep.block_size)
+    if branch == "soft":
+        o, d = rays
+        t, idx, attrs = hits_attrs(prep, cfg, cam_spec, maxv,
+                                   kernel=kernels["nearest_attrs"])
+        record = integrator.records_from_attrs(prep.scene, attrs)
+        shadow_fn = tiled_shadow_fn(
+            prep, cfg, stile, maxv, cfg.light.num_samples,
+            kernels["anyhit"]) if cfg.light.enable_shadows else None
+        rad = integrator.shade(prep.scene, cfg, o, d, t, idx, light_pos,
+                               shadow_fn, record=record)
+        return rad, torch.isfinite(t)
+    t, _idx, obj, rgb, bounds = hits_shaded(
+        prep, cfg, light_pos, cam_spec, maxv,
+        kernel=kernels["nearest_shaded"])
+    hit = torch.isfinite(t)
     if cfg.light.enable_shadows and prep.scene.num_objects > 1:
-        found = anyhit_from_t(prep, cfg, t, obj, bounds, light_pos, cam_spec,
-                              maxv, kernel=anyhit)
+        if branch == "fused":
+            found = anyhit_from_t(prep, cfg, t, obj, bounds, light_pos,
+                                  cam_spec, maxv,
+                                  kernel=kernels["anyhit_from_t"])
+        else:
+            o, d = rays
+            point = torch.where(hit[:, None],
+                                o + torch.where(hit, t, 0.0)[:, None] * d,
+                                0.0)
+            shadow_fn = tiled_shadow_fn(prep, cfg, stile, maxv, 1,
+                                        kernels["anyhit"])
+            found = shadow_fn(point, light_pos.expand(point.shape), obj,
+                              hit=hit)
         rgb = torch.where(found[:, None], rgb / cfg.light.shadow_dim, rgb)
     if cfg.shading.tonemap_enabled:
         rgb = sh.tonemap(rgb, cfg.shading.reinhard_offset, cfg.shading.gamma)
-    return rgb, torch.isfinite(t)
+    return rgb, hit

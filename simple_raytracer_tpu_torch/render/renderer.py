@@ -1,7 +1,7 @@
 """Renderer front end.
 
 Counterpart of the JAX package's ``render/renderer.py``.  Only
-``mode="tiled"`` is ported: per-tile cull plans and two hand-written CUDA
+``mode="tiled"`` is ported: per-tile cull plans and the hand-written CUDA
 kernels (kernels/tiled.py).  The JAX package's 'bruteforce' and 'bvh'
 modes raise NotImplementedError.
 """
@@ -14,9 +14,9 @@ import torch
 
 from ..accel.prepared import PreparedScene, prepare
 from ..config import RenderConfig
-from ..ops.camera import untile_image
+from ..ops.camera import primary_rays_tiled, untile_image
 from ..kernels import plan as pl
-from ..kernels.tiled import render_flat_tiled
+from ..kernels.tiled import frame_branch, render_flat_tiled
 from . import integrator
 
 _MODE_ITEMS = {"bruteforce": "3", "bvh": "8"}
@@ -63,8 +63,16 @@ def render_radiance(prep: PreparedScene, cfg: RenderConfig, light_pos,
     light = torch.as_tensor(light_pos, dtype=torch.float32, device=dev)
     vm = None if view_matrix is None else torch.as_tensor(
         view_matrix, dtype=torch.float32, device=dev)
+    rays = None
+    if frame_branch(prep, cfg, tpx * tpx) != "fused":
+        # the legacy and soft shadows start from o + t*d of these rays
+        o, d, _, _ = primary_rays_tiled(cam.width, cam.height, tpx,
+                                        cam.focal, view_matrix=vm,
+                                        device=dev)
+        rays = (o.reshape(-1, 3), d.reshape(-1, 3))
     rad, hit = render_flat_tiled(prep, cfg, light,
-                                 (vm, cam.focal, cam.width, cam.height, tpx))
+                                 (vm, cam.focal, cam.width, cam.height, tpx),
+                                 rays=rays)
     tx, ty = -(-cam.width // tpx), -(-cam.height // tpx)
     return (untile_image(rad, cam.width, cam.height, tpx, tx, ty),
             untile_image(hit, cam.width, cam.height, tpx, tx, ty))

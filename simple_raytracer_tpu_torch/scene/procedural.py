@@ -127,3 +127,24 @@ def sphere_on_ground(manager, subdivisions: int, pose=SPHERE_POSE,
     manager.set_triangles("ground", ground)
     manager.set_color("ground", (0.0, 1.0, 0.0))
     return manager
+
+
+# The dense scene's second sphere: right of and before the first, its shadow
+# on the near ground around (-1, 7, 43), in view at 600x400 with focal 400
+# (the first sphere's falls near (-11, 7, 66)).
+SPHERE2_POSE = (T.translate((12.0, -1.0, 36.0)) @ T.rotate_y(math.radians(-23.0))
+                @ T.rotate_x(math.radians(7.0)) @ T.scale(5.0, 5.0, 5.0))
+
+
+def dense_on_ground(manager, subdivisions: int = 6):
+    """A scene over 131,072 triangles: two displaced icospheres of
+    ``subdivisions`` (6: 2 x 81,920 triangles) on the ground box, lit from
+    BENCH_LIGHT, each casting a shadow in view at 600x400, focal 400.
+    Scenes this dense take 32-pixel tiles, 256-ray shadow tiles and the
+    1,024-wide plan (kernels/plan.py).  Returns the manager."""
+    sphere_on_ground(manager, subdivisions)
+    second = icosphere(subdivisions, 0.08, seed=1)
+    second.verts = T.apply_transform(SPHERE2_POSE, second.verts)
+    manager.set_triangles("sphere2", second)
+    manager.set_color("sphere2", (0.6, 0.6, 0.9))
+    return manager

@@ -1,7 +1,7 @@
 """Hand-built kernel inputs shared by the CPU and GPU tests of the PyTorch
 port.  No JAX here: tests/test_torch_cuda.py imports this on machines
-without it.  Every case is one 64x64 tile at the image centre, rays from
-the origin with focal 400.
+without it.  The cases of the primary-ray kernels are one 64x64 tile at the
+image centre, rays from the origin with focal 400.
 """
 
 import torch
@@ -56,3 +56,35 @@ def self_skip(window: int, obj: int):
     t[0, :16] = float("inf")
     objs = torch.full((1, 4096), obj, dtype=torch.int32)
     return (plan, tri, block_obj, t, objs, cam), (64, 128, 32, 1e-12)
+
+
+def ragged_rays():
+    """Any-hit over explicit rays in two tiles of M = 1023 rays (not a
+    multiple of 32).  Rays start near the origin toward a light at
+    z = -100; tile 0 walks window 0, whose triangle at z = -50 lies before
+    the light (t = 0.5), tile 1 walks window 1, whose triangle at z = -150
+    lies past it (t = 1.5).  Every third lane points away from the light,
+    every seventh leaves object 0, the triangles' own.  Returns (tensors,
+    (window_tris, block_size, eps), {no_max_t: expected found [2, 1023]})."""
+    m = 1023
+    tri = torch.zeros((256, 9))
+    tri[0], tri[128] = _quad_tri(-50.0), _quad_tri(-150.0)
+    block_obj = torch.zeros(8, dtype=torch.int32)
+    plan = torch.zeros((2, pl.PLAN_W), dtype=torch.int32)
+    plan[:, :4] = torch.tensor([0, 1, 1, 1])
+    plan[1, pl.PLAN_AUX] = 1
+    lane = torch.arange(m)
+    xy = torch.stack([(lane % 31).float() - 15.0,
+                      (lane // 31).float() * 0.5 - 8.0], dim=1)
+    o = torch.cat([xy, torch.zeros((m, 1))], dim=1)
+    d = torch.tensor([0.0, 0.0, -100.0]) - o
+    away = lane % 3 == 0
+    d = torch.where(away[:, None], -d, d)
+    own = lane % 7 == 0
+    self_obj = torch.where(own, 0, 1).to(torch.int32)
+    o2, d2 = o.expand(2, m, 3).contiguous(), d.expand(2, m, 3).contiguous()
+    hit = ~away & ~own
+    want = {True: torch.stack([hit, hit]),
+            False: torch.stack([hit, torch.zeros_like(hit)])}
+    return ((plan, tri, block_obj, o2, d2, self_obj.expand(2, m).contiguous()),
+            (128, 32, 1e-12), want)

@@ -15,11 +15,12 @@ import torch
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import prepare
 from simple_raytracer_tpu_torch.kernels import anyhit, build, nearest
-from simple_raytracer_tpu_torch.kernels.tiled import render_flat_tiled
+from simple_raytracer_tpu_torch.kernels.tiled import KERNELS, render_flat_tiled
+from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
 from simple_raytracer_tpu_torch.scene import procedural as P
 from simple_raytracer_tpu_torch.scene import transforms as T
 
-from _torch_cases import SELF_SKIP, self_skip, two_windows
+from _torch_cases import SELF_SKIP, ragged_rays, self_skip, two_windows
 
 pytestmark = pytest.mark.cuda
 
@@ -50,26 +51,35 @@ def scene():
     return prep.to("cuda"), cfg
 
 
-def _kernel_args(prep, cfg, view):
-    """The arguments the frame hands each kernel."""
-    k1, k2 = [], []
+def _frame_args(prep, cfg, view, tpx=TPX):
+    """The arguments the frame hands each kernel, by role (tiled.KERNELS)."""
+    caught = {}
 
-    def rec(fn, store):
-        return lambda *a: store.append(a) or fn(*a)
+    def rec(role, fn):
+        return lambda *a: caught.setdefault(role, a) and fn(*a)
     vm = None if view is None else torch.tensor(view, device="cuda")
     light = torch.tensor(P.BENCH_LIGHT, device="cuda")
-    render_flat_tiled(prep, cfg, light, (vm, FOCAL, SIZE, SIZE, TPX),
-                      nearest=rec(nearest.tiled_nearest_shaded, k1),
-                      anyhit=rec(anyhit.tiled_anyhit_from_t, k2))
-    return k1[0], k2[0]
+    o, d, _, _ = primary_rays_tiled(SIZE, SIZE, tpx, FOCAL, view_matrix=vm,
+                                    device="cuda")
+    render_flat_tiled(prep, cfg, light, (vm, FOCAL, SIZE, SIZE, tpx),
+                      rays=(o.reshape(-1, 3), d.reshape(-1, 3)),
+                      kernels={k: rec(k, f) for k, f in KERNELS.items()})
+    return caught
+
+
+def _kernel_args(prep, cfg, view):
+    args = _frame_args(prep, cfg, view)
+    return args["nearest_shaded"], args["anyhit_from_t"]
 
 
 def test_kernels_build():
     info = build.build()
-    assert info["path"].endswith(".so")
+    assert len(info["paths"]) == len(build.SOURCES)
+    assert all(p.endswith(".so") for p in info["paths"])
     lib = build.library()
-    assert hasattr(lib, "srt_nearest_shaded")
-    assert hasattr(lib, "srt_anyhit_from_t")
+    for name in ("srt_nearest_shaded", "srt_nearest_attrs",
+                 "srt_anyhit_from_t", "srt_anyhit_rays"):
+        assert hasattr(lib, name)
 
 
 @pytest.mark.parametrize("view", list(VIEWS))
@@ -140,6 +150,53 @@ def test_render_launches_both_kernels(scene):
     assert (diff <= 1).float().mean() >= 0.999
 
 
+@pytest.mark.parametrize("view", list(VIEWS))
+def test_nearest_attrs_kernel_matches_plain(scene, view):
+    """K1's fetch mode, on the soft-shadow frame's arguments."""
+    prep, cfg = scene
+    soft = cfg.replace(light=sr.LightConfig(num_samples=4))
+    args = _frame_args(prep, soft, VIEWS[view])["nearest_attrs"]
+    n0 = nearest.tiled_nearest_attrs.launches
+    kt, ki, ka = nearest.tiled_nearest_attrs(*args)
+    assert nearest.tiled_nearest_attrs.launches == n0 + 1
+    pt, pi, pa = nearest.tiled_nearest_attrs_plain(*args)
+    hit = torch.isfinite(pt)
+    assert hit.sum() > 4000 and torch.equal(torch.isfinite(kt), hit)
+    torch.testing.assert_close(kt[hit], pt[hit], rtol=1e-5, atol=1e-6)
+    same = (ki == pi).reshape(-1)
+    assert same.float().mean() >= 0.9999
+    torch.testing.assert_close(ka[same], pa[same], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("frame", ["soft", "legacy"])
+def test_anyhit_rays_kernel_matches_plain(scene, frame):
+    """K2′ on the arguments of the soft (S = 4, M = 1024) and the legacy
+    (256-ray shadow tiles) frames."""
+    prep, cfg = scene
+    if frame == "soft":
+        cfg, tpx = cfg.replace(light=sr.LightConfig(num_samples=4)), TPX
+    else:
+        cfg, tpx = cfg.replace(tile_px=32, shadow_tile=256), 32
+    args = _frame_args(prep, cfg, VIEWS["moved"], tpx)["anyhit"]
+    n0 = anyhit.tiled_anyhit.launches
+    kf = anyhit.tiled_anyhit(*args)
+    assert anyhit.tiled_anyhit.launches == n0 + 1
+    pf = anyhit.tiled_anyhit_plain(*args)
+    assert (kf == pf).float().mean() >= 0.9999
+    assert kf.sum() > 50
+
+
+def test_anyhit_rays_kernel_ragged_tile():
+    """M = 1023 rays per tile: the kernel masks its tail lanes."""
+    tensors, rest, want = ragged_rays()
+    for no_max_t in (True, False):
+        found = anyhit.tiled_anyhit(*[x.cuda() for x in tensors], *rest,
+                                    no_max_t)
+        assert torch.equal(found.cpu(), want[no_max_t])
+        assert torch.equal(found, anyhit.tiled_anyhit_plain(
+            *[x.cuda() for x in tensors], *rest, no_max_t))
+
+
 def test_wrappers_reject_bad_inputs(scene):
     prep, cfg = scene
     k1, k2 = _kernel_args(prep, cfg, None)
@@ -147,3 +204,8 @@ def test_wrappers_reject_bad_inputs(scene):
         nearest.tiled_nearest_shaded(k1[0].float(), *k1[1:])
     with pytest.raises(ValueError):
         anyhit.tiled_anyhit_from_t(k2[0], k2[1].cpu(), *k2[2:])
+    tensors, rest, _ = ragged_rays()
+    tensors = [x.cuda() for x in tensors]
+    with pytest.raises(ValueError):              # o as [n * M, 3]
+        anyhit.tiled_anyhit(*tensors[:3], tensors[3].reshape(-1, 3),
+                            *tensors[4:], *rest)

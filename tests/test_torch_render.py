@@ -133,7 +133,8 @@ def test_ragged_frame_size():
 @pytest.mark.parametrize("change, item", [
     (dict(mode="bruteforce"), "item 3"),
     (dict(mode="bvh"), "item 8"),
-    (dict(light=sr.LightConfig(num_samples=4)), "item 7b"),
+    (dict(light=sr.LightConfig(num_samples=4),
+          shading=sr.ShadingConfig(smooth_normals=True)), "item 7e"),
     (dict(shading=sr.ShadingConfig(smooth_normals=True)), "item 7d"),
     (dict(hit_tile=1024), "item 7f"),
     (dict(cull_maxv=0), "item 7f"),
