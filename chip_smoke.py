@@ -18,7 +18,12 @@ by ``finalize_image``, on three frames:
   over the folded shadow rays);
 * **dense**: ``procedural.dense_on_ground`` (163,852 triangles) at 600x400,
   focal 400, one hard shadow (32-pixel tiles; K1 with fused Phong, then the
-  legacy hard shadow through K2′ in 256-ray tiles).
+  legacy hard shadow through K2′ in 256-ray tiles);
+* **paged bench, paged textured, paged dense**: ``tiled_impl="paged"`` (K6
+  over the primary rays' page plan, K7 over page plans of the shadow rays,
+  then the record gather and the integrator): the bench frame; the
+  textured, smooth-normal ``procedural.textured_on_ground(6)`` at 600x400,
+  focal 400, 16 light samples; and the dense frame.
 
 Phases, each of which must pass:
 
@@ -29,18 +34,38 @@ Phases, each of which must pass:
    arguments the frame gives them on the card, at the frame's shapes and on
    a small scene whose shadow falls in view;
 4. bench: render through the public entry points, with the kernels' launch
-   counters reset just before: coverage in (0.05, 0.99), both counters > 0,
-   and the image within 1 of the plain versions' image on >= 99.9% of
-   pixels;
+   counters reset just before: coverage in (0.05, 0.99), both kernels of
+   the branch launched and no other, and the image within 1 of the plain
+   versions' image on >= 99.9% of pixels;
 5. bench: time 20 view-varied frames (as bench.py does), each kernel alone,
    and each stage of the frame alone;
 6. soft and dense, each: the frame's K1 and K2′ against their plain
    versions on the frame's arguments (K2′ found equal on >= 99.99% of hit
    lanes, > 1,000 shadowed hit lanes); the frame through the public entry
-   points with the counters reset just before (every kernel of its branch
-   launched); the image within 1 of the plain versions' image on >= 99.9%
-   of pixels; 32 view-varied frames timed (bench.py:174-183), each kernel
-   and its plain version, and each stage.
+   points with the counters reset just before (the kernels of its branch
+   launched, no other); the image within 1 of the plain versions' image on
+   >= 99.9% of pixels; 32 view-varied frames timed (bench.py:174-183), each
+   kernel and its plain version, and each stage;
+7. the three paged frames, each: K6 and K7 against their plain versions on
+   the frame's arguments (t rtol 1e-5 / atol 1e-6, idx equal on >= 99.99%
+   of rays, found equal on >= 99.99% of hit lanes, > 1,000 shadowed hit
+   lanes in the textured and dense frames), the plans' windows per tile;
+   the frame through the public entry points with the counters reset just
+   before (K6 and K7 launched, no sublane kernel); the image within 1 of
+   the plain versions' image on >= 99.9% of pixels; 20 (bench) or 32
+   view-varied frames timed, each kernel and its plain version, and each
+   stage.
+
+Each kernel's entry in the kernels line carries its bound: the larger of
+its f32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s, both
+counted on the work the frame needs.  The ray-triangle tests are those of
+the rays of pixels inside the image (for the shadow walks, of their hit
+points) while each ray still needed them: until its best t lay below the
+next entry's bound, or until it found an occluder, as the plain walk
+records them.  The bytes are the plan, the triangle rows (and object ids)
+of the windows the walk staged, the rays of the counted lanes in tiles
+with a non-empty plan, the small tables, each read once, and the outputs,
+each written once.
 
 Prints one JSON line per phase result, then the kernels line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -70,6 +95,19 @@ RGB_ATOL = 1e-4
 IDX_MIN = 0.9999
 FOUND_MIN = 0.9999
 IMAGE_MIN = 0.999
+# the bound of a kernel (NVIDIA H100 SXM data sheet: f32 outside the tensor
+# cores, HBM3), and the f32 additions, subtractions, multiplications and
+# divisions of one ray-triangle test: the full Möller–Trumbore with its
+# division (pvec 9, det 5, tvec 3, u 5, qvec 9, v 5, t 5, 1/det 1, u v t 3,
+# u + v 1), the same with the origin terms hoisted per triangle (K1: one
+# origin), and the division-free occlusion predicate (the products by det
+# in place of 1/det and u v t)
+F32_OPS_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+OPS_NEAREST = 46
+OPS_NEAREST_ONE_ORIGIN = 29
+OPS_OCCLUDES = 45
+SRC = "simple_raytracer_tpu_torch/csrc/"
 
 
 class SmokeFailure(RuntimeError):
@@ -138,12 +176,101 @@ def capture(fn, store: list):
 
 
 def plan_stats(plan) -> dict:
-    """Windows each tile walks at most (its list or its range)."""
+    """Windows each tile walks at most (its list or its range); the tiles
+    that walk a range (no early break), and those that walk nothing."""
     import torch
     cnt = torch.where(plan[:, 3] == 1, plan[:, 2], plan[:, 1]).float()
     return {"windows_per_tile_mean": float(cnt.mean()),
             "windows_per_tile_max": int(cnt.max()),
-            "list_mode_tiles": float((plan[:, 3] == 1).float().mean())}
+            "list_mode_tiles": float((plan[:, 3] == 1).float().mean()),
+            "range_mode_tiles": int(((plan[:, 3] != 1) & (cnt > 0)).sum()),
+            "empty_tiles": int((cnt == 0).sum()),
+            "tiles": int(plan.shape[0])}
+
+
+def nbytes(*xs) -> int:
+    """Bytes of the tensors among ``xs`` (nested tuples included)."""
+    import torch
+    n = 0
+    for x in xs:
+        if isinstance(x, (tuple, list)):
+            n += nbytes(*x)
+        elif torch.is_tensor(x):
+            n += x.numel() * x.element_size()
+    return n
+
+
+def frame_lanes(px0, py0, tile_px: int, width: int, height: int):
+    """[n, tile_px**2] bool: the lanes of the tiles with pixel origins px0,
+    py0 [n] (relative to the image centre) that lie inside the image."""
+    import torch
+    lane = torch.arange(tile_px * tile_px, device=px0.device)
+    px = px0[:, None] + lane % tile_px + width // 2
+    py = py0[:, None] + lane // tile_px + height // 2
+    return (px < width) & (py < height)
+
+
+def bound(walk, lanes, ops_per_pair: int, plan, window_bytes: int,
+          lane_bytes: int, out, fixed=(), extra: int = 0) -> dict:
+    """The least time the card could take for a walk's work on the frame:
+    the larger of its operations over the f32 peak and its bytes over the
+    memory rate.  ``walk`` = (tests per lane [n, M], staged windows) from
+    the plain walk (:func:`plain_walk`); counts the tests of the lanes
+    ``lanes`` [n, M] and, as bytes, the plan, ``window_bytes`` for each
+    staged window, ``lane_bytes`` for each counted lane of a tile with a
+    non-empty plan, the tensors ``fixed`` and ``extra`` bytes read once,
+    and the outputs ``out`` written once."""
+    import torch
+    lane_pairs, staged = walk
+    pairs = int(lane_pairs[lanes].sum())
+    cnt = torch.where(plan[:, 3] == 1, plan[:, 2], plan[:, 1])
+    ray_lanes = int((lanes & (cnt > 0)[:, None]).sum())
+    ops = pairs * ops_per_pair
+    moved = (nbytes(plan, out, *fixed) + extra + ray_lanes * lane_bytes
+             + int(staged.sum()) * window_bytes)
+    t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "pairs": pairs, "f32_ops": ops, "bytes": moved,
+            "windows_staged": int(staged.sum())}
+
+
+def window_bytes(tri, window_tris: int, block_size: int = 0) -> int:
+    """Bytes of one window: its triangle rows, and with ``block_size`` its
+    blocks' object ids."""
+    return (window_tris * tri.shape[1] * tri.element_size()
+            + (window_tris // block_size * 4 if block_size else 0))
+
+
+def winner_bytes(idx, tri_attr) -> int:
+    """Bytes of the attribute rows of the distinct winning triangles."""
+    import torch
+    return int(torch.unique(idx[idx >= 0]).numel()) * tri_attr.shape[1] \
+        * tri_attr.element_size()
+
+
+def entry(name: str, source: str, replaces: str, frame: str, launches: int,
+          max_abs_err: float, ms: float, plain_ms: float, bnd: dict,
+          **extra) -> dict:
+    """One kernel's record of the kernels line.  No PyTorch call walks a
+    cull plan, so ``library_ms`` is null."""
+    return {"name": name, "route": "cuda", "source": SRC + source,
+            "replaces": replaces, **extra, "frame": frame,
+            "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
+            "bound_by": bnd["bound_by"], "library_ms": None}
+
+
+def plain_walk(plain, args):
+    """Run the plain version ``plain`` on ``args``; returns (its result,
+    its walk's record: the tests each lane needed [n, M], the windows
+    staged)."""
+    from simple_raytracer_tpu_torch.kernels import anyhit, nearest
+    nearest.walk_plain.lane_pairs = anyhit.walk_plain.lane_pairs = None
+    out = plain(*args)
+    w = (nearest.walk_plain if nearest.walk_plain.lane_pairs is not None
+         else anyhit.walk_plain)
+    return out, (w.lane_pairs, w.staged)
 
 
 def frame_args(prep, cfg, light, cam_spec, rays=None) -> dict:
@@ -158,12 +285,15 @@ def frame_args(prep, cfg, light, cam_spec, rays=None) -> dict:
     return {role: st[0] for role, st in stores.items() if st}
 
 
-def check_k1_shaded(k1, label: str) -> dict:
-    """K1 (fused mode) vs its plain version on the arguments ``k1``."""
+def check_k1_shaded(k1, label: str, size) -> dict:
+    """K1 (fused mode) vs its plain version on the arguments ``k1``, in an
+    image of ``size`` = (width, height)."""
     import torch
     from simple_raytracer_tpu_torch.kernels import nearest
-    kt, ki, ko, krgb, kb = nearest.tiled_nearest_shaded(*k1)
-    pt, pi, po, prgb, pb = nearest.tiled_nearest_shaded_plain(*k1)
+    out = nearest.tiled_nearest_shaded(*k1)
+    kt, ki, ko, krgb, kb = out
+    (pt, pi, po, prgb, pb), walk = plain_walk(
+        nearest.tiled_nearest_shaded_plain, k1)
     torch.cuda.synchronize()
     hk, hp = torch.isfinite(kt), torch.isfinite(pt)
     both = hk & hp
@@ -183,7 +313,10 @@ def check_k1_shaded(k1, label: str) -> dict:
            "t_max_abs_err": float(t_err.max()) if t_err.numel() else 0.0,
            "t_within_tol": t_ok, "idx_equal": idx_frac,
            "rgb_max_abs_err": rgb_err, "obj_equal": obj_ok,
-           "bounds_allclose": b_ok, "plan": plan_stats(k1[0])}
+           "bounds_allclose": b_ok, "plan": plan_stats(k1[0]),
+           **bound(walk, frame_lanes(k1[0][:, 4], k1[0][:, 5], k1[5], *size),
+                   OPS_NEAREST_ONE_ORIGIN, k1[0], window_bytes(k1[1], k1[6]),
+                   0, out, (k1[3], k1[4]), winner_bytes(ki, k1[2]))}
     emit(**res)
     require(t_ok and bool((hk == hp).all()), f"K1 t differs ({label})")
     require(idx_frac >= IDX_MIN, f"K1 idx equal on {idx_frac} ({label})")
@@ -199,10 +332,11 @@ def compare_kernels(prep, cfg, light, cam_spec, label: str, time_it: bool):
     from simple_raytracer_tpu_torch.kernels import anyhit, nearest
     args = frame_args(prep, cfg, light, cam_spec)
     k1, k2 = args["nearest_shaded"], args["anyhit_from_t"]
-    k1_res = check_k1_shaded(k1, label)
+    size = cam_spec[2:4]
+    k1_res = check_k1_shaded(k1, label, size)
 
     kf = anyhit.tiled_anyhit_from_t(*k2)
-    pf = anyhit.tiled_anyhit_from_t_plain(*k2)
+    pf, walk = plain_walk(anyhit.tiled_anyhit_from_t_plain, k2)
     torch.cuda.synchronize()
     hit = torch.isfinite(k2[3])
     f_frac = float((kf[hit] == pf[hit]).float().mean()) if bool(hit.any()) \
@@ -212,7 +346,11 @@ def compare_kernels(prep, cfg, light, cam_spec, label: str, time_it: bool):
               "found_equal": f_frac, "plan": plan_stats(k2[0]),
               "found_max_abs_err": float((kf[hit].int() - pf[hit].int())
                                          .abs().max()) if bool(hit.any())
-              else 0.0}
+              else 0.0,
+              **bound(walk, hit & frame_lanes(k2[0][:, 4], k2[0][:, 5],
+                                              k2[6], *size),
+                      OPS_OCCLUDES, k2[0], window_bytes(k2[1], k2[7], k2[8]),
+                      8, kf, (k2[5],))}
     emit(**k2_res)
     require(f_frac >= FOUND_MIN, f"K2 found equal on {f_frac} ({label})")
     times = {}
@@ -273,6 +411,96 @@ def image_vs_plain(sr, prep, cfg, light, img, label: str) -> dict:
             "image_equal_to_plain": float((diff == 0).float().mean())}
 
 
+def render_checked(sr, prep, cfg, light, label: str, roles) -> dict:
+    """The frame through the public entry points, with the kernels' launch
+    counters reset just before and read just after: every kernel of
+    ``roles`` launched and no other; coverage in (0.05, 0.99), the frame's
+    shape and finite radiance; the image within 1 of the plain versions'
+    image.  Emits and returns the ``render`` line."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels import plan as pl
+    from simple_raytracer_tpu_torch.kernels.tiled import frame_branch
+    from simple_raytracer_tpu_torch.render.integrator import finalize_image
+    cam = cfg.camera
+    reset_launches()
+    rad, hit = sr.render_radiance(prep, cfg, light)
+    img = finalize_image(rad, hit, cfg)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    require(all(launches[r] > 0 for r in roles)
+            and all(n == 0 for r, n in launches.items() if r not in roles),
+            f"{label} launched {launches}, not exactly {roles}")
+    bg = (img == torch.tensor(cfg.background, dtype=torch.uint8,
+                              device=prep.device)).all(dim=-1)
+    coverage = float((~bg).float().mean())
+    require(0.05 < coverage < 0.99, f"implausible coverage {coverage}")
+    require(tuple(img.shape) == (cam.height, cam.width, 3)
+            and bool(torch.isfinite(rad).all()), f"bad radiance ({label})")
+    tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
+    res = {"phase": f"render ({label})",
+           "branch": frame_branch(prep, cfg, tpx * tpx),
+           "coverage": coverage, "launches": launches,
+           **image_vs_plain(sr, prep, cfg, light, img, label)}
+    emit(**res)
+    return res
+
+
+def view_varied_ms(sr, prep, cfg, light, frames: int, label: str) -> float:
+    """Host ms per frame over ``frames`` frames, the view moved 1e-5 and
+    the light 1e-4 further each frame (bench.py:353-358, :174-183), ending
+    in a synchronize."""
+    import torch
+    from simple_raytracer_tpu_torch.render.integrator import finalize_image
+    eye = torch.eye(4, dtype=torch.float32, device=prep.device)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    acc = torch.zeros((), dtype=torch.int64, device=prep.device)
+    for i in range(frames):
+        V = eye.clone()
+        V[0, 3] += i * 1e-5
+        r, h = sr.render_radiance(prep, cfg, light + i * 1e-4, view_matrix=V)
+        acc += finalize_image(r, h, cfg).to(torch.int64).sum()
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3 / frames
+    require(int(acc) > 0, f"timed frames rendered nothing ({label})")
+    return ms
+
+
+def check_found(kernel, plain, args, pts, S: int, what: str, label: str,
+                shadowed_min=None) -> dict:
+    """An any-hit walk over explicit rays (K2′ or K7) against its plain
+    version on ``args``, on the lanes whose point is a hit of the primary
+    pass inside the image (``pts``, in the primary rays' order); the shadow
+    tiles hold ts points x S samples, sample-major, in that order.  With
+    ``shadowed_min``, more than that many hit lanes must be shadowed."""
+    import torch
+    kf = kernel(*args)
+    pf, walk = plain_walk(plain, args)
+    torch.cuda.synchronize()
+    n2, m = kf.shape
+    hit = pts.reshape(-1)
+    ts = m // S
+    hit = torch.cat([hit, hit.new_zeros(n2 * ts - hit.shape[0])])
+    lanes = hit.reshape(n2, 1, ts).expand(n2, S, ts).reshape(n2, m)
+    f_frac = float((kf[lanes] == pf[lanes]).float().mean())
+    shadowed = int((kf & lanes).sum())
+    res = {"check": f"{what} vs plain ({label})", "tiles": n2,
+           "rays_per_tile": m, "hit_lanes": int(lanes.sum()),
+           "shadowed_hit_lanes": shadowed, "found_equal": f_frac,
+           "found_differ": int((kf[lanes] != pf[lanes]).sum()),
+           "found_max_abs_err": float((kf[lanes].int() - pf[lanes].int())
+                                      .abs().max()),
+           "plan": plan_stats(args[0]),
+           **bound(walk, lanes, OPS_OCCLUDES, args[0],
+                   window_bytes(args[1], args[6], args[7]), 28, kf)}
+    emit(**res)
+    require(f_frac >= FOUND_MIN, f"{what} found equal on {f_frac} ({label})")
+    if shadowed_min is not None:
+        require(shadowed > shadowed_min,
+                f"{what} shadowed {shadowed} ({label})")
+    return res
+
+
 def occlusion_frame(sr, prep, cfg, light, label: str, gpu: str) -> dict:
     """The soft or dense frame: its K1 and K2′ against their plain versions,
     the frame through the public entry points with the counts read around
@@ -300,13 +528,20 @@ def occlusion_frame(sr, prep, cfg, light, label: str, gpu: str) -> dict:
     k1, k2r = args[k1_role], args["anyhit"]
 
     # K1 vs plain
+    size = (cam.width, cam.height)
+    inside = frame_lanes(k1[0][:, 4], k1[0][:, 5], tpx, *size)
     if k1_role == "nearest_shaded":
-        k1_res = check_k1_shaded(k1, label)
+        k1_res = check_k1_shaded(k1, label, size)
         kt = nearest.tiled_nearest_shaded(*k1)[0]
         k1_err = k1_res["t_max_abs_err"]
+        k1_bound = k1_res
     else:
         kt, ki, ka = nearest.tiled_nearest_attrs(*k1)
-        pt, pi, pa = nearest.tiled_nearest_attrs_plain(*k1)
+        (pt, pi, pa), walk = plain_walk(nearest.tiled_nearest_attrs_plain,
+                                        k1)
+        k1_bound = bound(walk, inside, OPS_NEAREST_ONE_ORIGIN, k1[0],
+                         window_bytes(k1[1], k1[5]), 0, (kt, ki, ka),
+                         (k1[3],), winner_bytes(ki, k1[2]))
         torch.cuda.synchronize()
         hk, hp = torch.isfinite(kt), torch.isfinite(pt)
         both = hk & hp
@@ -322,62 +557,20 @@ def occlusion_frame(sr, prep, cfg, light, label: str, gpu: str) -> dict:
              hit_mask_equal=float((hk == hp).float().mean()),
              t_max_abs_err=k1_err, t_within_tol=t_ok, idx_equal=idx_frac,
              normal_max_abs_err=n_err, obj_equal=obj_ok,
-             plan=plan_stats(k1[0]))
+             plan=plan_stats(k1[0]), **k1_bound)
         require(t_ok and bool((hk == hp).all()), f"K1 t differs ({label})")
         require(idx_frac >= IDX_MIN, f"K1 idx equal on {idx_frac} ({label})")
         require(n_err <= 1e-6 and obj_ok, f"K1 attrs differ ({label})")
 
     # K2′ vs plain, on the lanes whose point is a hit
-    kf = anyhit.tiled_anyhit(*k2r)
-    pf = anyhit.tiled_anyhit_plain(*k2r)
-    torch.cuda.synchronize()
-    n2, m = kf.shape
-    hit = torch.isfinite(kt).reshape(-1)
-    ts = m // S
-    hit = torch.cat([hit, hit.new_zeros(n2 * ts - hit.shape[0])])
-    lanes = hit.reshape(n2, 1, ts).expand(n2, S, ts).reshape(n2, m)
-    f_frac = float((kf[lanes] == pf[lanes]).float().mean())
-    shadowed = int((kf & lanes).sum())
-    k2_err = float((kf[lanes].int() - pf[lanes].int()).abs().max())
-    emit(check=f"K2' vs plain ({label})", tiles=n2, rays_per_tile=m,
-         hit_lanes=int(lanes.sum()), shadowed_hit_lanes=shadowed,
-         found_equal=f_frac, found_max_abs_err=k2_err,
-         plan=plan_stats(k2r[0]))
-    require(f_frac >= FOUND_MIN, f"K2' found equal on {f_frac} ({label})")
-    require(shadowed > SHADOWED_MIN, f"K2' shadowed {shadowed} ({label})")
+    k2_res = check_found(anyhit.tiled_anyhit, anyhit.tiled_anyhit_plain,
+                         k2r, torch.isfinite(kt) & inside, S, "K2'", label,
+                         SHADOWED_MIN)
+    k2_err = k2_res["found_max_abs_err"]
 
-    # the path through the public entry points, counts read around it
-    reset_launches()
-    rad, hitimg = sr.render_radiance(prep, cfg, light)
-    img = finalize_image(rad, hitimg, cfg)
-    torch.cuda.synchronize()
-    launches = read_launches()
-    want = (k1_role, "anyhit")
-    require(all(launches[r] > 0 for r in want),
-            f"{label} skipped a kernel: {launches}")
-    bg = (img == torch.tensor(cfg.background, dtype=torch.uint8,
-                              device=dev)).all(dim=-1)
-    coverage = float((~bg).float().mean())
-    require(0.05 < coverage < 0.99, f"implausible coverage {coverage}")
-    require(tuple(img.shape) == (cam.height, cam.width, 3)
-            and bool(torch.isfinite(rad).all()), f"bad radiance ({label})")
-    cmp = image_vs_plain(sr, prep, cfg, light, img, label)
-    emit(phase=f"render ({label})", branch=branch, coverage=coverage,
-         launches=launches, **cmp)
-
-    # 32 view-varied frames (bench.py:174-183)
-    eye = torch.eye(4, dtype=torch.float32, device=dev)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    acc = torch.zeros((), dtype=torch.int64, device=dev)
-    for i in range(OCC_FRAMES):
-        V = eye.clone()
-        V[0, 3] += i * 1e-5
-        r, h = sr.render_radiance(prep, cfg, light + i * 1e-4, view_matrix=V)
-        acc += finalize_image(r, h, cfg).to(torch.int64).sum()
-    torch.cuda.synchronize()
-    ms_frame = (time.time() - t0) * 1e3 / OCC_FRAMES
-    require(int(acc) > 0, f"timed frames rendered nothing ({label})")
+    launches = render_checked(sr, prep, cfg, light, label,
+                              (k1_role, "anyhit"))["launches"]
+    ms_frame = view_varied_ms(sr, prep, cfg, light, OCC_FRAMES, label)
 
     # each kernel and its plain version, and each stage alone
     k1_fn = getattr(nearest, "tiled_" + k1_role)
@@ -387,6 +580,7 @@ def occlusion_frame(sr, prep, cfg, light, label: str, gpu: str) -> dict:
     stage1 = (nearest.hits_attrs if branch == "soft" else
               lambda *a: nearest.hits_shaded(a[0], a[1], light, *a[2:]))
     o2, d2, self2 = k2r[3], k2r[4], k2r[5]
+    m = o2.shape[1]
     excl = tiled._pure_excl(self2)
     times = {
         "k1_ms": cuda_ms(lambda: k1_fn(*k1), 20),
@@ -404,24 +598,116 @@ def occlusion_frame(sr, prep, cfg, light, label: str, gpu: str) -> dict:
          samples=S, frames=OCC_FRAMES, ms_per_frame=ms_frame,
          rays_per_s=cam.width * cam.height * 1e3 / ms_frame, gpu=gpu,
          **times)
-    src = "simple_raytracer_tpu_torch/csrc/"
-    k1_entry = {
-        "name": "nearest_shaded_kernel" + (" (fetch mode)"
-                                           if branch == "soft" else ""),
-        "route": "cuda", "source": src + "nearest.cu",
-        "replaces": "simple_raytracer_tpu/kernels/tiled_t.py:855",
-        "frame": label, "launches": launches[k1_role],
-        "max_abs_err": k1_err, "ms": times["k1_ms"],
-        "plain_ms": times["k1_plain_ms"]}
-    k2_entry = {
-        "name": "anyhit_rays_kernel", "route": "cuda",
-        "source": src + "anyhit.cu",
-        "replaces": "simple_raytracer_tpu/kernels/tiled_t.py:1374",
-        "via": "tiled_anyhit_t (tiled_t.py:1815)",
-        "frame": label, "launches": launches["anyhit"],
-        "max_abs_err": k2_err, "ms": times["k2r_ms"],
-        "plain_ms": times["k2r_plain_ms"]}
+    k1_entry = entry(
+        "nearest_shaded_kernel" + (" (fetch mode)" if branch == "soft"
+                                   else ""), "nearest.cu",
+        "simple_raytracer_tpu/kernels/tiled_t.py:855", label,
+        launches[k1_role], k1_err, times["k1_ms"], times["k1_plain_ms"],
+        k1_bound)
+    k2_entry = entry(
+        "anyhit_rays_kernel", "anyhit.cu",
+        "simple_raytracer_tpu/kernels/tiled_t.py:1374", label,
+        launches["anyhit"], k2_err, times["k2r_ms"], times["k2r_plain_ms"],
+        k2_res, via="tiled_anyhit_t (tiled_t.py:1815)")
     return [k1_entry, k2_entry]
+
+
+def paged_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
+                shadowed_min=None) -> list:
+    """A frame of the paged branch: K6 and K7 against their plain versions
+    on the frame's arguments, the frame through the public entry points
+    with the counts read around it, the plain image, and the times.
+    Returns the kernels-line entries."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels import paged
+    from simple_raytracer_tpu_torch.kernels import plan as pl
+    from simple_raytracer_tpu_torch.kernels import tiled
+    from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
+    from simple_raytracer_tpu_torch.render import integrator
+    dev = prep.device
+    cam = cfg.camera
+    S = cfg.light.num_samples
+    tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
+    tile = tpx * tpx
+    branch = tiled.frame_branch(prep, cfg, tile)
+    require(branch == "paged", f"{label} takes the {branch} branch")
+    cam_spec = (None, cam.focal, cam.width, cam.height, tpx)
+    o, d, _, _ = primary_rays_tiled(cam.width, cam.height, tpx, cam.focal,
+                                    device=dev)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    args = frame_args(prep, cfg, light, cam_spec, (o, d))
+    k6, k7 = args["nearest_rays"], args["anyhit_pages"]
+
+    # K6 vs plain
+    kt, ki = paged.tiled_nearest(*k6)
+    (pt, pi), walk = plain_walk(paged.tiled_nearest_plain, k6)
+    inside = frame_lanes(*pl.tile_origins(kt.shape[0], -(-cam.width // tpx),
+                                          tpx, cam.width, cam.height, dev),
+                         tpx, cam.width, cam.height)
+    torch.cuda.synchronize()
+    hk, hp = torch.isfinite(kt), torch.isfinite(pt)
+    both = hk & hp
+    t_err = (kt[both] - pt[both]).abs()
+    t_ok = bool((t_err <= T_ATOL + T_RTOL * pt[both].abs()).all())
+    idx_frac = float((ki == pi).float().mean())
+    k6_res = {"check": f"K6 vs plain ({label})", "tiles": int(kt.shape[0]),
+              "rays_per_tile": int(kt.shape[1]), "hit_rays": int(hk.sum()),
+              "hit_mask_equal": float((hk == hp).float().mean()),
+              "t_max_abs_err": float(t_err.max()) if t_err.numel() else 0.0,
+              "t_within_tol": t_ok, "idx_equal": idx_frac,
+              "idx_differ": int((ki != pi).sum()), "plan": plan_stats(k6[0]),
+              **bound(walk, inside, OPS_NEAREST, k6[0],
+                      window_bytes(k6[1], k6[4]), 24, (kt, ki))}
+    emit(**k6_res)
+    require(t_ok and bool((hk == hp).all()), f"K6 t differs ({label})")
+    require(idx_frac >= IDX_MIN, f"K6 idx equal on {idx_frac} ({label})")
+
+    # K7 vs plain, on the lanes whose point is a hit
+    k7_res = check_found(paged.tiled_anyhit, paged.tiled_anyhit_plain, k7,
+                         torch.isfinite(kt) & inside, S, "K7", label,
+                         shadowed_min)
+
+    launches = render_checked(sr, prep, cfg, light, label,
+                              ("nearest_rays", "anyhit_pages"))["launches"]
+    ms_frame = view_varied_ms(sr, prep, cfg, light, frames, label)
+
+    # each kernel and its plain version, and each stage alone
+    maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
+                                  cfg.kernel.window_blocks)
+    t, idx = kt.reshape(-1), ki.reshape(-1)
+    m = k7[3].shape[1]
+    excl = tiled._pure_excl(k7[5])
+    times = {
+        "k6_ms": cuda_ms(lambda: paged.tiled_nearest(*k6), 20),
+        "k6_plain_ms": cuda_ms(lambda: paged.tiled_nearest_plain(*k6), 2),
+        "k7_ms": cuda_ms(lambda: paged.tiled_anyhit(*k7), 20),
+        "k7_plain_ms": cuda_ms(lambda: paged.tiled_anyhit_plain(*k7), 2),
+        "plan_ms": cuda_ms(lambda: paged.cull(prep, cfg, o, d, tile, maxv,
+                                              apex=True), 10),
+        "plan_and_k6_ms": cuda_ms(lambda: paged.hits(
+            prep, cfg, o, d, tile, maxv, apex=True), 10),
+        "shadow_plan_ms": cuda_ms(lambda: paged.cull_occl(
+            prep, cfg, k7[3].reshape(-1, 3), k7[4].reshape(-1, 3), m, maxv,
+            excl, apex_rev=S == 1), 10),
+        "gather_and_shade_ms": cuda_ms(lambda: integrator.shade(
+            prep.scene, cfg, o, d, t, idx, light, None), 10),
+        "frame_ms": cuda_ms(lambda: integrator.finalize_image(
+            *sr.render_radiance(prep, cfg, light), cfg), 10)}
+    emit(phase=f"timing ({label})", width=cam.width, height=cam.height,
+         samples=S, frames=frames, ms_per_frame=ms_frame,
+         rays_per_s=cam.width * cam.height * 1e3 / ms_frame, gpu=gpu,
+         **times)
+    return [
+        entry("nearest_rays_kernel", "nearest.cu",
+              "simple_raytracer_tpu/kernels/tiled.py:815", label,
+              launches["nearest_rays"], k6_res["t_max_abs_err"],
+              times["k6_ms"], times["k6_plain_ms"], k6_res,
+              via="tiled_nearest (tiled.py:1047)"),
+        entry("anyhit_rays_kernel (page windows)", "anyhit.cu",
+              "simple_raytracer_tpu/kernels/tiled.py:905", label,
+              launches["anyhit_pages"], k7_res["found_max_abs_err"],
+              times["k7_ms"], times["k7_plain_ms"], k7_res,
+              via="tiled_anyhit (tiled.py:1090)")]
 
 
 def main() -> int:
@@ -476,7 +762,7 @@ def main() -> int:
         camera=sr.CameraConfig(width=WIDTH, height=HEIGHT, focal=focal),
         light=sr.LightConfig(enable_shadows=True),
         bvh=sr.BVHConfig(split="sah"))
-    prep = prepare(scene, cfg).to(dev)
+    prep = prepare(scene, cfg, device=dev)
     torch.cuda.synchronize()
     emit(phase="scene", source=source, triangles=prep.num_triangles,
          padded_triangles=prep.scene.num_triangles, blocks=prep.num_blocks,
@@ -494,7 +780,7 @@ def main() -> int:
                                              focal=400.0),
         bvh=sr.BVHConfig(split="sah"))
     small_prep = prepare(P.sphere_on_ground(sr.SceneManager(), 3).build(),
-                         small).to(dev)
+                         small, device=dev)
     _s1, s2, _ = compare_kernels(
         small_prep, small, light,
         (None, 400.0, 128, 128,
@@ -503,40 +789,13 @@ def main() -> int:
     require(s2["shadowed_rays"] > 50, "no shadow in the small scene")
 
     # 4. the main path through the public entry points
-    eye = torch.eye(4, dtype=torch.float32, device=dev)
-    reset_launches()
-    rad, hit = sr.render_radiance(prep, cfg, light)
-    img = finalize_image(rad, hit, cfg)
-    torch.cuda.synchronize()
-    launches = read_launches()
-    require(launches["nearest_shaded"] > 0 and launches["anyhit_from_t"] > 0,
-            f"main path skipped a kernel: {launches}")
-    bg = (img == torch.tensor(cfg.background, dtype=torch.uint8,
-                              device=dev)).all(dim=-1)
-    coverage = float((~bg).float().mean())
-    require(0.05 < coverage < 0.99, f"implausible coverage {coverage}")
-    require(tuple(img.shape) == (HEIGHT, WIDTH, 3)
-            and bool(torch.isfinite(rad).all()), "bad radiance")
+    bench = f"bench: {source}, {WIDTH}x{HEIGHT}"
+    launches = render_checked(sr, prep, cfg, light, bench,
+                              ("nearest_shaded", "anyhit_from_t"))["launches"]
 
-    # 5. timed view-varied frames (bench.py:353-358)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    acc = torch.zeros((), dtype=torch.int64, device=dev)
-    for i in range(FRAMES):
-        lp = light + i * 1e-4
-        V = eye.clone()
-        V[0, 3] += i * 1e-5
-        r, h = sr.render_radiance(prep, cfg, lp, view_matrix=V)
-        acc += finalize_image(r, h, cfg).to(torch.int64).sum()
-    torch.cuda.synchronize()
-    ms_frame = (time.time() - t0) * 1e3 / FRAMES
-    require(int(acc) > 0, "timed frames rendered nothing")
-
-    # the same frame through the plain versions, on the card
-    cmp = image_vs_plain(sr, prep, cfg, light, img, "bench")
-    emit(phase="render", coverage=coverage, launches=launches, **cmp)
-
-    # where a frame's time goes: each stage alone (device time, CUDA events)
+    # 5. timed view-varied frames, and where a frame's time goes: each
+    # stage alone (device time, CUDA events)
+    ms_frame = view_varied_ms(sr, prep, cfg, light, FRAMES, bench)
     maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
                                   cfg.kernel.window_blocks)
     t, _i, obj, _rgb, bounds = nearest.hits_shaded(prep, cfg, light,
@@ -564,31 +823,47 @@ def main() -> int:
     t0 = time.time()
     dense = cfg.replace(camera=occ_cam)
     dense_prep = prepare(P.dense_on_ground(sr.SceneManager()).build(),
-                         dense).to(dev)
+                         dense, device=dev)
     torch.cuda.synchronize()
     emit(phase="scene (dense)", source="procedural dense_on_ground",
          triangles=dense_prep.num_triangles, blocks=dense_prep.num_blocks,
          seconds=round(time.time() - t0, 3))
-    entries += occlusion_frame(
-        sr, dense_prep, dense, light,
-        f"dense: procedural, {dense_prep.num_triangles} triangles, "
-        f"{OCC_WIDTH}x{OCC_HEIGHT}", gpu)
+    dense_label = (f"dense: procedural, {dense_prep.num_triangles} "
+                   f"triangles, {OCC_WIDTH}x{OCC_HEIGHT}")
+    entries += occlusion_frame(sr, dense_prep, dense, light, dense_label,
+                               gpu)
 
-    src = "simple_raytracer_tpu_torch/csrc/"
-    bench = f"bench: {source}, {WIDTH}x{HEIGHT}"
+    # 7. the paged frames
+    entries += paged_frame(sr, prep, cfg.replace(tiled_impl="paged"), light,
+                           f"paged {bench}", gpu, FRAMES)
+    t0 = time.time()
+    tex = cfg.replace(camera=occ_cam, tiled_impl="paged",
+                      light=sr.LightConfig(num_samples=SOFT_SAMPLES),
+                      shading=sr.ShadingConfig(smooth_normals=True))
+    tex_prep = prepare(P.textured_on_ground(sr.SceneManager(), 6).build(),
+                       tex, device=dev)
+    torch.cuda.synchronize()
+    emit(phase="scene (textured)", source="procedural textured_on_ground(6)",
+         triangles=tex_prep.num_triangles, pages=tex_prep.num_pages,
+         seconds=round(time.time() - t0, 3))
+    entries += paged_frame(
+        sr, tex_prep, tex, light,
+        f"paged textured: procedural, smooth normals, {OCC_WIDTH}x"
+        f"{OCC_HEIGHT}, S={SOFT_SAMPLES}", gpu, OCC_FRAMES,
+        SHADOWED_MIN)
+    entries += paged_frame(sr, dense_prep, dense.replace(tiled_impl="paged"),
+                           light, f"paged {dense_label}", gpu, OCC_FRAMES,
+                           SHADOWED_MIN)
+
     print(json.dumps({"kernels": [
-        {"name": "nearest_shaded_kernel", "route": "cuda",
-         "source": src + "nearest.cu",
-         "replaces": "simple_raytracer_tpu/kernels/tiled_t.py:855",
-         "frame": bench, "launches": launches["nearest_shaded"],
-         "max_abs_err": k1_res["t_max_abs_err"],
-         "ms": times["k1_ms"], "plain_ms": times["k1_plain_ms"]},
-        {"name": "anyhit_from_t_kernel", "route": "cuda",
-         "source": src + "anyhit.cu",
-         "replaces": "simple_raytracer_tpu/kernels/tiled_t.py:1374",
-         "frame": bench, "launches": launches["anyhit_from_t"],
-         "max_abs_err": k2_res["found_max_abs_err"],
-         "ms": times["k2_ms"], "plain_ms": times["k2_plain_ms"]},
+        entry("nearest_shaded_kernel", "nearest.cu",
+              "simple_raytracer_tpu/kernels/tiled_t.py:855", bench,
+              launches["nearest_shaded"], k1_res["t_max_abs_err"],
+              times["k1_ms"], times["k1_plain_ms"], k1_res),
+        entry("anyhit_from_t_kernel", "anyhit.cu",
+              "simple_raytracer_tpu/kernels/tiled_t.py:1374", bench,
+              launches["anyhit_from_t"], k2_res["found_max_abs_err"],
+              times["k2_ms"], times["k2_plain_ms"], k2_res),
     ] + entries}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {

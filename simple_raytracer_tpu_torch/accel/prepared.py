@@ -1,8 +1,8 @@
 """PreparedScene: the scene in BVH order + the tensors the tiled kernels read.
 
 ``prepare`` is a HOST step: the BVH build, the reorder and the padding run in
-numpy, and the finished arrays are wrapped as CPU tensors; one
-``PreparedScene.to(device)`` moves them.
+numpy, and the finished arrays are put on the device the caller names
+(CUDA unless asked otherwise); ``PreparedScene.to(device)`` moves them.
 
 Counterpart of the JAX package's ``accel/prepared.py::prepare``.  The JAX
 PreparedScene also carries TPU matrix-unit operands (``gram``, ``gram_t``,
@@ -12,6 +12,14 @@ the port keeps neither.  Its kernels read a plain triangle layout instead:
 ``tri`` holds each triangle's first vertex and two edges (w-divided here, so
 no kernel divides by w), and ``tri_attr`` the flat normal and object id that
 the nearest kernel gathers by winner id.
+
+The paged walks (K6, K7; kernels/paged.py) read the same ``tri`` table in
+PAGES of ``page_tris`` consecutive triangles (``page_tris / block_size``
+consecutive blocks).  The JAX package packs each page into a Gram page and
+keeps the per-triangle object ids in its row 10 for the occlusion kernel's
+own-object skip; here ``block_obj`` already holds them, because per-object
+padding to a ``page_tris`` multiple makes every block, hence every page,
+single-object.
 """
 
 from __future__ import annotations
@@ -39,12 +47,17 @@ class PreparedScene:
     tri_attr: torch.Tensor      # [Tp, 4] f32 — flat normal xyz, object id
     num_triangles: int = 0      # real (unpadded) triangle count
     block_size: int = 32
+    page_tris: int = 128        # triangles per page of the paged walks
 
     TENSOR_FIELDS = ("block_min", "block_max", "block_obj", "tri", "tri_attr")
 
     @property
     def num_blocks(self) -> int:
         return int(self.block_min.shape[0])
+
+    @property
+    def num_pages(self) -> int:
+        return self.num_blocks * self.block_size // self.page_tris
 
     @property
     def device(self) -> torch.device:
@@ -54,6 +67,18 @@ class PreparedScene:
         return dataclasses.replace(
             self, scene=self.scene.to(device),
             **{n: getattr(self, n).to(device) for n in self.TENSOR_FIELDS})
+
+
+def target_device(device) -> torch.device:
+    """``device`` as a torch.device; raises RuntimeError for a CUDA device
+    on a machine without one (an entry point never carries on on the CPU
+    unless asked to: pass device="cpu" for the plain versions)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} asked for, but no CUDA device "
+                           f"is available (pass device='cpu' to run the "
+                           f"plain PyTorch versions)")
+    return dev
 
 
 def kernel_tables(verts: np.ndarray, tri_normal: np.ndarray,
@@ -80,7 +105,7 @@ def _block_obj(tri_obj: np.ndarray, nb: int, bs: int) -> np.ndarray:
 
 def _finish(scene_np: Dict[str, np.ndarray], has_textures: bool,
             block_min, block_max, block_obj, num_triangles: int,
-            block_size: int) -> PreparedScene:
+            block_size: int, page_tris: int, device) -> PreparedScene:
     tri, attr = kernel_tables(scene_np["verts"], scene_np["tri_normal"],
                               scene_np["tri_obj"])
 
@@ -91,16 +116,20 @@ def _finish(scene_np: Dict[str, np.ndarray], has_textures: bool,
         block_min=t(block_min, np.float32), block_max=t(block_max, np.float32),
         block_obj=t(block_obj, np.int32), tri=t(tri, np.float32),
         tri_attr=t(attr, np.float32), num_triangles=int(num_triangles),
-        block_size=int(block_size))
+        block_size=int(block_size), page_tris=int(page_tris)).to(device)
 
 
-def prepare(scene: Scene, cfg: RenderConfig) -> PreparedScene:
+def prepare(scene: Scene, cfg: RenderConfig,
+            device="cuda") -> PreparedScene:
     """Build per-object BVHs (reference topology or SAH), reorder the scene
     leaf-contiguous, pad every object to a ``page_tris`` multiple, and
-    compute the cull blocks and kernel tables.  The result lives on the CPU.
+    compute the cull blocks and kernel tables.  The host work runs in
+    numpy; the result is put on ``device`` (raises without a CUDA device
+    unless ``device`` is "cpu").
 
     Same arrays as the JAX package's ``prepare`` for the fields both keep
     (tests/test_torch_scene.py holds them equal)."""
+    dev = target_device(device)
     sc = scene.numpy()
     verts_cart = sc["verts"][..., :3] / sc["verts"][..., 3:4]
     tri_obj = sc["tri_obj"]
@@ -198,21 +227,23 @@ def prepare(scene: Scene, cfg: RenderConfig) -> PreparedScene:
     vc = sc["verts"][..., :3] / sc["verts"][..., 3:4]
     bmin, bmax, nb = triangle_blocks(vc, bs)
     return _finish(sc, scene.has_textures, bmin, bmax,
-                   _block_obj(sc["tri_obj"], nb, bs), T, bs)
+                   _block_obj(sc["tri_obj"], nb, bs), T, bs, pt, dev)
 
 
 def from_jax_prepared(arrays: Dict[str, np.ndarray], has_textures: bool = False,
-                      num_triangles: int = 0,
-                      block_size: int = 32) -> PreparedScene:
+                      num_triangles: int = 0, block_size: int = 32,
+                      page_tris: int = 128, device="cuda") -> PreparedScene:
     """The fields of a JAX ``PreparedScene`` that the port keeps, as numpy
     arrays keyed by name: every ``Scene`` field (its padded, BVH-ordered
     triangles) plus ``block_min``, ``block_max`` and ``block_obj`` ->
-    the port's :class:`PreparedScene`.  Triangle ids then mean the same
-    thing in both packages."""
+    the port's :class:`PreparedScene` on ``device`` (as :func:`prepare`).
+    Triangle ids then mean the same thing in both packages."""
+    dev = target_device(device)
     dtypes = {"tri_tex": np.int32, "tri_obj": np.int32,
               "tex_offset": np.int32, "tex_width": np.int32,
               "tex_height": np.int32}
     sc = {n: np.asarray(arrays[n], dtypes.get(n, np.float32))
           for n in Scene.ARRAY_FIELDS}
     return _finish(sc, has_textures, arrays["block_min"], arrays["block_max"],
-                   arrays["block_obj"], num_triangles, block_size)
+                   arrays["block_obj"], num_triangles, block_size, page_tris,
+                   dev)

@@ -135,6 +135,13 @@ class RenderConfig:
     # scenes of <= 131072 triangles — the only case the port takes so far).
     shadow_tile: int = 0
 
+    # Tiled-path kernel layout (kernels/tiled.py::frame_branch): None or
+    # "sublane" walks windows of KernelConfig.window_blocks blocks with
+    # K1/K2 (the fused, legacy and soft branches); "paged" walks pages of
+    # BVHConfig.page_tris triangles with K6/K7 and shades through the
+    # record gather (any scene kind).  Any other name raises ValueError.
+    tiled_impl: str = None
+
     # Tiled-path cull-list capacity: tiles with <= cull_maxv visible windows
     # get an exact front-to-back list; heavier tiles walk the covering
     # contiguous window range (no early break).

@@ -1,39 +1,127 @@
+// The nearest-hit walks, one thread block per ray tile.
+//
 // nearest_shaded_kernel: nearest hit + fused Phong + per-tile shadow bounds,
 // or, in its fetch mode, nearest hit + the winner's attribute row.
-//
 // Replaces the TPU kernel simple_raytracer_tpu/kernels/tiled_t.py::
 // _nearest_kernel_t, reached through tiled_nearest_t from hits_shaded (the
 // fused mode, on the fused frame's path) and from hits_attrs (the fetch mode,
 // on the soft-shadow path).  Plain PyTorch versions: kernels/nearest.py::
 // tiled_nearest_shaded_plain and tiled_nearest_attrs_plain.  The two modes
-// are one template (kShade), so their walks cannot drift apart.
+// are one template (kShade), so their walks cannot drift apart.  Tiles are
+// 64x64 or 32x32 pixels; rays are rebuilt from the pixel index and the camera
+// constants, so no ray array exists.
 //
-// One thread block per ray tile (64x64 or 32x32 pixels); each thread owns
-// tile/threads rays, strided by the block size so a warp's rays (and its
-// output writes) are adjacent.  Rays are rebuilt from the pixel index and the camera constants,
-// so no ray array exists.  For each plan entry the block stages the window's
-// triangles (v0, e1, e2: 9 floats each) in shared memory and every thread runs
-// Möller–Trumbore in f32 against its rays, keeping the least t and, on equal
-// t, the lowest triangle id.  After each window the block stops once every
-// ray's best t is below the next entry's bound (__syncthreads_and); misses
-// (t = inf) never stop it.  The winner's flat normal and object id are one
-// float4 load by id; the Phong term follows the JAX kernel's _fused_phong
-// (abs(n.l), the extra n.l on specular, pow through exp/log with the
-// shininess-0 case).  Last, a block reduction writes the tile's 15-float
-// bounds row: hit-point box, any-hit flag, object min/max and the ru/rv/dw
-// extremes of the shadow directions in the shared frame.  The fetch mode
-// instead stores the winner's tri_attr row as one float4 and stops there.
+// nearest_rays_kernel: nearest hit (t, id) of explicit rays o, d [n, m, 3]
+// over a plan of pages (page_tris consecutive triangles).  Replaces the TPU
+// kernel simple_raytracer_tpu/kernels/tiled.py::_nearest_kernel (the paged
+// layout, reached through tiled_nearest from tiled_hits: tiled_impl="paged").
+// Plain PyTorch version: kernels/paged.py::tiled_nearest_plain.  The TPU
+// kernel computes its MT numerators as one Gram contraction per page; here
+// they are the cross products of ops/intersect.py, as in K1.
 //
-// What bounds it on the H100: the MT arithmetic (about 45 f32 operations per
-// ray-triangle pair, with an IEEE division), not memory — a window is 2.3 KB,
-// read once per tile from L2, and each ray writes 28 bytes.  The design keeps
-// each pair's work in registers and amortises every staged triangle over all
-// rays of the tile; the break skips the windows behind the first surface.
-// Tensor cores, TMA and persistence are left for later work.
+// Both run nearest_walk: each thread owns RPT rays, strided by the block size
+// so a warp's rays (and its output writes) are adjacent.  For each plan entry
+// the block stages the window's triangles (v0, e1, e2: 9 floats each) in
+// shared memory and every thread runs Möller–Trumbore in f32 against its
+// rays, keeping the least t and, on equal t, the lowest triangle id.  After
+// each window the block stops once every ray's best t is below the next
+// entry's bound (__syncthreads_and); misses (t = inf) never stop it.  With
+// one shared origin (K1) the ray-independent part of each triangle's test is
+// computed once per triangle.  K1's fused mode then fetches the winner's flat
+// normal and object id as one float4 load by id and evaluates the Phong term
+// of the JAX kernel's _fused_phong (abs(n.l), the extra n.l on specular, pow
+// through exp/log with the shininess-0 case); last, a block reduction writes
+// the tile's 15-float bounds row: hit-point box, any-hit flag, object
+// min/max and the ru/rv/dw extremes of the shadow directions in the shared
+// frame.  The fetch mode instead stores the winner's tri_attr row as one
+// float4.
+//
+// What bounds them on the H100: the MT arithmetic (about 45 f32 operations
+// per ray-triangle pair, with an IEEE division; K6 recomputes the
+// origin-dependent part per ray), not memory — a window is 2.3 KB (K1) or
+// 4.6 KB (a K6 page), read once per tile from L2, and each ray reads 24
+// bytes (K6) and writes 8-28.  The design keeps each pair's work in
+// registers and amortises every staged triangle over all rays of the tile;
+// the break skips the windows behind the first surface.  Tensor cores, TMA
+// and persistence are left for later work.
 
 #include "common.cuh"
 
 namespace {
+
+// Walk the tile's plan: bt[r], bi[r] become the least t and its lowest
+// triangle id over every window walked.  Ray r has direction d[r] and origin
+// o[r], or o[0] for every ray with kOneOrigin.  Lanes that are not live never
+// hold back the break.
+template <int RPT, bool kOneOrigin>
+__device__ __forceinline__ void nearest_walk(
+    const srt::TilePlan& P, const float* __restrict__ tri, int n_windows,
+    int wt, float eps, const float* ox, const float* oy, const float* oz,
+    const float* dx, const float* dy, const float* dz, const bool* live,
+    float* bt, int* bi, float* s_tri) {
+  for (int k = 0; k < P.cnt; ++k) {
+    const int w = P.window(k);
+    __syncthreads();                             // s_tri free to overwrite
+    if (w < 0 || w >= n_windows) continue;       // block-uniform
+    srt::stage(s_tri, tri + (size_t)w * wt * srt::kTriW, wt * srt::kTriW);
+    __syncthreads();
+    const int id0 = w * wt;
+    for (int j = 0; j < wt; ++j) {
+      const srt::Tri g(s_tri + j * srt::kTriW);
+      const int id = id0 + j;
+      // ray-independent with one origin: tvec = o - v0, qvec = tvec x e1,
+      // t_num
+      float tx = 0.0f, ty = 0.0f, tz = 0.0f, qx = 0.0f, qy = 0.0f, qz = 0.0f;
+      float t_num = 0.0f;
+      if constexpr (kOneOrigin) {
+        tx = ox[0] - g.v0x;
+        ty = oy[0] - g.v0y;
+        tz = oz[0] - g.v0z;
+        qx = ty * g.e1z - tz * g.e1y;
+        qy = tz * g.e1x - tx * g.e1z;
+        qz = tx * g.e1y - ty * g.e1x;
+        t_num = g.e2x * qx + g.e2y * qy + g.e2z * qz;
+      }
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        const float px = dy[r] * g.e2z - dz[r] * g.e2y;
+        const float py = dz[r] * g.e2x - dx[r] * g.e2z;
+        const float pz = dx[r] * g.e2y - dy[r] * g.e2x;
+        const float det = g.e1x * px + g.e1y * py + g.e1z * pz;
+        if constexpr (!kOneOrigin) {
+          tx = ox[r] - g.v0x;
+          ty = oy[r] - g.v0y;
+          tz = oz[r] - g.v0z;
+        }
+        const float u_num = tx * px + ty * py + tz * pz;
+        if constexpr (!kOneOrigin) {
+          qx = ty * g.e1z - tz * g.e1y;
+          qy = tz * g.e1x - tx * g.e1z;
+          qz = tx * g.e1y - ty * g.e1x;
+          t_num = g.e2x * qx + g.e2y * qy + g.e2z * qz;
+        }
+        const float inv = 1.0f / det;
+        const float u = u_num * inv;
+        const float v = (dx[r] * qx + dy[r] * qy + dz[r] * qz) * inv;
+        const float t = t_num * inv;
+        const bool valid = fabsf(det) >= eps && u >= 0.0f && u <= 1.0f &&
+                           v >= 0.0f && u + v <= 1.0f && t >= 0.0f;
+        if (valid && (t < bt[r] || (t == bt[r] && id < bi[r]))) {
+          bt[r] = t;
+          bi[r] = id;
+        }
+      }
+    }
+    if (P.use_list && k + 1 < P.cnt) {
+      const unsigned nb16 = P.bound16(k + 1);
+      int ok = 1;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        ok &= !live[r] || (__float_as_uint(bt[r]) >> 16) < nb16;
+      if (__syncthreads_and(ok)) break;
+    }
+  }
+}
 
 constexpr int kBoundsW = 15;
 // bounds slots reduced by max (the rest by min): p max xyz, any-hit,
@@ -71,60 +159,17 @@ __global__ void nearest_shaded_kernel(
 
   float dx[RPT], dy[RPT], dz[RPT], bt[RPT];
   int bi[RPT];
+  bool live[RPT];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     srt::ray_dir(s_cam, P.px0, P.py0, tile_px, tid + r * nthr, dx[r], dy[r],
                  dz[r]);
     bt[r] = INFINITY;
     bi[r] = -1;
+    live[r] = true;
   }
-
-  for (int k = 0; k < P.cnt; ++k) {
-    const int w = P.window(k);
-    __syncthreads();                             // s_tri free to overwrite
-    if (w < 0 || w >= n_windows) continue;       // block-uniform
-    srt::stage(s_tri, tri + (size_t)w * wt * srt::kTriW, wt * srt::kTriW);
-    __syncthreads();
-    const int id0 = w * wt;
-    for (int j = 0; j < wt; ++j) {
-      const float* g = s_tri + j * srt::kTriW;
-      const float v0x = g[0], v0y = g[1], v0z = g[2];
-      const float e1x = g[3], e1y = g[4], e1z = g[5];
-      const float e2x = g[6], e2y = g[7], e2z = g[8];
-      // ray-independent part: tvec = o - v0, qvec = tvec x e1, t_num
-      const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
-      const float qx = ty * e1z - tz * e1y;
-      const float qy = tz * e1x - tx * e1z;
-      const float qz = tx * e1y - ty * e1x;
-      const float t_num = e2x * qx + e2y * qy + e2z * qz;
-      const int id = id0 + j;
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float px = dy[r] * e2z - dz[r] * e2y;
-        const float py = dz[r] * e2x - dx[r] * e2z;
-        const float pz = dx[r] * e2y - dy[r] * e2x;
-        const float det = e1x * px + e1y * py + e1z * pz;
-        const float inv = 1.0f / det;
-        const float u = (tx * px + ty * py + tz * pz) * inv;
-        const float v = (dx[r] * qx + dy[r] * qy + dz[r] * qz) * inv;
-        const float t = t_num * inv;
-        const bool valid = fabsf(det) >= eps && u >= 0.0f && u <= 1.0f &&
-                           v >= 0.0f && u + v <= 1.0f && t >= 0.0f;
-        if (valid && (t < bt[r] || (t == bt[r] && id < bi[r]))) {
-          bt[r] = t;
-          bi[r] = id;
-        }
-      }
-    }
-    if (P.use_list && k + 1 < P.cnt) {
-      const unsigned nb16 = P.bound16(k + 1);
-      int ok = 1;
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-        ok &= (__float_as_uint(bt[r]) >> 16) < nb16;
-      if (__syncthreads_and(ok)) break;
-    }
-  }
+  nearest_walk<RPT, true>(P, tri, n_windows, wt, eps, &ox, &oy, &oz, dx, dy,
+                          dz, live, bt, bi, s_tri);
 
   if constexpr (!kShade) {
 #pragma unroll
@@ -240,6 +285,50 @@ __global__ void nearest_shaded_kernel(
   }
 }
 
+// rays o, d [n, m, 3] f32 -> t [n, m] f32 (inf on a miss), idx [n, m] i32
+// (-1 on a miss).  m need not fill the block: lanes past m walk the tile's
+// first ray, never hold back the break and are not written.
+template <int RPT>
+__global__ void nearest_rays_kernel(
+    const int* __restrict__ plan, int plan_w, const float* __restrict__ tri,
+    int n_windows, const float* __restrict__ o_in,
+    const float* __restrict__ d_in, int m, int wt, float eps,
+    float* __restrict__ t_out, int* __restrict__ idx_out) {
+  extern __shared__ float s_tri[];               // wt * kTriW floats
+  const int nthr = blockDim.x;
+  const int tid = threadIdx.x;
+  const int tile = blockIdx.x;
+  const srt::TilePlan P(plan, plan_w, tile);
+
+  float ox[RPT], oy[RPT], oz[RPT], dx[RPT], dy[RPT], dz[RPT], bt[RPT];
+  int bi[RPT];
+  bool live[RPT];
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int lane = tid + r * nthr;
+    live[r] = lane < m;
+    const size_t o = (size_t)tile * m + (live[r] ? lane : 0);
+    ox[r] = o_in[3 * o + 0];
+    oy[r] = o_in[3 * o + 1];
+    oz[r] = o_in[3 * o + 2];
+    dx[r] = d_in[3 * o + 0];
+    dy[r] = d_in[3 * o + 1];
+    dz[r] = d_in[3 * o + 2];
+    bt[r] = INFINITY;
+    bi[r] = -1;
+  }
+  nearest_walk<RPT, false>(P, tri, n_windows, wt, eps, ox, oy, oz, dx, dy,
+                           dz, live, bt, bi, s_tri);
+#pragma unroll
+  for (int r = 0; r < RPT; ++r) {
+    const int lane = tid + r * nthr;
+    if (!live[r]) continue;
+    const size_t o = (size_t)tile * m + lane;
+    t_out[o] = bt[r];
+    idx_out[o] = isfinite(bt[r]) ? bi[r] : -1;
+  }
+}
+
 }  // namespace
 
 #define SRT_NEAREST_CASE(R, SHADE)                                             \
@@ -304,4 +393,34 @@ extern "C" int srt_nearest_attrs(
                                nullptr, 0, cam, tile_px, wt, eps, 0, 0, t,
                                idx, nullptr, nullptr, nullptr, attr_out,
                                threads, stream);
+}
+
+#define SRT_NEAREST_RAYS_CASE(R)                                               \
+  case R:                                                                      \
+    nearest_rays_kernel<R><<<n_tiles, threads, smem, s>>>(                     \
+        static_cast<const int*>(plan), plan_w,                                 \
+        static_cast<const float*>(tri), n_windows,                             \
+        static_cast<const float*>(o_in), static_cast<const float*>(d_in), m,   \
+        wt, eps, static_cast<float*>(t), static_cast<int*>(idx));              \
+    break;
+
+extern "C" int srt_nearest_rays(
+    const void* plan, int plan_w, int n_tiles, const void* tri,
+    int n_windows, const void* o_in, const void* d_in, int m, int wt,
+    float eps, void* t, void* idx, int threads, void* stream) {
+  if (n_tiles == 0) return 0;
+  if (threads <= 0 || threads > 1024 || threads % 32 || m <= 0 || wt <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = static_cast<size_t>(wt) * srt::kTriW * sizeof(float);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (srt::rays_per_thread(m, threads)) {
+    SRT_NEAREST_RAYS_CASE(1)
+    SRT_NEAREST_RAYS_CASE(2)
+    SRT_NEAREST_RAYS_CASE(4)
+    SRT_NEAREST_RAYS_CASE(8)
+    SRT_NEAREST_RAYS_CASE(16)
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

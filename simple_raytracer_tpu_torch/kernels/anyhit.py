@@ -13,7 +13,10 @@ on the CPU and the kernel for tensors on a CUDA device; it adds one to its
 own ``launches`` at each kernel launch.
 
 ``anyhit_from_t`` and ``anyhit`` are the counterparts of the JAX
-``tiled_t.anyhit_from_t`` and ``tiled_t.anyhit``.
+``tiled_t.anyhit_from_t`` and ``tiled_t.anyhit``.  Kernel 7
+(kernels/paged.py) is ``anyhit_rays_kernel`` over page windows: it
+launches through :func:`launch_anyhit_rays` and walks plainly through
+:func:`tiled_anyhit_plain`.
 """
 
 from __future__ import annotations
@@ -84,13 +87,16 @@ def tiled_anyhit_from_t(plan, tri, block_obj, t, obj, cam, tile_px: int,
 tiled_anyhit_from_t.launches = 0
 
 
-def _walk_plain(plan, tri, block_obj, p, s, self_obj, found,
+def walk_plain(plan, tri, block_obj, p, s, self_obj, found,
                 window_tris: int, block_size: int, eps: float,
                 no_max_t: bool):
     """The any-hit walk of both plain versions: rays (p, s) (3-tuples of
     [n, M]) and self_obj [n, M]; ``found`` [n, M] bool is updated in place
     and returned.  Walks every tile's plan in step, a few tiles at a time,
-    until each tile's rays have all found an occluder."""
+    until each tile's rays have all found an occluder.  Records the work a
+    walk needs on these rays: ``walk_plain.lane_pairs`` [n, M] i64, each
+    ray's tests until it found an occluder, and ``walk_plain.staged``
+    [windows] bool, the windows the walk read."""
     n, m = found.shape
     dev = plan.device
     wt, wb = window_tris, window_tris // block_size
@@ -100,11 +106,15 @@ def _walk_plain(plan, tri, block_obj, p, s, self_obj, found,
     mv = plan.shape[1] - pl.PLAN_AUX
     jt = torch.arange(wt, dtype=torch.int32, device=dev)
     done = found.all(dim=1)
+    lane_pairs = torch.zeros((n, m), dtype=torch.int64, device=dev)
+    staged = torch.zeros(tri.shape[0] // wt, dtype=torch.bool, device=dev)
     for k in range(int(cnt.max()) if n else 0):
         live = torch.nonzero((k < cnt) & ~done).flatten()
         for ids in live.split(chunk):
             e = plan[ids, pl.PLAN_AUX + min(k, mv - 1)]
             w = torch.where(use_list[ids], e & 0xFFFF, plan[ids, 0] + k)
+            staged[w.long()] = True
+            lane_pairs[ids] += ~found[ids] * wt
             g = tri[(w[:, None] * wt + jt[None, :]).long()]     # [c, wt, 9]
             gv = [g[:, None, :, i] for i in range(9)]           # [c, 1, wt]
             bo = block_obj[(w[:, None] * wb + jt[None, :] // block_size)
@@ -116,6 +126,7 @@ def _walk_plain(plan, tri, block_obj, p, s, self_obj, found,
             occ = occ & (bo[:, None, :] != self_obj[ids][..., None])
             found[ids] = found[ids] | occ.any(dim=-1)
         done[live] = found[live].all(dim=1)
+    walk_plain.lane_pairs, walk_plain.staged = lane_pairs, staged
     return found
 
 
@@ -130,7 +141,7 @@ def tiled_anyhit_from_t_plain(plan, tri, block_obj, t, obj, cam,
     ts = torch.where(hit, t, 0.0)
     p = (cam[9] + ts * dx, cam[10] + ts * dy, cam[11] + ts * dz)
     s = (cam[12] - p[0], cam[13] - p[1], cam[14] - p[2])
-    return _walk_plain(plan, tri, block_obj, p, s, obj, ~hit, window_tris,
+    return walk_plain(plan, tri, block_obj, p, s, obj, ~hit, window_tris,
                        block_size, eps, no_max_t)
 
 
@@ -183,23 +194,14 @@ def _check_rays(plan, tri, block_obj, o, d, self_obj):
                          f"self_obj {tuple(self_obj.shape)} for {n} tiles")
 
 
-def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
-                 block_size: int, eps: float, no_max_t: bool = True,
-                 threads: int = 512):
-    """Occlusion query over explicit rays, one plan row per tile.
-
-    plan [n, W] i32 (kernels/plan.py layout, windows of ``window_tris``
-    triangles, e.g. from plan.cull_occl); tri [Tp, 9] and block_obj [NB]
-    i32 (accel/prepared.py); o, d [n, M, 3] f32 the rays o + t*d of each
-    tile (any M up to 16 * threads); self_obj [n, M] i32 each ray's own
-    object.  Returns found [n, M] bool: the ray meets a triangle of another
-    object at t >= 0 (and t <= 1 unless ``no_max_t``)."""
-    if plan.device.type == "cpu":
-        return tiled_anyhit_plain(plan, tri, block_obj, o, d, self_obj,
-                                  window_tris, block_size, eps, no_max_t,
-                                  threads)
-    if plan.device.type != "cuda":
-        raise ValueError(f"no any-hit kernel for device {plan.device}")
+def launch_anyhit_rays(plan, tri, block_obj, o, d, self_obj,
+                       window_tris: int, block_size: int, eps: float,
+                       no_max_t: bool, threads: int,
+                       what: str = "anyhit_rays_kernel") -> torch.Tensor:
+    """Check the operands and launch ``anyhit_rays_kernel`` on CUDA
+    tensors (arguments as :func:`tiled_anyhit`); returns found [n, M].
+    The walk of K2′ (windows of window_blocks_ah blocks) and of K7 (pages,
+    kernels/paged.py); each caller counts its own launches."""
     _check_rays(plan, tri, block_obj, o, d, self_obj)
     n, m = self_obj.shape
     threads = min(threads, -(-m // 32) * 32)
@@ -217,7 +219,30 @@ def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
             block_obj.data_ptr(), tri.shape[0] // window_tris, o.data_ptr(),
             d.data_ptr(), self_obj.data_ptr(), m, window_tris, block_size,
             eps, int(no_max_t), found.data_ptr(), threads, stream)
-    build.check(rc, "anyhit_rays_kernel")
+    build.check(rc, what)
+    return found
+
+
+def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
+                 block_size: int, eps: float, no_max_t: bool = True,
+                 threads: int = 512):
+    """Occlusion query over explicit rays, one plan row per tile.
+
+    plan [n, W] i32 (kernels/plan.py layout, windows of ``window_tris``
+    triangles, e.g. from plan.cull_occl); tri [Tp, 9] and block_obj [NB]
+    i32 (accel/prepared.py); o, d [n, M, 3] f32 the rays o + t*d of each
+    tile (any M up to 16 * threads); self_obj [n, M] i32 each ray's own
+    object.  Returns found [n, M] bool: the ray meets a triangle of another
+    object at t >= 0 (and t <= 1 unless ``no_max_t``)."""
+    if plan.device.type == "cpu":
+        return tiled_anyhit_plain(plan, tri, block_obj, o, d, self_obj,
+                                  window_tris, block_size, eps, no_max_t,
+                                  threads)
+    if plan.device.type != "cuda":
+        raise ValueError(f"no any-hit kernel for device {plan.device}")
+    found = launch_anyhit_rays(plan, tri, block_obj, o, d, self_obj,
+                               window_tris, block_size, eps, no_max_t,
+                               threads)
     tiled_anyhit.launches += 1
     return found
 
@@ -233,19 +258,20 @@ def tiled_anyhit_plain(plan, tri, block_obj, o, d, self_obj,
     p = (o[..., 0], o[..., 1], o[..., 2])
     s = (d[..., 0], d[..., 1], d[..., 2])
     found = torch.zeros(self_obj.shape, dtype=torch.bool, device=plan.device)
-    return _walk_plain(plan, tri, block_obj, p, s, self_obj, found,
+    return walk_plain(plan, tri, block_obj, p, s, self_obj, found,
                        window_tris, block_size, eps, no_max_t)
 
 
 def anyhit(prep, cfg, o, d, self_obj2d, plan, tile: int,
-           kernel=tiled_anyhit):
+           kernel=tiled_anyhit, window_tris: int = None):
     """Occlusion of explicit rays (JAX kernels/tiled_t.py::anyhit): o, d
     [R, 3] (padded here to whole tiles by repeating the last ray),
-    self_obj2d [n, tile] i32, ``plan`` from plan.cull_occl with
-    cfg.kernel.window_blocks_ah windows.  Returns found [n, tile] bool."""
+    self_obj2d [n, tile] i32, ``plan`` from plan.cull_occl with windows of
+    ``window_tris`` triangles (None: cfg.kernel.window_blocks_ah blocks).
+    Returns found [n, tile] bool."""
     o, d, _ = pl.pad_rays(o, d, tile)
     n = o.shape[0] // tile
-    wt = cfg.kernel.window_blocks_ah * prep.block_size
+    wt = window_tris or cfg.kernel.window_blocks_ah * prep.block_size
     return kernel(plan, prep.tri, prep.block_obj,
                   o.reshape(n, tile, 3).contiguous(),
                   d.reshape(n, tile, 3).contiguous(),

@@ -51,6 +51,13 @@ SIGNATURES = {
             _P, _I, _I, _F,      # cam, tile_px, window_tris, eps
             _P, _P, _P,          # t, idx, attr_out
             _I, _P),             # threads, stream
+        "srt_nearest_rays": (
+            _P, _I, _I,          # plan, plan_w, n_tiles
+            _P, _I,              # tri, n_windows
+            _P, _P, _I,          # o, d, rays per tile
+            _I, _F,              # window_tris, eps
+            _P, _P,              # t, idx
+            _I, _P),             # threads, stream
     },
     "anyhit.cu": {
         "srt_anyhit_from_t": (

@@ -13,7 +13,9 @@ the CPU and the kernel for tensors on a CUDA device; it adds one to its own
 
 ``hits_shaded`` and ``hits_attrs`` are the counterparts of the JAX
 ``tiled_t.hits_shaded`` and ``tiled_t.hits_attrs``: they build the primary
-plan and the per-frame constants and run the kernel.
+plan and the per-frame constants and run the kernel.  :func:`walk_plain`,
+the plain walk, also serves kernel 6 (kernels/paged.py), as the device walk
+``nearest_walk`` does.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from . import build, plan as pl
 
 BOUNDS_W = 15
 INF = float("inf")
-PLAIN_CHUNK = 64        # tiles per step of the plain walk (bounds its memory)
+PLAIN_ELEMS = 1 << 24   # ray-triangle pairs per step of the plain walk
 
 
 def material_table(scene, light_color) -> torch.Tensor:
@@ -178,41 +180,52 @@ def _masked(x, m, fill, reduce):
     return reduce(torch.where(m, x, fill), dim=1)
 
 
-def _walk_plain(plan, tri, cam, tile_px: int, window_tris: int, eps: float):
-    """The nearest walk of both plain versions.  Walks every tile's plan in
-    step: at step k each live tile tests the k-th window against all its
-    rays (PLAIN_CHUNK tiles at a time), keeps the least t with the lowest id
-    on ties, and stops once every ray's best t is below the next entry's
-    bound.  Returns (t, idx, dx, dy, dz), each [n, tile]; misses t = inf,
-    idx = -1."""
-    n, tile = plan.shape[0], tile_px * tile_px
+def walk_plain(plan, tri, o, d, window_tris: int, eps: float):
+    """The nearest walk of every plain version (K1's modes here, K6 in
+    kernels/paged.py).  Rays: ``d`` a 3-tuple of [n, M] tensors, ``o`` a
+    3-tuple of [n, M] tensors or of scalars (one origin for every ray).
+    Walks every tile's plan in step: at step k each live tile tests the
+    k-th window against all its rays (a few tiles at a time), keeps the
+    least t with the lowest id on ties, and stops once every ray's best t
+    is below the next entry's bound.  Returns (t, idx), each [n, M]; misses
+    t = inf, idx = -1.  Records the work a walk needs on these rays:
+    ``walk_plain.lane_pairs`` [n, M] i64, each ray's tests of the windows
+    whose entry bound its best t had not yet passed (all windows of a range
+    row), and ``walk_plain.staged`` [windows] bool, the windows the walk
+    read."""
+    n, m = d[0].shape
     dev = plan.device
     wt = window_tris
-    dx, dy, dz = tile_ray_dirs(cam, plan[:, 4], plan[:, 5], tile_px)
-    o = (cam[9], cam[10], cam[11])
-    bt = torch.full((n, tile), INF, device=dev)
-    bi = torch.full((n, tile), -1, dtype=torch.int32, device=dev)
+    chunk = max(1, PLAIN_ELEMS // max(1, m * wt))
+    bt = torch.full((n, m), INF, device=dev)
+    bi = torch.full((n, m), -1, dtype=torch.int32, device=dev)
     use_list = plan[:, 3] == 1
     cnt = torch.where(use_list, plan[:, 2], plan[:, 1])
     mv = plan.shape[1] - pl.PLAN_AUX
     done = torch.zeros(n, dtype=torch.bool, device=dev)
     jt = torch.arange(wt, dtype=torch.int32, device=dev)
+    lane_pairs = torch.zeros((n, m), dtype=torch.int64, device=dev)
+    staged = torch.zeros(tri.shape[0] // wt, dtype=torch.bool, device=dev)
     for k in range(int(cnt.max()) if n else 0):
         live = torch.nonzero((k < cnt) & ~done).flatten()
-        for ids in live.split(PLAIN_CHUNK):
+        for ids in live.split(chunk):
             e = plan[ids, pl.PLAN_AUX + min(k, mv - 1)]
             w = torch.where(use_list[ids], e & 0xFFFF, plan[ids, 0] + k)
+            staged[w.long()] = True
             tid = w[:, None] * wt + jt[None, :]                 # [c, wt]
             g = tri[tid.long()]                                 # [c, wt, 9]
             gv = [g[:, None, :, i] for i in range(9)]           # [c, 1, wt]
-            num = mt_numerators(
-                o, (dx[ids][..., None], dy[ids][..., None],
-                    dz[ids][..., None]), gv[0:3], gv[3:6], gv[6:9])
-            t = mt_distance(*num, eps)                          # [c, tile, wt]
+            oc = tuple(x if x.dim() == 0 else x[ids][..., None] for x in o)
+            num = mt_numerators(oc, tuple(x[ids][..., None] for x in d),
+                                gv[0:3], gv[3:6], gv[6:9])
+            t = mt_distance(*num, eps)                          # [c, M, wt]
             tk, arg = t.min(dim=-1)         # first (lowest-id) of equal t
-            ik = torch.gather(tid[:, None, :].expand(-1, tile, -1), 2,
+            ik = torch.gather(tid[:, None, :].expand(-1, m, -1), 2,
                               arg[..., None])[..., 0]
             b_t, b_i = bt[ids], bi[ids]
+            need = ~use_list[ids, None] | (
+                ((b_t.view(torch.int32) >> 16) & 0xFFFF) >= (e >> 16)[:, None])
+            lane_pairs[ids] += need * wt
             better = (tk < b_t) | ((tk == b_t) & (ik < b_i))
             bt[ids] = torch.where(better, tk, b_t)
             bi[ids] = torch.where(better, ik, b_i)
@@ -220,7 +233,17 @@ def _walk_plain(plan, tri, cam, tile_px: int, window_tris: int, eps: float):
         nb16 = plan[live, pl.PLAN_AUX + min(k + 1, mv - 1)] >> 16
         worst = ((bt[live].view(torch.int32) >> 16) & 0xFFFF).amax(dim=1)
         done[live] = use_list[live] & (k + 1 < cnt[live]) & (worst < nb16)
-    idx = torch.where(torch.isfinite(bt), bi, -1)
+    walk_plain.lane_pairs, walk_plain.staged = lane_pairs, staged
+    return bt, torch.where(torch.isfinite(bt), bi, -1)
+
+
+def _walk_plain(plan, tri, cam, tile_px: int, window_tris: int, eps: float):
+    """:func:`walk_plain` over the primary rays of K1's tiles, rebuilt from
+    the plan's pixel origins and ``cam``.  Returns (t, idx, dx, dy, dz),
+    each [n, tile]."""
+    dx, dy, dz = tile_ray_dirs(cam, plan[:, 4], plan[:, 5], tile_px)
+    bt, idx = walk_plain(plan, tri, (cam[9], cam[10], cam[11]),
+                         (dx, dy, dz), window_tris, eps)
     return bt, idx, dx, dy, dz
 
 

@@ -1,0 +1,165 @@
+"""Kernels 6 and 7: the paged walks, and the steps of the paged frame.
+
+``tiled_nearest`` wraps the CUDA kernel ``nearest_rays_kernel``
+(csrc/nearest.cu) and replaces the JAX package's Pallas kernel
+``kernels/tiled.py::_nearest_kernel`` (K6, reached through
+``tiled_nearest``): the nearest hit (t, id) of explicit rays over a plan of
+pages of ``page_tris`` triangles.  ``tiled_anyhit`` launches
+``anyhit_rays_kernel`` (csrc/anyhit.cu, the walk of K2′) at page windows
+and replaces ``kernels/tiled.py::_anyhit_kernel`` (K7, reached through
+``tiled_anyhit``): occlusion of explicit rays, skipping each ray's own
+object.  The JAX kernels take their MT numerators from one Gram
+contraction per page and the object ids from Gram row 10; these read the
+plain ``tri`` table and ``block_obj`` (accel/prepared.py).
+``tiled_nearest_plain`` and ``tiled_anyhit_plain`` are their plain PyTorch
+versions: same arguments, same results, the kernels' expressions in the
+same order.  Each wrapper runs its plain version for tensors on the CPU and
+the kernel for tensors on a CUDA device; it adds one to its own
+``launches`` at each kernel launch.
+
+``hits``, ``cull``, ``cull_occl`` and ``anyhit`` are the counterparts of
+the JAX ``kernels/tiled.py`` functions of the same names (lines
+1216-1258); they take (prep, cfg, ...) like kernels/anyhit.py::anyhit.
+Page plans are ``plan_width(num_pages)`` wide and are not widened to fit
+``maxv`` (plan.cull with ``widen=False``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.intersect import xyz
+from . import anyhit as _anyhit
+from . import build, nearest as _nearest, plan as pl
+
+
+def page_blocks(prep) -> int:
+    """Cull blocks per page: a page plan's window width in blocks."""
+    return prep.page_tris // prep.block_size
+
+
+def tiled_nearest(plan, tri, o, d, window_tris: int, eps: float,
+                  threads: int = 512):
+    """Nearest hit of explicit rays over every tile of ``plan``.
+
+    plan [n, W] i32 (kernels/plan.py layout, windows of ``window_tris``
+    triangles: pages); tri [Tp, 9] (accel/prepared.py); o, d [n, M, 3] f32
+    the rays of each tile (any M up to 16 * threads).  Returns t [n, M] f32
+    (inf on a miss) and idx [n, M] i32 (-1 on a miss); equal t goes to the
+    lowest triangle id."""
+    if plan.device.type == "cpu":
+        return tiled_nearest_plain(plan, tri, o, d, window_tris, eps, threads)
+    if plan.device.type != "cuda":
+        raise ValueError(f"no nearest kernel for device {plan.device}")
+    build.check_tensors(plan.device, plan=(plan, torch.int32),
+                        tri=(tri, torch.float32), o=(o, torch.float32),
+                        d=(d, torch.float32))
+    n = plan.shape[0]
+    if plan.dim() != 2 or plan.shape[1] <= pl.PLAN_AUX:
+        raise ValueError(f"plan shape {tuple(plan.shape)}")
+    if tri.dim() != 2 or tri.shape[1] != 9 or tri.shape[0] % window_tris:
+        raise ValueError(f"tri shape {tuple(tri.shape)} for windows of "
+                         f"{window_tris}")
+    if o.dim() != 3 or o.shape[0] != n or o.shape[2] != 3 \
+            or d.shape != o.shape:
+        raise ValueError(f"o {tuple(o.shape)} / d {tuple(d.shape)} for {n} "
+                         f"tiles")
+    m = o.shape[1]
+    threads = min(threads, -(-m // 32) * 32)
+    if threads % 32 or not 0 < m <= 16 * threads:
+        raise ValueError(f"{m} rays per tile do not split over {threads} "
+                         f"threads")
+    t = torch.empty((n, m), dtype=torch.float32, device=plan.device)
+    idx = torch.empty((n, m), dtype=torch.int32, device=plan.device)
+    with torch.cuda.device(plan.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = build.library().srt_nearest_rays(
+            plan.data_ptr(), plan.shape[1], n, tri.data_ptr(),
+            tri.shape[0] // window_tris, o.data_ptr(), d.data_ptr(), m,
+            window_tris, eps, t.data_ptr(), idx.data_ptr(), threads, stream)
+    build.check(rc, "nearest_rays_kernel")
+    tiled_nearest.launches += 1
+    return t, idx
+
+
+tiled_nearest.launches = 0
+
+
+def tiled_nearest_plain(plan, tri, o, d, window_tris: int, eps: float,
+                        threads: int = 512):
+    """Plain PyTorch version of :func:`tiled_nearest` (same arguments and
+    results; ``threads`` is ignored): kernels/nearest.py::walk_plain."""
+    return _nearest.walk_plain(plan, tri, xyz(o), xyz(d), window_tris, eps)
+
+
+def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
+                 block_size: int, eps: float, no_max_t: bool = True,
+                 threads: int = 512):
+    """Occlusion of explicit rays over every tile of a page plan (K7):
+    arguments and result as kernels/anyhit.py::tiled_anyhit, with
+    ``window_tris`` the page size.  Runs the same device walk as K2′ and
+    counts its launches apart."""
+    if plan.device.type == "cpu":
+        return tiled_anyhit_plain(plan, tri, block_obj, o, d, self_obj,
+                                  window_tris, block_size, eps, no_max_t,
+                                  threads)
+    if plan.device.type != "cuda":
+        raise ValueError(f"no any-hit kernel for device {plan.device}")
+    found = _anyhit.launch_anyhit_rays(
+        plan, tri, block_obj, o, d, self_obj, window_tris, block_size, eps,
+        no_max_t, threads, "anyhit_rays_kernel (page windows)")
+    tiled_anyhit.launches += 1
+    return found
+
+
+tiled_anyhit.launches = 0
+
+# K7's plain version is K2′'s: one walk over any window width
+tiled_anyhit_plain = _anyhit.tiled_anyhit_plain
+
+
+def cull(prep, cfg, o, d, tile: int, maxv: int, excl=None,
+         apex: bool = False) -> torch.Tensor:
+    """Page plan of rays o, d [R, 3] in tiles of ``tile`` (JAX
+    kernels/tiled.py::cull → _cull): the interval test from the rays'
+    per-tile bounds, refined by the projective test when every ray leaves
+    one origin (``apex``: primary rays).  ``excl`` [n] drops each tile's
+    own object."""
+    ab = pl.ray_tile_bounds(o, d, tile, apex="primary" if apex else None)
+    return pl.cull(prep, maxv, page_blocks(prep), ab, excl=excl, apex=apex,
+                   widen=False)
+
+
+def cull_occl(prep, cfg, o, d, tile: int, maxv: int, excl=None,
+              apex_rev: bool = False, hourglass=None) -> torch.Tensor:
+    """Occlusion page plan (JAX kernels/tiled.py::cull_occl): the hourglass
+    test on dense scenes unless ``apex_rev`` (``hourglass`` None: by
+    plan.hourglass_for), and the light-apex test when every ray ends at one
+    light (``apex_rev``, hard shadows)."""
+    return pl.cull_occl(prep, o, d, tile, maxv, page_blocks(prep), excl,
+                        apex_rev=apex_rev, hourglass=hourglass, widen=False)
+
+
+def anyhit(prep, cfg, o, d, self_obj2d, plan, tile: int,
+           kernel=tiled_anyhit):
+    """Occlusion of explicit rays o, d [R, 3] over a page plan (JAX
+    kernels/tiled.py::anyhit): kernels/anyhit.py::anyhit with page
+    windows.  Returns found [n, tile] bool."""
+    return _anyhit.anyhit(prep, cfg, o, d, self_obj2d, plan, tile,
+                          kernel=kernel, window_tris=prep.page_tris)
+
+
+def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = False,
+         kernel=tiled_nearest):
+    """Nearest hit of rays o, d [R, 3] in tiles of ``tile`` (JAX
+    kernels/tiled.py::hits → tiled_hits): the page plan (``apex`` for rays
+    that share one origin), then ``kernel`` (K6's wrapper by default) over
+    the rays padded to whole tiles by repeating the last one.  Returns
+    (t [R], idx [R]); misses t = inf, idx = -1."""
+    plan = cull(prep, cfg, o, d, tile, maxv, apex=apex)
+    o, d, R = pl.pad_rays(o, d, tile)
+    n = o.shape[0] // tile
+    t, idx = kernel(plan, prep.tri, o.reshape(n, tile, 3).contiguous(),
+                    d.reshape(n, tile, 3).contiguous(), prep.page_tris,
+                    cfg.mt_eps, cfg.kernel.threads)
+    return t.reshape(-1)[:R], idx.reshape(-1)[:R]

@@ -1,11 +1,12 @@
 """Cull planners of the tiled path, in plain PyTorch.
 
 For each ray tile a plan lists the aligned WINDOWS of cull blocks (a window
-= ``wb`` consecutive 32-triangle blocks) that any of the tile's rays can
-reach, ordered front to back, each with a 16-bit bound.  The bound is a
-conservative lower bound on the distance t of any hit in that window and in
-every later one, so the nearest-hit walk may stop once every ray's best t
-is below the next entry's bound.
+= ``wb`` consecutive 32-triangle blocks; the paged walks' windows are pages
+of ``page_tris`` triangles) that any of the tile's rays can reach, ordered
+front to back, each with a 16-bit bound.  The bound is a conservative lower
+bound on the distance t of any hit in that window and in every later one,
+so the nearest-hit walk may stop once every ray's best t is below the next
+entry's bound.
 
 Counterparts in the JAX package: ``kernels/tiled.py`` (cull_blocks_lists,
 _visibility, _visibility_hourglass, _px_frame, _px_block_corners,
@@ -28,6 +29,8 @@ rays from it.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -145,14 +148,21 @@ def pad_rays(o: torch.Tensor, d: torch.Tensor, multiple: int):
 
 
 def ray_tile_bounds(o: torch.Tensor, d: torch.Tensor, tile: int,
-                    hourglass: bool = False, apex_rev: bool = False):
+                    hourglass: bool = False, apex: Optional[str] = None):
     """Per-tile bounds of explicit rays o, d [R, 3] (padded to whole tiles):
     the interval bounds omin/omax/dmin/dmax [n, 3] of :func:`visibility`;
     with ``hourglass`` the endpoint box qmin/qmax (q = o + d) of
-    :func:`visibility_hourglass`; with ``apex_rev`` the projective data of
-    :func:`visibility_px_rev` for rays that all pass through one light:
-    frame ``px_frame(-d)``, apex o[0] + d[0], and each tile's ru/rv rect,
-    unbounded where a ray has |d.w| <= eps."""
+    :func:`visibility_hourglass`.  ``apex`` adds the projective data of
+    rays that share one point: ``"primary"`` for rays that all leave one
+    origin (:func:`visibility_px`; JAX kernels/tiled.py::_visibility_px
+    with no analytic bounds): frame ``px_frame(d)``, apex o[0], each tile's
+    ru/rv rect, ``tile_bad`` where a ray has d.w <= eps (one-sided: such
+    rays leave the cone) and ``dw_hi``; ``"light"`` for rays that all pass
+    through one light (:func:`visibility_px_rev`): frame ``px_frame(-d)``,
+    apex o[0] + d[0], and each tile's ru/rv rect, unbounded where a ray has
+    |d.w| <= eps."""
+    if apex not in (None, "primary", "light"):
+        raise ValueError(f"apex {apex!r} is not None, 'primary' or 'light'")
     o, d, _ = pad_rays(o, d, tile)
     n = o.shape[0] // tile
     ot, dt = o.reshape(n, tile, 3), d.reshape(n, tile, 3)
@@ -161,19 +171,32 @@ def ray_tile_bounds(o: torch.Tensor, d: torch.Tensor, tile: int,
     if hourglass:
         qt = ot + dt
         ab.update(qmin=qt.amin(dim=1), qmax=qt.amax(dim=1))
-    if apex_rev:
+    if apex == "primary":
+        s, v, w = px_frame(d)
+        dw = d @ w
+        bad = dw <= EPS
+        dws = dw.clamp_min(EPS)
+        ab.update(apex=o[0])
+    elif apex == "light":
         s, v, w = px_frame(-d)
         dw = d @ w
         bad = dw.abs() <= EPS
         dws = torch.where(bad, EPS, dw)
-        ru = ((d @ s) / dws).reshape(n, tile)
-        rv = ((d @ v) / dws).reshape(n, tile)
-        bad = bad.reshape(n, tile)
-        ab.update(s=s, v=v, w=w, apex=o[0] + d[0],
-                  ru_lo=torch.where(bad, -BIG, ru).amin(dim=1),
-                  ru_hi=torch.where(bad, BIG, ru).amax(dim=1),
-                  rv_lo=torch.where(bad, -BIG, rv).amin(dim=1),
-                  rv_hi=torch.where(bad, BIG, rv).amax(dim=1))
+        ab.update(apex=o[0] + d[0])
+    else:
+        return ab
+    ru = ((d @ s) / dws).reshape(n, tile)
+    rv = ((d @ v) / dws).reshape(n, tile)
+    bad = bad.reshape(n, tile)
+    ab.update(s=s, v=v, w=w,
+              ru_lo=torch.where(bad, -BIG, ru).amin(dim=1),
+              ru_hi=torch.where(bad, BIG, ru).amax(dim=1),
+              rv_lo=torch.where(bad, -BIG, rv).amin(dim=1),
+              rv_hi=torch.where(bad, BIG, rv).amax(dim=1))
+    if apex == "primary":
+        ab.update(tile_bad=bad.any(dim=1),
+                  dw_hi=torch.where(bad, 0.0, dw.reshape(n, tile))
+                  .amax(dim=1))
     return ab
 
 
@@ -415,8 +438,6 @@ def cull_lists(visible_b: torch.Tensor, tlo_b: torch.Tensor, wb: int,
     dev = visible_b.device
     visible = visible_b.reshape(n, NP, wb).any(dim=-1)
     tlo = torch.where(visible_b, tlo_b, INF).reshape(n, NP, wb).amin(dim=-1)
-    if NP > 65536:
-        raise ValueError(f"{NP} windows exceed the 16-bit plan entry id")
     idx = torch.arange(NP, dtype=torch.int32, device=dev)
     first = torch.where(visible, idx, NP).amin(dim=-1)
     last = torch.where(visible, idx, -1).amax(dim=-1)
@@ -452,20 +473,27 @@ def cull_lists(visible_b: torch.Tensor, tlo_b: torch.Tensor, wb: int,
 
 
 def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
-         apex_rev: bool = False, hourglass: bool = False) -> torch.Tensor:
+         apex_rev: bool = False, hourglass: bool = False,
+         widen: bool = True) -> torch.Tensor:
     """Plan of a tile set described by bounds ``ab``: the interval test (or,
     with ``hourglass``, :func:`visibility_hourglass`), refined by the
     projective test of primary rays (``apex``) or of hard-shadow rays
-    (``apex_rev``).  ``excl`` [n] drops each tile's own object (see
-    :func:`visibility`).  The plan is widened to hold ``maxv`` entries."""
+    (``apex_rev``), over windows of ``wb`` blocks.  ``excl`` [n] drops each
+    tile's own object (see :func:`visibility`).  The plan is
+    ``plan_width(windows)`` wide; with ``widen`` (the sublane planner, JAX
+    kernels/tiled_t.py) it is widened to hold ``maxv`` entries, without
+    (the page planner, JAX kernels/tiled.py::_cull) ``maxv`` is clamped to
+    the width instead."""
     NB = prep.num_blocks
     if NB % wb:
         raise ValueError(f"{NB} blocks do not split into windows of {wb}")
-    if maxv <= 0:
+    if maxv <= 0 or NB // wb > 65536:
         raise NotImplementedError(
-            "range-only plans (cull_maxv <= 0) are not ported yet "
-            "(ROADMAP.md, Open items §1 item 7f)")
-    pw = max(plan_width(NB // wb), -(-(PLAN_AUX + maxv) // 128) * 128)
+            "range-only plans (cull_maxv <= 0, or more than 65,536 windows) "
+            "are not ported yet (ROADMAP.md, Open items §1 item 7f)")
+    pw = plan_width(NB // wb)
+    if widen:
+        pw = max(pw, -(-(PLAN_AUX + maxv) // 128) * 128)
     bobj = prep.block_obj if excl is not None else None
     test = visibility_hourglass if hourglass else visibility
     visible, tlo = test(ab, prep.block_min, prep.block_max, bobj, excl)
@@ -478,15 +506,17 @@ def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
 
 
 def cull_occl(prep, o, d, tile: int, maxv: int, wb: int, excl=None,
-              apex_rev: bool = False, hourglass=None) -> torch.Tensor:
+              apex_rev: bool = False, hourglass=None,
+              widen: bool = True) -> torch.Tensor:
     """Occlusion plan of explicit shadow rays o, d [R, 3] in tiles of
-    ``tile`` (JAX kernels/tiled_t.py::cull_occl): windows of ``wb`` blocks
-    (KernelConfig.window_blocks_ah); ``apex_rev`` when every ray ends at
-    one shared light (hard shadows: the light-apex test); the hourglass
-    test on dense scenes otherwise (``hourglass`` None: by
-    :func:`hourglass_for`)."""
+    ``tile`` (JAX kernels/tiled_t.py::cull_occl, and with ``widen`` False
+    over pages, kernels/tiled.py::cull_occl): windows of ``wb`` blocks;
+    ``apex_rev`` when every ray ends at one shared light (hard shadows: the
+    light-apex test); the hourglass test on dense scenes otherwise
+    (``hourglass`` None: by :func:`hourglass_for`)."""
     if hourglass is None:
         hourglass = hourglass_for(prep) and not apex_rev
-    ab = ray_tile_bounds(o, d, tile, hourglass=hourglass, apex_rev=apex_rev)
+    ab = ray_tile_bounds(o, d, tile, hourglass=hourglass,
+                         apex="light" if apex_rev else None)
     return cull(prep, maxv, wb, ab, excl=excl, apex_rev=apex_rev,
-                hourglass=hourglass)
+                hourglass=hourglass, widen=widen)

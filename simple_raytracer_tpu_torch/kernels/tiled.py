@@ -1,27 +1,38 @@
 """The tiled frame and its shadow front end.
 
 Counterpart of the JAX package's ``kernels/tiled.py::render_flat_tiled``
-(lines 1496-1666) for flat, untextured scenes, in three branches:
+(lines 1496-1666), in four branches:
 
-* **fused** (one light sample, shadow tile = primary tile): primary plan ->
-  K1 with fused Phong and bounds rows -> shadow plan from the bounds -> K2
-  rebuilds the shadow rays from t -> shadow dim -> tone map;
+* **fused** (one light sample, shadow tile = primary tile; flat,
+  untextured): primary plan -> K1 with fused Phong and bounds rows ->
+  shadow plan from the bounds -> K2 rebuilds the shadow rays from t ->
+  shadow dim -> tone map;
 * **legacy** (one light sample, another shadow tile, e.g. the 256-ray tiles
   of scenes over 131,072 triangles): fused K1, then the hard shadow of
   explicit rays from the hit points, :func:`tiled_shadow_fn` -> K2′;
-* **soft** (num_samples > 1): K1 in its fetch mode -> records ->
-  ``integrator.shade`` with the folded S-sample shadow (K2′).
+* **soft** (num_samples > 1; flat, untextured): K1 in its fetch mode ->
+  records -> ``integrator.shade`` with the folded S-sample shadow (K2′);
+* **paged** (``RenderConfig.tiled_impl="paged"``; any scene kind, any S):
+  the page plan of the primary rays -> K6 -> :func:`tiled_shadow_fn` over
+  page plans (K7) -> ``integrator.shade`` with the record gather
+  (JAX ``tiled.py:1654-1666``).
 
-Every other branch raises NotImplementedError naming its ROADMAP.md item.
+The first three are the JAX "sublane" layout (``kernels/tiled_t.py``);
+every other case of it raises NotImplementedError naming its ROADMAP.md
+item.
 """
 
 from __future__ import annotations
+
+import functools
+import types
 
 import torch
 
 from ..config import RenderConfig
 from ..ops import shading as sh
 from ..render import integrator
+from . import paged
 from . import plan as pl
 from .anyhit import (anyhit, anyhit_from_t, tiled_anyhit,
                      tiled_anyhit_from_t, tiled_anyhit_from_t_plain,
@@ -34,11 +45,16 @@ from .nearest import (hits_attrs, hits_shaded, tiled_nearest_attrs,
 KERNELS = {"nearest_shaded": tiled_nearest_shaded,
            "nearest_attrs": tiled_nearest_attrs,
            "anyhit_from_t": tiled_anyhit_from_t,
-           "anyhit": tiled_anyhit}
+           "anyhit": tiled_anyhit,
+           "nearest_rays": paged.tiled_nearest,
+           "anyhit_pages": paged.tiled_anyhit}
 PLAIN = {"nearest_shaded": tiled_nearest_shaded_plain,
          "nearest_attrs": tiled_nearest_attrs_plain,
          "anyhit_from_t": tiled_anyhit_from_t_plain,
-         "anyhit": tiled_anyhit_plain}
+         "anyhit": tiled_anyhit_plain,
+         "nearest_rays": paged.tiled_nearest_plain,
+         "anyhit_pages": paged.tiled_anyhit_plain}
+IMPLS = (None, "sublane", "paged")
 
 
 def _todo(what: str, item: str):
@@ -47,14 +63,19 @@ def _todo(what: str, item: str):
 
 
 def check_supported(prep, cfg: RenderConfig, tile: int) -> None:
-    """Raise NotImplementedError unless the frame takes a ported branch."""
+    """Raise ValueError for an unknown ``tiled_impl`` and
+    NotImplementedError unless the frame takes a ported branch."""
+    if cfg.tiled_impl not in IMPLS:
+        raise ValueError(f"unknown tiled kernel impl {cfg.tiled_impl!r}")
     if cfg.camera.normalize_dirs:
         raise _todo("normalized primary directions", "7f")
     if cfg.hit_tile and cfg.hit_tile != tile:
         raise _todo("hit_tile sub-tiles", "7f")
+    if cfg.tiled_impl == "paged":
+        return                # the gather shades every scene kind
     textured, smooth = prep.scene.has_textures, cfg.shading.smooth_normals
     if cfg.light.num_samples > 1 and (textured or smooth):
-        raise _todo("the gather path (soft shadows on textured or "
+        raise _todo("the sublane gather path (soft shadows on textured or "
                     "smooth-normal scenes)", "7e")
     if textured:
         raise _todo("the textured fused path", "7c")
@@ -63,9 +84,11 @@ def check_supported(prep, cfg: RenderConfig, tile: int) -> None:
 
 
 def frame_branch(prep, cfg: RenderConfig, tile: int) -> str:
-    """"fused", "legacy" or "soft": the branch a frame of primary tiles of
-    ``tile`` rays takes (see the module docstring)."""
+    """"fused", "legacy", "soft" or "paged": the branch a frame of primary
+    tiles of ``tile`` rays takes (see the module docstring)."""
     check_supported(prep, cfg, tile)
+    if cfg.tiled_impl == "paged":
+        return "paged"
     if cfg.light.num_samples > 1:
         return "soft"
     ntris = prep.num_blocks * prep.block_size
@@ -73,6 +96,30 @@ def frame_branch(prep, cfg: RenderConfig, tile: int) -> str:
             and pl.shadow_tile(cfg, tile, ntris) != tile):
         return "legacy"
     return "fused"
+
+
+def _cull_occl_windows(prep, cfg, o, d, tile: int, maxv: int, excl=None,
+                       apex_rev: bool = False):
+    """The sublane occlusion plan: windows of window_blocks_ah blocks."""
+    return pl.cull_occl(prep, o, d, tile, maxv, cfg.kernel.window_blocks_ah,
+                        excl, apex_rev=apex_rev)
+
+
+def shadow_impl(name=None, kernels=KERNELS):
+    """The occlusion backend :func:`tiled_shadow_fn` reaches through
+    ``cull_occl(prep, cfg, o, d, tile, maxv, excl, apex_rev=)`` and
+    ``anyhit(prep, cfg, o, d, self_obj2d, plan, tile)`` (JAX ``impl``):
+    "paged" plans pages for K7, the sublane default plans windows for K2′;
+    ``kernels`` maps roles to wrappers (:data:`KERNELS` or
+    :data:`PLAIN`)."""
+    if name == "paged":
+        return types.SimpleNamespace(
+            cull_occl=paged.cull_occl,
+            anyhit=functools.partial(paged.anyhit,
+                                     kernel=kernels["anyhit_pages"]))
+    return types.SimpleNamespace(
+        cull_occl=_cull_occl_windows,
+        anyhit=functools.partial(anyhit, kernel=kernels["anyhit"]))
 
 
 def _first_hit_repair(p3, h2, s2):
@@ -103,7 +150,7 @@ def _pad_rows(x, pad: int, fill=None):
 
 
 def tiled_shadow_fn(prep, cfg: RenderConfig, tile: int, maxv: int,
-                    num_samples: int = 1, kernel=tiled_anyhit):
+                    num_samples: int = 1, impl=None):
     """Occlusion backend of the integrator's shadow contract (JAX
     kernels/tiled.py::tiled_shadow_fn): ``shadow(point [R, 3], light
     [R, 3], self_obj [R], hit=None) -> found [R] bool``.
@@ -112,13 +159,15 @@ def tiled_shadow_fn(prep, cfg: RenderConfig, tile: int, maxv: int,
     and their self ids are repaired from the tile's first hit, a tile whose
     rays all leave one object drops that object's blocks, the plan adds the
     light-apex test, and hitless tiles walk nothing.  S > 1: rays arrive
-    sample-major and go to :func:`_shadow_folded`."""
+    sample-major and go to :func:`_shadow_folded`.  ``impl``
+    (:func:`shadow_impl`; None: the sublane one) plans and walks."""
+    impl = impl or shadow_impl()
 
     def shadow(point, light, self_obj, hit=None):
         S = num_samples
         if S > 1 and point.shape[0] % S == 0:
             return _shadow_folded(prep, cfg, tile, maxv, S, point, light,
-                                  self_obj, hit, kernel)
+                                  self_obj, hit, impl)
         so = self_obj.to(torch.int32)
         if hit is not None:
             R0 = point.shape[0]
@@ -135,19 +184,18 @@ def tiled_shadow_fn(prep, cfg: RenderConfig, tile: int, maxv: int,
         R = point.shape[0]
         n = -(-R // tile)
         s2 = _pad_rows(so, n * tile - R).reshape(n, tile)
-        plan = pl.cull_occl(prep, point, d, tile, maxv,
-                            cfg.kernel.window_blocks_ah, _pure_excl(s2),
-                            apex_rev=True)
+        plan = impl.cull_occl(prep, cfg, point, d, tile, maxv,
+                              _pure_excl(s2), apex_rev=True)
         if hit is not None:
             plan = torch.where(any_hit[:, None], plan, 0)
-        found = anyhit(prep, cfg, point, d, s2, plan, tile, kernel=kernel)
+        found = impl.anyhit(prep, cfg, point, d, s2, plan, tile)
         return found.reshape(-1)[:R]
 
     return shadow
 
 
 def _shadow_folded(prep, cfg, tile, maxv, S, point, light, self_obj, hit,
-                   kernel):
+                   impl):
     """S-sample occlusion sharing one plan per point tile (JAX
     kernels/tiled.py::_shadow_folded).  Rays arrive sample-major [S * R]
     with the points repeated per sample; a kernel tile is ts points x S
@@ -171,12 +219,11 @@ def _shadow_folded(prep, cfg, tile, maxv, S, point, light, self_obj, hit,
     o_g = p3[:, None].expand(nt, S, ts, 3)
     d_g = lights.reshape(S, nt, ts, 3).permute(1, 0, 2, 3) - o_g
     o_f, d_f = o_g.reshape(-1, 3), d_g.reshape(-1, 3)
-    plan = pl.cull_occl(prep, o_f, d_f, S * ts, maxv,
-                        cfg.kernel.window_blocks_ah, _pure_excl(s2))
+    plan = impl.cull_occl(prep, cfg, o_f, d_f, S * ts, maxv, _pure_excl(s2))
     if any_hit is not None:
         plan = torch.where(any_hit[:, None], plan, 0)
     self_g = s2[:, None, :].expand(nt, S, ts).reshape(nt, S * ts)
-    found = anyhit(prep, cfg, o_f, d_f, self_g, plan, S * ts, kernel=kernel)
+    found = impl.anyhit(prep, cfg, o_f, d_f, self_g, plan, S * ts)
     found = found.reshape(nt, S, ts).permute(1, 0, 2).reshape(S, -1)
     return found[:, :R].reshape(-1)
 
@@ -188,8 +235,8 @@ def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
 
     ``cam_spec`` = (view_matrix or None, focal, width, height, tile_px).
     ``rays`` = (o, d) [R, 3], the tile-major primary rays
-    (ops/camera.py::primary_rays_tiled); the legacy and soft branches need
-    them (:func:`frame_branch`).  ``kernels`` maps each role of
+    (ops/camera.py::primary_rays_tiled); every branch but the fused one
+    needs them (:func:`frame_branch`).  ``kernels`` maps each role of
     :data:`KERNELS` to its wrapper; ``chip_smoke.py`` passes :data:`PLAIN`
     to render the reference image on the card."""
     tile = cam_spec[4] ** 2
@@ -199,6 +246,17 @@ def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
     maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
                                   cfg.kernel.window_blocks)
     stile = pl.shadow_tile(cfg, tile, prep.num_blocks * prep.block_size)
+    if branch == "paged":
+        o, d = rays
+        t, idx = paged.hits(prep, cfg, o, d, tile, maxv, apex=True,
+                            kernel=kernels["nearest_rays"])
+        shadow_fn = tiled_shadow_fn(
+            prep, cfg, stile, maxv, cfg.light.num_samples,
+            shadow_impl("paged", kernels)) if cfg.light.enable_shadows \
+            else None
+        rad = integrator.shade(prep.scene, cfg, o, d, t, idx, light_pos,
+                               shadow_fn)
+        return rad, torch.isfinite(t)
     if branch == "soft":
         o, d = rays
         t, idx, attrs = hits_attrs(prep, cfg, cam_spec, maxv,
@@ -206,7 +264,7 @@ def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
         record = integrator.records_from_attrs(prep.scene, attrs)
         shadow_fn = tiled_shadow_fn(
             prep, cfg, stile, maxv, cfg.light.num_samples,
-            kernels["anyhit"]) if cfg.light.enable_shadows else None
+            shadow_impl(None, kernels)) if cfg.light.enable_shadows else None
         rad = integrator.shade(prep.scene, cfg, o, d, t, idx, light_pos,
                                shadow_fn, record=record)
         return rad, torch.isfinite(t)
@@ -225,7 +283,7 @@ def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
                                 o + torch.where(hit, t, 0.0)[:, None] * d,
                                 0.0)
             shadow_fn = tiled_shadow_fn(prep, cfg, stile, maxv, 1,
-                                        kernels["anyhit"])
+                                        shadow_impl(None, kernels))
             found = shadow_fn(point, light_pos.expand(point.shape), obj,
                               hit=hit)
         rgb = torch.where(found[:, None], rgb / cfg.light.shadow_dim, rgb)

@@ -1,13 +1,12 @@
 """The shading integrator: hit records -> radiance, and the frame's finish.
 
-Counterpart of the JAX package's ``render/integrator.py`` for flat,
-untextured records: ``light_sample_positions``, ``material_select``,
+Counterpart of the JAX package's ``render/integrator.py``:
+``light_sample_positions``, ``gather_hit_records``, ``material_select``,
 ``records_from_attrs``, ``shade_records``, ``shade`` and
 ``finalize_image``.  The fused frame shades inside its nearest-hit kernel
 (kernels/nearest.py); the soft-shadow frame shades here, from the records
-the fetch mode of that kernel returns.  The record gather of the JAX
-``gather_hit_records`` and the textured and smooth-normal records are not
-ported yet (ROADMAP.md, Open items §1 items 7c-7e).
+the fetch mode of that kernel returns; the paged frame gathers its records
+by winner id (flat, textured or smooth-normal) and shades here.
 """
 
 from __future__ import annotations
@@ -33,6 +32,51 @@ def light_sample_positions(light_pos, num_samples: int,
         acc[s % 3] += jitter_step
     light = torch.as_tensor(light_pos, dtype=torch.float32)
     return light[None, :] + torch.from_numpy(offsets).to(light.device)
+
+
+def gather_hit_records(scene, tri_idx: torch.Tensor,
+                       cfg: RenderConfig) -> dict:
+    """Per-ray shading record by global triangle id (JAX
+    render/integrator.py::gather_hit_records).  Only the columns the config
+    uses are packed into one [T, K] table (object and texture ids as f32,
+    exact below 2**24; the object's material expanded per triangle; the
+    Cartesian vertices for smooth or textured shading; the vertex normals
+    for smooth shading, else the flat normal; the texel UVs for textured
+    scenes), and one row gather by ``tri_idx`` (-1 reads row 0) reads
+    them."""
+    idx = tri_idx.clamp_min(0).long()
+    smooth = bool(cfg.shading.smooth_normals)
+    textured = scene.has_textures
+    tobj = scene.tri_obj.long()
+    cols = [scene.tri_obj.to(torch.float32)[:, None],
+            scene.tri_tex.to(torch.float32)[:, None],
+            scene.obj_color[tobj], scene.obj_ambient[tobj][:, None],
+            scene.obj_specular[tobj][:, None],
+            scene.obj_shininess[tobj][:, None]]
+    if smooth or textured:
+        verts_cart = scene.verts[..., :3] / scene.verts[..., 3:4]
+        cols.append(verts_cart.reshape(-1, 9))
+    cols.append(scene.vnormals.reshape(-1, 9) if smooth else scene.tri_normal)
+    if textured:
+        cols.append(scene.uvs.reshape(-1, 6))
+    packed = torch.cat(cols, dim=1)[idx]             # ONE [R, K] gather
+    rec = {"obj": packed[:, 0].to(torch.int32),
+           "tex_id": packed[:, 1].to(torch.int32),
+           "color": packed[:, 2:5], "ambient": packed[:, 5],
+           "specular": packed[:, 6], "shininess": packed[:, 7]}
+    c = 8
+    if smooth or textured:
+        rec["tri_v"] = packed[:, c:c + 9].reshape(-1, 3, 3)
+        c += 9
+    if smooth:
+        rec["vnormals"] = packed[:, c:c + 9].reshape(-1, 3, 3)
+        c += 9
+    else:
+        rec["normal"] = packed[:, c:c + 3]
+        c += 3
+    if textured:
+        rec["uvs"] = packed[:, c:c + 6].reshape(-1, 3, 2)
+    return rec
 
 
 def material_select(scene, obj: torch.Tensor) -> dict:
@@ -69,20 +113,34 @@ def shade_records(scene, cfg: RenderConfig, record: dict,
                   origin: torch.Tensor, direction: torch.Tensor,
                   t: torch.Tensor, light_pos,
                   shadow_fn: Optional[Callable] = None) -> torch.Tensor:
-    """Shading core over per-ray records -> tone-mapped radiance [R, 3]
-    (misses hold garbage; mask with isfinite(t)).  S = num_samples Phong
+    """Shading core over per-ray records (:func:`gather_hit_records` or
+    :func:`records_from_attrs`) -> tone-mapped radiance [R, 3] (misses
+    hold garbage; mask with isfinite(t)).  The base color is the texel of
+    a textured hit (the record's UVs at the hit's barycentrics), else the
+    material color; the normal is the interpolated vertex normal with
+    smooth shading, else the record's flat normal.  S = num_samples Phong
     evaluations, one per light sample, each divided by shadow_dim where
     ``shadow_fn`` (point, light, self_obj, hit) -> bool [S * R] says the
     sample is occluded, summed, then tone-mapped.  A single-object scene
     is never shadowed (the reference skips the hit object's own triangles,
     simple_raytracer.cpp:331), so its shadow pass is dropped."""
     scfg, lcfg = cfg.shading, cfg.light
-    if scfg.smooth_normals or "normal" not in record:
-        raise NotImplementedError(
-            "smooth-normal and textured records are not ported yet "
-            "(ROADMAP.md, Open items §1 item 7e)")
+    obj = record["obj"].clamp_min(0)
     hit = torch.isfinite(t)
     point = origin + torch.where(hit, t, 0.0)[:, None] * direction
+    has_uv = scene.has_textures and "uvs" in record
+    bary = None
+    if has_uv or scfg.smooth_normals:
+        bary = sh.barycentric(record["tri_v"], point)
+    base = record["color"]
+    if has_uv:
+        tex_rgb = sh.texture_fetch(scene.tex_data, scene.tex_offset,
+                                   scene.tex_width, scene.tex_height,
+                                   record["tex_id"],
+                                   sh.interpolate_uv(record["uvs"], bary))
+        base = torch.where((record["tex_id"] >= 0)[:, None], tex_rgb, base)
+    normal = (sh.smooth_normal(record["vnormals"], bary)
+              if scfg.smooth_normals else record["normal"])
     light_color = torch.tensor(lcfg.color, dtype=point.dtype,
                                device=point.device)
     samples = light_sample_positions(light_pos, lcfg.num_samples,
@@ -98,14 +156,14 @@ def shade_records(scene, cfg: RenderConfig, record: dict,
         shadowed = shadow_fn(
             pts.expand(S, R, 3).reshape(S * R, 3),
             samples[:, None, :].expand(S, R, 3).reshape(S * R, 3),
-            record["obj"].clamp_min(0).expand(S, R).reshape(S * R),
+            obj.expand(S, R).reshape(S * R),
             hit=hit.expand(S, R).reshape(S * R)).reshape(S, R)
     accum = torch.zeros_like(point)
     for s in range(S):
-        c = sh.phong(record["normal"], point, direction,
-                     samples[s].expand(R, 3), light_color, record["color"],
-                     record["ambient"], record["specular"],
-                     record["shininess"], double_sided=scfg.double_sided_diffuse,
+        c = sh.phong(normal, point, direction, samples[s].expand(R, 3),
+                     light_color, base, record["ambient"],
+                     record["specular"], record["shininess"],
+                     double_sided=scfg.double_sided_diffuse,
                      specular_nl=scfg.specular_nl_factor)
         if shadowed is not None:
             c = torch.where(shadowed[s][:, None], c / lcfg.shadow_dim, c)
@@ -119,15 +177,15 @@ def shade(scene, cfg: RenderConfig, origin: torch.Tensor,
           direction: torch.Tensor, t: torch.Tensor, tri_idx: torch.Tensor,
           light_pos, shadow_fn: Optional[Callable] = None,
           record: Optional[dict] = None) -> torch.Tensor:
-    """Shade flat rays [R, 3] from their nearest hits (t [R], inf = miss;
-    tri_idx [R]) and the hits' ``record`` (:func:`records_from_attrs`).
-    Returns tone-mapped radiance [R, 3]; misses hold garbage."""
+    """Shade rays [R, 3] from their nearest hits (t [R], inf = miss;
+    tri_idx [R], -1 = miss): the hits' ``record``, or with none the record
+    gathered by ``tri_idx`` (:func:`gather_hit_records`), through
+    :func:`shade_records`.  Returns tone-mapped radiance [R, 3]; misses
+    hold garbage."""
     if scene.num_triangles == 0 or scene.obj_color.shape[0] == 0:
         return torch.zeros_like(origin)
     if record is None:
-        raise NotImplementedError(
-            "the record gather is not ported yet (ROADMAP.md, Open items "
-            "§1 item 7e)")
+        record = gather_hit_records(scene, tri_idx, cfg)
     return shade_records(scene, cfg, record, origin, direction, t, light_pos,
                          shadow_fn)
 

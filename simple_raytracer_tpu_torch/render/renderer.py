@@ -22,19 +22,21 @@ from . import integrator
 _MODE_ITEMS = {"bruteforce": "3", "bvh": "8"}
 
 
-def ensure_prepared(scene, cfg: RenderConfig) -> PreparedScene:
-    """Host step: prepare a Scene (idempotent on a PreparedScene); the
-    result lives on the scene's device."""
+def ensure_prepared(scene, cfg: RenderConfig, device="cuda") -> PreparedScene:
+    """Host step: prepare a Scene onto ``device`` (raises without a CUDA
+    device unless ``device`` is "cpu"); a PreparedScene stays as it is, on
+    the device it is on."""
     if isinstance(scene, PreparedScene):
         return scene
-    return prepare(scene, cfg).to(scene.device)
+    return prepare(scene, cfg, device=device)
 
 
-def render(scene, cfg: RenderConfig, light_pos,
-           view_matrix=None) -> torch.Tensor:
+def render(scene, cfg: RenderConfig, light_pos, view_matrix=None,
+           device="cuda") -> torch.Tensor:
     """Full-frame render -> [H, W, 3] uint8 (background-filled, quantized).
-    Accepts a Scene (prepared here) or a PreparedScene."""
-    prep = ensure_prepared(scene, cfg)
+    Accepts a Scene (prepared here onto ``device``: the card unless the
+    caller asks for "cpu") or a PreparedScene (rendered on its device)."""
+    prep = ensure_prepared(scene, cfg, device)
     radiance, hit = render_radiance(prep, cfg, light_pos, view_matrix)
     return integrator.finalize_image(radiance, hit, cfg)
 
@@ -65,7 +67,7 @@ def render_radiance(prep: PreparedScene, cfg: RenderConfig, light_pos,
         view_matrix, dtype=torch.float32, device=dev)
     rays = None
     if frame_branch(prep, cfg, tpx * tpx) != "fused":
-        # the legacy and soft shadows start from o + t*d of these rays
+        # the legacy, soft and paged branches start from these rays
         o, d, _, _ = primary_rays_tiled(cam.width, cam.height, tpx,
                                         cam.focal, view_matrix=vm,
                                         device=dev)

@@ -3,9 +3,10 @@
 The repository's tests and ``chip_smoke.py`` cannot rely on OBJ assets, so
 the scenes they render are generated here: a displaced icosphere (the
 stand-in for the 69,451-triangle Stanford bunny of ``bench.py``), a
-12-triangle box used as the ground slab, and the bench-like scene that
-combines them.  Each mesh is a :class:`MeshData`, so the same triangles can
-be handed to any ``SceneManager.set_triangles``.
+12-triangle box used as the ground slab, the bench-like scene that
+combines them, a dense two-sphere scene and a textured, smooth-normal
+variant of the bench-like scene.  Each mesh is a :class:`MeshData`, so the
+same triangles can be handed to any ``SceneManager.set_triangles``.
 """
 
 from __future__ import annotations
@@ -147,4 +148,52 @@ def dense_on_ground(manager, subdivisions: int = 6):
     second.verts = T.apply_transform(SPHERE2_POSE, second.verts)
     manager.set_triangles("sphere2", second)
     manager.set_color("sphere2", (0.6, 0.6, 0.9))
+    return manager
+
+
+CHECKER = 128           # texels per side of the textured ground's checker
+CHECKER_SQUARE = 8      # texels per checker square
+TEXELS_PER_UNIT = 2.0   # texel-space UV scale of the textured ground
+
+
+def checker_texture():
+    """[CHECKER, CHECKER, 3] uint8: a two-tone checker of CHECKER_SQUARE-
+    texel squares (light grey and dark green)."""
+    ij = np.arange(CHECKER) // CHECKER_SQUARE
+    odd = (ij[:, None] + ij[None, :]) % 2 == 1
+    return np.where(odd[..., None], np.array([40, 120, 40], np.uint8),
+                    np.array([230, 230, 220], np.uint8)).astype(np.uint8)
+
+
+def textured_on_ground(manager, subdivisions: int):
+    """:func:`sphere_on_ground` with real vertex normals and a textured
+    ground: the displaced icosphere's vertex normals are the radial
+    directions from its centre (close enough to the surface normal of a
+    mildly displaced sphere), the ground box's are each face's normal, and
+    the ground samples a :func:`checker_texture` installed as
+    ``manager.textures.data["checker"]`` through texel-space UVs of
+    TEXELS_PER_UNIT texels per world unit along the two axes of each face's
+    plane.  ``smooth_normal`` of all-zero normals is NaN, so a scene shaded
+    with smooth normals needs these.  Returns the manager."""
+    sphere_on_ground(manager, subdivisions)
+    sphere = manager.objects["sphere"].mesh
+    centre = (SPHERE_POSE @ np.array([0.0, 0.0, 0.0, 1.0]))[:3]
+    r = sphere.verts[..., :3].astype(np.float64) - centre
+    sphere.normals = (r / np.linalg.norm(r, axis=-1, keepdims=True)
+                      ).astype(np.float32)
+    ground = manager.objects["ground"].mesh
+    g = ground.verts[..., :3].astype(np.float64)                # [12, 3, 3]
+    n = np.cross(g[:, 1] - g[:, 0], g[:, 2] - g[:, 0])
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    ground.normals = np.repeat(n[:, None], 3, axis=1).astype(np.float32)
+    axis = np.abs(n).argmax(axis=-1)                            # face axis
+    lo = g.reshape(-1, 3).min(axis=0)
+    uv = np.zeros(g.shape[:2] + (2,))
+    for k, a in enumerate(axis):
+        b, c = [x for x in range(3) if x != a]
+        uv[k] = (g[k][:, [b, c]] - lo[[b, c]]) * TEXELS_PER_UNIT
+    ground.uvs = uv.astype(np.float32)
+    ground.tri_tex = np.zeros(ground.num_triangles, np.int32)
+    ground.textures = ["checker"]
+    manager.textures.data["checker"] = checker_texture()
     return manager

@@ -1,7 +1,8 @@
 """Hand-built kernel inputs shared by the CPU and GPU tests of the PyTorch
 port.  No JAX here: tests/test_torch_cuda.py imports this on machines
-without it.  The cases of the primary-ray kernels are one 64x64 tile at the
-image centre, rays from the origin with focal 400.
+without it.  The cases of the nearest kernels are one 64x64 tile at the image
+centre, rays from the origin with focal 400 (rebuilt from the pixel for K1,
+explicit for K6).
 """
 
 import torch
@@ -35,6 +36,49 @@ def two_windows(bound: float):
     b16 = int(torch.tensor([bound]).view(torch.int32)) >> 16
     plan[0, pl.PLAN_AUX + 1] = 1 | (b16 << 16)
     return (plan, tri, attr, mat, cam), (64, 64, 1e-12)
+
+
+def _tile_rays():
+    """The case tile's rays as explicit arrays: o [1, 4096, 3] at the
+    origin, d [1, 4096, 3] = (px, py, 400) over pixels -32..31."""
+    lane = torch.arange(4096)
+    d = torch.stack([(lane % 64 - 32).float(), (lane // 64 - 32).float(),
+                     torch.full((4096,), 400.0)], dim=1)
+    return torch.zeros((1, 4096, 3)), d[None].contiguous()
+
+
+def _page_plan(entries):
+    """A one-tile list plan over pages: ``entries`` = [(page, bound)] in
+    walk order."""
+    plan = torch.zeros((1, pl.PLAN_W), dtype=torch.int32)
+    plan[0, :4] = torch.tensor([0, 2, len(entries), 1])
+    for k, (page, bound) in enumerate(entries):
+        b16 = int(torch.tensor([bound]).view(torch.int32)) >> 16
+        plan[0, pl.PLAN_AUX + k] = page | (b16 << 16)
+    return plan
+
+
+def two_pages(bound: float):
+    """The rays-as-input twin of :func:`two_windows` for the paged nearest
+    walk (K6): two pages of 128 triangles with one real triangle each —
+    page 0 at z = 10, page 1 nearer, at z = 5 — walked in that order, page
+    1's entry carrying ``bound``.  Returns ((plan, tri, o, d), (page_tris,
+    eps)); the winner is triangle 128, or 0 when the bound lies."""
+    tri = torch.zeros((256, 9))
+    tri[0], tri[128] = _quad_tri(10.0), _quad_tri(5.0)
+    o, d = _tile_rays()
+    return (_page_plan([(0, 0.0), (1, bound)]), tri, o, d), (128, 1e-12)
+
+
+def coincident_pages():
+    """K6 arguments with an exact tie: triangles 5 (page 0) and 130 (page
+    1) are the same quad at z = 5, and the plan walks page 1 first with no
+    bound that could stop the walk.  Every ray's winner is triangle 5, the
+    lower id.  Returns ((plan, tri, o, d), (page_tris, eps))."""
+    tri = torch.zeros((256, 9))
+    tri[5], tri[130] = _quad_tri(5.0), _quad_tri(5.0)
+    o, d = _tile_rays()
+    return (_page_plan([(1, 0.0), (0, 0.0)]), tri, o, d), (128, 1e-12)
 
 
 SELF_SKIP = ((0, 0, False), (0, 1, True), (1, 1, False), (1, 0, True))

@@ -29,9 +29,12 @@ VIEW = T.view_matrix((-8.0, -6.0, 15.0),
                      (math.radians(12.0), math.radians(-6.0), 0.0))
 
 
-def managers(subdivisions: int = 3):
-    """(port SceneManager, JAX SceneManager) holding the same objects."""
-    sm = P.sphere_on_ground(sr.SceneManager(), subdivisions)
+def managers(subdivisions: int = 3, textured: bool = False):
+    """(port SceneManager, JAX SceneManager) holding the same objects: the
+    parity scene, or with ``textured`` its textured, smooth-normal variant
+    (procedural.textured_on_ground) with the same texture atlas."""
+    build = P.textured_on_ground if textured else P.sphere_on_ground
+    sm = build(sr.SceneManager(), subdivisions)
     jsm = jscene.SceneManager()
     for key in sm._order:
         e = sm.objects[key]
@@ -39,6 +42,7 @@ def managers(subdivisions: int = 3):
                                                e.ambient, e.specular,
                                                e.shininess)
         jsm._order.append(key)
+    jsm.textures.data.update(sm.textures.data)
     return sm, jsm
 
 

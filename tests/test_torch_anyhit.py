@@ -30,7 +30,8 @@ def results():
     cfg, jcfg = configs()
     jprep = jprepare(jsm.build(), jcfg)
     prep = from_jax_prepared(jax_prepared_arrays(jprep),
-                             num_triangles=int(jprep.num_triangles))
+                             num_triangles=int(jprep.num_triangles),
+                             device="cpu")
     tile = TILE_PX * TILE_PX
     R = (WIDTH // TILE_PX) * (HEIGHT // TILE_PX) * tile
     dummy = jnp.zeros((R, 3), jnp.float32)

@@ -14,13 +14,14 @@ import torch
 
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import prepare
-from simple_raytracer_tpu_torch.kernels import anyhit, build, nearest
+from simple_raytracer_tpu_torch.kernels import anyhit, build, nearest, paged
 from simple_raytracer_tpu_torch.kernels.tiled import KERNELS, render_flat_tiled
 from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
 from simple_raytracer_tpu_torch.scene import procedural as P
 from simple_raytracer_tpu_torch.scene import transforms as T
 
-from _torch_cases import SELF_SKIP, ragged_rays, self_skip, two_windows
+from _torch_cases import (SELF_SKIP, coincident_pages, ragged_rays, self_skip,
+                          two_pages, two_windows)
 
 pytestmark = pytest.mark.cuda
 
@@ -47,8 +48,9 @@ def scene():
         mode="tiled", camera=sr.CameraConfig(width=SIZE, height=SIZE,
                                              focal=FOCAL),
         bvh=sr.BVHConfig(split="sah"))
-    prep = prepare(P.sphere_on_ground(sr.SceneManager(), 3).build(), cfg)
-    return prep.to("cuda"), cfg
+    prep = prepare(P.sphere_on_ground(sr.SceneManager(), 3).build(), cfg,
+                   device="cuda")
+    return prep, cfg
 
 
 def _frame_args(prep, cfg, view, tpx=TPX):
@@ -78,7 +80,7 @@ def test_kernels_build():
     assert all(p.endswith(".so") for p in info["paths"])
     lib = build.library()
     for name in ("srt_nearest_shaded", "srt_nearest_attrs",
-                 "srt_anyhit_from_t", "srt_anyhit_rays"):
+                 "srt_nearest_rays", "srt_anyhit_from_t", "srt_anyhit_rays"):
         assert hasattr(lib, name)
 
 
@@ -209,3 +211,72 @@ def test_wrappers_reject_bad_inputs(scene):
     with pytest.raises(ValueError):              # o as [n * M, 3]
         anyhit.tiled_anyhit(*tensors[:3], tensors[3].reshape(-1, 3),
                             *tensors[4:], *rest)
+
+
+@pytest.mark.parametrize("view", list(VIEWS))
+def test_nearest_rays_kernel_matches_plain(scene, view):
+    """K6 on the arguments of the paged frame (64x64 tiles of explicit
+    rays, the primary page plan)."""
+    prep, cfg = scene
+    args = _frame_args(prep, cfg.replace(tiled_impl="paged"),
+                       VIEWS[view])["nearest_rays"]
+    n0 = paged.tiled_nearest.launches
+    kt, ki = paged.tiled_nearest(*args)
+    assert paged.tiled_nearest.launches == n0 + 1
+    pt, pi = paged.tiled_nearest_plain(*args)
+    hit = torch.isfinite(pt)
+    assert hit.sum() > 4000 and torch.equal(torch.isfinite(kt), hit)
+    torch.testing.assert_close(kt[hit], pt[hit], rtol=1e-5, atol=1e-6)
+    assert (ki == pi).float().mean() >= 0.9999
+    assert (ki[~hit] == -1).all()
+
+
+@pytest.mark.parametrize("bound", [0.0, 1.0])
+def test_nearest_rays_kernel_trusts_the_entry_bound(bound):
+    """Two pages, the nearer one second: a lying bound stops K6 after
+    page 0."""
+    tensors, rest = two_pages(bound)
+    t, idx = paged.tiled_nearest(*[x.cuda() for x in tensors], *rest)
+    assert (idx == (0 if bound else 128)).all() and torch.isfinite(t).all()
+
+
+def test_nearest_rays_kernel_ties_to_the_lowest_id():
+    """Two coincident triangles in two pages, the higher id walked first:
+    K6 keeps the lower id."""
+    tensors, rest = coincident_pages()
+    t, idx = paged.tiled_nearest(*[x.cuda() for x in tensors], *rest)
+    assert (idx == 5).all()
+    pt, _ = paged.tiled_nearest_plain(*[x.cuda() for x in tensors], *rest)
+    assert torch.equal(t, pt)
+
+
+@pytest.mark.parametrize("samples", [1, 4])
+def test_anyhit_pages_kernel_matches_plain(scene, samples):
+    """K7 on the paged frame's shadow: 4,096-ray tiles (8 rays a thread)
+    for the hard shadow, 1,024 folded rays for S = 4."""
+    prep, cfg = scene
+    cfg = cfg.replace(tiled_impl="paged",
+                      light=sr.LightConfig(num_samples=samples))
+    args = _frame_args(prep, cfg, VIEWS["moved"])["anyhit_pages"]
+    assert args[3].shape[1] == (4096 if samples == 1 else 1024)
+    n0 = paged.tiled_anyhit.launches
+    kf = paged.tiled_anyhit(*args)
+    assert paged.tiled_anyhit.launches == n0 + 1
+    pf = paged.tiled_anyhit_plain(*args)
+    assert (kf == pf).float().mean() >= 0.9999
+    assert kf.sum() > 50
+
+
+def test_render_defaults_to_the_card():
+    """A raw Scene given to ``render`` with no device is prepared on the
+    card, and the paged frame launches K6 and K7 there."""
+    cfg = sr.default_config().replace(
+        mode="tiled", camera=sr.CameraConfig(width=SIZE, height=SIZE,
+                                             focal=FOCAL),
+        bvh=sr.BVHConfig(split="sah"), tiled_impl="paged")
+    n0, a0 = paged.tiled_nearest.launches, paged.tiled_anyhit.launches
+    img = sr.render(P.sphere_on_ground(sr.SceneManager(), 3).build(), cfg,
+                    P.BENCH_LIGHT)
+    assert img.is_cuda and img.shape == (SIZE, SIZE, 3)
+    assert paged.tiled_nearest.launches == n0 + 1
+    assert paged.tiled_anyhit.launches == a0 + 1

@@ -36,7 +36,8 @@ def results():
     cfg, jcfg = configs()
     jprep = jprepare(jsm.build(), jcfg)
     prep = from_jax_prepared(jax_prepared_arrays(jprep),
-                             num_triangles=int(jprep.num_triangles))
+                             num_triangles=int(jprep.num_triangles),
+                             device="cpu")
     out = {}
     for name, vm in VIEWS.items():
         jcs = (None if vm is None else jnp.asarray(vm), FOCAL, WIDTH, HEIGHT,

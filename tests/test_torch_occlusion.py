@@ -49,7 +49,8 @@ def base():
     cfg, jcfg = configs()
     jprep = jprepare(jsm.build(), jcfg)
     prep = from_jax_prepared(jax_prepared_arrays(jprep),
-                             num_triangles=int(jprep.num_triangles))
+                             num_triangles=int(jprep.num_triangles),
+                             device="cpu")
     vm = torch.from_numpy(VIEW)
     cs = (vm, FOCAL, WIDTH, HEIGHT, TILE_PX)
     t, _i, obj, _rgb, _b = nearest.hits_shaded(prep, cfg, torch.tensor(LIGHT),
@@ -101,7 +102,7 @@ def test_ray_visibility_matches_jax(base, rays):
     n = -(-o.shape[0] // tile)
     excl = torch.from_numpy(
         np.random.default_rng(3).integers(-2, 2, n).astype(np.int32))
-    ab = pl.ray_tile_bounds(o, d, tile, hourglass=True, apex_rev=True)
+    ab = pl.ray_tile_bounds(o, d, tile, hourglass=True, apex="light")
     bmin, bmax, bobj = prep.block_min, prep.block_max, prep.block_obj
     args = (_j(o), _j(d), tile, jprep.block_min, jprep.block_max)
     jargs = (jprep.block_obj, _j(excl))

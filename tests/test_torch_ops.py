@@ -14,6 +14,7 @@ from simple_raytracer_tpu_torch.kernels.nearest import fused_phong
 from simple_raytracer_tpu_torch.ops import camera as tcam
 from simple_raytracer_tpu_torch.ops import intersect as tis
 from simple_raytracer_tpu_torch.ops import shading as tsh
+from simple_raytracer_tpu_torch.render import integrator as tint
 from simple_raytracer_tpu_torch.render.integrator import finalize_image
 
 from simple_raytracer_tpu import config as jconfig
@@ -22,7 +23,7 @@ from simple_raytracer_tpu.ops import intersect as jis
 from simple_raytracer_tpu.ops import shading as jsh
 from simple_raytracer_tpu.render import integrator as jint
 
-from _torch_parity import VIEW
+from _torch_parity import LIGHT, VIEW, managers
 
 
 def _rays_and_tris(n_rays=512, n_tris=64, seed=0):
@@ -168,3 +169,126 @@ def test_finalize_image_matches_jax(truncate):
     theirs = np.asarray(jint.finalize_image(rad, hit, jcfg))
     assert ours.dtype == torch.uint8
     np.testing.assert_array_equal(ours.numpy(), theirs)
+
+
+def _tris(rng, n):
+    v = rng.normal(scale=3.0, size=(n, 3, 3)).astype(np.float32)
+    bary = rng.dirichlet(np.ones(3), size=n).astype(np.float32)
+    point = np.einsum("nv,nvk->nk", bary, v).astype(np.float32)
+    return v, point
+
+
+def test_shading_ops_match_jax():
+    """barycentric, flat_normal, smooth_normal and interpolate_uv at rtol
+    1e-6; texture_fetch reads the same texels (truncation toward zero, no
+    wrap, clamped to each texture's rectangle)."""
+    rng = np.random.default_rng(8)
+    v, point = _tris(rng, 512)
+    point[::7] += rng.normal(size=(len(point[::7]), 3)).astype(np.float32)
+    ours = tsh.barycentric(torch.from_numpy(v), torch.from_numpy(point))
+    bary = np.array(jsh.barycentric(v, point))
+    np.testing.assert_allclose(ours.numpy(), bary, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tsh.flat_normal(torch.from_numpy(v)).numpy(),
+                               np.asarray(jsh.flat_normal(v)), rtol=1e-6,
+                               atol=1e-7)
+    vn = rng.normal(size=(512, 3, 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        tsh.smooth_normal(torch.from_numpy(vn), torch.from_numpy(bary))
+        .numpy(), np.asarray(jsh.smooth_normal(vn, bary)), rtol=1e-6,
+        atol=1e-6)
+    uvs = rng.uniform(-8.0, 72.0, size=(512, 3, 2)).astype(np.float32)
+    texel = tsh.interpolate_uv(torch.from_numpy(uvs), torch.from_numpy(bary))
+    jtexel = np.array(jsh.interpolate_uv(uvs, bary))
+    np.testing.assert_allclose(texel.numpy(), jtexel, rtol=1e-6, atol=1e-5)
+    # an atlas of two textures (32x16 and 8x64), ids -1 read texture 0
+    tex = rng.uniform(size=(32 * 16 + 8 * 64, 3)).astype(np.float32)
+    off, w, h = (np.array(a, np.int32) for a in ((0, 512), (32, 8),
+                                                 (16, 64)))
+    tid = rng.integers(-1, 2, 512).astype(np.int32)
+    args = (tex, off, w, h, tid, jtexel)
+    ours = tsh.texture_fetch(*map(torch.from_numpy, args)).numpy()
+    np.testing.assert_array_equal(ours, np.asarray(jsh.texture_fetch(*args)))
+    clamped = (jtexel < 0).any(-1) | (jtexel[:, 0] >= w[np.maximum(tid, 0)])
+    assert clamped.sum() > 50
+
+
+@pytest.fixture(scope="module")
+def textured_scenes():
+    """The textured, smooth-normal parity scene (subdivision 1) in both
+    packages."""
+    sm, jsm = managers(1, textured=True)
+    return sm.build(), jsm.build()
+
+
+@pytest.mark.parametrize("kind", ["flat", "smooth", "textured_flat",
+                                  "textured_smooth"])
+def test_gather_hit_records_match_jax(textured_scenes, kind):
+    """The packed one-row gather: the same columns, equal values, misses
+    (id -1) read row 0."""
+    if kind.startswith("textured"):
+        scene, jscene_ = textured_scenes
+    else:
+        sm, jsm = managers(1)
+        scene, jscene_ = sm.build(), jsm.build()
+    smooth = kind.endswith("smooth")
+    cfg = sr.default_config().replace(
+        shading=sr.ShadingConfig(smooth_normals=smooth))
+    jcfg = jconfig.default_config().replace(
+        shading=jconfig.ShadingConfig(smooth_normals=smooth))
+    idx = np.random.default_rng(9).integers(-1, scene.num_triangles, 300)
+    idx = idx.astype(np.int32)
+    rec = tint.gather_hit_records(scene, torch.from_numpy(idx), cfg)
+    jrec = jint.gather_hit_records(jscene_, jnp.asarray(idx), jcfg)
+    assert set(rec) == set(jrec)
+    assert ("uvs" in rec) == kind.startswith("textured")
+    assert ("vnormals" in rec) == smooth and ("normal" in rec) != smooth
+    for k in rec:
+        np.testing.assert_array_equal(rec[k].numpy(), np.asarray(jrec[k]),
+                                      err_msg=k)
+
+
+@pytest.mark.parametrize("smooth", [False, True])
+def test_shade_textured_records_match_jax(textured_scenes, smooth):
+    """shade_records on gathered textured (and smooth-normal) records, at
+    points on the hit triangles, S = 4 samples with a given shadow pattern:
+    rtol 1e-5."""
+    scene, jscene_ = textured_scenes
+    S, R = 4, 512
+    light = dict(num_samples=S)
+    cfg = sr.default_config().replace(
+        shading=sr.ShadingConfig(smooth_normals=smooth),
+        light=sr.LightConfig(**light))
+    jcfg = jconfig.default_config().replace(
+        shading=jconfig.ShadingConfig(smooth_normals=smooth),
+        light=jconfig.LightConfig(**light))
+    rng = np.random.default_rng(10)
+    idx = rng.integers(0, scene.num_triangles, R).astype(np.int32)
+    idx[:64] = np.flatnonzero(scene.tri_tex.numpy() >= 0)[
+        rng.integers(0, 12, 64)]                   # textured ground hits
+    v = (scene.verts[..., :3] / scene.verts[..., 3:4]).numpy()[idx]
+    bary = rng.dirichlet(np.ones(3), size=R).astype(np.float32)
+    point = np.einsum("nv,nvk->nk", bary, v).astype(np.float32)
+    o = rng.normal(scale=2.0, size=(R, 3)).astype(np.float32)
+    d = (point - o).astype(np.float32)
+    t = np.ones(R, np.float32)
+    t[::31] = np.inf
+    shadow = rng.random(S * R) < 0.3
+    lp = np.array(LIGHT, np.float32)
+    rec = tint.gather_hit_records(scene, torch.from_numpy(idx), cfg)
+    got = tint.shade_records(
+        scene, cfg, rec, torch.from_numpy(o), torch.from_numpy(d),
+        torch.from_numpy(t), torch.from_numpy(lp),
+        lambda *a, **k: torch.from_numpy(shadow)).numpy()
+    jrec = jint.gather_hit_records(jscene_, jnp.asarray(idx), jcfg)
+    want = np.asarray(jint.shade_records(
+        jscene_, jcfg, jrec, jnp.asarray(o), jnp.asarray(d), jnp.asarray(t),
+        jnp.asarray(lp), lambda *a, **k: jnp.asarray(shadow)))
+    fin = np.isfinite(t)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-5, atol=1e-6)
+    # the texels reached the colour: textured hits differ from the
+    # material colour's shading
+    plain = tint.shade_records(
+        scene, cfg, {k: x for k, x in rec.items() if k != "uvs"},
+        torch.from_numpy(o), torch.from_numpy(d), torch.from_numpy(t),
+        torch.from_numpy(lp), lambda *a, **k: torch.from_numpy(shadow))
+    assert (np.abs(plain.numpy()[:64] - got[:64]).max(-1) > 1e-3).sum() > 30

@@ -31,7 +31,8 @@ VIEWS = {"identity": None, "moved": VIEW}
 def scene():
     sm, jsm = managers()
     cfg, jcfg = configs()
-    return prepare(sm.build(), cfg), jprepare(jsm.build(), jcfg), cfg
+    return (prepare(sm.build(), cfg, device="cpu"),
+            jprepare(jsm.build(), jcfg), cfg)
 
 
 def _cam_spec(view):

@@ -61,7 +61,8 @@ def frames():
         cfg, jcfg = configs()
         jprep = jprepare(jsm.build(), jcfg)
         prep = from_jax_prepared(jax_prepared_arrays(jprep),
-                                 num_triangles=int(jprep.num_triangles))
+                                 num_triangles=int(jprep.num_triangles),
+                                 device="cpu")
         out = {}
         for name, vm in VIEWS.items():
             jimg = _jax_frame(jprep, jcfg, vm, mp)
@@ -87,7 +88,7 @@ def test_frame_shadow_dims_pixels():
     """The shadow pass darkens what the unshadowed frame lights."""
     sm, _ = managers()
     cfg, _ = configs()
-    prep = prepare(sm.build(), cfg)
+    prep = prepare(sm.build(), cfg, device="cpu")
     on = render(prep, cfg, LIGHT).numpy().astype(int)
     off = render(prep, cfg.replace(light=sr.LightConfig(enable_shadows=False)),
                  LIGHT).numpy().astype(int)
@@ -102,8 +103,8 @@ def test_render_prepares_a_scene_and_counts_no_launch_on_cpu():
     n0 = nearest.tiled_nearest_shaded.launches
     a0 = anyhit.tiled_anyhit_from_t.launches
     scene = sm.build()
-    img = render(scene, cfg, LIGHT)
-    rad, hit = render_radiance(prepare(scene, cfg), cfg, LIGHT)
+    img = render(scene, cfg, LIGHT, device="cpu")
+    rad, hit = render_radiance(prepare(scene, cfg, device="cpu"), cfg, LIGHT)
     assert img.shape == (HEIGHT, WIDTH, 3)
     assert rad.shape == (HEIGHT, WIDTH, 3) and hit.shape == (HEIGHT, WIDTH)
     assert torch.isfinite(rad).all() and 0.2 < hit.float().mean() < 0.95
@@ -119,7 +120,7 @@ def test_ragged_frame_size():
     cam = dict(width=100, height=70, focal=FOCAL)
     cfg = sr.default_config().replace(mode="tiled",
                                       camera=sr.CameraConfig(**cam))
-    img = render(sm.build(), cfg, LIGHT).numpy()
+    img = render(sm.build(), cfg, LIGHT, device="cpu").numpy()
     from simple_raytracer_tpu import config as jconfig
     from simple_raytracer_tpu.render.renderer import render as jrender
     jcfg = jconfig.default_config().replace(
@@ -144,7 +145,7 @@ def test_ragged_frame_size():
 def test_unported_branches_raise(change, item):
     sm, _ = managers(1)
     cfg, _ = configs()
-    prep = prepare(sm.build(), cfg)
+    prep = prepare(sm.build(), cfg, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         render(prep, cfg.replace(**change), LIGHT)
 
@@ -155,4 +156,4 @@ def test_render_radiance_needs_prepared_scene():
     with pytest.raises(TypeError):
         render_radiance(sm.build(), cfg, LIGHT)
     with pytest.raises(ValueError):
-        render(sm.build(), cfg.replace(mode="nope"), LIGHT)
+        render(sm.build(), cfg.replace(mode="nope"), LIGHT, device="cpu")

@@ -148,7 +148,7 @@ def test_scene_build_matches_jax():
 def test_prepare_matches_jax(split):
     sm, jsm = managers()
     cfg, jcfg = configs(split)
-    prep = prepare(sm.build(), cfg)
+    prep = prepare(sm.build(), cfg, device="cpu")
     jprep = jprepare(jsm.build(), jcfg)
     arrays = jax_prepared_arrays(jprep)
     for n in sr.Scene.ARRAY_FIELDS:
@@ -158,7 +158,8 @@ def test_prepare_matches_jax(split):
         np.testing.assert_array_equal(getattr(prep, n).numpy(), arrays[n], n)
     assert prep.num_triangles == int(jprep.num_triangles)
     assert prep.num_blocks == int(jprep.num_blocks)
-    fj = from_jax_prepared(arrays, num_triangles=prep.num_triangles)
+    fj = from_jax_prepared(arrays, num_triangles=prep.num_triangles,
+                           device="cpu")
     for n in ("tri", "tri_attr", "block_obj"):
         assert torch.equal(getattr(fj, n), getattr(prep, n)), n
 
@@ -166,7 +167,7 @@ def test_prepare_matches_jax(split):
 def test_kernel_tables_layout():
     sm, _ = managers(2)
     cfg, _ = configs()
-    prep = prepare(sm.build(), cfg)
+    prep = prepare(sm.build(), cfg, device="cpu")
     v = prep.scene.verts[..., :3] / prep.scene.verts[..., 3:4]
     assert torch.equal(prep.tri[:, 0:3], v[:, 0])
     assert torch.equal(prep.tri[:, 3:6], v[:, 1] - v[:, 0])
