@@ -23,7 +23,16 @@ by ``finalize_image``, on three frames:
   over the primary rays' page plan, K7 over page plans of the shadow rays,
   then the record gather and the integrator): the bench frame; the
   textured, smooth-normal ``procedural.textured_on_ground(6)`` at 600x400,
-  focal 400, 16 light samples; and the dense frame.
+  focal 400, 16 light samples; and the dense frame;
+* **gather textured, gather grouped, prepass bench**: the sublane gather
+  branch (the nearest walk of ``kernels/nearest.py::hits``, the shadow
+  front end over windows, then the record gather and the integrator): the
+  textured frame above on the default layout (K1's fetch mode, its
+  attribute rows dropped, then K2′ over the fold); the same with
+  ``KernelConfig(groups=4, groups_ah=4)`` (K4 in 1,024-ray groups, K5 in
+  256-ray groups of the 1,024-ray fold); and the
+  bench frame with ``KernelConfig(prepass=True)`` (K3, K1 over the refined
+  plan's 64-triangle windows, K2′ for the hard shadow).
 
 Phases, each of which must pass:
 
@@ -54,15 +63,29 @@ Phases, each of which must pass:
    before (K6 and K7 launched, no sublane kernel); the image within 1 of
    the plain versions' image on >= 99.9% of pixels; 20 (bench) or 32
    view-varied frames timed, each kernel and its plain version, and each
+   stage;
+8. the three gather frames, each: its kernels against their plain versions
+   on the frame's arguments (as in 7; K3's flags equal on every plan
+   position; the prepass frame's (t, idx) equal to its unrefined walk's,
+   with the windows per tile before and after the refine); the frame through
+   the public entry points with the counters reset just before (the
+   branch's kernels launched, no other); the image within 1 of the plain
+   versions' image on >= 99.9% of pixels; 32 (textured) or 20 (bench)
+   view-varied frames timed, each kernel and its plain version, and each
    stage.
 
 Each kernel's entry in the kernels line carries its bound: the larger of
-its f32 operations over 67 TFLOP/s and its bytes over 3.35 TB/s, both
-counted on the work the frame needs.  The ray-triangle tests are those of
-the rays of pixels inside the image (for the shadow walks, of their hit
-points) while each ray still needed them: until its best t lay below the
-next entry's bound, or until it found an occluder, as the plain walk
-records them.  The bytes are the plan, the triangle rows (and object ids)
+its operations over the peak rate of their type and its bytes over 3.35
+TB/s, both counted on the work the frame needs (K3: every ray of the tile
+against every triangle of each window it walks).  The operations are f32,
+at 67 TFLOP/s, except K3's bf16 products and their sums, which the tensor
+cores could take at 989 TFLOP/s beside the f32 ones: the operations' time
+is the larger of the two.  A nearest test over rays that share one origin
+counts the origin terms once per triangle.  The ray-triangle tests are
+those of the rays of pixels inside the image (for the shadow walks, of
+their hit points) while each ray still needed them: until its best t lay
+below the next entry's bound, or until it found an occluder, as the plain
+walk records them.  The bytes are the plan, the triangle rows (and object ids)
 of the windows the walk staged, the rays of the counted lanes in tiles
 with a non-empty plan, the small tables, each read once, and the outputs,
 each written once.
@@ -96,17 +119,26 @@ IDX_MIN = 0.9999
 FOUND_MIN = 0.9999
 IMAGE_MIN = 0.999
 # the bound of a kernel (NVIDIA H100 SXM data sheet: f32 outside the tensor
-# cores, HBM3), and the f32 additions, subtractions, multiplications and
+# cores, dense bf16 on the tensor cores, HBM3), and the f32 additions,
+# subtractions, multiplications and
 # divisions of one ray-triangle test: the full Möller–Trumbore with its
 # division (pvec 9, det 5, tvec 3, u 5, qvec 9, v 5, t 5, 1/det 1, u v t 3,
 # u + v 1), the same with the origin terms hoisted per triangle (K1: one
 # origin), and the division-free occlusion predicate (the products by det
 # in place of 1/det and u v t)
 F32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 HBM_BYTES_PER_S = 3.35e12
 OPS_NEAREST = 46
 OPS_NEAREST_ONE_ORIGIN = 29
 OPS_OCCLUDES = 45
+# K3's test of one ray-triangle pair: the four ten-term sums of bf16
+# products (40 products, 36 additions: a tensor-core contraction), then in
+# f32 the sign fold 4, the interval ends 8, the confident and maybe margins
+# 3 + 3, t_hi's division 1 and the candidate's product 1
+OPS_PREPASS_BF16 = 76
+OPS_PREPASS_F32 = 20
+GROUPS = 4
 SRC = "simple_raytracer_tpu_torch/csrc/"
 
 
@@ -211,10 +243,14 @@ def frame_lanes(px0, py0, tile_px: int, width: int, height: int):
 
 
 def bound(walk, lanes, ops_per_pair: int, plan, window_bytes: int,
-          lane_bytes: int, out, fixed=(), extra: int = 0) -> dict:
+          lane_bytes: int, out, fixed=(), extra: int = 0,
+          bf16_ops_per_pair: int = 0) -> dict:
     """The least time the card could take for a walk's work on the frame:
-    the larger of its operations over the f32 peak and its bytes over the
-    memory rate.  ``walk`` = (tests per lane [n, M], staged windows) from
+    the larger of its operations' time and its bytes over the memory rate.
+    A test is ``ops_per_pair`` f32 operations and ``bf16_ops_per_pair`` bf16
+    tensor-core ones; the two units run side by side, so the operations
+    take the larger of the two times.  ``walk`` = (tests per lane [n, M],
+    staged windows) from
     the plain walk (:func:`plain_walk`); counts the tests of the lanes
     ``lanes`` [n, M] and, as bytes, the plan, ``window_bytes`` for each
     staged window, ``lane_bytes`` for each counted lane of a tile with a
@@ -225,14 +261,24 @@ def bound(walk, lanes, ops_per_pair: int, plan, window_bytes: int,
     pairs = int(lane_pairs[lanes].sum())
     cnt = torch.where(plan[:, 3] == 1, plan[:, 2], plan[:, 1])
     ray_lanes = int((lanes & (cnt > 0)[:, None]).sum())
-    ops = pairs * ops_per_pair
+    ops, bf16_ops = pairs * ops_per_pair, pairs * bf16_ops_per_pair
     moved = (nbytes(plan, out, *fixed) + extra + ray_lanes * lane_bytes
              + int(staged.sum()) * window_bytes)
-    t_ops, t_bytes = ops / F32_OPS_PER_S * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    t_ops = max(ops / F32_OPS_PER_S, bf16_ops / BF16_OPS_PER_S) * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "pairs": pairs, "f32_ops": ops, "bytes": moved,
-            "windows_staged": int(staged.sum())}
+            "pairs": pairs, "f32_ops": ops, "bf16_ops": bf16_ops,
+            "bytes": moved, "windows_staged": int(staged.sum())}
+
+
+def nearest_ops(o) -> int:
+    """Operations of one nearest test over the rays ``o`` [..., 3]: the
+    origin terms are one per triangle when every ray shares the first ray's
+    origin (primary rays), else one per test."""
+    flat = o.reshape(-1, 3)
+    return (OPS_NEAREST_ONE_ORIGIN if bool((flat == flat[0]).all())
+            else OPS_NEAREST)
 
 
 def window_bytes(tri, window_tris: int, block_size: int = 0) -> int:
@@ -501,6 +547,39 @@ def check_found(kernel, plain, args, pts, S: int, what: str, label: str,
     return res
 
 
+def check_nearest(kernel, plain, args, inside, what: str, label: str,
+                  ops: int, win_bytes: int, lane_bytes: int, fixed=(),
+                  winners=None):
+    """A nearest walk whose results begin with (t, idx) (K1's fetch and
+    rays modes, K4, K6) against its plain version on ``args``; counts the
+    lanes ``inside``, and with ``winners`` (the attribute table) the rows
+    of the winning triangles.  Returns (its check line, t, idx)."""
+    import torch
+    kout = kernel(*args)
+    pout, walk = plain_walk(plain, args)
+    kt, ki, pt, pi = kout[0], kout[1], pout[0], pout[1]
+    torch.cuda.synchronize()
+    hk, hp = torch.isfinite(kt), torch.isfinite(pt)
+    both = hk & hp
+    t_err = (kt[both] - pt[both]).abs()
+    t_ok = bool((t_err <= T_ATOL + T_RTOL * pt[both].abs()).all())
+    idx_frac = float((ki == pi).float().mean())
+    plan = args[0]
+    res = {"check": f"{what} vs plain ({label})", "tiles": int(kt.shape[0]),
+           "rays_per_tile": int(kt.shape[1]), "hit_rays": int(hk.sum()),
+           "hit_mask_equal": float((hk == hp).float().mean()),
+           "t_max_abs_err": float(t_err.max()) if t_err.numel() else 0.0,
+           "t_within_tol": t_ok, "idx_equal": idx_frac,
+           "idx_differ": int((ki != pi).sum()), "plan": plan_stats(plan),
+           **bound(walk, inside, ops, plan, win_bytes, lane_bytes, kout,
+                   fixed, 0 if winners is None
+                   else winner_bytes(ki, winners))}
+    emit(**res)
+    require(t_ok and bool((hk == hp).all()), f"{what} t differs ({label})")
+    require(idx_frac >= IDX_MIN, f"{what} idx equal on {idx_frac} ({label})")
+    return res, kt, ki
+
+
 def occlusion_frame(sr, prep, cfg, light, label: str, gpu: str) -> dict:
     """The soft or dense frame: its K1 and K2′ against their plain versions,
     the frame through the public entry points with the counts read around
@@ -636,31 +715,16 @@ def paged_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
                                     device=dev)
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
     args = frame_args(prep, cfg, light, cam_spec, (o, d))
-    k6, k7 = args["nearest_rays"], args["anyhit_pages"]
+    k6, k7 = args["nearest_pages"], args["anyhit_pages"]
 
     # K6 vs plain
-    kt, ki = paged.tiled_nearest(*k6)
-    (pt, pi), walk = plain_walk(paged.tiled_nearest_plain, k6)
-    inside = frame_lanes(*pl.tile_origins(kt.shape[0], -(-cam.width // tpx),
-                                          tpx, cam.width, cam.height, dev),
+    inside = frame_lanes(*pl.tile_origins(k6[0].shape[0],
+                                          -(-cam.width // tpx), tpx,
+                                          cam.width, cam.height, dev),
                          tpx, cam.width, cam.height)
-    torch.cuda.synchronize()
-    hk, hp = torch.isfinite(kt), torch.isfinite(pt)
-    both = hk & hp
-    t_err = (kt[both] - pt[both]).abs()
-    t_ok = bool((t_err <= T_ATOL + T_RTOL * pt[both].abs()).all())
-    idx_frac = float((ki == pi).float().mean())
-    k6_res = {"check": f"K6 vs plain ({label})", "tiles": int(kt.shape[0]),
-              "rays_per_tile": int(kt.shape[1]), "hit_rays": int(hk.sum()),
-              "hit_mask_equal": float((hk == hp).float().mean()),
-              "t_max_abs_err": float(t_err.max()) if t_err.numel() else 0.0,
-              "t_within_tol": t_ok, "idx_equal": idx_frac,
-              "idx_differ": int((ki != pi).sum()), "plan": plan_stats(k6[0]),
-              **bound(walk, inside, OPS_NEAREST, k6[0],
-                      window_bytes(k6[1], k6[4]), 24, (kt, ki))}
-    emit(**k6_res)
-    require(t_ok and bool((hk == hp).all()), f"K6 t differs ({label})")
-    require(idx_frac >= IDX_MIN, f"K6 idx equal on {idx_frac} ({label})")
+    k6_res, kt, ki = check_nearest(
+        paged.tiled_nearest, paged.tiled_nearest_plain, k6, inside, "K6",
+        label, nearest_ops(k6[2]), window_bytes(k6[1], k6[4]), 24)
 
     # K7 vs plain, on the lanes whose point is a hit
     k7_res = check_found(paged.tiled_anyhit, paged.tiled_anyhit_plain, k7,
@@ -668,7 +732,7 @@ def paged_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
                          shadowed_min)
 
     launches = render_checked(sr, prep, cfg, light, label,
-                              ("nearest_rays", "anyhit_pages"))["launches"]
+                              ("nearest_pages", "anyhit_pages"))["launches"]
     ms_frame = view_varied_ms(sr, prep, cfg, light, frames, label)
 
     # each kernel and its plain version, and each stage alone
@@ -700,7 +764,7 @@ def paged_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
     return [
         entry("nearest_rays_kernel", "nearest.cu",
               "simple_raytracer_tpu/kernels/tiled.py:815", label,
-              launches["nearest_rays"], k6_res["t_max_abs_err"],
+              launches["nearest_pages"], k6_res["t_max_abs_err"],
               times["k6_ms"], times["k6_plain_ms"], k6_res,
               via="tiled_nearest (tiled.py:1047)"),
         entry("anyhit_rays_kernel (page windows)", "anyhit.cu",
@@ -708,6 +772,156 @@ def paged_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
               launches["anyhit_pages"], k7_res["found_max_abs_err"],
               times["k7_ms"], times["k7_plain_ms"], k7_res,
               via="tiled_anyhit (tiled.py:1090)")]
+
+
+def check_prepass(k3, inside, label: str) -> dict:
+    """K3 against its plain version on the arguments ``k3``: flags equal on
+    every plan position."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels import prepass
+    kf = prepass.tiled_prepass(*k3)
+    pf = prepass.tiled_prepass_plain(*k3)
+    walk = (prepass.tiled_prepass_plain.lane_pairs,
+            prepass.tiled_prepass_plain.staged)
+    torch.cuda.synchronize()
+    equal = float((kf == pf).float().mean())
+    plan, gram, wt = k3[0], k3[1], k3[4]
+    res = {"check": f"K3 vs plain ({label})", "tiles": int(kf.shape[0]),
+           "positions": int(kf.numel()), "flags_equal": equal,
+           "flags_differ": int((kf != pf).sum()),
+           "flags_max_abs_err": float((kf.int() - pf.int()).abs().max()),
+           "flagged": int(kf.sum()),
+           "plan": plan_stats(plan),
+           **bound(walk, inside, OPS_PREPASS_F32, plan,
+                   wt * gram.shape[1] * gram.element_size(), 24, kf,
+                   bf16_ops_per_pair=OPS_PREPASS_BF16)}
+    emit(**res)
+    require(equal == 1.0, f"K3 flags equal on {equal} ({label})")
+    return res
+
+
+def gather_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
+                 shadowed_min=None) -> list:
+    """A frame of the sublane gather branch: its nearest walk (K1's fetch
+    mode, K3 + K1 over the refined plan, or K4) and its occlusion walk (K2′
+    or K5) against their plain versions on the frame's arguments, the frame
+    through the public entry points with the counts read around it, the
+    plain image, and the times.  Returns the kernels-line entries."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels import nearest, prepass
+    from simple_raytracer_tpu_torch.kernels import plan as pl
+    from simple_raytracer_tpu_torch.kernels import tiled
+    from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
+    from simple_raytracer_tpu_torch.render.integrator import finalize_image
+    dev = prep.device
+    cam = cfg.camera
+    kc = cfg.kernel
+    S = cfg.light.num_samples
+    tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
+    tile = tpx * tpx
+    branch = tiled.frame_branch(prep, cfg, tile)
+    require(branch == "gather", f"{label} takes the {branch} branch")
+    cam_spec = (None, cam.focal, cam.width, cam.height, tpx)
+    o, d, _, _ = primary_rays_tiled(cam.width, cam.height, tpx, cam.focal,
+                                    device=dev)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    args = frame_args(prep, cfg, light, cam_spec, (o, d))
+    if kc.prepass:
+        near = ("nearest_rays", "K1 rays mode",
+                "nearest_rays_kernel (refined plan)",
+                "simple_raytracer_tpu/kernels/tiled_t.py:855",
+                "tiled_nearest_t over explicit rays (tiled_t.py:1616)")
+    elif kc.nearest_groups > 1:
+        near = ("nearest_grouped", "K4", "nearest_rays_kernel (sub-groups)",
+                "simple_raytracer_tpu/kernels/tiled_t.py:1145",
+                "tiled_nearest_t, groups > 1 (tiled_t.py:1616)")
+    else:
+        near = ("nearest_attrs", "K1 fetch mode",
+                "nearest_shaded_kernel (fetch mode)",
+                "simple_raytracer_tpu/kernels/tiled_t.py:855",
+                "tiled_nearest_t with cam (tiled_t.py:1616)")
+    shadow = (("anyhit_grouped", "K5", "anyhit_rays_kernel (sub-groups)",
+               "simple_raytracer_tpu/kernels/tiled_t.py:1509",
+               "tiled_anyhit_t, groups > 1 (tiled_t.py:1815)")
+              if kc.anyhit_groups > 1 else
+              ("anyhit", "K2'", "anyhit_rays_kernel",
+               "simple_raytracer_tpu/kernels/tiled_t.py:1374",
+               "tiled_anyhit_t (tiled_t.py:1815)"))
+    roles = (("prepass",) if kc.prepass else ()) + (near[0], shadow[0])
+    kn, ks = args[near[0]], args[shadow[0]]
+    near_fn, near_plain = tiled.KERNELS[near[0]], tiled.PLAIN[near[0]]
+    sh_fn, sh_plain = tiled.KERNELS[shadow[0]], tiled.PLAIN[shadow[0]]
+    inside = frame_lanes(*pl.tile_origins(kn[0].shape[0],
+                                          -(-cam.width // tpx), tpx,
+                                          cam.width, cam.height, dev),
+                         tpx, cam.width, cam.height)
+    entries, times = [], {}
+
+    # K3 vs plain, and the refined walk against the unrefined one
+    if kc.prepass:
+        k3 = args["prepass"]
+        k3_res = check_prepass(k3, inside, label)
+        rt, ri = near_fn(*kn)
+        ut, ui = near_fn(k3[0], *kn[1:])
+        torch.cuda.synchronize()
+        exact = bool(torch.equal(rt, ut) and torch.equal(ri, ui))
+        emit(check=f"refined walk vs unrefined walk ({label})",
+             t_idx_equal=exact, windows_before=plan_stats(k3[0]),
+             windows_after=plan_stats(kn[0]))
+        require(exact, f"the refined walk differs ({label})")
+        times["k3_ms"] = cuda_ms(lambda: prepass.tiled_prepass(*k3), 10)
+        times["k3_plain_ms"] = cuda_ms(
+            lambda: prepass.tiled_prepass_plain(*k3), 2)
+        times["unrefined_ms"] = cuda_ms(lambda: near_fn(k3[0], *kn[1:]), 10)
+
+    # the nearest walk vs plain: K1's fetch mode reads the camera constants
+    # and the winners' attribute rows where the others read rays
+    if near[0] == "nearest_attrs":
+        near_res, kt, _ki = check_nearest(
+            near_fn, near_plain, kn, inside, near[1], label,
+            OPS_NEAREST_ONE_ORIGIN, window_bytes(kn[1], kn[5]), 0, (kn[3],),
+            kn[2])
+    else:
+        near_res, kt, _ki = check_nearest(
+            near_fn, near_plain, kn, inside, near[1], label,
+            nearest_ops(kn[2]), window_bytes(kn[1], kn[4]), 24)
+
+    # the occlusion walk vs plain, on the lanes whose point is a hit
+    sh_res = check_found(sh_fn, sh_plain, ks, torch.isfinite(kt) & inside,
+                         S, shadow[1], label, shadowed_min)
+
+    launches = render_checked(sr, prep, cfg, light, label, roles)["launches"]
+    ms_frame = view_varied_ms(sr, prep, cfg, light, frames, label)
+
+    # each kernel and its plain version, and each stage alone
+    maxv = pl.effective_cull_maxv(cfg, prep.num_blocks, kc.window_blocks)
+    times.update({
+        "nearest_ms": cuda_ms(lambda: near_fn(*kn), 10),
+        "nearest_plain_ms": cuda_ms(lambda: near_plain(*kn), 2),
+        "shadow_ms": cuda_ms(lambda: sh_fn(*ks), 10),
+        "shadow_plain_ms": cuda_ms(lambda: sh_plain(*ks), 2),
+        "hits_ms": cuda_ms(lambda: nearest.hits(
+            prep, cfg, o, d, tile, maxv, apex=True, cam_spec=cam_spec), 10),
+        "frame_ms": cuda_ms(lambda: finalize_image(
+            *sr.render_radiance(prep, cfg, light), cfg), 10)})
+    emit(phase=f"timing ({label})", width=cam.width, height=cam.height,
+         samples=S, frames=frames, ms_per_frame=ms_frame,
+         rays_per_s=cam.width * cam.height * 1e3 / ms_frame, gpu=gpu,
+         **times)
+    if kc.prepass:
+        entries.append(entry(
+            "prepass_kernel", "prepass.cu",
+            "simple_raytracer_tpu/kernels/tiled_t.py:1249", label,
+            launches["prepass"], k3_res["flags_max_abs_err"],
+            times["k3_ms"], times["k3_plain_ms"], k3_res,
+            via="tiled_prepass_t (tiled_t.py:1741)"))
+    return entries + [
+        entry(near[2], "nearest.cu", near[3], label, launches[near[0]],
+              near_res["t_max_abs_err"], times["nearest_ms"],
+              times["nearest_plain_ms"], near_res, via=near[4]),
+        entry(shadow[2], "anyhit.cu", shadow[3], label, launches[shadow[0]],
+              sh_res["found_max_abs_err"], times["shadow_ms"],
+              times["shadow_plain_ms"], sh_res, via=shadow[4])]
 
 
 def main() -> int:
@@ -854,6 +1068,22 @@ def main() -> int:
     entries += paged_frame(sr, dense_prep, dense.replace(tiled_impl="paged"),
                            light, f"paged {dense_label}", gpu, OCC_FRAMES,
                            SHADOWED_MIN)
+
+    # 8. the sublane gather frames
+    gtex = tex.replace(tiled_impl=None)
+    tex_label = (f"procedural textured_on_ground(6), smooth normals, "
+                 f"{OCC_WIDTH}x{OCC_HEIGHT}, S={SOFT_SAMPLES}")
+    entries += gather_frame(sr, tex_prep, gtex, light,
+                            f"gather textured: {tex_label}", gpu, OCC_FRAMES,
+                            SHADOWED_MIN)
+    entries += gather_frame(
+        sr, tex_prep, gtex.replace(kernel=sr.KernelConfig(
+            groups=GROUPS, groups_ah=GROUPS)), light,
+        f"gather grouped (G={GROUPS}): {tex_label}", gpu, OCC_FRAMES,
+        SHADOWED_MIN)
+    entries += gather_frame(
+        sr, prep, cfg.replace(kernel=sr.KernelConfig(prepass=True)), light,
+        f"prepass {bench}", gpu, FRAMES)
 
     print(json.dumps({"kernels": [
         entry("nearest_shaded_kernel", "nearest.cu",

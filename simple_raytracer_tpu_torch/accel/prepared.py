@@ -7,11 +7,16 @@ numpy, and the finished arrays are put on the device the caller names
 Counterpart of the JAX package's ``accel/prepared.py::prepare``.  The JAX
 PreparedScene also carries TPU matrix-unit operands (``gram``, ``gram_t``,
 ``gram_s``, ``attr_t``: Möller–Trumbore factors and bf16 attribute limbs laid
-out for MXU contractions) and the flattened BVH nodes of its ``bvh`` mode;
-the port keeps neither.  Its kernels read a plain triangle layout instead:
-``tri`` holds each triangle's first vertex and two edges (w-divided here, so
-no kernel divides by w), and ``tri_attr`` the flat normal and object id that
-the nearest kernel gathers by winner id.
+out for MXU contractions) and the flattened BVH nodes of its ``bvh`` mode.
+The port keeps one Gram table, ``gram`` [Tp, 40]: each triangle's factors
+(ops/intersect.py::pack_mt_gram, rows d, o×d, o, 1 by columns det, u, v, t)
+in the order of ``tri``, because the bf16 classification walk K3
+(kernels/prepass.py) states its error bound on the Gram contraction.  The
+TPU layouts ``gram_t``, ``gram_s`` and ``attr_t`` stay out.  The other
+kernels read a plain triangle layout: ``tri`` holds each triangle's first
+vertex and two edges (w-divided here, so no kernel divides by w), and
+``tri_attr`` the flat normal and object id that the nearest kernel gathers
+by winner id.
 
 The paged walks (K6, K7; kernels/paged.py) read the same ``tri`` table in
 PAGES of ``page_tris`` consecutive triangles (``page_tris / block_size``
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
+from ..ops.intersect import pack_mt_gram
 from ..scene.scene import Scene, scene_from_numpy
 from .bvh import build_bvh, concat_bvhs, triangle_blocks
 
@@ -45,11 +51,13 @@ class PreparedScene:
     block_obj: torch.Tensor     # [NB] i32 — the one object of each block
     tri: torch.Tensor           # [Tp, 9] f32 — v0, e1 = v1 - v0, e2 = v2 - v0
     tri_attr: torch.Tensor      # [Tp, 4] f32 — flat normal xyz, object id
+    gram: torch.Tensor          # [Tp, 40] f32 — Gram factors [10, 4] (K3)
     num_triangles: int = 0      # real (unpadded) triangle count
     block_size: int = 32
     page_tris: int = 128        # triangles per page of the paged walks
 
-    TENSOR_FIELDS = ("block_min", "block_max", "block_obj", "tri", "tri_attr")
+    TENSOR_FIELDS = ("block_min", "block_max", "block_obj", "tri", "tri_attr",
+                     "gram")
 
     @property
     def num_blocks(self) -> int:
@@ -92,6 +100,13 @@ def kernel_tables(verts: np.ndarray, tri_normal: np.ndarray,
     return tri, attr
 
 
+def gram_table(verts: np.ndarray) -> np.ndarray:
+    """Host vertices [Tp, 3, 4] -> gram [Tp, 40]: the Gram factors [10, 4]
+    of each w-divided triangle, row-major."""
+    vc = (verts[..., :3] / verts[..., 3:4]).astype(np.float32)
+    return pack_mt_gram(torch.from_numpy(vc)).reshape(-1, 40).numpy()
+
+
 def _block_obj(tri_obj: np.ndarray, nb: int, bs: int) -> np.ndarray:
     """Per-block object id.  Per-object padding (``prepare``) makes every
     block single-object; padding rows (-1) do not count."""
@@ -108,6 +123,7 @@ def _finish(scene_np: Dict[str, np.ndarray], has_textures: bool,
             block_size: int, page_tris: int, device) -> PreparedScene:
     tri, attr = kernel_tables(scene_np["verts"], scene_np["tri_normal"],
                               scene_np["tri_obj"])
+    gram = gram_table(scene_np["verts"])
 
     def t(a, dtype):
         return torch.from_numpy(np.array(a, dtype, order="C"))
@@ -115,7 +131,8 @@ def _finish(scene_np: Dict[str, np.ndarray], has_textures: bool,
         scene=scene_from_numpy(scene_np, has_textures),
         block_min=t(block_min, np.float32), block_max=t(block_max, np.float32),
         block_obj=t(block_obj, np.int32), tri=t(tri, np.float32),
-        tri_attr=t(attr, np.float32), num_triangles=int(num_triangles),
+        tri_attr=t(attr, np.float32), gram=t(gram, np.float32),
+        num_triangles=int(num_triangles),
         block_size=int(block_size), page_tris=int(page_tris)).to(device)
 
 

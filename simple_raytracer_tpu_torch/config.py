@@ -7,9 +7,10 @@ in the reference (`simple_raytracer.cpp` / `Object.cpp`).  The reference-facing
 dataclasses carry the same fields and defaults as the JAX package's
 (simple_raytracer_tpu/config.py), so one set of values configures both.
 
-:class:`KernelConfig` holds only what the two hand-written CUDA kernels read
-(kernels/nearest.py, kernels/anyhit.py).  There are no environment-variable
-switches.
+:class:`KernelConfig` holds what the hand-written CUDA kernels read and the
+switches that choose the tiled frame's branch; the JAX package's
+environment-variable switches of the same meaning are its fields here.  The
+port reads no environment variable.
 """
 
 from __future__ import annotations
@@ -92,7 +93,8 @@ class BVHConfig:
 
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
-    """What the two CUDA kernels read (kernels/nearest.py, kernels/anyhit.py).
+    """What the CUDA kernels read, and which branch of the tiled frame runs
+    (kernels/tiled.py::frame_branch).
 
     A window is ``window_blocks`` consecutive cull blocks: the unit of the
     plan, of the kernels' shared-memory staging and of the front-to-back
@@ -101,11 +103,46 @@ class KernelConfig:
     which has no ordering gain), so the two packages walk the same plans.
     ``threads`` is the CUDA block size; each thread owns
     ``tile // threads`` rays of the tile.  Not tuned on the H100 yet.
+
+    The branch switches carry the JAX ``KernelConfig`` fields and
+    environment switches of the same meaning:
+
+    * ``attr_fetch`` (JAX ``attr_fetch``): K1 fetches the winner's
+      attributes; False sends every frame to the gather branch, which
+      shades from records gathered by triangle id;
+    * ``fused_phong`` (JAX ``fused_phong``): one-sample flat frames shade
+      in K1; False takes the fetch + records path (textured or
+      smooth-normal scenes: the gather branch);
+    * ``fused_shadow`` (JAX ``fused_shadow``): the hard shadow rebuilds its
+      rays from K1's t (K2); False takes the legacy explicit-ray shadow;
+    * ``prepass`` (JAX ``SRT_TILED_PREPASS``): the nearest walk is the
+      exact two-pass one, the bf16 classification walk K3 then K1 over the
+      flagged windows only;
+    * ``groups`` / ``groups_ah`` (JAX ``SRT_TILED_GROUPS`` /
+      ``SRT_TILED_GROUPS_AH``): split each nearest / occlusion ray tile
+      into that many sub-groups that skip the plan entries their own rays
+      cannot reach (K4 / K5); clamped to 1..4, 1 is off.
     """
 
     threads: int = 512
     window_blocks: int = 2
     window_blocks_ah: int = 4
+    attr_fetch: bool = True
+    fused_phong: bool = True
+    fused_shadow: bool = True
+    prepass: bool = False
+    groups: int = 1
+    groups_ah: int = 1
+
+    @property
+    def nearest_groups(self) -> int:
+        """Sub-groups of a nearest tile (JAX tiled_t._groups_for)."""
+        return max(1, min(4, int(self.groups)))
+
+    @property
+    def anyhit_groups(self) -> int:
+        """Sub-groups of an occlusion tile (JAX tiled_t._groups_for_ah)."""
+        return max(1, min(4, int(self.groups_ah)))
 
 
 @dataclasses.dataclass(frozen=True)

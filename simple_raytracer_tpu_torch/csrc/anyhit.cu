@@ -15,6 +15,12 @@
 // paths.  Plain PyTorch version: kernels/anyhit.py::tiled_anyhit_plain.  A
 // tile holds M rays (S light samples x ts points when folded); M need not be
 // a multiple of the block size: lanes past M start found and are not written.
+// With groups > 1 it replaces the TPU kernel tiled_t.py::_anyhit_kernel_g
+// (K5, reached through tiled_anyhit_t with groups_ah > 1): the plan carries
+// a 4-bit sub-group mask per entry (kernels/plan.py::group_mask_words); a
+// sub-group of M / groups lanes skips the windows its bit clears, and the
+// block stops once every group is all-found or has no window left.  Plain
+// PyTorch version: kernels/anyhit.py::tiled_anyhit_grouped_plain.
 //
 // Both run anyhit_walk: each thread owns RPT rays, strided by the block size.
 // For each plan entry the block stages the window's triangles and block
@@ -29,44 +35,66 @@
 // unoccluded (they walk the whole plan), not memory: a window is 4.6 KB of
 // triangles read once per tile, and a ray is read once.  The design drops the
 // division of the nearest test, skips finished rays and own-object blocks per
-// thread, and exits per tile.
+// thread, and exits per tile; K5 also skips a window's staging when no
+// group that still has an unoccluded ray may reach it.
 
 #include "common.cuh"
 
 namespace {
 
 // Walk the tile's plan; found[r] |= "ray r meets a triangle of another
-// object".  Ray r has origin h[r] and direction s[r].
-template <int RPT>
+// object".  Ray r has origin h[r] and direction s[r].  kGrouped: lane r
+// belongs to the sub-group of bit gbit[r]; a window is staged when some
+// group with an unoccluded ray may reach it and tested only by such groups.
+template <int RPT, bool kGrouped = false>
 __device__ __forceinline__ void anyhit_walk(
     const srt::TilePlan& P, const float* __restrict__ tri,
     const int* __restrict__ block_obj, int n_windows, int wt, int bs,
     float eps, int no_max_t, const float* hx, const float* hy,
     const float* hz, const float* sx, const float* sy, const float* sz,
-    const int* self_obj, bool* found, float* s_tri, int* s_bobj) {
+    const int* self_obj, bool* found, float* s_tri, int* s_bobj,
+    const unsigned* gbit = nullptr) {
   const int wb = wt / bs;
+  const unsigned full = (1u << P.groups) - 1u;
+  unsigned done = 0;                             // groups all found
   for (int k = 0; k < P.cnt; ++k) {
     const int w = P.window(k);
     __syncthreads();                             // shared tables free
     if (w < 0 || w >= n_windows) continue;       // block-uniform
-    srt::stage(s_tri, tri + (size_t)w * wt * srt::kTriW, wt * srt::kTriW);
-    for (int i = threadIdx.x; i < wb; i += blockDim.x)
-      s_bobj[i] = block_obj[w * wb + i];
-    __syncthreads();
-    for (int j = 0; j < wt; ++j) {
-      const int bo = s_bobj[j / bs];
-      const srt::Tri g(s_tri + j * srt::kTriW);
+    const unsigned need = kGrouped ? P.gmask(k) & ~done & full : full;
+    if (need) {                                  // block-uniform
+      srt::stage(s_tri, tri + (size_t)w * wt * srt::kTriW, wt * srt::kTriW);
+      for (int i = threadIdx.x; i < wb; i += blockDim.x)
+        s_bobj[i] = block_obj[w * wb + i];
+      __syncthreads();
+      for (int j = 0; j < wt; ++j) {
+        const int bo = s_bobj[j / bs];
+        const srt::Tri g(s_tri + j * srt::kTriW);
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        if (found[r] || bo == self_obj[r]) continue;
-        found[r] = srt::occludes(g, hx[r], hy[r], hz[r], sx[r], sy[r], sz[r],
-                                 eps, no_max_t);
+        for (int r = 0; r < RPT; ++r) {
+          if constexpr (kGrouped) {
+            if (!(need & gbit[r])) continue;     // warp-uniform
+          }
+          if (found[r] || bo == self_obj[r]) continue;
+          found[r] = srt::occludes(g, hx[r], hy[r], hz[r], sx[r], sy[r],
+                                   sz[r], eps, no_max_t);
+        }
       }
     }
-    int all = 1;
+    if constexpr (!kGrouped) {
+      int all = 1;
 #pragma unroll
-    for (int r = 0; r < RPT; ++r) all &= found[r];
-    if (__syncthreads_and(all)) break;
+      for (int r = 0; r < RPT; ++r) all &= found[r];
+      if (__syncthreads_and(all)) break;
+    } else {
+      unsigned open = 0;                         // groups with a ray unfound
+#pragma unroll
+      for (int r = 0; r < RPT; ++r)
+        if (!found[r]) open |= gbit[r];
+      for (int g = 0; g < P.groups; ++g)
+        if (__syncthreads_and(!((open >> g) & 1u))) done |= 1u << g;
+      if (done == full) break;
+    }
   }
 }
 
@@ -116,24 +144,26 @@ __global__ void anyhit_from_t_kernel(
     found_out[(size_t)tile * tile_r + tid + r * nthr] = found[r] ? 1 : 0;
 }
 
-// rays o, d [n, m, 3] f32 and self_obj [n, m] i32 -> found [n, m] u8
-template <int RPT>
+// rays o, d [n, m, 3] f32 and self_obj [n, m] i32 -> found [n, m] u8;
+// kGrouped: the plan carries masks for `groups` groups of m / groups lanes
+template <int RPT, bool kGrouped>
 __global__ void anyhit_rays_kernel(
     const int* __restrict__ plan, int plan_w, const float* __restrict__ tri,
     const int* __restrict__ block_obj, int n_windows,
     const float* __restrict__ o_in, const float* __restrict__ d_in,
     const int* __restrict__ self_in, int m, int wt, int bs, float eps,
-    int no_max_t, unsigned char* __restrict__ found_out) {
+    int no_max_t, int groups, unsigned char* __restrict__ found_out) {
   extern __shared__ float s_tri[];        // wt * kTriW floats, then wt/bs ids
   int* s_bobj = reinterpret_cast<int*>(s_tri + wt * srt::kTriW);
   const int nthr = blockDim.x;
   const int tid = threadIdx.x;
   const int tile = blockIdx.x;
-  const srt::TilePlan P(plan, plan_w, tile);
+  const srt::TilePlan P(plan, plan_w, tile, kGrouped ? groups : 1);
 
   float hx[RPT], hy[RPT], hz[RPT], sx[RPT], sy[RPT], sz[RPT];
   int self_obj[RPT];
   bool found[RPT];
+  unsigned gbit[RPT];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int lane = tid + r * nthr;
@@ -148,8 +178,10 @@ __global__ void anyhit_rays_kernel(
     self_obj[r] = self_in[o];
     found[r] = !live;                     // tail lanes never hold the exit
   }
-  anyhit_walk<RPT>(P, tri, block_obj, n_windows, wt, bs, eps, no_max_t, hx,
-                   hy, hz, sx, sy, sz, self_obj, found, s_tri, s_bobj);
+  if constexpr (kGrouped) srt::group_bits<RPT>(m / groups, gbit);
+  anyhit_walk<RPT, kGrouped>(P, tri, block_obj, n_windows, wt, bs, eps,
+                             no_max_t, hx, hy, hz, sx, sy, sz, self_obj,
+                             found, s_tri, s_bobj, gbit);
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int lane = tid + r * nthr;
@@ -203,23 +235,30 @@ extern "C" int srt_anyhit_from_t(
   return static_cast<int>(cudaGetLastError());
 }
 
+#define SRT_ANYHIT_RAYS_LAUNCH(R, G)                                           \
+  anyhit_rays_kernel<R, G><<<n_tiles, threads, smem, s>>>(                     \
+      static_cast<const int*>(plan), plan_w, static_cast<const float*>(tri),   \
+      static_cast<const int*>(block_obj), n_windows,                           \
+      static_cast<const float*>(o_in), static_cast<const float*>(d_in),        \
+      static_cast<const int*>(self_in), m, wt, bs, eps, no_max_t, groups,      \
+      static_cast<unsigned char*>(found))
+
 #define SRT_ANYHIT_RAYS_CASE(R)                                                \
   case R:                                                                      \
-    anyhit_rays_kernel<R><<<n_tiles, threads, smem, s>>>(                      \
-        static_cast<const int*>(plan), plan_w,                                 \
-        static_cast<const float*>(tri), static_cast<const int*>(block_obj),    \
-        n_windows, static_cast<const float*>(o_in),                            \
-        static_cast<const float*>(d_in), static_cast<const int*>(self_in), m,  \
-        wt, bs, eps, no_max_t, static_cast<unsigned char*>(found));            \
+    if (groups > 1)                                                            \
+      SRT_ANYHIT_RAYS_LAUNCH(R, true);                                         \
+    else                                                                       \
+      SRT_ANYHIT_RAYS_LAUNCH(R, false);                                        \
     break;
 
 extern "C" int srt_anyhit_rays(
     const void* plan, int plan_w, int n_tiles, const void* tri,
     const void* block_obj, int n_windows, const void* o_in, const void* d_in,
     const void* self_in, int m, int wt, int bs, float eps, int no_max_t,
-    void* found, int threads, void* stream) {
+    int groups, void* found, int threads, void* stream) {
   if (n_tiles == 0) return 0;
-  if (bad_launch(threads, wt, bs) || m <= 0)
+  if (bad_launch(threads, wt, bs) || m <= 0 || groups < 1 || groups > 4 ||
+      m % groups || (groups > 1 && (m / groups) % 32))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = walk_smem(wt, bs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

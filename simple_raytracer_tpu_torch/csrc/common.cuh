@@ -1,9 +1,10 @@
-// Shared device code of the tiled kernels (nearest.cu, anyhit.cu).
+// Shared device code of the tiled kernels (nearest.cu, anyhit.cu,
+// prepass.cu).
 //
 // Built with --fmad=false (kernels/build.py): every expression below rounds
 // each multiply and add on its own, in the order written, which is the order
 // of the plain PyTorch versions (ops/intersect.py, kernels/nearest.py,
-// kernels/anyhit.py).
+// kernels/anyhit.py, kernels/prepass.py).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -18,20 +19,24 @@ constexpr int kTriW = 9;      // v0, e1, e2 per triangle
 constexpr int kMaxWarps = 32;
 
 // One tile's row of the plan: columns (lo, range_cnt, list_cnt, use_list,
-// px0, py0, 0, 0), then entries window | bound16 << 16 in walk order.
+// px0, py0, 0, 0), then entries window | bound16 << 16 in walk order.  A
+// grouped plan (groups > 1, kernels/plan.py::group_mask_words) holds
+// mv = (plan_w - 8) * 8 / 9 entries, then one mask word per 8 entries: 4 bits
+// per entry, bit g set when sub-group g of the tile's rays may reach the
+// entry's window.
 struct TilePlan {
   const int* row;
-  int lo, cnt, mv, px0, py0;
+  int lo, cnt, mv, px0, py0, groups;
   bool use_list;
 
-  __device__ TilePlan(const int* plan, int plan_w, int tile)
-      : row(plan + (size_t)tile * plan_w) {
+  __device__ TilePlan(const int* plan, int plan_w, int tile, int groups_ = 1)
+      : row(plan + (size_t)tile * plan_w), groups(groups_) {
     lo = row[0];
     use_list = row[3] == 1;
     cnt = use_list ? row[2] : row[1];
     px0 = row[4];
     py0 = row[5];
-    mv = plan_w - kPlanAux;
+    mv = groups > 1 ? (plan_w - kPlanAux) * 8 / 9 : plan_w - kPlanAux;
   }
   __device__ int entry(int k) const { return row[kPlanAux + min(k, mv - 1)]; }
   // list tiles walk their entries; range tiles the covering window range
@@ -42,7 +47,27 @@ struct TilePlan {
   __device__ unsigned bound16(int k) const {
     return static_cast<unsigned>(entry(k)) >> 16;
   }
+  // bit g: sub-group g may reach entry k's window (every group for range
+  // rows and ungrouped plans)
+  __device__ unsigned gmask(int k) const {
+    const unsigned full = (1u << groups) - 1u;
+    if (groups <= 1 || !use_list) return full;
+    const int kc = min(k, mv - 1);
+    return (static_cast<unsigned>(row[kPlanAux + mv + kc / 8]) >>
+            (4 * (kc % 8))) & full;
+  }
 };
+
+// Sub-group bit of each of a thread's RPT lanes (lane = tid + r * nthr):
+// groups of `glanes` consecutive lanes, a multiple of 32 (the wrappers
+// check), so a group is whole warps and its skips and breaks are
+// warp-uniform.
+template <int RPT>
+__device__ __forceinline__ void group_bits(int glanes, unsigned* gbit) {
+#pragma unroll
+  for (int r = 0; r < RPT; ++r)
+    gbit[r] = 1u << ((threadIdx.x + r * blockDim.x) / glanes);
+}
 
 // Primary ray of tile lane `lane`: d = fx * A + fy * B + C with (fx, fy)
 // the pixel relative to the image centre (ops/camera.py::tile_ray_dirs).

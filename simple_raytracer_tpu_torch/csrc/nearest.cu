@@ -4,20 +4,28 @@
 // or, in its fetch mode, nearest hit + the winner's attribute row.
 // Replaces the TPU kernel simple_raytracer_tpu/kernels/tiled_t.py::
 // _nearest_kernel_t, reached through tiled_nearest_t from hits_shaded (the
-// fused mode, on the fused frame's path) and from hits_attrs (the fetch mode,
-// on the soft-shadow path).  Plain PyTorch versions: kernels/nearest.py::
-// tiled_nearest_shaded_plain and tiled_nearest_attrs_plain.  The two modes
-// are one template (kShade), so their walks cannot drift apart.  Tiles are
-// 64x64 or 32x32 pixels; rays are rebuilt from the pixel index and the camera
-// constants, so no ray array exists.
+// fused mode, on the fused frame's path) and from hits_attrs and hits with
+// cam_spec (the fetch mode, on the soft-shadow and sublane gather paths; the
+// gather drops the attribute rows).  Plain PyTorch versions:
+// kernels/nearest.py::tiled_nearest_shaded_plain and
+// tiled_nearest_attrs_plain.  The two modes are one template (kShade), so
+// their walks cannot drift apart.  Tiles are 64x64 or 32x32 pixels; rays are
+// rebuilt from the pixel index and the camera constants, so no ray array
+// exists.
 //
 // nearest_rays_kernel: nearest hit (t, id) of explicit rays o, d [n, m, 3]
-// over a plan of pages (page_tris consecutive triangles).  Replaces the TPU
-// kernel simple_raytracer_tpu/kernels/tiled.py::_nearest_kernel (the paged
-// layout, reached through tiled_nearest from tiled_hits: tiled_impl="paged").
-// Plain PyTorch version: kernels/paged.py::tiled_nearest_plain.  The TPU
-// kernel computes its MT numerators as one Gram contraction per page; here
-// they are the cross products of ops/intersect.py, as in K1.
+// over a plan of windows of wt consecutive triangles.  It replaces three TPU
+// kernels: simple_raytracer_tpu/kernels/tiled.py::_nearest_kernel (K6: pages
+// of page_tris triangles, reached through tiled_nearest from tiled_hits:
+// tiled_impl="paged"; plain version kernels/paged.py::tiled_nearest_plain),
+// tiled_t.py::_nearest_kernel_t over explicit rays (K1's rays mode: 64-
+// triangle windows, the refined plan of the prepass walk; plain version
+// kernels/nearest.py::tiled_nearest_rays_plain) and, with groups > 1,
+// tiled_t.py::_nearest_kernel_g (K4: each sub-group of m / groups lanes
+// skips the entries its mask clears and stops on its own bound test; plain
+// version kernels/nearest.py::tiled_nearest_grouped_plain).  The TPU kernels
+// compute their MT numerators as one Gram contraction per window; here they
+// are the cross products of ops/intersect.py, as in K1.
 //
 // Both run nearest_walk: each thread owns RPT rays, strided by the block size
 // so a warp's rays (and its output writes) are adjacent.  For each plan entry
@@ -42,8 +50,11 @@
 // 4.6 KB (a K6 page), read once per tile from L2, and each ray reads 24
 // bytes (K6) and writes 8-28.  The design keeps each pair's work in
 // registers and amortises every staged triangle over all rays of the tile;
-// the break skips the windows behind the first surface.  Tensor cores, TMA
-// and persistence are left for later work.
+// the break skips the windows behind the first surface.  K4's sub-groups
+// skip a window's staging when no group needs it and its tests for the
+// groups whose bit is clear, so one deep region of a tile no longer drags
+// the other groups through its list.  Tensor cores, TMA and persistence are
+// left for later work.
 
 #include "common.cuh"
 
@@ -52,73 +63,96 @@ namespace {
 // Walk the tile's plan: bt[r], bi[r] become the least t and its lowest
 // triangle id over every window walked.  Ray r has direction d[r] and origin
 // o[r], or o[0] for every ray with kOneOrigin.  Lanes that are not live never
-// hold back the break.
-template <int RPT, bool kOneOrigin>
+// hold back the break.  kGrouped: lane r belongs to the sub-group of bit
+// gbit[r]; a window is staged when some group not yet past its break may
+// reach it, tested only by the rays of such groups, and each group stops at
+// its own bound test.
+template <int RPT, bool kOneOrigin, bool kGrouped = false>
 __device__ __forceinline__ void nearest_walk(
     const srt::TilePlan& P, const float* __restrict__ tri, int n_windows,
     int wt, float eps, const float* ox, const float* oy, const float* oz,
     const float* dx, const float* dy, const float* dz, const bool* live,
-    float* bt, int* bi, float* s_tri) {
+    float* bt, int* bi, float* s_tri, const unsigned* gbit = nullptr) {
+  const unsigned full = (1u << P.groups) - 1u;
+  unsigned done = 0;                             // groups past their break
   for (int k = 0; k < P.cnt; ++k) {
     const int w = P.window(k);
     __syncthreads();                             // s_tri free to overwrite
     if (w < 0 || w >= n_windows) continue;       // block-uniform
-    srt::stage(s_tri, tri + (size_t)w * wt * srt::kTriW, wt * srt::kTriW);
-    __syncthreads();
-    const int id0 = w * wt;
-    for (int j = 0; j < wt; ++j) {
-      const srt::Tri g(s_tri + j * srt::kTriW);
-      const int id = id0 + j;
-      // ray-independent with one origin: tvec = o - v0, qvec = tvec x e1,
-      // t_num
-      float tx = 0.0f, ty = 0.0f, tz = 0.0f, qx = 0.0f, qy = 0.0f, qz = 0.0f;
-      float t_num = 0.0f;
-      if constexpr (kOneOrigin) {
-        tx = ox[0] - g.v0x;
-        ty = oy[0] - g.v0y;
-        tz = oz[0] - g.v0z;
-        qx = ty * g.e1z - tz * g.e1y;
-        qy = tz * g.e1x - tx * g.e1z;
-        qz = tx * g.e1y - ty * g.e1x;
-        t_num = g.e2x * qx + g.e2y * qy + g.e2z * qz;
-      }
-#pragma unroll
-      for (int r = 0; r < RPT; ++r) {
-        const float px = dy[r] * g.e2z - dz[r] * g.e2y;
-        const float py = dz[r] * g.e2x - dx[r] * g.e2z;
-        const float pz = dx[r] * g.e2y - dy[r] * g.e2x;
-        const float det = g.e1x * px + g.e1y * py + g.e1z * pz;
-        if constexpr (!kOneOrigin) {
-          tx = ox[r] - g.v0x;
-          ty = oy[r] - g.v0y;
-          tz = oz[r] - g.v0z;
-        }
-        const float u_num = tx * px + ty * py + tz * pz;
-        if constexpr (!kOneOrigin) {
+    const unsigned need = kGrouped ? P.gmask(k) & ~done & full : full;
+    if (need) {                                  // block-uniform
+      srt::stage(s_tri, tri + (size_t)w * wt * srt::kTriW, wt * srt::kTriW);
+      __syncthreads();
+      const int id0 = w * wt;
+      for (int j = 0; j < wt; ++j) {
+        const srt::Tri g(s_tri + j * srt::kTriW);
+        const int id = id0 + j;
+        // ray-independent with one origin: tvec = o - v0, qvec = tvec x e1,
+        // t_num
+        float tx = 0.0f, ty = 0.0f, tz = 0.0f, qx = 0.0f, qy = 0.0f,
+              qz = 0.0f;
+        float t_num = 0.0f;
+        if constexpr (kOneOrigin) {
+          tx = ox[0] - g.v0x;
+          ty = oy[0] - g.v0y;
+          tz = oz[0] - g.v0z;
           qx = ty * g.e1z - tz * g.e1y;
           qy = tz * g.e1x - tx * g.e1z;
           qz = tx * g.e1y - ty * g.e1x;
           t_num = g.e2x * qx + g.e2y * qy + g.e2z * qz;
         }
-        const float inv = 1.0f / det;
-        const float u = u_num * inv;
-        const float v = (dx[r] * qx + dy[r] * qy + dz[r] * qz) * inv;
-        const float t = t_num * inv;
-        const bool valid = fabsf(det) >= eps && u >= 0.0f && u <= 1.0f &&
-                           v >= 0.0f && u + v <= 1.0f && t >= 0.0f;
-        if (valid && (t < bt[r] || (t == bt[r] && id < bi[r]))) {
-          bt[r] = t;
-          bi[r] = id;
+#pragma unroll
+        for (int r = 0; r < RPT; ++r) {
+          if constexpr (kGrouped) {
+            if (!(need & gbit[r])) continue;     // warp-uniform
+          }
+          const float px = dy[r] * g.e2z - dz[r] * g.e2y;
+          const float py = dz[r] * g.e2x - dx[r] * g.e2z;
+          const float pz = dx[r] * g.e2y - dy[r] * g.e2x;
+          const float det = g.e1x * px + g.e1y * py + g.e1z * pz;
+          if constexpr (!kOneOrigin) {
+            tx = ox[r] - g.v0x;
+            ty = oy[r] - g.v0y;
+            tz = oz[r] - g.v0z;
+          }
+          const float u_num = tx * px + ty * py + tz * pz;
+          if constexpr (!kOneOrigin) {
+            qx = ty * g.e1z - tz * g.e1y;
+            qy = tz * g.e1x - tx * g.e1z;
+            qz = tx * g.e1y - ty * g.e1x;
+            t_num = g.e2x * qx + g.e2y * qy + g.e2z * qz;
+          }
+          const float inv = 1.0f / det;
+          const float u = u_num * inv;
+          const float v = (dx[r] * qx + dy[r] * qy + dz[r] * qz) * inv;
+          const float t = t_num * inv;
+          const bool valid = fabsf(det) >= eps && u >= 0.0f && u <= 1.0f &&
+                             v >= 0.0f && u + v <= 1.0f && t >= 0.0f;
+          if (valid && (t < bt[r] || (t == bt[r] && id < bi[r]))) {
+            bt[r] = t;
+            bi[r] = id;
+          }
         }
       }
     }
     if (P.use_list && k + 1 < P.cnt) {
       const unsigned nb16 = P.bound16(k + 1);
-      int ok = 1;
+      if constexpr (!kGrouped) {
+        int ok = 1;
 #pragma unroll
-      for (int r = 0; r < RPT; ++r)
-        ok &= !live[r] || (__float_as_uint(bt[r]) >> 16) < nb16;
-      if (__syncthreads_and(ok)) break;
+        for (int r = 0; r < RPT; ++r)
+          ok &= !live[r] || (__float_as_uint(bt[r]) >> 16) < nb16;
+        if (__syncthreads_and(ok)) break;
+      } else {
+        unsigned bad = 0;                        // groups this thread holds
+#pragma unroll
+        for (int r = 0; r < RPT; ++r)
+          if (live[r] && (__float_as_uint(bt[r]) >> 16) >= nb16)
+            bad |= gbit[r];
+        for (int g = 0; g < P.groups; ++g)
+          if (__syncthreads_and(!((bad >> g) & 1u))) done |= 1u << g;
+        if (done == full) break;
+      }
     }
   }
 }
@@ -287,22 +321,24 @@ __global__ void nearest_shaded_kernel(
 
 // rays o, d [n, m, 3] f32 -> t [n, m] f32 (inf on a miss), idx [n, m] i32
 // (-1 on a miss).  m need not fill the block: lanes past m walk the tile's
-// first ray, never hold back the break and are not written.
-template <int RPT>
+// first ray, never hold back the break and are not written.  kGrouped: the
+// plan carries sub-group masks for `groups` groups of m / groups lanes.
+template <int RPT, bool kGrouped>
 __global__ void nearest_rays_kernel(
     const int* __restrict__ plan, int plan_w, const float* __restrict__ tri,
     int n_windows, const float* __restrict__ o_in,
-    const float* __restrict__ d_in, int m, int wt, float eps,
+    const float* __restrict__ d_in, int m, int wt, float eps, int groups,
     float* __restrict__ t_out, int* __restrict__ idx_out) {
   extern __shared__ float s_tri[];               // wt * kTriW floats
   const int nthr = blockDim.x;
   const int tid = threadIdx.x;
   const int tile = blockIdx.x;
-  const srt::TilePlan P(plan, plan_w, tile);
+  const srt::TilePlan P(plan, plan_w, tile, kGrouped ? groups : 1);
 
   float ox[RPT], oy[RPT], oz[RPT], dx[RPT], dy[RPT], dz[RPT], bt[RPT];
   int bi[RPT];
   bool live[RPT];
+  unsigned gbit[RPT];
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int lane = tid + r * nthr;
@@ -317,8 +353,9 @@ __global__ void nearest_rays_kernel(
     bt[r] = INFINITY;
     bi[r] = -1;
   }
-  nearest_walk<RPT, false>(P, tri, n_windows, wt, eps, ox, oy, oz, dx, dy,
-                           dz, live, bt, bi, s_tri);
+  if constexpr (kGrouped) srt::group_bits<RPT>(m / groups, gbit);
+  nearest_walk<RPT, false, kGrouped>(P, tri, n_windows, wt, eps, ox, oy, oz,
+                                     dx, dy, dz, live, bt, bi, s_tri, gbit);
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int lane = tid + r * nthr;
@@ -395,21 +432,29 @@ extern "C" int srt_nearest_attrs(
                                threads, stream);
 }
 
+#define SRT_NEAREST_RAYS_LAUNCH(R, G)                                          \
+  nearest_rays_kernel<R, G><<<n_tiles, threads, smem, s>>>(                    \
+      static_cast<const int*>(plan), plan_w, static_cast<const float*>(tri),   \
+      n_windows, static_cast<const float*>(o_in),                              \
+      static_cast<const float*>(d_in), m, wt, eps, groups,                     \
+      static_cast<float*>(t), static_cast<int*>(idx))
+
 #define SRT_NEAREST_RAYS_CASE(R)                                               \
   case R:                                                                      \
-    nearest_rays_kernel<R><<<n_tiles, threads, smem, s>>>(                     \
-        static_cast<const int*>(plan), plan_w,                                 \
-        static_cast<const float*>(tri), n_windows,                             \
-        static_cast<const float*>(o_in), static_cast<const float*>(d_in), m,   \
-        wt, eps, static_cast<float*>(t), static_cast<int*>(idx));              \
+    if (groups > 1)                                                            \
+      SRT_NEAREST_RAYS_LAUNCH(R, true);                                        \
+    else                                                                       \
+      SRT_NEAREST_RAYS_LAUNCH(R, false);                                       \
     break;
 
 extern "C" int srt_nearest_rays(
     const void* plan, int plan_w, int n_tiles, const void* tri,
     int n_windows, const void* o_in, const void* d_in, int m, int wt,
-    float eps, void* t, void* idx, int threads, void* stream) {
+    float eps, int groups, void* t, void* idx, int threads, void* stream) {
   if (n_tiles == 0) return 0;
-  if (threads <= 0 || threads > 1024 || threads % 32 || m <= 0 || wt <= 0)
+  if (threads <= 0 || threads > 1024 || threads % 32 || m <= 0 || wt <= 0 ||
+      groups < 1 || groups > 4 || m % groups || (groups > 1 &&
+                                                 (m / groups) % 32))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(wt) * srt::kTriW * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,4 +1,4 @@
-"""Kernels 2 and 2′: the any-hit (occlusion) walks.
+"""Kernels 2, 2′ and 5: the any-hit (occlusion) walks.
 
 ``tiled_anyhit_from_t`` wraps the CUDA kernel ``anyhit_from_t_kernel`` and
 ``tiled_anyhit`` the kernel ``anyhit_rays_kernel`` (both csrc/anyhit.cu).
@@ -6,8 +6,11 @@ They replace the JAX package's Pallas kernel
 ``kernels/tiled_t.py::_anyhit_kernel_t`` in its two forms: shadow rays
 rebuilt from the nearest pass's t (reached through ``tiled_anyhit_from_t``,
 the fused frame) and explicit rays (reached through ``tiled_anyhit_t``, the
-legacy hard-shadow and soft-shadow paths).  ``tiled_anyhit_from_t_plain``
-and ``tiled_anyhit_plain`` are their plain PyTorch versions: same
+legacy hard-shadow, soft-shadow and gather paths).  ``tiled_anyhit_grouped``
+wraps ``anyhit_rays_kernel`` over a grouped plan and replaces
+``tiled_t.py::_anyhit_kernel_g`` (K5, ``KernelConfig.groups_ah`` > 1).
+``tiled_anyhit_from_t_plain``, ``tiled_anyhit_plain`` and
+``tiled_anyhit_grouped_plain`` are their plain PyTorch versions: same
 arguments, same results.  Each wrapper runs its plain version for tensors
 on the CPU and the kernel for tensors on a CUDA device; it adds one to its
 own ``launches`` at each kernel launch.
@@ -24,8 +27,9 @@ from __future__ import annotations
 import torch
 
 from ..ops.camera import tile_ray_dirs
-from ..ops.intersect import mt_numerators, mt_occludes
+from ..ops.intersect import mt_numerators, mt_occludes, xyz
 from . import build, plan as pl
+from .nearest import check_groups, group_walk_masks
 
 PLAIN_ELEMS = 1 << 24   # ray-triangle pairs per step of the plain walks
 
@@ -88,12 +92,14 @@ tiled_anyhit_from_t.launches = 0
 
 
 def walk_plain(plan, tri, block_obj, p, s, self_obj, found,
-                window_tris: int, block_size: int, eps: float,
-                no_max_t: bool):
-    """The any-hit walk of both plain versions: rays (p, s) (3-tuples of
+               window_tris: int, block_size: int, eps: float,
+               no_max_t: bool, walk_mask=None):
+    """The any-hit walk of every plain version: rays (p, s) (3-tuples of
     [n, M]) and self_obj [n, M]; ``found`` [n, M] bool is updated in place
     and returned.  Walks every tile's plan in step, a few tiles at a time,
-    until each tile's rays have all found an occluder.  Records the work a
+    until each tile's rays have all found an occluder.  ``walk_mask``
+    [n, entries] bool: a list row tests its k-th window only where it is
+    set (K5's sub-groups).  Records the work a
     walk needs on these rays: ``walk_plain.lane_pairs`` [n, M] i64, each
     ray's tests until it found an occluder, and ``walk_plain.staged``
     [windows] bool, the windows the walk read."""
@@ -110,7 +116,10 @@ def walk_plain(plan, tri, block_obj, p, s, self_obj, found,
     staged = torch.zeros(tri.shape[0] // wt, dtype=torch.bool, device=dev)
     for k in range(int(cnt.max()) if n else 0):
         live = torch.nonzero((k < cnt) & ~done).flatten()
-        for ids in live.split(chunk):
+        walk = live
+        if walk_mask is not None:
+            walk = live[walk_mask[live, min(k, mv - 1)] | ~use_list[live]]
+        for ids in walk.split(chunk):
             e = plan[ids, pl.PLAN_AUX + min(k, mv - 1)]
             w = torch.where(use_list[ids], e & 0xFFFF, plan[ids, 0] + k)
             staged[w.long()] = True
@@ -196,18 +205,20 @@ def _check_rays(plan, tri, block_obj, o, d, self_obj):
 
 def launch_anyhit_rays(plan, tri, block_obj, o, d, self_obj,
                        window_tris: int, block_size: int, eps: float,
-                       no_max_t: bool, threads: int,
+                       no_max_t: bool, threads: int, groups: int = 1,
                        what: str = "anyhit_rays_kernel") -> torch.Tensor:
     """Check the operands and launch ``anyhit_rays_kernel`` on CUDA
-    tensors (arguments as :func:`tiled_anyhit`); returns found [n, M].
-    The walk of K2′ (windows of window_blocks_ah blocks) and of K7 (pages,
-    kernels/paged.py); each caller counts its own launches."""
+    tensors (arguments as :func:`tiled_anyhit`; with ``groups`` > 1 a
+    grouped plan); returns found [n, M].  The walk of K2′ (windows of
+    window_blocks_ah blocks), K5 (the same over a grouped plan) and K7
+    (pages, kernels/paged.py); each caller counts its own launches."""
     _check_rays(plan, tri, block_obj, o, d, self_obj)
     n, m = self_obj.shape
     threads = min(threads, -(-m // 32) * 32)
     if threads % 32 or not 0 < m <= 16 * threads:
         raise ValueError(f"{m} rays per tile do not split over {threads} "
                          f"threads")
+    check_groups(m, groups)
     if window_tris % block_size:
         raise ValueError(f"window of {window_tris} triangles is not whole "
                          f"blocks of {block_size}")
@@ -218,7 +229,7 @@ def launch_anyhit_rays(plan, tri, block_obj, o, d, self_obj,
             plan.data_ptr(), plan.shape[1], n, tri.data_ptr(),
             block_obj.data_ptr(), tri.shape[0] // window_tris, o.data_ptr(),
             d.data_ptr(), self_obj.data_ptr(), m, window_tris, block_size,
-            eps, int(no_max_t), found.data_ptr(), threads, stream)
+            eps, int(no_max_t), groups, found.data_ptr(), threads, stream)
     build.check(rc, what)
     return found
 
@@ -262,19 +273,68 @@ def tiled_anyhit_plain(plan, tri, block_obj, o, d, self_obj,
                        window_tris, block_size, eps, no_max_t)
 
 
+def tiled_anyhit_grouped(plan, tri, block_obj, o, d, self_obj,
+                         window_tris: int, block_size: int, eps: float,
+                         no_max_t: bool, groups: int, threads: int = 512):
+    """K5: :func:`tiled_anyhit` over a grouped plan
+    (plan.group_mask_words): the tile's M rays are ``groups`` sub-groups
+    of M / groups consecutive lanes (a multiple of 32); a sub-group skips
+    the entries whose mask bit it lacks.  Same results as the ungrouped
+    walk of the plan's entries."""
+    if plan.device.type == "cpu":
+        return tiled_anyhit_grouped_plain(plan, tri, block_obj, o, d,
+                                          self_obj, window_tris, block_size,
+                                          eps, no_max_t, groups, threads)
+    if plan.device.type != "cuda":
+        raise ValueError(f"no any-hit kernel for device {plan.device}")
+    found = launch_anyhit_rays(plan, tri, block_obj, o, d, self_obj,
+                               window_tris, block_size, eps, no_max_t,
+                               threads, groups,
+                               "anyhit_rays_kernel (sub-groups)")
+    tiled_anyhit_grouped.launches += 1
+    return found
+
+
+tiled_anyhit_grouped.launches = 0
+
+
+def tiled_anyhit_grouped_plain(plan, tri, block_obj, o, d, self_obj,
+                               window_tris: int, block_size: int, eps: float,
+                               no_max_t: bool, groups: int,
+                               threads: int = 512):
+    """Plain PyTorch version of :func:`tiled_anyhit_grouped` (same
+    arguments and results; ``threads`` is ignored): :func:`walk_plain` over
+    the n * groups sub-tiles, each with its mask."""
+    n, m = self_obj.shape
+    check_groups(m, groups)
+    sub, mask = group_walk_masks(plan, groups)
+    gr = m // groups
+    o2, d2 = o.reshape(n * groups, gr, 3), d.reshape(n * groups, gr, 3)
+    found = torch.zeros((n * groups, gr), dtype=torch.bool,
+                        device=plan.device)
+    found = walk_plain(sub, tri, block_obj, xyz(o2), xyz(d2),
+                       self_obj.reshape(n * groups, gr), found, window_tris,
+                       block_size, eps, no_max_t, walk_mask=mask)
+    walk_plain.lane_pairs = walk_plain.lane_pairs.reshape(n, m)
+    return found.reshape(n, m)
+
+
 def anyhit(prep, cfg, o, d, self_obj2d, plan, tile: int,
-           kernel=tiled_anyhit, window_tris: int = None):
+           kernel=tiled_anyhit, window_tris: int = None, groups: int = 1):
     """Occlusion of explicit rays (JAX kernels/tiled_t.py::anyhit): o, d
     [R, 3] (padded here to whole tiles by repeating the last ray),
     self_obj2d [n, tile] i32, ``plan`` from plan.cull_occl with windows of
     ``window_tris`` triangles (None: cfg.kernel.window_blocks_ah blocks).
-    Returns found [n, tile] bool."""
+    ``groups`` > 1: the plan is grouped and ``kernel`` is K5's wrapper
+    (:func:`tiled_anyhit_grouped`).  Returns found [n, tile] bool."""
     o, d, _ = pl.pad_rays(o, d, tile)
     n = o.shape[0] // tile
     wt = window_tris or cfg.kernel.window_blocks_ah * prep.block_size
-    return kernel(plan, prep.tri, prep.block_obj,
-                  o.reshape(n, tile, 3).contiguous(),
-                  d.reshape(n, tile, 3).contiguous(),
-                  self_obj2d.to(torch.int32).contiguous(), wt,
-                  prep.block_size, cfg.mt_eps, cfg.light.shadow_no_max_t,
-                  cfg.kernel.threads)
+    args = (plan, prep.tri, prep.block_obj,
+            o.reshape(n, tile, 3).contiguous(),
+            d.reshape(n, tile, 3).contiguous(),
+            self_obj2d.to(torch.int32).contiguous(), wt, prep.block_size,
+            cfg.mt_eps, cfg.light.shadow_no_max_t)
+    if groups > 1:
+        return kernel(*args, groups, cfg.kernel.threads)
+    return kernel(*args, cfg.kernel.threads)

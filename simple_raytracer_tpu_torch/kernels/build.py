@@ -55,7 +55,7 @@ SIGNATURES = {
             _P, _I, _I,          # plan, plan_w, n_tiles
             _P, _I,              # tri, n_windows
             _P, _P, _I,          # o, d, rays per tile
-            _I, _F,              # window_tris, eps
+            _I, _F, _I,          # window_tris, eps, sub-groups
             _P, _P,              # t, idx
             _I, _P),             # threads, stream
     },
@@ -73,7 +73,17 @@ SIGNATURES = {
             _P, _P, _I,          # tri, block_obj, n_windows
             _P, _P, _P, _I,      # o, d, self_obj, rays per tile
             _I, _I, _F, _I,      # window_tris, block_size, eps, no_max_t
+            _I,                  # sub-groups
             _P,                  # found
+            _I, _P),             # threads, stream
+    },
+    "prepass.cu": {
+        "srt_prepass": (
+            _P, _I, _I,          # plan, plan_w, n_tiles
+            _P, _I,              # gram, n_windows
+            _P, _P, _I,          # o, d, rays per tile
+            _I, _F, _F,          # window_tris, eps, margin factor
+            _P,                  # flags
             _I, _P),             # threads, stream
     },
 }

@@ -1,21 +1,25 @@
-"""Kernel 1: the nearest-hit walk, with fused Phong and shadow bounds or
-with the winner's attribute row.
+"""Kernels 1 and 4: the nearest-hit walks of the sublane layout.
 
 ``tiled_nearest_shaded`` wraps the CUDA kernel ``nearest_shaded_kernel``
-(csrc/nearest.cu) in its fused mode, and ``tiled_nearest_attrs`` the same
-kernel in its fetch mode; together they replace the JAX package's Pallas
-kernel ``kernels/tiled_t.py::_nearest_kernel_t`` (fused on the fused
-frame's path, fetch on the soft-shadow path).  ``tiled_nearest_shaded_plain``
-and ``tiled_nearest_attrs_plain`` are their plain PyTorch versions: same
+(csrc/nearest.cu) in its fused mode and ``tiled_nearest_attrs`` the same
+kernel in its fetch mode; ``tiled_nearest_rays`` wraps
+``nearest_rays_kernel`` over the explicit rays of each tile.  Together they
+replace the JAX package's Pallas kernel
+``kernels/tiled_t.py::_nearest_kernel_t`` (fused on the fused frame's path,
+fetch on the soft-shadow and sublane gather paths, explicit rays on the
+prepass walk's rerun).  ``tiled_nearest_grouped``
+wraps ``nearest_rays_kernel`` over a grouped plan and replaces
+``tiled_t.py::_nearest_kernel_g`` (K4, ``KernelConfig.groups`` > 1).  Each
+``*_plain`` function is the plain PyTorch version of its wrapper: same
 arguments, same results.  Each wrapper runs its plain version for tensors on
 the CPU and the kernel for tensors on a CUDA device; it adds one to its own
 ``launches`` at each kernel launch.
 
-``hits_shaded`` and ``hits_attrs`` are the counterparts of the JAX
-``tiled_t.hits_shaded`` and ``tiled_t.hits_attrs``: they build the primary
-plan and the per-frame constants and run the kernel.  :func:`walk_plain`,
-the plain walk, also serves kernel 6 (kernels/paged.py), as the device walk
-``nearest_walk`` does.
+``hits_shaded``, ``hits_attrs`` and ``hits`` are the counterparts of the JAX
+``tiled_t.hits_shaded``, ``tiled_t.hits_attrs`` and ``tiled_t.hits``: they
+build the plan and the per-frame constants and run the kernels.
+:func:`walk_plain`, the plain walk, also serves kernel 6
+(kernels/paged.py), as the device walk ``nearest_walk`` does.
 """
 
 from __future__ import annotations
@@ -25,8 +29,9 @@ import math
 import torch
 
 from ..ops.camera import tile_ray_dirs
-from ..ops.intersect import mt_distance, mt_numerators
+from ..ops.intersect import mt_distance, mt_numerators, xyz
 from . import build, plan as pl
+from .prepass import refine_plan, tiled_prepass
 
 BOUNDS_W = 15
 INF = float("inf")
@@ -148,6 +153,136 @@ def tiled_nearest_attrs(plan, tri, tri_attr, cam, tile_px: int,
 tiled_nearest_attrs.launches = 0
 
 
+def launch_nearest_rays(plan, tri, o, d, window_tris: int, eps: float,
+                        threads: int, groups: int = 1,
+                        what: str = "nearest_rays_kernel"):
+    """Check the operands and launch ``nearest_rays_kernel`` on CUDA
+    tensors: plan [n, W] i32 (windows of ``window_tris`` triangles; with
+    ``groups`` > 1 a grouped plan), tri [Tp, 9], o, d [n, M, 3] f32 (any M
+    up to 16 * threads; with groups, M / groups a multiple of 32).
+    Returns (t [n, M], idx [n, M]).  The walk of K1's rays mode, K4 and K6
+    (kernels/paged.py); each caller counts its own launches."""
+    build.check_tensors(plan.device, plan=(plan, torch.int32),
+                        tri=(tri, torch.float32), o=(o, torch.float32),
+                        d=(d, torch.float32))
+    n = plan.shape[0]
+    if plan.dim() != 2 or plan.shape[1] <= pl.PLAN_AUX:
+        raise ValueError(f"plan shape {tuple(plan.shape)}")
+    if tri.dim() != 2 or tri.shape[1] != 9 or tri.shape[0] % window_tris:
+        raise ValueError(f"tri shape {tuple(tri.shape)} for windows of "
+                         f"{window_tris}")
+    if o.dim() != 3 or o.shape[0] != n or o.shape[2] != 3 \
+            or d.shape != o.shape:
+        raise ValueError(f"o {tuple(o.shape)} / d {tuple(d.shape)} for {n} "
+                         f"tiles")
+    m = o.shape[1]
+    threads = min(threads, -(-m // 32) * 32)
+    if threads % 32 or not 0 < m <= 16 * threads:
+        raise ValueError(f"{m} rays per tile do not split over {threads} "
+                         f"threads")
+    check_groups(m, groups)
+    t = torch.empty((n, m), dtype=torch.float32, device=plan.device)
+    idx = torch.empty((n, m), dtype=torch.int32, device=plan.device)
+    with torch.cuda.device(plan.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = build.library().srt_nearest_rays(
+            plan.data_ptr(), plan.shape[1], n, tri.data_ptr(),
+            tri.shape[0] // window_tris, o.data_ptr(), d.data_ptr(), m,
+            window_tris, eps, groups, t.data_ptr(), idx.data_ptr(), threads,
+            stream)
+    build.check(rc, what)
+    return t, idx
+
+
+def check_groups(m: int, groups: int) -> None:
+    """Raise ValueError unless ``groups`` (1..4) splits M rays into
+    sub-groups of a multiple of 32 lanes: whole warps, so that a group's
+    skips and breaks are warp-uniform."""
+    if not 1 <= groups <= 4 or (groups > 1 and (m % groups
+                                                or (m // groups) % 32)):
+        raise ValueError(f"{groups} sub-groups of {m} rays are not whole "
+                         f"warps")
+
+
+def tiled_nearest_rays(plan, tri, o, d, window_tris: int, eps: float,
+                       threads: int = 512):
+    """K1 over explicit rays: the nearest hit of rays o, d [n, M, 3] over
+    every tile of ``plan`` (windows of ``window_tris`` triangles; the
+    prepass walk's refined plan).  Returns t [n, M] f32 (inf on a miss) and
+    idx [n, M] i32 (-1); equal t goes to the lowest triangle id."""
+    if plan.device.type == "cpu":
+        return tiled_nearest_rays_plain(plan, tri, o, d, window_tris, eps,
+                                        threads)
+    if plan.device.type != "cuda":
+        raise ValueError(f"no nearest kernel for device {plan.device}")
+    out = launch_nearest_rays(plan, tri, o, d, window_tris, eps, threads)
+    tiled_nearest_rays.launches += 1
+    return out
+
+
+tiled_nearest_rays.launches = 0
+
+
+def tiled_nearest_rays_plain(plan, tri, o, d, window_tris: int, eps: float,
+                             threads: int = 512):
+    """Plain PyTorch version of :func:`tiled_nearest_rays` (same arguments
+    and results; ``threads`` is ignored)."""
+    return walk_plain(plan, tri, xyz(o), xyz(d), window_tris, eps)
+
+
+def tiled_nearest_grouped(plan, tri, o, d, window_tris: int, eps: float,
+                          groups: int, threads: int = 512):
+    """K4: :func:`tiled_nearest_rays` over a grouped plan
+    (plan.group_mask_words): the tile's M rays are ``groups`` sub-groups
+    of M / groups consecutive lanes (a multiple of 32); a sub-group skips
+    the entries whose mask bit it lacks and stops at its own bound test.
+    Same results as the ungrouped walk of the plan's entries."""
+    if plan.device.type == "cpu":
+        return tiled_nearest_grouped_plain(plan, tri, o, d, window_tris, eps,
+                                           groups, threads)
+    if plan.device.type != "cuda":
+        raise ValueError(f"no nearest kernel for device {plan.device}")
+    out = launch_nearest_rays(plan, tri, o, d, window_tris, eps, threads,
+                              groups, "nearest_rays_kernel (sub-groups)")
+    tiled_nearest_grouped.launches += 1
+    return out
+
+
+tiled_nearest_grouped.launches = 0
+
+
+def group_walk_masks(plan, groups: int):
+    """A grouped plan [n, 8 + mv + mv / 8] -> (its plan without the mask
+    words, repeated per sub-group [n * groups, 8 + mv], the walk mask
+    [n * groups, mv] bool: sub-group g of tile t walks entry k where bit g
+    of its mask is set)."""
+    n, width = plan.shape
+    mv = (width - pl.PLAN_AUX) * 8 // 9
+    words = plan[:, pl.PLAN_AUX + mv:]
+    pos = torch.arange(mv, device=plan.device)
+    m4 = (words[:, pos // 8] >> (4 * (pos % 8))) & 0xF          # [n, mv]
+    g = torch.arange(groups, device=plan.device)
+    mask = ((m4[:, None, :] >> g[None, :, None]) & 1) == 1       # [n, G, mv]
+    sub = plan[:, :pl.PLAN_AUX + mv].repeat_interleave(groups, dim=0)
+    return sub.contiguous(), mask.reshape(n * groups, mv)
+
+
+def tiled_nearest_grouped_plain(plan, tri, o, d, window_tris: int,
+                                eps: float, groups: int, threads: int = 512):
+    """Plain PyTorch version of :func:`tiled_nearest_grouped` (same
+    arguments and results; ``threads`` is ignored): :func:`walk_plain` over
+    the n * groups sub-tiles, each with its mask."""
+    n, m = o.shape[:2]
+    check_groups(m, groups)
+    sub, mask = group_walk_masks(plan, groups)
+    gr = m // groups
+    t, idx = walk_plain(sub, tri, xyz(o.reshape(n * groups, gr, 3)),
+                        xyz(d.reshape(n * groups, gr, 3)), window_tris, eps,
+                        walk_mask=mask)
+    walk_plain.lane_pairs = walk_plain.lane_pairs.reshape(n, m)
+    return t.reshape(n, m), idx.reshape(n, m)
+
+
 def fused_phong(normal, obj, point, d, light, mat, double_sided: bool,
                 specular_nl: bool):
     """The kernel's Phong term (JAX kernels/tiled_t.py::_fused_phong, attr
@@ -180,14 +315,17 @@ def _masked(x, m, fill, reduce):
     return reduce(torch.where(m, x, fill), dim=1)
 
 
-def walk_plain(plan, tri, o, d, window_tris: int, eps: float):
-    """The nearest walk of every plain version (K1's modes here, K6 in
-    kernels/paged.py).  Rays: ``d`` a 3-tuple of [n, M] tensors, ``o`` a
+def walk_plain(plan, tri, o, d, window_tris: int, eps: float,
+               walk_mask=None):
+    """The nearest walk of every plain version (K1's modes and K4 here, K6
+    in kernels/paged.py).  Rays: ``d`` a 3-tuple of [n, M] tensors, ``o`` a
     3-tuple of [n, M] tensors or of scalars (one origin for every ray).
     Walks every tile's plan in step: at step k each live tile tests the
     k-th window against all its rays (a few tiles at a time), keeps the
     least t with the lowest id on ties, and stops once every ray's best t
-    is below the next entry's bound.  Returns (t, idx), each [n, M]; misses
+    is below the next entry's bound.  ``walk_mask`` [n, entries] bool: a
+    list row tests its k-th window only where it is set (K4's sub-groups;
+    the break is still tested).  Returns (t, idx), each [n, M]; misses
     t = inf, idx = -1.  Records the work a walk needs on these rays:
     ``walk_plain.lane_pairs`` [n, M] i64, each ray's tests of the windows
     whose entry bound its best t had not yet passed (all windows of a range
@@ -208,7 +346,10 @@ def walk_plain(plan, tri, o, d, window_tris: int, eps: float):
     staged = torch.zeros(tri.shape[0] // wt, dtype=torch.bool, device=dev)
     for k in range(int(cnt.max()) if n else 0):
         live = torch.nonzero((k < cnt) & ~done).flatten()
-        for ids in live.split(chunk):
+        walk = live
+        if walk_mask is not None:
+            walk = live[walk_mask[live, min(k, mv - 1)] | ~use_list[live]]
+        for ids in walk.split(chunk):
             e = plan[ids, pl.PLAN_AUX + min(k, mv - 1)]
             w = torch.where(use_list[ids], e & 0xFFFF, plan[ids, 0] + k)
             staged[w.long()] = True
@@ -349,3 +490,64 @@ def hits_attrs(prep, cfg, cam_spec, maxv: int, kernel=tiled_nearest_attrs):
                            cfg.kernel.window_blocks * prep.block_size,
                            cfg.mt_eps, cfg.kernel.threads)
     return t.reshape(-1), idx.reshape(-1), attrs
+
+
+def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = True,
+         cam_spec=None, kernels=None):
+    """Nearest hit of the frame's rays o, d [R, 3] in tiles of ``tile``
+    (JAX kernels/tiled_t.py::hits).  ``kernels`` maps the roles of
+    kernels/tiled.py::KERNELS to wrappers (the CUDA ones by default).
+
+    * ``KernelConfig.prepass`` (whatever ``groups`` says, as in JAX): the
+      ungrouped plan of the explicit rays, then K3
+      flags the windows that may hold some ray's nearest hit,
+      :func:`prepass.refine_plan` keeps only those, and K1 walks the
+      refined plan over the rays ("prepass", then "nearest_rays"): the same
+      (t, idx) as the walk of the whole plan;
+    * otherwise, ``KernelConfig.groups`` > 1: the grouped plan of the
+      explicit rays, then K4 ("nearest_grouped");
+    * otherwise, for primary rays of a ``cam_spec`` whose tiles are the
+      pixel tiles (``apex``): the analytic primary plan, then K1's fetch
+      mode over rays rebuilt from the pixels ("nearest_attrs"), whose
+      attribute rows are dropped; other rays take K1 over the explicit
+      rays' plan ("nearest_rays").
+
+    Windows are ``window_blocks`` blocks.  Returns (t [R], idx [R]);
+    misses t = inf, idx = -1."""
+    if kernels is None:
+        kernels = {"prepass": tiled_prepass,
+                   "nearest_rays": tiled_nearest_rays,
+                   "nearest_grouped": tiled_nearest_grouped,
+                   "nearest_attrs": tiled_nearest_attrs}
+    kc = cfg.kernel
+    wb = kc.window_blocks
+    wt = wb * prep.block_size
+    groups = 1 if kc.prepass else kc.nearest_groups
+    R = o.shape[0]
+    iota = (cam_spec is not None and apex and cam_spec[4] ** 2 == tile
+            and not kc.prepass and groups == 1)
+    if iota:
+        vmx, focal, _wd, _hd, tpx = cam_spec
+        plan = primary_plan(prep, cfg, cam_spec, maxv)
+        cam = pl.make_cam(vmx, focal, (0.0, 0.0, 0.0), None, prep.device)
+        t, idx, _ = kernels["nearest_attrs"](plan, prep.tri, prep.tri_attr,
+                                             cam, tpx, wt, cfg.mt_eps,
+                                             kc.threads)
+        return t.reshape(-1)[:R], idx.reshape(-1)[:R]
+    plan = pl.cull_rays(prep, o, d, tile, maxv, wb, groups=groups,
+                        apex=apex)
+    op, dp, _ = pl.pad_rays(o, d, tile)
+    n = op.shape[0] // tile
+    o3 = op.reshape(n, tile, 3).contiguous()
+    d3 = dp.reshape(n, tile, 3).contiguous()
+    if groups > 1:
+        t, idx = kernels["nearest_grouped"](plan, prep.tri, o3, d3, wt,
+                                            cfg.mt_eps, groups, kc.threads)
+    else:
+        if kc.prepass:
+            flags = kernels["prepass"](plan, prep.gram, o3, d3, wt,
+                                       cfg.mt_eps, kc.threads)
+            plan = refine_plan(plan, flags)
+        t, idx = kernels["nearest_rays"](plan, prep.tri, o3, d3, wt,
+                                         cfg.mt_eps, kc.threads)
+    return t.reshape(-1)[:R], idx.reshape(-1)[:R]

@@ -1,10 +1,10 @@
 """Kernels 6 and 7: the paged walks, and the steps of the paged frame.
 
 ``tiled_nearest`` wraps the CUDA kernel ``nearest_rays_kernel``
-(csrc/nearest.cu) and replaces the JAX package's Pallas kernel
-``kernels/tiled.py::_nearest_kernel`` (K6, reached through
-``tiled_nearest``): the nearest hit (t, id) of explicit rays over a plan of
-pages of ``page_tris`` triangles.  ``tiled_anyhit`` launches
+(csrc/nearest.cu, the walk of K1's rays mode) and replaces the JAX
+package's Pallas kernel ``kernels/tiled.py::_nearest_kernel`` (K6, reached
+through ``tiled_nearest``): the nearest hit (t, id) of explicit rays over
+a plan of pages of ``page_tris`` triangles.  ``tiled_anyhit`` launches
 ``anyhit_rays_kernel`` (csrc/anyhit.cu, the walk of K2′) at page windows
 and replaces ``kernels/tiled.py::_anyhit_kernel`` (K7, reached through
 ``tiled_anyhit``): occlusion of explicit rays, skipping each ray's own
@@ -28,9 +28,8 @@ from __future__ import annotations
 
 import torch
 
-from ..ops.intersect import xyz
 from . import anyhit as _anyhit
-from . import build, nearest as _nearest, plan as pl
+from . import nearest as _nearest, plan as pl
 
 
 def page_blocks(prep) -> int:
@@ -51,35 +50,11 @@ def tiled_nearest(plan, tri, o, d, window_tris: int, eps: float,
         return tiled_nearest_plain(plan, tri, o, d, window_tris, eps, threads)
     if plan.device.type != "cuda":
         raise ValueError(f"no nearest kernel for device {plan.device}")
-    build.check_tensors(plan.device, plan=(plan, torch.int32),
-                        tri=(tri, torch.float32), o=(o, torch.float32),
-                        d=(d, torch.float32))
-    n = plan.shape[0]
-    if plan.dim() != 2 or plan.shape[1] <= pl.PLAN_AUX:
-        raise ValueError(f"plan shape {tuple(plan.shape)}")
-    if tri.dim() != 2 or tri.shape[1] != 9 or tri.shape[0] % window_tris:
-        raise ValueError(f"tri shape {tuple(tri.shape)} for windows of "
-                         f"{window_tris}")
-    if o.dim() != 3 or o.shape[0] != n or o.shape[2] != 3 \
-            or d.shape != o.shape:
-        raise ValueError(f"o {tuple(o.shape)} / d {tuple(d.shape)} for {n} "
-                         f"tiles")
-    m = o.shape[1]
-    threads = min(threads, -(-m // 32) * 32)
-    if threads % 32 or not 0 < m <= 16 * threads:
-        raise ValueError(f"{m} rays per tile do not split over {threads} "
-                         f"threads")
-    t = torch.empty((n, m), dtype=torch.float32, device=plan.device)
-    idx = torch.empty((n, m), dtype=torch.int32, device=plan.device)
-    with torch.cuda.device(plan.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = build.library().srt_nearest_rays(
-            plan.data_ptr(), plan.shape[1], n, tri.data_ptr(),
-            tri.shape[0] // window_tris, o.data_ptr(), d.data_ptr(), m,
-            window_tris, eps, t.data_ptr(), idx.data_ptr(), threads, stream)
-    build.check(rc, "nearest_rays_kernel")
+    out = _nearest.launch_nearest_rays(plan, tri, o, d, window_tris, eps,
+                                       threads,
+                                       what="nearest_rays_kernel (pages)")
     tiled_nearest.launches += 1
-    return t, idx
+    return out
 
 
 tiled_nearest.launches = 0
@@ -89,7 +64,8 @@ def tiled_nearest_plain(plan, tri, o, d, window_tris: int, eps: float,
                         threads: int = 512):
     """Plain PyTorch version of :func:`tiled_nearest` (same arguments and
     results; ``threads`` is ignored): kernels/nearest.py::walk_plain."""
-    return _nearest.walk_plain(plan, tri, xyz(o), xyz(d), window_tris, eps)
+    return _nearest.tiled_nearest_rays_plain(plan, tri, o, d, window_tris,
+                                             eps)
 
 
 def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
@@ -107,7 +83,7 @@ def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
         raise ValueError(f"no any-hit kernel for device {plan.device}")
     found = _anyhit.launch_anyhit_rays(
         plan, tri, block_obj, o, d, self_obj, window_tris, block_size, eps,
-        no_max_t, threads, "anyhit_rays_kernel (page windows)")
+        no_max_t, threads, what="anyhit_rays_kernel (page windows)")
     tiled_anyhit.launches += 1
     return found
 

@@ -25,7 +25,10 @@ the entries ``window_id | bound16 << 16`` in ascending order.  A tile whose
 visible-window count exceeds ``maxv`` walks the covering contiguous range
 ``[lo, lo + range_cnt)`` instead, with no early break.  (px0, py0) is the
 tile's first pixel relative to the image centre; the kernels rebuild their
-rays from it.
+rays from it.  A grouped plan (``groups`` > 1) carries, after its
+entries, one mask word per 8 entries: 4 bits per entry, bit g set when
+sub-group g of the tile's rays may reach the entry's window
+(:func:`group_mask_words`); range-mode rows read all groups.
 """
 
 from __future__ import annotations
@@ -472,9 +475,52 @@ def cull_lists(visible_b: torch.Tensor, tlo_b: torch.Tensor, wb: int,
     return torch.cat([aux, entries], dim=-1).contiguous()
 
 
+def group_mask_words(prep, plan: torch.Tensor, wb: int, o: torch.Tensor,
+                     d: torch.Tensor, tile: int, groups: int,
+                     hourglass: bool = False) -> torch.Tensor:
+    """The sub-group mask words of a grouped plan (JAX
+    kernels/tiled.py::cull_blocks_lists with ``groups`` > 1): the tile's
+    rays o, d [R, 3] (padded to whole tiles first) split into ``groups``
+    contiguous sub-groups of tile / groups rays; bit g of an entry's 4-bit
+    mask says whether the base test (:func:`visibility`, or
+    :func:`visibility_hourglass` with ``hourglass``) of sub-group g's own
+    ray bounds reaches the entry's window AABB (the union of its blocks).
+    A cleared bit is sound: each ray belongs to one sub-group and the test
+    is conservative for its rays.  Returns [n, mv_cap / 8] i32, 8 entries x
+    4 bits per word, entry e of a word in bits 4e..4e+3; entries past the
+    tile's visible windows get 0."""
+    if not 2 <= groups <= 4 or tile % groups:
+        raise ValueError(f"{groups} sub-groups of a {tile}-ray tile")
+    n = plan.shape[0]
+    mv_cap = plan.shape[1] - PLAN_AUX
+    if mv_cap % 8:
+        raise ValueError(f"{mv_cap} plan entries are not whole mask words")
+    nw = prep.num_blocks // wb
+    wmin = prep.block_min.reshape(nw, wb, 3).amin(dim=1)
+    wmax = prep.block_max.reshape(nw, wb, 3).amax(dim=1)
+    op, dp, _ = pad_rays(o, d, tile)
+    ab = ray_tile_bounds(op, dp, tile // groups, hourglass=hourglass)
+    test = visibility_hourglass if hourglass else visibility
+    vis = test(ab, wmin, wmax)[0].reshape(n, groups, nw)
+    mask = torch.zeros((n, nw), dtype=torch.int32, device=plan.device)
+    for g in range(groups):
+        mask |= vis[:, g].to(torch.int32) << g
+    ent = plan[:, PLAN_AUX:]
+    pos = torch.arange(mv_cap, device=plan.device)
+    valid = (ent != torch.iinfo(torch.int32).max) & (pos < nw)[None, :]
+    win = torch.where(valid, ent & 0xFFFF, 0).long()
+    maskk = torch.where(valid, torch.gather(mask, 1, win), 0)
+    m8 = maskk.reshape(n, mv_cap // 8, 8)
+    words = torch.zeros((n, mv_cap // 8), dtype=torch.int32,
+                        device=plan.device)
+    for e in range(8):
+        words |= m8[:, :, e] << (4 * e)
+    return words
+
+
 def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
          apex_rev: bool = False, hourglass: bool = False,
-         widen: bool = True) -> torch.Tensor:
+         widen: bool = True, groups: int = 1, rays=None) -> torch.Tensor:
     """Plan of a tile set described by bounds ``ab``: the interval test (or,
     with ``hourglass``, :func:`visibility_hourglass`), refined by the
     projective test of primary rays (``apex``) or of hard-shadow rays
@@ -483,7 +529,10 @@ def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
     ``plan_width(windows)`` wide; with ``widen`` (the sublane planner, JAX
     kernels/tiled_t.py) it is widened to hold ``maxv`` entries, without
     (the page planner, JAX kernels/tiled.py::_cull) ``maxv`` is clamped to
-    the width instead."""
+    the width instead.  ``groups`` > 1 (JAX tiled_t.cull with groups):
+    ``rays`` = (o, d, tile) of the tiles, the width also holds the mask
+    words (``8 + maxv + maxv // 8 + 8`` widened to a multiple of 128 entries
+    before them) and :func:`group_mask_words` follow the entries."""
     NB = prep.num_blocks
     if NB % wb:
         raise ValueError(f"{NB} blocks do not split into windows of {wb}")
@@ -493,7 +542,8 @@ def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
             "are not ported yet (ROADMAP.md, Open items §1 item 7f)")
     pw = plan_width(NB // wb)
     if widen:
-        pw = max(pw, -(-(PLAN_AUX + maxv) // 128) * 128)
+        need = PLAN_AUX + maxv + (maxv // 8 + 8 if groups > 1 else 0)
+        pw = max(pw, -(-need // 128) * 128)
     bobj = prep.block_obj if excl is not None else None
     test = visibility_hourglass if hourglass else visibility
     visible, tlo = test(ab, prep.block_min, prep.block_max, bobj, excl)
@@ -502,21 +552,40 @@ def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
     if apex_rev:
         visible = visible & visibility_px_rev(ab, prep.block_min,
                                               prep.block_max)
-    return cull_lists(visible, tlo, wb, maxv, pw)
+    plan = cull_lists(visible, tlo, wb, maxv, pw)
+    if groups <= 1:
+        return plan
+    o, d, tile = rays
+    words = group_mask_words(prep, plan, wb, o, d, tile, groups, hourglass)
+    return torch.cat([plan, words], dim=1).contiguous()
+
+
+def cull_rays(prep, o, d, tile: int, maxv: int, wb: int, groups: int = 1,
+              apex: bool = True) -> torch.Tensor:
+    """Nearest-walk plan of explicit rays o, d [R, 3] in tiles of ``tile``
+    (JAX tiled_t.cull with no analytic bounds): the interval test from the
+    rays' per-tile bounds, with ``apex`` (rays that share one origin) the
+    projective test too, windows of ``wb`` blocks; ``groups`` > 1 appends
+    the sub-group mask words."""
+    ab = ray_tile_bounds(o, d, tile, apex="primary" if apex else None)
+    return cull(prep, maxv, wb, ab, apex=apex, groups=groups,
+                rays=(o, d, tile))
 
 
 def cull_occl(prep, o, d, tile: int, maxv: int, wb: int, excl=None,
               apex_rev: bool = False, hourglass=None,
-              widen: bool = True) -> torch.Tensor:
+              widen: bool = True, groups: int = 1) -> torch.Tensor:
     """Occlusion plan of explicit shadow rays o, d [R, 3] in tiles of
     ``tile`` (JAX kernels/tiled_t.py::cull_occl, and with ``widen`` False
     over pages, kernels/tiled.py::cull_occl): windows of ``wb`` blocks;
     ``apex_rev`` when every ray ends at one shared light (hard shadows: the
     light-apex test); the hourglass test on dense scenes otherwise
-    (``hourglass`` None: by :func:`hourglass_for`)."""
+    (``hourglass`` None: by :func:`hourglass_for`); ``groups`` > 1 appends
+    the sub-group mask words (JAX ``groups_ah``)."""
     if hourglass is None:
         hourglass = hourglass_for(prep) and not apex_rev
     ab = ray_tile_bounds(o, d, tile, hourglass=hourglass,
                          apex="light" if apex_rev else None)
     return cull(prep, maxv, wb, ab, excl=excl, apex_rev=apex_rev,
-                hourglass=hourglass, widen=widen)
+                hourglass=hourglass, widen=widen, groups=groups,
+                rays=(o, d, tile))

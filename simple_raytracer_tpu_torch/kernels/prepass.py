@@ -1,0 +1,183 @@
+"""Kernel 3: the bf16 classification walk of the exact two-pass nearest walk.
+
+``tiled_prepass`` wraps the CUDA kernel ``prepass_kernel``
+(csrc/prepass.cu) and replaces the JAX package's Pallas kernel
+``kernels/tiled_t.py::_prepass_kernel_t`` (reached through
+``tiled_prepass_t`` from ``hits`` with ``SRT_TILED_PREPASS=1``; here
+``KernelConfig.prepass``).  ``tiled_prepass_plain`` is its plain PyTorch
+version: same arguments, same flags, the kernel's bf16 roundings and f32
+sums in the same order.  The wrapper runs the plain version for tensors on
+the CPU and the kernel for tensors on a CUDA device; it adds one to its
+``launches`` at each kernel launch.
+
+:func:`refine_plan` (JAX ``tiled_t._refine_plan``) keeps the flagged
+windows of each plan row; the nearest walk over the refined plan gives the
+same (t, idx) as over the whole plan (kernels/nearest.py::hits).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops.intersect import ray_features
+from . import build, plan as pl
+
+# error factor of the bf16 quad: |x_bf16 - x| <= PREPASS_M * sum_k |G_k| *
+# alpha_k, twice the operand rounding's 2^-7 (JAX tiled_t.PREPASS_M)
+PREPASS_M = 2.0 ** -6
+PLAIN_ELEMS = 1 << 22   # ray-triangle pairs per step of the plain walk
+MAX_RAYS = 8192         # rays per tile (their best_hi: 32 KB of shared memory)
+
+
+def tiled_prepass(plan, gram, o, d, window_tris: int, eps: float,
+                  threads: int = 512):
+    """Window flags of every tile of ``plan``.
+
+    plan [n, W] i32 (kernels/plan.py layout, windows of ``window_tris``
+    triangles); gram [Tp, 40] f32 (accel/prepared.py); o, d [n, M, 3] f32
+    the rays of each tile.  Returns flags [n, W] bool: flag k is set when
+    the window at plan position k may hold the nearest hit of some ray of
+    the tile under the bf16 error bound ``PREPASS_M * sum_k |G_k| alpha_k``.
+    Positions past the walk (and rows in range mode longer than the plan's
+    entries) read False."""
+    if plan.device.type == "cpu":
+        return tiled_prepass_plain(plan, gram, o, d, window_tris, eps,
+                                   threads)
+    if plan.device.type != "cuda":
+        raise ValueError(f"no prepass kernel for device {plan.device}")
+    build.check_tensors(plan.device, plan=(plan, torch.int32),
+                        gram=(gram, torch.float32), o=(o, torch.float32),
+                        d=(d, torch.float32))
+    n = plan.shape[0]
+    if plan.dim() != 2 or plan.shape[1] <= pl.PLAN_AUX:
+        raise ValueError(f"plan shape {tuple(plan.shape)}")
+    if gram.dim() != 2 or gram.shape[1] != 40 \
+            or gram.shape[0] % window_tris:
+        raise ValueError(f"gram shape {tuple(gram.shape)} for windows of "
+                         f"{window_tris}")
+    if o.dim() != 3 or o.shape[0] != n or o.shape[2] != 3 \
+            or d.shape != o.shape:
+        raise ValueError(f"o {tuple(o.shape)} / d {tuple(d.shape)} for {n} "
+                         f"tiles")
+    m = o.shape[1]
+    threads = min(threads, -(-m // 32) * 32)
+    if threads % 32 or not 0 < m <= MAX_RAYS:
+        raise ValueError(f"{m} rays per tile over {threads} threads (at most "
+                         f"{MAX_RAYS} rays, whole warps)")
+    flags = torch.empty(plan.shape, dtype=torch.bool, device=plan.device)
+    with torch.cuda.device(plan.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = build.library().srt_prepass(
+            plan.data_ptr(), plan.shape[1], n, gram.data_ptr(),
+            gram.shape[0] // window_tris, o.data_ptr(), d.data_ptr(), m,
+            window_tris, eps, PREPASS_M, flags.data_ptr(), threads, stream)
+    build.check(rc, "prepass_kernel")
+    tiled_prepass.launches += 1
+    return flags
+
+
+tiled_prepass.launches = 0
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 (to nearest even), held as f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def tiled_prepass_plain(plan, gram, o, d, window_tris: int, eps: float,
+                        threads: int = 512):
+    """Plain PyTorch version of :func:`tiled_prepass` (same arguments and
+    flags; ``threads`` is ignored).  Walks every tile's plan in step, a few
+    tiles at a time.  Records the work as the plain nearest walk does:
+    ``tiled_prepass_plain.lane_pairs`` [n, M] i64 (each ray's tests) and
+    ``tiled_prepass_plain.staged`` [windows] bool."""
+    n, m = o.shape[:2]
+    dev = plan.device
+    wt = window_tris
+    f = ray_features(o, d)                                      # [n, M, 10]
+    alpha = f.abs().amax(dim=1)                                 # [n, 10]
+    fb = _bf16(f)
+    g = gram.reshape(-1, 10, 4)
+    gb = _bf16(g)
+    ga = g.abs()
+    mv = plan.shape[1] - pl.PLAN_AUX
+    use_list = plan[:, 3] == 1
+    cnt = torch.where(use_list, plan[:, 2], plan[:, 1])
+    cnt = torch.where(~use_list & (cnt > mv), 0, cnt)     # kept by refine_plan
+    flags = torch.zeros(plan.shape, dtype=torch.bool, device=dev)
+    bh = torch.full((n, m), float("inf"), device=dev)
+    done = torch.zeros(n, dtype=torch.bool, device=dev)
+    jt = torch.arange(wt, dtype=torch.int32, device=dev)
+    lane_pairs = torch.zeros((n, m), dtype=torch.int64, device=dev)
+    staged = torch.zeros(gram.shape[0] // wt, dtype=torch.bool, device=dev)
+    chunk = max(1, PLAIN_ELEMS // max(1, m * wt))
+    for k in range(int(cnt.max()) if n else 0):
+        live = torch.nonzero((k < cnt) & ~done).flatten()
+        for ids in live.split(chunk):
+            e = plan[ids, pl.PLAN_AUX + min(k, mv - 1)]
+            w = torch.where(use_list[ids], e & 0xFFFF, plan[ids, 0] + k)
+            staged[w.long()] = True
+            lane_pairs[ids] += wt
+            tid = (w[:, None] * wt + jt[None, :]).long()        # [c, wt]
+            G, Ga = gb[tid], ga[tid]                            # [c, wt, 10, 4]
+            al = alpha[ids]
+            s = Ga[:, :, 0, :] * al[:, None, 0, None]
+            for kk in range(1, 10):
+                s = s + Ga[:, :, kk, :] * al[:, None, kk, None]
+            err = (PREPASS_M * s)[:, None]                      # [c, 1, wt, 4]
+            F = fb[ids]
+            q = G[:, None, :, 0, :] * F[:, :, None, 0, None]    # [c, M, wt, 4]
+            for kk in range(1, 10):
+                q = q + G[:, None, :, kk, :] * F[:, :, None, kk, None]
+            sgn = torch.where(q[..., 0] >= 0.0, 1.0, -1.0)
+            adet, un, vn, tn = (q[..., c] * sgn for c in range(4))
+            eD, eU, eV, eT = (err[..., c] for c in range(4))
+            uL, uH, vL, vH = un - eU, un + eU, vn - eV, vn + eV
+            tL, tH = tn - eT, tn + eT
+            aL, aH = adet - eD, adet + eD
+            mn = torch.minimum
+            conf = mn(mn(uL, vL), mn(aL - (uH + vH), mn(tL, aL - eps))) >= 0.0
+            t_hi = tH / aL.clamp_min(1e-30)
+            mb = mn(mn(uH, vH), mn(aH - (uL + vL), mn(tH, aH - eps))) >= 0.0
+            b0 = bh[ids][..., None]                             # [c, M, 1]
+            cand = (mb & (tL.clamp_min(0.0) <= b0 * aH)) | \
+                (~(adet > eD) & (aH >= eps))
+            flags[ids, k] = cand.flatten(1).any(dim=1)
+            best = torch.where(conf, t_hi, float("inf")).amin(dim=-1)
+            bh[ids] = torch.minimum(bh[ids], best)
+        # front-to-back break on the rays' upper bounds (logical shift)
+        nb16 = plan[live, pl.PLAN_AUX + min(k + 1, mv - 1)] >> 16
+        worst = ((bh[live].view(torch.int32) >> 16) & 0xFFFF).amax(dim=1)
+        done[live] = use_list[live] & (k + 1 < cnt[live]) & (worst < nb16)
+    tiled_prepass_plain.lane_pairs = lane_pairs
+    tiled_prepass_plain.staged = staged
+    return flags
+
+
+tiled_prepass_plain.lane_pairs = tiled_prepass_plain.staged = None
+
+
+def refine_plan(plan: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """A plan compacted to its flagged windows (JAX tiled_t._refine_plan):
+    front-to-back order and packed entry bounds kept.  Range rows get
+    list entries of their windows with bound 0; range rows longer than the
+    plan's entries keep their plan (the walk takes them whole).  ``flags``
+    [n, >= entries] (bool, or JAX's 0/1 floats)."""
+    n = plan.shape[0]
+    mv = plan.shape[1] - pl.PLAN_AUX
+    lo, rng, lcnt = plan[:, 0], plan[:, 1], plan[:, 2]
+    use_list = plan[:, 3] == 1
+    cnt = torch.where(use_list, lcnt, rng)
+    pos = torch.arange(mv, dtype=torch.int32, device=plan.device)[None]
+    live = (flags[:, :mv] != 0) & (pos < cnt[:, None])
+    ent = torch.where(use_list[:, None], plan[:, pl.PLAN_AUX:],
+                      lo[:, None] + pos)
+    slot = torch.where(live, torch.cumsum(live, dim=1) - 1, mv)
+    ent2 = torch.zeros((n, mv + 1), dtype=torch.int32, device=plan.device)
+    ent2.scatter_(1, slot.long(), ent)
+    z = torch.zeros_like(lo)
+    aux = torch.stack([lo, rng, live.sum(dim=1).to(torch.int32),
+                       torch.ones_like(lo), z, z, z, z], dim=-1)
+    plan2 = torch.cat([aux, ent2[:, :mv]], dim=1)
+    keep = ~use_list & (cnt > mv)
+    return torch.where(keep[:, None], plan, plan2).contiguous()

@@ -1,25 +1,34 @@
 """The tiled frame and its shadow front end.
 
 Counterpart of the JAX package's ``kernels/tiled.py::render_flat_tiled``
-(lines 1496-1666), in four branches:
+(lines 1496-1666), in five branches:
 
 * **fused** (one light sample, shadow tile = primary tile; flat,
   untextured): primary plan -> K1 with fused Phong and bounds rows ->
   shadow plan from the bounds -> K2 rebuilds the shadow rays from t ->
   shadow dim -> tone map;
 * **legacy** (one light sample, another shadow tile, e.g. the 256-ray tiles
-  of scenes over 131,072 triangles): fused K1, then the hard shadow of
-  explicit rays from the hit points, :func:`tiled_shadow_fn` -> K2′;
-* **soft** (num_samples > 1; flat, untextured): K1 in its fetch mode ->
-  records -> ``integrator.shade`` with the folded S-sample shadow (K2′);
+  of scenes over 131,072 triangles, or ``KernelConfig.fused_shadow`` off):
+  fused K1, then the hard shadow of explicit rays from the hit points,
+  :func:`tiled_shadow_fn` -> K2′;
+* **soft** (flat, untextured, num_samples > 1 or ``fused_phong`` off): K1
+  in its fetch mode -> records -> ``integrator.shade`` with the S-sample
+  shadow (folded when S > 1; K2′);
+* **gather** (``prepass``, ``groups`` > 1 or ``attr_fetch`` off; and the
+  soft-shadow frames of textured or smooth-normal scenes): the nearest walk
+  of kernels/nearest.py::hits (K1's fetch mode; K3 then K1 over the
+  refined plan; or K4) -> :func:`tiled_shadow_fn` (K2′, or K5 with
+  ``groups_ah`` > 1) -> ``integrator.shade`` with the record gather (JAX
+  ``tiled.py:1654-1666``);
 * **paged** (``RenderConfig.tiled_impl="paged"``; any scene kind, any S):
   the page plan of the primary rays -> K6 -> :func:`tiled_shadow_fn` over
-  page plans (K7) -> ``integrator.shade`` with the record gather
-  (JAX ``tiled.py:1654-1666``).
+  page plans (K7) -> ``integrator.shade`` with the record gather.
 
-The first three are the JAX "sublane" layout (``kernels/tiled_t.py``);
-every other case of it raises NotImplementedError naming its ROADMAP.md
-item.
+The first four are the JAX "sublane" layout (``kernels/tiled_t.py``).  JAX
+gates its fetch and fused branches on TPU memory as well (``_resident``,
+``_fetch_vmem_ok``); the port has no such gates.  The one-sample fused
+frames of textured or smooth-normal scenes raise NotImplementedError naming
+their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -36,23 +45,35 @@ from . import paged
 from . import plan as pl
 from .anyhit import (anyhit, anyhit_from_t, tiled_anyhit,
                      tiled_anyhit_from_t, tiled_anyhit_from_t_plain,
+                     tiled_anyhit_grouped, tiled_anyhit_grouped_plain,
                      tiled_anyhit_plain)
-from .nearest import (hits_attrs, hits_shaded, tiled_nearest_attrs,
-                      tiled_nearest_attrs_plain, tiled_nearest_shaded,
+from .nearest import (hits, hits_attrs, hits_shaded, tiled_nearest_attrs,
+                      tiled_nearest_attrs_plain, tiled_nearest_grouped,
+                      tiled_nearest_grouped_plain, tiled_nearest_rays,
+                      tiled_nearest_rays_plain, tiled_nearest_shaded,
                       tiled_nearest_shaded_plain)
+from .prepass import tiled_prepass, tiled_prepass_plain
 
 # the kernel wrappers a frame calls, by role, and their plain versions
 KERNELS = {"nearest_shaded": tiled_nearest_shaded,
            "nearest_attrs": tiled_nearest_attrs,
+           "nearest_rays": tiled_nearest_rays,
+           "nearest_grouped": tiled_nearest_grouped,
+           "prepass": tiled_prepass,
            "anyhit_from_t": tiled_anyhit_from_t,
            "anyhit": tiled_anyhit,
-           "nearest_rays": paged.tiled_nearest,
+           "anyhit_grouped": tiled_anyhit_grouped,
+           "nearest_pages": paged.tiled_nearest,
            "anyhit_pages": paged.tiled_anyhit}
 PLAIN = {"nearest_shaded": tiled_nearest_shaded_plain,
          "nearest_attrs": tiled_nearest_attrs_plain,
+         "nearest_rays": tiled_nearest_rays_plain,
+         "nearest_grouped": tiled_nearest_grouped_plain,
+         "prepass": tiled_prepass_plain,
          "anyhit_from_t": tiled_anyhit_from_t_plain,
          "anyhit": tiled_anyhit_plain,
-         "nearest_rays": paged.tiled_nearest_plain,
+         "anyhit_grouped": tiled_anyhit_grouped_plain,
+         "nearest_pages": paged.tiled_nearest_plain,
          "anyhit_pages": paged.tiled_anyhit_plain}
 IMPLS = (None, "sublane", "paged")
 
@@ -60,6 +81,17 @@ IMPLS = (None, "sublane", "paged")
 def _todo(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md, Open items §1 item {item})")
+
+
+def _takes_gather(prep, cfg: RenderConfig) -> bool:
+    """Whether a sublane frame takes the gather branch (JAX tiled.py:
+    1538-1558, 1646-1657 without the TPU memory gates)."""
+    kc = cfg.kernel
+    if kc.prepass or kc.nearest_groups > 1 or not kc.attr_fetch:
+        return True
+    textured, smooth = prep.scene.has_textures, cfg.shading.smooth_normals
+    return (textured or smooth) and (cfg.light.num_samples > 1
+                                     or not kc.fused_phong)
 
 
 def check_supported(prep, cfg: RenderConfig, tile: int) -> None:
@@ -71,47 +103,57 @@ def check_supported(prep, cfg: RenderConfig, tile: int) -> None:
         raise _todo("normalized primary directions", "7f")
     if cfg.hit_tile and cfg.hit_tile != tile:
         raise _todo("hit_tile sub-tiles", "7f")
-    if cfg.tiled_impl == "paged":
+    if cfg.tiled_impl == "paged" or _takes_gather(prep, cfg):
         return                # the gather shades every scene kind
-    textured, smooth = prep.scene.has_textures, cfg.shading.smooth_normals
-    if cfg.light.num_samples > 1 and (textured or smooth):
-        raise _todo("the sublane gather path (soft shadows on textured or "
-                    "smooth-normal scenes)", "7e")
-    if textured:
+    if prep.scene.has_textures:
         raise _todo("the textured fused path", "7c")
-    if smooth:
+    if cfg.shading.smooth_normals:
         raise _todo("the smooth-normal fused path", "7d")
 
 
 def frame_branch(prep, cfg: RenderConfig, tile: int) -> str:
-    """"fused", "legacy", "soft" or "paged": the branch a frame of primary
-    tiles of ``tile`` rays takes (see the module docstring)."""
+    """"fused", "legacy", "soft", "gather" or "paged": the branch a frame
+    of primary tiles of ``tile`` rays takes (see the module docstring)."""
     check_supported(prep, cfg, tile)
     if cfg.tiled_impl == "paged":
         return "paged"
-    if cfg.light.num_samples > 1:
+    if _takes_gather(prep, cfg):
+        return "gather"
+    if cfg.light.num_samples > 1 or not cfg.kernel.fused_phong:
         return "soft"
     ntris = prep.num_blocks * prep.block_size
     if (cfg.light.enable_shadows and prep.scene.num_objects > 1
-            and pl.shadow_tile(cfg, tile, ntris) != tile):
+            and (pl.shadow_tile(cfg, tile, ntris) != tile
+                 or not cfg.kernel.fused_shadow)):
         return "legacy"
     return "fused"
 
 
 def _cull_occl_windows(prep, cfg, o, d, tile: int, maxv: int, excl=None,
                        apex_rev: bool = False):
-    """The sublane occlusion plan: windows of window_blocks_ah blocks."""
+    """The sublane occlusion plan: windows of window_blocks_ah blocks, with
+    the sub-group mask words when ``groups_ah`` > 1."""
     return pl.cull_occl(prep, o, d, tile, maxv, cfg.kernel.window_blocks_ah,
-                        excl, apex_rev=apex_rev)
+                        excl, apex_rev=apex_rev,
+                        groups=cfg.kernel.anyhit_groups)
+
+
+def _anyhit_windows(prep, cfg, o, d, self_obj2d, plan, tile: int,
+                    kernels=KERNELS):
+    """The sublane occlusion walk: K2′, or K5 when ``groups_ah`` > 1."""
+    groups = cfg.kernel.anyhit_groups
+    kernel = kernels["anyhit_grouped" if groups > 1 else "anyhit"]
+    return anyhit(prep, cfg, o, d, self_obj2d, plan, tile, kernel=kernel,
+                  groups=groups)
 
 
 def shadow_impl(name=None, kernels=KERNELS):
     """The occlusion backend :func:`tiled_shadow_fn` reaches through
     ``cull_occl(prep, cfg, o, d, tile, maxv, excl, apex_rev=)`` and
     ``anyhit(prep, cfg, o, d, self_obj2d, plan, tile)`` (JAX ``impl``):
-    "paged" plans pages for K7, the sublane default plans windows for K2′;
-    ``kernels`` maps roles to wrappers (:data:`KERNELS` or
-    :data:`PLAIN`)."""
+    "paged" plans pages for K7, the sublane default plans windows for K2′
+    (K5 with sub-groups); ``kernels`` maps roles to wrappers
+    (:data:`KERNELS` or :data:`PLAIN`)."""
     if name == "paged":
         return types.SimpleNamespace(
             cull_occl=paged.cull_occl,
@@ -119,7 +161,7 @@ def shadow_impl(name=None, kernels=KERNELS):
                                      kernel=kernels["anyhit_pages"]))
     return types.SimpleNamespace(
         cull_occl=_cull_occl_windows,
-        anyhit=functools.partial(anyhit, kernel=kernels["anyhit"]))
+        anyhit=functools.partial(_anyhit_windows, kernels=kernels))
 
 
 def _first_hit_repair(p3, h2, s2):
@@ -246,14 +288,18 @@ def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
     maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
                                   cfg.kernel.window_blocks)
     stile = pl.shadow_tile(cfg, tile, prep.num_blocks * prep.block_size)
-    if branch == "paged":
+    if branch in ("paged", "gather"):
         o, d = rays
-        t, idx = paged.hits(prep, cfg, o, d, tile, maxv, apex=True,
-                            kernel=kernels["nearest_rays"])
+        if branch == "paged":
+            t, idx = paged.hits(prep, cfg, o, d, tile, maxv, apex=True,
+                                kernel=kernels["nearest_pages"])
+        else:
+            t, idx = hits(prep, cfg, o, d, tile, maxv, apex=True,
+                          cam_spec=cam_spec, kernels=kernels)
         shadow_fn = tiled_shadow_fn(
             prep, cfg, stile, maxv, cfg.light.num_samples,
-            shadow_impl("paged", kernels)) if cfg.light.enable_shadows \
-            else None
+            shadow_impl("paged" if branch == "paged" else None, kernels)) \
+            if cfg.light.enable_shadows else None
         rad = integrator.shade(prep.scene, cfg, o, d, t, idx, light_pos,
                                shadow_fn)
         return rad, torch.isfinite(t)

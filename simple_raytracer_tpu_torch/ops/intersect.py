@@ -13,6 +13,10 @@ elementwise operation at a time and in a fixed order.  The CUDA kernels
 evaluate the same expressions in the same order with floating-point
 contraction off (``--fmad=false``, kernels/build.py), so on the card a kernel
 and its plain version round alike.
+
+The Gram form (:func:`pack_mt_gram`, :func:`ray_features`) computes the same
+four scalars as one 10-term contraction per (ray, triangle); the bf16
+classification walk K3 (kernels/prepass.py) bounds its rounding error.
 """
 
 from __future__ import annotations
@@ -76,6 +80,47 @@ def mt_occludes(det, u_num, v_num, t_num, eps: float = 1e-12,
     if not no_max_t:
         occ = occ & (t_num.abs() <= adet)
     return occ
+
+
+def pack_mt_gram(verts_cart: torch.Tensor) -> torch.Tensor:
+    """Per-triangle Möller–Trumbore factors G [T, 10, 4] of the Gram form
+    (JAX ops/intersect.py::pack_mt_gram): with ray features
+    f = (d, o×d, o, 1) (:func:`ray_features`), the four MT scalars of a
+    (ray, triangle) pair are one contraction,
+    (det, u_num, v_num, t_num) = f @ G, where n = e2 × e1:
+
+        det = d · n,  u_num = (o×d) · e2 − d · (e2 × p1),
+        v_num = −(o×d) · e1 − d · (p1 × e1),  t_num = −o · n − e2 · (p1 × e1).
+
+    Rows (d, o×d, o, 1); columns (det, u, v, t).  verts_cart [T, 3, 3]."""
+    p1 = xyz(verts_cart[..., 0, :])
+    e1 = tuple(v - p for v, p in zip(xyz(verts_cart[..., 1, :]), p1))
+    e2 = tuple(v - p for v, p in zip(xyz(verts_cart[..., 2, :]), p1))
+    n = cross(e2, e1)
+    e2xp1 = cross(e2, p1)
+    p1xe1 = cross(p1, e1)
+    c_t = -dot(e2, p1xe1)
+    T = verts_cart.shape[0]
+    G = torch.zeros((T, 10, 4), dtype=verts_cart.dtype,
+                    device=verts_cart.device)
+    for k in range(3):
+        G[:, k, 0] = n[k]
+        G[:, k, 1] = -e2xp1[k]
+        G[:, 3 + k, 1] = e2[k]
+        G[:, k, 2] = -p1xe1[k]
+        G[:, 3 + k, 2] = -e1[k]
+        G[:, 6 + k, 3] = -n[k]
+    G[:, 9, 3] = c_t
+    return G
+
+
+def ray_features(origin: torch.Tensor, direction: torch.Tensor):
+    """Ray features [..., 10] = (d, o×d, o, 1) of the Gram form (JAX
+    ops/intersect.py::ray_features)."""
+    one = torch.ones(origin.shape[:-1] + (1,), dtype=direction.dtype,
+                     device=direction.device)
+    oxd = torch.stack(cross(xyz(origin), xyz(direction)), dim=-1)
+    return torch.cat([direction, oxd, origin, one], dim=-1)
 
 
 def moller_trumbore(origin: torch.Tensor, direction: torch.Tensor,

@@ -132,3 +132,59 @@ def ragged_rays():
             False: torch.stack([hit, torch.zeros_like(hit)])}
     return ((plan, tri, block_obj, o2, d2, self_obj.expand(2, m).contiguous()),
             (128, 32, 1e-12), want)
+
+
+def _grouped_plan(entries, masks, mv: int = 248):
+    """A one-tile grouped list plan (kernels/plan.py::group_mask_words
+    layout): ``entries`` = [(window, bound)] in walk order, ``masks`` their
+    4-bit sub-group masks."""
+    plan = torch.zeros((1, pl.PLAN_AUX + mv + mv // 8), dtype=torch.int32)
+    plan[0, :4] = torch.tensor([0, 2, len(entries), 1])
+    for k, ((window, bound), mask) in enumerate(zip(entries, masks)):
+        b16 = int(torch.tensor([bound]).view(torch.int32)) >> 16
+        plan[0, pl.PLAN_AUX + k] = window | (b16 << 16)
+        plan[0, pl.PLAN_AUX + mv + k // 8] |= mask << (4 * (k % 8))
+    return plan
+
+
+GROUP_MASK = 0b0101     # window 1's mask: sub-groups 0 and 2 only
+
+
+def masked_windows():
+    """Grouped nearest-walk arguments (K4): two windows of 64 triangles with
+    one quad each covering the tile — window 0 at z = 10, window 1 nearer,
+    at z = 5 — both with bound 0, window 1's entry masked to GROUP_MASK.
+    A walk that honours the masks gives the lanes of sub-groups 0 and 2
+    (1,024 lanes each of the 4,096) triangle 64, the others triangle 0.
+    Returns ((plan, tri, o, d), (window_tris, eps, groups), want idx)."""
+    tri = torch.zeros((128, 9))
+    tri[0], tri[64] = _quad_tri(10.0), _quad_tri(5.0)
+    o, d = _tile_rays()
+    plan = _grouped_plan([(0, 0.0), (1, 0.0)], [0xF, GROUP_MASK])
+    g = torch.arange(4096) // 1024
+    want = torch.where((GROUP_MASK >> g) & 1 == 1, 64, 0)[None]
+    return (plan, tri, o, d), (64, 1e-12, 4), want
+
+
+def masked_occluder():
+    """Grouped any-hit arguments (K5): M = 1,024 rays from z = 0 toward a
+    light at z = -100, four sub-groups of 256 lanes; window 0 (object 0)
+    is empty, window 1 (object 0) holds a quad at z = -50 and its entry is
+    masked to GROUP_MASK; the rays leave object 1.  A walk that honours
+    the masks finds an occluder for sub-groups 0 and 2 only.  Returns
+    ((plan, tri, block_obj, o, d, self_obj), (window_tris, block_size,
+    eps, no_max_t, groups), want found)."""
+    m = 1024
+    tri = torch.zeros((256, 9))
+    tri[128] = _quad_tri(-50.0)
+    block_obj = torch.zeros(8, dtype=torch.int32)
+    lane = torch.arange(m)
+    o = torch.stack([(lane % 32).float() - 16.0, (lane // 32).float() - 16.0,
+                     torch.zeros(m)], dim=1)
+    d = torch.tensor([0.0, 0.0, -100.0]) - o
+    plan = _grouped_plan([(0, 0.0), (1, 0.0)], [0xF, GROUP_MASK])
+    self_obj = torch.ones((1, m), dtype=torch.int32)
+    g = lane // 256
+    want = ((GROUP_MASK >> g) & 1 == 1)[None]
+    return ((plan, tri, block_obj, o[None].contiguous(), d[None].contiguous(),
+             self_obj), (128, 32, 1e-12, True, 4), want)

@@ -14,14 +14,17 @@ import torch
 
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import prepare
-from simple_raytracer_tpu_torch.kernels import anyhit, build, nearest, paged
+from simple_raytracer_tpu_torch.kernels import (anyhit, build, nearest, paged,
+                                                prepass)
+from simple_raytracer_tpu_torch.kernels import plan as pl
 from simple_raytracer_tpu_torch.kernels.tiled import KERNELS, render_flat_tiled
 from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
 from simple_raytracer_tpu_torch.scene import procedural as P
 from simple_raytracer_tpu_torch.scene import transforms as T
 
-from _torch_cases import (SELF_SKIP, coincident_pages, ragged_rays, self_skip,
-                          two_pages, two_windows)
+from _torch_cases import (SELF_SKIP, coincident_pages, masked_occluder,
+                          masked_windows, ragged_rays, self_skip, two_pages,
+                          two_windows)
 
 pytestmark = pytest.mark.cuda
 
@@ -80,7 +83,8 @@ def test_kernels_build():
     assert all(p.endswith(".so") for p in info["paths"])
     lib = build.library()
     for name in ("srt_nearest_shaded", "srt_nearest_attrs",
-                 "srt_nearest_rays", "srt_anyhit_from_t", "srt_anyhit_rays"):
+                 "srt_nearest_rays", "srt_anyhit_from_t", "srt_anyhit_rays",
+                 "srt_prepass"):
         assert hasattr(lib, name)
 
 
@@ -219,7 +223,7 @@ def test_nearest_rays_kernel_matches_plain(scene, view):
     rays, the primary page plan)."""
     prep, cfg = scene
     args = _frame_args(prep, cfg.replace(tiled_impl="paged"),
-                       VIEWS[view])["nearest_rays"]
+                       VIEWS[view])["nearest_pages"]
     n0 = paged.tiled_nearest.launches
     kt, ki = paged.tiled_nearest(*args)
     assert paged.tiled_nearest.launches == n0 + 1
@@ -280,3 +284,144 @@ def test_render_defaults_to_the_card():
     assert img.is_cuda and img.shape == (SIZE, SIZE, 3)
     assert paged.tiled_nearest.launches == n0 + 1
     assert paged.tiled_anyhit.launches == a0 + 1
+
+
+def _rays(view, tile):
+    """The frame's primary rays in tiles of ``tile``: (o, d) [R, 3] and
+    (o3, d3) [n, tile, 3]."""
+    vm = None if view is None else torch.tensor(view, device="cuda")
+    o, d, _, _ = primary_rays_tiled(SIZE, SIZE, TPX, FOCAL, view_matrix=vm,
+                                    device="cuda")
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    return (o, d), (o.reshape(-1, tile, 3).contiguous(),
+                    d.reshape(-1, tile, 3).contiguous())
+
+
+@pytest.mark.parametrize("view", list(VIEWS))
+def test_gather_nearest_kernel_matches_plain(scene, view):
+    """K1's fetch mode, on the gather frame's arguments (textured soft
+    frames take it; here the prepared scene with ``attr_fetch`` off)."""
+    prep, cfg = scene
+    gather = cfg.replace(kernel=sr.KernelConfig(attr_fetch=False))
+    args = _frame_args(prep, gather, VIEWS[view])["nearest_attrs"]
+    n0 = nearest.tiled_nearest_attrs.launches
+    kt, ki, _ = nearest.tiled_nearest_attrs(*args)
+    assert nearest.tiled_nearest_attrs.launches == n0 + 1
+    pt, pi, _ = nearest.tiled_nearest_attrs_plain(*args)
+    hit = torch.isfinite(pt)
+    assert hit.sum() > 4000 and torch.equal(torch.isfinite(kt), hit)
+    torch.testing.assert_close(kt[hit], pt[hit], rtol=1e-5, atol=1e-6)
+    assert (ki == pi).float().mean() >= 0.9999
+
+
+@pytest.mark.parametrize("view", list(VIEWS))
+def test_prepass_kernel_matches_plain(scene, view):
+    """K3's flags equal its plain version's on every plan position, and K1
+    over the refined plan gives the unrefined walk's (t, idx) exactly."""
+    prep, cfg = scene
+    (o, d), (o3, d3) = _rays(VIEWS[view], TPX * TPX)
+    plan = pl.cull_rays(prep, o, d, TPX * TPX, cfg.cull_maxv, 2)
+    n0 = prepass.tiled_prepass.launches
+    kf = prepass.tiled_prepass(plan, prep.gram, o3, d3, 64, cfg.mt_eps)
+    assert prepass.tiled_prepass.launches == n0 + 1
+    pf = prepass.tiled_prepass_plain(plan, prep.gram, o3, d3, 64, cfg.mt_eps)
+    assert torch.equal(kf, pf) and kf.any()
+    ref = prepass.refine_plan(plan, kf)
+    t0, i0 = nearest.tiled_nearest_rays(plan, prep.tri, o3, d3, 64,
+                                        cfg.mt_eps)
+    t1, i1 = nearest.tiled_nearest_rays(ref, prep.tri, o3, d3, 64,
+                                        cfg.mt_eps)
+    assert torch.equal(t0, t1) and torch.equal(i0, i1)
+    pt, pi = nearest.tiled_nearest_rays_plain(ref, prep.tri, o3, d3, 64,
+                                              cfg.mt_eps)
+    hit = torch.isfinite(pt)
+    torch.testing.assert_close(t1[hit], pt[hit], rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("lanes", [32, 256, 1024])
+def test_nearest_grouped_kernel_matches_plain(scene, lanes):
+    """K4 with sub-groups of 32 lanes (tiles of 128 rays), of 256 and of
+    1,024 (the 4,096-ray pixel tiles) against its plain version and
+    against the ungrouped walk of the same entries."""
+    prep, cfg = scene
+    tile = 4 * lanes
+    (o, d), (o3, d3) = _rays(VIEWS["moved"], tile)
+    plan = pl.cull_rays(prep, o, d, tile, cfg.cull_maxv, 2, groups=4)
+    n0 = nearest.tiled_nearest_grouped.launches
+    kt, ki = nearest.tiled_nearest_grouped(plan, prep.tri, o3, d3, 64,
+                                           cfg.mt_eps, 4)
+    assert nearest.tiled_nearest_grouped.launches == n0 + 1
+    pt, pi = nearest.tiled_nearest_grouped_plain(plan, prep.tri, o3, d3, 64,
+                                                 cfg.mt_eps, 4)
+    hit = torch.isfinite(pt)
+    assert hit.sum() > 4000 and torch.equal(torch.isfinite(kt), hit)
+    torch.testing.assert_close(kt[hit], pt[hit], rtol=1e-5, atol=1e-6)
+    assert (ki == pi).float().mean() >= 0.9999
+    flat = pl.cull_rays(prep, o, d, tile, cfg.cull_maxv, 2)
+    ut, ui = nearest.tiled_nearest_rays(flat, prep.tri, o3, d3, 64,
+                                        cfg.mt_eps)
+    assert torch.equal(ut, kt) and torch.equal(ui, ki)
+
+
+@pytest.mark.parametrize("lanes", [32, 256])
+def test_anyhit_grouped_kernel_matches_plain(scene, lanes):
+    """K5 with sub-groups of 32 lanes (the legacy shadow in 128-ray tiles)
+    and of 256 (the soft frame's folded 1,024-ray tiles) against its plain
+    version and the ungrouped walk."""
+    prep, cfg = scene
+    kc = sr.KernelConfig(groups_ah=4)
+    if lanes == 256:
+        cfg = cfg.replace(light=sr.LightConfig(num_samples=4), kernel=kc)
+    else:                       # the legacy hard shadow in 128-ray tiles
+        cfg = cfg.replace(shadow_tile=128, kernel=kc)
+    args = _frame_args(prep, cfg, VIEWS["moved"])["anyhit_grouped"]
+    assert args[3].shape[1] == 4 * lanes
+    n0 = anyhit.tiled_anyhit_grouped.launches
+    kf = anyhit.tiled_anyhit_grouped(*args)
+    assert anyhit.tiled_anyhit_grouped.launches == n0 + 1
+    pf = anyhit.tiled_anyhit_grouped_plain(*args)
+    assert (kf == pf).float().mean() >= 0.9999 and kf.sum() > 50
+    flat = args[0][:, :pl.PLAN_AUX + (args[0].shape[1] - pl.PLAN_AUX) * 8 // 9]
+    uf = anyhit.tiled_anyhit(flat.contiguous(), *args[1:10])
+    assert torch.equal(uf, kf)
+
+
+def test_nearest_grouped_kernel_honors_masks():
+    """Window 1 (the nearer quad) is masked to sub-groups 0 and 2: the
+    other groups must keep window 0's hit."""
+    tensors, rest, want = masked_windows()
+    t, idx = nearest.tiled_nearest_grouped(*[x.cuda() for x in tensors],
+                                           *rest)
+    assert torch.equal(idx.cpu(), want.to(torch.int32))
+    pt, pi = nearest.tiled_nearest_grouped_plain(
+        *[x.cuda() for x in tensors], *rest)
+    assert torch.equal(pi, idx) and torch.equal(pt, t)
+
+
+def test_anyhit_grouped_kernel_honors_masks():
+    """The occluder's window is masked to sub-groups 0 and 2: only their
+    rays find it."""
+    tensors, rest, want = masked_occluder()
+    found = anyhit.tiled_anyhit_grouped(*[x.cuda() for x in tensors], *rest)
+    assert torch.equal(found.cpu(), want)
+
+
+def test_render_gather_frame_launches_its_kernels():
+    """The textured, smooth-normal soft frame takes the gather branch on
+    the card: K1's fetch mode and K2′ launch, and the image matches the
+    plain versions' on the CPU."""
+    cfg = sr.default_config().replace(
+        mode="tiled", camera=sr.CameraConfig(width=SIZE, height=SIZE,
+                                             focal=FOCAL),
+        bvh=sr.BVHConfig(split="sah"), light=sr.LightConfig(num_samples=4),
+        shading=sr.ShadingConfig(smooth_normals=True))
+    prep = prepare(P.textured_on_ground(sr.SceneManager(), 3).build(), cfg,
+                   device="cuda")
+    n0 = nearest.tiled_nearest_attrs.launches
+    a0 = anyhit.tiled_anyhit.launches
+    img = sr.render(prep, cfg, P.BENCH_LIGHT)
+    assert nearest.tiled_nearest_attrs.launches == n0 + 1
+    assert anyhit.tiled_anyhit.launches == a0 + 1
+    cpu = sr.render(prep.to("cpu"), cfg, P.BENCH_LIGHT)
+    diff = (img.cpu().int() - cpu.int()).abs()
+    assert (diff <= 1).float().mean() >= 0.999

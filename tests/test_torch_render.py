@@ -3,9 +3,15 @@
 
 The JAX frame runs through ``render_flat_tiled`` with its fused nearest and
 from-t any-hit kernels (interpret mode); spies assert that both were taken.
-Image bars are the JAX package's own (tests/test_tiled.py:90-94): within 1
-on >= 99.9% of pixels, equal on >= 98%.
+The frames of the branch switches (textured smooth-normal soft shadows,
+sub-groups, the prepass, no attribute fetch, fused Phong or the fused
+shadow off) run against JAX's frame with the same switches, spies on
+``tiled_t`` showing which of its steps ran.  Image bars are the JAX
+package's own (tests/test_tiled.py:90-94): within 1 on >= 99.9% of pixels,
+equal on >= 98%.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -16,7 +22,7 @@ import jax.numpy as jnp
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import (from_jax_prepared,
                                                         prepare)
-from simple_raytracer_tpu_torch.kernels import anyhit, nearest
+from simple_raytracer_tpu_torch.kernels import anyhit, nearest, tiled
 from simple_raytracer_tpu_torch.render.renderer import render, render_radiance
 
 from simple_raytracer_tpu.accel.prepared import prepare as jprepare
@@ -31,10 +37,13 @@ from _torch_parity import (FOCAL, HEIGHT, LIGHT, TILE_PX, VIEW, WIDTH,
 VIEWS = {"identity": None, "moved": VIEW}
 
 
-def _jax_frame(jprep, jcfg, view, monkeypatch):
-    """The JAX tiled frame, asserting that the fused kernels ran."""
+def _jax_frame(jprep, jcfg, view, monkeypatch,
+               spied=("hits_shaded", "anyhit_from_t"), expect=None):
+    """The JAX tiled frame, asserting that of the ``spied`` steps of
+    ``tiled_t`` exactly ``expect`` ran, in order (default: all of them, once
+    each; the fused kernels by default)."""
     called = []
-    for name in ("hits_shaded", "anyhit_from_t"):
+    for name in spied:
         orig = getattr(tiled_t, name)
         monkeypatch.setattr(
             tiled_t, name,
@@ -46,7 +55,7 @@ def _jax_frame(jprep, jcfg, view, monkeypatch):
     rad, hit = jtiled.render_flat_tiled(
         jprep, jcfg, o.reshape(-1, 3), d.reshape(-1, 3), jnp.asarray(LIGHT),
         cam_spec=(V, FOCAL, WIDTH, HEIGHT, TILE_PX))
-    assert called == ["hits_shaded", "anyhit_from_t"], called
+    assert called == list(spied if expect is None else expect), called
     rad = untile_image(rad.reshape(-1, 3), WIDTH, HEIGHT, TILE_PX, tx, ty)
     hit = untile_image(hit.reshape(-1), WIDTH, HEIGHT, TILE_PX, tx, ty)
     return np.asarray(jint.finalize_image(rad, hit, jcfg))
@@ -131,6 +140,13 @@ def test_ragged_frame_size():
     assert (diff <= 1).mean() > 0.999 and (diff == 0).mean() > 0.98
 
 
+# ROADMAP.md items ported since their case was written, and the branch
+# their frames take now: 7e (soft shadows on textured or smooth-normal
+# scenes) is the sublane gather branch; test_switch_frame_matches_jax holds
+# its image to JAX's
+PORTED = {"item 7e": "gather"}
+
+
 @pytest.mark.parametrize("change, item", [
     (dict(mode="bruteforce"), "item 3"),
     (dict(mode="bvh"), "item 8"),
@@ -143,9 +159,17 @@ def test_ragged_frame_size():
                                  normalize_dirs=True)), "item 7f"),
 ])
 def test_unported_branches_raise(change, item):
+    """Each frame of an unported item raises NotImplementedError naming it;
+    a frame of an item ported since (``PORTED``) is accepted and takes its
+    branch."""
     sm, _ = managers(1)
     cfg, _ = configs()
     prep = prepare(sm.build(), cfg, device="cpu")
+    if item in PORTED:
+        c = cfg.replace(**change)
+        tiled.check_supported(prep, c, TILE_PX * TILE_PX)
+        assert tiled.frame_branch(prep, c, TILE_PX * TILE_PX) == PORTED[item]
+        return
     with pytest.raises(NotImplementedError, match=item):
         render(prep, cfg.replace(**change), LIGHT)
 
@@ -157,3 +181,74 @@ def test_render_radiance_needs_prepared_scene():
         render_radiance(sm.build(), cfg, LIGHT)
     with pytest.raises(ValueError):
         render(sm.build(), cfg.replace(mode="nope"), LIGHT, device="cpu")
+
+
+# frames of the branch switches: (textured + smooth normals, samples, port
+# KernelConfig fields, JAX environment, JAX KernelConfig fields, the port's
+# branch, the steps of JAX tiled_t it runs)
+GATHER_STEPS = ("hits", "anyhit")
+SWITCHES = {
+    "textured_smooth_s4": (True, 4, {}, {}, {}, "gather", GATHER_STEPS),
+    "textured_smooth_s4_grouped": (True, 4, dict(groups=4, groups_ah=4), {},
+                                   {}, "gather", GATHER_STEPS),
+    "flat_prepass": (False, 1, dict(prepass=True),
+                     {"SRT_TILED_PREPASS": "1"}, {}, "gather", GATHER_STEPS),
+    "flat_no_fetch": (False, 1, dict(attr_fetch=False), {},
+                      dict(attr_fetch=False), "gather", GATHER_STEPS),
+    "flat_no_fused_phong": (False, 1, dict(fused_phong=False), {},
+                            dict(fused_phong=False), "soft",
+                            ("hits_attrs", "anyhit")),
+    "textured_smooth_no_fused_phong": (True, 1, dict(fused_phong=False), {},
+                                       dict(fused_phong=False), "gather",
+                                       GATHER_STEPS),
+    "flat_no_fused_shadow": (False, 1, dict(fused_shadow=False), {},
+                             dict(fused_shadow=False), "legacy",
+                             ("hits_shaded", "anyhit")),
+}
+SPIED = ("hits", "hits_attrs", "hits_shaded", "anyhit", "anyhit_from_t")
+
+
+@pytest.fixture(scope="module")
+def gather_scenes():
+    """The parity scene and its textured smooth-normal variant, in both
+    packages, with the same triangle order."""
+    out = {}
+    for textured in (False, True):
+        _, jsm = managers(textured=textured)
+        cfg, jcfg = configs()
+        jprep = jprepare(jsm.build(), jcfg)
+        out[textured] = (from_jax_prepared(
+            jax_prepared_arrays(jprep), has_textures=textured,
+            num_triangles=int(jprep.num_triangles), device="cpu"), jprep)
+    return out
+
+
+@pytest.mark.parametrize("frame", list(SWITCHES))
+def test_switch_frame_matches_jax(gather_scenes, frame, monkeypatch):
+    """Frames of the branch switches through both packages, each package
+    taking the branch the switches choose.  JAX cannot plan sub-groups (its
+    grouped planner raises NameError), so the grouped frame is held to
+    JAX's ungrouped image: the sub-groups skip work, never hits."""
+    tex, S, kc, env, jkc, branch, steps = SWITCHES[frame]
+    prep, jprep = gather_scenes[tex]
+    cfg, jcfg = configs(num_samples=S)
+    cfg = cfg.replace(kernel=sr.KernelConfig(**kc),
+                      shading=sr.ShadingConfig(smooth_normals=tex))
+    jcfg = jcfg.replace(kernel=dataclasses.replace(jcfg.kernel, **jkc),
+                        shading=type(jcfg.shading)(smooth_normals=tex))
+    assert tiled.frame_branch(prep, cfg, TILE_PX * TILE_PX) == branch
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    jimg = _jax_frame(jprep, jcfg, VIEW, monkeypatch, spied=SPIED,
+                      expect=steps)
+    n0 = {k: f.launches for k, f in tiled.KERNELS.items()}
+    img = render(prep, cfg, LIGHT, view_matrix=VIEW).numpy()
+    # CPU tensors take the plain versions: no kernel launch is counted
+    assert {k: f.launches for k, f in tiled.KERNELS.items()} == n0
+    diff = np.abs(img.astype(int) - jimg.astype(int))
+    print(f"switch frame {frame}: {int((diff > 0).any(-1).sum())} pixels "
+          f"differ, max {int(diff.max())}")
+    assert (diff <= 1).mean() > 0.999, diff.max()
+    assert (diff == 0).mean() > 0.98
+    bg = (img == np.array(cfg.background, np.uint8)).all(-1)
+    assert 0.2 < (~bg).mean() < 0.95
