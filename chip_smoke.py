@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--root ASSETS]
 
 Drives the port's paths through ``render_radiance(mode="tiled")`` followed
-by ``finalize_image``, on three frames:
+by ``finalize_image``, on these frames:
 
 * **bench**: a mesh of bunny scale on a ground slab at 1920x1080, one hard
   shadow, flat Phong, a SAH BVH (the fused branch: K1 with fused Phong, K2
@@ -32,7 +32,20 @@ by ``finalize_image``, on three frames:
   ``KernelConfig(groups=4, groups_ah=4)`` (K4 in 1,024-ray groups, K5 in
   256-ray groups of the 1,024-ray fold); and the
   bench frame with ``KernelConfig(prepass=True)`` (K3, K1 over the refined
-  plan's 64-triangle windows, K2′ for the hard shadow).
+  plan's 64-triangle windows, K2′ for the hard shadow);
+* **textured bench, smooth bench, complex**: one-sample frames of textured
+  or smooth-normal scenes on the default layout (the fused frame with K1 in
+  its textured or smooth mode): ``procedural.textured_on_ground(6)`` with
+  flat shading (K1's textured mode, the texel finish, K2) and
+  ``procedural.smooth_on_ground(6)`` with smooth normals (K1's smooth mode,
+  K2), both at the bench camera; and the complex scene of
+  ``bench.py::run_complex`` at 600x400, focal 400, one hard shadow (K1's
+  textured mode at 32-pixel tiles, the texel finish, then the legacy hard
+  shadow through K2′ in 256-ray tiles).  Its stand-in is
+  ``procedural.dense_textured_on_ground`` (the dense frame's spheres and
+  ground, the ground and the second sphere textured); with ``--root`` it is
+  ``scene/catalog.py::complex_scene`` on the 36 turntable views of
+  ``bench.py::run_complex``.
 
 Phases, each of which must pass:
 
@@ -72,7 +85,18 @@ Phases, each of which must pass:
    branch's kernels launched, no other); the image within 1 of the plain
    versions' image on >= 99.9% of pixels; 32 (textured) or 20 (bench)
    view-varied frames timed, each kernel and its plain version, and each
-   stage.
+   stage;
+9. the textured bench, smooth bench and complex frames, each: K1 in its
+   mode against its plain version on the frame's arguments (t, idx and the
+   bounds rows as in 3; obj and tex id equal, dw, sw, texu, texv or rgb
+   within 1e-4 on the rays whose idx agrees), its shadow kernel against its
+   plain version (as in 3 or 6; > 1,000 shadowed hit lanes and > 10,000
+   textured hit rays in the complex frame); the frame through the public
+   entry points with the counters reset just before (K1 launched once, in
+   its mode, its shadow kernel, no other); the image within 1 of the plain
+   versions' image on >= 99.9% of pixels; 20 (bench), 32 (stand-in) or 36
+   (turntable) frames timed, each kernel and its plain version, and each
+   stage (the texel finish alone where there is one).
 
 Each kernel's entry in the kernels line carries its bound: the larger of
 its operations over the peak rate of their type and its bytes over 3.35
@@ -87,7 +111,9 @@ their hit points) while each ray still needed them: until its best t lay
 below the next entry's bound, or until it found an occluder, as the plain
 walk records them.  The bytes are the plan, the triangle rows (and object ids)
 of the windows the walk staged, the rays of the counted lanes in tiles
-with a non-empty plan, the small tables, each read once, and the outputs,
+with a non-empty plan, the small tables, the attribute rows of the
+distinct winning triangles (K1: tri_attr's 16 bytes, and the 48-byte map
+row in its textured and smooth modes), each read once, and the outputs,
 each written once.
 
 Prints one JSON line per phase result, then the kernels line, the card's
@@ -111,6 +137,7 @@ OCC_WIDTH, OCC_HEIGHT, OCC_FOCAL = 600, 400, 400.0
 OCC_FRAMES = 32
 SOFT_SAMPLES = 16
 SHADOWED_MIN = 1000
+TEXTURED_MIN = 10000     # textured hit rays of the complex frame
 # kernel vs plain version on the card (ISSUE tolerances: equal expressions,
 # contraction off, so only the transcendental functions round apart)
 T_RTOL, T_ATOL = 1e-5, 1e-6
@@ -332,13 +359,17 @@ def frame_args(prep, cfg, light, cam_spec, rays=None) -> dict:
 
 
 def check_k1_shaded(k1, label: str, size) -> dict:
-    """K1 (fused mode) vs its plain version on the arguments ``k1``, in an
-    image of ``size`` = (width, height)."""
+    """K1 (a fused mode: flat, textured or smooth) vs its plain version on
+    the arguments ``k1``, in an image of ``size`` = (width, height): t, idx,
+    obj, the shading rows (rgb, or dw, sw, texu, texv, obj, tex id) within
+    RGB_ATOL on the rays whose idx agrees, obj and tex id equal there, and
+    the bounds rows."""
     import torch
     from simple_raytracer_tpu_torch.kernels import nearest
+    mode, amap = k1[11], k1[12]
     out = nearest.tiled_nearest_shaded(*k1)
-    kt, ki, ko, krgb, kb = out
-    (pt, pi, po, prgb, pb), walk = plain_walk(
+    kt, ki, ko, ks, kb = out
+    (pt, pi, po, ps, pb), walk = plain_walk(
         nearest.tiled_nearest_shaded_plain, k1)
     torch.cuda.synchronize()
     hk, hp = torch.isfinite(kt), torch.isfinite(pt)
@@ -347,58 +378,75 @@ def check_k1_shaded(k1, label: str, size) -> dict:
     t_ok = bool((t_err <= T_ATOL + T_RTOL * pt[both].abs()).all())
     same = ki == pi
     idx_frac = float(same.float().mean())
-    rgb_err = float((krgb[same.reshape(-1)] - prgb[same.reshape(-1)])
-                    .abs().max()) if bool(same.any()) else 0.0
+    sf = same.reshape(-1)
+    shade_err = float((ks[sf] - ps[sf]).abs().max()) if bool(sf.any()) \
+        else 0.0
     obj_ok = bool((ko[same] == po[same]).all())
+    if mode == nearest.TEXTURED:         # obj and tex id columns
+        obj_ok = obj_ok and bool(torch.equal(ks[sf, 4:], ps[sf, 4:]))
     fin = torch.isfinite(pb) & torch.isfinite(kb)
     b_ok = bool((torch.isfinite(pb) == torch.isfinite(kb)).all()
                 and torch.allclose(kb[fin], pb[fin], rtol=1e-5, atol=1e-4))
-    res = {"check": f"K1 vs plain ({label})", "tiles": int(kt.shape[0]),
-           "hit_rays": int(hk.sum()),
+    # each input read once: the winners' tri_attr rows and, in the textured
+    # and smooth modes, their 48-byte map rows
+    winners = winner_bytes(ki, k1[2]) + (0 if amap is None
+                                         else winner_bytes(ki, amap))
+    res = {"check": f"K1 vs plain ({label})", "mode": mode,
+           "tiles": int(kt.shape[0]), "hit_rays": int(hk.sum()),
            "hit_mask_equal": float((hk == hp).float().mean()),
            "t_max_abs_err": float(t_err.max()) if t_err.numel() else 0.0,
            "t_within_tol": t_ok, "idx_equal": idx_frac,
-           "rgb_max_abs_err": rgb_err, "obj_equal": obj_ok,
+           "shade_max_abs_err": shade_err, "obj_equal": obj_ok,
            "bounds_allclose": b_ok, "plan": plan_stats(k1[0]),
            **bound(walk, frame_lanes(k1[0][:, 4], k1[0][:, 5], k1[5], *size),
                    OPS_NEAREST_ONE_ORIGIN, k1[0], window_bytes(k1[1], k1[6]),
-                   0, out, (k1[3], k1[4]), winner_bytes(ki, k1[2]))}
+                   0, out, (k1[3], k1[4]), winners)}
+    if mode == nearest.TEXTURED:
+        res["textured_hit_rays"] = int((hk.reshape(-1) & (ks[:, 5] >= 0))
+                                       .sum())
     emit(**res)
     require(t_ok and bool((hk == hp).all()), f"K1 t differs ({label})")
     require(idx_frac >= IDX_MIN, f"K1 idx equal on {idx_frac} ({label})")
-    require(rgb_err <= RGB_ATOL and obj_ok, f"K1 shading differs ({label})")
+    require(shade_err <= RGB_ATOL and obj_ok, f"K1 shading differs ({label})")
     require(b_ok, f"K1 bounds rows differ ({label})")
     return res
 
 
-def compare_kernels(prep, cfg, light, cam_spec, label: str, time_it: bool):
-    """K1 and K2 vs their plain versions on the card, on the arguments the
-    fused frame gives them."""
+def check_k2(k2, label: str, size) -> dict:
+    """K2 (any-hit from t) vs its plain version on the arguments ``k2``, on
+    the lanes of hits inside the image."""
     import torch
-    from simple_raytracer_tpu_torch.kernels import anyhit, nearest
-    args = frame_args(prep, cfg, light, cam_spec)
-    k1, k2 = args["nearest_shaded"], args["anyhit_from_t"]
-    size = cam_spec[2:4]
-    k1_res = check_k1_shaded(k1, label, size)
-
+    from simple_raytracer_tpu_torch.kernels import anyhit
     kf = anyhit.tiled_anyhit_from_t(*k2)
     pf, walk = plain_walk(anyhit.tiled_anyhit_from_t_plain, k2)
     torch.cuda.synchronize()
     hit = torch.isfinite(k2[3])
     f_frac = float((kf[hit] == pf[hit]).float().mean()) if bool(hit.any()) \
         else 1.0
-    k2_res = {"check": f"K2 vs plain ({label})", "hit_rays": int(hit.sum()),
-              "shadowed_rays": int((kf & hit).sum()),
-              "found_equal": f_frac, "plan": plan_stats(k2[0]),
-              "found_max_abs_err": float((kf[hit].int() - pf[hit].int())
-                                         .abs().max()) if bool(hit.any())
-              else 0.0,
-              **bound(walk, hit & frame_lanes(k2[0][:, 4], k2[0][:, 5],
-                                              k2[6], *size),
-                      OPS_OCCLUDES, k2[0], window_bytes(k2[1], k2[7], k2[8]),
-                      8, kf, (k2[5],))}
-    emit(**k2_res)
+    res = {"check": f"K2 vs plain ({label})", "hit_rays": int(hit.sum()),
+           "shadowed_rays": int((kf & hit).sum()),
+           "found_equal": f_frac, "plan": plan_stats(k2[0]),
+           "found_max_abs_err": float((kf[hit].int() - pf[hit].int())
+                                      .abs().max()) if bool(hit.any())
+           else 0.0,
+           **bound(walk, hit & frame_lanes(k2[0][:, 4], k2[0][:, 5],
+                                           k2[6], *size),
+                   OPS_OCCLUDES, k2[0], window_bytes(k2[1], k2[7], k2[8]),
+                   8, kf, (k2[5],))}
+    emit(**res)
     require(f_frac >= FOUND_MIN, f"K2 found equal on {f_frac} ({label})")
+    return res
+
+
+def compare_kernels(prep, cfg, light, cam_spec, label: str, time_it: bool):
+    """K1 and K2 vs their plain versions on the card, on the arguments the
+    fused frame gives them."""
+    from simple_raytracer_tpu_torch.kernels import anyhit, nearest
+    args = frame_args(prep, cfg, light, cam_spec)
+    k1, k2 = args["nearest_shaded"], args["anyhit_from_t"]
+    size = cam_spec[2:4]
+    k1_res = check_k1_shaded(k1, label, size)
+    k2_res = check_k2(k2, label, size)
     times = {}
     if time_it:
         times = {"k1_ms": cuda_ms(lambda: nearest.tiled_nearest_shaded(*k1),
@@ -414,9 +462,12 @@ def compare_kernels(prep, cfg, light, cam_spec, label: str, time_it: bool):
 
 
 def reset_launches() -> None:
+    from simple_raytracer_tpu_torch.kernels import nearest
     from simple_raytracer_tpu_torch.kernels.tiled import KERNELS
     for fn in KERNELS.values():
         fn.launches = 0
+    nearest.tiled_nearest_shaded.mode_launches = dict.fromkeys(nearest.MODES,
+                                                                0)
 
 
 def read_launches() -> dict:
@@ -424,9 +475,11 @@ def read_launches() -> dict:
     return {role: fn.launches for role, fn in KERNELS.items()}
 
 
-def image_vs_plain(sr, prep, cfg, light, img, label: str) -> dict:
-    """The frame through the plain versions, on the card, against ``img``
-    (within 1 on >= IMAGE_MIN of pixels)."""
+def image_vs_plain(sr, prep, cfg, light, img, label: str,
+                   view=None) -> dict:
+    """The frame (seen through ``view``, a view matrix or None) through the
+    plain versions, on the card, against ``img`` (within 1 on >= IMAGE_MIN
+    of pixels)."""
     import torch
     from simple_raytracer_tpu_torch.kernels import plan as pl
     from simple_raytracer_tpu_torch.kernels.tiled import (PLAIN,
@@ -440,10 +493,11 @@ def image_vs_plain(sr, prep, cfg, light, img, label: str) -> dict:
     rays = None
     if frame_branch(prep, cfg, tpx * tpx) != "fused":
         o, d, _, _ = primary_rays_tiled(cam.width, cam.height, tpx,
-                                        cam.focal, device=prep.device)
+                                        cam.focal, view_matrix=view,
+                                        device=prep.device)
         rays = (o.reshape(-1, 3), d.reshape(-1, 3))
     prad, phit = render_flat_tiled(
-        prep, cfg, light, (None, cam.focal, cam.width, cam.height, tpx),
+        prep, cfg, light, (view, cam.focal, cam.width, cam.height, tpx),
         rays=rays, kernels=PLAIN)
     tx, ty = -(-cam.width // tpx), -(-cam.height // tpx)
     pimg = finalize_image(
@@ -457,22 +511,26 @@ def image_vs_plain(sr, prep, cfg, light, img, label: str) -> dict:
             "image_equal_to_plain": float((diff == 0).float().mean())}
 
 
-def render_checked(sr, prep, cfg, light, label: str, roles) -> dict:
-    """The frame through the public entry points, with the kernels' launch
-    counters reset just before and read just after: every kernel of
-    ``roles`` launched and no other; coverage in (0.05, 0.99), the frame's
-    shape and finite radiance; the image within 1 of the plain versions'
-    image.  Emits and returns the ``render`` line."""
+def render_checked(sr, prep, cfg, light, label: str, roles,
+                   view=None) -> dict:
+    """The frame (seen through ``view``) through the public entry points,
+    with the kernels' launch counters reset just before and read just
+    after: every kernel of ``roles`` launched and no other; coverage in
+    (0.05, 0.99), the frame's shape and finite radiance; the image within 1
+    of the plain versions' image.  Emits and returns the ``render`` line,
+    with K1's launches by attribute mode."""
     import torch
+    from simple_raytracer_tpu_torch.kernels import nearest
     from simple_raytracer_tpu_torch.kernels import plan as pl
     from simple_raytracer_tpu_torch.kernels.tiled import frame_branch
     from simple_raytracer_tpu_torch.render.integrator import finalize_image
     cam = cfg.camera
     reset_launches()
-    rad, hit = sr.render_radiance(prep, cfg, light)
+    rad, hit = sr.render_radiance(prep, cfg, light, view_matrix=view)
     img = finalize_image(rad, hit, cfg)
     torch.cuda.synchronize()
     launches = read_launches()
+    k1_modes = dict(nearest.tiled_nearest_shaded.mode_launches)
     require(all(launches[r] > 0 for r in roles)
             and all(n == 0 for r, n in launches.items() if r not in roles),
             f"{label} launched {launches}, not exactly {roles}")
@@ -485,31 +543,40 @@ def render_checked(sr, prep, cfg, light, label: str, roles) -> dict:
     tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
     res = {"phase": f"render ({label})",
            "branch": frame_branch(prep, cfg, tpx * tpx),
-           "coverage": coverage, "launches": launches,
-           **image_vs_plain(sr, prep, cfg, light, img, label)}
+           "coverage": coverage, "launches": launches, "k1_modes": k1_modes,
+           **image_vs_plain(sr, prep, cfg, light, img, label, view)}
     emit(**res)
     return res
 
 
-def view_varied_ms(sr, prep, cfg, light, frames: int, label: str) -> float:
-    """Host ms per frame over ``frames`` frames, the view moved 1e-5 and
-    the light 1e-4 further each frame (bench.py:353-358, :174-183), ending
-    in a synchronize."""
+def frames_ms(sr, prep, cfg, shots, label: str) -> float:
+    """Host ms per frame over the frames of ``shots`` [(view matrix,
+    light)], ending in a synchronize."""
     import torch
     from simple_raytracer_tpu_torch.render.integrator import finalize_image
-    eye = torch.eye(4, dtype=torch.float32, device=prep.device)
     torch.cuda.synchronize()
     t0 = time.time()
     acc = torch.zeros((), dtype=torch.int64, device=prep.device)
+    for V, light in shots:
+        r, h = sr.render_radiance(prep, cfg, light, view_matrix=V)
+        acc += finalize_image(r, h, cfg).to(torch.int64).sum()
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3 / len(shots)
+    require(int(acc) > 0, f"timed frames rendered nothing ({label})")
+    return ms
+
+
+def view_varied_ms(sr, prep, cfg, light, frames: int, label: str) -> float:
+    """Host ms per frame over ``frames`` frames, the view moved 1e-5 and
+    the light 1e-4 further each frame (bench.py:353-358, :174-183)."""
+    import torch
+    eye = torch.eye(4, dtype=torch.float32, device=prep.device)
+    shots = []
     for i in range(frames):
         V = eye.clone()
         V[0, 3] += i * 1e-5
-        r, h = sr.render_radiance(prep, cfg, light + i * 1e-4, view_matrix=V)
-        acc += finalize_image(r, h, cfg).to(torch.int64).sum()
-    torch.cuda.synchronize()
-    ms = (time.time() - t0) * 1e3 / frames
-    require(int(acc) > 0, f"timed frames rendered nothing ({label})")
-    return ms
+        shots.append((V, light + i * 1e-4))
+    return frames_ms(sr, prep, cfg, shots, label)
 
 
 def check_found(kernel, plain, args, pts, S: int, what: str, label: str,
@@ -924,6 +991,162 @@ def gather_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
               times["shadow_plain_ms"], sh_res, via=shadow[4])]
 
 
+def mode_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
+               view=None, views=None, shadowed_min=None,
+               textured_min=None) -> list:
+    """A one-sample frame of a textured or smooth-normal scene (phase 9):
+    K1 in its textured or smooth mode and the frame's shadow kernel (K2 on
+    the fused branch, K2′ on the legacy one) against their plain versions
+    on the frame's arguments; the frame through the public entry points
+    with the counts read around it (K1 once, in that mode, its shadow
+    kernel, no other); the plain image; and the times: ``frames``
+    view-varied frames, or the frames seen through ``views``.  The checks
+    and the stages see the scene through ``view``.  Returns the
+    kernels-line entries."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels import anyhit, nearest
+    from simple_raytracer_tpu_torch.kernels import plan as pl
+    from simple_raytracer_tpu_torch.kernels import tiled
+    from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
+    from simple_raytracer_tpu_torch.render.integrator import finalize_image
+    dev = prep.device
+    cam = cfg.camera
+    tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
+    branch = tiled.frame_branch(prep, cfg, tpx * tpx)
+    mode = nearest.attr_mode(prep, cfg)
+    require(branch in ("fused", "legacy") and mode != nearest.FLAT,
+            f"{label} takes the {branch} branch in K1 mode {mode}")
+    shadow = "anyhit_from_t" if branch == "fused" else "anyhit"
+    cam_spec = (view, cam.focal, cam.width, cam.height, tpx)
+    rays = None
+    if branch == "legacy":
+        o, d, _, _ = primary_rays_tiled(cam.width, cam.height, tpx,
+                                        cam.focal, view_matrix=view,
+                                        device=dev)
+        rays = (o.reshape(-1, 3), d.reshape(-1, 3))
+    args = frame_args(prep, cfg, light, cam_spec, rays)
+    k1, ks = args["nearest_shaded"], args[shadow]
+    require(k1[11] == mode, f"{label}: K1 called in mode {k1[11]}")
+    size = (cam.width, cam.height)
+
+    # K1 in its mode vs plain, then the shadow kernel vs plain
+    k1_res = check_k1_shaded(k1, label, size)
+    if textured_min is not None:
+        require(k1_res["textured_hit_rays"] > textured_min,
+                f"{label}: {k1_res['textured_hit_rays']} textured hit rays")
+    if branch == "fused":
+        sh_res = check_k2(ks, label, size)
+    else:
+        kt = nearest.tiled_nearest_shaded(*k1)[0]
+        inside = frame_lanes(k1[0][:, 4], k1[0][:, 5], tpx, *size)
+        sh_res = check_found(anyhit.tiled_anyhit, anyhit.tiled_anyhit_plain,
+                             ks, torch.isfinite(kt) & inside, 1, "K2'",
+                             label, shadowed_min)
+
+    render = render_checked(sr, prep, cfg, light, label, ("nearest_shaded",
+                                                          shadow), view)
+    launches = render["launches"]
+    require(launches["nearest_shaded"] == 1 and launches[shadow] == 1
+            and render["k1_modes"] == {m: int(m == mode)
+                                       for m in nearest.MODES},
+            f"{label}: K1 launches by mode {render['k1_modes']}")
+    ms_frame = (frames_ms(sr, prep, cfg, [(V, light) for V in views], label)
+                if views else
+                view_varied_ms(sr, prep, cfg, light, frames, label))
+
+    # each kernel and its plain version, and each stage alone
+    maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
+                                  cfg.kernel.window_blocks)
+    t, _i, obj, shade, bounds = nearest.hits_shaded(prep, cfg, light,
+                                                    cam_spec, maxv)
+    times = {
+        "k1_ms": cuda_ms(lambda: nearest.tiled_nearest_shaded(*k1), 20),
+        "k1_plain_ms": cuda_ms(
+            lambda: nearest.tiled_nearest_shaded_plain(*k1), 2),
+        "shadow_ms": cuda_ms(lambda: tiled.KERNELS[shadow](*ks), 20),
+        "shadow_plain_ms": cuda_ms(lambda: tiled.PLAIN[shadow](*ks), 2),
+        "plan_and_k1_ms": cuda_ms(lambda: nearest.hits_shaded(
+            prep, cfg, light, cam_spec, maxv), 10),
+        "frame_ms": cuda_ms(lambda: finalize_image(
+            *sr.render_radiance(prep, cfg, light, view_matrix=view), cfg),
+            10)}
+    if mode == nearest.TEXTURED:
+        times["texel_finish_ms"] = cuda_ms(lambda: tiled.texel_finish(
+            prep.scene, cfg, obj, shade), 10)
+    if branch == "fused":
+        times["shadow_plan_and_k2_ms"] = cuda_ms(lambda: anyhit.anyhit_from_t(
+            prep, cfg, t, obj, bounds, light, cam_spec, maxv), 10)
+    else:
+        o2, d2, m = ks[3], ks[4], ks[3].shape[1]
+        excl = tiled._pure_excl(ks[5])
+        times["shadow_plan_ms"] = cuda_ms(lambda: pl.cull_occl(
+            prep, o2.reshape(-1, 3), d2.reshape(-1, 3), m, maxv,
+            cfg.kernel.window_blocks_ah, excl, apex_rev=True), 10)
+    emit(phase=f"timing ({label})", width=cam.width, height=cam.height,
+         samples=1, frames=len(views) if views else frames,
+         ms_per_frame=ms_frame,
+         rays_per_s=cam.width * cam.height * 1e3 / ms_frame, gpu=gpu,
+         **times)
+    name = {nearest.TEXTURED: "textured", nearest.SMOOTH: "smooth"}[mode]
+    sh_entry = (("anyhit_from_t_kernel", "tiled_anyhit_from_t (tiled_t.py:"
+                 "1878)") if branch == "fused" else
+                ("anyhit_rays_kernel", "tiled_anyhit_t (tiled_t.py:1815)"))
+    return [
+        entry(f"nearest_shaded_kernel ({name} mode)", "nearest.cu",
+              "simple_raytracer_tpu/kernels/tiled_t.py:855", label,
+              launches["nearest_shaded"],
+              max(k1_res["t_max_abs_err"], k1_res["shade_max_abs_err"]),
+              times["k1_ms"], times["k1_plain_ms"], k1_res,
+              via=f"hits_shaded (tiled_t.py:2235), _fused_phong attr mode "
+                  f"{mode} (tiled_t.py:677)"),
+        entry(sh_entry[0], "anyhit.cu",
+              "simple_raytracer_tpu/kernels/tiled_t.py:1374", label,
+              launches[shadow], sh_res["found_max_abs_err"],
+              times["shadow_ms"], times["shadow_plain_ms"], sh_res,
+              via=sh_entry[1])]
+
+
+def complex_frames(sr, root, dev):
+    """Phase 9's complex frame: (prepared scene, config, light, view of the
+    checks, views timed, label).  With the asset directory ``root``, the
+    reference's complex scene (``catalog.complex_scene``, world space) on
+    the 36 turntable views of ``bench.py::run_complex``; without, its
+    stand-in ``procedural.dense_textured_on_ground`` seen from the camera
+    at the origin, timed on view-varied frames."""
+    import numpy as np
+    import torch
+    from simple_raytracer_tpu_torch.accel.prepared import prepare
+    from simple_raytracer_tpu_torch.scene import catalog
+    from simple_raytracer_tpu_torch.scene import procedural as P
+    cfg = sr.default_config().replace(
+        mode="tiled", camera=sr.CameraConfig(width=OCC_WIDTH,
+                                             height=OCC_HEIGHT,
+                                             focal=OCC_FOCAL),
+        bvh=sr.BVHConfig(split="sah"))
+    if root is None:
+        scene = P.dense_textured_on_ground(sr.SceneManager()).build()
+        prep = prepare(scene, cfg, device=dev)
+        light = torch.tensor(P.BENCH_LIGHT, dtype=torch.float32, device=dev)
+        return (prep, cfg, light, None, None,
+                f"complex stand-in: procedural dense_textured_on_ground, "
+                f"{prep.num_triangles} triangles, {OCC_WIDTH}x{OCC_HEIGHT}")
+    require(os.path.isfile(os.path.join(root, "obj", "tree", "tree.obj")),
+            f"no complex scene assets under {root}")
+    sm, _, light = catalog.complex_scene(root, 0.0, bake_view=False)
+    prep = prepare(sm.build(), cfg, device=dev)
+    anim = sr.AnimationConfig()
+    angles = np.arange(anim.start_deg, anim.stop_deg, anim.step_deg,
+                       dtype=np.float32)
+    views = [torch.tensor(catalog.orbit_view(
+        float(a), anim.orbit_radius, anim.camera_y, anim.pitch_deg,
+        anim.yaw_offset_deg), dtype=torch.float32, device=dev)
+        for a in angles]
+    return (prep, cfg, torch.tensor(light, dtype=torch.float32, device=dev),
+            views[0], views,
+            f"complex: reference OBJ scene, {prep.num_triangles} triangles, "
+            f"{OCC_WIDTH}x{OCC_HEIGHT}, {len(views)}-view turntable")
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1084,6 +1307,34 @@ def main() -> int:
     entries += gather_frame(
         sr, prep, cfg.replace(kernel=sr.KernelConfig(prepass=True)), light,
         f"prepass {bench}", gpu, FRAMES)
+
+    # 9. one-sample textured and smooth-normal frames: K1's textured and
+    # smooth modes, then the fused shadow (K2) or the legacy one (K2′)
+    entries += mode_frame(
+        sr, tex_prep, cfg, light,
+        f"textured bench: procedural textured_on_ground(6), flat, {WIDTH}x"
+        f"{HEIGHT}", gpu, FRAMES)
+    t0 = time.time()
+    smooth = cfg.replace(shading=sr.ShadingConfig(smooth_normals=True))
+    smooth_prep = prepare(P.smooth_on_ground(sr.SceneManager(), 6).build(),
+                          smooth, device=dev)
+    torch.cuda.synchronize()
+    emit(phase="scene (smooth)", source="procedural smooth_on_ground(6)",
+         triangles=smooth_prep.num_triangles,
+         seconds=round(time.time() - t0, 3))
+    entries += mode_frame(
+        sr, smooth_prep, smooth, light,
+        f"smooth bench: procedural smooth_on_ground(6), smooth normals, "
+        f"{WIDTH}x{HEIGHT}", gpu, FRAMES)
+    t0 = time.time()
+    cprep, ccfg, clight, cview, cviews, clabel = complex_frames(
+        sr, args.root, dev)
+    torch.cuda.synchronize()
+    emit(phase="scene (complex)", source=clabel,
+         triangles=cprep.num_triangles, blocks=cprep.num_blocks,
+         seconds=round(time.time() - t0, 3))
+    entries += mode_frame(sr, cprep, ccfg, clight, clabel, gpu, OCC_FRAMES,
+                          cview, cviews, SHADOWED_MIN, TEXTURED_MIN)
 
     print(json.dumps({"kernels": [
         entry("nearest_shaded_kernel", "nearest.cu",

@@ -18,6 +18,13 @@ vertex and two edges (w-divided here, so no kernel divides by w), and
 ``tri_attr`` the flat normal and object id that the nearest kernel gathers
 by winner id.
 
+The nearest kernel's textured and smooth-normal modes read one more row per
+hit, by winner id: ``tri_tex_map`` and ``tri_nrm_map`` [Tp, 12] f32, the
+per-triangle affine maps of :func:`uv_affine_np` (texel = A p + c for the
+baked UVs, n_raw = An p + cn for the vertex normals).  JAX carries the same
+values in ``attr_t`` as three bf16 limbs whose f32 sum is exact; here they
+are plain f32, 48-byte rows the kernel reads as three float4 loads.
+
 The paged walks (K6, K7; kernels/paged.py) read the same ``tri`` table in
 PAGES of ``page_tris`` consecutive triangles (``page_tris / block_size``
 consecutive blocks).  The JAX package packs each page into a Gram page and
@@ -52,12 +59,14 @@ class PreparedScene:
     tri: torch.Tensor           # [Tp, 9] f32 — v0, e1 = v1 - v0, e2 = v2 - v0
     tri_attr: torch.Tensor      # [Tp, 4] f32 — flat normal xyz, object id
     gram: torch.Tensor          # [Tp, 40] f32 — Gram factors [10, 4] (K3)
+    tri_tex_map: torch.Tensor   # [Tp, 12] f32 — Au, cu, Av, cv, tex id, 0 0 0
+    tri_nrm_map: torch.Tensor   # [Tp, 12] f32 — cn xyz, An row-major
     num_triangles: int = 0      # real (unpadded) triangle count
     block_size: int = 32
     page_tris: int = 128        # triangles per page of the paged walks
 
     TENSOR_FIELDS = ("block_min", "block_max", "block_obj", "tri", "tri_attr",
-                     "gram")
+                     "gram", "tri_tex_map", "tri_nrm_map")
 
     @property
     def num_blocks(self) -> int:
@@ -107,6 +116,50 @@ def gram_table(verts: np.ndarray) -> np.ndarray:
     return pack_mt_gram(torch.from_numpy(vc)).reshape(-1, 40).numpy()
 
 
+def uv_affine_np(verts_cart, uvs):
+    """Per-triangle affine map of a per-vertex attribute over the triangle's
+    plane: attr(p) = A p + c with A [T, K, 3], c [T, K] (JAX
+    accel/prepared.py::uv_affine_np).  It is the Ericson-barycentric
+    interpolation of ``uvs`` [T, 3, K] (ops/shading.py::barycentric, then
+    interpolate_uv or smooth_normal's mix) refactored into constants, in
+    float64, then rounded to f32.  Degenerate triangles (den ~ 0, the
+    padding copies among them) take the constant map attr = uvs[:, 0]."""
+    v = np.asarray(verts_cart, np.float64)
+    t = np.asarray(uvs, np.float64)
+    v0 = v[:, 0]
+    e1 = v[:, 1] - v0
+    e2 = v[:, 2] - v0
+    d00 = (e1 * e1).sum(1)
+    d01 = (e1 * e2).sum(1)
+    d11 = (e2 * e2).sum(1)
+    den = d00 * d11 - d01 * d01
+    safe = np.abs(den) > 1e-30
+    deni = np.where(safe, 1.0 / np.where(safe, den, 1.0), 0.0)[:, None]
+    g1 = (d11[:, None] * e1 - d01[:, None] * e2) * deni  # grad of bary(v1)
+    g2 = (d00[:, None] * e2 - d01[:, None] * e1) * deni  # grad of bary(v2)
+    A = (t[:, 1] - t[:, 0])[:, :, None] * g1[:, None, :] \
+        + (t[:, 2] - t[:, 0])[:, :, None] * g2[:, None, :]
+    c = t[:, 0] - (A * v0[:, None, :]).sum(-1)
+    return A.astype(np.float32), c.astype(np.float32)
+
+
+def map_tables(verts: np.ndarray, uvs: np.ndarray, vnormals: np.ndarray,
+               tri_tex: np.ndarray):
+    """Host arrays of the padded scene -> (tri_tex_map [Tp, 12]: Au0..2,
+    cu, Av0..2, cv, tex id, 0, 0, 0; tri_nrm_map [Tp, 12]: cn xyz, then An
+    row-major), the rows the nearest kernel's textured and smooth-normal
+    modes read by winner id."""
+    vc = verts[..., :3] / verts[..., 3:4]
+    n = vc.shape[0]
+    A, c = uv_affine_np(vc, uvs)                         # [T, 2, 3], [T, 2]
+    tex = np.concatenate([A[:, 0], c[:, 0:1], A[:, 1], c[:, 1:2],
+                          tri_tex[:, None].astype(np.float32),
+                          np.zeros((n, 3), np.float32)], axis=1)
+    An, cn = uv_affine_np(vc, vnormals)                  # [T, 3, 3], [T, 3]
+    nrm = np.concatenate([cn, An.reshape(n, 9)], axis=1)
+    return tex.astype(np.float32), nrm.astype(np.float32)
+
+
 def _block_obj(tri_obj: np.ndarray, nb: int, bs: int) -> np.ndarray:
     """Per-block object id.  Per-object padding (``prepare``) makes every
     block single-object; padding rows (-1) do not count."""
@@ -124,6 +177,8 @@ def _finish(scene_np: Dict[str, np.ndarray], has_textures: bool,
     tri, attr = kernel_tables(scene_np["verts"], scene_np["tri_normal"],
                               scene_np["tri_obj"])
     gram = gram_table(scene_np["verts"])
+    tex_map, nrm_map = map_tables(scene_np["verts"], scene_np["uvs"],
+                                  scene_np["vnormals"], scene_np["tri_tex"])
 
     def t(a, dtype):
         return torch.from_numpy(np.array(a, dtype, order="C"))
@@ -132,6 +187,7 @@ def _finish(scene_np: Dict[str, np.ndarray], has_textures: bool,
         block_min=t(block_min, np.float32), block_max=t(block_max, np.float32),
         block_obj=t(block_obj, np.int32), tri=t(tri, np.float32),
         tri_attr=t(attr, np.float32), gram=t(gram, np.float32),
+        tri_tex_map=t(tex_map, np.float32), tri_nrm_map=t(nrm_map, np.float32),
         num_triangles=int(num_triangles),
         block_size=int(block_size), page_tris=int(page_tris)).to(device)
 

@@ -195,5 +195,18 @@ class RenderConfig:
         return dataclasses.replace(self, **kw)
 
 
+@dataclasses.dataclass(frozen=True)
+class AnimationConfig:
+    """Turntable animation (simple_raytracer.cpp:530-551)."""
+
+    start_deg: float = 0.0
+    stop_deg: float = 360.0
+    step_deg: float = 10.0         # 36 frames
+    orbit_radius: float = 50.0     # :546
+    camera_y: float = -50.0        # :551
+    pitch_deg: float = 30.0        # :551
+    yaw_offset_deg: float = 90.0   # :551 (angle + 90)
+
+
 def default_config() -> RenderConfig:
     return RenderConfig()

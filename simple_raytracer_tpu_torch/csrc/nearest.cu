@@ -4,14 +4,14 @@
 // or, in its fetch mode, nearest hit + the winner's attribute row.
 // Replaces the TPU kernel simple_raytracer_tpu/kernels/tiled_t.py::
 // _nearest_kernel_t, reached through tiled_nearest_t from hits_shaded (the
-// fused mode, on the fused frame's path) and from hits_attrs and hits with
-// cam_spec (the fetch mode, on the soft-shadow and sublane gather paths; the
-// gather drops the attribute rows).  Plain PyTorch versions:
-// kernels/nearest.py::tiled_nearest_shaded_plain and
-// tiled_nearest_attrs_plain.  The two modes are one template (kShade), so
-// their walks cannot drift apart.  Tiles are 64x64 or 32x32 pixels; rays are
-// rebuilt from the pixel index and the camera constants, so no ray array
-// exists.
+// fused modes, on the fused frame's path: flat, textured or smooth-normal
+// scenes) and from hits_attrs and hits with cam_spec (the fetch mode, on the
+// soft-shadow and sublane gather paths; the gather drops the attribute
+// rows).  Plain PyTorch versions: kernels/nearest.py::
+// tiled_nearest_shaded_plain and tiled_nearest_attrs_plain.  Every mode is
+// one instance of the template (kMode), so their walks cannot drift apart.
+// Tiles are 64x64 or 32x32 pixels; rays are rebuilt from the pixel index
+// and the camera constants, so no ray array exists.
 //
 // nearest_rays_kernel: nearest hit (t, id) of explicit rays o, d [n, m, 3]
 // over a plan of windows of wt consecutive triangles.  It replaces three TPU
@@ -41,7 +41,10 @@
 // through exp/log with the shininess-0 case); last, a block reduction writes
 // the tile's 15-float bounds row: hit-point box, any-hit flag, object
 // min/max and the ru/rv/dw extremes of the shadow directions in the shared
-// frame.  The fetch mode instead stores the winner's tri_attr row as one
+// frame.  The smooth mode first replaces the flat normal by normalize(cn +
+// An p) from the winner's 48-byte tri_nrm_map row; the textured mode writes
+// the Phong factors and the texel coordinates of its tri_tex_map row instead
+// of rgb.  The fetch mode instead stores the winner's tri_attr row as one
 // float4.
 //
 // What bounds them on the H100: the MT arithmetic (about 45 f32 operations
@@ -166,19 +169,28 @@ __device__ __forceinline__ bool is_max_slot(int q) {
   return (kBoundsMaxMask >> q) & 1u;
 }
 
-// kShade: the fused mode (obj, Phong rgb and the bounds row); otherwise the
-// fetch mode, which writes the winner's tri_attr row (flat normal, object id;
-// (0, 0, 0, -1) on a miss) to attr_out and reads no mat, obj, rgb or bounds.
-template <int RPT, bool kShade>
+// K1's modes.  kFetch writes the winner's tri_attr row (flat normal, object
+// id; (0, 0, 0, -1) on a miss) to attr_out and reads no mat, amap, obj,
+// shade or bounds.  The fused modes are JAX _fused_phong's attribute modes:
+// kFlat shades with the flat normal of tri_attr and writes rgb; kSmooth
+// takes the normal normalize(cn + An p) from the winner's tri_nrm_map row
+// and writes rgb; kTextured writes the colour-free Phong factors and the
+// texel coordinates A p + c of the winner's tri_tex_map row, (dw, sw, texu,
+// texv, obj, tex id), for the texel finish in kernels/tiled.py.  A map row
+// is 12 floats, read as three float4 loads after the walk.
+enum : int { kFetch = -1, kFlat = 0, kTextured = 1, kSmooth = 2 };
+
+template <int RPT, int kMode>
 __global__ void nearest_shaded_kernel(
     const int* __restrict__ plan, int plan_w,
     const float* __restrict__ tri, const float4* __restrict__ attr,
     int n_windows, const float* __restrict__ mat, int n_obj,
     const float* __restrict__ cam_g, int tile_px, int wt, float eps,
-    int double_sided, int specular_nl, float* __restrict__ t_out,
-    int* __restrict__ idx_out, int* __restrict__ obj_out,
-    float* __restrict__ rgb_out, float* __restrict__ bounds_out,
-    float4* __restrict__ attr_out) {
+    int double_sided, int specular_nl, const float4* __restrict__ amap,
+    float* __restrict__ t_out, int* __restrict__ idx_out,
+    int* __restrict__ obj_out, float* __restrict__ shade_out,
+    float* __restrict__ bounds_out, float4* __restrict__ attr_out) {
+  constexpr int kOutW = kMode == kTextured ? 6 : 3;   // shade_out columns
   extern __shared__ float s_tri[];               // wt * kTriW floats
   __shared__ float s_cam[srt::kCamLen];
   __shared__ float s_red[srt::kMaxWarps][kBoundsW];
@@ -205,7 +217,7 @@ __global__ void nearest_shaded_kernel(
   nearest_walk<RPT, true>(P, tri, n_windows, wt, eps, &ox, &oy, &oz, dx, dy,
                           dz, live, bt, bi, s_tri);
 
-  if constexpr (!kShade) {
+  if constexpr (kMode == kFetch) {
 #pragma unroll
     for (int r = 0; r < RPT; ++r) {
       const size_t o = (size_t)tile * tile_r + tid + r * nthr;
@@ -234,39 +246,70 @@ __global__ void nearest_shaded_kernel(
     const int id = hit ? bi[r] : -1;
     t_out[o] = bt[r];
     idx_out[o] = id;
-    float cr = 0.0f, cg = 0.0f, cb = 0.0f;
+    float out[kOutW];
+#pragma unroll
+    for (int q = 0; q < kOutW; ++q) out[q] = 0.0f;
+    if constexpr (kMode == kTextured) out[4] = out[5] = -1.0f;
     int obj = -1;
     if (hit) {
       const float4 a = attr[id];
       obj = static_cast<int>(a.w);
       const float t = bt[r];
       const float hx = ox + t * dx[r], hy = oy + t * dy[r], hz = oz + t * dz[r];
-      // Phong (JAX kernels/tiled_t.py::_fused_phong, attr mode 0)
+      float nx = a.x, ny = a.y, nz = a.z;
+      float4 m0, m1, m2;                         // the winner's map row
+      if constexpr (kMode != kFlat) {
+        const float4* row = amap + (size_t)id * 3;
+        m0 = row[0];
+        m1 = row[1];
+        m2 = row[2];
+      }
+      if constexpr (kMode == kSmooth) {
+        // cn = m0.xyz, An row-major from m0.w (JAX _fused_phong mode 2)
+        nx = m0.x + m0.w * hx + m1.x * hy + m1.y * hz;
+        ny = m0.y + m1.z * hx + m1.w * hy + m2.x * hz;
+        nz = m0.z + m2.y * hx + m2.z * hy + m2.w * hz;
+        const float ni = rsqrtf(fmaxf(nx * nx + ny * ny + nz * nz, 1e-30f));
+        nx = nx * ni;
+        ny = ny * ni;
+        nz = nz * ni;
+      }
+      // Phong (JAX kernels/tiled_t.py::_fused_phong)
       float lx = Lx - hx, ly = Ly - hy, lz = Lz - hz;
       const float li = rsqrtf(fmaxf(lx * lx + ly * ly + lz * lz, 1e-30f));
       lx = lx * li;
       ly = ly * li;
       lz = lz * li;
-      const float nl = a.x * lx + a.y * ly + a.z * lz;
+      const float nl = nx * lx + ny * ly + nz * lz;
       const float nla = double_sided ? fabsf(nl) : fmaxf(nl, 0.0f);
       const float di =
           rsqrtf(fmaxf(dx[r] * dx[r] + dy[r] * dy[r] + dz[r] * dz[r], 1e-30f));
       const float vx = -dx[r] * di, vy = -dy[r] * di, vz = -dz[r] * di;
-      const float rx = -lx + 2.0f * nl * a.x;
-      const float ry = -ly + 2.0f * nl * a.y;
-      const float rz = -lz + 2.0f * nl * a.z;
+      const float rx = -lx + 2.0f * nl * nx;
+      const float ry = -ly + 2.0f * nl * ny;
+      const float rz = -lz + 2.0f * nl * nz;
       const float rv = fmaxf(rx * vx + ry * vy + rz * vz, 0.0f);
-      if (obj >= 0 && obj < n_obj) {
-        const float* m = mat + obj * 8;          // pc[3], sc[3], amb, shin
-        const float amb = m[6], shin = m[7];
-        const float pw = (rv > 0.0f || shin == 0.0f)
-                             ? expf(shin * logf(fmaxf(rv, 1e-30f)))
-                             : 0.0f;
-        const float sw = (specular_nl ? nla : 1.0f) * pw;
-        const float dw = nla + amb;
-        cr = m[0] * dw + m[3] * sw;
-        cg = m[1] * dw + m[4] * sw;
-        cb = m[2] * dw + m[5] * sw;
+      // the object's material (pc[3], sc[3], amb, shin); zeros outside the
+      // table, as JAX's unrolled select gives
+      const bool known = obj >= 0 && obj < n_obj;
+      const float* m = mat + (known ? obj : 0) * 8;
+      const float amb = known ? m[6] : 0.0f, shin = known ? m[7] : 0.0f;
+      const float pw = (rv > 0.0f || shin == 0.0f)
+                           ? expf(shin * logf(fmaxf(rv, 1e-30f)))
+                           : 0.0f;
+      const float sw = (specular_nl ? nla : 1.0f) * pw;
+      const float dw = nla + amb;
+      if constexpr (kMode == kTextured) {
+        out[0] = dw;
+        out[1] = sw;
+        out[2] = m0.x * hx + m0.y * hy + m0.z * hz + m0.w;
+        out[3] = m1.x * hx + m1.y * hy + m1.z * hz + m1.w;
+        out[4] = static_cast<float>(obj);
+        out[5] = m2.x;
+      } else if (known) {
+        out[0] = m[0] * dw + m[3] * sw;
+        out[1] = m[1] * dw + m[4] * sw;
+        out[2] = m[2] * dw + m[5] * sw;
       }
       // shadow bounds: hit point box, object range, and the shadow
       // direction light - p projected in the shared frame
@@ -294,9 +337,8 @@ __global__ void nearest_shaded_kernel(
       acc[14] = fmaxf(acc[14], dwl);
     }
     obj_out[o] = obj;
-    rgb_out[3 * o + 0] = cr;
-    rgb_out[3 * o + 1] = cg;
-    rgb_out[3 * o + 2] = cb;
+#pragma unroll
+    for (int q = 0; q < kOutW; ++q) shade_out[kOutW * o + q] = out[q];
   }
 
   // block reduction of the bounds row: warp shuffles, then across warps
@@ -368,27 +410,28 @@ __global__ void nearest_rays_kernel(
 
 }  // namespace
 
-#define SRT_NEAREST_CASE(R, SHADE)                                             \
+#define SRT_NEAREST_CASE(R, MODE)                                              \
   case R:                                                                      \
-    nearest_shaded_kernel<R, SHADE><<<n_tiles, threads, smem, s>>>(            \
+    nearest_shaded_kernel<R, MODE><<<n_tiles, threads, smem, s>>>(             \
         static_cast<const int*>(plan), plan_w,                                 \
         static_cast<const float*>(tri), static_cast<const float4*>(attr),      \
         n_windows, static_cast<const float*>(mat), n_obj,                      \
         static_cast<const float*>(cam), tile_px, wt, eps, double_sided,        \
-        specular_nl, static_cast<float*>(t), static_cast<int*>(idx),           \
-        static_cast<int*>(obj), static_cast<float*>(rgb),                      \
+        specular_nl, static_cast<const float4*>(amap),                         \
+        static_cast<float*>(t), static_cast<int*>(idx),                        \
+        static_cast<int*>(obj), static_cast<float*>(shade),                    \
         static_cast<float*>(bounds), static_cast<float4*>(attr_out));          \
     break;
 
 namespace {
 
-template <bool kShade>
+template <int kMode>
 int launch_nearest(const void* plan, int plan_w, int n_tiles, const void* tri,
                    const void* attr, int n_windows, const void* mat,
                    int n_obj, const void* cam, int tile_px, int wt, float eps,
-                   int double_sided, int specular_nl, void* t, void* idx,
-                   void* obj, void* rgb, void* bounds, void* attr_out,
-                   int threads, void* stream) {
+                   int double_sided, int specular_nl, const void* amap,
+                   void* t, void* idx, void* obj, void* shade, void* bounds,
+                   void* attr_out, int threads, void* stream) {
   if (n_tiles == 0) return 0;
   const int tile_r = tile_px * tile_px;
   if (threads <= 0 || threads > 1024 || threads % 32 || tile_r % threads)
@@ -396,11 +439,11 @@ int launch_nearest(const void* plan, int plan_w, int n_tiles, const void* tri,
   const size_t smem = static_cast<size_t>(wt) * srt::kTriW * sizeof(float);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (tile_r / threads) {
-    SRT_NEAREST_CASE(1, kShade)
-    SRT_NEAREST_CASE(2, kShade)
-    SRT_NEAREST_CASE(4, kShade)
-    SRT_NEAREST_CASE(8, kShade)
-    SRT_NEAREST_CASE(16, kShade)
+    SRT_NEAREST_CASE(1, kMode)
+    SRT_NEAREST_CASE(2, kMode)
+    SRT_NEAREST_CASE(4, kMode)
+    SRT_NEAREST_CASE(8, kMode)
+    SRT_NEAREST_CASE(16, kMode)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -409,16 +452,28 @@ int launch_nearest(const void* plan, int plan_w, int n_tiles, const void* tri,
 
 }  // namespace
 
+// mode: 0 flat (rgb), 1 textured (amap = tri_tex_map; shade [R, 6]), 2
+// smooth normals (amap = tri_nrm_map; rgb)
 extern "C" int srt_nearest_shaded(
     const void* plan, int plan_w, int n_tiles, const void* tri,
     const void* attr, int n_windows, const void* mat, int n_obj,
     const void* cam, int tile_px, int wt, float eps, int double_sided,
-    int specular_nl, void* t, void* idx, void* obj, void* rgb, void* bounds,
-    int threads, void* stream) {
-  return launch_nearest<true>(plan, plan_w, n_tiles, tri, attr, n_windows,
-                              mat, n_obj, cam, tile_px, wt, eps, double_sided,
-                              specular_nl, t, idx, obj, rgb, bounds, nullptr,
-                              threads, stream);
+    int specular_nl, int mode, const void* amap, void* t, void* idx,
+    void* obj, void* shade, void* bounds, int threads, void* stream) {
+  switch (mode) {
+#define SRT_NEAREST_MODE(M)                                                    \
+  case M:                                                                      \
+    return launch_nearest<M>(plan, plan_w, n_tiles, tri, attr, n_windows, mat, \
+                             n_obj, cam, tile_px, wt, eps, double_sided,       \
+                             specular_nl, amap, t, idx, obj, shade, bounds,    \
+                             nullptr, threads, stream);
+    SRT_NEAREST_MODE(kFlat)
+    SRT_NEAREST_MODE(kTextured)
+    SRT_NEAREST_MODE(kSmooth)
+#undef SRT_NEAREST_MODE
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int srt_nearest_attrs(
@@ -426,10 +481,10 @@ extern "C" int srt_nearest_attrs(
     const void* attr, int n_windows, const void* cam, int tile_px, int wt,
     float eps, void* t, void* idx, void* attr_out, int threads,
     void* stream) {
-  return launch_nearest<false>(plan, plan_w, n_tiles, tri, attr, n_windows,
-                               nullptr, 0, cam, tile_px, wt, eps, 0, 0, t,
-                               idx, nullptr, nullptr, nullptr, attr_out,
-                               threads, stream);
+  return launch_nearest<kFetch>(plan, plan_w, n_tiles, tri, attr, n_windows,
+                                nullptr, 0, cam, tile_px, wt, eps, 0, 0,
+                                nullptr, t, idx, nullptr, nullptr, nullptr,
+                                attr_out, threads, stream);
 }
 
 #define SRT_NEAREST_RAYS_LAUNCH(R, G)                                          \

@@ -43,7 +43,8 @@ SIGNATURES = {
             _P, _I,              # mat, n_obj
             _P, _I, _I, _F,      # cam, tile_px, window_tris, eps
             _I, _I,              # double_sided, specular_nl
-            _P, _P, _P, _P, _P,  # t, idx, obj, rgb, bounds
+            _I, _P,              # attribute mode, attr_map
+            _P, _P, _P, _P, _P,  # t, idx, obj, rgb or comp, bounds
             _I, _P),             # threads, stream
         "srt_nearest_attrs": (
             _P, _I, _I,          # plan, plan_w, n_tiles

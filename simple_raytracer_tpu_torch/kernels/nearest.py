@@ -1,8 +1,9 @@
 """Kernels 1 and 4: the nearest-hit walks of the sublane layout.
 
 ``tiled_nearest_shaded`` wraps the CUDA kernel ``nearest_shaded_kernel``
-(csrc/nearest.cu) in its fused mode and ``tiled_nearest_attrs`` the same
-kernel in its fetch mode; ``tiled_nearest_rays`` wraps
+(csrc/nearest.cu) in its fused modes (JAX ``_fused_phong``'s attribute
+modes: 0 flat, 1 textured, 2 smooth normals) and ``tiled_nearest_attrs``
+the same kernel in its fetch mode; ``tiled_nearest_rays`` wraps
 ``nearest_rays_kernel`` over the explicit rays of each tile.  Together they
 replace the JAX package's Pallas kernel
 ``kernels/tiled_t.py::_nearest_kernel_t`` (fused on the fused frame's path,
@@ -34,6 +35,11 @@ from . import build, plan as pl
 from .prepass import refine_plan, tiled_prepass
 
 BOUNDS_W = 15
+MAP_W = 12              # floats of a tri_tex_map / tri_nrm_map row
+# K1's attribute modes (JAX tiled_t.py::_fused_phong attr_mode): flat
+# normals and rgb, textured factors and texel coordinates, smooth normals
+FLAT, TEXTURED, SMOOTH = 0, 1, 2
+MODES = (FLAT, TEXTURED, SMOOTH)
 INF = float("inf")
 PLAIN_ELEMS = 1 << 24   # ray-triangle pairs per step of the plain walk
 
@@ -51,12 +57,15 @@ def material_table(scene, light_color) -> torch.Tensor:
                       scene.obj_shininess[:, None]], dim=1).contiguous()
 
 
-def _check(plan, tri, tri_attr, cam, tile_px, threads, mat=None):
+def _check(plan, tri, tri_attr, cam, tile_px, threads, mat=None,
+           attr_map=None):
     f32 = torch.float32
     ops = dict(plan=(plan, torch.int32), tri=(tri, f32),
                tri_attr=(tri_attr, f32), cam=(cam, f32))
     if mat is not None:
         ops["mat"] = (mat, f32)
+    if attr_map is not None:
+        ops["attr_map"] = (attr_map, f32)
     build.check_operands(plan.device, tile_px, threads, **ops)
     if plan.dim() != 2 or plan.shape[1] <= pl.PLAN_AUX:
         raise ValueError(f"plan shape {tuple(plan.shape)}")
@@ -64,42 +73,67 @@ def _check(plan, tri, tri_attr, cam, tile_px, threads, mat=None):
             or tri_attr.shape != (tri.shape[0], 4):
         raise ValueError(f"tri {tuple(tri.shape)} / tri_attr "
                          f"{tuple(tri_attr.shape)}")
-    if tri_attr.data_ptr() % 16:         # the kernel loads rows as float4
-        raise ValueError("tri_attr is not 16-byte aligned")
+    if attr_map is not None and attr_map.shape != (tri.shape[0], MAP_W):
+        raise ValueError(f"attr_map {tuple(attr_map.shape)} for "
+                         f"{tri.shape[0]} triangles")
+    # the kernel loads tri_attr rows as float4, attr_map rows as 3 float4
+    for name, x in (("tri_attr", tri_attr), ("attr_map", attr_map)):
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
     if cam.shape != (24,) or (mat is not None
                               and (mat.dim() != 2 or mat.shape[1] != 8)):
         raise ValueError(f"cam {tuple(cam.shape)} / mat "
                          f"{None if mat is None else tuple(mat.shape)}")
 
 
+def shade_width(mode: int) -> int:
+    """Columns of K1's shading output in attribute ``mode``: rgb (3) in
+    modes 0 and 2, the textured factors (6) in mode 1."""
+    if mode not in MODES:
+        raise ValueError(f"unknown attribute mode {mode}")
+    return 6 if mode == TEXTURED else 3
+
+
 def tiled_nearest_shaded(plan, tri, tri_attr, mat, cam, tile_px: int,
                          window_tris: int, eps: float,
                          double_sided: bool = True,
-                         specular_nl: bool = True, threads: int = 512):
+                         specular_nl: bool = True, threads: int = 512,
+                         mode: int = FLAT, attr_map=None):
     """Nearest hit + Phong + bounds of every tile of ``plan``.
 
     plan [n, W] i32 (kernels/plan.py layout, pixel origins in columns 4/5);
     tri [Tp, 9] and tri_attr [Tp, 4] (accel/prepared.py); mat [O, 8]
     (:func:`material_table`); cam [24] (plan.make_cam, with the shadow
-    frame); a window is ``window_tris`` consecutive triangles.
+    frame); a window is ``window_tris`` consecutive triangles.  ``mode``
+    (JAX ``_fused_phong`` attr_mode): FLAT shades with the flat normal;
+    SMOOTH with normalize(An p + cn) from ``attr_map`` = tri_nrm_map;
+    TEXTURED emits the colour-free Phong factors and the texel coordinates
+    of ``attr_map`` = tri_tex_map at the hit point.
     Returns t [n, tile] f32 (inf on a miss), idx [n, tile] i32 (-1),
-    obj [n, tile] i32 (-1), rgb [n * tile, 3] f32 unshadowed pre-tonemap
-    radiance (0 on a miss) and bounds [n, 15] f32 (see
+    obj [n, tile] i32 (-1), the shading rows [n * tile, 3 or 6] f32 (FLAT,
+    SMOOTH: unshadowed pre-tonemap rgb, 0 on a miss; TEXTURED: dw = n.l
+    term + ambient, sw = specular weight, texu, texv, obj, tex id;
+    (0, 0, 0, 0, -1, -1) on a miss) and bounds [n, 15] f32 (see
     plan.analytic_shadow_bounds_exact)."""
     if plan.device.type == "cpu":
         return tiled_nearest_shaded_plain(plan, tri, tri_attr, mat, cam,
                                           tile_px, window_tris, eps,
-                                          double_sided, specular_nl, threads)
+                                          double_sided, specular_nl, threads,
+                                          mode, attr_map)
     if plan.device.type != "cuda":
         raise ValueError(f"no nearest kernel for device {plan.device}")
+    width = shade_width(mode)
+    if (attr_map is None) != (mode == FLAT):
+        raise ValueError(f"mode {mode} with attr_map "
+                         f"{'absent' if attr_map is None else 'given'}")
     threads = min(threads, tile_px * tile_px)
-    _check(plan, tri, tri_attr, cam, tile_px, threads, mat)
+    _check(plan, tri, tri_attr, cam, tile_px, threads, mat, attr_map)
     n, tile = plan.shape[0], tile_px * tile_px
     kw = dict(device=plan.device)
     t = torch.empty((n, tile), dtype=torch.float32, **kw)
     idx = torch.empty((n, tile), dtype=torch.int32, **kw)
     obj = torch.empty((n, tile), dtype=torch.int32, **kw)
-    rgb = torch.empty((n * tile, 3), dtype=torch.float32, **kw)
+    rgb = torch.empty((n * tile, width), dtype=torch.float32, **kw)
     bounds = torch.empty((n, BOUNDS_W), dtype=torch.float32, **kw)
     with torch.cuda.device(plan.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -107,15 +141,19 @@ def tiled_nearest_shaded(plan, tri, tri_attr, mat, cam, tile_px: int,
             plan.data_ptr(), plan.shape[1], n, tri.data_ptr(),
             tri_attr.data_ptr(), tri.shape[0] // window_tris, mat.data_ptr(),
             mat.shape[0], cam.data_ptr(), tile_px, window_tris, eps,
-            int(double_sided), int(specular_nl), t.data_ptr(),
+            int(double_sided), int(specular_nl), mode,
+            0 if attr_map is None else attr_map.data_ptr(), t.data_ptr(),
             idx.data_ptr(), obj.data_ptr(), rgb.data_ptr(),
             bounds.data_ptr(), threads, stream)
-    build.check(rc, "nearest_shaded_kernel")
+    build.check(rc, f"nearest_shaded_kernel (mode {mode})")
     tiled_nearest_shaded.launches += 1
+    tiled_nearest_shaded.mode_launches[mode] += 1
     return t, idx, obj, rgb, bounds
 
 
+# kernel launches, in all and by attribute mode
 tiled_nearest_shaded.launches = 0
+tiled_nearest_shaded.mode_launches = dict.fromkeys(MODES, 0)
 
 
 def tiled_nearest_attrs(plan, tri, tri_attr, cam, tile_px: int,
@@ -283,11 +321,20 @@ def tiled_nearest_grouped_plain(plan, tri, o, d, window_tris: int,
     return t.reshape(n, m), idx.reshape(n, m)
 
 
-def fused_phong(normal, obj, point, d, light, mat, double_sided: bool,
-                specular_nl: bool):
-    """The kernel's Phong term (JAX kernels/tiled_t.py::_fused_phong, attr
-    mode 0) on 3-tuples of [...] tensors: normal, hit point, ray direction
-    and light; obj [...] i64 indexes ``mat``.  Returns (r, g, b)."""
+def material_rows(mat, obj):
+    """Rows [..., 8] of ``mat`` for object ids ``obj`` [...]; ids outside
+    the table read zeros (the kernel's rule, and JAX's unrolled select)."""
+    ok = (obj >= 0) & (obj < mat.shape[0])
+    return torch.where(ok[..., None], mat[obj.clamp(0, mat.shape[0] - 1)],
+                       0.0)
+
+
+def phong_factors(normal, point, d, light, amb, shin, double_sided: bool,
+                  specular_nl: bool):
+    """The colour-free factors of the kernel's Phong term (JAX
+    kernels/tiled_t.py::_fused_phong) on 3-tuples of [...] tensors: normal,
+    hit point, ray direction and light; ambient and shininess [...].
+    Returns (dw = the n.l term + ambient, sw = the specular weight)."""
     nx, ny, nz = normal
     lx, ly, lz = (light[c] - point[c] for c in range(3))
     li = torch.rsqrt((lx * lx + ly * ly + lz * lz).clamp_min(1e-30))
@@ -301,14 +348,43 @@ def fused_phong(normal, obj, point, d, light, mat, double_sided: bool,
     ry = -ly + 2.0 * nl * ny
     rz = -lz + 2.0 * nl * nz
     rv = (rx * vx + ry * vy + rz * vz).clamp_min(0.0)
-    m = mat[obj]                                     # [..., 8]
-    amb, shin = m[..., 6], m[..., 7]
     pw = torch.where((rv > 0.0) | (shin == 0.0),
                      torch.exp(shin * torch.log(rv.clamp_min(1e-30))),
                      torch.zeros_like(rv))
     sw = (nla if specular_nl else 1.0) * pw
-    dw = nla + amb
+    return nla + amb, sw
+
+
+def fused_phong(normal, obj, point, d, light, mat, double_sided: bool,
+                specular_nl: bool):
+    """The kernel's Phong rgb (attr modes 0 and 2): :func:`phong_factors`
+    with the material of ``obj`` [...] i64 from ``mat``, then premultiplied
+    colour * dw + specular * sw.  Returns (r, g, b)."""
+    m = material_rows(mat, obj)                      # [..., 8]
+    dw, sw = phong_factors(normal, point, d, light, m[..., 6], m[..., 7],
+                           double_sided, specular_nl)
     return tuple(m[..., c] * dw + m[..., 3 + c] * sw for c in range(3))
+
+
+def map_normal(nm, p):
+    """Smooth normal of attr mode 2 from tri_nrm_map rows ``nm`` [..., 12]
+    at hit points ``p`` (3-tuple): normalize(cn + An p), summed in the
+    kernel's order."""
+    px, py, pz = p
+    n = [nm[..., c] + nm[..., 3 + 3 * c] * px + nm[..., 4 + 3 * c] * py
+         + nm[..., 5 + 3 * c] * pz for c in range(3)]
+    ni = torch.rsqrt((n[0] * n[0] + n[1] * n[1] + n[2] * n[2])
+                     .clamp_min(1e-30))
+    return n[0] * ni, n[1] * ni, n[2] * ni
+
+
+def map_texel(tm, p):
+    """Texel coordinates of attr mode 1 from tri_tex_map rows ``tm``
+    [..., 12] at hit points ``p``: (Au p + cu, Av p + cv)."""
+    px, py, pz = p
+    return tuple(tm[..., 4 * k] * px + tm[..., 4 * k + 1] * py
+                 + tm[..., 4 * k + 2] * pz + tm[..., 4 * k + 3]
+                 for k in range(2))
 
 
 def _masked(x, m, fill, reduce):
@@ -403,23 +479,39 @@ def tiled_nearest_attrs_plain(plan, tri, tri_attr, cam, tile_px: int,
 def tiled_nearest_shaded_plain(plan, tri, tri_attr, mat, cam, tile_px: int,
                                window_tris: int, eps: float,
                                double_sided: bool = True,
-                               specular_nl: bool = True, threads: int = 512):
+                               specular_nl: bool = True, threads: int = 512,
+                               mode: int = FLAT, attr_map=None):
     """Plain PyTorch version of :func:`tiled_nearest_shaded` (same
     arguments and results; ``threads`` is ignored)."""
     n, tile = plan.shape[0], tile_px * tile_px
+    width = shade_width(mode)
     bt, idx, dx, dy, dz = _walk_plain(plan, tri, cam, tile_px, window_tris,
                                       eps)
     o = (cam[9], cam[10], cam[11])
     hit = torch.isfinite(bt)
-    a = tri_attr[idx.clamp_min(0).long()]                       # [n, tile, 4]
+    win = idx.clamp_min(0).long()
+    a = tri_attr[win]                                           # [n, tile, 4]
     obj = torch.where(hit, a[..., 3].to(torch.int32), -1)
     ts = torch.where(hit, bt, 0.0)
     p = (o[0] + ts * dx, o[1] + ts * dy, o[2] + ts * dz)
     L = (cam[12], cam[13], cam[14])
-    rgb = fused_phong((a[..., 0], a[..., 1], a[..., 2]),
-                      obj.clamp_min(0).long(), p, (dx, dy, dz), L, mat,
-                      double_sided, specular_nl)
-    rgb = torch.where(hit[..., None], torch.stack(rgb, dim=-1), 0.0)
+    normal = (a[..., 0], a[..., 1], a[..., 2])
+    if mode == SMOOTH:
+        normal = map_normal(attr_map[win], p)
+    if mode == TEXTURED:
+        tm = attr_map[win]
+        m = material_rows(mat, obj.long())
+        dw, sw = phong_factors(normal, p, (dx, dy, dz), L, m[..., 6],
+                               m[..., 7], double_sided, specular_nl)
+        texu, texv = map_texel(tm, p)
+        cols = (dw, sw, texu, texv, obj.to(torch.float32), tm[..., 8])
+        miss = torch.tensor([0.0, 0.0, 0.0, 0.0, -1.0, -1.0],
+                            device=plan.device)
+    else:
+        cols = fused_phong(normal, obj.long(), p, (dx, dy, dz), L, mat,
+                           double_sided, specular_nl)
+        miss = torch.zeros(3, device=plan.device)
+    rgb = torch.where(hit[..., None], torch.stack(cols, dim=-1), miss)
 
     # bounds row: hit-point box, any-hit, object range, and the shadow
     # direction light - p projected in the shared frame cam[15:24]
@@ -438,7 +530,7 @@ def tiled_nearest_shaded_plain(plan, tri, tri_attr, mat, cam, tile_px: int,
                                             mn[3], mx[3], mn[4], mx[4],
                                             mn[5], mx[5], mn[6], mx[6]],
                          dim=1)
-    return bt, idx, obj, rgb.reshape(n * tile, 3), bounds
+    return bt, idx, obj, rgb.reshape(n * tile, width), bounds
 
 
 def primary_plan(prep, cfg, cam_spec, maxv: int):
@@ -455,17 +547,35 @@ def primary_plan(prep, cfg, cam_spec, maxv: int):
     return plan
 
 
+def attr_mode(prep, cfg):
+    """K1's attribute mode for a fused frame: TEXTURED for a textured scene
+    with flat normals, SMOOTH for an untextured scene with smooth normals,
+    FLAT for neither, and None for both: no fused mode holds a texture and
+    smooth normals, so such a frame gathers (JAX picks the same layout in
+    prepare, accel/prepared.py:541-545)."""
+    textured, smooth = prep.scene.has_textures, cfg.shading.smooth_normals
+    if textured and smooth:
+        return None
+    return TEXTURED if textured else SMOOTH if smooth else FLAT
+
+
 def hits_shaded(prep, cfg, light_pos, cam_spec, maxv: int,
                 kernel=tiled_nearest_shaded):
     """Nearest hit + fused Phong over the frame's primary rays in tile-major
     order (JAX kernels/tiled_t.py::hits_shaded with want_bounds=1).
 
     Builds the primary plan, the camera constants with the shared shadow
-    frame, and runs ``kernel`` (the CUDA wrapper by default).  Returns
-    (t [R], idx [R], obj [R], rgb [R, 3], bounds [n, 15]),
-    R = n * tile_px**2, misses t = inf."""
+    frame, and runs ``kernel`` (the CUDA wrapper by default) in the scene's
+    :func:`attr_mode`.  Returns (t [R], idx [R], obj [R], rgb [R, 3] or, in
+    the TEXTURED mode, comp [R, 6] = (dw, sw, texu, texv, obj, tex id),
+    bounds [n, 15]), R = n * tile_px**2, misses t = inf."""
     vmx, focal, _wd, _hd, tpx = cam_spec
     dev = prep.device
+    mode = attr_mode(prep, cfg)
+    if mode is None:
+        raise ValueError("no fused mode for a textured smooth-normal scene")
+    amap = {FLAT: None, TEXTURED: prep.tri_tex_map,
+            SMOOTH: prep.tri_nrm_map}[mode]
     plan = primary_plan(prep, cfg, cam_spec, maxv)
     frame = pl.shadow_frame(prep.block_min, prep.block_max, light_pos)
     cam = pl.make_cam(vmx, focal, light_pos, frame, dev)
@@ -474,7 +584,7 @@ def hits_shaded(prep, cfg, light_pos, cam_spec, maxv: int,
         plan, prep.tri, prep.tri_attr, mat, cam, tpx,
         cfg.kernel.window_blocks * prep.block_size, cfg.mt_eps,
         cfg.shading.double_sided_diffuse, cfg.shading.specular_nl_factor,
-        cfg.kernel.threads)
+        cfg.kernel.threads, mode, amap)
     return t.reshape(-1), idx.reshape(-1), obj.reshape(-1), rgb, bounds
 
 

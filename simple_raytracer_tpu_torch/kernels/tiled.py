@@ -3,8 +3,10 @@
 Counterpart of the JAX package's ``kernels/tiled.py::render_flat_tiled``
 (lines 1496-1666), in five branches:
 
-* **fused** (one light sample, shadow tile = primary tile; flat,
-  untextured): primary plan -> K1 with fused Phong and bounds rows ->
+* **fused** (one light sample, shadow tile = primary tile; flat, textured
+  or smooth-normal, not both): primary plan -> K1 with fused Phong and
+  bounds rows (attribute mode 0 flat, 1 textured: the colour-free factors
+  and texel coordinates, then the texel finish; 2 smooth normals) ->
   shadow plan from the bounds -> K2 rebuilds the shadow rays from t ->
   shadow dim -> tone map;
 * **legacy** (one light sample, another shadow tile, e.g. the 256-ray tiles
@@ -14,8 +16,9 @@ Counterpart of the JAX package's ``kernels/tiled.py::render_flat_tiled``
 * **soft** (flat, untextured, num_samples > 1 or ``fused_phong`` off): K1
   in its fetch mode -> records -> ``integrator.shade`` with the S-sample
   shadow (folded when S > 1; K2′);
-* **gather** (``prepass``, ``groups`` > 1 or ``attr_fetch`` off; and the
-  soft-shadow frames of textured or smooth-normal scenes): the nearest walk
+* **gather** (``prepass``, ``groups`` > 1 or ``attr_fetch`` off; the
+  soft-shadow frames of textured or smooth-normal scenes, and every frame
+  of a scene both textured and smooth-normal): the nearest walk
   of kernels/nearest.py::hits (K1's fetch mode; K3 then K1 over the
   refined plan; or K4) -> :func:`tiled_shadow_fn` (K2′, or K5 with
   ``groups_ah`` > 1) -> ``integrator.shade`` with the record gather (JAX
@@ -26,9 +29,7 @@ Counterpart of the JAX package's ``kernels/tiled.py::render_flat_tiled``
 
 The first four are the JAX "sublane" layout (``kernels/tiled_t.py``).  JAX
 gates its fetch and fused branches on TPU memory as well (``_resident``,
-``_fetch_vmem_ok``); the port has no such gates.  The one-sample fused
-frames of textured or smooth-normal scenes raise NotImplementedError naming
-their ROADMAP.md items.
+``_fetch_vmem_ok``); the port has no such gates.
 """
 
 from __future__ import annotations
@@ -47,11 +48,12 @@ from .anyhit import (anyhit, anyhit_from_t, tiled_anyhit,
                      tiled_anyhit_from_t, tiled_anyhit_from_t_plain,
                      tiled_anyhit_grouped, tiled_anyhit_grouped_plain,
                      tiled_anyhit_plain)
-from .nearest import (hits, hits_attrs, hits_shaded, tiled_nearest_attrs,
-                      tiled_nearest_attrs_plain, tiled_nearest_grouped,
-                      tiled_nearest_grouped_plain, tiled_nearest_rays,
-                      tiled_nearest_rays_plain, tiled_nearest_shaded,
-                      tiled_nearest_shaded_plain)
+from .nearest import (FLAT, TEXTURED, attr_mode, hits, hits_attrs,
+                      hits_shaded, tiled_nearest_attrs,
+                      tiled_nearest_attrs_plain,
+                      tiled_nearest_grouped, tiled_nearest_grouped_plain,
+                      tiled_nearest_rays, tiled_nearest_rays_plain,
+                      tiled_nearest_shaded, tiled_nearest_shaded_plain)
 from .prepass import tiled_prepass, tiled_prepass_plain
 
 # the kernel wrappers a frame calls, by role, and their plain versions
@@ -85,13 +87,15 @@ def _todo(what: str, item: str):
 
 def _takes_gather(prep, cfg: RenderConfig) -> bool:
     """Whether a sublane frame takes the gather branch (JAX tiled.py:
-    1538-1558, 1646-1657 without the TPU memory gates)."""
+    1538-1558, 1646-1657 without the TPU memory gates).  A scene both
+    textured and smooth-normal has no fused mode (JAX's prepare gives it no
+    attribute layout, accel/prepared.py:538-545), so it always gathers."""
     kc = cfg.kernel
     if kc.prepass or kc.nearest_groups > 1 or not kc.attr_fetch:
         return True
-    textured, smooth = prep.scene.has_textures, cfg.shading.smooth_normals
-    return (textured or smooth) and (cfg.light.num_samples > 1
-                                     or not kc.fused_phong)
+    mode = attr_mode(prep, cfg)
+    return mode is None or (mode != FLAT and (cfg.light.num_samples > 1
+                                              or not kc.fused_phong))
 
 
 def check_supported(prep, cfg: RenderConfig, tile: int) -> None:
@@ -103,12 +107,6 @@ def check_supported(prep, cfg: RenderConfig, tile: int) -> None:
         raise _todo("normalized primary directions", "7f")
     if cfg.hit_tile and cfg.hit_tile != tile:
         raise _todo("hit_tile sub-tiles", "7f")
-    if cfg.tiled_impl == "paged" or _takes_gather(prep, cfg):
-        return                # the gather shades every scene kind
-    if prep.scene.has_textures:
-        raise _todo("the textured fused path", "7c")
-    if cfg.shading.smooth_normals:
-        raise _todo("the smooth-normal fused path", "7d")
 
 
 def frame_branch(prep, cfg: RenderConfig, tile: int) -> str:
@@ -270,6 +268,24 @@ def _shadow_folded(prep, cfg, tile, maxv, S, point, light, self_obj, hit,
     return found[:, :R].reshape(-1)
 
 
+def texel_finish(scene, cfg: RenderConfig, obj, comp):
+    """The textured fused frame's finish (JAX tiled.py:1605-1621): K1's
+    attribute mode 1 rows comp [R, 6] = (dw, sw, texu, texv, obj, tex id)
+    and obj [R] -> unshadowed pre-tonemap rgb [R, 3]: the texel at (texu,
+    texv) where the tex id is >= 0, else the object's colour, times
+    (1/pi) light * dw, plus light * specular * sw."""
+    lc = torch.tensor(cfg.light.color, dtype=torch.float32,
+                      device=comp.device)
+    tex_id = torch.round(comp[:, 5]).to(torch.int32)
+    ms = integrator.material_select(scene, obj.clamp_min(0))
+    tex_rgb = sh.texture_fetch(scene.tex_data, scene.tex_offset,
+                               scene.tex_width, scene.tex_height, tex_id,
+                               comp[:, 2:4])
+    color = torch.where((tex_id >= 0)[:, None], tex_rgb, ms["color"])
+    return (sh.INV_PI * lc * color * comp[:, 0:1]
+            + lc * ms["specular"][:, None] * comp[:, 1:2])
+
+
 def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
                       rays=None, kernels=KERNELS):
     """The frame's primary rays in tile-major order -> (radiance [R, 3]
@@ -318,6 +334,8 @@ def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
         prep, cfg, light_pos, cam_spec, maxv,
         kernel=kernels["nearest_shaded"])
     hit = torch.isfinite(t)
+    if attr_mode(prep, cfg) == TEXTURED:
+        rgb = texel_finish(prep.scene, cfg, obj, rgb)
     if cfg.light.enable_shadows and prep.scene.num_objects > 1:
         if branch == "fused":
             found = anyhit_from_t(prep, cfg, t, obj, bounds, light_pos,

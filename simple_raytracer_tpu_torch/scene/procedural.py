@@ -4,8 +4,9 @@ The repository's tests and ``chip_smoke.py`` cannot rely on OBJ assets, so
 the scenes they render are generated here: a displaced icosphere (the
 stand-in for the 69,451-triangle Stanford bunny of ``bench.py``), a
 12-triangle box used as the ground slab, the bench-like scene that
-combines them, a dense two-sphere scene and a textured, smooth-normal
-variant of the bench-like scene.  Each mesh is a :class:`MeshData`, so the
+combines them, a dense two-sphere scene, smooth-normal and textured
+variants of the bench-like scene, and a dense textured stand-in for the
+reference's complex scene.  Each mesh is a :class:`MeshData`, so the
 same triangles can be handed to any ``SceneManager.set_triangles``.
 """
 
@@ -165,16 +166,12 @@ def checker_texture():
                     np.array([230, 230, 220], np.uint8)).astype(np.uint8)
 
 
-def textured_on_ground(manager, subdivisions: int):
-    """:func:`sphere_on_ground` with real vertex normals and a textured
-    ground: the displaced icosphere's vertex normals are the radial
-    directions from its centre (close enough to the surface normal of a
-    mildly displaced sphere), the ground box's are each face's normal, and
-    the ground samples a :func:`checker_texture` installed as
-    ``manager.textures.data["checker"]`` through texel-space UVs of
-    TEXELS_PER_UNIT texels per world unit along the two axes of each face's
-    plane.  ``smooth_normal`` of all-zero normals is NaN, so a scene shaded
-    with smooth normals needs these.  Returns the manager."""
+def smooth_on_ground(manager, subdivisions: int):
+    """:func:`sphere_on_ground` with real vertex normals: the displaced
+    icosphere's are the radial directions from its centre (close enough to
+    the surface normal of a mildly displaced sphere), the ground box's are
+    each face's normal.  ``smooth_normal`` of all-zero normals is NaN, so a
+    scene shaded with smooth normals needs these.  Returns the manager."""
     sphere_on_ground(manager, subdivisions)
     sphere = manager.objects["sphere"].mesh
     centre = (SPHERE_POSE @ np.array([0.0, 0.0, 0.0, 1.0]))[:3]
@@ -186,6 +183,17 @@ def textured_on_ground(manager, subdivisions: int):
     n = np.cross(g[:, 1] - g[:, 0], g[:, 2] - g[:, 0])
     n /= np.linalg.norm(n, axis=-1, keepdims=True)
     ground.normals = np.repeat(n[:, None], 3, axis=1).astype(np.float32)
+    return manager
+
+
+def _checker_ground(manager) -> None:
+    """Texture the ground box with a :func:`checker_texture` installed as
+    ``manager.textures.data["checker"]``, through texel-space UVs of
+    TEXELS_PER_UNIT texels per world unit along the two axes of each face's
+    plane."""
+    ground = manager.objects["ground"].mesh
+    g = ground.verts[..., :3].astype(np.float64)                # [12, 3, 3]
+    n = np.cross(g[:, 1] - g[:, 0], g[:, 2] - g[:, 0])
     axis = np.abs(n).argmax(axis=-1)                            # face axis
     lo = g.reshape(-1, 3).min(axis=0)
     uv = np.zeros(g.shape[:2] + (2,))
@@ -196,4 +204,46 @@ def textured_on_ground(manager, subdivisions: int):
     ground.tri_tex = np.zeros(ground.num_triangles, np.int32)
     ground.textures = ["checker"]
     manager.textures.data["checker"] = checker_texture()
+
+
+def textured_on_ground(manager, subdivisions: int):
+    """:func:`smooth_on_ground` with a textured ground: the ground samples
+    a checker through texel-space UVs (:func:`_checker_ground`).  Returns
+    the manager."""
+    smooth_on_ground(manager, subdivisions)
+    _checker_ground(manager)
+    return manager
+
+
+def spherical_uvs(points: np.ndarray, size: int) -> np.ndarray:
+    """Texel-space UVs [T, 3, 2] of triangles ``points`` [T, 3, 3] on a
+    sphere about the origin: longitude and colatitude, scaled to ``size``
+    texels.  A triangle that straddles the longitude seam has its small
+    longitudes moved up by one turn, so it spans no more than itself
+    (texture_fetch clamps the overhang to the texture's last column)."""
+    p = points / np.linalg.norm(points, axis=-1, keepdims=True)
+    u = 0.5 + np.arctan2(p[..., 2], p[..., 0]) / (2.0 * math.pi)
+    v = np.arccos(np.clip(p[..., 1], -1.0, 1.0)) / math.pi
+    seam = u.max(axis=1, keepdims=True) - u.min(axis=1, keepdims=True) > 0.5
+    u = np.where(seam & (u < 0.5), u + 1.0, u)
+    return (np.stack([u, v], axis=-1) * size).astype(np.float32)
+
+
+def dense_textured_on_ground(manager, subdivisions: int = 6):
+    """A stand-in for the reference's complex scene (a ground cube, the
+    bunny and three textured trees, about 177k triangles): the two spheres
+    of :func:`dense_on_ground` (2 x 81,920 triangles at ``subdivisions``
+    6, over 131,072 in all) on the checker ground of
+    :func:`textured_on_ground`, the second sphere textured with the same
+    checker through :func:`spherical_uvs`, so a frame hits thousands of
+    small textured triangles as the trees' are.  Flat shading: the vertex
+    normals stay zero.  Returns the manager."""
+    dense_on_ground(manager, subdivisions)
+    _checker_ground(manager)
+    second = manager.objects["sphere2"].mesh
+    centre = (SPHERE2_POSE @ np.array([0.0, 0.0, 0.0, 1.0]))[:3]
+    second.uvs = spherical_uvs(second.verts[..., :3].astype(np.float64)
+                               - centre, CHECKER)
+    second.tri_tex = np.zeros(second.num_triangles, np.int32)
+    second.textures = ["checker"]
     return manager

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import math
 
+import jax.numpy as jnp
 import numpy as np
 
 import simple_raytracer_tpu_torch as sr
@@ -18,6 +19,10 @@ from simple_raytracer_tpu_torch.scene import procedural as P
 from simple_raytracer_tpu_torch.scene import transforms as T
 
 from simple_raytracer_tpu import config as jconfig
+from simple_raytracer_tpu.kernels import tiled as jtiled
+from simple_raytracer_tpu.kernels import tiled_t
+from simple_raytracer_tpu.ops.camera import primary_rays_tiled, untile_image
+from simple_raytracer_tpu.render import integrator as jint
 from simple_raytracer_tpu.scene import scene as jscene
 
 WIDTH = HEIGHT = 128
@@ -29,11 +34,14 @@ VIEW = T.view_matrix((-8.0, -6.0, 15.0),
                      (math.radians(12.0), math.radians(-6.0), 0.0))
 
 
-def managers(subdivisions: int = 3, textured: bool = False):
+def managers(subdivisions: int = 3, textured: bool = False, build=None):
     """(port SceneManager, JAX SceneManager) holding the same objects: the
     parity scene, or with ``textured`` its textured, smooth-normal variant
-    (procedural.textured_on_ground) with the same texture atlas."""
-    build = P.textured_on_ground if textured else P.sphere_on_ground
+    (procedural.textured_on_ground) with the same texture atlas, or the
+    scene of ``build(manager, subdivisions)`` (a procedural scene
+    function)."""
+    if build is None:
+        build = P.textured_on_ground if textured else P.sphere_on_ground
     sm = build(sr.SceneManager(), subdivisions)
     jsm = jscene.SceneManager()
     for key in sm._order:
@@ -56,6 +64,31 @@ def configs(split: str = "sah", **light):
         mode="tiled", camera=jconfig.CameraConfig(**cam),
         light=jconfig.LightConfig(**light), bvh=jconfig.BVHConfig(split=split))
     return cfg, jcfg
+
+
+def jax_frame(jprep, jcfg, view, monkeypatch,
+              spied=("hits_shaded", "anyhit_from_t"), expect=None):
+    """The JAX tiled frame of the parity camera (its image, uint8), asserting
+    that of the ``spied`` steps of ``tiled_t`` exactly ``expect`` ran, in
+    order (default: all of them, once each; the fused kernels by
+    default)."""
+    called = []
+    for name in spied:
+        orig = getattr(tiled_t, name)
+        monkeypatch.setattr(
+            tiled_t, name,
+            lambda *a, _o=orig, _n=name, **k: (called.append(_n),
+                                               _o(*a, **k))[1])
+    V = None if view is None else jnp.asarray(view, jnp.float32)
+    o, d, tx, ty = primary_rays_tiled(WIDTH, HEIGHT, TILE_PX, FOCAL, False,
+                                      view_matrix=V)
+    rad, hit = jtiled.render_flat_tiled(
+        jprep, jcfg, o.reshape(-1, 3), d.reshape(-1, 3), jnp.asarray(LIGHT),
+        cam_spec=(V, FOCAL, WIDTH, HEIGHT, TILE_PX))
+    assert called == list(spied if expect is None else expect), called
+    rad = untile_image(rad.reshape(-1, 3), WIDTH, HEIGHT, TILE_PX, tx, ty)
+    hit = untile_image(hit.reshape(-1), WIDTH, HEIGHT, TILE_PX, tx, ty)
+    return np.asarray(jint.finalize_image(rad, hit, jcfg))
 
 
 def jax_prepared_arrays(jprep) -> dict:

@@ -406,6 +406,78 @@ def test_anyhit_grouped_kernel_honors_masks():
     assert torch.equal(found.cpu(), want)
 
 
+@pytest.fixture(scope="module")
+def mode_scenes():
+    """The scenes of K1's new modes, by mode: the textured parity scene
+    (checker ground, flat shading) and the smooth-normal one."""
+    _need_cuda()
+    out = {}
+    for mode, build in ((nearest.TEXTURED, P.textured_on_ground),
+                        (nearest.SMOOTH, P.smooth_on_ground)):
+        cfg = sr.default_config().replace(
+            mode="tiled", camera=sr.CameraConfig(width=SIZE, height=SIZE,
+                                                 focal=FOCAL),
+            bvh=sr.BVHConfig(split="sah"),
+            shading=sr.ShadingConfig(smooth_normals=mode == nearest.SMOOTH))
+        out[mode] = (prepare(build(sr.SceneManager(), 3).build(), cfg,
+                             device="cuda"), cfg)
+    return out
+
+
+@pytest.mark.parametrize("tpx", [32, 64])
+@pytest.mark.parametrize("mode", ["textured", "smooth"])
+def test_nearest_kernel_modes_match_plain(mode_scenes, mode, tpx):
+    """K1's textured and smooth modes on the fused frame's arguments, at
+    32- and 64-pixel tiles."""
+    m = nearest.TEXTURED if mode == "textured" else nearest.SMOOTH
+    prep, cfg = mode_scenes[m]
+    k1 = _frame_args(prep, cfg.replace(tile_px=tpx), VIEWS["moved"],
+                     tpx)["nearest_shaded"]
+    assert k1[5] == tpx and k1[11] == m
+    n0, m0 = (nearest.tiled_nearest_shaded.launches,
+              nearest.tiled_nearest_shaded.mode_launches[m])
+    kt, ki, ko, ks, kb = nearest.tiled_nearest_shaded(*k1)
+    assert nearest.tiled_nearest_shaded.launches == n0 + 1
+    assert nearest.tiled_nearest_shaded.mode_launches[m] == m0 + 1
+    pt, pi, po, ps, pb = nearest.tiled_nearest_shaded_plain(*k1)
+    assert ks.shape == ps.shape == (kt.numel(), nearest.shade_width(m))
+    hit = torch.isfinite(pt)
+    assert hit.sum() > 4000 and torch.equal(torch.isfinite(kt), hit)
+    torch.testing.assert_close(kt[hit], pt[hit], rtol=1e-5, atol=1e-6)
+    same = ki == pi
+    assert same.float().mean() >= 0.9999
+    assert torch.equal(ko[same], po[same])
+    flat = same.reshape(-1)
+    torch.testing.assert_close(ks[flat], ps[flat], rtol=0, atol=1e-4)
+    if m == nearest.TEXTURED:
+        assert torch.equal(ks[flat, 4:], ps[flat, 4:])   # obj, tex id
+        assert (ks[flat & hit.reshape(-1), 5] >= 0).sum() > 1000
+    fin = torch.isfinite(pb)
+    assert torch.equal(torch.isfinite(kb), fin)
+    torch.testing.assert_close(kb[fin], pb[fin], rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["textured", "smooth"])
+def test_render_mode_frame_launches_its_kernels(mode_scenes, mode):
+    """The one-sample textured and smooth-normal frames launch K1 once, in
+    their mode, and K2 once; the image matches the plain versions' on the
+    CPU."""
+    m = nearest.TEXTURED if mode == "textured" else nearest.SMOOTH
+    prep, cfg = mode_scenes[m]
+    n0 = {k: f.launches for k, f in KERNELS.items()}
+    m0 = dict(nearest.tiled_nearest_shaded.mode_launches)
+    img = sr.render(prep, cfg, P.BENCH_LIGHT)
+    dn = {k: f.launches - n0[k] for k, f in KERNELS.items()}
+    assert dn == {k: int(k in ("nearest_shaded", "anyhit_from_t"))
+                  for k in KERNELS}
+    assert {k: v - m0[k] for k, v in
+            nearest.tiled_nearest_shaded.mode_launches.items()} == \
+        {k: int(k == m) for k in nearest.MODES}
+    cpu = sr.render(prep.to("cpu"), cfg, P.BENCH_LIGHT)
+    diff = (img.cpu().int() - cpu.int()).abs()
+    assert (diff <= 1).float().mean() >= 0.999
+
+
 def test_render_gather_frame_launches_its_kernels():
     """The textured, smooth-normal soft frame takes the gather branch on
     the card: K1's fetch mode and K2′ launch, and the image matches the

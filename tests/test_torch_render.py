@@ -26,39 +26,12 @@ from simple_raytracer_tpu_torch.kernels import anyhit, nearest, tiled
 from simple_raytracer_tpu_torch.render.renderer import render, render_radiance
 
 from simple_raytracer_tpu.accel.prepared import prepare as jprepare
-from simple_raytracer_tpu.kernels import tiled as jtiled
-from simple_raytracer_tpu.kernels import tiled_t
-from simple_raytracer_tpu.ops.camera import primary_rays_tiled, untile_image
-from simple_raytracer_tpu.render import integrator as jint
 
 from _torch_parity import (FOCAL, HEIGHT, LIGHT, TILE_PX, VIEW, WIDTH,
                            configs, jax_prepared_arrays, managers)
+from _torch_parity import jax_frame as _jax_frame
 
 VIEWS = {"identity": None, "moved": VIEW}
-
-
-def _jax_frame(jprep, jcfg, view, monkeypatch,
-               spied=("hits_shaded", "anyhit_from_t"), expect=None):
-    """The JAX tiled frame, asserting that of the ``spied`` steps of
-    ``tiled_t`` exactly ``expect`` ran, in order (default: all of them, once
-    each; the fused kernels by default)."""
-    called = []
-    for name in spied:
-        orig = getattr(tiled_t, name)
-        monkeypatch.setattr(
-            tiled_t, name,
-            lambda *a, _o=orig, _n=name, **k: (called.append(_n),
-                                               _o(*a, **k))[1])
-    V = None if view is None else jnp.asarray(view, jnp.float32)
-    o, d, tx, ty = primary_rays_tiled(WIDTH, HEIGHT, TILE_PX, FOCAL, False,
-                                      view_matrix=V)
-    rad, hit = jtiled.render_flat_tiled(
-        jprep, jcfg, o.reshape(-1, 3), d.reshape(-1, 3), jnp.asarray(LIGHT),
-        cam_spec=(V, FOCAL, WIDTH, HEIGHT, TILE_PX))
-    assert called == list(spied if expect is None else expect), called
-    rad = untile_image(rad.reshape(-1, 3), WIDTH, HEIGHT, TILE_PX, tx, ty)
-    hit = untile_image(hit.reshape(-1), WIDTH, HEIGHT, TILE_PX, tx, ty)
-    return np.asarray(jint.finalize_image(rad, hit, jcfg))
 
 
 @pytest.fixture(scope="module")
@@ -142,9 +115,11 @@ def test_ragged_frame_size():
 
 # ROADMAP.md items ported since their case was written, and the branch
 # their frames take now: 7e (soft shadows on textured or smooth-normal
-# scenes) is the sublane gather branch; test_switch_frame_matches_jax holds
-# its image to JAX's
-PORTED = {"item 7e": "gather"}
+# scenes) is the sublane gather branch, 7d (one-sample smooth-normal
+# frames) the fused branch in K1's smooth mode;
+# test_switch_frame_matches_jax and tests/test_torch_fused_modes.py hold
+# their images to JAX's
+PORTED = {"item 7e": "gather", "item 7d": "fused"}
 
 
 @pytest.mark.parametrize("change, item", [
@@ -189,6 +164,9 @@ def test_render_radiance_needs_prepared_scene():
 GATHER_STEPS = ("hits", "anyhit")
 SWITCHES = {
     "textured_smooth_s4": (True, 4, {}, {}, {}, "gather", GATHER_STEPS),
+    # no fused mode holds both a texture and smooth normals: JAX's prepare
+    # gives the scene no attribute layout, so even S = 1 gathers
+    "textured_smooth_s1": (True, 1, {}, {}, {}, "gather", GATHER_STEPS),
     "textured_smooth_s4_grouped": (True, 4, dict(groups=4, groups_ah=4), {},
                                    {}, "gather", GATHER_STEPS),
     "flat_prepass": (False, 1, dict(prepass=True),
