@@ -96,7 +96,27 @@ Phases, each of which must pass:
    its mode, its shadow kernel, no other); the image within 1 of the plain
    versions' image on >= 99.9% of pixels; 20 (bench), 32 (stand-in) or 36
    (turntable) frames timed, each kernel and its plain version, and each
-   stage (the texel finish alone where there is one).
+   stage (the texel finish alone where there is one);
+10. the probes (simple_raytracer_tpu_torch/probes/, the counterparts of
+   the TPU probes under scripts/), through their entry points with every
+   count reset just before and read just after: ``probes.fixed.run`` times
+   each fixed-cost variant of ``fixed_probe_kernel`` on the bench frame's
+   510 tiles of 4,096 lanes, then K1 on the bench plan, on the plan cut to
+   one entry per tile and on the plan cut to none; ``probes.attr.run``
+   times ``attr_gather_kernel`` (8,100 tiles of 256 rays) and
+   ``attr_window_kernel`` (510 tiles x 10 windows x 4,096 rays, NB =
+   2,172), 8 frames each after one warm-up.  Every variant and both fetch
+   kernels then equal their plain versions exactly on the same inputs (t
+   and rows equal, idx equal on every lane), K1's points pass phase 3's
+   check; the plain versions and, where one PyTorch call computes the same
+   function (io: ``o[..., 0] + 1``; attr_gather: ``F.embedding`` over the
+   table with a zero row for misses), that call are timed.  The probes and
+   their library calls are timed back to back on the device, queued behind
+   a spin while the host queues them (``probes.device_ms``), since each
+   takes less device time than its call takes on the host.  A probe's
+   bound is its bytes (the inputs it reads and its outputs, once each; the
+   fetch kernels' table rows that some ray needs) over 3.35 TB/s, or its
+   few f32 operations over 67 TFLOP/s where larger.
 
 Each kernel's entry in the kernels line carries its bound: the larger of
 its operations over the peak rate of their type and its bytes over 3.35
@@ -166,6 +186,14 @@ OPS_OCCLUDES = 45
 OPS_PREPASS_BF16 = 76
 OPS_PREPASS_F32 = 20
 GROUPS = 4
+# phase 10: frames timed per probe (the scripts' --frames 8), and each
+# fixed-cost variant's f32 operations per lane (the ray rebuild 6 products
+# and 6 sums where all of d is needed, 2 + 2 for dx alone; o x d 6 + 3;
+# the sums of its rows; the keep's 10 comparisons)
+PROBE_FRAMES = 8
+PROBE_F32_OPS = {"io": 1, "feat": 19, "feat3": 3, "acc": 19, "noin": 19,
+                 "noout": 1, "none": 5, "none2": 5, "feat_i": 31,
+                 "empty": 2, "write": 2, "grid1": 2, "grid1f": 31}
 SRC = "simple_raytracer_tpu_torch/csrc/"
 
 
@@ -324,14 +352,15 @@ def winner_bytes(idx, tri_attr) -> int:
 
 def entry(name: str, source: str, replaces: str, frame: str, launches: int,
           max_abs_err: float, ms: float, plain_ms: float, bnd: dict,
-          **extra) -> dict:
-    """One kernel's record of the kernels line.  No PyTorch call walks a
-    cull plan, so ``library_ms`` is null."""
+          library_ms=None, **extra) -> dict:
+    """One kernel's record of the kernels line.  ``library_ms`` is the time
+    of one PyTorch call that computes the same function, where there is
+    one; none walks a cull plan, so it is null for K1-K7."""
     return {"name": name, "route": "cuda", "source": SRC + source,
             "replaces": replaces, **extra, "frame": frame,
             "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
-            "bound_by": bnd["bound_by"], "library_ms": None}
+            "bound_by": bnd["bound_by"], "library_ms": library_ms}
 
 
 def plain_walk(plain, args):
@@ -1147,6 +1176,184 @@ def complex_frames(sr, root, dev):
             f"{OCC_WIDTH}x{OCC_HEIGHT}, {len(views)}-view turntable")
 
 
+def io_bound(moved: int, f32_ops: int) -> dict:
+    """The bound of a probe: the larger of its bytes over the memory rate
+    and its f32 operations over the f32 rate."""
+    t_ops = f32_ops / F32_OPS_PER_S * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops > t_bytes else "bytes",
+            "bytes": moved, "f32_ops": f32_ops}
+
+
+def probe_bytes(variant: str, inputs: dict, out) -> int:
+    """Bytes a fixed-cost probe must move: the inputs its variant reads
+    (o, d; or the camera constants and tile origins of rebuilt rays and of
+    image stores), each once, and its outputs, each written once."""
+    from simple_raytracer_tpu_torch.probes import fixed
+    rays, _value, _idx, image = fixed.SPECS[variant]
+    read = {"o": ("o",), "d": ("d",), "od": ("o", "d"),
+            "cam": ("cam", "origins"), None: ()}[rays]
+    if image and rays != "cam":
+        read += ("origins",)
+    return nbytes(*(inputs[k] for k in read), out)
+
+
+def attr_window_rows(starts, bid) -> int:
+    """Distinct table rows that attr_window's inputs need: the window lanes
+    whose triangle is some ray's winner."""
+    import torch
+    from simple_raytracer_tpu_torch.probes import attr
+    cols = []
+    for k in range(starts.shape[1]):
+        s = starts[:, k:k + 1]
+        off = bid - s * (attr.WB * attr.BS)
+        hit = (off >= 0) & (off < attr.WB * attr.BS)
+        cols.append((s * attr.WL + torch.div(off, attr.BS,
+                                             rounding_mode="floor")
+                     * attr.RPB + off % attr.BS)[hit])
+    return int(torch.unique(torch.cat(cols)).numel())
+
+
+def probe_phase(prep, cfg, light, label: str, gpu: str) -> list:
+    """Phase 10: the probes' entry points (probes/fixed.py::run on the
+    bench frame, probes/attr.py::run at the scripts' production shapes)
+    with every count reset just before and read just after; then each
+    probe against its plain version on the same inputs, exactly (t and
+    rows equal, idx equal on every lane; K1's cut plans by phase 3's
+    check), its plain version's and its library call's times.  Returns the
+    kernels-line entries."""
+    import torch
+    import torch.nn.functional as F
+    from simple_raytracer_tpu_torch.kernels import nearest
+    from simple_raytracer_tpu_torch.probes import attr, device_ms, fixed
+    fixed.fixed_probe.launches = dict.fromkeys(fixed.VARIANTS, 0)
+    attr.attr_gather.launches = attr.attr_window.launches = 0
+    nearest.tiled_nearest_shaded.launches = 0
+    frecs, inputs, points = fixed.run(prep, cfg, light, PROBE_FRAMES)
+    arecs, ainputs = attr.run(iters=PROBE_FRAMES)
+    torch.cuda.synchronize()
+    launches = {**fixed.fixed_probe.launches,
+                "attr_gather": attr.attr_gather.launches,
+                "attr_window": attr.attr_window.launches,
+                "nearest_shaded": nearest.tiled_nearest_shaded.launches}
+    emit(phase=f"probes: launches ({label})", launches=launches)
+    require(all(n > 0 for n in launches.values()),
+            f"a probe kernel was not launched: {launches}")
+    k1_ms = {r["probe"]: r["ms"] for r in frecs if r["variant"] is None}
+    entries = []
+    o = inputs["o"]
+    for r in frecs:
+        variant = r["variant"]
+        if variant is None:
+            continue
+        name = r["probe"]
+        t, idx = fixed.fixed_probe(variant, **inputs)
+        pt, pidx = fixed.fixed_probe_plain(variant, **inputs)
+        torch.cuda.synchronize()
+        t_eq = bool(torch.equal(t, pt))
+        idx_eq = idx is None or bool(torch.equal(idx, pidx))
+        err = float((t - pt).abs().max())
+        moved = probe_bytes(variant, inputs, (t, idx))
+        lanes = t.numel() if variant == "empty" else r["lanes"]
+        bnd = io_bound(moved, PROBE_F32_OPS[variant] * lanes)
+        plain_ms = cuda_ms(lambda: fixed.fixed_probe_plain(variant, **inputs),
+                           2)
+        lib_ms = (device_ms(lambda: o[..., 0] + 1.0, PROBE_FRAMES)[0]
+                  if variant == "io" else None)
+        emit(check=f"probe {name} vs plain ({label})", variant=variant,
+             t_equal=t_eq, idx_equal=idx_eq, max_abs_err=err,
+             ms_per_frame=r["ms"], us_per_tile=r["us_per_tile"],
+             ns_per_lane=r["ns_per_lane"],
+             host_us_per_call=r["host_us_per_call"],
+             share_of_k1=r["ms"] / k1_ms["k1"], **bnd,
+             share=bnd["bound_ms"] / r["ms"], plain_ms=plain_ms,
+             library_ms=lib_ms, gpu=gpu)
+        require(t_eq and idx_eq, f"probe {name} differs from its plain "
+                                 f"version ({label})")
+        replaces, via = fixed.PROBES[name][1:]
+        entries.append(entry(f"fixed_probe_kernel ({name})",
+                             "probe_fixed.cu", replaces, label,
+                             launches[variant], err, r["ms"], plain_ms, bnd,
+                             lib_ms, via=via))
+
+    # where K1's walk goes on the bench plan: the windows each tile walks
+    # (its lanes' most needed windows, from the plain walk's record)
+    _out, (lane_pairs, _staged) = plain_walk(
+        nearest.tiled_nearest_shaded_plain, points["k1"])
+    walked = (lane_pairs.amax(dim=1) // points["k1"][6]).float()
+    busy = walked[walked > 0]
+    emit(check=f"K1 windows walked per tile ({label})",
+         tiles=int(walked.numel()), tiles_walking=int(busy.numel()),
+         mean=float(busy.mean()), p50=float(busy.quantile(0.5)),
+         p90=float(busy.quantile(0.9)), max=int(busy.max()),
+         tiles_over_32=int((busy > 32).sum()),
+         windows_walked=int(busy.sum()), sms=torch.cuda.get_device_properties(
+             prep.device).multi_processor_count)
+
+    # K1 itself on the plan cut to one entry per tile (win) and to none
+    size = (cfg.camera.width, cfg.camera.height)
+    for name in fixed.K1_POINTS:
+        res = check_k1_shaded(points[name], f"{name}: {label}", size)
+        plain_ms = cuda_ms(lambda: nearest.tiled_nearest_shaded_plain(
+            *points[name]), 2)
+        emit(check=f"probe {name} ({label})", ms_per_frame=k1_ms[name],
+             k1_ms=k1_ms["k1"], share_of_k1=k1_ms[name] / k1_ms["k1"],
+             share=res["bound_ms"] / k1_ms[name], plain_ms=plain_ms, gpu=gpu)
+        replaces, via = (fixed.WIN_REPLACES if name == "win" else
+                         (fixed.WIN_REPLACES[0], "win_body's fixed part"))
+        entries.append(entry(f"nearest_shaded_kernel ({name} plan)",
+                             "nearest.cu", replaces, label,
+                             launches["nearest_shaded"],
+                             res["t_max_abs_err"], k1_ms[name], plain_ms,
+                             res, via=via))
+
+    # the winner fetch
+    for r in arecs:
+        name = r["probe"]
+        args = ainputs[name]
+        kern = getattr(attr, name)
+        plain = getattr(attr, name + "_plain")
+        out, pout = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        equal = bool(torch.equal(out, pout))
+        err = float((out - pout).abs().max())
+        lib_ms = None
+        if name == "attr_gather":
+            bid, at = args
+            rows = int(torch.unique(bid[bid >= 0]).numel())
+            moved = nbytes(bid, out) + rows * at.shape[1] * at.element_size()
+            pad = torch.cat([at.new_zeros(1, at.shape[1]), at])
+            lib_ms = device_ms(lambda: F.embedding(bid + 1, pad),
+                               PROBE_FRAMES)[0]
+            ops = 0
+        else:
+            starts, bid, at = args
+            rows = attr_window_rows(starts, bid)
+            moved = (nbytes(starts, bid, out)
+                     + rows * at.shape[1] * at.element_size())
+            ops = bid.numel() * starts.shape[1] * attr.AF
+        bnd = io_bound(moved, ops)
+        plain_ms = cuda_ms(lambda: plain(*args), 2)
+        emit(check=f"probe {name} vs plain", rows_equal=equal,
+             max_abs_err=err, rays=r["lanes"], tiles=r["tiles"],
+             ms_per_frame=r["ms"], us_per_tile=r["us_per_tile"],
+             ns_per_lane=r["ns_per_lane"],
+             host_us_per_call=r["host_us_per_call"], table_rows_read=rows,
+             **bnd,
+             share=bnd["bound_ms"] / r["ms"], plain_ms=plain_ms,
+             library_ms=lib_ms, gpu=gpu)
+        require(equal, f"probe {name} differs from its plain version")
+        replaces, via = attr.REPLACES[name]
+        entries.append(entry(
+            name + "_kernel", "probe_attr.cu",
+            replaces, f"{r['tiles']} tiles, {r['lanes']} rays",
+            launches[name], err, r["ms"], plain_ms, bnd, lib_ms, via=via))
+    emit(phase=f"timing (probes: {label})", frames=PROBE_FRAMES, gpu=gpu,
+         **{f"{r['probe']}_ms": r["ms"] for r in frecs + arecs})
+    return entries
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1335,6 +1542,9 @@ def main() -> int:
          seconds=round(time.time() - t0, 3))
     entries += mode_frame(sr, cprep, ccfg, clight, clabel, gpu, OCC_FRAMES,
                           cview, cviews, SHADOWED_MIN, TEXTURED_MIN)
+
+    # 10. the probes: K1's fixed-cost parts and the winner fetch
+    entries += probe_phase(prep, cfg, light, f"probes on the {bench}", gpu)
 
     print(json.dumps({"kernels": [
         entry("nearest_shaded_kernel", "nearest.cu",

@@ -122,6 +122,10 @@ class KernelConfig:
       ``SRT_TILED_GROUPS_AH``): split each nearest / occlusion ray tile
       into that many sub-groups that skip the plan entries their own rays
       cannot reach (K4 / K5); clamped to 1..4, 1 is off.
+
+    ``maxv_big`` (JAX ``maxv_big``) is the list-mode window cap of dense
+    scenes, whose plans are 1,024 entries wide
+    (kernels/plan.py::effective_cull_maxv).
     """
 
     threads: int = 512
@@ -133,6 +137,7 @@ class KernelConfig:
     prepass: bool = False
     groups: int = 1
     groups_ah: int = 1
+    maxv_big: int = 1000
 
     @property
     def nearest_groups(self) -> int:
@@ -164,12 +169,14 @@ class RenderConfig:
     # scenes of <= 131072 triangles, 32 above.
     tile_px: int = 0
 
-    # Nearest-pass ray-tile size; 0 = the full pixel tile (the only value
-    # the port takes so far).
+    # Nearest-pass ray-tile size; 0, or any value of at least the pixel
+    # tile, = the full pixel tile (kernels/tiled.py::_hit_tile).  Sub-tiles
+    # (a divisor of the tile, a multiple of 128 rays) raise
+    # NotImplementedError.
     hit_tile: int = 0
 
-    # Shadow-pass ray-tile size; 0 = adaptive (the full pixel tile for
-    # scenes of <= 131072 triangles — the only case the port takes so far).
+    # Shadow-pass ray-tile size; 0 = adaptive (kernels.plan.shadow_tile):
+    # the full pixel tile for scenes of <= 131072 triangles, 256 rays above.
     shadow_tile: int = 0
 
     # Tiled-path kernel layout (kernels/tiled.py::frame_branch): None or

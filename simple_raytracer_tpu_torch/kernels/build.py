@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures by source; each function returns a cudaError_t
 SIGNATURES = {
     "nearest.cu": {
@@ -85,6 +86,23 @@ SIGNATURES = {
             _P, _P, _I,          # o, d, rays per tile
             _I, _F, _F,          # window_tris, eps, margin factor
             _P,                  # flags
+            _I, _P),             # threads, stream
+    },
+    "probe_fixed.cu": {
+        "srt_fixed_probe": (
+            _I,                  # variant (probes/fixed.py::VARIANTS)
+            _P, _P, _P, _P, _F,  # o, d, cam, tile origins, a
+            _I, _I, _I, _I,      # n_tiles, tile_px, width, height
+            _P, _P,              # t, idx
+            _I, _P),             # threads, stream
+    },
+    "probe_attr.cu": {
+        "srt_attr_gather": (
+            _P, _P, _L, _P,      # bid, attribute table, rays, out
+            _I, _P),             # threads, stream
+        "srt_attr_window": (
+            _P, _I, _P, _P,      # starts, windows per tile, bid, table
+            _I, _I, _P,          # tiles, rays per tile, out
             _I, _P),             # threads, stream
     },
 }

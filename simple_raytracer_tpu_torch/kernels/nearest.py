@@ -569,8 +569,17 @@ def hits_shaded(prep, cfg, light_pos, cam_spec, maxv: int,
     :func:`attr_mode`.  Returns (t [R], idx [R], obj [R], rgb [R, 3] or, in
     the TEXTURED mode, comp [R, 6] = (dw, sw, texu, texv, obj, tex id),
     bounds [n, 15]), R = n * tile_px**2, misses t = inf."""
+    t, idx, obj, rgb, bounds = kernel(*shaded_args(prep, cfg, light_pos,
+                                                   cam_spec, maxv))
+    return t.reshape(-1), idx.reshape(-1), obj.reshape(-1), rgb, bounds
+
+
+def shaded_args(prep, cfg, light_pos, cam_spec, maxv: int) -> tuple:
+    """The arguments :func:`hits_shaded` gives K1
+    (:func:`tiled_nearest_shaded`) on the frame: the primary plan, the
+    scene's tables, the camera constants with the shared shadow frame, and
+    the scene's :func:`attr_mode`."""
     vmx, focal, _wd, _hd, tpx = cam_spec
-    dev = prep.device
     mode = attr_mode(prep, cfg)
     if mode is None:
         raise ValueError("no fused mode for a textured smooth-normal scene")
@@ -578,14 +587,12 @@ def hits_shaded(prep, cfg, light_pos, cam_spec, maxv: int,
             SMOOTH: prep.tri_nrm_map}[mode]
     plan = primary_plan(prep, cfg, cam_spec, maxv)
     frame = pl.shadow_frame(prep.block_min, prep.block_max, light_pos)
-    cam = pl.make_cam(vmx, focal, light_pos, frame, dev)
+    cam = pl.make_cam(vmx, focal, light_pos, frame, prep.device)
     mat = material_table(prep.scene, cfg.light.color)
-    t, idx, obj, rgb, bounds = kernel(
-        plan, prep.tri, prep.tri_attr, mat, cam, tpx,
-        cfg.kernel.window_blocks * prep.block_size, cfg.mt_eps,
-        cfg.shading.double_sided_diffuse, cfg.shading.specular_nl_factor,
-        cfg.kernel.threads, mode, amap)
-    return t.reshape(-1), idx.reshape(-1), obj.reshape(-1), rgb, bounds
+    return (plan, prep.tri, prep.tri_attr, mat, cam, tpx,
+            cfg.kernel.window_blocks * prep.block_size, cfg.mt_eps,
+            cfg.shading.double_sided_diffuse, cfg.shading.specular_nl_factor,
+            cfg.kernel.threads, mode, amap)
 
 
 def hits_attrs(prep, cfg, cam_spec, maxv: int, kernel=tiled_nearest_attrs):

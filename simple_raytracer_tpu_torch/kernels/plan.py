@@ -43,7 +43,6 @@ PLAN_W = 256            # plan row width of scenes with <= 1500 windows
 PLAN_W_BIG = 1024       # ... and of denser scenes
 PLAN_AUX = 8
 T_BUCKETS = 8
-MAXV_BIG = 1000         # list capacity of dense scenes (JAX KernelConfig.maxv_big)
 DENSE_TRIS = 131072     # the tile-size and shadow-tile density gate
 BIG = 3.0e38
 EPS = 1e-12
@@ -77,13 +76,14 @@ def plan_width(num_windows: int) -> int:
 
 
 def effective_cull_maxv(cfg, num_blocks: int, wb: int) -> int:
-    """List-mode window cap: ``cfg.cull_maxv``, widened for dense scenes so
-    their through-geometry tiles keep a sorted list (and its early break)
-    instead of falling back to range walks."""
+    """List-mode window cap: ``cfg.cull_maxv``, widened for dense scenes to
+    ``cfg.kernel.maxv_big`` (at most the wide plan's capacity) so their
+    through-geometry tiles keep a sorted list (and its early break) instead
+    of falling back to range walks."""
     maxv = cfg.cull_maxv
     if maxv <= 0 or plan_width(num_blocks // wb) <= PLAN_W:
         return maxv
-    return max(maxv, min(MAXV_BIG, PLAN_W_BIG - PLAN_AUX))
+    return max(maxv, min(cfg.kernel.maxv_big, PLAN_W_BIG - PLAN_AUX))
 
 
 def _vec(x):

@@ -105,8 +105,21 @@ def check_supported(prep, cfg: RenderConfig, tile: int) -> None:
         raise ValueError(f"unknown tiled kernel impl {cfg.tiled_impl!r}")
     if cfg.camera.normalize_dirs:
         raise _todo("normalized primary directions", "7f")
-    if cfg.hit_tile and cfg.hit_tile != tile:
+    if _hit_tile(cfg, tile) != tile:
         raise _todo("hit_tile sub-tiles", "7f")
+
+
+def _hit_tile(cfg: RenderConfig, tile: int) -> int:
+    """Nearest-pass ray-tile size (JAX kernels/tiled.py::_hit_tile):
+    ``hit_tile`` 0, or any value of at least ``tile``, is the full tile; a
+    sub-tile divides the tile and is a multiple of 128 rays.  Raises
+    ValueError for any other value."""
+    ht = cfg.hit_tile
+    if not ht or ht >= tile:
+        return tile
+    if tile % ht or ht % 128:
+        raise ValueError(f"hit_tile {ht} is no sub-tile of {tile}-ray tiles")
+    return ht
 
 
 def frame_branch(prep, cfg: RenderConfig, tile: int) -> str:

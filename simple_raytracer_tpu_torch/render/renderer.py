@@ -67,7 +67,7 @@ def render_radiance(prep: PreparedScene, cfg: RenderConfig, light_pos,
         view_matrix, dtype=torch.float32, device=dev)
     rays = None
     if frame_branch(prep, cfg, tpx * tpx) != "fused":
-        # the legacy, soft and paged branches start from these rays
+        # every branch but the fused one starts from these rays
         o, d, _, _ = primary_rays_tiled(cam.width, cam.height, tpx,
                                         cam.focal, view_matrix=vm,
                                         device=dev)

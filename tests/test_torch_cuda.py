@@ -19,6 +19,7 @@ from simple_raytracer_tpu_torch.kernels import (anyhit, build, nearest, paged,
 from simple_raytracer_tpu_torch.kernels import plan as pl
 from simple_raytracer_tpu_torch.kernels.tiled import KERNELS, render_flat_tiled
 from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
+from simple_raytracer_tpu_torch.probes import attr, fixed
 from simple_raytracer_tpu_torch.scene import procedural as P
 from simple_raytracer_tpu_torch.scene import transforms as T
 
@@ -84,7 +85,8 @@ def test_kernels_build():
     lib = build.library()
     for name in ("srt_nearest_shaded", "srt_nearest_attrs",
                  "srt_nearest_rays", "srt_anyhit_from_t", "srt_anyhit_rays",
-                 "srt_prepass"):
+                 "srt_prepass", "srt_fixed_probe", "srt_attr_gather",
+                 "srt_attr_window"):
         assert hasattr(lib, name)
 
 
@@ -497,3 +499,58 @@ def test_render_gather_frame_launches_its_kernels():
     cpu = sr.render(prep.to("cpu"), cfg, P.BENCH_LIGHT)
     diff = (img.cpu().int() - cpu.int()).abs()
     assert (diff <= 1).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("tpx", [64, 32])
+@pytest.mark.parametrize("variant", fixed.VARIANTS)
+def test_fixed_probe_kernel_matches_plain(variant, tpx):
+    """Each fixed-cost probe on a ragged 200x136 frame (padded tiles, image
+    stores cropped) equals its plain version exactly, t and idx, and
+    counts its launch."""
+    inputs = fixed.frame_inputs(200, 136, tpx, FOCAL, "cuda")
+    inputs["a"] = 3e-6
+    n0 = fixed.fixed_probe.launches[variant]
+    t, idx = fixed.fixed_probe(variant, **inputs)
+    pt, pidx = fixed.fixed_probe_plain(variant, **inputs)
+    torch.cuda.synchronize()
+    assert fixed.fixed_probe.launches[variant] == n0 + 1
+    assert t.shape == pt.shape and torch.equal(t, pt)
+    assert (idx is None) == (pidx is None)
+    if idx is not None:
+        assert torch.equal(idx, pidx)
+
+
+def test_attr_kernels_match_plain():
+    """attr_gather and attr_window at small shapes equal their plain
+    versions exactly and count their launches."""
+    bid, at = attr.gather_inputs(6, "cuda")
+    bid[0, :5] = -1
+    g0, w0 = attr.attr_gather.launches, attr.attr_window.launches
+    assert torch.equal(attr.attr_gather(bid, at),
+                       attr.attr_gather_plain(bid, at))
+    starts, wbid, wat = attr.window_inputs(5, 10, 512, 64, "cuda")
+    out = attr.attr_window(starts, wbid, wat)
+    assert torch.equal(out, attr.attr_window_plain(starts, wbid, wat))
+    assert bool((out != 0).any())
+    assert attr.attr_gather.launches == g0 + 1
+    assert attr.attr_window.launches == w0 + 1
+
+
+def test_probe_wrappers_reject_bad_inputs():
+    inputs = fixed.frame_inputs(128, 64, 64, FOCAL, "cuda")
+    with pytest.raises(ValueError, match="unknown probe variant"):
+        fixed.fixed_probe("win", **inputs)
+    with pytest.raises(ValueError):                  # a frame of 3 tiles
+        fixed.fixed_probe("io", **{**inputs, "width": 192})
+    with pytest.raises(ValueError):
+        fixed.fixed_probe("io", **{**inputs, "origins": inputs["origins"]
+                                   .float()})
+    bid, at = attr.gather_inputs(2, "cuda")
+    with pytest.raises(ValueError):
+        attr.attr_gather(bid, at[:, :8].contiguous())
+    with pytest.raises(ValueError, match="aligned"):
+        attr.attr_gather(bid, at.reshape(-1)[1:1 + at.numel() - 16]
+                         .reshape(-1, 16))
+    starts, wbid, wat = attr.window_inputs(2, 4, 256, 64, "cuda")
+    with pytest.raises(ValueError):
+        attr.attr_window(starts, wbid, wat.float())

@@ -196,3 +196,57 @@ def test_shadow_frame_and_bounds_match_jax(scene):
               "rv_lo", "rv_hi"):
         np.testing.assert_allclose(o[k].numpy(), np.asarray(j[k]),
                                    rtol=1e-6, err_msg=k)
+
+
+HIT_TILES = [(0, 4096, 4096), (4096, 4096, 4096), (8192, 4096, 4096),
+             (4096, 1024, 1024), (2048, 1024, 1024), (1024, 4096, 1024),
+             (128, 1024, 128), (384, 4096, None), (100, 4096, None),
+             (192, 1024, None)]
+
+
+@pytest.mark.parametrize("hit_tile, tile, want", HIT_TILES)
+def test_hit_tile_matches_jax(hit_tile, tile, want):
+    """The port's nearest-pass tile against JAX kernels/tiled.py::_hit_tile:
+    0 or any value of at least the tile is the full tile, a divisor that is
+    a multiple of 128 is a sub-tile, anything else is refused (JAX asserts,
+    the port raises ValueError)."""
+    import simple_raytracer_tpu_torch as sr
+    from simple_raytracer_tpu import config as jconfig
+    from simple_raytracer_tpu.kernels import tiled as jtiled
+    from simple_raytracer_tpu_torch.kernels import tiled
+    cfg = sr.default_config().replace(hit_tile=hit_tile)
+    jcfg = jconfig.default_config().replace(hit_tile=hit_tile)
+    if want is None:
+        with pytest.raises(AssertionError):
+            jtiled._hit_tile(jcfg, tile)
+        with pytest.raises(ValueError, match="no sub-tile"):
+            tiled._hit_tile(cfg, tile)
+        return
+    assert jtiled._hit_tile(jcfg, tile) == want
+    assert tiled._hit_tile(cfg, tile) == want
+
+
+@pytest.mark.parametrize("maxv_big", [500, 1000, 2000])
+@pytest.mark.parametrize("cull_maxv", [0, 248])
+@pytest.mark.parametrize("nb", [100, 3000, 3002, 20000])
+def test_effective_cull_maxv_matches_jax(maxv_big, cull_maxv, nb,
+                                         monkeypatch):
+    """KernelConfig.maxv_big widens the list cap of dense scenes (over
+    1,500 windows of two blocks) as in JAX, whose ``effective_cull_maxv``
+    reads only ``prep.block_min``'s rows (a stub here) and, unless set, the
+    SRT_MAXV_BIG switch."""
+    import types
+
+    import simple_raytracer_tpu_torch as sr
+    from simple_raytracer_tpu import config as jconfig
+    from simple_raytracer_tpu.kernels import tiled as jtiled
+    monkeypatch.delenv("SRT_MAXV_BIG", raising=False)
+    cfg = sr.default_config().replace(
+        cull_maxv=cull_maxv, kernel=sr.KernelConfig(maxv_big=maxv_big))
+    jcfg = jconfig.default_config().replace(
+        cull_maxv=cull_maxv, kernel=jconfig.KernelConfig(maxv_big=maxv_big))
+    stub = types.SimpleNamespace(block_min=np.zeros((nb, 3), np.float32))
+    ours = pl.effective_cull_maxv(cfg, nb, cfg.kernel.window_blocks)
+    assert ours == jtiled.effective_cull_maxv(jcfg, stub)
+    assert ours == (cull_maxv if cull_maxv <= 0 or nb <= 3000
+                    else max(cull_maxv, min(maxv_big, 1016)))

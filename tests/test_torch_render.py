@@ -149,6 +149,24 @@ def test_unported_branches_raise(change, item):
         render(prep, cfg.replace(**change), LIGHT)
 
 
+def test_hit_tile_at_least_the_tile_renders_the_full_tile():
+    """hit_tile >= the tile is the full tile, as in JAX: a 128x64 frame
+    with hit_tile = 2 x tile equals the hit_tile=0 frame pixel for pixel;
+    a sub-tile still raises."""
+    sm, _ = managers(1)
+    cfg, _ = configs()
+    cfg = cfg.replace(camera=sr.CameraConfig(width=128, height=64,
+                                             focal=FOCAL))
+    prep = prepare(sm.build(), cfg, device="cpu")
+    tile = TILE_PX * TILE_PX
+    img = render(prep, cfg, LIGHT).numpy()
+    big = render(prep, cfg.replace(hit_tile=2 * tile), LIGHT).numpy()
+    assert img.shape == (64, 128, 3)
+    assert np.array_equal(big, img)
+    with pytest.raises(NotImplementedError, match="hit_tile sub-tiles"):
+        render(prep, cfg.replace(hit_tile=tile // 4), LIGHT)
+
+
 def test_render_radiance_needs_prepared_scene():
     sm, _ = managers(1)
     cfg, _ = configs()
