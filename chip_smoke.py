@@ -118,6 +118,16 @@ Phases, each of which must pass:
    fetch kernels' table rows that some ray needs) over 3.35 TB/s, or its
    few f32 operations over 67 TFLOP/s where larger.
 
+Every frame that runs K1 (phases 3, 6, 8, 9, and 10's cut plans) holds
+K1's t and idx to the plain walk in K1's slices bit for bit, and prints a
+``K1 schedule`` line: the schedule's rows on the card against its plain
+version (``nearest.k1_work_rows``: the same (tile, span) rows, walk
+lengths never growing), the items, slices per tile, spans of the longest
+range row, the walk's CTAs per SM and registers, the windows each slice
+needed, and K1's time split into schedule + key fill, walk and epilogue,
+with K1's time at other range and list spans (``K1_RANGE_SPANS``,
+``K1_LIST_SPANS``).
+
 Each kernel's entry in the kernels line carries its bound: the larger of
 its operations over the peak rate of their type and its bytes over 3.35
 TB/s, both counted on the work the frame needs (K3: every ray of the tile
@@ -186,6 +196,10 @@ OPS_OCCLUDES = 45
 OPS_PREPASS_BF16 = 76
 OPS_PREPASS_F32 = 20
 GROUPS = 4
+# K1's range and list spans timed beside the port's (nearest.K1_RANGE_SPAN,
+# K1_LIST_SPAN; 1023 entries keep every list whole)
+K1_RANGE_SPANS = (4, 8, 16, 32, 64)
+K1_LIST_SPANS = (16, 32, 64, 128, 1023)
 # phase 10: frames timed per probe (the scripts' --frames 8), and each
 # fixed-cost variant's f32 operations per lane (the ray rebuild 6 products
 # and 6 sums where all of d is needed, 2 + 2 for dx alone; o x d 6 + 3;
@@ -195,6 +209,8 @@ PROBE_F32_OPS = {"io": 1, "feat": 19, "feat3": 3, "acc": 19, "noin": 19,
                  "noout": 1, "none": 5, "none2": 5, "feat_i": 31,
                  "empty": 2, "write": 2, "grid1": 2, "grid1f": 31}
 SRC = "simple_raytracer_tpu_torch/csrc/"
+# K1's three launches (csrc/nearest.cu), timed as one
+K1_NAME = "k1_schedule_kernel + k1_walk_kernel + k1_epilogue_kernel"
 
 
 class SmokeFailure(RuntimeError):
@@ -420,11 +436,13 @@ def check_k1_shaded(k1, label: str, size) -> dict:
     # and smooth modes, their 48-byte map rows
     winners = winner_bytes(ki, k1[2]) + (0 if amap is None
                                          else winner_bytes(ki, amap))
+    exact = bool(torch.equal(kt, pt) and torch.equal(ki, pi))
     res = {"check": f"K1 vs plain ({label})", "mode": mode,
+           "slices": nearest.k1_slices(kt.shape[1]),
            "tiles": int(kt.shape[0]), "hit_rays": int(hk.sum()),
            "hit_mask_equal": float((hk == hp).float().mean()),
            "t_max_abs_err": float(t_err.max()) if t_err.numel() else 0.0,
-           "t_within_tol": t_ok, "idx_equal": idx_frac,
+           "t_within_tol": t_ok, "t_idx_equal": exact, "idx_equal": idx_frac,
            "shade_max_abs_err": shade_err, "obj_equal": obj_ok,
            "bounds_allclose": b_ok, "plan": plan_stats(k1[0]),
            **bound(walk, frame_lanes(k1[0][:, 4], k1[0][:, 5], k1[5], *size),
@@ -436,8 +454,96 @@ def check_k1_shaded(k1, label: str, size) -> dict:
     emit(**res)
     require(t_ok and bool((hk == hp).all()), f"K1 t differs ({label})")
     require(idx_frac >= IDX_MIN, f"K1 idx equal on {idx_frac} ({label})")
+    require(exact, f"K1 t, idx not bit for bit the plain walk's ({label})")
     require(shade_err <= RGB_ATOL and obj_ok, f"K1 shading differs ({label})")
     require(b_ok, f"K1 bounds rows differ ({label})")
+    k1_schedule(k1, label, walk)
+    return res
+
+
+def k1_schedule(k1, label: str, walk, fetch: bool = False) -> dict:
+    """K1's work items on the arguments ``k1`` (its fused modes', or with
+    ``fetch`` the fetch mode's): the schedule on the card against its
+    plain version (the same (tile, span) rows, walk lengths never growing),
+    the walk's shape on this card (CTAs per SM, registers), the windows
+    each slice needed (from the plain walk's record ``walk``), and K1's
+    time split by launch (CUDA events around repeated launches: the
+    schedule + key fill alone, the walk as schedule + walk less the
+    schedule alone, the epilogue alone on the last keys), and K1 at other
+    range and list spans."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels import nearest
+    if fetch:
+        plan, tri, tri_attr, cam, tpx, wt, eps = k1[:7]
+        extra = {}
+    else:
+        plan, tri, tri_attr, mat, cam, tpx, wt, eps, ds, snl = k1[:10]
+        extra = dict(mode=k1[11], mat=mat, attr_map=k1[12], double_sided=ds,
+                     specular_nl=snl)
+
+    def call(**spans):
+        return nearest.k1_call(plan, tri, tri_attr, cam, tpx, wt, eps,
+                               **spans, **extra)
+    launch, _outs, sched = call()
+    launch()
+    torch.cuda.synchronize()
+    nw = tri.shape[0] // wt
+    rows, length = nearest.k1_work_rows(plan, nw)
+    n_rows = int(sched[1])
+    got = sched[2:2 + 2 * n_rows].reshape(-1, 2).long()
+    key = (got[:, 0] << 20) + got[:, 1]
+    same = n_rows == rows.shape[0] and torch.equal(
+        key.sort().values, ((rows[:, 0].long() << 20) + rows[:, 1]).sort()
+        .values)
+    glen = nearest.k1_row_lengths(plan, got, nw)
+    ordered = bool((glen[1:] <= glen[:-1]).all())
+    rng_cnt = torch.minimum(plan[:, 1], (nw - plan[:, 0]).clamp_min(0))
+    lst_cnt = torch.where(plan[:, 3] == 1, plan[:, 2], 0)
+    slices = nearest.k1_slices(tpx * tpx)
+    shape = nearest.k1_shape(wt)
+    is_rng = (plan[:, 3] != 1) & (rng_cnt > 0)
+    lane_pairs = walk[0].reshape(plan.shape[0] * slices, -1)
+    need = (lane_pairs.amax(dim=1) // wt).float()
+    need = need[need > 0]
+    fill = cuda_ms(lambda: launch(1), 20)
+    fill_walk = cuda_ms(lambda: launch(3), 20)
+    epilogue = cuda_ms(lambda: launch(4), 20)
+    whole = cuda_ms(lambda: launch(), 20)
+    by_range = {str(sp): cuda_ms(call(range_span=sp)[0], 10)
+                for sp in K1_RANGE_SPANS}
+    by_list = {str(sp): cuda_ms(call(list_span=sp)[0], 10)
+               for sp in K1_LIST_SPANS}
+    res = {"check": f"K1 schedule ({label})", "rows_equal_plain": same,
+           "longest_first": ordered, "items": n_rows * slices,
+           "rows": n_rows, "slices_per_tile": slices,
+           "slice_rays": shape["slice_rays"],
+           "range_span": nearest.K1_RANGE_SPAN,
+           "list_span": nearest.K1_LIST_SPAN,
+           "list_rows": int((lst_cnt > 0).sum()),
+           "longest_list": int(lst_cnt.max()) if lst_cnt.numel() else 0,
+           "range_rows": int(is_rng.sum()),
+           "longest_range_row_spans": int(
+               (-(-rng_cnt[is_rng] // nearest.K1_RANGE_SPAN)).max())
+           if bool(is_rng.any()) else 0,
+           "longest_item_windows": int(length[0]) if rows.shape[0] else 0,
+           "slice_windows_needed": {
+               "slices": int(need.numel()),
+               "p50": float(need.quantile(0.5)) if need.numel() else 0.0,
+               "p90": float(need.quantile(0.9)) if need.numel() else 0.0,
+               "max": int(need.max()) if need.numel() else 0,
+               "sum": int(need.sum())},
+           "ctas_per_sm": shape["ctas_per_sm"], "sms": shape["sms"],
+           "walk_threads": shape["threads"],
+           "registers": shape["registers"], "fill_ms": fill,
+           "walk_ms": fill_walk - fill, "epilogue_ms": epilogue,
+           "k1_ms": whole, "k1_ms_by_range_span": by_range,
+           "k1_ms_by_list_span": by_list}
+    emit(**res)
+    require(same and ordered, f"K1 schedule differs from its plain version "
+                              f"({label})")
+    require(shape["slice_rays"] == nearest.K1_SLICE,
+            f"K1 slices of {shape['slice_rays']} rays, the port's "
+            f"{nearest.K1_SLICE}")
     return res
 
 
@@ -645,11 +751,13 @@ def check_found(kernel, plain, args, pts, S: int, what: str, label: str,
 
 def check_nearest(kernel, plain, args, inside, what: str, label: str,
                   ops: int, win_bytes: int, lane_bytes: int, fixed=(),
-                  winners=None):
+                  winners=None, exact: bool = False):
     """A nearest walk whose results begin with (t, idx) (K1's fetch and
     rays modes, K4, K6) against its plain version on ``args``; counts the
     lanes ``inside``, and with ``winners`` (the attribute table) the rows
-    of the winning triangles.  Returns (its check line, t, idx)."""
+    of the winning triangles; with ``exact``, t and idx must equal the
+    plain version's bit for bit.  Returns (its check line, t, idx, the
+    plain walk's record)."""
     import torch
     kout = kernel(*args)
     pout, walk = plain_walk(plain, args)
@@ -665,7 +773,9 @@ def check_nearest(kernel, plain, args, inside, what: str, label: str,
            "rays_per_tile": int(kt.shape[1]), "hit_rays": int(hk.sum()),
            "hit_mask_equal": float((hk == hp).float().mean()),
            "t_max_abs_err": float(t_err.max()) if t_err.numel() else 0.0,
-           "t_within_tol": t_ok, "idx_equal": idx_frac,
+           "t_within_tol": t_ok,
+           "t_idx_equal": bool(torch.equal(kt, pt) and torch.equal(ki, pi)),
+           "idx_equal": idx_frac,
            "idx_differ": int((ki != pi).sum()), "plan": plan_stats(plan),
            **bound(walk, inside, ops, plan, win_bytes, lane_bytes, kout,
                    fixed, 0 if winners is None
@@ -673,7 +783,9 @@ def check_nearest(kernel, plain, args, inside, what: str, label: str,
     emit(**res)
     require(t_ok and bool((hk == hp).all()), f"{what} t differs ({label})")
     require(idx_frac >= IDX_MIN, f"{what} idx equal on {idx_frac} ({label})")
-    return res, kt, ki
+    require(res["t_idx_equal"] or not exact,
+            f"{what} t, idx not bit for bit the plain walk's ({label})")
+    return res, kt, ki, walk
 
 
 def occlusion_frame(sr, prep, cfg, light, label: str, gpu: str) -> dict:
@@ -727,15 +839,20 @@ def occlusion_frame(sr, prep, cfg, light, label: str, gpu: str) -> dict:
         n_err = float((ka[same, :3] - pa[same, :3]).abs().max())
         obj_ok = bool((ka[same, 3] == pa[same, 3]).all())
         k1_err = float(t_err.max()) if t_err.numel() else 0.0
+        exact = bool(torch.equal(kt, pt) and torch.equal(ki, pi))
         emit(check=f"K1 fetch mode vs plain ({label})",
+             slices=nearest.k1_slices(kt.shape[1]),
              tiles=int(kt.shape[0]), hit_rays=int(hk.sum()),
              hit_mask_equal=float((hk == hp).float().mean()),
-             t_max_abs_err=k1_err, t_within_tol=t_ok, idx_equal=idx_frac,
-             normal_max_abs_err=n_err, obj_equal=obj_ok,
+             t_max_abs_err=k1_err, t_within_tol=t_ok, t_idx_equal=exact,
+             idx_equal=idx_frac, normal_max_abs_err=n_err, obj_equal=obj_ok,
              plan=plan_stats(k1[0]), **k1_bound)
         require(t_ok and bool((hk == hp).all()), f"K1 t differs ({label})")
         require(idx_frac >= IDX_MIN, f"K1 idx equal on {idx_frac} ({label})")
+        require(exact, f"K1 t, idx not bit for bit the plain walk's "
+                       f"({label})")
         require(n_err <= 1e-6 and obj_ok, f"K1 attrs differ ({label})")
+        k1_schedule(k1, label, walk, fetch=True)
 
     # K2′ vs plain, on the lanes whose point is a hit
     k2_res = check_found(anyhit.tiled_anyhit, anyhit.tiled_anyhit_plain,
@@ -774,8 +891,8 @@ def occlusion_frame(sr, prep, cfg, light, label: str, gpu: str) -> dict:
          rays_per_s=cam.width * cam.height * 1e3 / ms_frame, gpu=gpu,
          **times)
     k1_entry = entry(
-        "nearest_shaded_kernel" + (" (fetch mode)" if branch == "soft"
-                                   else ""), "nearest.cu",
+        K1_NAME + (" (fetch mode)" if branch == "soft" else ""),
+        "nearest.cu",
         "simple_raytracer_tpu/kernels/tiled_t.py:855", label,
         launches[k1_role], k1_err, times["k1_ms"], times["k1_plain_ms"],
         k1_bound)
@@ -818,7 +935,7 @@ def paged_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
                                           -(-cam.width // tpx), tpx,
                                           cam.width, cam.height, dev),
                          tpx, cam.width, cam.height)
-    k6_res, kt, ki = check_nearest(
+    k6_res, kt, ki, _ = check_nearest(
         paged.tiled_nearest, paged.tiled_nearest_plain, k6, inside, "K6",
         label, nearest_ops(k6[2]), window_bytes(k6[1], k6[4]), 24)
 
@@ -933,7 +1050,7 @@ def gather_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
                 "tiled_nearest_t, groups > 1 (tiled_t.py:1616)")
     else:
         near = ("nearest_attrs", "K1 fetch mode",
-                "nearest_shaded_kernel (fetch mode)",
+                K1_NAME + " (fetch mode)",
                 "simple_raytracer_tpu/kernels/tiled_t.py:855",
                 "tiled_nearest_t with cam (tiled_t.py:1616)")
     shadow = (("anyhit_grouped", "K5", "anyhit_rays_kernel (sub-groups)",
@@ -973,12 +1090,13 @@ def gather_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
     # the nearest walk vs plain: K1's fetch mode reads the camera constants
     # and the winners' attribute rows where the others read rays
     if near[0] == "nearest_attrs":
-        near_res, kt, _ki = check_nearest(
+        near_res, kt, _ki, walk = check_nearest(
             near_fn, near_plain, kn, inside, near[1], label,
             OPS_NEAREST_ONE_ORIGIN, window_bytes(kn[1], kn[5]), 0, (kn[3],),
-            kn[2])
+            kn[2], exact=True)
+        k1_schedule(kn, label, walk, fetch=True)
     else:
-        near_res, kt, _ki = check_nearest(
+        near_res, kt, _ki, _ = check_nearest(
             near_fn, near_plain, kn, inside, near[1], label,
             nearest_ops(kn[2]), window_bytes(kn[1], kn[4]), 24)
 
@@ -1121,7 +1239,7 @@ def mode_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
                  "1878)") if branch == "fused" else
                 ("anyhit_rays_kernel", "tiled_anyhit_t (tiled_t.py:1815)"))
     return [
-        entry(f"nearest_shaded_kernel ({name} mode)", "nearest.cu",
+        entry(f"{K1_NAME} ({name} mode)", "nearest.cu",
               "simple_raytracer_tpu/kernels/tiled_t.py:855", label,
               launches["nearest_shaded"],
               max(k1_res["t_max_abs_err"], k1_res["shade_max_abs_err"]),
@@ -1302,7 +1420,7 @@ def probe_phase(prep, cfg, light, label: str, gpu: str) -> list:
              share=res["bound_ms"] / k1_ms[name], plain_ms=plain_ms, gpu=gpu)
         replaces, via = (fixed.WIN_REPLACES if name == "win" else
                          (fixed.WIN_REPLACES[0], "win_body's fixed part"))
-        entries.append(entry(f"nearest_shaded_kernel ({name} plan)",
+        entries.append(entry(f"{K1_NAME} ({name} plan)",
                              "nearest.cu", replaces, label,
                              launches["nearest_shaded"],
                              res["t_max_abs_err"], k1_ms[name], plain_ms,
@@ -1547,7 +1665,7 @@ def main() -> int:
     entries += probe_phase(prep, cfg, light, f"probes on the {bench}", gpu)
 
     print(json.dumps({"kernels": [
-        entry("nearest_shaded_kernel", "nearest.cu",
+        entry(K1_NAME, "nearest.cu",
               "simple_raytracer_tpu/kernels/tiled_t.py:855", bench,
               launches["nearest_shaded"], k1_res["t_max_abs_err"],
               times["k1_ms"], times["k1_plain_ms"], k1_res),

@@ -101,8 +101,11 @@ class KernelConfig:
     break.  The widths are the JAX package's (WINDOW_BLOCKS 2 for the
     nearest walk, whose break rewards short windows; 4 for the any-hit walk,
     which has no ordering gain), so the two packages walk the same plans.
-    ``threads`` is the CUDA block size; each thread owns
-    ``tile // threads`` rays of the tile.  Not tuned on the H100 yet.
+    ``threads`` is the CUDA block size of ``nearest_rays_kernel`` (K1's
+    rays mode, K4, K6) and of the any-hit and prepass kernels; each thread
+    owns ``tile // threads`` rays of the tile.  Not tuned on the H100 yet.
+    K1 does not read it: its walk runs CTAs of 128 threads over 512-ray
+    slices and its epilogue blocks of 256 threads (csrc/nearest.cu).
 
     The branch switches carry the JAX ``KernelConfig`` fields and
     environment switches of the same meaning:

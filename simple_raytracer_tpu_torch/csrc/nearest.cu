@@ -1,76 +1,97 @@
-// The nearest-hit walks, one thread block per ray tile.
+// The nearest-hit walks.
 //
-// nearest_shaded_kernel: nearest hit + fused Phong + per-tile shadow bounds,
-// or, in its fetch mode, nearest hit + the winner's attribute row.
-// Replaces the TPU kernel simple_raytracer_tpu/kernels/tiled_t.py::
-// _nearest_kernel_t, reached through tiled_nearest_t from hits_shaded (the
-// fused modes, on the fused frame's path: flat, textured or smooth-normal
-// scenes) and from hits_attrs and hits with cam_spec (the fetch mode, on the
-// soft-shadow and sublane gather paths; the gather drops the attribute
-// rows).  Plain PyTorch versions: kernels/nearest.py::
-// tiled_nearest_shaded_plain and tiled_nearest_attrs_plain.  Every mode is
-// one instance of the template (kMode), so their walks cannot drift apart.
-// Tiles are 64x64 or 32x32 pixels; rays are rebuilt from the pixel index
-// and the camera constants, so no ray array exists.
+// K1 (k1_schedule_kernel, k1_walk_kernel, k1_epilogue_kernel<kMode>):
+// nearest hit + fused Phong + per-tile shadow bounds, or, in its fetch
+// mode, nearest hit + the winner's attribute row.  Replaces the TPU kernel
+// simple_raytracer_tpu/kernels/tiled_t.py::_nearest_kernel_t, reached
+// through tiled_nearest_t from hits_shaded (the fused modes, on the fused
+// frame's path: flat, textured or smooth-normal scenes) and from hits_attrs
+// and hits with cam_spec (the fetch mode, on the soft-shadow and sublane
+// gather paths; the gather drops the attribute rows).  Plain PyTorch
+// versions: kernels/nearest.py::tiled_nearest_shaded_plain and
+// tiled_nearest_attrs_plain.  Every mode shares the walk and is one
+// instance of the epilogue template (kMode), so their walks cannot drift
+// apart.  Tiles are 64x64 or 32x32 pixels; rays are rebuilt from the pixel
+// index and the camera constants, so no ray array exists.
+//
+// K1 is three launches.  The schedule launch fills one 64-bit key per ray
+// with the miss key and, in its first block, lists the frame's work rows
+// (tile, span): a range row's covering range is cut into spans of
+// `range_span` windows (it has no break), a list row's list into spans of
+// `list_span` entries, each walked from its first entry with its own
+// front-to-back break (with sound entry bounds the merged result is the
+// whole list's; kernels/nearest.py::walk_plain models the split exactly).
+// A counting sort by walk length puts the rows longest first, all on the
+// device, so the host reads nothing.  Each row is `slices` work items, one
+// per slice of kK1Slice consecutive tile lanes (a 64x8 strip of a 64-pixel
+// tile; two per 32-pixel tile).  The walk launch is a persistent grid, as
+// many CTAs as fit on every SM, that take items from a device counter in
+// that order; an item walks its span over its slice's rays, breaking on its
+// own rays alone, and merges each found hit into the ray's key by
+// atomicMin: key = bits(t) << 32 | id, exact and order-independent, ties to
+// the lowest id.  The epilogue launch, one block per tile, decodes the keys
+// and runs the mode's fused epilogue and the tile's bounds row.
 //
 // nearest_rays_kernel: nearest hit (t, id) of explicit rays o, d [n, m, 3]
-// over a plan of windows of wt consecutive triangles.  It replaces three TPU
-// kernels: simple_raytracer_tpu/kernels/tiled.py::_nearest_kernel (K6: pages
-// of page_tris triangles, reached through tiled_nearest from tiled_hits:
-// tiled_impl="paged"; plain version kernels/paged.py::tiled_nearest_plain),
-// tiled_t.py::_nearest_kernel_t over explicit rays (K1's rays mode: 64-
-// triangle windows, the refined plan of the prepass walk; plain version
-// kernels/nearest.py::tiled_nearest_rays_plain) and, with groups > 1,
+// over a plan of windows of wt consecutive triangles, one block per tile.
+// It replaces three TPU kernels: simple_raytracer_tpu/kernels/tiled.py::
+// _nearest_kernel (K6: pages of page_tris triangles, reached through
+// tiled_nearest from tiled_hits: tiled_impl="paged"; plain version
+// kernels/paged.py::tiled_nearest_plain), tiled_t.py::_nearest_kernel_t
+// over explicit rays (K1's rays mode: 64-triangle windows, the refined plan
+// of the prepass walk; plain version kernels/nearest.py::
+// tiled_nearest_rays_plain) and, with groups > 1,
 // tiled_t.py::_nearest_kernel_g (K4: each sub-group of m / groups lanes
 // skips the entries its mask clears and stops on its own bound test; plain
 // version kernels/nearest.py::tiled_nearest_grouped_plain).  The TPU kernels
 // compute their MT numerators as one Gram contraction per window; here they
 // are the cross products of ops/intersect.py, as in K1.
 //
-// Both run nearest_walk: each thread owns RPT rays, strided by the block size
-// so a warp's rays (and its output writes) are adjacent.  For each plan entry
-// the block stages the window's triangles (v0, e1, e2: 9 floats each) in
-// shared memory and every thread runs Möller–Trumbore in f32 against its
-// rays, keeping the least t and, on equal t, the lowest triangle id.  After
-// each window the block stops once every ray's best t is below the next
-// entry's bound (__syncthreads_and); misses (t = inf) never stop it.  With
-// one shared origin (K1) the ray-independent part of each triangle's test is
-// computed once per triangle.  K1's fused mode then fetches the winner's flat
-// normal and object id as one float4 load by id and evaluates the Phong term
-// of the JAX kernel's _fused_phong (abs(n.l), the extra n.l on specular, pow
-// through exp/log with the shininess-0 case); last, a block reduction writes
-// the tile's 15-float bounds row: hit-point box, any-hit flag, object
-// min/max and the ru/rv/dw extremes of the shadow directions in the shared
-// frame.  The smooth mode first replaces the flat normal by normalize(cn +
-// An p) from the winner's 48-byte tri_nrm_map row; the textured mode writes
-// the Phong factors and the texel coordinates of its tri_tex_map row instead
-// of rgb.  The fetch mode instead stores the winner's tri_attr row as one
-// float4.
+// Both walks test Möller–Trumbore in f32 with each thread owning a few rays,
+// strided by the block size so a warp's rays (and its output writes) are
+// adjacent; they keep the least t and, on equal t, the lowest triangle id,
+// and stop a list once every ray's best t is below the next entry's bound
+// (misses, t = inf, never stop it).  K1's fused modes fetch the winner's
+// flat normal and object id as one float4 load by id and evaluate the Phong
+// term of the JAX kernel's _fused_phong (abs(n.l), the extra n.l on
+// specular, pow through exp/log with the shininess-0 case); last, a block
+// reduction writes the tile's 15-float bounds row: hit-point box, any-hit
+// flag, object min/max and the ru/rv/dw extremes of the shadow directions
+// in the shared frame.  The smooth mode first replaces the flat normal by
+// normalize(cn + An p) from the winner's 48-byte tri_nrm_map row; the
+// textured mode writes the Phong factors and the texel coordinates of its
+// tri_tex_map row instead of rgb.  The fetch mode instead stores the
+// winner's tri_attr row as one float4.
 //
 // What bounds them on the H100: the MT arithmetic (about 45 f32 operations
-// per ray-triangle pair, with an IEEE division; K6 recomputes the
-// origin-dependent part per ray), not memory — a window is 2.3 KB (K1) or
-// 4.6 KB (a K6 page), read once per tile from L2, and each ray reads 24
-// bytes (K6) and writes 8-28.  The design keeps each pair's work in
-// registers and amortises every staged triangle over all rays of the tile;
-// the break skips the windows behind the first surface.  K4's sub-groups
-// skip a window's staging when no group needs it and its tests for the
-// groups whose bit is clear, so one deep region of a tile no longer drags
-// the other groups through its list.  Tensor cores, TMA and persistence are
-// left for later work.
+// per ray-triangle pair, with an IEEE division and no contraction; K6
+// recomputes the origin-dependent part per ray), not memory: a window is
+// 2.3 KB (K1) or 4.6 KB (a K6 page), read from L2, and each ray reads 24
+// bytes (K6) and writes 8-28 (K1's keys add 16, in L2).  Tiles walk very
+// unequal lengths (on a 1080p frame from none to 64 windows, a range row
+// over a thousand), so one block per tile leaves a frame waiting on its
+// deepest tiles' SMs; K1's items cut every walk to at most a span over one
+// slice and run longest first on all SMs, in CTAs small enough for several
+// per SM.  Its walk stages the next window with cp.async while the current
+// one is tested, and computes the ray-independent terms of each triangle
+// (tvec, qvec, t_num: one origin) once, at staging, into shared memory.
+// K4's sub-groups skip a window's staging when no group needs it and its
+// tests for the groups whose bit is clear.  Tensor cores and TMA are left
+// for later work.
+
+#include <algorithm>
 
 #include "common.cuh"
 
 namespace {
 
 // Walk the tile's plan: bt[r], bi[r] become the least t and its lowest
-// triangle id over every window walked.  Ray r has direction d[r] and origin
-// o[r], or o[0] for every ray with kOneOrigin.  Lanes that are not live never
-// hold back the break.  kGrouped: lane r belongs to the sub-group of bit
-// gbit[r]; a window is staged when some group not yet past its break may
-// reach it, tested only by the rays of such groups, and each group stops at
-// its own bound test.
-template <int RPT, bool kOneOrigin, bool kGrouped = false>
+// triangle id over every window walked.  Ray r has origin o[r] and direction
+// d[r].  Lanes that are not live never hold back the break.  kGrouped: lane
+// r belongs to the sub-group of bit gbit[r]; a window is staged when some
+// group not yet past its break may reach it, tested only by the rays of such
+// groups, and each group stops at its own bound test.
+template <int RPT, bool kGrouped = false>
 __device__ __forceinline__ void nearest_walk(
     const srt::TilePlan& P, const float* __restrict__ tri, int n_windows,
     int wt, float eps, const float* ox, const float* oy, const float* oz,
@@ -90,20 +111,6 @@ __device__ __forceinline__ void nearest_walk(
       for (int j = 0; j < wt; ++j) {
         const srt::Tri g(s_tri + j * srt::kTriW);
         const int id = id0 + j;
-        // ray-independent with one origin: tvec = o - v0, qvec = tvec x e1,
-        // t_num
-        float tx = 0.0f, ty = 0.0f, tz = 0.0f, qx = 0.0f, qy = 0.0f,
-              qz = 0.0f;
-        float t_num = 0.0f;
-        if constexpr (kOneOrigin) {
-          tx = ox[0] - g.v0x;
-          ty = oy[0] - g.v0y;
-          tz = oz[0] - g.v0z;
-          qx = ty * g.e1z - tz * g.e1y;
-          qy = tz * g.e1x - tx * g.e1z;
-          qz = tx * g.e1y - ty * g.e1x;
-          t_num = g.e2x * qx + g.e2y * qy + g.e2z * qz;
-        }
 #pragma unroll
         for (int r = 0; r < RPT; ++r) {
           if constexpr (kGrouped) {
@@ -113,18 +120,14 @@ __device__ __forceinline__ void nearest_walk(
           const float py = dz[r] * g.e2x - dx[r] * g.e2z;
           const float pz = dx[r] * g.e2y - dy[r] * g.e2x;
           const float det = g.e1x * px + g.e1y * py + g.e1z * pz;
-          if constexpr (!kOneOrigin) {
-            tx = ox[r] - g.v0x;
-            ty = oy[r] - g.v0y;
-            tz = oz[r] - g.v0z;
-          }
+          const float tx = ox[r] - g.v0x;
+          const float ty = oy[r] - g.v0y;
+          const float tz = oz[r] - g.v0z;
           const float u_num = tx * px + ty * py + tz * pz;
-          if constexpr (!kOneOrigin) {
-            qx = ty * g.e1z - tz * g.e1y;
-            qy = tz * g.e1x - tx * g.e1z;
-            qz = tx * g.e1y - ty * g.e1x;
-            t_num = g.e2x * qx + g.e2y * qy + g.e2z * qz;
-          }
+          const float qx = ty * g.e1z - tz * g.e1y;
+          const float qy = tz * g.e1x - tx * g.e1z;
+          const float qz = tx * g.e1y - ty * g.e1x;
+          const float t_num = g.e2x * qx + g.e2y * qy + g.e2z * qz;
           const float inv = 1.0f / det;
           const float u = u_num * inv;
           const float v = (dx[r] * qx + dy[r] * qy + dz[r] * qz) * inv;
@@ -160,6 +163,15 @@ __device__ __forceinline__ void nearest_walk(
   }
 }
 
+// K1's shape (kernels/nearest.py mirrors kK1Slice and passes the spans):
+constexpr int kK1Threads = 256;                  // a walk CTA
+constexpr int kK1Rpt = 2;                        // rays per walk thread
+constexpr int kK1Slice = kK1Threads * kK1Rpt;    // rays of a work item
+constexpr int kK1Buckets = 1024;                 // walk lengths 0..1023
+constexpr int kK1TermW = 16;                      // floats of a staged term row
+constexpr int kEpiThreads = 256;                 // an epilogue block
+constexpr unsigned long long kMissKey = ~0ull;
+
 constexpr int kBoundsW = 15;
 // bounds slots reduced by max (the rest by min): p max xyz, any-hit,
 // obj max, ru max, rv max, dw max
@@ -167,6 +179,254 @@ constexpr unsigned kBoundsMaxMask = 0x5578u;
 
 __device__ __forceinline__ bool is_max_slot(int q) {
   return (kBoundsMaxMask >> q) & 1u;
+}
+
+// A hit as its key: t >= 0 (-0.0 packed as +0.0, whose bits sort first)
+// over the id, so the unsigned minimum is the least t, then the lowest id.
+__device__ __forceinline__ unsigned long long hit_key(float t, int id) {
+  const unsigned tb = __float_as_uint(t == 0.0f ? 0.0f : t);
+  return (static_cast<unsigned long long>(tb) << 32) |
+         static_cast<unsigned>(id);
+}
+
+// Schedule bucket of a walk of `len` windows: ascending buckets are
+// descending lengths.
+__device__ __forceinline__ int k1_bucket(int len) {
+  return kK1Buckets - 1 - min(len, kK1Buckets - 1);
+}
+
+// Windows a row walks: its list, or its covering range clamped to the
+// windows that exist (later ones are skipped by the walk anyway).
+__device__ __forceinline__ int k1_walk_len(const srt::TilePlan& P,
+                                           int n_windows) {
+  return P.use_list ? P.cnt : min(P.cnt, max(0, n_windows - P.lo));
+}
+
+// The spans' length of a row, in entries (list) or windows (range).
+struct K1Spans {
+  int range, list;
+  __device__ int of(const srt::TilePlan& P) const {
+    return P.use_list ? list : range;
+  }
+};
+
+// sched (int32): [0] the item counter, [1] the rows, then (tile, span) per
+// row.  Every block fills keys with the miss key; block 0 (kK1Buckets
+// threads) counts the rows by walk length, scans the counts longest first
+// and scatters the rows to their places.  Rows of equal length land in any
+// order.
+__global__ void __launch_bounds__(kK1Buckets) k1_schedule_kernel(
+    const int* __restrict__ plan, int plan_w, int n_tiles, int n_windows,
+    K1Spans spans, int rows_max, int* __restrict__ sched,
+    unsigned long long* __restrict__ keys, long long n_keys) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n_keys; i += stride)
+    keys[i] = kMissKey;
+  if (blockIdx.x != 0) return;
+  __shared__ int off[kK1Buckets];
+  __shared__ int s_warp[kK1Buckets / 32];
+  const int tid = threadIdx.x;
+  off[tid] = 0;
+  __syncthreads();
+  for (int t = tid; t < n_tiles; t += kK1Buckets) {
+    const srt::TilePlan P(plan, plan_w, t);
+    const int len = k1_walk_len(P, n_windows), span = spans.of(P);
+    if (len <= 0) continue;
+    const int full = len / span, rem = len - full * span;
+    if (full) atomicAdd(&off[k1_bucket(span)], full);
+    if (rem) atomicAdd(&off[k1_bucket(rem)], 1);
+  }
+  __syncthreads();
+  // exclusive scan of off: warp scans, then a scan of the warp sums
+  const int v = off[tid];
+  int x = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if ((tid & 31) >= d) x += y;
+  }
+  if ((tid & 31) == 31) s_warp[tid >> 5] = x;
+  __syncthreads();
+  if (tid < 32) {
+    int w = s_warp[tid];
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, d);
+      if (tid >= d) w += y;
+    }
+    s_warp[tid] = w;
+  }
+  __syncthreads();
+  const int excl = x - v + (tid >= 32 ? s_warp[(tid >> 5) - 1] : 0);
+  off[tid] = excl;
+  if (tid == kK1Buckets - 1) {
+    sched[0] = 0;
+    sched[1] = min(excl + v, rows_max);
+  }
+  __syncthreads();
+  for (int t = tid; t < n_tiles; t += kK1Buckets) {
+    const srt::TilePlan P(plan, plan_w, t);
+    const int len = k1_walk_len(P, n_windows), span = spans.of(P);
+    for (int s = 0; s * span < len; ++s) {
+      const int pos = atomicAdd(&off[k1_bucket(min(span, len - s * span))], 1);
+      if (pos < rows_max) {
+        sched[2 + 2 * pos] = t;
+        sched[3 + 2 * pos] = s;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start copying window w's triangle rows into dst (wt * kTriW floats, a
+// multiple of 4: 16-byte copies) as one cp.async group.
+__device__ __forceinline__ void stage_async(float* dst,
+                                            const float* __restrict__ tri,
+                                            int w, int wt) {
+  const float* src = tri + static_cast<size_t>(w) * wt * srt::kTriW;
+  for (int i = threadIdx.x; i < wt * srt::kTriW / 4; i += blockDim.x)
+    cp_async16(dst + 4 * i, src + 4 * i);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// A staged triangle's ray-independent terms for the one origin o: e1, e2,
+// tvec = o - v0, qvec = tvec x e1, t_num = e2 . qvec (ops/intersect.py's
+// expressions, in its order), as four float4.
+__device__ __forceinline__ void stage_terms(const float* g, float* out,
+                                            float ox, float oy, float oz) {
+  const srt::Tri T(g);
+  const float tx = ox - T.v0x, ty = oy - T.v0y, tz = oz - T.v0z;
+  const float qx = ty * T.e1z - tz * T.e1y;
+  const float qy = tz * T.e1x - tx * T.e1z;
+  const float qz = tx * T.e1y - ty * T.e1x;
+  const float t_num = T.e2x * qx + T.e2y * qy + T.e2z * qz;
+  float4* o4 = reinterpret_cast<float4*>(out);
+  o4[0] = make_float4(T.e1x, T.e1y, T.e1z, T.e2x);
+  o4[1] = make_float4(T.e2y, T.e2z, tx, ty);
+  o4[2] = make_float4(tz, qx, qy, qz);
+  o4[3] = make_float4(t_num, 0.0f, 0.0f, 0.0f);
+}
+
+// The persistent walk: each CTA takes the next item from sched[0] until
+// none is left.  Item i is row i / slices, slice i % slices.  Shared
+// memory: two staged windows (the next one in flight) and the current
+// window's term rows.
+__global__ void __launch_bounds__(kK1Threads) k1_walk_kernel(
+    const int* __restrict__ plan, int plan_w, const float* __restrict__ tri,
+    int n_windows, const float* __restrict__ cam_g, int tile_px, int wt,
+    float eps, K1Spans spans, int* __restrict__ sched,
+    unsigned long long* __restrict__ keys) {
+  extern __shared__ __align__(16) float smem[];
+  float* raw = smem;                             // 2 x wt * kTriW
+  float* terms = smem + 2 * wt * srt::kTriW;     // wt * kK1TermW
+  __shared__ float s_cam[12];
+  __shared__ int s_item;
+  const int tid = threadIdx.x;
+  if (tid < 12) s_cam[tid] = cam_g[tid];
+  const int tile_r = tile_px * tile_px;
+  const int slice_r = min(tile_r, kK1Slice);
+  const int slices = tile_r / slice_r;
+  const int items = sched[1] * slices;
+  const int win_f = wt * srt::kTriW;
+  for (;;) {
+    if (tid == 0) s_item = atomicAdd(&sched[0], 1);
+    __syncthreads();
+    const int item = s_item;
+    if (item >= items) break;                    // block-uniform
+    const int row = item / slices, slice = item - row * slices;
+    const int tile = sched[2 + 2 * row];
+    const srt::TilePlan P(plan, plan_w, tile);
+    const int k0 = sched[3 + 2 * row] * spans.of(P);
+    const int k1 = min(P.cnt, k0 + spans.of(P));
+    const float ox = s_cam[9], oy = s_cam[10], oz = s_cam[11];
+    const int base = slice * slice_r;
+
+    float dx[kK1Rpt], dy[kK1Rpt], dz[kK1Rpt], bt[kK1Rpt];
+    int bi[kK1Rpt];
+    bool live[kK1Rpt];
+#pragma unroll
+    for (int r = 0; r < kK1Rpt; ++r) {
+      const int l = tid + r * kK1Threads;
+      live[r] = l < slice_r;
+      srt::ray_dir(s_cam, P.px0, P.py0, tile_px, base + (live[r] ? l : 0),
+                   dx[r], dy[r], dz[r]);
+      bt[r] = INFINITY;
+      bi[r] = -1;
+    }
+    auto exists = [&](int w) { return w >= 0 && w < n_windows; };
+    if (k0 < k1 && exists(P.window(k0)))
+      stage_async(raw, tri, P.window(k0), wt);
+    for (int k = k0; k < k1; ++k) {
+      const int w = P.window(k);                 // block-uniform
+      float* cur = raw + ((k - k0) & 1) * win_f;
+      cp_async_wait_all();
+      __syncthreads();           // window k landed; the term rows are free
+      if (k + 1 < k1 && exists(P.window(k + 1)))
+        stage_async(raw + ((k + 1 - k0) & 1) * win_f, tri, P.window(k + 1),
+                    wt);
+      if (exists(w)) {
+        for (int j = tid; j < wt; j += kK1Threads)
+          stage_terms(cur + j * srt::kTriW, terms + j * kK1TermW, ox, oy, oz);
+        __syncthreads();
+        const int id0 = w * wt;
+        for (int j = 0; j < wt; ++j) {
+          const float4* g4 = reinterpret_cast<const float4*>(terms) +
+                             j * (kK1TermW / 4);
+          const float4 a = g4[0], b = g4[1], c = g4[2];
+          const float e1x = a.x, e1y = a.y, e1z = a.z, e2x = a.w;
+          const float e2y = b.x, e2z = b.y, tx = b.z, ty = b.w;
+          const float tz = c.x, qx = c.y, qy = c.z, qz = c.w;
+          const float t_num = g4[3].x;
+          const int id = id0 + j;
+#pragma unroll
+          for (int r = 0; r < kK1Rpt; ++r) {
+            const float px = dy[r] * e2z - dz[r] * e2y;
+            const float py = dz[r] * e2x - dx[r] * e2z;
+            const float pz = dx[r] * e2y - dy[r] * e2x;
+            const float det = e1x * px + e1y * py + e1z * pz;
+            const float u_num = tx * px + ty * py + tz * pz;
+            const float inv = 1.0f / det;
+            const float u = u_num * inv;
+            const float v = (dx[r] * qx + dy[r] * qy + dz[r] * qz) * inv;
+            const float t = t_num * inv;
+            const bool valid = fabsf(det) >= eps && u >= 0.0f && u <= 1.0f &&
+                               v >= 0.0f && u + v <= 1.0f && t >= 0.0f;
+            if (valid && (t < bt[r] || (t == bt[r] && id < bi[r]))) {
+              bt[r] = t;
+              bi[r] = id;
+            }
+          }
+        }
+      }
+      // the front-to-back break, on this slice's rays (logical shift: -0.0
+      // must not pass as small)
+      if (P.use_list && k + 1 < k1) {
+        const unsigned nb16 = P.bound16(k + 1);
+        int ok = 1;
+#pragma unroll
+        for (int r = 0; r < kK1Rpt; ++r)
+          ok &= !live[r] || (__float_as_uint(bt[r]) >> 16) < nb16;
+        if (__syncthreads_and(ok)) break;
+      }
+    }
+    cp_async_wait_all();                         // no copy outlives the item
+#pragma unroll
+    for (int r = 0; r < kK1Rpt; ++r)
+      if (live[r] && bi[r] >= 0)
+        atomicMin(&keys[static_cast<size_t>(tile) * tile_r + base + tid +
+                        r * kK1Threads],
+                  hit_key(bt[r], bi[r]));
+    __syncthreads();             // s_item and the buffers free for the next
+  }
 }
 
 // K1's modes.  kFetch writes the winner's tri_attr row (flat normal, object
@@ -177,57 +437,33 @@ __device__ __forceinline__ bool is_max_slot(int q) {
 // and writes rgb; kTextured writes the colour-free Phong factors and the
 // texel coordinates A p + c of the winner's tri_tex_map row, (dw, sw, texu,
 // texv, obj, tex id), for the texel finish in kernels/tiled.py.  A map row
-// is 12 floats, read as three float4 loads after the walk.
+// is 12 floats, read as three float4 loads.
 enum : int { kFetch = -1, kFlat = 0, kTextured = 1, kSmooth = 2 };
 
-template <int RPT, int kMode>
-__global__ void nearest_shaded_kernel(
+// One block per tile: each key decoded (a non-finite t, the miss key's
+// among them, is a miss: t = inf, idx = -1), then the mode's outputs and,
+// in the fused modes, the block reduction of the tile's bounds row.
+template <int kMode>
+__global__ void __launch_bounds__(kEpiThreads) k1_epilogue_kernel(
     const int* __restrict__ plan, int plan_w,
-    const float* __restrict__ tri, const float4* __restrict__ attr,
-    int n_windows, const float* __restrict__ mat, int n_obj,
-    const float* __restrict__ cam_g, int tile_px, int wt, float eps,
+    const unsigned long long* __restrict__ keys,
+    const float4* __restrict__ attr, const float* __restrict__ mat,
+    int n_obj, const float* __restrict__ cam_g, int tile_px,
     int double_sided, int specular_nl, const float4* __restrict__ amap,
     float* __restrict__ t_out, int* __restrict__ idx_out,
     int* __restrict__ obj_out, float* __restrict__ shade_out,
     float* __restrict__ bounds_out, float4* __restrict__ attr_out) {
   constexpr int kOutW = kMode == kTextured ? 6 : 3;   // shade_out columns
-  extern __shared__ float s_tri[];               // wt * kTriW floats
   __shared__ float s_cam[srt::kCamLen];
   __shared__ float s_red[srt::kMaxWarps][kBoundsW];
-  const int nthr = blockDim.x;
   const int tid = threadIdx.x;
   const int tile = blockIdx.x;
-  const int tile_r = nthr * RPT;
-  for (int i = tid; i < srt::kCamLen; i += nthr) s_cam[i] = cam_g[i];
+  const int tile_r = tile_px * tile_px;
+  for (int i = tid; i < srt::kCamLen; i += kEpiThreads) s_cam[i] = cam_g[i];
   __syncthreads();
-  const srt::TilePlan P(plan, plan_w, tile);
+  const int px0 = plan[static_cast<size_t>(tile) * plan_w + 4];
+  const int py0 = plan[static_cast<size_t>(tile) * plan_w + 5];
   const float ox = s_cam[9], oy = s_cam[10], oz = s_cam[11];
-
-  float dx[RPT], dy[RPT], dz[RPT], bt[RPT];
-  int bi[RPT];
-  bool live[RPT];
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    srt::ray_dir(s_cam, P.px0, P.py0, tile_px, tid + r * nthr, dx[r], dy[r],
-                 dz[r]);
-    bt[r] = INFINITY;
-    bi[r] = -1;
-    live[r] = true;
-  }
-  nearest_walk<RPT, true>(P, tri, n_windows, wt, eps, &ox, &oy, &oz, dx, dy,
-                          dz, live, bt, bi, s_tri);
-
-  if constexpr (kMode == kFetch) {
-#pragma unroll
-    for (int r = 0; r < RPT; ++r) {
-      const size_t o = (size_t)tile * tile_r + tid + r * nthr;
-      const bool hit = isfinite(bt[r]);
-      t_out[o] = bt[r];
-      idx_out[o] = hit ? bi[r] : -1;
-      attr_out[o] = hit ? attr[bi[r]] : make_float4(0.0f, 0.0f, 0.0f, -1.0f);
-    }
-    return;
-  }
   const float Lx = s_cam[12], Ly = s_cam[13], Lz = s_cam[14];
   const float fsx = s_cam[15], fsy = s_cam[16], fsz = s_cam[17];
   const float fvx = s_cam[18], fvy = s_cam[19], fvz = s_cam[20];
@@ -238,14 +474,21 @@ __global__ void nearest_shaded_kernel(
     acc[q] = is_max_slot(q) ? -INFINITY : INFINITY;
   acc[6] = 0.0f;                                 // any-hit flag
 
-#pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int lane = tid + r * nthr;
-    const size_t o = (size_t)tile * tile_r + lane;
-    const bool hit = isfinite(bt[r]);
-    const int id = hit ? bi[r] : -1;
-    t_out[o] = bt[r];
+  for (int lane = tid; lane < tile_r; lane += kEpiThreads) {
+    const size_t o = static_cast<size_t>(tile) * tile_r + lane;
+    const unsigned long long key = keys[o];
+    const float kt = __uint_as_float(static_cast<unsigned>(key >> 32));
+    const bool hit = isfinite(kt);
+    const float bt = hit ? kt : INFINITY;
+    const int id = hit ? static_cast<int>(static_cast<unsigned>(key)) : -1;
+    t_out[o] = bt;
     idx_out[o] = id;
+    if constexpr (kMode == kFetch) {
+      attr_out[o] = hit ? attr[id] : make_float4(0.0f, 0.0f, 0.0f, -1.0f);
+      continue;
+    }
+    float dx, dy, dz;
+    srt::ray_dir(s_cam, px0, py0, tile_px, lane, dx, dy, dz);
     float out[kOutW];
 #pragma unroll
     for (int q = 0; q < kOutW; ++q) out[q] = 0.0f;
@@ -254,12 +497,12 @@ __global__ void nearest_shaded_kernel(
     if (hit) {
       const float4 a = attr[id];
       obj = static_cast<int>(a.w);
-      const float t = bt[r];
-      const float hx = ox + t * dx[r], hy = oy + t * dy[r], hz = oz + t * dz[r];
+      const float t = bt;
+      const float hx = ox + t * dx, hy = oy + t * dy, hz = oz + t * dz;
       float nx = a.x, ny = a.y, nz = a.z;
       float4 m0, m1, m2;                         // the winner's map row
       if constexpr (kMode != kFlat) {
-        const float4* row = amap + (size_t)id * 3;
+        const float4* row = amap + static_cast<size_t>(id) * 3;
         m0 = row[0];
         m1 = row[1];
         m2 = row[2];
@@ -282,9 +525,8 @@ __global__ void nearest_shaded_kernel(
       lz = lz * li;
       const float nl = nx * lx + ny * ly + nz * lz;
       const float nla = double_sided ? fabsf(nl) : fmaxf(nl, 0.0f);
-      const float di =
-          rsqrtf(fmaxf(dx[r] * dx[r] + dy[r] * dy[r] + dz[r] * dz[r], 1e-30f));
-      const float vx = -dx[r] * di, vy = -dy[r] * di, vz = -dz[r] * di;
+      const float di = rsqrtf(fmaxf(dx * dx + dy * dy + dz * dz, 1e-30f));
+      const float vx = -dx * di, vy = -dy * di, vz = -dz * di;
       const float rx = -lx + 2.0f * nl * nx;
       const float ry = -ly + 2.0f * nl * ny;
       const float rz = -lz + 2.0f * nl * nz;
@@ -340,9 +582,10 @@ __global__ void nearest_shaded_kernel(
 #pragma unroll
     for (int q = 0; q < kOutW; ++q) shade_out[kOutW * o + q] = out[q];
   }
+  if constexpr (kMode == kFetch) return;
 
   // block reduction of the bounds row: warp shuffles, then across warps
-  const int warp = tid >> 5, wl = tid & 31, nwarps = nthr >> 5;
+  const int warp = tid >> 5, wl = tid & 31;
 #pragma unroll
   for (int q = 0; q < kBoundsW; ++q) {
     float v = acc[q];
@@ -355,10 +598,14 @@ __global__ void nearest_shaded_kernel(
   __syncthreads();
   if (tid < kBoundsW) {
     float v = s_red[0][tid];
-    for (int i = 1; i < nwarps; ++i)
+    for (int i = 1; i < kEpiThreads / 32; ++i)
       v = is_max_slot(tid) ? fmaxf(v, s_red[i][tid]) : fminf(v, s_red[i][tid]);
-    bounds_out[(size_t)tile * kBoundsW + tid] = v;
+    bounds_out[static_cast<size_t>(tile) * kBoundsW + tid] = v;
   }
+}
+
+size_t k1_walk_smem(int wt) {
+  return static_cast<size_t>(wt) * (2 * srt::kTriW + kK1TermW) * sizeof(float);
 }
 
 // rays o, d [n, m, 3] f32 -> t [n, m] f32 (inf on a miss), idx [n, m] i32
@@ -396,8 +643,8 @@ __global__ void nearest_rays_kernel(
     bi[r] = -1;
   }
   if constexpr (kGrouped) srt::group_bits<RPT>(m / groups, gbit);
-  nearest_walk<RPT, false, kGrouped>(P, tri, n_windows, wt, eps, ox, oy, oz,
-                                     dx, dy, dz, live, bt, bi, s_tri, gbit);
+  nearest_walk<RPT, kGrouped>(P, tri, n_windows, wt, eps, ox, oy, oz, dx, dy,
+                              dz, live, bt, bi, s_tri, gbit);
 #pragma unroll
   for (int r = 0; r < RPT; ++r) {
     const int lane = tid + r * nthr;
@@ -408,83 +655,111 @@ __global__ void nearest_rays_kernel(
   }
 }
 
-}  // namespace
-
-#define SRT_NEAREST_CASE(R, MODE)                                              \
-  case R:                                                                      \
-    nearest_shaded_kernel<R, MODE><<<n_tiles, threads, smem, s>>>(             \
-        static_cast<const int*>(plan), plan_w,                                 \
-        static_cast<const float*>(tri), static_cast<const float4*>(attr),      \
-        n_windows, static_cast<const float*>(mat), n_obj,                      \
-        static_cast<const float*>(cam), tile_px, wt, eps, double_sided,        \
-        specular_nl, static_cast<const float4*>(amap),                         \
-        static_cast<float*>(t), static_cast<int*>(idx),                        \
-        static_cast<int*>(obj), static_cast<float*>(shade),                    \
-        static_cast<float*>(bounds), static_cast<float4*>(attr_out));          \
-    break;
-
-namespace {
-
 template <int kMode>
-int launch_nearest(const void* plan, int plan_w, int n_tiles, const void* tri,
-                   const void* attr, int n_windows, const void* mat,
-                   int n_obj, const void* cam, int tile_px, int wt, float eps,
-                   int double_sided, int specular_nl, const void* amap,
-                   void* t, void* idx, void* obj, void* shade, void* bounds,
-                   void* attr_out, int threads, void* stream) {
-  if (n_tiles == 0) return 0;
-  const int tile_r = tile_px * tile_px;
-  if (threads <= 0 || threads > 1024 || threads % 32 || tile_r % threads)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(wt) * srt::kTriW * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (tile_r / threads) {
-    SRT_NEAREST_CASE(1, kMode)
-    SRT_NEAREST_CASE(2, kMode)
-    SRT_NEAREST_CASE(4, kMode)
-    SRT_NEAREST_CASE(8, kMode)
-    SRT_NEAREST_CASE(16, kMode)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+int launch_k1(const void* plan, int plan_w, int n_tiles, const void* tri,
+              const void* attr, int n_windows, const void* mat, int n_obj,
+              const void* cam, int tile_px, int wt, float eps,
+              int double_sided, int specular_nl, const void* amap, void* t,
+              void* idx, void* obj, void* shade, void* bounds,
+              void* attr_out, void* keys, void* sched, int rows_max,
+              K1Spans spans, int stages, cudaStream_t s) {
+  const long long n_keys = static_cast<long long>(n_tiles) * tile_px * tile_px;
+  if (stages & 1) {
+    const long long want = (n_keys + kK1Buckets - 1) / kK1Buckets;
+    const int blocks = static_cast<int>(std::max(1LL, std::min(want, 512LL)));
+    k1_schedule_kernel<<<blocks, kK1Buckets, 0, s>>>(
+        static_cast<const int*>(plan), plan_w, n_tiles, n_windows, spans,
+        rows_max, static_cast<int*>(sched),
+        static_cast<unsigned long long*>(keys), n_keys);
+    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  }
+  if (stages & 2) {
+    int dev = 0, sms = 0, per_sm = 0;
+    const size_t smem = k1_walk_smem(wt);
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k1_walk_kernel,
+                                                  kK1Threads, smem);
+    k1_walk_kernel<<<std::max(1, sms * per_sm), kK1Threads, smem, s>>>(
+        static_cast<const int*>(plan), plan_w,
+        static_cast<const float*>(tri), n_windows,
+        static_cast<const float*>(cam), tile_px, wt, eps, spans,
+        static_cast<int*>(sched), static_cast<unsigned long long*>(keys));
+    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  }
+  if (stages & 4) {
+    k1_epilogue_kernel<kMode><<<n_tiles, kEpiThreads, 0, s>>>(
+        static_cast<const int*>(plan), plan_w,
+        static_cast<const unsigned long long*>(keys),
+        static_cast<const float4*>(attr), static_cast<const float*>(mat),
+        n_obj, static_cast<const float*>(cam), tile_px, double_sided,
+        specular_nl, static_cast<const float4*>(amap),
+        static_cast<float*>(t), static_cast<int*>(idx),
+        static_cast<int*>(obj), static_cast<float*>(shade),
+        static_cast<float*>(bounds), static_cast<float4*>(attr_out));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// mode: 0 flat (rgb), 1 textured (amap = tri_tex_map; shade [R, 6]), 2
-// smooth normals (amap = tri_nrm_map; rgb)
-extern "C" int srt_nearest_shaded(
+// K1 in attribute mode `mode`: -1 fetch (attr_out [R, 4]; mat, amap, obj,
+// shade and bounds not read), 0 flat (rgb), 1 textured (amap = tri_tex_map;
+// shade [R, 6]), 2 smooth normals (amap = tri_nrm_map; rgb).  Scratch:
+// keys [n_tiles * tile_px**2] u64 and sched [2 + 2 * rows_max] i32, rows_max
+// at least n_tiles * (1 + max(n_windows / range_span, (plan_w - 8) /
+// list_span)).  `stages` picks the launches
+// (1 schedule and key fill, 2 walk, 4 epilogue; 7 for all): the walk reads
+// the schedule launch's rows and consumes its counter.
+extern "C" int srt_nearest_k1(
     const void* plan, int plan_w, int n_tiles, const void* tri,
     const void* attr, int n_windows, const void* mat, int n_obj,
     const void* cam, int tile_px, int wt, float eps, int double_sided,
     int specular_nl, int mode, const void* amap, void* t, void* idx,
-    void* obj, void* shade, void* bounds, int threads, void* stream) {
+    void* obj, void* shade, void* bounds, void* attr_out, void* keys,
+    void* sched, int rows_max, int range_span, int list_span, int stages,
+    void* stream) {
+  if (n_tiles == 0) return 0;
+  const int tile_r = tile_px * tile_px;
+  if (tile_r <= 0 || tile_r % 32 || (tile_r > kK1Slice && tile_r % kK1Slice) ||
+      wt <= 0 || wt % 4 || range_span < 1 || range_span >= kK1Buckets ||
+      list_span < 1 || list_span >= kK1Buckets ||
+      plan_w - srt::kPlanAux >= kK1Buckets || k1_walk_smem(wt) > 48 * 1024 ||
+      reinterpret_cast<uintptr_t>(tri) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-#define SRT_NEAREST_MODE(M)                                                    \
+#define SRT_K1_MODE(M)                                                         \
   case M:                                                                      \
-    return launch_nearest<M>(plan, plan_w, n_tiles, tri, attr, n_windows, mat, \
-                             n_obj, cam, tile_px, wt, eps, double_sided,       \
-                             specular_nl, amap, t, idx, obj, shade, bounds,    \
-                             nullptr, threads, stream);
-    SRT_NEAREST_MODE(kFlat)
-    SRT_NEAREST_MODE(kTextured)
-    SRT_NEAREST_MODE(kSmooth)
-#undef SRT_NEAREST_MODE
+    return launch_k1<M>(plan, plan_w, n_tiles, tri, attr, n_windows, mat,      \
+                        n_obj, cam, tile_px, wt, eps, double_sided,            \
+                        specular_nl, amap, t, idx, obj, shade, bounds,         \
+                        attr_out, keys, sched, rows_max,                       \
+                        K1Spans{range_span, list_span}, stages, s);
+    SRT_K1_MODE(kFetch)
+    SRT_K1_MODE(kFlat)
+    SRT_K1_MODE(kTextured)
+    SRT_K1_MODE(kSmooth)
+#undef SRT_K1_MODE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-extern "C" int srt_nearest_attrs(
-    const void* plan, int plan_w, int n_tiles, const void* tri,
-    const void* attr, int n_windows, const void* cam, int tile_px, int wt,
-    float eps, void* t, void* idx, void* attr_out, int threads,
-    void* stream) {
-  return launch_nearest<kFetch>(plan, plan_w, n_tiles, tri, attr, n_windows,
-                                nullptr, 0, cam, tile_px, wt, eps, 0, 0,
-                                nullptr, t, idx, nullptr, nullptr, nullptr,
-                                attr_out, threads, stream);
+// K1's walk on this card for windows of wt triangles: out = (CTAs per SM,
+// registers per thread, SMs, rays per slice, threads per CTA).
+extern "C" int srt_k1_shape(int wt, int* out) {
+  int dev = 0;
+  cudaFuncAttributes fa;
+  if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
+  cudaDeviceGetAttribute(&out[2], cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], k1_walk_kernel,
+                                                kK1Threads, k1_walk_smem(wt));
+  cudaFuncGetAttributes(&fa, k1_walk_kernel);
+  out[1] = fa.numRegs;
+  out[3] = kK1Slice;
+  out[4] = kK1Threads;
+  return static_cast<int>(cudaGetLastError());
 }
 
 #define SRT_NEAREST_RAYS_LAUNCH(R, G)                                          \

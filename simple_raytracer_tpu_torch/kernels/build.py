@@ -38,21 +38,19 @@ _L = ctypes.c_longlong
 # C signatures by source; each function returns a cudaError_t
 SIGNATURES = {
     "nearest.cu": {
-        "srt_nearest_shaded": (
+        "srt_nearest_k1": (
             _P, _I, _I,          # plan, plan_w, n_tiles
             _P, _P, _I,          # tri, tri_attr, n_windows
             _P, _I,              # mat, n_obj
             _P, _I, _I, _F,      # cam, tile_px, window_tris, eps
             _I, _I,              # double_sided, specular_nl
-            _I, _P,              # attribute mode, attr_map
+            _I, _P,              # attribute mode (-1 fetch), attr_map
             _P, _P, _P, _P, _P,  # t, idx, obj, rgb or comp, bounds
-            _I, _P),             # threads, stream
-        "srt_nearest_attrs": (
-            _P, _I, _I,          # plan, plan_w, n_tiles
-            _P, _P, _I,          # tri, tri_attr, n_windows
-            _P, _I, _I, _F,      # cam, tile_px, window_tris, eps
-            _P, _P, _P,          # t, idx, attr_out
-            _I, _P),             # threads, stream
+            _P,                  # attr_out (fetch mode)
+            _P, _P, _I,          # keys, sched, rows_max
+            _I, _I,              # range span, list span
+            _I, _P),             # stages, stream
+        "srt_k1_shape": (_I, _P),  # window_tris, out[5]
         "srt_nearest_rays": (
             _P, _I, _I,          # plan, plan_w, n_tiles
             _P, _I,              # tri, n_windows

@@ -1,20 +1,23 @@
 """Kernels 1 and 4: the nearest-hit walks of the sublane layout.
 
-``tiled_nearest_shaded`` wraps the CUDA kernel ``nearest_shaded_kernel``
-(csrc/nearest.cu) in its fused modes (JAX ``_fused_phong``'s attribute
+``tiled_nearest_shaded`` wraps K1 (csrc/nearest.cu: a schedule launch, a
+persistent walk over (tile, ray slice, window span) work items, and an
+epilogue launch) in its fused modes (JAX ``_fused_phong``'s attribute
 modes: 0 flat, 1 textured, 2 smooth normals) and ``tiled_nearest_attrs``
-the same kernel in its fetch mode; ``tiled_nearest_rays`` wraps
-``nearest_rays_kernel`` over the explicit rays of each tile.  Together they
-replace the JAX package's Pallas kernel
-``kernels/tiled_t.py::_nearest_kernel_t`` (fused on the fused frame's path,
-fetch on the soft-shadow and sublane gather paths, explicit rays on the
-prepass walk's rerun).  ``tiled_nearest_grouped``
+in its fetch mode; ``tiled_nearest_rays`` wraps ``nearest_rays_kernel``
+over the explicit rays of each tile.  Together they replace the JAX
+package's Pallas kernel ``kernels/tiled_t.py::_nearest_kernel_t`` (fused on
+the fused frame's path, fetch on the soft-shadow and sublane gather paths,
+explicit rays on the prepass walk's rerun).  ``tiled_nearest_grouped``
 wraps ``nearest_rays_kernel`` over a grouped plan and replaces
 ``tiled_t.py::_nearest_kernel_g`` (K4, ``KernelConfig.groups`` > 1).  Each
 ``*_plain`` function is the plain PyTorch version of its wrapper: same
 arguments, same results.  Each wrapper runs its plain version for tensors on
 the CPU and the kernel for tensors on a CUDA device; it adds one to its own
-``launches`` at each kernel launch.
+``launches`` at each kernel launch (K1's three launches count one).
+:func:`k1_work_rows`, :func:`hit_keys`, :func:`merge_keys` and
+:func:`decode_keys` are the plain versions of K1's schedule and of its
+per-ray merge keys.
 
 ``hits_shaded``, ``hits_attrs`` and ``hits`` are the counterparts of the JAX
 ``tiled_t.hits_shaded``, ``tiled_t.hits_attrs`` and ``tiled_t.hits``: they
@@ -25,6 +28,7 @@ build the plan and the per-frame constants and run the kernels.
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
@@ -42,6 +46,16 @@ FLAT, TEXTURED, SMOOTH = 0, 1, 2
 MODES = (FLAT, TEXTURED, SMOOTH)
 INF = float("inf")
 PLAIN_ELEMS = 1 << 24   # ray-triangle pairs per step of the plain walk
+# K1's work items (csrc/nearest.cu): slices of K1_SLICE consecutive tile
+# lanes (the kernel's kK1Slice), range rows in spans of K1_RANGE_SPAN
+# windows, list rows in spans of K1_LIST_SPAN entries; K1_STAGES selects
+# all three launches; FETCH is the fetch mode's number
+K1_SLICE = 512
+K1_RANGE_SPAN = 16
+K1_LIST_SPAN = 32
+K1_STAGES = 7
+FETCH = -1
+MISS_KEY = -1           # the all-ones key of a ray with no hit
 
 
 def material_table(scene, light_color) -> torch.Tensor:
@@ -57,7 +71,7 @@ def material_table(scene, light_color) -> torch.Tensor:
                       scene.obj_shininess[:, None]], dim=1).contiguous()
 
 
-def _check(plan, tri, tri_attr, cam, tile_px, threads, mat=None,
+def _check(plan, tri, tri_attr, cam, tile_px, window_tris, mat=None,
            attr_map=None):
     f32 = torch.float32
     ops = dict(plan=(plan, torch.int32), tri=(tri, f32),
@@ -66,18 +80,25 @@ def _check(plan, tri, tri_attr, cam, tile_px, threads, mat=None,
         ops["mat"] = (mat, f32)
     if attr_map is not None:
         ops["attr_map"] = (attr_map, f32)
-    build.check_operands(plan.device, tile_px, threads, **ops)
+    build.check_tensors(plan.device, **ops)
+    tile = tile_px * tile_px
+    if tile % 32 or (tile > K1_SLICE and tile % K1_SLICE):
+        raise ValueError(f"a tile of {tile} rays is not whole warps in "
+                         f"whole {K1_SLICE}-ray slices")
     if plan.dim() != 2 or plan.shape[1] <= pl.PLAN_AUX:
         raise ValueError(f"plan shape {tuple(plan.shape)}")
     if tri.dim() != 2 or tri.shape[1] != 9 \
-            or tri_attr.shape != (tri.shape[0], 4):
+            or tri_attr.shape != (tri.shape[0], 4) or window_tris % 4:
         raise ValueError(f"tri {tuple(tri.shape)} / tri_attr "
-                         f"{tuple(tri_attr.shape)}")
+                         f"{tuple(tri_attr.shape)} in windows of "
+                         f"{window_tris}")
     if attr_map is not None and attr_map.shape != (tri.shape[0], MAP_W):
         raise ValueError(f"attr_map {tuple(attr_map.shape)} for "
                          f"{tri.shape[0]} triangles")
-    # the kernel loads tri_attr rows as float4, attr_map rows as 3 float4
-    for name, x in (("tri_attr", tri_attr), ("attr_map", attr_map)):
+    # the kernel stages tri in 16-byte copies and loads tri_attr rows as
+    # float4, attr_map rows as 3 float4
+    for name, x in (("tri", tri), ("tri_attr", tri_attr),
+                    ("attr_map", attr_map)):
         if x is not None and x.data_ptr() % 16:
             raise ValueError(f"{name} is not 16-byte aligned")
     if cam.shape != (24,) or (mat is not None
@@ -94,6 +115,85 @@ def shade_width(mode: int) -> int:
     return 6 if mode == TEXTURED else 3
 
 
+def k1_slices(tile: int) -> int:
+    """Work items of a K1 tile of ``tile`` rays for each of its spans: its
+    slices of :data:`K1_SLICE` consecutive lanes (one for a smaller
+    tile)."""
+    return max(1, tile // K1_SLICE)
+
+
+def k1_call(plan, tri, tri_attr, cam, tile_px: int, window_tris: int,
+            eps: float, mode: int = FETCH, mat=None, attr_map=None,
+            double_sided: bool = True, specular_nl: bool = True,
+            range_span: int = K1_RANGE_SPAN,
+            list_span: int = K1_LIST_SPAN):
+    """Check K1's operands (CUDA tensors; arguments as
+    :func:`tiled_nearest_shaded`, ``mode`` FETCH for the fetch mode),
+    allocate its outputs and scratch, and return (launch, outs, sched).
+    ``launch(stages=K1_STAGES)`` queues K1's launches of ``stages`` (1 the
+    schedule and the key fill, 2 the walk, 4 the epilogue) on the current
+    stream; the walk consumes the schedule's item counter, so it follows a
+    schedule launch.  ``outs`` = (t, idx, obj, shade, bounds), or (t, idx,
+    attrs) in the fetch mode; ``sched`` [2 + 2 * rows] i32 the schedule:
+    the item counter, the row count, then (tile, span) per row, longest
+    walk first.  ``range_span`` and ``list_span`` are the windows of a
+    range row's spans and the entries of a list row's."""
+    if (attr_map is None) != (mode in (FLAT, FETCH)):
+        raise ValueError(f"mode {mode} with attr_map "
+                         f"{'absent' if attr_map is None else 'given'}")
+    width = 0 if mode == FETCH else shade_width(mode)
+    _check(plan, tri, tri_attr, cam, tile_px, window_tris, mat, attr_map)
+    n, tile = plan.shape[0], tile_px * tile_px
+    n_windows = tri.shape[0] // window_tris
+    rows_max = n * (1 + max(n_windows // range_span,
+                            (plan.shape[1] - pl.PLAN_AUX) // list_span))
+    kw = dict(device=plan.device)
+    t = torch.empty((n, tile), dtype=torch.float32, **kw)
+    idx = torch.empty((n, tile), dtype=torch.int32, **kw)
+    keys = torch.empty(n * tile, dtype=torch.int64, **kw)
+    sched = torch.empty(2 + 2 * rows_max, dtype=torch.int32, **kw)
+    if mode == FETCH:
+        outs = (t, idx, torch.empty((n * tile, 4), dtype=torch.float32,
+                                    **kw))
+        ptrs = (0, 0, 0, outs[2].data_ptr())
+    else:
+        outs = (t, idx, torch.empty((n, tile), dtype=torch.int32, **kw),
+                torch.empty((n * tile, width), dtype=torch.float32, **kw),
+                torch.empty((n, BOUNDS_W), dtype=torch.float32, **kw))
+        ptrs = (outs[2].data_ptr(), outs[3].data_ptr(), outs[4].data_ptr(),
+                0)
+    what = "K1 (fetch mode)" if mode == FETCH else f"K1 (mode {mode})"
+
+    def launch(stages: int = K1_STAGES):
+        with torch.cuda.device(plan.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = build.library().srt_nearest_k1(
+                plan.data_ptr(), plan.shape[1], n, tri.data_ptr(),
+                tri_attr.data_ptr(), n_windows,
+                0 if mat is None else mat.data_ptr(),
+                0 if mat is None else mat.shape[0], cam.data_ptr(), tile_px,
+                window_tris, eps, int(double_sided), int(specular_nl), mode,
+                0 if attr_map is None else attr_map.data_ptr(),
+                t.data_ptr(), idx.data_ptr(), *ptrs, keys.data_ptr(),
+                sched.data_ptr(), rows_max, range_span, list_span, stages,
+                stream)
+        build.check(rc, what)
+    return launch, outs, sched
+
+
+def k1_shape(window_tris: int) -> dict:
+    """K1's walk on the current card for windows of ``window_tris``
+    triangles: CTAs per SM (the occupancy its launch fills), registers per
+    thread, SMs, rays per slice and threads per CTA."""
+    out = (ctypes.c_int * 5)()
+    build.check(build.library().srt_k1_shape(window_tris,
+                                             ctypes.cast(out,
+                                                         ctypes.c_void_p)),
+                "srt_k1_shape")
+    return dict(zip(("ctas_per_sm", "registers", "sms", "slice_rays",
+                     "threads"), out))
+
+
 def tiled_nearest_shaded(plan, tri, tri_attr, mat, cam, tile_px: int,
                          window_tris: int, eps: float,
                          double_sided: bool = True,
@@ -108,7 +208,8 @@ def tiled_nearest_shaded(plan, tri, tri_attr, mat, cam, tile_px: int,
     (JAX ``_fused_phong`` attr_mode): FLAT shades with the flat normal;
     SMOOTH with normalize(An p + cn) from ``attr_map`` = tri_nrm_map;
     TEXTURED emits the colour-free Phong factors and the texel coordinates
-    of ``attr_map`` = tri_tex_map at the hit point.
+    of ``attr_map`` = tri_tex_map at the hit point.  ``threads`` is not
+    read: K1's blocks are the kernel's own (csrc/nearest.cu).
     Returns t [n, tile] f32 (inf on a miss), idx [n, tile] i32 (-1),
     obj [n, tile] i32 (-1), the shading rows [n * tile, 3 or 6] f32 (FLAT,
     SMOOTH: unshadowed pre-tonemap rgb, 0 on a miss; TEXTURED: dw = n.l
@@ -122,33 +223,14 @@ def tiled_nearest_shaded(plan, tri, tri_attr, mat, cam, tile_px: int,
                                           mode, attr_map)
     if plan.device.type != "cuda":
         raise ValueError(f"no nearest kernel for device {plan.device}")
-    width = shade_width(mode)
-    if (attr_map is None) != (mode == FLAT):
-        raise ValueError(f"mode {mode} with attr_map "
-                         f"{'absent' if attr_map is None else 'given'}")
-    threads = min(threads, tile_px * tile_px)
-    _check(plan, tri, tri_attr, cam, tile_px, threads, mat, attr_map)
-    n, tile = plan.shape[0], tile_px * tile_px
-    kw = dict(device=plan.device)
-    t = torch.empty((n, tile), dtype=torch.float32, **kw)
-    idx = torch.empty((n, tile), dtype=torch.int32, **kw)
-    obj = torch.empty((n, tile), dtype=torch.int32, **kw)
-    rgb = torch.empty((n * tile, width), dtype=torch.float32, **kw)
-    bounds = torch.empty((n, BOUNDS_W), dtype=torch.float32, **kw)
-    with torch.cuda.device(plan.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = build.library().srt_nearest_shaded(
-            plan.data_ptr(), plan.shape[1], n, tri.data_ptr(),
-            tri_attr.data_ptr(), tri.shape[0] // window_tris, mat.data_ptr(),
-            mat.shape[0], cam.data_ptr(), tile_px, window_tris, eps,
-            int(double_sided), int(specular_nl), mode,
-            0 if attr_map is None else attr_map.data_ptr(), t.data_ptr(),
-            idx.data_ptr(), obj.data_ptr(), rgb.data_ptr(),
-            bounds.data_ptr(), threads, stream)
-    build.check(rc, f"nearest_shaded_kernel (mode {mode})")
+    shade_width(mode)
+    launch, outs, _ = k1_call(plan, tri, tri_attr, cam, tile_px,
+                              window_tris, eps, mode, mat, attr_map,
+                              double_sided, specular_nl)
+    launch()
     tiled_nearest_shaded.launches += 1
     tiled_nearest_shaded.mode_launches[mode] += 1
-    return t, idx, obj, rgb, bounds
+    return outs
 
 
 # kernel launches, in all and by attribute mode
@@ -159,36 +241,91 @@ tiled_nearest_shaded.mode_launches = dict.fromkeys(MODES, 0)
 def tiled_nearest_attrs(plan, tri, tri_attr, cam, tile_px: int,
                         window_tris: int, eps: float, threads: int = 512):
     """Nearest hit + the winner's attribute row over every tile of ``plan``
-    (the fetch mode of ``nearest_shaded_kernel``).  Arguments as
-    :func:`tiled_nearest_shaded` (``cam``'s light and frame are not read).
-    Returns t [n, tile] f32 (inf on a miss), idx [n, tile] i32 (-1) and
-    attrs [n * tile, 4] f32: the winner's ``tri_attr`` row (flat normal xyz,
-    object id), (0, 0, 0, -1) on a miss."""
+    (K1's fetch mode).  Arguments as :func:`tiled_nearest_shaded` (``cam``'s
+    light and frame are not read).  Returns t [n, tile] f32 (inf on a
+    miss), idx [n, tile] i32 (-1) and attrs [n * tile, 4] f32: the winner's
+    ``tri_attr`` row (flat normal xyz, object id), (0, 0, 0, -1) on a
+    miss."""
     if plan.device.type == "cpu":
         return tiled_nearest_attrs_plain(plan, tri, tri_attr, cam, tile_px,
                                          window_tris, eps, threads)
     if plan.device.type != "cuda":
         raise ValueError(f"no nearest kernel for device {plan.device}")
-    threads = min(threads, tile_px * tile_px)
-    _check(plan, tri, tri_attr, cam, tile_px, threads)
-    n, tile = plan.shape[0], tile_px * tile_px
-    kw = dict(device=plan.device)
-    t = torch.empty((n, tile), dtype=torch.float32, **kw)
-    idx = torch.empty((n, tile), dtype=torch.int32, **kw)
-    attrs = torch.empty((n * tile, 4), dtype=torch.float32, **kw)
-    with torch.cuda.device(plan.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = build.library().srt_nearest_attrs(
-            plan.data_ptr(), plan.shape[1], n, tri.data_ptr(),
-            tri_attr.data_ptr(), tri.shape[0] // window_tris, cam.data_ptr(),
-            tile_px, window_tris, eps, t.data_ptr(), idx.data_ptr(),
-            attrs.data_ptr(), threads, stream)
-    build.check(rc, "nearest_shaded_kernel (fetch mode)")
+    launch, outs, _ = k1_call(plan, tri, tri_attr, cam, tile_px,
+                              window_tris, eps)
+    launch()
     tiled_nearest_attrs.launches += 1
-    return t, idx, attrs
+    return outs
 
 
 tiled_nearest_attrs.launches = 0
+
+
+def k1_work_rows(plan, n_windows: int, range_span: int = K1_RANGE_SPAN,
+                 list_span: int = K1_LIST_SPAN):
+    """The plain version of K1's schedule: its rows (tile, span) [N, 2] i32
+    and their walk lengths [N], longest first (equal lengths by tile, then
+    span; the kernel places those in any order).  A list row walks its
+    list in spans of ``list_span`` entries; a range row its covering
+    range, clamped to the ``n_windows`` windows that exist, in spans of
+    ``range_span`` windows.  Each row is :func:`k1_slices` work items.
+    The repeats' sizes are read on the host, so this is no part of a
+    frame."""
+    every = torch.arange(plan.shape[0], device=plan.device)
+    whole = k1_row_lengths(plan, torch.stack([every, 0 * every], dim=1),
+                           n_windows, 1 << 30, 1 << 30)
+    span = torch.where(plan[:, 3] == 1, list_span, range_span)
+    spans = (whole + span - 1) // span
+    tile = torch.repeat_interleave(every, spans)
+    s = (torch.arange(tile.numel(), device=plan.device)
+         - torch.repeat_interleave(torch.cumsum(spans, 0) - spans, spans))
+    rows = torch.stack([tile, s], dim=1).to(torch.int32)
+    length = k1_row_lengths(plan, rows, n_windows, range_span, list_span)
+    order = torch.argsort(-length, stable=True)
+    return rows[order], length[order]
+
+
+def k1_row_lengths(plan, rows, n_windows: int,
+                   range_span: int = K1_RANGE_SPAN,
+                   list_span: int = K1_LIST_SPAN):
+    """Walk lengths [N] of K1's schedule rows (tile, span) [N, 2] on
+    ``plan``: the span's entries of a list row, or its windows of a range
+    row's covering range (clamped to the ``n_windows`` windows that
+    exist)."""
+    tile, s = rows[:, 0].long(), rows[:, 1].long()
+    lst = plan[tile, 3] == 1
+    cnt = torch.where(lst, plan[tile, 2], torch.minimum(
+        plan[tile, 1], (n_windows - plan[tile, 0]).clamp_min(0)))
+    span = torch.where(lst, list_span, range_span)
+    return torch.minimum(cnt - s * span, span)
+
+
+def hit_keys(t, idx):
+    """The plain version of K1's merge keys (csrc/nearest.cu::hit_key) of
+    hits t >= 0 with ids ``idx`` (any shape): the bits of t, -0.0 as +0.0,
+    over the id as an int64; a miss (idx < 0) is MISS_KEY.  Hit keys lie
+    below 2**63, so their int64 order is the kernel's unsigned order."""
+    bits = torch.where(t == 0.0, torch.zeros_like(t), t).view(torch.int32)
+    key = ((bits.to(torch.int64) & 0xFFFFFFFF) << 32) \
+        | (idx.to(torch.int64) & 0xFFFFFFFF)
+    return torch.where(idx >= 0, key, MISS_KEY)
+
+
+def merge_keys(a, b):
+    """The kernel's atomicMin of keys: the unsigned minimum, so MISS_KEY
+    (all ones) loses to every hit."""
+    flip = -(1 << 63)                    # unsigned order as signed order
+    return torch.where((a ^ flip) < (b ^ flip), a, b)
+
+
+def decode_keys(keys):
+    """(t f32, idx i32) of keys, as K1's epilogue reads them: a key whose
+    t is not finite (MISS_KEY's bits are a NaN) is a miss, t = inf, idx =
+    -1."""
+    t = (keys >> 32).to(torch.int32).view(torch.float32)
+    hit = torch.isfinite(t)
+    return (torch.where(hit, t, INF),
+            torch.where(hit, (keys & 0xFFFFFFFF).to(torch.int32), -1))
 
 
 def launch_nearest_rays(plan, tri, o, d, window_tris: int, eps: float,
@@ -392,7 +529,8 @@ def _masked(x, m, fill, reduce):
 
 
 def walk_plain(plan, tri, o, d, window_tris: int, eps: float,
-               walk_mask=None):
+               walk_mask=None, slices: int = 1, list_span: int = 0,
+               seed=None):
     """The nearest walk of every plain version (K1's modes and K4 here, K6
     in kernels/paged.py).  Rays: ``d`` a 3-tuple of [n, M] tensors, ``o`` a
     3-tuple of [n, M] tensors or of scalars (one origin for every ray).
@@ -405,9 +543,35 @@ def walk_plain(plan, tri, o, d, window_tris: int, eps: float,
     t = inf, idx = -1.  Records the work a walk needs on these rays:
     ``walk_plain.lane_pairs`` [n, M] i64, each ray's tests of the windows
     whose entry bound its best t had not yet passed (all windows of a range
-    row), and ``walk_plain.staged`` [windows] bool, the windows the walk
-    read."""
+    row), and ``walk_plain.staged`` [windows] bool, the windows some ray
+    needed.
+
+    K1's work items: ``slices`` > 1 walks each tile's rays as that many
+    slices of M / slices consecutive lanes, each walking the tile's row and
+    breaking on its own rays (the row repeated per slice); ``list_span`` >
+    0 walks each list of more entries as spans of ``list_span`` entries,
+    each from its first entry with its own break, merged by the least
+    (t, id) (:func:`merge_keys`).  With sound entry bounds the result is
+    the whole walk's.  The record stays the whole walk's needs: a window
+    counts for a ray until its best t over all earlier entries (``seed``
+    [n, M], of the earlier spans) passes the entry's bound."""
     n, m = d[0].shape
+    if slices > 1:
+        def cut(x):
+            return x if x.dim() == 0 else x.reshape(n * slices, m // slices)
+        bt, idx = walk_plain(
+            plan.repeat_interleave(slices, dim=0), tri, tuple(map(cut, o)),
+            tuple(map(cut, d)), window_tris, eps,
+            None if walk_mask is None
+            else walk_mask.repeat_interleave(slices, dim=0),
+            list_span=list_span)
+        walk_plain.lane_pairs = walk_plain.lane_pairs.reshape(n, m)
+        return bt.reshape(n, m), idx.reshape(n, m)
+    if list_span and walk_mask is None:
+        split = (plan[:, 3] == 1) & (plan[:, 2] > list_span)
+        if bool(split.any()):
+            return _walk_list_spans(plan, split, tri, o, d, window_tris, eps,
+                                    list_span)
     dev = plan.device
     wt = window_tris
     chunk = max(1, PLAIN_ELEMS // max(1, m * wt))
@@ -428,7 +592,6 @@ def walk_plain(plan, tri, o, d, window_tris: int, eps: float,
         for ids in walk.split(chunk):
             e = plan[ids, pl.PLAN_AUX + min(k, mv - 1)]
             w = torch.where(use_list[ids], e & 0xFFFF, plan[ids, 0] + k)
-            staged[w.long()] = True
             tid = w[:, None] * wt + jt[None, :]                 # [c, wt]
             g = tri[tid.long()]                                 # [c, wt, 9]
             gv = [g[:, None, :, i] for i in range(9)]           # [c, 1, wt]
@@ -440,9 +603,11 @@ def walk_plain(plan, tri, o, d, window_tris: int, eps: float,
             ik = torch.gather(tid[:, None, :].expand(-1, m, -1), 2,
                               arg[..., None])[..., 0]
             b_t, b_i = bt[ids], bi[ids]
+            rec = b_t if seed is None else torch.minimum(b_t, seed[ids])
             need = ~use_list[ids, None] | (
-                ((b_t.view(torch.int32) >> 16) & 0xFFFF) >= (e >> 16)[:, None])
+                ((rec.view(torch.int32) >> 16) & 0xFFFF) >= (e >> 16)[:, None])
             lane_pairs[ids] += need * wt
+            staged[w[need.any(dim=1)].long()] = True
             better = (tk < b_t) | ((tk == b_t) & (ik < b_i))
             bt[ids] = torch.where(better, tk, b_t)
             bi[ids] = torch.where(better, ik, b_i)
@@ -454,13 +619,39 @@ def walk_plain(plan, tri, o, d, window_tris: int, eps: float,
     return bt, torch.where(torch.isfinite(bt), bi, -1)
 
 
+def _walk_list_spans(plan, split, tri, o, d, window_tris: int, eps: float,
+                     list_span: int):
+    """:func:`walk_plain` with the lists of the rows ``split`` [n] bool
+    walked as spans of ``list_span`` entries, span by span; the other rows
+    walk with span 0.  Sets the walk's record as :func:`walk_plain`."""
+    aux, mv, cnt = pl.PLAN_AUX, plan.shape[1] - pl.PLAN_AUX, plan[:, 2]
+    keys = pairs = staged = best = None
+    for k0 in range(0, int(cnt[split].max()), list_span):
+        sub = plan.clone()
+        sub[split, aux:aux + mv - k0] = plan[split, aux + k0:]
+        sub[split, 2] = (cnt[split] - k0).clamp(0, list_span)
+        if k0:
+            sub[~split, 1:3] = 0
+        key = hit_keys(*walk_plain(sub, tri, o, d, window_tris, eps,
+                                   seed=best))
+        keys = key if keys is None else merge_keys(keys, key)
+        best = decode_keys(keys)[0]
+        rec = walk_plain.lane_pairs, walk_plain.staged
+        pairs = rec[0] if pairs is None else pairs + rec[0]
+        staged = rec[1] if staged is None else staged | rec[1]
+    walk_plain.lane_pairs, walk_plain.staged = pairs, staged
+    return decode_keys(keys)
+
+
 def _walk_plain(plan, tri, cam, tile_px: int, window_tris: int, eps: float):
     """:func:`walk_plain` over the primary rays of K1's tiles, rebuilt from
-    the plan's pixel origins and ``cam``.  Returns (t, idx, dx, dy, dz),
-    each [n, tile]."""
+    the plan's pixel origins and ``cam``, in K1's slices and list spans.
+    Returns (t, idx, dx, dy, dz), each [n, tile]."""
     dx, dy, dz = tile_ray_dirs(cam, plan[:, 4], plan[:, 5], tile_px)
     bt, idx = walk_plain(plan, tri, (cam[9], cam[10], cam[11]),
-                         (dx, dy, dz), window_tris, eps)
+                         (dx, dy, dz), window_tris, eps,
+                         slices=k1_slices(tile_px * tile_px),
+                         list_span=K1_LIST_SPAN)
     return bt, idx, dx, dy, dz
 
 

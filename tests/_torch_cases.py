@@ -188,3 +188,31 @@ def masked_occluder():
     want = ((GROUP_MASK >> g) & 1 == 1)[None]
     return ((plan, tri, block_obj, o[None].contiguous(), d[None].contiguous(),
              self_obj), (128, 32, 1e-12, True, 4), want)
+
+
+def k1_stress(plan, tri, tri_attr, attr_map, window_tris: int):
+    """K1's frame arguments rewritten to reach every kind of work row.  The
+    triangle tables are doubled: window w + NW is a copy of window w (NW
+    windows), so every hit in a copy ties in t with a lower id.  Tile i
+    walks, by i % 4: 0 the range of all 2 NW windows (longer than one span
+    of the schedule); 1 its list with each entry followed by its copy (a
+    list twice as deep; the copy carries its original's bound, so the
+    bounds stay sound); 2 nothing; 3 its own plan.  Returns (plan, tri,
+    tri_attr, attr_map or None)."""
+    nw = tri.shape[0] // window_tris
+    p = plan.clone()
+    kind = torch.arange(p.shape[0], device=p.device) % 4
+    rng, deep, empty = kind == 0, (kind == 1) & (p[:, 3] == 1), kind == 2
+    p[rng, 0], p[rng, 1], p[rng, 3] = 0, 2 * nw, 0
+    p[empty, 1], p[empty, 2] = 0, 0
+    cnt = p[deep, 2]
+    mv = p.shape[1] - pl.PLAN_AUX
+    assert int(cnt.max()) * 2 <= mv if cnt.numel() else True
+    ent = p[deep, pl.PLAN_AUX:pl.PLAN_AUX + mv // 2]
+    dup = ent + nw                       # the copy's window, the same bound
+    p[deep, pl.PLAN_AUX:pl.PLAN_AUX + 2 * (mv // 2)] = torch.stack(
+        [ent, dup], dim=2).reshape(ent.shape[0], -1)
+    p[deep, 2] = 2 * cnt
+    twice = (lambda x: None if x is None
+             else torch.cat([x, x]).contiguous())
+    return p, twice(tri), twice(tri_attr), twice(attr_map)

@@ -18,14 +18,15 @@ from simple_raytracer_tpu_torch.kernels import (anyhit, build, nearest, paged,
                                                 prepass)
 from simple_raytracer_tpu_torch.kernels import plan as pl
 from simple_raytracer_tpu_torch.kernels.tiled import KERNELS, render_flat_tiled
-from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
+from simple_raytracer_tpu_torch.ops.camera import (primary_rays_tiled,
+                                                   tile_ray_dirs)
 from simple_raytracer_tpu_torch.probes import attr, fixed
 from simple_raytracer_tpu_torch.scene import procedural as P
 from simple_raytracer_tpu_torch.scene import transforms as T
 
-from _torch_cases import (SELF_SKIP, coincident_pages, masked_occluder,
-                          masked_windows, ragged_rays, self_skip, two_pages,
-                          two_windows)
+from _torch_cases import (SELF_SKIP, coincident_pages, k1_stress,
+                          masked_occluder, masked_windows, ragged_rays,
+                          self_skip, two_pages, two_windows)
 
 pytestmark = pytest.mark.cuda
 
@@ -83,8 +84,7 @@ def test_kernels_build():
     assert len(info["paths"]) == len(build.SOURCES)
     assert all(p.endswith(".so") for p in info["paths"])
     lib = build.library()
-    for name in ("srt_nearest_shaded", "srt_nearest_attrs",
-                 "srt_nearest_rays", "srt_anyhit_from_t", "srt_anyhit_rays",
+    for name in ("srt_nearest_k1", "srt_k1_shape", "srt_nearest_rays", "srt_anyhit_from_t", "srt_anyhit_rays",
                  "srt_prepass", "srt_fixed_probe", "srt_attr_gather",
                  "srt_attr_window"):
         assert hasattr(lib, name)
@@ -554,3 +554,141 @@ def test_probe_wrappers_reject_bad_inputs():
     starts, wbid, wat = attr.window_inputs(2, 4, 256, 64, "cuda")
     with pytest.raises(ValueError):
         attr.attr_window(starts, wbid, wat.float())
+
+
+def _k1_mode_args(scene, mode_scenes, mode: str, tpx: int, view="moved"):
+    """K1's arguments on the frame of ``mode``'s scene at ``tpx``-pixel
+    tiles: the fused frame's (flat, textured, smooth), or the flat frame's
+    cut to the fetch mode's (plan, tri, tri_attr, cam, tile_px,
+    window_tris, eps)."""
+    m = {"flat": nearest.FLAT, "fetch": nearest.FLAT,
+         "textured": nearest.TEXTURED, "smooth": nearest.SMOOTH}[mode]
+    prep, cfg = scene if m == nearest.FLAT else mode_scenes[m]
+    k1 = _frame_args(prep, cfg.replace(tile_px=tpx), VIEWS[view],
+                     tpx)["nearest_shaded"]
+    assert k1[5] == tpx and k1[11] == m
+    return k1 if mode != "fetch" else (k1[0], k1[1], k1[2], k1[4], tpx,
+                                       k1[6], k1[7])
+
+
+def _k1_equal(mode: str, args):
+    """K1 vs its plain version on ``args``: t and idx bit for bit, obj and
+    the textured row's obj and tex id equal, the attribute rows equal, the
+    shading rows within 1e-4 (exp, log and rsqrt round apart), the bounds
+    rows as values (+0.0 == -0.0) within 1e-5 relative."""
+    if mode == "fetch":
+        kt, ki, ka = nearest.tiled_nearest_attrs(*args)
+        pt, pi, pa = nearest.tiled_nearest_attrs_plain(*args)
+        assert torch.equal(ka, pa)
+    else:
+        kt, ki, ko, ks, kb = nearest.tiled_nearest_shaded(*args)
+        pt, pi, po, ps, pb = nearest.tiled_nearest_shaded_plain(*args)
+        assert torch.equal(ko, po)
+        torch.testing.assert_close(ks, ps, rtol=0, atol=1e-4)
+        if mode == "textured":
+            assert torch.equal(ks[:, 4:], ps[:, 4:])
+        assert torch.equal(torch.isfinite(kb), torch.isfinite(pb))
+        fin = torch.isfinite(pb)
+        torch.testing.assert_close(kb[fin], pb[fin], rtol=1e-5, atol=0)
+    assert torch.equal(kt, pt) and torch.equal(ki, pi)
+    return kt, ki
+
+
+@pytest.mark.parametrize("tpx", [64, 32])
+@pytest.mark.parametrize("mode", ["flat", "textured", "smooth", "fetch"])
+def test_k1_work_items_match_plain(scene, mode_scenes, mode, tpx):
+    """K1's work items on a plan with every kind of row
+    (_torch_cases.k1_stress: a range row of twice the scene's windows, more
+    than one span; a list twice as deep; empty rows; every hit tied with a
+    copy of higher id) equal the plain version in each mode; with lists in
+    spans of 4 entries t and idx equal the plain walk in those spans; and
+    the schedule lists each row once, longest first."""
+    args = list(_k1_mode_args(scene, mode_scenes, mode, tpx))
+    amap = args[12] if mode in ("textured", "smooth") else None
+    wt = args[5] if mode == "fetch" else args[6]
+    plan, tri, tri_attr, amap = k1_stress(args[0], args[1], args[2], amap,
+                                          wt)
+    args[:3] = plan, tri, tri_attr
+    if amap is not None:
+        args[12] = amap
+    kt, ki = _k1_equal(mode, tuple(args))
+    hit = torch.isfinite(kt)
+    assert hit.sum() > 1000
+    nw = tri.shape[0] // wt
+    assert bool((ki[hit] < nw // 2 * wt).all())      # ties: the lower id
+    assert not bool(hit[2::4].any())                  # empty rows miss
+    cam, eps = (args[3], args[6]) if mode == "fetch" else (args[4], args[7])
+    kw = {} if mode == "fetch" else dict(
+        mode=args[11], mat=args[3], attr_map=amap, double_sided=args[8],
+        specular_nl=args[9])
+    launch, outs, sched = nearest.k1_call(plan, tri, tri_attr, cam, tpx, wt,
+                                          eps, list_span=4, **kw)
+    launch()
+    d = tile_ray_dirs(cam, plan[:, 4], plan[:, 5], tpx)
+    pt, pi = nearest.walk_plain(plan, tri, (cam[9], cam[10], cam[11]), d,
+                                wt, eps, slices=nearest.k1_slices(tpx * tpx),
+                                list_span=4)
+    assert torch.equal(outs[0], pt) and torch.equal(outs[1], pi)
+    # the schedule: every (tile, span) row once, walk lengths non-increasing
+    rows, _length = nearest.k1_work_rows(plan, nw, list_span=4)
+    got = sched[2:2 + 2 * int(sched[1])].reshape(-1, 2)
+    assert int(sched[1]) == rows.shape[0]
+    assert int((rows[:, 0] == 0).sum()) > 1           # a range row's spans
+    assert int((rows[:, 0] == 1).sum()) > 1           # a list row's spans
+
+    def key(r):
+        return (r[:, 0].long() << 20) + r[:, 1].long()
+    assert torch.equal(key(got).sort().values, key(rows).sort().values)
+    glen = nearest.k1_row_lengths(plan, got, nw, list_span=4)
+    assert bool((glen[1:] <= glen[:-1]).all())
+
+
+@pytest.mark.parametrize("list_span, want", [(nearest.K1_LIST_SPAN, 0),
+                                             (1, 64)])
+def test_k1_list_spans_walk_from_their_own_start(list_span, want):
+    """A lying bound holds a list walked as one span; a span of one entry
+    walks the second window from its own start and finds the nearer hit,
+    as the plain walk in the same spans does (tests/test_torch_k1_split.
+    py)."""
+    (plan, tri, attr_, _mat, cam), (tpx, wt, eps) = two_windows(1.0)
+    launch, (t, idx, _), _ = nearest.k1_call(
+        plan.cuda(), tri.cuda(), attr_.cuda(), cam.cuda(), tpx, wt, eps,
+        list_span=list_span)
+    launch()
+    assert (idx == want).all() and torch.isfinite(t).all()
+
+
+def test_k1_calls_do_not_leak_keys(scene):
+    """Two views back to back, each way round: each call's results are its
+    own view's plain results, with no key of the other call left over."""
+    prep, cfg = scene
+    a = _frame_args(prep, cfg, VIEWS["identity"])["nearest_shaded"]
+    b = _frame_args(prep, cfg, VIEWS["moved"])["nearest_shaded"]
+    for first, second in ((a, b), (b, a)):
+        nearest.tiled_nearest_shaded(*first)
+        kt, ki, *_ = nearest.tiled_nearest_shaded(*second)
+        pt, pi, *_ = nearest.tiled_nearest_shaded_plain(*second)
+        assert torch.equal(kt, pt) and torch.equal(ki, pi)
+
+
+def test_k1_adds_no_host_sync(scene):
+    """K1 in its fused and fetch modes queues its launches without a host
+    synchronisation (the schedule lives on the card)."""
+    prep, cfg = scene
+    k1 = _frame_args(prep, cfg, VIEWS["moved"])["nearest_shaded"]
+    nearest.tiled_nearest_shaded(*k1)              # build and load first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nearest.tiled_nearest_shaded(*k1)
+        nearest.tiled_nearest_attrs(k1[0], k1[1], k1[2], k1[4], k1[5],
+                                    k1[6], k1[7])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_k1_shape_matches_the_port():
+    shape = nearest.k1_shape(64)
+    assert shape["slice_rays"] == nearest.K1_SLICE
+    assert shape["ctas_per_sm"] >= 2 and shape["registers"] <= 128
