@@ -62,16 +62,16 @@ Phases, each of which must pass:
 5. bench: time 20 view-varied frames (as bench.py does), each kernel alone,
    and each stage of the frame alone;
 6. soft and dense, each: the frame's K1 and K2′ against their plain
-   versions on the frame's arguments (K2′ found equal on >= 99.99% of hit
-   lanes, > 1,000 shadowed hit lanes); the frame through the public entry
+   versions on the frame's arguments (K2′ found equal on every lane, >
+   1,000 shadowed hit lanes); the frame through the public entry
    points with the counters reset just before (the kernels of its branch
    launched, no other); the image within 1 of the plain versions' image on
    >= 99.9% of pixels; 32 view-varied frames timed (bench.py:174-183), each
    kernel and its plain version, and each stage;
 7. the three paged frames, each: K6 and K7 against their plain versions on
-   the frame's arguments (t rtol 1e-5 / atol 1e-6, idx equal on >= 99.99%
-   of rays, found equal on >= 99.99% of hit lanes, > 1,000 shadowed hit
-   lanes in the textured and dense frames), the plans' windows per tile;
+   the frame's arguments (t and idx bit for bit, found equal on every lane,
+   > 1,000 shadowed hit lanes in the textured and dense frames), the plans'
+   windows per tile;
    the frame through the public entry points with the counters reset just
    before (K6 and K7 launched, no sublane kernel); the image within 1 of
    the plain versions' image on >= 99.9% of pixels; 20 (bench) or 32
@@ -111,9 +111,11 @@ Phases, each of which must pass:
    check; the plain versions and, where one PyTorch call computes the same
    function (io: ``o[..., 0] + 1``; attr_gather: ``F.embedding`` over the
    table with a zero row for misses), that call are timed.  The probes and
-   their library calls are timed back to back on the device, queued behind
-   a spin while the host queues them (``probes.device_ms``), since each
-   takes less device time than its call takes on the host.  A probe's
+   their library calls are timed on the device, queued behind a spin while
+   the host queues them (``probes.device_ms``), since each takes less
+   device time than its call takes on the host, and each call cold: a 128
+   MB write before it, outside its timed interval, evicts the L2 (K1's
+   points are timed back to back).  A probe's
    bound is its bytes (the inputs it reads and its outputs, once each; the
    fetch kernels' table rows that some ray needs) over 3.35 TB/s, or its
    few f32 operations over 67 TFLOP/s where larger.
@@ -121,12 +123,22 @@ Phases, each of which must pass:
 Every frame that runs K1 (phases 3, 6, 8, 9, and 10's cut plans) holds
 K1's t and idx to the plain walk in K1's slices bit for bit, and prints a
 ``K1 schedule`` line: the schedule's rows on the card against its plain
-version (``nearest.k1_work_rows``: the same (tile, span) rows, walk
+version (``nearest.work_rows``: the same (tile, span) rows, walk
 lengths never growing), the items, slices per tile, spans of the longest
 range row, the walk's CTAs per SM and registers, the windows each slice
 needed, and K1's time split into schedule + key fill, walk and epilogue,
 with K1's time at other range and list spans (``K1_RANGE_SPANS``,
 ``K1_LIST_SPANS``).
+
+Every frame that runs a walk over explicit rays (K1's rays mode, K4, K6:
+``nearest_rays``; K2′, K5, K7: ``anyhit_rays``; phases 6-9) holds the
+nearest walk's t and idx to the plain walk in its slices and spans bit for
+bit, and the any-hit walk's found on every lane, and prints a ``schedule``
+line for it (``rays_schedule``): the card's schedule against
+``nearest.work_rows``, items, slices per tile, the longest span, CTAs per
+SM and registers, the windows each slice needed, the walk's time split
+into schedule, walk and (nearest) key decode, and its time at other range
+and list spans (``RAYS_RANGE_SPANS``, ``RAYS_LIST_SPANS``).
 
 Each kernel's entry in the kernels line carries its bound: the larger of
 its operations over the peak rate of their type and its bytes over 3.35
@@ -144,7 +156,8 @@ of the windows the walk staged, the rays of the counted lanes in tiles
 with a non-empty plan, the small tables, the attribute rows of the
 distinct winning triangles (K1: tri_attr's 16 bytes, and the 48-byte map
 row in its textured and smooth modes), each read once, and the outputs,
-each written once.
+each written once.  An entry whose time beats its bound by more than 5%
+(``SHARE_MAX``) fails the run: its bound would be wrong.
 
 Prints one JSON line per phase result, then the kernels line, the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``.  Exits
@@ -209,8 +222,18 @@ PROBE_F32_OPS = {"io": 1, "feat": 19, "feat3": 3, "acc": 19, "noin": 19,
                  "noout": 1, "none": 5, "none2": 5, "feat_i": 31,
                  "empty": 2, "write": 2, "grid1": 2, "grid1f": 31}
 SRC = "simple_raytracer_tpu_torch/csrc/"
-# K1's three launches (csrc/nearest.cu), timed as one
-K1_NAME = "k1_schedule_kernel + k1_walk_kernel + k1_epilogue_kernel"
+# K1's three launches (csrc/nearest.cu), timed as one; the walks over
+# explicit rays: nearest (K1's rays mode, K4, K6) three launches, any-hit
+# (K2′, K5, K7) two
+K1_NAME = "schedule_kernel + k1_walk_kernel + k1_epilogue_kernel"
+RAYS_NAME = "schedule_kernel + rays_walk_kernel + rays_decode_kernel"
+ANYHIT_NAME = "anyhit_schedule_kernel + anyhit_items_kernel"
+# the walks over explicit rays timed at other range spans (windows) and list
+# spans (entries) beside the port's (nearest.rays_spans, anyhit.rays_spans)
+RAYS_RANGE_SPANS = (2, 4, 8, 16, 32)
+RAYS_LIST_SPANS = (1, 2, 4, 8, 16, 32, 64)
+# no kernel may beat its bound by more than the timing's noise
+SHARE_MAX = 1.05
 
 
 class SmokeFailure(RuntimeError):
@@ -371,12 +394,18 @@ def entry(name: str, source: str, replaces: str, frame: str, launches: int,
           library_ms=None, **extra) -> dict:
     """One kernel's record of the kernels line.  ``library_ms`` is the time
     of one PyTorch call that computes the same function, where there is
-    one; none walks a cull plan, so it is null for K1-K7."""
+    one; none walks a cull plan, so it is null for K1-K7.  A share of the
+    bound over SHARE_MAX fails: the bound would be wrong, not the kernel
+    fast."""
+    share = bnd["bound_ms"] / ms
+    require(share <= SHARE_MAX, f"{name} ({frame}): {ms} ms is "
+                                f"{share:.3f} of its bound {bnd['bound_ms']}")
     return {"name": name, "route": "cuda", "source": SRC + source,
             "replaces": replaces, **extra, "frame": frame,
             "launches": launches, "max_abs_err": max_abs_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd["bound_ms"],
-            "bound_by": bnd["bound_by"], "library_ms": library_ms}
+            "bound_by": bnd["bound_by"], "share": share,
+            "library_ms": library_ms}
 
 
 def plain_walk(plain, args):
@@ -461,6 +490,44 @@ def check_k1_shaded(k1, label: str, size) -> dict:
     return res
 
 
+def schedule_stats(plan, sched, n_windows: int, range_span: int,
+                   list_span: int, need) -> dict:
+    """A walk's schedule ``sched`` on the card against its plain version
+    (``nearest.work_rows`` at these spans: the same (tile, span) rows, walk
+    lengths never growing), the plan's rows, and ``need`` [slices], the
+    windows each slice needed."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels import nearest
+    rows, length = nearest.work_rows(plan, n_windows, range_span, list_span)
+    n_rows = int(sched[1])
+    got = sched[2:2 + 2 * n_rows].reshape(-1, 2).long()
+    key = (got[:, 0] << 20) + got[:, 1]
+    same = n_rows == rows.shape[0] and torch.equal(
+        key.sort().values, ((rows[:, 0].long() << 20) + rows[:, 1]).sort()
+        .values)
+    glen = nearest.row_lengths(plan, got, n_windows, range_span, list_span)
+    rng_cnt = torch.minimum(plan[:, 1], (n_windows - plan[:, 0]).clamp_min(0))
+    lst_cnt = torch.where(plan[:, 3] == 1, plan[:, 2], 0)
+    is_rng = (plan[:, 3] != 1) & (rng_cnt > 0)
+    need = need[need > 0].float()
+    return {"rows_equal_plain": same,
+            "longest_first": bool((glen[1:] <= glen[:-1]).all()),
+            "rows": n_rows, "range_span": range_span, "list_span": list_span,
+            "list_rows": int((lst_cnt > 0).sum()),
+            "longest_list": int(lst_cnt.max()) if lst_cnt.numel() else 0,
+            "range_rows": int(is_rng.sum()),
+            "longest_range_row_spans": int(
+                (-(-rng_cnt[is_rng] // range_span)).max())
+            if bool(is_rng.any()) else 0,
+            "longest_item_windows": int(length[0]) if rows.shape[0] else 0,
+            "slice_windows_needed": {
+                "slices": int(need.numel()),
+                "p50": float(need.quantile(0.5)) if need.numel() else 0.0,
+                "p90": float(need.quantile(0.9)) if need.numel() else 0.0,
+                "max": int(need.max()) if need.numel() else 0,
+                "sum": int(need.sum())}}
+
+
 def k1_schedule(k1, label: str, walk, fetch: bool = False) -> dict:
     """K1's work items on the arguments ``k1`` (its fused modes', or with
     ``fetch`` the fetch mode's): the schedule on the card against its
@@ -487,24 +554,11 @@ def k1_schedule(k1, label: str, walk, fetch: bool = False) -> dict:
     launch, _outs, sched = call()
     launch()
     torch.cuda.synchronize()
-    nw = tri.shape[0] // wt
-    rows, length = nearest.k1_work_rows(plan, nw)
-    n_rows = int(sched[1])
-    got = sched[2:2 + 2 * n_rows].reshape(-1, 2).long()
-    key = (got[:, 0] << 20) + got[:, 1]
-    same = n_rows == rows.shape[0] and torch.equal(
-        key.sort().values, ((rows[:, 0].long() << 20) + rows[:, 1]).sort()
-        .values)
-    glen = nearest.k1_row_lengths(plan, got, nw)
-    ordered = bool((glen[1:] <= glen[:-1]).all())
-    rng_cnt = torch.minimum(plan[:, 1], (nw - plan[:, 0]).clamp_min(0))
-    lst_cnt = torch.where(plan[:, 3] == 1, plan[:, 2], 0)
     slices = nearest.k1_slices(tpx * tpx)
     shape = nearest.k1_shape(wt)
-    is_rng = (plan[:, 3] != 1) & (rng_cnt > 0)
-    lane_pairs = walk[0].reshape(plan.shape[0] * slices, -1)
-    need = (lane_pairs.amax(dim=1) // wt).float()
-    need = need[need > 0]
+    need = walk[0].reshape(plan.shape[0] * slices, -1).amax(dim=1) // wt
+    stats = schedule_stats(plan, sched, tri.shape[0] // wt,
+                           nearest.K1_RANGE_SPAN, nearest.K1_LIST_SPAN, need)
     fill = cuda_ms(lambda: launch(1), 20)
     fill_walk = cuda_ms(lambda: launch(3), 20)
     epilogue = cuda_ms(lambda: launch(4), 20)
@@ -513,25 +567,9 @@ def k1_schedule(k1, label: str, walk, fetch: bool = False) -> dict:
                 for sp in K1_RANGE_SPANS}
     by_list = {str(sp): cuda_ms(call(list_span=sp)[0], 10)
                for sp in K1_LIST_SPANS}
-    res = {"check": f"K1 schedule ({label})", "rows_equal_plain": same,
-           "longest_first": ordered, "items": n_rows * slices,
-           "rows": n_rows, "slices_per_tile": slices,
-           "slice_rays": shape["slice_rays"],
-           "range_span": nearest.K1_RANGE_SPAN,
-           "list_span": nearest.K1_LIST_SPAN,
-           "list_rows": int((lst_cnt > 0).sum()),
-           "longest_list": int(lst_cnt.max()) if lst_cnt.numel() else 0,
-           "range_rows": int(is_rng.sum()),
-           "longest_range_row_spans": int(
-               (-(-rng_cnt[is_rng] // nearest.K1_RANGE_SPAN)).max())
-           if bool(is_rng.any()) else 0,
-           "longest_item_windows": int(length[0]) if rows.shape[0] else 0,
-           "slice_windows_needed": {
-               "slices": int(need.numel()),
-               "p50": float(need.quantile(0.5)) if need.numel() else 0.0,
-               "p90": float(need.quantile(0.9)) if need.numel() else 0.0,
-               "max": int(need.max()) if need.numel() else 0,
-               "sum": int(need.sum())},
+    res = {"check": f"K1 schedule ({label})",
+           "items": stats["rows"] * slices, "slices_per_tile": slices,
+           "slice_rays": shape["slice_rays"], **stats,
            "ctas_per_sm": shape["ctas_per_sm"], "sms": shape["sms"],
            "walk_threads": shape["threads"],
            "registers": shape["registers"], "fill_ms": fill,
@@ -539,11 +577,77 @@ def k1_schedule(k1, label: str, walk, fetch: bool = False) -> dict:
            "k1_ms": whole, "k1_ms_by_range_span": by_range,
            "k1_ms_by_list_span": by_list}
     emit(**res)
-    require(same and ordered, f"K1 schedule differs from its plain version "
-                              f"({label})")
+    require(stats["rows_equal_plain"] and stats["longest_first"],
+            f"K1 schedule differs from its plain version ({label})")
     require(shape["slice_rays"] == nearest.K1_SLICE,
             f"K1 slices of {shape['slice_rays']} rays, the port's "
             f"{nearest.K1_SLICE}")
+    return res
+
+
+def rays_schedule(args, label: str, walk, what: str, groups: int = 1,
+                  occlusion: bool = False) -> dict:
+    """The work items of a walk over explicit rays on its wrapper's
+    arguments ``args`` (the nearest walk's, or with ``occlusion`` the
+    any-hit walk's): the schedule on the card against its plain version
+    (``nearest.work_rows``), items, slices, the longest span, the walk's
+    CTAs per SM and registers, the windows each slice needed (from the
+    plain walk's record ``walk``), and the walk's time split by launch
+    (the schedule alone, the walk as schedule + walk less the schedule,
+    and the nearest walk's key decode alone), and at other range and list
+    spans."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels import anyhit, nearest
+    if occlusion:
+        plan, tri, bobj, o, d, so, wt, bs, eps, nmt = args[:10]
+
+        def call(**spans):
+            return anyhit.anyhit_rays_call(plan, tri, bobj, o, d, so, wt, bs,
+                                           eps, nmt, groups, **spans)
+        shape = anyhit.rays_shape(wt, bs, o.shape[1], groups)
+        rs, ls = anyhit.rays_spans(wt)
+    else:
+        plan, tri, o, d, wt, eps = args[:6]
+
+        def call(**spans):
+            return nearest.rays_call(plan, tri, o, d, wt, eps, groups,
+                                     **spans)
+        shape = nearest.rays_shape(wt, o.shape[1], groups)
+        rs, ls = nearest.rays_spans(wt)
+    n, m = o.shape[:2]
+    launch, _out, sched = call()
+    launch()
+    torch.cuda.synchronize()
+    slices, sr = nearest.rays_slices(m, groups), nearest.slice_rays(m, groups)
+    # each lane's slice: slices of sr lanes inside each sub-group
+    glanes = m // groups
+    lane = torch.arange(m, device=plan.device)
+    sl = lane // glanes * (slices // groups) + lane % glanes // sr
+    need = torch.zeros((n, slices), dtype=torch.int64, device=plan.device)
+    need.scatter_reduce_(1, sl.expand(n, m), walk[0] // wt, "amax")
+    stats = schedule_stats(plan, sched, tri.shape[0] // wt, rs, ls, need)
+    fill = cuda_ms(lambda: launch(1), 20)
+    fill_walk = cuda_ms(lambda: launch(3), 20)
+    whole = cuda_ms(launch, 20)
+    res = {"check": f"{what} schedule ({label})",
+           "items": stats["rows"] * slices, "rays_per_tile": m,
+           "groups": groups, "slices_per_tile": slices,
+           "slice_rays": shape["slice_rays"], "window_tris": wt, **stats,
+           "ctas_per_sm": shape["ctas_per_sm"], "sms": shape["sms"],
+           "walk_threads": shape["threads"],
+           "registers": shape["registers"], "schedule_ms": fill,
+           "walk_ms": fill_walk - fill, "ms": whole,
+           "ms_by_range_span": {str(sp): cuda_ms(call(range_span=sp)[0], 10)
+                                for sp in RAYS_RANGE_SPANS},
+           "ms_by_list_span": {str(sp): cuda_ms(call(list_span=sp)[0], 10)
+                               for sp in RAYS_LIST_SPANS}}
+    if not occlusion:
+        res["decode_ms"] = cuda_ms(lambda: launch(4), 20)
+    emit(**res)
+    require(stats["rows_equal_plain"] and stats["longest_first"],
+            f"{what} schedule differs from its plain version ({label})")
+    require(shape["slice_rays"] == sr,
+            f"{what} slices of {shape['slice_rays']} rays, the port's {sr}")
     return res
 
 
@@ -716,11 +820,14 @@ def view_varied_ms(sr, prep, cfg, light, frames: int, label: str) -> float:
 
 def check_found(kernel, plain, args, pts, S: int, what: str, label: str,
                 shadowed_min=None) -> dict:
-    """An any-hit walk over explicit rays (K2′ or K7) against its plain
-    version on ``args``, on the lanes whose point is a hit of the primary
-    pass inside the image (``pts``, in the primary rays' order); the shadow
-    tiles hold ts points x S samples, sample-major, in that order.  With
-    ``shadowed_min``, more than that many hit lanes must be shadowed."""
+    """An any-hit walk over explicit rays (K2′, K5 or K7) against its plain
+    version on ``args``: found equal on every lane, bit for bit (an OR is
+    exact in any order of the work items); reported on the lanes whose
+    point is a hit of the primary pass inside the image (``pts``, in the
+    primary rays' order); the shadow tiles hold ts points x S samples,
+    sample-major, in that order.  With ``shadowed_min``, more than that
+    many hit lanes must be shadowed.  Returns (its check line, the plain
+    walk's record)."""
     import torch
     kf = kernel(*args)
     pf, walk = plain_walk(plain, args)
@@ -736,17 +843,19 @@ def check_found(kernel, plain, args, pts, S: int, what: str, label: str,
            "rays_per_tile": m, "hit_lanes": int(lanes.sum()),
            "shadowed_hit_lanes": shadowed, "found_equal": f_frac,
            "found_differ": int((kf[lanes] != pf[lanes]).sum()),
+           "found_equal_every_lane": bool(torch.equal(kf, pf)),
            "found_max_abs_err": float((kf[lanes].int() - pf[lanes].int())
                                       .abs().max()),
            "plan": plan_stats(args[0]),
            **bound(walk, lanes, OPS_OCCLUDES, args[0],
                    window_bytes(args[1], args[6], args[7]), 28, kf)}
     emit(**res)
-    require(f_frac >= FOUND_MIN, f"{what} found equal on {f_frac} ({label})")
+    require(res["found_equal_every_lane"],
+            f"{what} found differs from the plain walk's ({label})")
     if shadowed_min is not None:
         require(shadowed > shadowed_min,
                 f"{what} shadowed {shadowed} ({label})")
-    return res
+    return res, walk
 
 
 def check_nearest(kernel, plain, args, inside, what: str, label: str,
@@ -855,9 +964,11 @@ def occlusion_frame(sr, prep, cfg, light, label: str, gpu: str) -> dict:
         k1_schedule(k1, label, walk, fetch=True)
 
     # K2′ vs plain, on the lanes whose point is a hit
-    k2_res = check_found(anyhit.tiled_anyhit, anyhit.tiled_anyhit_plain,
-                         k2r, torch.isfinite(kt) & inside, S, "K2'", label,
-                         SHADOWED_MIN)
+    k2_res, k2_walk = check_found(anyhit.tiled_anyhit,
+                                  anyhit.tiled_anyhit_plain, k2r,
+                                  torch.isfinite(kt) & inside, S, "K2'",
+                                  label, SHADOWED_MIN)
+    rays_schedule(k2r, label, k2_walk, "K2'", occlusion=True)
     k2_err = k2_res["found_max_abs_err"]
 
     launches = render_checked(sr, prep, cfg, light, label,
@@ -897,7 +1008,7 @@ def occlusion_frame(sr, prep, cfg, light, label: str, gpu: str) -> dict:
         launches[k1_role], k1_err, times["k1_ms"], times["k1_plain_ms"],
         k1_bound)
     k2_entry = entry(
-        "anyhit_rays_kernel", "anyhit.cu",
+        ANYHIT_NAME, "anyhit.cu",
         "simple_raytracer_tpu/kernels/tiled_t.py:1374", label,
         launches["anyhit"], k2_err, times["k2r_ms"], times["k2r_plain_ms"],
         k2_res, via="tiled_anyhit_t (tiled_t.py:1815)")
@@ -935,14 +1046,18 @@ def paged_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
                                           -(-cam.width // tpx), tpx,
                                           cam.width, cam.height, dev),
                          tpx, cam.width, cam.height)
-    k6_res, kt, ki, _ = check_nearest(
+    k6_res, kt, ki, k6_walk = check_nearest(
         paged.tiled_nearest, paged.tiled_nearest_plain, k6, inside, "K6",
-        label, nearest_ops(k6[2]), window_bytes(k6[1], k6[4]), 24)
+        label, nearest_ops(k6[2]), window_bytes(k6[1], k6[4]), 24,
+        exact=True)
+    rays_schedule(k6, label, k6_walk, "K6")
 
     # K7 vs plain, on the lanes whose point is a hit
-    k7_res = check_found(paged.tiled_anyhit, paged.tiled_anyhit_plain, k7,
-                         torch.isfinite(kt) & inside, S, "K7", label,
-                         shadowed_min)
+    k7_res, k7_walk = check_found(paged.tiled_anyhit,
+                                  paged.tiled_anyhit_plain, k7,
+                                  torch.isfinite(kt) & inside, S, "K7",
+                                  label, shadowed_min)
+    rays_schedule(k7, label, k7_walk, "K7", occlusion=True)
 
     launches = render_checked(sr, prep, cfg, light, label,
                               ("nearest_pages", "anyhit_pages"))["launches"]
@@ -975,12 +1090,12 @@ def paged_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
          rays_per_s=cam.width * cam.height * 1e3 / ms_frame, gpu=gpu,
          **times)
     return [
-        entry("nearest_rays_kernel", "nearest.cu",
+        entry(RAYS_NAME + " (pages)", "nearest.cu",
               "simple_raytracer_tpu/kernels/tiled.py:815", label,
               launches["nearest_pages"], k6_res["t_max_abs_err"],
               times["k6_ms"], times["k6_plain_ms"], k6_res,
               via="tiled_nearest (tiled.py:1047)"),
-        entry("anyhit_rays_kernel (page windows)", "anyhit.cu",
+        entry(ANYHIT_NAME + " (page windows)", "anyhit.cu",
               "simple_raytracer_tpu/kernels/tiled.py:905", label,
               launches["anyhit_pages"], k7_res["found_max_abs_err"],
               times["k7_ms"], times["k7_plain_ms"], k7_res,
@@ -1041,11 +1156,11 @@ def gather_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
     args = frame_args(prep, cfg, light, cam_spec, (o, d))
     if kc.prepass:
         near = ("nearest_rays", "K1 rays mode",
-                "nearest_rays_kernel (refined plan)",
+                RAYS_NAME + " (refined plan)",
                 "simple_raytracer_tpu/kernels/tiled_t.py:855",
                 "tiled_nearest_t over explicit rays (tiled_t.py:1616)")
     elif kc.nearest_groups > 1:
-        near = ("nearest_grouped", "K4", "nearest_rays_kernel (sub-groups)",
+        near = ("nearest_grouped", "K4", RAYS_NAME + " (sub-groups)",
                 "simple_raytracer_tpu/kernels/tiled_t.py:1145",
                 "tiled_nearest_t, groups > 1 (tiled_t.py:1616)")
     else:
@@ -1053,11 +1168,11 @@ def gather_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
                 K1_NAME + " (fetch mode)",
                 "simple_raytracer_tpu/kernels/tiled_t.py:855",
                 "tiled_nearest_t with cam (tiled_t.py:1616)")
-    shadow = (("anyhit_grouped", "K5", "anyhit_rays_kernel (sub-groups)",
+    shadow = (("anyhit_grouped", "K5", ANYHIT_NAME + " (sub-groups)",
                "simple_raytracer_tpu/kernels/tiled_t.py:1509",
                "tiled_anyhit_t, groups > 1 (tiled_t.py:1815)")
               if kc.anyhit_groups > 1 else
-              ("anyhit", "K2'", "anyhit_rays_kernel",
+              ("anyhit", "K2'", ANYHIT_NAME,
                "simple_raytracer_tpu/kernels/tiled_t.py:1374",
                "tiled_anyhit_t (tiled_t.py:1815)"))
     roles = (("prepass",) if kc.prepass else ()) + (near[0], shadow[0])
@@ -1096,13 +1211,18 @@ def gather_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
             kn[2], exact=True)
         k1_schedule(kn, label, walk, fetch=True)
     else:
-        near_res, kt, _ki, _ = check_nearest(
+        near_res, kt, _ki, near_walk = check_nearest(
             near_fn, near_plain, kn, inside, near[1], label,
-            nearest_ops(kn[2]), window_bytes(kn[1], kn[4]), 24)
+            nearest_ops(kn[2]), window_bytes(kn[1], kn[4]), 24, exact=True)
+        rays_schedule(kn, label, near_walk, near[1], kc.nearest_groups
+                      if near[0] == "nearest_grouped" else 1)
 
     # the occlusion walk vs plain, on the lanes whose point is a hit
-    sh_res = check_found(sh_fn, sh_plain, ks, torch.isfinite(kt) & inside,
-                         S, shadow[1], label, shadowed_min)
+    sh_res, sh_walk = check_found(sh_fn, sh_plain, ks,
+                                  torch.isfinite(kt) & inside, S, shadow[1],
+                                  label, shadowed_min)
+    rays_schedule(ks, label, sh_walk, shadow[1], kc.anyhit_groups,
+                  occlusion=True)
 
     launches = render_checked(sr, prep, cfg, light, label, roles)["launches"]
     ms_frame = view_varied_ms(sr, prep, cfg, light, frames, label)
@@ -1186,9 +1306,10 @@ def mode_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
     else:
         kt = nearest.tiled_nearest_shaded(*k1)[0]
         inside = frame_lanes(k1[0][:, 4], k1[0][:, 5], tpx, *size)
-        sh_res = check_found(anyhit.tiled_anyhit, anyhit.tiled_anyhit_plain,
-                             ks, torch.isfinite(kt) & inside, 1, "K2'",
-                             label, shadowed_min)
+        sh_res, sh_walk = check_found(
+            anyhit.tiled_anyhit, anyhit.tiled_anyhit_plain, ks,
+            torch.isfinite(kt) & inside, 1, "K2'", label, shadowed_min)
+        rays_schedule(ks, label, sh_walk, "K2'", occlusion=True)
 
     render = render_checked(sr, prep, cfg, light, label, ("nearest_shaded",
                                                           shadow), view)
@@ -1237,7 +1358,7 @@ def mode_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
     name = {nearest.TEXTURED: "textured", nearest.SMOOTH: "smooth"}[mode]
     sh_entry = (("anyhit_from_t_kernel", "tiled_anyhit_from_t (tiled_t.py:"
                  "1878)") if branch == "fused" else
-                ("anyhit_rays_kernel", "tiled_anyhit_t (tiled_t.py:1815)"))
+                (ANYHIT_NAME, "tiled_anyhit_t (tiled_t.py:1815)"))
     return [
         entry(f"{K1_NAME} ({name} mode)", "nearest.cu",
               "simple_raytracer_tpu/kernels/tiled_t.py:855", label,
@@ -1296,7 +1417,11 @@ def complex_frames(sr, root, dev):
 
 def io_bound(moved: int, f32_ops: int) -> dict:
     """The bound of a probe: the larger of its bytes over the memory rate
-    and its f32 operations over the f32 rate."""
+    and its f32 operations over the f32 rate.  The bytes are charged at
+    device memory's rate, so the probes are timed with the L2 flushed
+    before each timed call, outside its timed interval
+    (``probes.device_ms(flush=True)``): back to back, a probe of 10-30 MB
+    found its inputs in the 50 MB L2 and beat this bound."""
     t_ops = f32_ops / F32_OPS_PER_S * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
@@ -1377,8 +1502,8 @@ def probe_phase(prep, cfg, light, label: str, gpu: str) -> list:
         bnd = io_bound(moved, PROBE_F32_OPS[variant] * lanes)
         plain_ms = cuda_ms(lambda: fixed.fixed_probe_plain(variant, **inputs),
                            2)
-        lib_ms = (device_ms(lambda: o[..., 0] + 1.0, PROBE_FRAMES)[0]
-                  if variant == "io" else None)
+        lib_ms = (device_ms(lambda: o[..., 0] + 1.0, PROBE_FRAMES,
+                            flush=True)[0] if variant == "io" else None)
         emit(check=f"probe {name} vs plain ({label})", variant=variant,
              t_equal=t_eq, idx_equal=idx_eq, max_abs_err=err,
              ms_per_frame=r["ms"], us_per_tile=r["us_per_tile"],
@@ -1443,7 +1568,7 @@ def probe_phase(prep, cfg, light, label: str, gpu: str) -> list:
             moved = nbytes(bid, out) + rows * at.shape[1] * at.element_size()
             pad = torch.cat([at.new_zeros(1, at.shape[1]), at])
             lib_ms = device_ms(lambda: F.embedding(bid + 1, pad),
-                               PROBE_FRAMES)[0]
+                               PROBE_FRAMES, flush=True)[0]
             ops = 0
         else:
             starts, bid, at = args

@@ -1,100 +1,93 @@
-// The any-hit (occlusion) walks, one thread block per shadow tile.
+// The any-hit (occlusion) walks.
 //
-// anyhit_from_t_kernel: hard-shadow occlusion rebuilt from the nearest pass.
-// Replaces the TPU kernel simple_raytracer_tpu/kernels/tiled_t.py::
-// _anyhit_kernel_t in its from-t form (reached through tiled_anyhit_from_t
-// from anyhit_from_t) on the fused frame's path.  Plain PyTorch version:
-// kernels/anyhit.py::tiled_anyhit_from_t_plain.  A shadow ray is rebuilt from
-// its pixel, the nearest pass's t and the light: p = o + t*d (t pinned to 0
-// on a miss), direction light - p, unnormalized.  Miss lanes start found = 1,
-// so they never hold back the exit; callers mask them.
+// anyhit_from_t_kernel: hard-shadow occlusion rebuilt from the nearest pass,
+// one thread block per shadow tile.  Replaces the TPU kernel
+// simple_raytracer_tpu/kernels/tiled_t.py::_anyhit_kernel_t in its from-t
+// form (reached through tiled_anyhit_from_t from anyhit_from_t) on the fused
+// frame's path.  Plain PyTorch version: kernels/anyhit.py::
+// tiled_anyhit_from_t_plain.  A shadow ray is rebuilt from its pixel, the
+// nearest pass's t and the light: p = o + t*d (t pinned to 0 on a miss),
+// direction light - p, unnormalized.  Miss lanes start found = 1, so they
+// never hold back the exit; callers mask them.  It runs anyhit_walk: each
+// thread owns RPT rays, strided by the block size; for each plan entry the
+// block stages the window's triangles and block object ids in shared
+// memory and stops as soon as every ray has found an occluder
+// (__syncthreads_and).
 //
-// anyhit_rays_kernel: the same walk over explicit rays (o, d, self object).
-// Replaces the same TPU kernel in its rays-as-input form (reached through
-// tiled_anyhit_t from anyhit) on the legacy hard-shadow and the soft-shadow
-// paths.  Plain PyTorch version: kernels/anyhit.py::tiled_anyhit_plain.  A
-// tile holds M rays (S light samples x ts points when folded); M need not be
-// a multiple of the block size: lanes past M start found and are not written.
-// With groups > 1 it replaces the TPU kernel tiled_t.py::_anyhit_kernel_g
-// (K5, reached through tiled_anyhit_t with groups_ah > 1): the plan carries
-// a 4-bit sub-group mask per entry (kernels/plan.py::group_mask_words); a
-// sub-group of M / groups lanes skips the windows its bit clears, and the
-// block stops once every group is all-found or has no window left.  Plain
-// PyTorch version: kernels/anyhit.py::tiled_anyhit_grouped_plain.
+// anyhit_rays (anyhit_schedule_kernel, anyhit_items_kernel<RPT>): the same
+// test over explicit rays (o, d, self object) [n, m].  Replaces the same
+// TPU kernel in its rays-as-input form (K2′, reached through tiled_anyhit_t
+// from anyhit, on the legacy hard-shadow, soft-shadow and gather paths;
+// plain version kernels/anyhit.py::tiled_anyhit_plain), tiled_t.py::
+// _anyhit_kernel_g (K5, groups_ah > 1: the plan carries a 4-bit sub-group
+// mask per entry, kernels/plan.py::group_mask_words; plain version
+// tiled_anyhit_grouped_plain) and kernels/tiled.py::_anyhit_kernel (K7,
+// page windows, reached through tiled_anyhit from the paged frame; plain
+// version kernels/paged.py::tiled_anyhit_plain).  A tile holds m rays (S
+// light samples x ts points when folded).  Two launches over work items
+// (tile, ray slice, span), the schedule of nearest.cu's walks
+// (srt::schedule_rows): the schedule launch zeroes found and lists the rows
+// longest first; a persistent grid walks the items.  A slice is
+// min(512, the sub-group) lanes, so it lies in one sub-group and skips the
+// entries whose mask bit that group lacks; lanes past the group are not
+// live.  found is the OR of the same predicate over the same windows, so
+// items may run in any order and the result is the plain walk's, bit for
+// bit: an item stores 1 for each ray it finds occluded by a plain byte store
+// (the race is benign: every writer writes 1), reads its rays' flags (past
+// L1) when it starts and once a window, skips rays already found, and ends
+// once all its live rays are found.
 //
-// Both run anyhit_walk: each thread owns RPT rays, strided by the block size.
-// For each plan entry the block stages the window's triangles and block
-// object ids in shared memory; a ray skips a block of its own object (blocks
-// are single-object by construction, accel/prepared.py) and tests the others
+// Every walk skips a block of the ray's own object (blocks are
+// single-object by construction, accel/prepared.py) and tests the others
 // with srt::occludes, the division-free Möller–Trumbore predicate, with no
 // max-t unless configured (the reference's quirks, simple_raytracer.cpp:
-// 321-342).  The block stops as soon as every ray has found an occluder
-// (__syncthreads_and).
+// 321-342).
 //
 // What bounds them on the H100: the MT arithmetic of rays that stay
 // unoccluded (they walk the whole plan), not memory: a window is 4.6 KB of
-// triangles read once per tile, and a ray is read once.  The design drops the
-// division of the nearest test, skips finished rays and own-object blocks per
-// thread, and exits per tile; K5 also skips a window's staging when no
-// group that still has an unoccluded ray may reach it.
+// triangles read from L2, and a ray is read once.  A tile's plan can be
+// over a thousand windows (a range row), so one block per tile would leave a
+// frame waiting on its deepest tile's SM: the items cut every walk to a
+// span over one slice, longest first on all SMs, in CTAs of 256 threads,
+// several to an SM, staging the next window with cp.async while the
+// current one is tested.
 
 #include "common.cuh"
 
 namespace {
 
 // Walk the tile's plan; found[r] |= "ray r meets a triangle of another
-// object".  Ray r has origin h[r] and direction s[r].  kGrouped: lane r
-// belongs to the sub-group of bit gbit[r]; a window is staged when some
-// group with an unoccluded ray may reach it and tested only by such groups.
-template <int RPT, bool kGrouped = false>
+// object".  Ray r has origin h[r] and direction s[r].
+template <int RPT>
 __device__ __forceinline__ void anyhit_walk(
     const srt::TilePlan& P, const float* __restrict__ tri,
     const int* __restrict__ block_obj, int n_windows, int wt, int bs,
     float eps, int no_max_t, const float* hx, const float* hy,
     const float* hz, const float* sx, const float* sy, const float* sz,
-    const int* self_obj, bool* found, float* s_tri, int* s_bobj,
-    const unsigned* gbit = nullptr) {
+    const int* self_obj, bool* found, float* s_tri, int* s_bobj) {
   const int wb = wt / bs;
-  const unsigned full = (1u << P.groups) - 1u;
-  unsigned done = 0;                             // groups all found
   for (int k = 0; k < P.cnt; ++k) {
     const int w = P.window(k);
     __syncthreads();                             // shared tables free
     if (w < 0 || w >= n_windows) continue;       // block-uniform
-    const unsigned need = kGrouped ? P.gmask(k) & ~done & full : full;
-    if (need) {                                  // block-uniform
-      srt::stage(s_tri, tri + (size_t)w * wt * srt::kTriW, wt * srt::kTriW);
-      for (int i = threadIdx.x; i < wb; i += blockDim.x)
-        s_bobj[i] = block_obj[w * wb + i];
-      __syncthreads();
-      for (int j = 0; j < wt; ++j) {
-        const int bo = s_bobj[j / bs];
-        const srt::Tri g(s_tri + j * srt::kTriW);
+    srt::stage(s_tri, tri + (size_t)w * wt * srt::kTriW, wt * srt::kTriW);
+    for (int i = threadIdx.x; i < wb; i += blockDim.x)
+      s_bobj[i] = block_obj[w * wb + i];
+    __syncthreads();
+    for (int j = 0; j < wt; ++j) {
+      const int bo = s_bobj[j / bs];
+      const srt::Tri g(s_tri + j * srt::kTriW);
 #pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          if constexpr (kGrouped) {
-            if (!(need & gbit[r])) continue;     // warp-uniform
-          }
-          if (found[r] || bo == self_obj[r]) continue;
-          found[r] = srt::occludes(g, hx[r], hy[r], hz[r], sx[r], sy[r],
-                                   sz[r], eps, no_max_t);
-        }
+      for (int r = 0; r < RPT; ++r) {
+        if (found[r] || bo == self_obj[r]) continue;
+        found[r] = srt::occludes(g, hx[r], hy[r], hz[r], sx[r], sy[r], sz[r],
+                                 eps, no_max_t);
       }
     }
-    if constexpr (!kGrouped) {
-      int all = 1;
+    int all = 1;
 #pragma unroll
-      for (int r = 0; r < RPT; ++r) all &= found[r];
-      if (__syncthreads_and(all)) break;
-    } else {
-      unsigned open = 0;                         // groups with a ray unfound
-#pragma unroll
-      for (int r = 0; r < RPT; ++r)
-        if (!found[r]) open |= gbit[r];
-      for (int g = 0; g < P.groups; ++g)
-        if (__syncthreads_and(!((open >> g) & 1u))) done |= 1u << g;
-      if (done == full) break;
-    }
+    for (int r = 0; r < RPT; ++r) all &= found[r];
+    if (__syncthreads_and(all)) break;
   }
 }
 
@@ -144,48 +137,126 @@ __global__ void anyhit_from_t_kernel(
     found_out[(size_t)tile * tile_r + tid + r * nthr] = found[r] ? 1 : 0;
 }
 
-// rays o, d [n, m, 3] f32 and self_obj [n, m] i32 -> found [n, m] u8;
-// kGrouped: the plan carries masks for `groups` groups of m / groups lanes
-template <int RPT, bool kGrouped>
-__global__ void anyhit_rays_kernel(
-    const int* __restrict__ plan, int plan_w, const float* __restrict__ tri,
-    const int* __restrict__ block_obj, int n_windows,
-    const float* __restrict__ o_in, const float* __restrict__ d_in,
-    const int* __restrict__ self_in, int m, int wt, int bs, float eps,
-    int no_max_t, int groups, unsigned char* __restrict__ found_out) {
-  extern __shared__ float s_tri[];        // wt * kTriW floats, then wt/bs ids
-  int* s_bobj = reinterpret_cast<int*>(s_tri + wt * srt::kTriW);
-  const int nthr = blockDim.x;
-  const int tid = threadIdx.x;
-  const int tile = blockIdx.x;
-  const srt::TilePlan P(plan, plan_w, tile, kGrouped ? groups : 1);
 
-  float hx[RPT], hy[RPT], hz[RPT], sx[RPT], sy[RPT], sz[RPT];
-  int self_obj[RPT];
-  bool found[RPT];
-  unsigned gbit[RPT];
+// Every block zeroes found (n bytes, 4-byte aligned); block 0
+// (srt::kBuckets threads) lists the rows (srt::schedule_rows).
+__global__ void __launch_bounds__(srt::kBuckets) anyhit_schedule_kernel(
+    const int* __restrict__ plan, int plan_w, int n_tiles, int n_windows,
+    srt::Spans spans, int rows_max, int* __restrict__ sched,
+    unsigned char* __restrict__ found, long long n) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long i0 = static_cast<long long>(blockIdx.x) * blockDim.x +
+                       threadIdx.x;
+  for (long long i = i0; i < n / 4; i += stride)
+    reinterpret_cast<unsigned*>(found)[i] = 0u;
+  if (i0 < n % 4) found[n / 4 * 4 + i0] = 0;
+  if (blockIdx.x != 0) return;
+  srt::schedule_rows(plan, plan_w, n_tiles, n_windows, spans, rows_max,
+                     sched);
+}
+
+// The persistent walk over explicit rays: each CTA takes the next item from
+// sched[0]; item i is row i / slices, slice i % slices (srt::Slice).
+// Shared memory: two staged windows (triangles and block object ids), the
+// next one in flight.
+template <int RPT>
+__global__ void __launch_bounds__(srt::kItemThreads) anyhit_items_kernel(
+    const int* __restrict__ plan, int plan_w, int groups,
+    const float* __restrict__ tri, const int* __restrict__ block_obj,
+    int n_windows, const float* __restrict__ o_in,
+    const float* __restrict__ d_in, const int* __restrict__ self_in, int m,
+    int wt, int bs, float eps, int no_max_t, srt::Spans spans,
+    int* __restrict__ sched, unsigned char* found) {
+  extern __shared__ __align__(16) float smem[];
+  float* raw = smem;                             // 2 x wt * kTriW
+  int* s_bobj = reinterpret_cast<int*>(smem + 2 * wt * srt::kTriW);
+  __shared__ int s_item;
+  const int tid = threadIdx.x;
+  const int wb = wt / bs;
+  const int slices = srt::slices_per_tile(m, groups);
+  const int items = sched[1] * slices;
+  const int win_f = wt * srt::kTriW;
+  for (;;) {
+    if (tid == 0) s_item = atomicAdd(&sched[0], 1);
+    __syncthreads();
+    const int item = s_item;
+    if (item >= items) break;                    // block-uniform
+    const int row = item / slices;
+    const srt::Slice S(item - row * slices, m, groups);
+    const int tile = sched[2 + 2 * row];
+    const srt::TilePlan P(plan, plan_w, tile, groups);
+    const int k0 = sched[3 + 2 * row] * spans.of(P);
+    const int k1 = min(P.cnt, k0 + spans.of(P));
+    const unsigned gbit = 1u << S.group;
+    const size_t base = static_cast<size_t>(tile) * m + S.first;
+
+    float hx[RPT], hy[RPT], hz[RPT], sx[RPT], sy[RPT], sz[RPT];
+    int self_obj[RPT];
+    bool open[RPT];                              // live and not yet found
+    int done = 1;
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int lane = tid + r * nthr;
-    const bool live = lane < m;
-    const size_t o = (size_t)tile * m + (live ? lane : 0);
-    hx[r] = o_in[3 * o + 0];
-    hy[r] = o_in[3 * o + 1];
-    hz[r] = o_in[3 * o + 2];
-    sx[r] = d_in[3 * o + 0];
-    sy[r] = d_in[3 * o + 1];
-    sz[r] = d_in[3 * o + 2];
-    self_obj[r] = self_in[o];
-    found[r] = !live;                     // tail lanes never hold the exit
-  }
-  if constexpr (kGrouped) srt::group_bits<RPT>(m / groups, gbit);
-  anyhit_walk<RPT, kGrouped>(P, tri, block_obj, n_windows, wt, bs, eps,
-                             no_max_t, hx, hy, hz, sx, sy, sz, self_obj,
-                             found, s_tri, s_bobj, gbit);
+    for (int r = 0; r < RPT; ++r) {
+      const int l = tid + r * srt::kItemThreads;
+      const bool live = l < S.live;
+      const size_t o = base + (live ? l : 0);
+      hx[r] = o_in[3 * o + 0];
+      hy[r] = o_in[3 * o + 1];
+      hz[r] = o_in[3 * o + 2];
+      sx[r] = d_in[3 * o + 0];
+      sy[r] = d_in[3 * o + 1];
+      sz[r] = d_in[3 * o + 2];
+      self_obj[r] = self_in[o];
+      open[r] = live && !__ldcg(found + o);
+      done &= !open[r];
+    }
+    if (__syncthreads_and(done)) continue;       // found by other items
+    auto walks = [&](int k) {
+      const int w = P.window(k);
+      return w >= 0 && w < n_windows && (P.gmask(k) & gbit);
+    };
+    auto stage = [&](int k) {
+      const int w = P.window(k), b = (k - k0) & 1;
+      srt::stage_window_async(raw + b * win_f, tri, w, wt);
+      for (int i = tid; i < wb; i += srt::kItemThreads)
+        srt::cp_async4(s_bobj + b * wb + i, block_obj + w * wb + i);
+      srt::cp_async_commit();
+    };
+    if (k0 < k1 && walks(k0)) stage(k0);
+    for (int k = k0; k < k1; ++k) {
+      const float* cur = raw + ((k - k0) & 1) * win_f;
+      const int* cbo = s_bobj + ((k - k0) & 1) * wb;
+      srt::cp_async_wait_all();
+      __syncthreads();                           // window k landed
+      if (k + 1 < k1 && walks(k + 1)) stage(k + 1);
+      bool seen[RPT];                            // found by other items
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int lane = tid + r * nthr;
-    if (lane < m) found_out[(size_t)tile * m + lane] = found[r] ? 1 : 0;
+      for (int r = 0; r < RPT; ++r)
+        seen[r] = open[r] && __ldcg(found + base + tid + r * srt::kItemThreads);
+      if (walks(k)) {                            // block-uniform
+        for (int j = 0; j < wt; ++j) {
+          const int bo = cbo[j / bs];
+          const srt::Tri g(cur + j * srt::kTriW);
+#pragma unroll
+          for (int r = 0; r < RPT; ++r) {
+            if (!open[r] || bo == self_obj[r]) continue;
+            if (srt::occludes(g, hx[r], hy[r], hz[r], sx[r], sy[r], sz[r],
+                              eps, no_max_t)) {
+              open[r] = false;
+              found[base + tid + r * srt::kItemThreads] = 1;
+            }
+          }
+        }
+      }
+      done = 1;
+#pragma unroll
+      for (int r = 0; r < RPT; ++r) {
+        open[r] = open[r] && !seen[r];
+        done &= !open[r];
+      }
+      if (__syncthreads_and(done)) break;
+    }
+    srt::cp_async_wait_all();                    // no copy outlives the item
+    __syncthreads();             // s_item and the buffers free for the next
   }
 }
 
@@ -197,6 +268,28 @@ bool bad_launch(int threads, int wt, int bs) {
 size_t walk_smem(int wt, int bs) {
   return static_cast<size_t>(wt) * srt::kTriW * sizeof(float) +
          static_cast<size_t>(wt / bs) * sizeof(int);
+}
+
+size_t items_smem(int wt, int bs) { return 2 * walk_smem(wt, bs); }
+
+template <int RPT>
+int launch_items(const void* plan, int plan_w, int groups, const void* tri,
+                 const void* block_obj, int n_windows, const void* o_in,
+                 const void* d_in, const void* self_in, int m, int wt, int bs,
+                 float eps, int no_max_t, srt::Spans spans, void* sched,
+                 void* found, cudaStream_t s) {
+  const size_t smem = items_smem(wt, bs);
+  anyhit_items_kernel<RPT>
+      <<<srt::persistent_grid(anyhit_items_kernel<RPT>, srt::kItemThreads,
+                              smem),
+         srt::kItemThreads, smem, s>>>(
+          static_cast<const int*>(plan), plan_w, groups,
+          static_cast<const float*>(tri), static_cast<const int*>(block_obj),
+          n_windows, static_cast<const float*>(o_in),
+          static_cast<const float*>(d_in), static_cast<const int*>(self_in),
+          m, wt, bs, eps, no_max_t, spans, static_cast<int*>(sched),
+          static_cast<unsigned char*>(found));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -235,41 +328,59 @@ extern "C" int srt_anyhit_from_t(
   return static_cast<int>(cudaGetLastError());
 }
 
-#define SRT_ANYHIT_RAYS_LAUNCH(R, G)                                           \
-  anyhit_rays_kernel<R, G><<<n_tiles, threads, smem, s>>>(                     \
-      static_cast<const int*>(plan), plan_w, static_cast<const float*>(tri),   \
-      static_cast<const int*>(block_obj), n_windows,                           \
-      static_cast<const float*>(o_in), static_cast<const float*>(d_in),        \
-      static_cast<const int*>(self_in), m, wt, bs, eps, no_max_t, groups,      \
-      static_cast<unsigned char*>(found))
 
-#define SRT_ANYHIT_RAYS_CASE(R)                                                \
-  case R:                                                                      \
-    if (groups > 1)                                                            \
-      SRT_ANYHIT_RAYS_LAUNCH(R, true);                                         \
-    else                                                                       \
-      SRT_ANYHIT_RAYS_LAUNCH(R, false);                                        \
-    break;
-
+// Occlusion of explicit rays o, d [n_tiles, m, 3] f32 with self objects
+// [n_tiles, m] i32 over a plan of windows of wt triangles (wt / bs blocks)
+// -> found [n_tiles, m] u8.  groups > 1: the plan carries the sub-group
+// masks of `groups` groups of m / groups lanes (a multiple of 32).
+// Scratch: sched [2 + 2 * rows_max] i32, rows_max at least n_tiles * (1 +
+// max(n_windows / range_span, entries / list_span)).  `stages`: 1 schedule
+// and zero found, 2 walk; 3 for both.
 extern "C" int srt_anyhit_rays(
-    const void* plan, int plan_w, int n_tiles, const void* tri,
+    const void* plan, int plan_w, int n_tiles, int groups, const void* tri,
     const void* block_obj, int n_windows, const void* o_in, const void* d_in,
     const void* self_in, int m, int wt, int bs, float eps, int no_max_t,
-    int groups, void* found, int threads, void* stream) {
+    void* found, void* sched, int rows_max, int range_span, int list_span,
+    int stages, void* stream) {
   if (n_tiles == 0) return 0;
-  if (bad_launch(threads, wt, bs) || m <= 0 || groups < 1 || groups > 4 ||
-      m % groups || (groups > 1 && (m / groups) % 32))
+  if (m <= 0 || groups < 1 || groups > 4 || m % groups ||
+      (groups > 1 && (m / groups) % 32) || bs <= 0 || wt % bs || wt % 4 ||
+      srt::bad_spans(range_span, list_span) || items_smem(wt, bs) > 48 * 1024 ||
+      reinterpret_cast<uintptr_t>(tri) % 16 ||
+      reinterpret_cast<uintptr_t>(found) % 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = walk_smem(wt, bs);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (srt::rays_per_thread(m, threads)) {
-    SRT_ANYHIT_RAYS_CASE(1)
-    SRT_ANYHIT_RAYS_CASE(2)
-    SRT_ANYHIT_RAYS_CASE(4)
-    SRT_ANYHIT_RAYS_CASE(8)
-    SRT_ANYHIT_RAYS_CASE(16)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  const srt::Spans spans{range_span, list_span};
+  if (stages & 1) {
+    const long long n = static_cast<long long>(n_tiles) * m;
+    anyhit_schedule_kernel<<<srt::fill_blocks(n / 4, srt::kBuckets),
+                             srt::kBuckets, 0, s>>>(
+        static_cast<const int*>(plan), plan_w, n_tiles, n_windows, spans,
+        rows_max, static_cast<int*>(sched),
+        static_cast<unsigned char*>(found), n);
+    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   }
+  if (stages & 2)
+    return srt::slice_rays(m, groups) > srt::kItemThreads
+               ? launch_items<2>(plan, plan_w, groups, tri, block_obj,
+                                 n_windows, o_in, d_in, self_in, m, wt, bs,
+                                 eps, no_max_t, spans, sched, found, s)
+               : launch_items<1>(plan, plan_w, groups, tri, block_obj,
+                                 n_windows, o_in, d_in, self_in, m, wt, bs,
+                                 eps, no_max_t, spans, sched, found, s);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The walk over explicit rays on this card for windows of wt triangles (wt
+// / bs blocks) and m rays a tile in `groups` sub-groups: out = (CTAs per
+// SM, registers per thread, SMs, rays per slice, threads per CTA).
+extern "C" int srt_anyhit_rays_shape(int wt, int bs, int m, int groups,
+                                     int* out) {
+  const int sr = srt::slice_rays(m, groups);
+  const size_t smem = items_smem(wt, bs);
+  return sr > srt::kItemThreads
+             ? srt::walk_shape(anyhit_items_kernel<2>, srt::kItemThreads, smem,
+                               sr, out)
+             : srt::walk_shape(anyhit_items_kernel<1>, srt::kItemThreads, smem,
+                               sr, out);
 }

@@ -1,5 +1,6 @@
 // Shared device code of the tiled kernels (nearest.cu, anyhit.cu,
-// prepass.cu).
+// prepass.cu): the plan row, the ray and triangle helpers, the occlusion
+// predicate, and the work-item schedule and staging of the walks.
 //
 // Built with --fmad=false (kernels/build.py): every expression below rounds
 // each multiply and add on its own, in the order written, which is the order
@@ -58,17 +59,6 @@ struct TilePlan {
   }
 };
 
-// Sub-group bit of each of a thread's RPT lanes (lane = tid + r * nthr):
-// groups of `glanes` consecutive lanes, a multiple of 32 (the wrappers
-// check), so a group is whole warps and its skips and breaks are
-// warp-uniform.
-template <int RPT>
-__device__ __forceinline__ void group_bits(int glanes, unsigned* gbit) {
-#pragma unroll
-  for (int r = 0; r < RPT; ++r)
-    gbit[r] = 1u << ((threadIdx.x + r * blockDim.x) / glanes);
-}
-
 // Primary ray of tile lane `lane`: d = fx * A + fy * B + C with (fx, fy)
 // the pixel relative to the image centre (ops/camera.py::tile_ray_dirs).
 __device__ __forceinline__ void ray_dir(const float* cam, int px0, int py0,
@@ -120,13 +110,198 @@ __device__ __forceinline__ bool occludes(const Tri& g, float ox, float oy,
          t_num * det >= 0.0f && (no_max_t || fabsf(t_num) <= adet);
 }
 
-// Rays per thread for a tile of `tile_r` rays over `threads` threads: the
-// least of 1, 2, 4, 8, 16 that covers the tile (0 if none does).  The kernels
-// are instantiated for these counts; lanes past the tile are masked.
-inline int rays_per_thread(int tile_r, int threads) {
-  for (int r = 1; r <= 16; r *= 2)
-    if (r * threads >= tile_r) return r;
-  return 0;
+// ---- Work items: the schedule shared by the walks of nearest.cu and
+// anyhit.cu (K1, nearest_rays, anyhit_rays) ----
+//
+// A walk's work items are (tile, ray slice, span).  A row (tile, span) is a
+// span of the tile's plan row: a range row's covering range in spans of
+// `range` windows, a list in spans of `list` entries, each span walked from
+// its own first entry.  One block of the schedule launch lists the rows
+// longest first (a counting sort by walk length, on the device: the host
+// reads nothing); each row is as many items as the tile has slices.
+
+constexpr int kBuckets = 1024;     // span lengths 0..1023, a bucket each
+constexpr int kItemThreads = 256;  // a CTA of the walks
+constexpr int kItemSlice = 512;    // the most rays of one of their items
+
+// The spans' length of a row, in entries (list) or windows (range).
+struct Spans {
+  int range, list;
+  __device__ int of(const TilePlan& P) const {
+    return P.use_list ? list : range;
+  }
+};
+
+// Windows a row walks: its list, or its covering range clamped to the
+// windows that exist (later ones are skipped by the walks anyway).
+__device__ __forceinline__ int walk_len(const TilePlan& P, int n_windows) {
+  return P.use_list ? P.cnt : min(P.cnt, max(0, n_windows - P.lo));
+}
+
+// Schedule bucket of a walk of `len` windows: ascending buckets are
+// descending lengths.
+__device__ __forceinline__ int bucket(int len) {
+  return kBuckets - 1 - min(len, kBuckets - 1);
+}
+
+// sched (int32): [0] the item counter (zeroed), [1] the rows, then (tile,
+// span) per row, longest walk first; rows of equal length land in any
+// order.  Run by one block of kBuckets threads: it counts the rows by walk
+// length, scans the counts longest first and scatters the rows.
+__device__ __forceinline__ void schedule_rows(const int* __restrict__ plan,
+                                              int plan_w, int n_tiles,
+                                              int n_windows, Spans spans,
+                                              int rows_max,
+                                              int* __restrict__ sched) {
+  __shared__ int off[kBuckets];
+  __shared__ int s_warp[kBuckets / 32];
+  const int tid = threadIdx.x;
+  off[tid] = 0;
+  __syncthreads();
+  for (int t = tid; t < n_tiles; t += kBuckets) {
+    const TilePlan P(plan, plan_w, t);
+    const int len = walk_len(P, n_windows), span = spans.of(P);
+    if (len <= 0) continue;
+    const int full = len / span, rem = len - full * span;
+    if (full) atomicAdd(&off[bucket(span)], full);
+    if (rem) atomicAdd(&off[bucket(rem)], 1);
+  }
+  __syncthreads();
+  // exclusive scan of off: warp scans, then a scan of the warp sums
+  const int v = off[tid];
+  int x = v;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if ((tid & 31) >= d) x += y;
+  }
+  if ((tid & 31) == 31) s_warp[tid >> 5] = x;
+  __syncthreads();
+  if (tid < 32) {
+    int w = s_warp[tid];
+    for (int d = 1; d < 32; d <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, d);
+      if (tid >= d) w += y;
+    }
+    s_warp[tid] = w;
+  }
+  __syncthreads();
+  const int excl = x - v + (tid >= 32 ? s_warp[(tid >> 5) - 1] : 0);
+  off[tid] = excl;
+  if (tid == kBuckets - 1) {
+    sched[0] = 0;
+    sched[1] = min(excl + v, rows_max);
+  }
+  __syncthreads();
+  for (int t = tid; t < n_tiles; t += kBuckets) {
+    const TilePlan P(plan, plan_w, t);
+    const int len = walk_len(P, n_windows), span = spans.of(P);
+    for (int s = 0; s * span < len; ++s) {
+      const int pos = atomicAdd(&off[bucket(min(span, len - s * span))], 1);
+      if (pos < rows_max) {
+        sched[2 + 2 * pos] = t;
+        sched[3 + 2 * pos] = s;
+      }
+    }
+  }
+}
+
+// Rays of a work item over a tile of m explicit rays in `groups` sub-groups
+// of m / groups lanes: slices of slice_r consecutive lanes (min(kItemSlice,
+// the group rounded up to whole warps)) never cross a group.  Slice `sl` is
+// group g = sl / per_group's lanes [first, first + live) ; its lanes past the
+// group are not live.
+__host__ __device__ __forceinline__ int slice_rays(int m, int groups) {
+  const int glanes = (m / groups + 31) / 32 * 32;
+  return glanes < kItemSlice ? glanes : kItemSlice;
+}
+
+__host__ __device__ __forceinline__ int slices_per_tile(int m, int groups) {
+  const int sr = slice_rays(m, groups);
+  return groups * ((m / groups + sr - 1) / sr);
+}
+
+struct Slice {
+  int first, live, group;
+  __device__ Slice(int sl, int m, int groups) {
+    const int glanes = m / groups, sr = slice_rays(m, groups);
+    const int per_group = (glanes + sr - 1) / sr;
+    group = sl / per_group;
+    const int j = sl - group * per_group;
+    first = group * glanes + j * sr;
+    live = min(sr, glanes - j * sr);
+  }
+};
+
+// Asynchronous copies into shared memory (sm_80+): a window is staged while
+// the one before it is tested.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start copying window w's triangle rows into dst (wt * kTriW floats, a
+// multiple of 4: 16-byte copies; tri 16-byte aligned).  The caller commits.
+__device__ __forceinline__ void stage_window_async(
+    float* dst, const float* __restrict__ tri, int w, int wt) {
+  const float* src = tri + static_cast<size_t>(w) * wt * kTriW;
+  for (int i = threadIdx.x; i < wt * kTriW / 4; i += blockDim.x)
+    cp_async16(dst + 4 * i, src + 4 * i);
+}
+
+// ---- Host helpers of the launches ----
+
+// Blocks of a grid-stride fill or decode of n elements, per_block a block.
+inline int fill_blocks(long long n, int per_block) {
+  const long long want = (n + per_block - 1) / per_block;
+  return static_cast<int>(want < 1 ? 1 : want > 512 ? 512 : want);
+}
+
+// The persistent grid of `kernel`: as many CTAs as fit on every SM.
+template <typename K>
+int persistent_grid(K kernel, int threads, size_t smem) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
+  return per_sm * sms > 1 ? per_sm * sms : 1;
+}
+
+// out = (CTAs per SM, registers per thread, SMs, rays per slice, threads
+// per CTA) of the walk `kernel` with `smem` bytes of dynamic shared memory.
+template <typename K>
+int walk_shape(K kernel, int threads, size_t smem, int slice_r, int* out) {
+  int dev = 0;
+  cudaFuncAttributes fa;
+  if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
+  cudaDeviceGetAttribute(&out[2], cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], kernel, threads,
+                                                smem);
+  cudaFuncGetAttributes(&fa, kernel);
+  out[1] = fa.numRegs;
+  out[3] = slice_r;
+  out[4] = threads;
+  return static_cast<int>(cudaGetLastError());
+}
+
+inline bool bad_spans(int range_span, int list_span) {
+  return range_span < 1 || range_span >= kBuckets || list_span < 1 ||
+         list_span >= kBuckets;
 }
 
 }  // namespace srt

@@ -1,6 +1,6 @@
 // The nearest-hit walks.
 //
-// K1 (k1_schedule_kernel, k1_walk_kernel, k1_epilogue_kernel<kMode>):
+// K1 (schedule_kernel, k1_walk_kernel, k1_epilogue_kernel<kMode>):
 // nearest hit + fused Phong + per-tile shadow bounds, or, in its fetch
 // mode, nearest hit + the winner's attribute row.  Replaces the TPU kernel
 // simple_raytracer_tpu/kernels/tiled_t.py::_nearest_kernel_t, reached
@@ -14,162 +14,83 @@
 // apart.  Tiles are 64x64 or 32x32 pixels; rays are rebuilt from the pixel
 // index and the camera constants, so no ray array exists.
 //
-// K1 is three launches.  The schedule launch fills one 64-bit key per ray
-// with the miss key and, in its first block, lists the frame's work rows
-// (tile, span): a range row's covering range is cut into spans of
-// `range_span` windows (it has no break), a list row's list into spans of
-// `list_span` entries, each walked from its first entry with its own
-// front-to-back break (with sound entry bounds the merged result is the
-// whole list's; kernels/nearest.py::walk_plain models the split exactly).
-// A counting sort by walk length puts the rows longest first, all on the
-// device, so the host reads nothing.  Each row is `slices` work items, one
-// per slice of kK1Slice consecutive tile lanes (a 64x8 strip of a 64-pixel
-// tile; two per 32-pixel tile).  The walk launch is a persistent grid, as
-// many CTAs as fit on every SM, that take items from a device counter in
-// that order; an item walks its span over its slice's rays, breaking on its
-// own rays alone, and merges each found hit into the ray's key by
-// atomicMin: key = bits(t) << 32 | id, exact and order-independent, ties to
-// the lowest id.  The epilogue launch, one block per tile, decodes the keys
-// and runs the mode's fused epilogue and the tile's bounds row.
+// nearest_rays (schedule_kernel, rays_walk_kernel<RPT>,
+// rays_decode_kernel): nearest hit (t, id) of explicit rays o, d [n, m, 3]
+// over a plan of windows of wt consecutive triangles.  It replaces three TPU
+// kernels: simple_raytracer_tpu/kernels/tiled.py::_nearest_kernel (K6:
+// pages of page_tris triangles, reached through tiled_nearest from
+// tiled_hits: tiled_impl="paged"; plain version kernels/paged.py::
+// tiled_nearest_plain), tiled_t.py::_nearest_kernel_t over explicit rays
+// (K1's rays mode: 64-triangle windows, the refined plan of the prepass
+// walk; plain version kernels/nearest.py::tiled_nearest_rays_plain) and,
+// with groups > 1, tiled_t.py::_nearest_kernel_g (K4: sub-groups of
+// m / groups lanes skip the entries their mask bit clears and stop on
+// their own bound test; plain version kernels/nearest.py::
+// tiled_nearest_grouped_plain).  The TPU kernels compute their MT
+// numerators as one Gram contraction per window; here they are the cross
+// products of ops/intersect.py, as in K1.
 //
-// nearest_rays_kernel: nearest hit (t, id) of explicit rays o, d [n, m, 3]
-// over a plan of windows of wt consecutive triangles, one block per tile.
-// It replaces three TPU kernels: simple_raytracer_tpu/kernels/tiled.py::
-// _nearest_kernel (K6: pages of page_tris triangles, reached through
-// tiled_nearest from tiled_hits: tiled_impl="paged"; plain version
-// kernels/paged.py::tiled_nearest_plain), tiled_t.py::_nearest_kernel_t
-// over explicit rays (K1's rays mode: 64-triangle windows, the refined plan
-// of the prepass walk; plain version kernels/nearest.py::
-// tiled_nearest_rays_plain) and, with groups > 1,
-// tiled_t.py::_nearest_kernel_g (K4: each sub-group of m / groups lanes
-// skips the entries its mask clears and stops on its own bound test; plain
-// version kernels/nearest.py::tiled_nearest_grouped_plain).  The TPU kernels
-// compute their MT numerators as one Gram contraction per window; here they
-// are the cross products of ops/intersect.py, as in K1.
+// Both are three launches over work items (tile, ray slice, span).  The
+// schedule launch fills one 64-bit key per ray with the miss key and, in
+// its first block, lists the frame's rows (tile, span) longest first
+// (srt::schedule_rows: a range row's covering range in spans of
+// `range_span` windows, a list in spans of `list_span` entries, each walked
+// from its own first entry with its own front-to-back break; with sound
+// entry bounds the merged result is the whole list's, and
+// kernels/nearest.py::walk_plain models the split exactly).  Each row is
+// one item per slice of the tile's rays: K1's 512 lanes (a 64x8 strip of
+// a 64-pixel tile); for explicit rays min(512, the sub-group) lanes, so
+// a slice never crosses a sub-group and takes that group's mask bit and
+// break.  The walk launch is a persistent grid, as many CTAs as fit on
+// every SM, that take items from a device counter in that order; an item
+// walks its span over its slice's rays, breaking on its own rays alone,
+// and merges each found hit into the ray's key by atomicMin: key = bits(t)
+// << 32 | id, exact and order-independent, ties to the lowest id.  The
+// last launch decodes the keys (K1's epilogue, one block per tile, also
+// runs the mode's fused epilogue and the tile's bounds row).
 //
-// Both walks test Möller–Trumbore in f32 with each thread owning a few rays,
-// strided by the block size so a warp's rays (and its output writes) are
-// adjacent; they keep the least t and, on equal t, the lowest triangle id,
-// and stop a list once every ray's best t is below the next entry's bound
-// (misses, t = inf, never stop it).  K1's fused modes fetch the winner's
-// flat normal and object id as one float4 load by id and evaluate the Phong
-// term of the JAX kernel's _fused_phong (abs(n.l), the extra n.l on
-// specular, pow through exp/log with the shininess-0 case); last, a block
-// reduction writes the tile's 15-float bounds row: hit-point box, any-hit
-// flag, object min/max and the ru/rv/dw extremes of the shadow directions
-// in the shared frame.  The smooth mode first replaces the flat normal by
-// normalize(cn + An p) from the winner's 48-byte tri_nrm_map row; the
-// textured mode writes the Phong factors and the texel coordinates of its
-// tri_tex_map row instead of rgb.  The fetch mode instead stores the
-// winner's tri_attr row as one float4.
+// The walks test Möller–Trumbore in f32 with each thread owning one or two
+// rays of the slice, strided by the block size so a warp's rays (and its
+// key updates) are adjacent; they keep the least t and, on equal t, the
+// lowest triangle id, and stop a list span once every ray of the slice has
+// its best t below the next entry's bound (misses, t = inf, never stop
+// it).  K1's fused modes fetch the winner's flat normal and object id as
+// one float4 load by id and evaluate the Phong term of the JAX kernel's
+// _fused_phong (abs(n.l), the extra n.l on specular, pow through exp/log
+// with the shininess-0 case); last, a block reduction writes the tile's
+// 15-float bounds row: hit-point box, any-hit flag, object min/max and the
+// ru/rv/dw extremes of the shadow directions in the shared frame.  The
+// smooth mode first replaces the flat normal by normalize(cn + An p) from
+// the winner's 48-byte tri_nrm_map row; the textured mode writes the Phong
+// factors and the texel coordinates of its tri_tex_map row instead of rgb.
+// The fetch mode instead stores the winner's tri_attr row as one float4.
 //
 // What bounds them on the H100: the MT arithmetic (about 45 f32 operations
-// per ray-triangle pair, with an IEEE division and no contraction; K6
-// recomputes the origin-dependent part per ray), not memory: a window is
-// 2.3 KB (K1) or 4.6 KB (a K6 page), read from L2, and each ray reads 24
-// bytes (K6) and writes 8-28 (K1's keys add 16, in L2).  Tiles walk very
-// unequal lengths (on a 1080p frame from none to 64 windows, a range row
-// over a thousand), so one block per tile leaves a frame waiting on its
-// deepest tiles' SMs; K1's items cut every walk to at most a span over one
-// slice and run longest first on all SMs, in CTAs small enough for several
-// per SM.  Its walk stages the next window with cp.async while the current
-// one is tested, and computes the ray-independent terms of each triangle
-// (tvec, qvec, t_num: one origin) once, at staging, into shared memory.
-// K4's sub-groups skip a window's staging when no group needs it and its
-// tests for the groups whose bit is clear.  Tensor cores and TMA are left
-// for later work.
-
-#include <algorithm>
+// per ray-triangle pair with per-ray origins, 29 with one origin, plus an
+// IEEE division, no contraction), not memory: a window is 2.3 KB (K1) or
+// 4.6 KB (a K6 page), read from L2, each ray reads 24 bytes (explicit rays)
+// and its key takes 8 more, in L2.  Tiles walk very unequal lengths (on a
+// 1080p frame from none to 64 windows, a range row over a thousand), so one
+// block per tile would leave a frame waiting on its deepest tiles' SMs; the
+// items cut every walk to at most a span over one slice and run longest
+// first on all SMs, in CTAs small enough for several per SM.  A walk stages
+// the next window with cp.async while the current one is tested.  Where
+// every ray of an item leaves one origin (K1; the primary rays of K4, K6
+// and K1's rays mode, found per item on the card), the ray-independent
+// terms of each triangle (tvec, qvec, t_num) are computed once, at staging,
+// into shared memory: the same expressions on the same values, so t keeps
+// every bit.  Tensor cores and TMA are left for later work.
 
 #include "common.cuh"
 
 namespace {
 
-// Walk the tile's plan: bt[r], bi[r] become the least t and its lowest
-// triangle id over every window walked.  Ray r has origin o[r] and direction
-// d[r].  Lanes that are not live never hold back the break.  kGrouped: lane
-// r belongs to the sub-group of bit gbit[r]; a window is staged when some
-// group not yet past its break may reach it, tested only by the rays of such
-// groups, and each group stops at its own bound test.
-template <int RPT, bool kGrouped = false>
-__device__ __forceinline__ void nearest_walk(
-    const srt::TilePlan& P, const float* __restrict__ tri, int n_windows,
-    int wt, float eps, const float* ox, const float* oy, const float* oz,
-    const float* dx, const float* dy, const float* dz, const bool* live,
-    float* bt, int* bi, float* s_tri, const unsigned* gbit = nullptr) {
-  const unsigned full = (1u << P.groups) - 1u;
-  unsigned done = 0;                             // groups past their break
-  for (int k = 0; k < P.cnt; ++k) {
-    const int w = P.window(k);
-    __syncthreads();                             // s_tri free to overwrite
-    if (w < 0 || w >= n_windows) continue;       // block-uniform
-    const unsigned need = kGrouped ? P.gmask(k) & ~done & full : full;
-    if (need) {                                  // block-uniform
-      srt::stage(s_tri, tri + (size_t)w * wt * srt::kTriW, wt * srt::kTriW);
-      __syncthreads();
-      const int id0 = w * wt;
-      for (int j = 0; j < wt; ++j) {
-        const srt::Tri g(s_tri + j * srt::kTriW);
-        const int id = id0 + j;
-#pragma unroll
-        for (int r = 0; r < RPT; ++r) {
-          if constexpr (kGrouped) {
-            if (!(need & gbit[r])) continue;     // warp-uniform
-          }
-          const float px = dy[r] * g.e2z - dz[r] * g.e2y;
-          const float py = dz[r] * g.e2x - dx[r] * g.e2z;
-          const float pz = dx[r] * g.e2y - dy[r] * g.e2x;
-          const float det = g.e1x * px + g.e1y * py + g.e1z * pz;
-          const float tx = ox[r] - g.v0x;
-          const float ty = oy[r] - g.v0y;
-          const float tz = oz[r] - g.v0z;
-          const float u_num = tx * px + ty * py + tz * pz;
-          const float qx = ty * g.e1z - tz * g.e1y;
-          const float qy = tz * g.e1x - tx * g.e1z;
-          const float qz = tx * g.e1y - ty * g.e1x;
-          const float t_num = g.e2x * qx + g.e2y * qy + g.e2z * qz;
-          const float inv = 1.0f / det;
-          const float u = u_num * inv;
-          const float v = (dx[r] * qx + dy[r] * qy + dz[r] * qz) * inv;
-          const float t = t_num * inv;
-          const bool valid = fabsf(det) >= eps && u >= 0.0f && u <= 1.0f &&
-                             v >= 0.0f && u + v <= 1.0f && t >= 0.0f;
-          if (valid && (t < bt[r] || (t == bt[r] && id < bi[r]))) {
-            bt[r] = t;
-            bi[r] = id;
-          }
-        }
-      }
-    }
-    if (P.use_list && k + 1 < P.cnt) {
-      const unsigned nb16 = P.bound16(k + 1);
-      if constexpr (!kGrouped) {
-        int ok = 1;
-#pragma unroll
-        for (int r = 0; r < RPT; ++r)
-          ok &= !live[r] || (__float_as_uint(bt[r]) >> 16) < nb16;
-        if (__syncthreads_and(ok)) break;
-      } else {
-        unsigned bad = 0;                        // groups this thread holds
-#pragma unroll
-        for (int r = 0; r < RPT; ++r)
-          if (live[r] && (__float_as_uint(bt[r]) >> 16) >= nb16)
-            bad |= gbit[r];
-        for (int g = 0; g < P.groups; ++g)
-          if (__syncthreads_and(!((bad >> g) & 1u))) done |= 1u << g;
-        if (done == full) break;
-      }
-    }
-  }
-}
-
-// K1's shape (kernels/nearest.py mirrors kK1Slice and passes the spans):
-constexpr int kK1Threads = 256;                  // a walk CTA
-constexpr int kK1Rpt = 2;                        // rays per walk thread
-constexpr int kK1Slice = kK1Threads * kK1Rpt;    // rays of a work item
-constexpr int kK1Buckets = 1024;                 // walk lengths 0..1023
-constexpr int kK1TermW = 16;                      // floats of a staged term row
+// K1's walk: CTAs of srt::kItemThreads threads x kK1Rpt rays over slices
+// of srt::kItemSlice rays (kernels/nearest.py mirrors it as K1_SLICE)
+constexpr int kK1Rpt = srt::kItemSlice / srt::kItemThreads;
+constexpr int kTermW = 16;                       // floats of a staged term row
 constexpr int kEpiThreads = 256;                 // an epilogue block
+constexpr int kDecodeThreads = 256;              // a key-decode block
 constexpr unsigned long long kMissKey = ~0ull;
 
 constexpr int kBoundsW = 15;
@@ -189,35 +110,11 @@ __device__ __forceinline__ unsigned long long hit_key(float t, int id) {
          static_cast<unsigned>(id);
 }
 
-// Schedule bucket of a walk of `len` windows: ascending buckets are
-// descending lengths.
-__device__ __forceinline__ int k1_bucket(int len) {
-  return kK1Buckets - 1 - min(len, kK1Buckets - 1);
-}
-
-// Windows a row walks: its list, or its covering range clamped to the
-// windows that exist (later ones are skipped by the walk anyway).
-__device__ __forceinline__ int k1_walk_len(const srt::TilePlan& P,
-                                           int n_windows) {
-  return P.use_list ? P.cnt : min(P.cnt, max(0, n_windows - P.lo));
-}
-
-// The spans' length of a row, in entries (list) or windows (range).
-struct K1Spans {
-  int range, list;
-  __device__ int of(const srt::TilePlan& P) const {
-    return P.use_list ? list : range;
-  }
-};
-
-// sched (int32): [0] the item counter, [1] the rows, then (tile, span) per
-// row.  Every block fills keys with the miss key; block 0 (kK1Buckets
-// threads) counts the rows by walk length, scans the counts longest first
-// and scatters the rows to their places.  Rows of equal length land in any
-// order.
-__global__ void __launch_bounds__(kK1Buckets) k1_schedule_kernel(
+// Every block fills keys with the miss key; block 0 (srt::kBuckets threads)
+// lists the rows (srt::schedule_rows).
+__global__ void __launch_bounds__(srt::kBuckets) schedule_kernel(
     const int* __restrict__ plan, int plan_w, int n_tiles, int n_windows,
-    K1Spans spans, int rows_max, int* __restrict__ sched,
+    srt::Spans spans, int rows_max, int* __restrict__ sched,
     unsigned long long* __restrict__ keys, long long n_keys) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
@@ -225,77 +122,8 @@ __global__ void __launch_bounds__(kK1Buckets) k1_schedule_kernel(
        i < n_keys; i += stride)
     keys[i] = kMissKey;
   if (blockIdx.x != 0) return;
-  __shared__ int off[kK1Buckets];
-  __shared__ int s_warp[kK1Buckets / 32];
-  const int tid = threadIdx.x;
-  off[tid] = 0;
-  __syncthreads();
-  for (int t = tid; t < n_tiles; t += kK1Buckets) {
-    const srt::TilePlan P(plan, plan_w, t);
-    const int len = k1_walk_len(P, n_windows), span = spans.of(P);
-    if (len <= 0) continue;
-    const int full = len / span, rem = len - full * span;
-    if (full) atomicAdd(&off[k1_bucket(span)], full);
-    if (rem) atomicAdd(&off[k1_bucket(rem)], 1);
-  }
-  __syncthreads();
-  // exclusive scan of off: warp scans, then a scan of the warp sums
-  const int v = off[tid];
-  int x = v;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, d);
-    if ((tid & 31) >= d) x += y;
-  }
-  if ((tid & 31) == 31) s_warp[tid >> 5] = x;
-  __syncthreads();
-  if (tid < 32) {
-    int w = s_warp[tid];
-    for (int d = 1; d < 32; d <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, w, d);
-      if (tid >= d) w += y;
-    }
-    s_warp[tid] = w;
-  }
-  __syncthreads();
-  const int excl = x - v + (tid >= 32 ? s_warp[(tid >> 5) - 1] : 0);
-  off[tid] = excl;
-  if (tid == kK1Buckets - 1) {
-    sched[0] = 0;
-    sched[1] = min(excl + v, rows_max);
-  }
-  __syncthreads();
-  for (int t = tid; t < n_tiles; t += kK1Buckets) {
-    const srt::TilePlan P(plan, plan_w, t);
-    const int len = k1_walk_len(P, n_windows), span = spans.of(P);
-    for (int s = 0; s * span < len; ++s) {
-      const int pos = atomicAdd(&off[k1_bucket(min(span, len - s * span))], 1);
-      if (pos < rows_max) {
-        sched[2 + 2 * pos] = t;
-        sched[3 + 2 * pos] = s;
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Start copying window w's triangle rows into dst (wt * kTriW floats, a
-// multiple of 4: 16-byte copies) as one cp.async group.
-__device__ __forceinline__ void stage_async(float* dst,
-                                            const float* __restrict__ tri,
-                                            int w, int wt) {
-  const float* src = tri + static_cast<size_t>(w) * wt * srt::kTriW;
-  for (int i = threadIdx.x; i < wt * srt::kTriW / 4; i += blockDim.x)
-    cp_async16(dst + 4 * i, src + 4 * i);
-  asm volatile("cp.async.commit_group;\n" ::);
+  srt::schedule_rows(plan, plan_w, n_tiles, n_windows, spans, rows_max,
+                     sched);
 }
 
 // A staged triangle's ray-independent terms for the one origin o: e1, e2,
@@ -316,24 +144,102 @@ __device__ __forceinline__ void stage_terms(const float* g, float* out,
   o4[3] = make_float4(t_num, 0.0f, 0.0f, 0.0f);
 }
 
-// The persistent walk: each CTA takes the next item from sched[0] until
+// One staged term row, read as four float4.
+struct Terms {
+  float e1x, e1y, e1z, e2x, e2y, e2z, tx, ty, tz, qx, qy, qz, t_num;
+  __device__ explicit Terms(const float* row) {
+    const float4* g4 = reinterpret_cast<const float4*>(row);
+    const float4 a = g4[0], b = g4[1], c = g4[2];
+    e1x = a.x; e1y = a.y; e1z = a.z; e2x = a.w;
+    e2y = b.x; e2z = b.y; tx = b.z; ty = b.w;
+    tz = c.x; qx = c.y; qy = c.z; qz = c.w;
+    t_num = g4[3].x;
+  }
+};
+
+// Keep (t, id) in (bt, bi) when it is a valid hit nearer than the best, or
+// as near with a lower id.
+__device__ __forceinline__ void keep(float det, float u, float v, float t,
+                                     int id, float eps, float& bt, int& bi) {
+  const bool valid = fabsf(det) >= eps && u >= 0.0f && u <= 1.0f &&
+                     v >= 0.0f && u + v <= 1.0f && t >= 0.0f;
+  if (valid && (t < bt || (t == bt && id < bi))) {
+    bt = t;
+    bi = id;
+  }
+}
+
+// The nearest test of ray direction d against a term row (its origin's),
+// in K1's order (v's products after the division).
+__device__ __forceinline__ void test_terms(const Terms& T, int id, float eps,
+                                           float dx, float dy, float dz,
+                                           float& bt, int& bi) {
+  const float px = dy * T.e2z - dz * T.e2y;
+  const float py = dz * T.e2x - dx * T.e2z;
+  const float pz = dx * T.e2y - dy * T.e2x;
+  const float det = T.e1x * px + T.e1y * py + T.e1z * pz;
+  const float u_num = T.tx * px + T.ty * py + T.tz * pz;
+  const float inv = 1.0f / det;
+  const float u = u_num * inv;
+  const float v = (dx * T.qx + dy * T.qy + dz * T.qz) * inv;
+  const float t = T.t_num * inv;
+  keep(det, u, v, t, id, eps, bt, bi);
+}
+
+// The nearest test of ray o + t d against a staged triangle row: the same
+// expressions as stage_terms + test_terms, per ray.
+__device__ __forceinline__ void test_ray(const srt::Tri& g, int id, float eps,
+                                         float ox, float oy, float oz,
+                                         float dx, float dy, float dz,
+                                         float& bt, int& bi) {
+  const float px = dy * g.e2z - dz * g.e2y;
+  const float py = dz * g.e2x - dx * g.e2z;
+  const float pz = dx * g.e2y - dy * g.e2x;
+  const float det = g.e1x * px + g.e1y * py + g.e1z * pz;
+  const float tx = ox - g.v0x, ty = oy - g.v0y, tz = oz - g.v0z;
+  const float u_num = tx * px + ty * py + tz * pz;
+  const float qx = ty * g.e1z - tz * g.e1y;
+  const float qy = tz * g.e1x - tx * g.e1z;
+  const float qz = tx * g.e1y - ty * g.e1x;
+  const float t_num = g.e2x * qx + g.e2y * qy + g.e2z * qz;
+  const float inv = 1.0f / det;
+  const float u = u_num * inv;
+  const float v = (dx * qx + dy * qy + dz * qz) * inv;
+  const float t = t_num * inv;
+  keep(det, u, v, t, id, eps, bt, bi);
+}
+
+// The front-to-back break of a list span after entry k: every live ray's
+// best t (its top 16 bits; a logical shift, so -0.0 does not pass as small)
+// below the next entry's bound.  Block-wide.
+template <int RPT>
+__device__ __forceinline__ bool past_bound(unsigned nb16, const float* bt,
+                                           const bool* live) {
+  int ok = 1;
+#pragma unroll
+  for (int r = 0; r < RPT; ++r)
+    ok &= !live[r] || (__float_as_uint(bt[r]) >> 16) < nb16;
+  return __syncthreads_and(ok);
+}
+
+// K1's persistent walk: each CTA takes the next item from sched[0] until
 // none is left.  Item i is row i / slices, slice i % slices.  Shared
 // memory: two staged windows (the next one in flight) and the current
 // window's term rows.
-__global__ void __launch_bounds__(kK1Threads) k1_walk_kernel(
+__global__ void __launch_bounds__(srt::kItemThreads) k1_walk_kernel(
     const int* __restrict__ plan, int plan_w, const float* __restrict__ tri,
     int n_windows, const float* __restrict__ cam_g, int tile_px, int wt,
-    float eps, K1Spans spans, int* __restrict__ sched,
+    float eps, srt::Spans spans, int* __restrict__ sched,
     unsigned long long* __restrict__ keys) {
   extern __shared__ __align__(16) float smem[];
   float* raw = smem;                             // 2 x wt * kTriW
-  float* terms = smem + 2 * wt * srt::kTriW;     // wt * kK1TermW
+  float* terms = smem + 2 * wt * srt::kTriW;     // wt * kTermW
   __shared__ float s_cam[12];
   __shared__ int s_item;
   const int tid = threadIdx.x;
   if (tid < 12) s_cam[tid] = cam_g[tid];
   const int tile_r = tile_px * tile_px;
-  const int slice_r = min(tile_r, kK1Slice);
+  const int slice_r = min(tile_r, srt::kItemSlice);
   const int slices = tile_r / slice_r;
   const int items = sched[1] * slices;
   const int win_f = wt * srt::kTriW;
@@ -355,7 +261,7 @@ __global__ void __launch_bounds__(kK1Threads) k1_walk_kernel(
     bool live[kK1Rpt];
 #pragma unroll
     for (int r = 0; r < kK1Rpt; ++r) {
-      const int l = tid + r * kK1Threads;
+      const int l = tid + r * srt::kItemThreads;
       live[r] = l < slice_r;
       srt::ray_dir(s_cam, P.px0, P.py0, tile_px, base + (live[r] ? l : 0),
                    dx[r], dy[r], dz[r]);
@@ -363,24 +269,30 @@ __global__ void __launch_bounds__(kK1Threads) k1_walk_kernel(
       bi[r] = -1;
     }
     auto exists = [&](int w) { return w >= 0 && w < n_windows; };
-    if (k0 < k1 && exists(P.window(k0)))
-      stage_async(raw, tri, P.window(k0), wt);
+    if (k0 < k1 && exists(P.window(k0))) {
+      srt::stage_window_async(raw, tri, P.window(k0), wt);
+      srt::cp_async_commit();
+    }
     for (int k = k0; k < k1; ++k) {
       const int w = P.window(k);                 // block-uniform
       float* cur = raw + ((k - k0) & 1) * win_f;
-      cp_async_wait_all();
+      srt::cp_async_wait_all();
       __syncthreads();           // window k landed; the term rows are free
-      if (k + 1 < k1 && exists(P.window(k + 1)))
-        stage_async(raw + ((k + 1 - k0) & 1) * win_f, tri, P.window(k + 1),
-                    wt);
+      if (k + 1 < k1 && exists(P.window(k + 1))) {
+        srt::stage_window_async(raw + ((k + 1 - k0) & 1) * win_f, tri,
+                                P.window(k + 1), wt);
+        srt::cp_async_commit();
+      }
       if (exists(w)) {
-        for (int j = tid; j < wt; j += kK1Threads)
-          stage_terms(cur + j * srt::kTriW, terms + j * kK1TermW, ox, oy, oz);
+        for (int j = tid; j < wt; j += srt::kItemThreads)
+          stage_terms(cur + j * srt::kTriW, terms + j * kTermW, ox, oy, oz);
         __syncthreads();
+        // the test_terms expressions written out: K1 keeps 48 registers
+        // (5 CTAs an SM) this way, 57 through the helpers
         const int id0 = w * wt;
         for (int j = 0; j < wt; ++j) {
           const float4* g4 = reinterpret_cast<const float4*>(terms) +
-                             j * (kK1TermW / 4);
+                             j * (kTermW / 4);
           const float4 a = g4[0], b = g4[1], c = g4[2];
           const float e1x = a.x, e1y = a.y, e1z = a.z, e2x = a.w;
           const float e2y = b.x, e2z = b.y, tx = b.z, ty = b.w;
@@ -418,12 +330,12 @@ __global__ void __launch_bounds__(kK1Threads) k1_walk_kernel(
         if (__syncthreads_and(ok)) break;
       }
     }
-    cp_async_wait_all();                         // no copy outlives the item
+    srt::cp_async_wait_all();                    // no copy outlives the item
 #pragma unroll
     for (int r = 0; r < kK1Rpt; ++r)
       if (live[r] && bi[r] >= 0)
         atomicMin(&keys[static_cast<size_t>(tile) * tile_r + base + tid +
-                        r * kK1Threads],
+                        r * srt::kItemThreads],
                   hit_key(bt[r], bi[r]));
     __syncthreads();             // s_item and the buffers free for the next
   }
@@ -604,56 +516,147 @@ __global__ void __launch_bounds__(kEpiThreads) k1_epilogue_kernel(
   }
 }
 
-size_t k1_walk_smem(int wt) {
-  return static_cast<size_t>(wt) * (2 * srt::kTriW + kK1TermW) * sizeof(float);
+// Shared memory of the walks: two staged windows and the term rows.
+size_t walk_smem(int wt) {
+  return static_cast<size_t>(wt) * (2 * srt::kTriW + kTermW) * sizeof(float);
 }
 
-// rays o, d [n, m, 3] f32 -> t [n, m] f32 (inf on a miss), idx [n, m] i32
-// (-1 on a miss).  m need not fill the block: lanes past m walk the tile's
-// first ray, never hold back the break and are not written.  kGrouped: the
-// plan carries sub-group masks for `groups` groups of m / groups lanes.
-template <int RPT, bool kGrouped>
-__global__ void nearest_rays_kernel(
-    const int* __restrict__ plan, int plan_w, const float* __restrict__ tri,
-    int n_windows, const float* __restrict__ o_in,
-    const float* __restrict__ d_in, int m, int wt, float eps, int groups,
-    float* __restrict__ t_out, int* __restrict__ idx_out) {
-  extern __shared__ float s_tri[];               // wt * kTriW floats
-  const int nthr = blockDim.x;
+// The persistent walk over explicit rays o, d [n, m, 3]: each CTA takes the
+// next item from sched[0]; item i is row i / slices, slice i % slices
+// (srt::Slice: the slice's lanes in its sub-group; lanes past the group walk
+// the slice's first ray, never hold back the break and are not written).
+// An item skips the entries whose mask bit its group lacks (every entry of
+// a range row or an ungrouped plan has every bit).  When all its live rays
+// leave one origin (compared bit for bit) it tests against term rows staged
+// from that origin, else each ray against the raw triangle rows.  Shared
+// memory: two staged windows and the term rows.
+template <int RPT>
+__global__ void __launch_bounds__(srt::kItemThreads) rays_walk_kernel(
+    const int* __restrict__ plan, int plan_w, int groups,
+    const float* __restrict__ tri, int n_windows,
+    const float* __restrict__ o_in, const float* __restrict__ d_in, int m,
+    int wt, float eps, srt::Spans spans, int* __restrict__ sched,
+    unsigned long long* __restrict__ keys) {
+  extern __shared__ __align__(16) float smem[];
+  float* raw = smem;                             // 2 x wt * kTriW
+  float* terms = smem + 2 * wt * srt::kTriW;     // wt * kTermW
+  __shared__ int s_item;
   const int tid = threadIdx.x;
-  const int tile = blockIdx.x;
-  const srt::TilePlan P(plan, plan_w, tile, kGrouped ? groups : 1);
+  const int slices = srt::slices_per_tile(m, groups);
+  const int items = sched[1] * slices;
+  const int win_f = wt * srt::kTriW;
+  for (;;) {
+    if (tid == 0) s_item = atomicAdd(&sched[0], 1);
+    __syncthreads();
+    const int item = s_item;
+    if (item >= items) break;                    // block-uniform
+    const int row = item / slices;
+    const srt::Slice S(item - row * slices, m, groups);
+    const int tile = sched[2 + 2 * row];
+    const srt::TilePlan P(plan, plan_w, tile, groups);
+    const int k0 = sched[3 + 2 * row] * spans.of(P);
+    const int k1 = min(P.cnt, k0 + spans.of(P));
+    const unsigned gbit = 1u << S.group;
+    const size_t base = static_cast<size_t>(tile) * m + S.first;
+    const float o0x = o_in[3 * base], o0y = o_in[3 * base + 1],
+                o0z = o_in[3 * base + 2];
 
-  float ox[RPT], oy[RPT], oz[RPT], dx[RPT], dy[RPT], dz[RPT], bt[RPT];
-  int bi[RPT];
-  bool live[RPT];
-  unsigned gbit[RPT];
+    float ox[RPT], oy[RPT], oz[RPT], dx[RPT], dy[RPT], dz[RPT], bt[RPT];
+    int bi[RPT];
+    bool live[RPT];
+    int one = 1;
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int lane = tid + r * nthr;
-    live[r] = lane < m;
-    const size_t o = (size_t)tile * m + (live[r] ? lane : 0);
-    ox[r] = o_in[3 * o + 0];
-    oy[r] = o_in[3 * o + 1];
-    oz[r] = o_in[3 * o + 2];
-    dx[r] = d_in[3 * o + 0];
-    dy[r] = d_in[3 * o + 1];
-    dz[r] = d_in[3 * o + 2];
-    bt[r] = INFINITY;
-    bi[r] = -1;
-  }
-  if constexpr (kGrouped) srt::group_bits<RPT>(m / groups, gbit);
-  nearest_walk<RPT, kGrouped>(P, tri, n_windows, wt, eps, ox, oy, oz, dx, dy,
-                              dz, live, bt, bi, s_tri, gbit);
+    for (int r = 0; r < RPT; ++r) {
+      const int l = tid + r * srt::kItemThreads;
+      live[r] = l < S.live;
+      const size_t o = base + (live[r] ? l : 0);
+      ox[r] = o_in[3 * o + 0];
+      oy[r] = o_in[3 * o + 1];
+      oz[r] = o_in[3 * o + 2];
+      dx[r] = d_in[3 * o + 0];
+      dy[r] = d_in[3 * o + 1];
+      dz[r] = d_in[3 * o + 2];
+      bt[r] = INFINITY;
+      bi[r] = -1;
+      one &= __float_as_uint(ox[r]) == __float_as_uint(o0x) &&
+             __float_as_uint(oy[r]) == __float_as_uint(o0y) &&
+             __float_as_uint(oz[r]) == __float_as_uint(o0z);
+    }
+    const bool uni = __syncthreads_and(one);     // one origin: term rows
+    auto walks = [&](int k) {
+      const int w = P.window(k);
+      return w >= 0 && w < n_windows && (P.gmask(k) & gbit);
+    };
+    if (k0 < k1 && walks(k0)) {
+      srt::stage_window_async(raw, tri, P.window(k0), wt);
+      srt::cp_async_commit();
+    }
+    for (int k = k0; k < k1; ++k) {
+      float* cur = raw + ((k - k0) & 1) * win_f;
+      srt::cp_async_wait_all();
+      __syncthreads();           // window k landed; the term rows are free
+      if (k + 1 < k1 && walks(k + 1)) {
+        srt::stage_window_async(raw + ((k + 1 - k0) & 1) * win_f, tri,
+                                P.window(k + 1), wt);
+        srt::cp_async_commit();
+      }
+      if (walks(k)) {                            // block-uniform
+        const int id0 = P.window(k) * wt;
+        if (uni) {
+          for (int j = tid; j < wt; j += srt::kItemThreads)
+            stage_terms(cur + j * srt::kTriW, terms + j * kTermW, o0x, o0y,
+                        o0z);
+          __syncthreads();
+          for (int j = 0; j < wt; ++j) {
+            const Terms T(terms + j * kTermW);
 #pragma unroll
-  for (int r = 0; r < RPT; ++r) {
-    const int lane = tid + r * nthr;
-    if (!live[r]) continue;
-    const size_t o = (size_t)tile * m + lane;
-    t_out[o] = bt[r];
-    idx_out[o] = isfinite(bt[r]) ? bi[r] : -1;
+            for (int r = 0; r < RPT; ++r)
+              test_terms(T, id0 + j, eps, dx[r], dy[r], dz[r], bt[r], bi[r]);
+          }
+        } else {
+          for (int j = 0; j < wt; ++j) {
+            const srt::Tri g(cur + j * srt::kTriW);
+#pragma unroll
+            for (int r = 0; r < RPT; ++r)
+              test_ray(g, id0 + j, eps, ox[r], oy[r], oz[r], dx[r], dy[r],
+                       dz[r], bt[r], bi[r]);
+          }
+        }
+      }
+      if (P.use_list && k + 1 < k1 &&
+          past_bound<RPT>(P.bound16(k + 1), bt, live))
+        break;
+    }
+    srt::cp_async_wait_all();                    // no copy outlives the item
+#pragma unroll
+    for (int r = 0; r < RPT; ++r)
+      if (live[r] && bi[r] >= 0)
+        atomicMin(&keys[base + tid + r * srt::kItemThreads],
+                  hit_key(bt[r], bi[r]));
+    __syncthreads();             // s_item and the buffers free for the next
   }
 }
+
+// keys [n] -> t [n] f32, idx [n] i32: a key whose t is not finite (the miss
+// key's bits are a NaN) is a miss, t = inf, idx = -1.
+__global__ void __launch_bounds__(kDecodeThreads) rays_decode_kernel(
+    const unsigned long long* __restrict__ keys, long long n,
+    float* __restrict__ t_out, int* __restrict__ idx_out) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    const unsigned long long key = keys[i];
+    const float kt = __uint_as_float(static_cast<unsigned>(key >> 32));
+    const bool hit = isfinite(kt);
+    t_out[i] = hit ? kt : INFINITY;
+    idx_out[i] = hit ? static_cast<int>(static_cast<unsigned>(key)) : -1;
+  }
+}
+
+// Rays a thread of the walk over explicit rays owns: one up to
+// kItemThreads rays a slice, else two.
+int rays_rpt(int slice_r) { return slice_r > srt::kItemThreads ? 2 : 1; }
 
 template <int kMode>
 int launch_k1(const void* plan, int plan_w, int n_tiles, const void* tri,
@@ -662,25 +665,21 @@ int launch_k1(const void* plan, int plan_w, int n_tiles, const void* tri,
               int double_sided, int specular_nl, const void* amap, void* t,
               void* idx, void* obj, void* shade, void* bounds,
               void* attr_out, void* keys, void* sched, int rows_max,
-              K1Spans spans, int stages, cudaStream_t s) {
+              srt::Spans spans, int stages, cudaStream_t s) {
   const long long n_keys = static_cast<long long>(n_tiles) * tile_px * tile_px;
   if (stages & 1) {
-    const long long want = (n_keys + kK1Buckets - 1) / kK1Buckets;
-    const int blocks = static_cast<int>(std::max(1LL, std::min(want, 512LL)));
-    k1_schedule_kernel<<<blocks, kK1Buckets, 0, s>>>(
+    schedule_kernel<<<srt::fill_blocks(n_keys, srt::kBuckets), srt::kBuckets,
+                      0, s>>>(
         static_cast<const int*>(plan), plan_w, n_tiles, n_windows, spans,
         rows_max, static_cast<int*>(sched),
         static_cast<unsigned long long*>(keys), n_keys);
     if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
   }
   if (stages & 2) {
-    int dev = 0, sms = 0, per_sm = 0;
-    const size_t smem = k1_walk_smem(wt);
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k1_walk_kernel,
-                                                  kK1Threads, smem);
-    k1_walk_kernel<<<std::max(1, sms * per_sm), kK1Threads, smem, s>>>(
+    const size_t smem = walk_smem(wt);
+    k1_walk_kernel<<<srt::persistent_grid(k1_walk_kernel, srt::kItemThreads,
+                                          smem),
+                     srt::kItemThreads, smem, s>>>(
         static_cast<const int*>(plan), plan_w,
         static_cast<const float*>(tri), n_windows,
         static_cast<const float*>(cam), tile_px, wt, eps, spans,
@@ -698,6 +697,26 @@ int launch_k1(const void* plan, int plan_w, int n_tiles, const void* tri,
         static_cast<int*>(obj), static_cast<float*>(shade),
         static_cast<float*>(bounds), static_cast<float4*>(attr_out));
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+template <int RPT>
+int launch_rays_walk(const void* plan, int plan_w, int groups,
+                     const void* tri, int n_windows, const void* o_in,
+                     const void* d_in, int m, int wt, float eps,
+                     srt::Spans spans, void* sched, void* keys,
+                     cudaStream_t s) {
+  const size_t smem = walk_smem(wt);
+  rays_walk_kernel<RPT>
+      <<<srt::persistent_grid(rays_walk_kernel<RPT>, srt::kItemThreads,
+                              smem),
+         srt::kItemThreads, smem, s>>>(
+          static_cast<const int*>(plan), plan_w, groups,
+          static_cast<const float*>(tri), n_windows,
+          static_cast<const float*>(o_in), static_cast<const float*>(d_in), m,
+          wt, eps, spans, static_cast<int*>(sched),
+          static_cast<unsigned long long*>(keys));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -721,11 +740,11 @@ extern "C" int srt_nearest_k1(
     void* stream) {
   if (n_tiles == 0) return 0;
   const int tile_r = tile_px * tile_px;
-  if (tile_r <= 0 || tile_r % 32 || (tile_r > kK1Slice && tile_r % kK1Slice) ||
-      wt <= 0 || wt % 4 || range_span < 1 || range_span >= kK1Buckets ||
-      list_span < 1 || list_span >= kK1Buckets ||
-      plan_w - srt::kPlanAux >= kK1Buckets || k1_walk_smem(wt) > 48 * 1024 ||
-      reinterpret_cast<uintptr_t>(tri) % 16)
+  if (tile_r <= 0 || tile_r % 32 ||
+      (tile_r > srt::kItemSlice && tile_r % srt::kItemSlice) ||
+      wt <= 0 || wt % 4 || srt::bad_spans(range_span, list_span) ||
+      plan_w - srt::kPlanAux >= srt::kBuckets ||
+      walk_smem(wt) > 48 * 1024 || reinterpret_cast<uintptr_t>(tri) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
@@ -735,7 +754,7 @@ extern "C" int srt_nearest_k1(
                         n_obj, cam, tile_px, wt, eps, double_sided,            \
                         specular_nl, amap, t, idx, obj, shade, bounds,         \
                         attr_out, keys, sched, rows_max,                       \
-                        K1Spans{range_span, list_span}, stages, s);
+                        srt::Spans{range_span, list_span}, stages, s);
     SRT_K1_MODE(kFetch)
     SRT_K1_MODE(kFlat)
     SRT_K1_MODE(kTextured)
@@ -749,53 +768,61 @@ extern "C" int srt_nearest_k1(
 // K1's walk on this card for windows of wt triangles: out = (CTAs per SM,
 // registers per thread, SMs, rays per slice, threads per CTA).
 extern "C" int srt_k1_shape(int wt, int* out) {
-  int dev = 0;
-  cudaFuncAttributes fa;
-  if (cudaError_t e = cudaGetDevice(&dev)) return static_cast<int>(e);
-  cudaDeviceGetAttribute(&out[2], cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[0], k1_walk_kernel,
-                                                kK1Threads, k1_walk_smem(wt));
-  cudaFuncGetAttributes(&fa, k1_walk_kernel);
-  out[1] = fa.numRegs;
-  out[3] = kK1Slice;
-  out[4] = kK1Threads;
+  return srt::walk_shape(k1_walk_kernel, srt::kItemThreads, walk_smem(wt),
+                         srt::kItemSlice, out);
+}
+
+// Nearest hit of explicit rays o, d [n_tiles, m, 3] f32 over a plan of
+// windows of wt triangles -> t [n_tiles, m] f32 (inf on a miss), idx
+// [n_tiles, m] i32 (-1 on a miss).  groups > 1: the plan carries the
+// sub-group masks of `groups` groups of m / groups lanes (a multiple of 32).
+// Scratch: keys [n_tiles * m] u64 and sched [2 + 2 * rows_max] i32, as K1's.
+// `stages`: 1 schedule and key fill, 2 walk, 4 decode; 7 for all.
+extern "C" int srt_nearest_rays(
+    const void* plan, int plan_w, int n_tiles, int groups, const void* tri,
+    int n_windows, const void* o_in, const void* d_in, int m, int wt,
+    float eps, void* t, void* idx, void* keys, void* sched, int rows_max,
+    int range_span, int list_span, int stages, void* stream) {
+  if (n_tiles == 0) return 0;
+  if (m <= 0 || groups < 1 || groups > 4 || m % groups ||
+      (groups > 1 && (m / groups) % 32) || wt <= 0 || wt % 4 ||
+      srt::bad_spans(range_span, list_span) || walk_smem(wt) > 48 * 1024 ||
+      reinterpret_cast<uintptr_t>(tri) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long n_keys = static_cast<long long>(n_tiles) * m;
+  const srt::Spans spans{range_span, list_span};
+  if (stages & 1) {
+    schedule_kernel<<<srt::fill_blocks(n_keys, srt::kBuckets), srt::kBuckets,
+                      0, s>>>(static_cast<const int*>(plan), plan_w, n_tiles,
+                              n_windows, spans, rows_max,
+                              static_cast<int*>(sched),
+                              static_cast<unsigned long long*>(keys), n_keys);
+    if (cudaError_t e = cudaGetLastError()) return static_cast<int>(e);
+  }
+  if (stages & 2) {
+    const int rc = rays_rpt(srt::slice_rays(m, groups)) == 2
+        ? launch_rays_walk<2>(plan, plan_w, groups, tri, n_windows, o_in,
+                              d_in, m, wt, eps, spans, sched, keys, s)
+        : launch_rays_walk<1>(plan, plan_w, groups, tri, n_windows, o_in,
+                              d_in, m, wt, eps, spans, sched, keys, s);
+    if (rc) return rc;
+  }
+  if (stages & 4)
+    rays_decode_kernel<<<srt::fill_blocks(n_keys, kDecodeThreads),
+                         kDecodeThreads, 0, s>>>(
+        static_cast<const unsigned long long*>(keys), n_keys,
+        static_cast<float*>(t), static_cast<int*>(idx));
   return static_cast<int>(cudaGetLastError());
 }
 
-#define SRT_NEAREST_RAYS_LAUNCH(R, G)                                          \
-  nearest_rays_kernel<R, G><<<n_tiles, threads, smem, s>>>(                    \
-      static_cast<const int*>(plan), plan_w, static_cast<const float*>(tri),   \
-      n_windows, static_cast<const float*>(o_in),                              \
-      static_cast<const float*>(d_in), m, wt, eps, groups,                     \
-      static_cast<float*>(t), static_cast<int*>(idx))
-
-#define SRT_NEAREST_RAYS_CASE(R)                                               \
-  case R:                                                                      \
-    if (groups > 1)                                                            \
-      SRT_NEAREST_RAYS_LAUNCH(R, true);                                        \
-    else                                                                       \
-      SRT_NEAREST_RAYS_LAUNCH(R, false);                                       \
-    break;
-
-extern "C" int srt_nearest_rays(
-    const void* plan, int plan_w, int n_tiles, const void* tri,
-    int n_windows, const void* o_in, const void* d_in, int m, int wt,
-    float eps, int groups, void* t, void* idx, int threads, void* stream) {
-  if (n_tiles == 0) return 0;
-  if (threads <= 0 || threads > 1024 || threads % 32 || m <= 0 || wt <= 0 ||
-      groups < 1 || groups > 4 || m % groups || (groups > 1 &&
-                                                 (m / groups) % 32))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(wt) * srt::kTriW * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (srt::rays_per_thread(m, threads)) {
-    SRT_NEAREST_RAYS_CASE(1)
-    SRT_NEAREST_RAYS_CASE(2)
-    SRT_NEAREST_RAYS_CASE(4)
-    SRT_NEAREST_RAYS_CASE(8)
-    SRT_NEAREST_RAYS_CASE(16)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+// The walk over explicit rays on this card for windows of wt triangles and
+// m rays a tile in `groups` sub-groups: out as srt_k1_shape's.
+extern "C" int srt_nearest_rays_shape(int wt, int m, int groups, int* out) {
+  const int sr = srt::slice_rays(m, groups);
+  const size_t smem = walk_smem(wt);
+  return rays_rpt(sr) == 2 ? srt::walk_shape(rays_walk_kernel<2>,
+                                             srt::kItemThreads, smem, sr, out)
+                           : srt::walk_shape(rays_walk_kernel<1>,
+                                             srt::kItemThreads, smem, sr, out);
 }

@@ -1,37 +1,52 @@
-"""Kernels 2, 2′ and 5: the any-hit (occlusion) walks.
+"""Kernels 2, 2′, 5 and 7: the any-hit (occlusion) walks.
 
 ``tiled_anyhit_from_t`` wraps the CUDA kernel ``anyhit_from_t_kernel`` and
-``tiled_anyhit`` the kernel ``anyhit_rays_kernel`` (both csrc/anyhit.cu).
-They replace the JAX package's Pallas kernel
+``tiled_anyhit`` the walk over explicit rays ``anyhit_rays`` (a schedule
+launch and a persistent walk over (tile, ray slice, window span) work
+items; both csrc/anyhit.cu).  They replace the JAX package's Pallas kernel
 ``kernels/tiled_t.py::_anyhit_kernel_t`` in its two forms: shadow rays
 rebuilt from the nearest pass's t (reached through ``tiled_anyhit_from_t``,
 the fused frame) and explicit rays (reached through ``tiled_anyhit_t``, the
 legacy hard-shadow, soft-shadow and gather paths).  ``tiled_anyhit_grouped``
-wraps ``anyhit_rays_kernel`` over a grouped plan and replaces
+wraps ``anyhit_rays`` over a grouped plan and replaces
 ``tiled_t.py::_anyhit_kernel_g`` (K5, ``KernelConfig.groups_ah`` > 1).
 ``tiled_anyhit_from_t_plain``, ``tiled_anyhit_plain`` and
 ``tiled_anyhit_grouped_plain`` are their plain PyTorch versions: same
 arguments, same results.  Each wrapper runs its plain version for tensors
 on the CPU and the kernel for tensors on a CUDA device; it adds one to its
-own ``launches`` at each kernel launch.
+own ``launches`` at each call of its kernel.
 
 ``anyhit_from_t`` and ``anyhit`` are the counterparts of the JAX
 ``tiled_t.anyhit_from_t`` and ``tiled_t.anyhit``.  Kernel 7
-(kernels/paged.py) is ``anyhit_rays_kernel`` over page windows: it
-launches through :func:`launch_anyhit_rays` and walks plainly through
+(kernels/paged.py) is ``anyhit_rays`` over page windows: it launches
+through :func:`launch_anyhit_rays` and walks plainly through
 :func:`tiled_anyhit_plain`.
+
+found is the OR of one predicate over the plan's windows, so the work
+items give the whole walk's found in any order: the plain versions walk
+each tile whole, and :func:`walk_plain` models the items (``slice_rays``,
+``spans``) for the tests.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from ..ops.camera import tile_ray_dirs
 from ..ops.intersect import mt_numerators, mt_occludes, xyz
 from . import build, plan as pl
-from .nearest import check_groups, group_walk_masks
+from .nearest import (check_groups, group_walk_masks, rows_max, slice_lanes,
+                      span_plan)
 
 PLAIN_ELEMS = 1 << 24   # ray-triangle pairs per step of the plain walks
+# the walk over explicit rays in spans of RANGE_SPAN_TRIS / LIST_SPAN_TRIS
+# triangles, in whole windows: it has no bound to break on, so short spans
+# only spread the work (4 and 2 windows of 128 triangles, the fastest on
+# every frame that chip_smoke.py sweeps)
+RANGE_SPAN_TRIS = 512
+LIST_SPAN_TRIS = 256
 
 
 def _check(plan, tri, block_obj, t, obj, cam, tile_px, threads):
@@ -93,17 +108,46 @@ tiled_anyhit_from_t.launches = 0
 
 def walk_plain(plan, tri, block_obj, p, s, self_obj, found,
                window_tris: int, block_size: int, eps: float,
-               no_max_t: bool, walk_mask=None):
+               no_max_t: bool, walk_mask=None, slice_rays: int = 0,
+               spans=None):
     """The any-hit walk of every plain version: rays (p, s) (3-tuples of
     [n, M]) and self_obj [n, M]; ``found`` [n, M] bool is updated in place
     and returned.  Walks every tile's plan in step, a few tiles at a time,
     until each tile's rays have all found an occluder.  ``walk_mask``
     [n, entries] bool: a list row tests its k-th window only where it is
-    set (K5's sub-groups).  Records the work a
-    walk needs on these rays: ``walk_plain.lane_pairs`` [n, M] i64, each
-    ray's tests until it found an occluder, and ``walk_plain.staged``
-    [windows] bool, the windows the walk read."""
+    set (K5's sub-groups).  Records the work a walk needs on these rays:
+    ``walk_plain.lane_pairs`` [n, M] i64, each ray's tests until it found
+    an occluder, and ``walk_plain.staged`` [windows] bool, the windows the
+    walk read.
+
+    The kernel's work items: ``slice_rays`` > 0 walks each tile's rays as
+    slices of that many consecutive lanes, each ending once its own rays
+    are all found (a last slice cut short by M is padded with found
+    lanes); ``spans`` = (range span, list span) walks the rows span by
+    span (:func:`nearest.span_plan`), each span's rays starting from the
+    found of the spans before.  The items' found and record are the whole
+    walk's."""
     n, m = found.shape
+    if 0 < slice_rays < m:
+        ns, src = slice_lanes(m, slice_rays, plan.device)
+
+        def cut(x):
+            return x[:, src].reshape(n * ns, slice_rays)
+        pad = torch.arange(ns * slice_rays, device=plan.device) >= m
+        f = cut(found) | pad.repeat(n).reshape(n * ns, slice_rays)
+        f = walk_plain(plan.repeat_interleave(ns, dim=0), tri, block_obj,
+                       tuple(map(cut, p)), tuple(map(cut, s)), cut(self_obj),
+                       f, window_tris, block_size, eps, no_max_t,
+                       None if walk_mask is None
+                       else walk_mask.repeat_interleave(ns, dim=0),
+                       spans=spans)
+        found[:] = f.reshape(n, -1)[:, :m]
+        walk_plain.lane_pairs = walk_plain.lane_pairs.reshape(n, -1)[:, :m]
+        return found
+    if spans is not None:
+        return _walk_spans(plan, tri, block_obj, p, s, self_obj, found,
+                           window_tris, block_size, eps, no_max_t, walk_mask,
+                           spans)
     dev = plan.device
     wt, wb = window_tris, window_tris // block_size
     chunk = max(1, PLAIN_ELEMS // max(1, m * wt))
@@ -136,6 +180,30 @@ def walk_plain(plan, tri, block_obj, p, s, self_obj, found,
             found[ids] = found[ids] | occ.any(dim=-1)
         done[live] = found[live].all(dim=1)
     walk_plain.lane_pairs, walk_plain.staged = lane_pairs, staged
+    return found
+
+
+def _walk_spans(plan, tri, block_obj, p, s, self_obj, found,
+                window_tris: int, block_size: int, eps: float,
+                no_max_t: bool, walk_mask, spans):
+    """:func:`walk_plain` of every row's span 0, then span 1, ... of
+    ``spans`` = (range span, list span); sets the record as its sum."""
+    range_span, list_span = spans
+    lst = plan[:, 3] == 1
+    nw = tri.shape[0] // window_tris
+    most = max(int((-(-plan[~lst, 1] // range_span)).max())
+               if bool((~lst).any()) else 0,
+               int((-(-plan[lst, 2] // list_span)).max())
+               if bool(lst.any()) else 0)
+    pairs = torch.zeros(found.shape, dtype=torch.int64, device=plan.device)
+    staged = torch.zeros(nw, dtype=torch.bool, device=plan.device)
+    for k in range(most):
+        sub, mask = span_plan(plan, k, range_span, list_span, walk_mask)
+        walk_plain(sub, tri, block_obj, p, s, self_obj, found, window_tris,
+                   block_size, eps, no_max_t, mask)
+        pairs += walk_plain.lane_pairs
+        staged |= walk_plain.staged
+    walk_plain.lane_pairs, walk_plain.staged = pairs, staged
     return found
 
 
@@ -186,7 +254,17 @@ def anyhit_from_t(prep, cfg, t, obj, bounds, light_pos, cam_spec, maxv: int,
     return found.reshape(-1)
 
 
-def _check_rays(plan, tri, block_obj, o, d, self_obj):
+def anyhit_rays_call(plan, tri, block_obj, o, d, self_obj,
+                     window_tris: int, block_size: int, eps: float,
+                     no_max_t: bool, groups: int = 1, range_span: int = None,
+                     list_span: int = None, what: str = "anyhit_rays"):
+    """Check the operands of the walk over explicit rays (CUDA tensors;
+    arguments as :func:`tiled_anyhit`, any M; with ``groups`` > 1 a grouped
+    plan and M / groups a multiple of 32), allocate its output and
+    scratch, and return (launch, found [n, M], sched):
+    ``launch(stages=3)`` queues the schedule, which zeroes found (1), and
+    the walk (2).  Spans default to :func:`rays_spans`.  The walk of K2′,
+    K5 and K7 (kernels/paged.py); each caller counts its own launches."""
     build.check_tensors(plan.device, plan=(plan, torch.int32),
                         tri=(tri, torch.float32),
                         block_obj=(block_obj, torch.int32),
@@ -195,43 +273,70 @@ def _check_rays(plan, tri, block_obj, o, d, self_obj):
     n = plan.shape[0]
     if plan.dim() != 2 or plan.shape[1] <= pl.PLAN_AUX:
         raise ValueError(f"plan shape {tuple(plan.shape)}")
-    if tri.dim() != 2 or tri.shape[1] != 9:
-        raise ValueError(f"tri shape {tuple(tri.shape)}")
+    if tri.dim() != 2 or tri.shape[1] != 9 or tri.data_ptr() % 16:
+        raise ValueError(f"tri {tuple(tri.shape)}: want [T, 9], 16-byte "
+                         f"aligned")
     if o.dim() != 3 or o.shape[0] != n or o.shape[2] != 3 \
-            or d.shape != o.shape or self_obj.shape != o.shape[:2]:
+            or d.shape != o.shape or self_obj.shape != o.shape[:2] \
+            or o.shape[1] == 0:
         raise ValueError(f"o {tuple(o.shape)} / d {tuple(d.shape)} / "
                          f"self_obj {tuple(self_obj.shape)} for {n} tiles")
+    m = o.shape[1]
+    check_groups(m, groups)
+    if window_tris % block_size or window_tris % 4:
+        raise ValueError(f"window of {window_tris} triangles is not whole "
+                         f"blocks of {block_size}")
+    rs, ls = rays_spans(window_tris)
+    range_span, list_span = range_span or rs, list_span or ls
+    n_windows = tri.shape[0] // window_tris
+    rmax = rows_max(plan, n_windows, range_span, list_span, groups)
+    found = torch.empty((n, m), dtype=torch.bool, device=plan.device)
+    sched = torch.empty(2 + 2 * rmax, dtype=torch.int32, device=plan.device)
+
+    def launch(stages: int = 3):
+        with torch.cuda.device(plan.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = build.library().srt_anyhit_rays(
+                plan.data_ptr(), plan.shape[1], n, groups, tri.data_ptr(),
+                block_obj.data_ptr(), n_windows, o.data_ptr(), d.data_ptr(),
+                self_obj.data_ptr(), m, window_tris, block_size, eps,
+                int(no_max_t), found.data_ptr(), sched.data_ptr(), rmax,
+                range_span, list_span, stages, stream)
+        build.check(rc, what)
+    return launch, found, sched
+
+
+def rays_spans(window_tris: int) -> tuple:
+    """(range span in windows, list span in entries) of the walk over
+    explicit rays at windows of ``window_tris`` triangles."""
+    return (max(1, RANGE_SPAN_TRIS // window_tris),
+            max(1, LIST_SPAN_TRIS // window_tris))
 
 
 def launch_anyhit_rays(plan, tri, block_obj, o, d, self_obj,
                        window_tris: int, block_size: int, eps: float,
-                       no_max_t: bool, threads: int, groups: int = 1,
-                       what: str = "anyhit_rays_kernel") -> torch.Tensor:
-    """Check the operands and launch ``anyhit_rays_kernel`` on CUDA
-    tensors (arguments as :func:`tiled_anyhit`; with ``groups`` > 1 a
-    grouped plan); returns found [n, M].  The walk of K2′ (windows of
-    window_blocks_ah blocks), K5 (the same over a grouped plan) and K7
-    (pages, kernels/paged.py); each caller counts its own launches."""
-    _check_rays(plan, tri, block_obj, o, d, self_obj)
-    n, m = self_obj.shape
-    threads = min(threads, -(-m // 32) * 32)
-    if threads % 32 or not 0 < m <= 16 * threads:
-        raise ValueError(f"{m} rays per tile do not split over {threads} "
-                         f"threads")
-    check_groups(m, groups)
-    if window_tris % block_size:
-        raise ValueError(f"window of {window_tris} triangles is not whole "
-                         f"blocks of {block_size}")
-    found = torch.empty((n, m), dtype=torch.bool, device=plan.device)
-    with torch.cuda.device(plan.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = build.library().srt_anyhit_rays(
-            plan.data_ptr(), plan.shape[1], n, tri.data_ptr(),
-            block_obj.data_ptr(), tri.shape[0] // window_tris, o.data_ptr(),
-            d.data_ptr(), self_obj.data_ptr(), m, window_tris, block_size,
-            eps, int(no_max_t), groups, found.data_ptr(), threads, stream)
-    build.check(rc, what)
+                       no_max_t: bool, groups: int = 1,
+                       what: str = "anyhit_rays") -> torch.Tensor:
+    """:func:`anyhit_rays_call` launched once: returns found [n, M]."""
+    launch, found, _ = anyhit_rays_call(plan, tri, block_obj, o, d,
+                                        self_obj, window_tris, block_size,
+                                        eps, no_max_t, groups, what=what)
+    launch()
     return found
+
+
+def rays_shape(window_tris: int, block_size: int, m: int,
+               groups: int = 1) -> dict:
+    """The walk over explicit rays on the current card for windows of
+    ``window_tris`` triangles and tiles of ``m`` rays in ``groups``
+    sub-groups: CTAs per SM, registers per thread, SMs, rays per slice and
+    threads per CTA."""
+    out = (ctypes.c_int * 5)()
+    build.check(build.library().srt_anyhit_rays_shape(
+        window_tris, block_size, m, groups, ctypes.cast(out, ctypes.c_void_p)),
+        "srt_anyhit_rays_shape")
+    return dict(zip(("ctas_per_sm", "registers", "sms", "slice_rays",
+                     "threads"), out))
 
 
 def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
@@ -242,9 +347,10 @@ def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
     plan [n, W] i32 (kernels/plan.py layout, windows of ``window_tris``
     triangles, e.g. from plan.cull_occl); tri [Tp, 9] and block_obj [NB]
     i32 (accel/prepared.py); o, d [n, M, 3] f32 the rays o + t*d of each
-    tile (any M up to 16 * threads); self_obj [n, M] i32 each ray's own
-    object.  Returns found [n, M] bool: the ray meets a triangle of another
-    object at t >= 0 (and t <= 1 unless ``no_max_t``)."""
+    tile (any M); self_obj [n, M] i32 each ray's own object.  Returns
+    found [n, M] bool: the ray meets a triangle of another object at t >= 0
+    (and t <= 1 unless ``no_max_t``).  ``threads`` is not read: the walk's
+    CTAs are the kernel's own."""
     if plan.device.type == "cpu":
         return tiled_anyhit_plain(plan, tri, block_obj, o, d, self_obj,
                                   window_tris, block_size, eps, no_max_t,
@@ -252,8 +358,7 @@ def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
     if plan.device.type != "cuda":
         raise ValueError(f"no any-hit kernel for device {plan.device}")
     found = launch_anyhit_rays(plan, tri, block_obj, o, d, self_obj,
-                               window_tris, block_size, eps, no_max_t,
-                               threads)
+                               window_tris, block_size, eps, no_max_t)
     tiled_anyhit.launches += 1
     return found
 
@@ -289,8 +394,7 @@ def tiled_anyhit_grouped(plan, tri, block_obj, o, d, self_obj,
         raise ValueError(f"no any-hit kernel for device {plan.device}")
     found = launch_anyhit_rays(plan, tri, block_obj, o, d, self_obj,
                                window_tris, block_size, eps, no_max_t,
-                               threads, groups,
-                               "anyhit_rays_kernel (sub-groups)")
+                               groups, "anyhit_rays (sub-groups)")
     tiled_anyhit_grouped.launches += 1
     return found
 

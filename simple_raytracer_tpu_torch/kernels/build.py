@@ -52,12 +52,15 @@ SIGNATURES = {
             _I, _P),             # stages, stream
         "srt_k1_shape": (_I, _P),  # window_tris, out[5]
         "srt_nearest_rays": (
-            _P, _I, _I,          # plan, plan_w, n_tiles
+            _P, _I, _I, _I,      # plan, plan_w, n_tiles, sub-groups
             _P, _I,              # tri, n_windows
             _P, _P, _I,          # o, d, rays per tile
-            _I, _F, _I,          # window_tris, eps, sub-groups
+            _I, _F,              # window_tris, eps
             _P, _P,              # t, idx
-            _I, _P),             # threads, stream
+            _P, _P, _I,          # keys, sched, rows_max
+            _I, _I,              # range span, list span
+            _I, _P),             # stages, stream
+        "srt_nearest_rays_shape": (_I, _I, _I, _P),  # wt, m, groups, out[5]
     },
     "anyhit.cu": {
         "srt_anyhit_from_t": (
@@ -69,13 +72,15 @@ SIGNATURES = {
             _P,                  # found
             _I, _P),             # threads, stream
         "srt_anyhit_rays": (
-            _P, _I, _I,          # plan, plan_w, n_tiles
+            _P, _I, _I, _I,      # plan, plan_w, n_tiles, sub-groups
             _P, _P, _I,          # tri, block_obj, n_windows
             _P, _P, _P, _I,      # o, d, self_obj, rays per tile
             _I, _I, _F, _I,      # window_tris, block_size, eps, no_max_t
-            _I,                  # sub-groups
-            _P,                  # found
-            _I, _P),             # threads, stream
+            _P, _P, _I,          # found, sched, rows_max
+            _I, _I,              # range span, list span
+            _I, _P),             # stages, stream
+        "srt_anyhit_rays_shape": (_I, _I, _I, _I, _P),  # wt, bs, m, groups,
+                                                       # out[5]
     },
     "prepass.cu": {
         "srt_prepass": (

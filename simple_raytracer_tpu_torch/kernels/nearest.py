@@ -4,26 +4,27 @@
 persistent walk over (tile, ray slice, window span) work items, and an
 epilogue launch) in its fused modes (JAX ``_fused_phong``'s attribute
 modes: 0 flat, 1 textured, 2 smooth normals) and ``tiled_nearest_attrs``
-in its fetch mode; ``tiled_nearest_rays`` wraps ``nearest_rays_kernel``
-over the explicit rays of each tile.  Together they replace the JAX
-package's Pallas kernel ``kernels/tiled_t.py::_nearest_kernel_t`` (fused on
-the fused frame's path, fetch on the soft-shadow and sublane gather paths,
-explicit rays on the prepass walk's rerun).  ``tiled_nearest_grouped``
-wraps ``nearest_rays_kernel`` over a grouped plan and replaces
-``tiled_t.py::_nearest_kernel_g`` (K4, ``KernelConfig.groups`` > 1).  Each
-``*_plain`` function is the plain PyTorch version of its wrapper: same
-arguments, same results.  Each wrapper runs its plain version for tensors on
-the CPU and the kernel for tensors on a CUDA device; it adds one to its own
-``launches`` at each kernel launch (K1's three launches count one).
-:func:`k1_work_rows`, :func:`hit_keys`, :func:`merge_keys` and
-:func:`decode_keys` are the plain versions of K1's schedule and of its
-per-ray merge keys.
+in its fetch mode; ``tiled_nearest_rays`` wraps the walk over the explicit
+rays of each tile (csrc/nearest.cu ``nearest_rays``: the same schedule, a
+persistent walk over work items, and a key decode).  Together they replace
+the JAX package's Pallas kernel ``kernels/tiled_t.py::_nearest_kernel_t``
+(fused on the fused frame's path, fetch on the soft-shadow and sublane
+gather paths, explicit rays on the prepass walk's rerun).
+``tiled_nearest_grouped`` wraps the walk over explicit rays on a grouped
+plan and replaces ``tiled_t.py::_nearest_kernel_g`` (K4,
+``KernelConfig.groups`` > 1).  Each ``*_plain`` function is the plain
+PyTorch version of its wrapper: same arguments, same results.  Each wrapper
+runs its plain version for tensors on the CPU and the kernel for tensors
+on a CUDA device; it adds one to its own ``launches`` at each call of its
+kernel (a call is three launches).  :func:`work_rows`, :func:`hit_keys`,
+:func:`merge_keys` and :func:`decode_keys` are the plain versions of the
+walks' schedule and of their per-ray merge keys.
 
 ``hits_shaded``, ``hits_attrs`` and ``hits`` are the counterparts of the JAX
 ``tiled_t.hits_shaded``, ``tiled_t.hits_attrs`` and ``tiled_t.hits``: they
 build the plan and the per-frame constants and run the kernels.
 :func:`walk_plain`, the plain walk, also serves kernel 6
-(kernels/paged.py), as the device walk ``nearest_walk`` does.
+(kernels/paged.py), as the device walk over explicit rays does.
 """
 
 from __future__ import annotations
@@ -47,13 +48,21 @@ MODES = (FLAT, TEXTURED, SMOOTH)
 INF = float("inf")
 PLAIN_ELEMS = 1 << 24   # ray-triangle pairs per step of the plain walk
 # K1's work items (csrc/nearest.cu): slices of K1_SLICE consecutive tile
-# lanes (the kernel's kK1Slice), range rows in spans of K1_RANGE_SPAN
-# windows, list rows in spans of K1_LIST_SPAN entries; K1_STAGES selects
-# all three launches; FETCH is the fetch mode's number
+# lanes (csrc/common.cuh kItemSlice, the most rays of any walk's item),
+# range rows in spans of K1_RANGE_SPAN windows, list rows in spans of
+# K1_LIST_SPAN entries; K1_STAGES selects all three launches; FETCH is the
+# fetch mode's number
 K1_SLICE = 512
 K1_RANGE_SPAN = 16
 K1_LIST_SPAN = 32
 K1_STAGES = 7
+# the walk over explicit rays: range spans of RANGE_SPAN_TRIS and list
+# spans of LIST_SPAN_TRIS triangles, in whole windows (K1's 16 and 32
+# windows of 64 triangles); RAYS_STAGES selects the schedule, the walk and
+# the key decode
+RANGE_SPAN_TRIS = 1024
+LIST_SPAN_TRIS = 2048
+RAYS_STAGES = 7
 FETCH = -1
 MISS_KEY = -1           # the all-ones key of a ray with no hit
 
@@ -145,13 +154,12 @@ def k1_call(plan, tri, tri_attr, cam, tile_px: int, window_tris: int,
     _check(plan, tri, tri_attr, cam, tile_px, window_tris, mat, attr_map)
     n, tile = plan.shape[0], tile_px * tile_px
     n_windows = tri.shape[0] // window_tris
-    rows_max = n * (1 + max(n_windows // range_span,
-                            (plan.shape[1] - pl.PLAN_AUX) // list_span))
+    rmax = rows_max(plan, n_windows, range_span, list_span)
     kw = dict(device=plan.device)
     t = torch.empty((n, tile), dtype=torch.float32, **kw)
     idx = torch.empty((n, tile), dtype=torch.int32, **kw)
     keys = torch.empty(n * tile, dtype=torch.int64, **kw)
-    sched = torch.empty(2 + 2 * rows_max, dtype=torch.int32, **kw)
+    sched = torch.empty(2 + 2 * rmax, dtype=torch.int32, **kw)
     if mode == FETCH:
         outs = (t, idx, torch.empty((n * tile, 4), dtype=torch.float32,
                                     **kw))
@@ -175,7 +183,7 @@ def k1_call(plan, tri, tri_attr, cam, tile_px: int, window_tris: int,
                 window_tris, eps, int(double_sided), int(specular_nl), mode,
                 0 if attr_map is None else attr_map.data_ptr(),
                 t.data_ptr(), idx.data_ptr(), *ptrs, keys.data_ptr(),
-                sched.data_ptr(), rows_max, range_span, list_span, stages,
+                sched.data_ptr(), rmax, range_span, list_span, stages,
                 stream)
         build.check(rc, what)
     return launch, outs, sched
@@ -261,34 +269,35 @@ def tiled_nearest_attrs(plan, tri, tri_attr, cam, tile_px: int,
 tiled_nearest_attrs.launches = 0
 
 
-def k1_work_rows(plan, n_windows: int, range_span: int = K1_RANGE_SPAN,
-                 list_span: int = K1_LIST_SPAN):
-    """The plain version of K1's schedule: its rows (tile, span) [N, 2] i32
-    and their walk lengths [N], longest first (equal lengths by tile, then
-    span; the kernel places those in any order).  A list row walks its
-    list in spans of ``list_span`` entries; a range row its covering
-    range, clamped to the ``n_windows`` windows that exist, in spans of
-    ``range_span`` windows.  Each row is :func:`k1_slices` work items.
-    The repeats' sizes are read on the host, so this is no part of a
-    frame."""
+def work_rows(plan, n_windows: int, range_span: int = K1_RANGE_SPAN,
+              list_span: int = K1_LIST_SPAN):
+    """The plain version of the walks' schedule (srt::schedule_rows: K1,
+    the walks over explicit rays of nearest.cu and anyhit.cu): its rows
+    (tile, span) [N, 2] i32 and their walk lengths [N], longest first
+    (equal lengths by tile, then span; the kernel places those in any
+    order).  A list row walks its list in spans of ``list_span`` entries; a
+    range row its covering range, clamped to the ``n_windows`` windows
+    that exist, in spans of ``range_span`` windows.  A grouped plan's rows
+    are its entries' rows.  Each row is one work item per slice of its
+    tile (:func:`k1_slices`, :func:`rays_slices`).  The repeats' sizes are
+    read on the host, so this is no part of a frame."""
     every = torch.arange(plan.shape[0], device=plan.device)
-    whole = k1_row_lengths(plan, torch.stack([every, 0 * every], dim=1),
-                           n_windows, 1 << 30, 1 << 30)
+    whole = row_lengths(plan, torch.stack([every, 0 * every], dim=1),
+                        n_windows, 1 << 30, 1 << 30)
     span = torch.where(plan[:, 3] == 1, list_span, range_span)
     spans = (whole + span - 1) // span
     tile = torch.repeat_interleave(every, spans)
     s = (torch.arange(tile.numel(), device=plan.device)
          - torch.repeat_interleave(torch.cumsum(spans, 0) - spans, spans))
     rows = torch.stack([tile, s], dim=1).to(torch.int32)
-    length = k1_row_lengths(plan, rows, n_windows, range_span, list_span)
+    length = row_lengths(plan, rows, n_windows, range_span, list_span)
     order = torch.argsort(-length, stable=True)
     return rows[order], length[order]
 
 
-def k1_row_lengths(plan, rows, n_windows: int,
-                   range_span: int = K1_RANGE_SPAN,
-                   list_span: int = K1_LIST_SPAN):
-    """Walk lengths [N] of K1's schedule rows (tile, span) [N, 2] on
+def row_lengths(plan, rows, n_windows: int, range_span: int = K1_RANGE_SPAN,
+                list_span: int = K1_LIST_SPAN):
+    """Walk lengths [N] of the schedule's rows (tile, span) [N, 2] on
     ``plan``: the span's entries of a list row, or its windows of a range
     row's covering range (clamped to the ``n_windows`` windows that
     exist)."""
@@ -298,6 +307,75 @@ def k1_row_lengths(plan, rows, n_windows: int,
         plan[tile, 1], (n_windows - plan[tile, 0]).clamp_min(0)))
     span = torch.where(lst, list_span, range_span)
     return torch.minimum(cnt - s * span, span)
+
+
+def rows_max(plan, n_windows: int, range_span: int, list_span: int,
+             groups: int = 1) -> int:
+    """Rows the schedule of ``plan`` can list at most (its scratch): each
+    tile's range in spans, or its list of up to the plan's entries."""
+    mv = plan.shape[1] - pl.PLAN_AUX
+    if groups > 1:
+        mv = mv * 8 // 9
+    return plan.shape[0] * (1 + max(n_windows // range_span,
+                                    mv // list_span))
+
+
+def span_plan(plan, s: int, range_span: int, list_span: int,
+              walk_mask=None):
+    """The plan whose every row walks only its span ``s`` (the schedule's
+    row (tile, s)): a range row the windows [lo + s * range_span, ...) of
+    its range (``range_span`` 0: the whole range, in span 0), a list row
+    its entries from s * list_span (their bounds with them), at most one
+    span of each; rows with fewer spans walk nothing.  ``walk_mask`` [n,
+    entries] shifts with the entries.  Returns (plan, walk_mask)."""
+    aux, mv = pl.PLAN_AUX, plan.shape[1] - pl.PLAN_AUX
+    lst = plan[:, 3] == 1
+    sub = plan.clone()
+    l0 = s * list_span
+    if range_span:
+        r0 = s * range_span
+        sub[~lst, 0] = plan[~lst, 0] + r0
+        sub[~lst, 1] = (plan[~lst, 1] - r0).clamp(0, range_span)
+    elif s:
+        sub[~lst, 1] = 0
+    sub[lst, 2] = (plan[lst, 2] - l0).clamp(0, list_span)
+    mask = walk_mask
+    if l0:
+        sub[lst, aux:aux + max(0, mv - l0)] = plan[lst, aux + l0:]
+        if walk_mask is not None:
+            mask = walk_mask.clone()
+            mask[lst, :max(0, mv - l0)] = walk_mask[lst, l0:]
+    return sub, mask
+
+
+def slice_rays(m: int, groups: int = 1) -> int:
+    """Rays of a work item of the walks over explicit rays, for tiles of
+    ``m`` rays in ``groups`` sub-groups (srt::slice_rays): at most
+    :data:`K1_SLICE`, inside one sub-group, in whole warps."""
+    return min(K1_SLICE, -(-(m // groups) // 32) * 32)
+
+
+def slice_lanes(m: int, slice_rays: int, device):
+    """M lanes cut into slices of ``slice_rays``: (slices, the lane each
+    slice position reads [slices * slice_rays]); the positions past M read
+    their slice's first lane."""
+    ns = -(-m // slice_rays)
+    lane = torch.arange(ns * slice_rays, device=device)
+    return ns, torch.where(lane < m, lane, lane // slice_rays * slice_rays)
+
+
+def rays_slices(m: int, groups: int = 1) -> int:
+    """Work items of a tile of ``m`` rays in ``groups`` sub-groups for each
+    of its spans: the slices of each sub-group, the last one cut short
+    where the group is not a whole number of slices."""
+    return groups * -(-(m // groups) // slice_rays(m, groups))
+
+
+def rays_spans(window_tris: int) -> tuple:
+    """(range span in windows, list span in entries) of the walks over
+    explicit rays at windows of ``window_tris`` triangles."""
+    return (max(1, RANGE_SPAN_TRIS // window_tris),
+            max(1, LIST_SPAN_TRIS // window_tris))
 
 
 def hit_keys(t, idx):
@@ -328,14 +406,17 @@ def decode_keys(keys):
             torch.where(hit, (keys & 0xFFFFFFFF).to(torch.int32), -1))
 
 
-def launch_nearest_rays(plan, tri, o, d, window_tris: int, eps: float,
-                        threads: int, groups: int = 1,
-                        what: str = "nearest_rays_kernel"):
-    """Check the operands and launch ``nearest_rays_kernel`` on CUDA
-    tensors: plan [n, W] i32 (windows of ``window_tris`` triangles; with
-    ``groups`` > 1 a grouped plan), tri [Tp, 9], o, d [n, M, 3] f32 (any M
-    up to 16 * threads; with groups, M / groups a multiple of 32).
-    Returns (t [n, M], idx [n, M]).  The walk of K1's rays mode, K4 and K6
+def rays_call(plan, tri, o, d, window_tris: int, eps: float,
+              groups: int = 1, range_span: int = None,
+              list_span: int = None, what: str = "nearest_rays"):
+    """Check the operands of the walk over explicit rays (CUDA tensors:
+    plan [n, W] i32, windows of ``window_tris`` triangles, with ``groups``
+    > 1 a grouped plan; tri [Tp, 9]; o, d [n, M, 3] f32, any M, with
+    groups M / groups a multiple of 32), allocate its outputs and scratch,
+    and return (launch, (t [n, M], idx [n, M]), sched) as :func:`k1_call`
+    does: ``launch(stages=RAYS_STAGES)`` queues the schedule and key fill
+    (1), the walk (2) and the key decode (4).  Spans default to
+    :func:`rays_spans`.  The walk of K1's rays mode, K4 and K6
     (kernels/paged.py); each caller counts its own launches."""
     build.check_tensors(plan.device, plan=(plan, torch.int32),
                         tri=(tri, torch.float32), o=(o, torch.float32),
@@ -343,30 +424,59 @@ def launch_nearest_rays(plan, tri, o, d, window_tris: int, eps: float,
     n = plan.shape[0]
     if plan.dim() != 2 or plan.shape[1] <= pl.PLAN_AUX:
         raise ValueError(f"plan shape {tuple(plan.shape)}")
-    if tri.dim() != 2 or tri.shape[1] != 9 or tri.shape[0] % window_tris:
+    if tri.dim() != 2 or tri.shape[1] != 9 or tri.shape[0] % window_tris \
+            or window_tris % 4:
         raise ValueError(f"tri shape {tuple(tri.shape)} for windows of "
                          f"{window_tris}")
+    if tri.data_ptr() % 16:
+        raise ValueError("tri is not 16-byte aligned")
     if o.dim() != 3 or o.shape[0] != n or o.shape[2] != 3 \
-            or d.shape != o.shape:
+            or d.shape != o.shape or o.shape[1] == 0:
         raise ValueError(f"o {tuple(o.shape)} / d {tuple(d.shape)} for {n} "
                          f"tiles")
     m = o.shape[1]
-    threads = min(threads, -(-m // 32) * 32)
-    if threads % 32 or not 0 < m <= 16 * threads:
-        raise ValueError(f"{m} rays per tile do not split over {threads} "
-                         f"threads")
     check_groups(m, groups)
-    t = torch.empty((n, m), dtype=torch.float32, device=plan.device)
-    idx = torch.empty((n, m), dtype=torch.int32, device=plan.device)
-    with torch.cuda.device(plan.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = build.library().srt_nearest_rays(
-            plan.data_ptr(), plan.shape[1], n, tri.data_ptr(),
-            tri.shape[0] // window_tris, o.data_ptr(), d.data_ptr(), m,
-            window_tris, eps, groups, t.data_ptr(), idx.data_ptr(), threads,
-            stream)
-    build.check(rc, what)
-    return t, idx
+    rs, ls = rays_spans(window_tris)
+    range_span, list_span = range_span or rs, list_span or ls
+    n_windows = tri.shape[0] // window_tris
+    rmax = rows_max(plan, n_windows, range_span, list_span, groups)
+    kw = dict(device=plan.device)
+    t = torch.empty((n, m), dtype=torch.float32, **kw)
+    idx = torch.empty((n, m), dtype=torch.int32, **kw)
+    keys = torch.empty(n * m, dtype=torch.int64, **kw)
+    sched = torch.empty(2 + 2 * rmax, dtype=torch.int32, **kw)
+
+    def launch(stages: int = RAYS_STAGES):
+        with torch.cuda.device(plan.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = build.library().srt_nearest_rays(
+                plan.data_ptr(), plan.shape[1], n, groups, tri.data_ptr(),
+                n_windows, o.data_ptr(), d.data_ptr(), m, window_tris, eps,
+                t.data_ptr(), idx.data_ptr(), keys.data_ptr(),
+                sched.data_ptr(), rmax, range_span, list_span, stages, stream)
+        build.check(rc, what)
+    return launch, (t, idx), sched
+
+
+def launch_nearest_rays(plan, tri, o, d, window_tris: int, eps: float,
+                        groups: int = 1, what: str = "nearest_rays"):
+    """:func:`rays_call` launched once: returns (t [n, M], idx [n, M])."""
+    launch, outs, _ = rays_call(plan, tri, o, d, window_tris, eps, groups,
+                                what=what)
+    launch()
+    return outs
+
+
+def rays_shape(window_tris: int, m: int, groups: int = 1) -> dict:
+    """The walk over explicit rays on the current card for windows of
+    ``window_tris`` triangles and tiles of ``m`` rays in ``groups``
+    sub-groups: as :func:`k1_shape`."""
+    out = (ctypes.c_int * 5)()
+    build.check(build.library().srt_nearest_rays_shape(
+        window_tris, m, groups, ctypes.cast(out, ctypes.c_void_p)),
+        "srt_nearest_rays_shape")
+    return dict(zip(("ctas_per_sm", "registers", "sms", "slice_rays",
+                     "threads"), out))
 
 
 def check_groups(m: int, groups: int) -> None:
@@ -384,13 +494,14 @@ def tiled_nearest_rays(plan, tri, o, d, window_tris: int, eps: float,
     """K1 over explicit rays: the nearest hit of rays o, d [n, M, 3] over
     every tile of ``plan`` (windows of ``window_tris`` triangles; the
     prepass walk's refined plan).  Returns t [n, M] f32 (inf on a miss) and
-    idx [n, M] i32 (-1); equal t goes to the lowest triangle id."""
+    idx [n, M] i32 (-1); equal t goes to the lowest triangle id.
+    ``threads`` is not read: the walk's CTAs are the kernel's own."""
     if plan.device.type == "cpu":
         return tiled_nearest_rays_plain(plan, tri, o, d, window_tris, eps,
                                         threads)
     if plan.device.type != "cuda":
         raise ValueError(f"no nearest kernel for device {plan.device}")
-    out = launch_nearest_rays(plan, tri, o, d, window_tris, eps, threads)
+    out = launch_nearest_rays(plan, tri, o, d, window_tris, eps)
     tiled_nearest_rays.launches += 1
     return out
 
@@ -401,8 +512,11 @@ tiled_nearest_rays.launches = 0
 def tiled_nearest_rays_plain(plan, tri, o, d, window_tris: int, eps: float,
                              threads: int = 512):
     """Plain PyTorch version of :func:`tiled_nearest_rays` (same arguments
-    and results; ``threads`` is ignored)."""
-    return walk_plain(plan, tri, xyz(o), xyz(d), window_tris, eps)
+    and results; ``threads`` is ignored): :func:`walk_plain` in the
+    kernel's slices and list spans."""
+    return walk_plain(plan, tri, xyz(o), xyz(d), window_tris, eps,
+                      slice_rays=slice_rays(o.shape[1]),
+                      list_span=rays_spans(window_tris)[1])
 
 
 def tiled_nearest_grouped(plan, tri, o, d, window_tris: int, eps: float,
@@ -417,8 +531,8 @@ def tiled_nearest_grouped(plan, tri, o, d, window_tris: int, eps: float,
                                            groups, threads)
     if plan.device.type != "cuda":
         raise ValueError(f"no nearest kernel for device {plan.device}")
-    out = launch_nearest_rays(plan, tri, o, d, window_tris, eps, threads,
-                              groups, "nearest_rays_kernel (sub-groups)")
+    out = launch_nearest_rays(plan, tri, o, d, window_tris, eps, groups,
+                              "nearest_rays (sub-groups)")
     tiled_nearest_grouped.launches += 1
     return out
 
@@ -446,14 +560,16 @@ def tiled_nearest_grouped_plain(plan, tri, o, d, window_tris: int,
                                 eps: float, groups: int, threads: int = 512):
     """Plain PyTorch version of :func:`tiled_nearest_grouped` (same
     arguments and results; ``threads`` is ignored): :func:`walk_plain` over
-    the n * groups sub-tiles, each with its mask."""
+    the n * groups sub-tiles, each with its mask, in the kernel's slices
+    and list spans."""
     n, m = o.shape[:2]
     check_groups(m, groups)
     sub, mask = group_walk_masks(plan, groups)
     gr = m // groups
     t, idx = walk_plain(sub, tri, xyz(o.reshape(n * groups, gr, 3)),
                         xyz(d.reshape(n * groups, gr, 3)), window_tris, eps,
-                        walk_mask=mask)
+                        walk_mask=mask, slice_rays=slice_rays(m, groups),
+                        list_span=rays_spans(window_tris)[1])
     walk_plain.lane_pairs = walk_plain.lane_pairs.reshape(n, m)
     return t.reshape(n, m), idx.reshape(n, m)
 
@@ -530,7 +646,7 @@ def _masked(x, m, fill, reduce):
 
 def walk_plain(plan, tri, o, d, window_tris: int, eps: float,
                walk_mask=None, slices: int = 1, list_span: int = 0,
-               seed=None):
+               seed=None, slice_rays: int = 0):
     """The nearest walk of every plain version (K1's modes and K4 here, K6
     in kernels/paged.py).  Rays: ``d`` a 3-tuple of [n, M] tensors, ``o`` a
     3-tuple of [n, M] tensors or of scalars (one origin for every ray).
@@ -546,32 +662,39 @@ def walk_plain(plan, tri, o, d, window_tris: int, eps: float,
     row), and ``walk_plain.staged`` [windows] bool, the windows some ray
     needed.
 
-    K1's work items: ``slices`` > 1 walks each tile's rays as that many
-    slices of M / slices consecutive lanes, each walking the tile's row and
-    breaking on its own rays (the row repeated per slice); ``list_span`` >
-    0 walks each list of more entries as spans of ``list_span`` entries,
-    each from its first entry with its own break, merged by the least
-    (t, id) (:func:`merge_keys`).  With sound entry bounds the result is
-    the whole walk's.  The record stays the whole walk's needs: a window
-    counts for a ray until its best t over all earlier entries (``seed``
-    [n, M], of the earlier spans) passes the entry's bound."""
+    The kernels' work items: ``slice_rays`` > 0 walks each tile's rays as
+    slices of that many consecutive lanes (``slices`` > 1: M / slices),
+    each walking the tile's row and breaking on its own rays (the row
+    repeated per slice); a last slice cut short by M walks with copies of
+    its first ray, which the kernels' idle lanes walk and which hold back
+    no break.  ``list_span`` > 0 walks each list of more entries as spans
+    of ``list_span`` entries (:func:`span_plan`), each from its first entry
+    with its own break, merged by the least (t, id) (:func:`merge_keys`).
+    With sound entry bounds the result is the whole walk's.  The record
+    stays the whole walk's needs: a window counts for a ray until its best
+    t over all earlier entries (``seed`` [n, M], of the earlier spans)
+    passes the entry's bound."""
     n, m = d[0].shape
     if slices > 1:
+        slice_rays = m // slices
+    if 0 < slice_rays < m:
+        ns, src = slice_lanes(m, slice_rays, plan.device)
+
         def cut(x):
-            return x if x.dim() == 0 else x.reshape(n * slices, m // slices)
+            return x if x.dim() == 0 else x[:, src].reshape(n * ns,
+                                                            slice_rays)
         bt, idx = walk_plain(
-            plan.repeat_interleave(slices, dim=0), tri, tuple(map(cut, o)),
+            plan.repeat_interleave(ns, dim=0), tri, tuple(map(cut, o)),
             tuple(map(cut, d)), window_tris, eps,
             None if walk_mask is None
-            else walk_mask.repeat_interleave(slices, dim=0),
+            else walk_mask.repeat_interleave(ns, dim=0),
             list_span=list_span)
-        walk_plain.lane_pairs = walk_plain.lane_pairs.reshape(n, m)
-        return bt.reshape(n, m), idx.reshape(n, m)
-    if list_span and walk_mask is None:
-        split = (plan[:, 3] == 1) & (plan[:, 2] > list_span)
-        if bool(split.any()):
-            return _walk_list_spans(plan, split, tri, o, d, window_tris, eps,
-                                    list_span)
+        walk_plain.lane_pairs = walk_plain.lane_pairs.reshape(n, -1)[:, :m]
+        return bt.reshape(n, -1)[:, :m], idx.reshape(n, -1)[:, :m]
+    if list_span and bool(((plan[:, 3] == 1)
+                           & (plan[:, 2] > list_span)).any()):
+        return _walk_list_spans(plan, tri, o, d, window_tris, eps,
+                                list_span, walk_mask)
     dev = plan.device
     wt = window_tris
     chunk = max(1, PLAIN_ELEMS // max(1, m * wt))
@@ -619,21 +742,17 @@ def walk_plain(plan, tri, o, d, window_tris: int, eps: float,
     return bt, torch.where(torch.isfinite(bt), bi, -1)
 
 
-def _walk_list_spans(plan, split, tri, o, d, window_tris: int, eps: float,
-                     list_span: int):
-    """:func:`walk_plain` with the lists of the rows ``split`` [n] bool
-    walked as spans of ``list_span`` entries, span by span; the other rows
-    walk with span 0.  Sets the walk's record as :func:`walk_plain`."""
-    aux, mv, cnt = pl.PLAN_AUX, plan.shape[1] - pl.PLAN_AUX, plan[:, 2]
+def _walk_list_spans(plan, tri, o, d, window_tris: int, eps: float,
+                     list_span: int, walk_mask=None):
+    """:func:`walk_plain` with every list walked as spans of ``list_span``
+    entries (:func:`span_plan`; range rows whole, in the first), span by
+    span.  Sets the walk's record as :func:`walk_plain`."""
     keys = pairs = staged = best = None
-    for k0 in range(0, int(cnt[split].max()), list_span):
-        sub = plan.clone()
-        sub[split, aux:aux + mv - k0] = plan[split, aux + k0:]
-        sub[split, 2] = (cnt[split] - k0).clamp(0, list_span)
-        if k0:
-            sub[~split, 1:3] = 0
+    lists = plan[:, 3] == 1
+    for s in range(-(-int(plan[lists, 2].max()) // list_span)):
+        sub, mask = span_plan(plan, s, 0, list_span, walk_mask)
         key = hit_keys(*walk_plain(sub, tri, o, d, window_tris, eps,
-                                   seed=best))
+                                   walk_mask=mask, seed=best))
         keys = key if keys is None else merge_keys(keys, key)
         best = decode_keys(keys)[0]
         rec = walk_plain.lane_pairs, walk_plain.staged

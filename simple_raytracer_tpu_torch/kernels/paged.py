@@ -1,11 +1,11 @@
 """Kernels 6 and 7: the paged walks, and the steps of the paged frame.
 
-``tiled_nearest`` wraps the CUDA kernel ``nearest_rays_kernel``
-(csrc/nearest.cu, the walk of K1's rays mode) and replaces the JAX
+``tiled_nearest`` wraps the walk over explicit rays of csrc/nearest.cu
+(``nearest_rays``, the walk of K1's rays mode) and replaces the JAX
 package's Pallas kernel ``kernels/tiled.py::_nearest_kernel`` (K6, reached
 through ``tiled_nearest``): the nearest hit (t, id) of explicit rays over
 a plan of pages of ``page_tris`` triangles.  ``tiled_anyhit`` launches
-``anyhit_rays_kernel`` (csrc/anyhit.cu, the walk of K2′) at page windows
+``anyhit_rays`` (csrc/anyhit.cu, the walk of K2′) at page windows
 and replaces ``kernels/tiled.py::_anyhit_kernel`` (K7, reached through
 ``tiled_anyhit``): occlusion of explicit rays, skipping each ray's own
 object.  The JAX kernels take their MT numerators from one Gram
@@ -43,16 +43,15 @@ def tiled_nearest(plan, tri, o, d, window_tris: int, eps: float,
 
     plan [n, W] i32 (kernels/plan.py layout, windows of ``window_tris``
     triangles: pages); tri [Tp, 9] (accel/prepared.py); o, d [n, M, 3] f32
-    the rays of each tile (any M up to 16 * threads).  Returns t [n, M] f32
-    (inf on a miss) and idx [n, M] i32 (-1 on a miss); equal t goes to the
-    lowest triangle id."""
+    the rays of each tile (any M).  Returns t [n, M] f32 (inf on a miss)
+    and idx [n, M] i32 (-1 on a miss); equal t goes to the lowest triangle
+    id.  ``threads`` is not read: the walk's CTAs are the kernel's own."""
     if plan.device.type == "cpu":
         return tiled_nearest_plain(plan, tri, o, d, window_tris, eps, threads)
     if plan.device.type != "cuda":
         raise ValueError(f"no nearest kernel for device {plan.device}")
     out = _nearest.launch_nearest_rays(plan, tri, o, d, window_tris, eps,
-                                       threads,
-                                       what="nearest_rays_kernel (pages)")
+                                       what="nearest_rays (pages)")
     tiled_nearest.launches += 1
     return out
 
@@ -63,7 +62,8 @@ tiled_nearest.launches = 0
 def tiled_nearest_plain(plan, tri, o, d, window_tris: int, eps: float,
                         threads: int = 512):
     """Plain PyTorch version of :func:`tiled_nearest` (same arguments and
-    results; ``threads`` is ignored): kernels/nearest.py::walk_plain."""
+    results; ``threads`` is ignored): kernels/nearest.py::walk_plain in the
+    kernel's slices and list spans."""
     return _nearest.tiled_nearest_rays_plain(plan, tri, o, d, window_tris,
                                              eps)
 
@@ -83,7 +83,7 @@ def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
         raise ValueError(f"no any-hit kernel for device {plan.device}")
     found = _anyhit.launch_anyhit_rays(
         plan, tri, block_obj, o, d, self_obj, window_tris, block_size, eps,
-        no_max_t, threads, what="anyhit_rays_kernel (page windows)")
+        no_max_t, what="anyhit_rays (page windows)")
     tiled_anyhit.launches += 1
     return found
 

@@ -25,6 +25,9 @@ import torch
 # device cycles to spin per timed call before the timed calls start (about
 # 0.5 ms at the H100's clock): the host queues every call meanwhile
 SLEEP_CYCLES = 1_000_000
+# bytes written before each call timed cold: over twice the H100's 50 MB
+# L2, so the call finds its inputs in device memory
+FLUSH_BYTES = 128 << 20
 
 
 def require_cuda() -> None:
@@ -34,12 +37,39 @@ def require_cuda() -> None:
         raise RuntimeError("the probes time a CUDA device; none is present")
 
 
-def device_ms(fn, frames: int):
-    """(Mean device time in ms of ``fn`` over ``frames`` calls after one
+def device_ms(fn, frames: int, flush: bool = False):
+    """(Mean device time in ms of ``fn`` over ``frames`` calls after a
     warm-up call, host ms per call).  The device first spins while the
     host queues every call, so the CUDA events time the calls back to back
     on the device and not the host's pace: a probe's kernel takes a few µs,
-    less than its wrapper's host work."""
+    less than its wrapper's host work.  With ``flush`` each call is timed
+    cold: a write of FLUSH_BYTES before it, outside its own pair of
+    events, evicts its inputs from the L2, so a probe that moves less than
+    the L2 holds is timed against device memory, as its bound counts it."""
+    if flush:
+        # the buffer first, then a flushed warm-up: the caching allocator
+        # settles (no allocation from the device) before the timed calls
+        buf = torch.empty(FLUSH_BYTES, dtype=torch.uint8,
+                          device=torch.cuda.current_device())
+        for _ in range(2):
+            buf.zero_()
+            fn()
+        torch.cuda.synchronize()
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True))
+                  for _ in range(frames)]
+        torch.cuda._sleep(SLEEP_CYCLES * frames)
+        host = 0.0
+        for a, b in events:
+            buf.zero_()
+            a.record()
+            t0 = time.perf_counter()
+            fn()
+            host += time.perf_counter() - t0
+            b.record()
+        torch.cuda.synchronize()
+        return (sum(a.elapsed_time(b) for a, b in events) / frames,
+                host * 1e3 / frames)
     fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)

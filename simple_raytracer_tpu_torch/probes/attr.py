@@ -179,16 +179,16 @@ def run(n: int = GATHER_N, tiles: int = 510, windows: int = 10,
     """Time :func:`attr_gather` on ``attr_probe.py``'s inputs for n tiles
     and :func:`attr_window` on ``attr_fetch_probe.py``'s, each over
     ``iters`` calls after one warm-up.  Returns (records, the inputs by
-    probe)."""
+    probe).  Each call is timed cold, its inputs out of the L2."""
     inputs = {"attr_gather": gather_inputs(n, device),
               "attr_window": window_inputs(tiles, windows, tile_r,
                                            device=device)}
     out = [record("attr_gather", device_ms(
-               lambda: attr_gather(*inputs["attr_gather"]), iters),
-               n, n * TILE_R),
+               lambda: attr_gather(*inputs["attr_gather"]), iters,
+               flush=True), n, n * TILE_R),
            record("attr_window", device_ms(
-               lambda: attr_window(*inputs["attr_window"]), iters),
-               tiles, tiles * tile_r, windows=windows)]
+               lambda: attr_window(*inputs["attr_window"]), iters,
+               flush=True), tiles, tiles * tile_r, windows=windows)]
     return out, inputs
 
 

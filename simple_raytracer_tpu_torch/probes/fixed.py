@@ -267,8 +267,9 @@ def k1_points(args: tuple) -> dict:
 
 def run(prep, cfg, light_pos, frames: int = 8, threads: int = 512):
     """Time every probe of :data:`PROBES` on the frame of ``cfg.camera`` in
-    K1's tiles, then K1 on that frame's plan (``k1``) and on its cut plans
-    (:func:`k1_points`), each over ``frames`` calls after one warm-up.
+    K1's tiles, each call cold (its inputs out of the L2), then K1 on that
+    frame's plan (``k1``) and on its cut plans (:func:`k1_points`), back
+    to back, each over ``frames`` calls after one warm-up.
     Returns (records, the probes' inputs, K1's arguments by point)."""
     cam = cfg.camera
     tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
@@ -277,7 +278,8 @@ def run(prep, cfg, light_pos, frames: int = 8, threads: int = 512):
     out = []
     for name, (variant, _src, _body) in PROBES.items():
         times = device_ms(lambda: fixed_probe(variant, **inputs,
-                                              threads=threads), frames)
+                                              threads=threads), frames,
+                          flush=True)
         out.append(record(name, times, n, lanes, variant=variant))
     maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
                                   cfg.kernel.window_blocks)

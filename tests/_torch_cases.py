@@ -216,3 +216,29 @@ def k1_stress(plan, tri, tri_attr, attr_map, window_tris: int):
     twice = (lambda x: None if x is None
              else torch.cat([x, x]).contiguous())
     return p, twice(tri), twice(tri_attr), twice(attr_map)
+
+
+def grouped_stress(plan, tri, window_tris: int, groups: int):
+    """:func:`k1_stress` of a grouped plan (plan.group_mask_words layout):
+    the entry columns rewritten as k1_stress does (the triangle table
+    doubled; by tile % 4 a range row of all 2 NW windows, a list twice as
+    deep whose copies carry their original's bound and mask, an empty
+    row, the plan as it is), the mask words rebuilt to match.  Returns
+    (plan, tri)."""
+    n, width = plan.shape
+    mv = (width - pl.PLAN_AUX) * 8 // 9
+    pos = torch.arange(mv, device=plan.device)
+    words = plan[:, pl.PLAN_AUX + mv:]
+    m4 = (words[:, pos // 8] >> (4 * (pos % 8))) & 0xF        # [n, mv]
+    flat, tri2, _, _ = k1_stress(plan[:, :pl.PLAN_AUX + mv].contiguous(),
+                                 tri, tri[:, :4], None, window_tris)
+    kind = torch.arange(n, device=plan.device) % 4
+    deep = (kind == 1) & (plan[:, 3] == 1)
+    half = m4[deep, :mv // 2]
+    m4 = m4.clone()
+    m4[deep, :2 * (mv // 2)] = torch.stack([half, half], dim=2).reshape(
+        half.shape[0], -1)
+    packed = torch.zeros((n, mv // 8), dtype=torch.int32, device=plan.device)
+    for k in range(8):
+        packed |= m4[:, k::8] << (4 * k)
+    return torch.cat([flat, packed], dim=1).contiguous(), tri2

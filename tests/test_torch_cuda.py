@@ -24,9 +24,9 @@ from simple_raytracer_tpu_torch.probes import attr, fixed
 from simple_raytracer_tpu_torch.scene import procedural as P
 from simple_raytracer_tpu_torch.scene import transforms as T
 
-from _torch_cases import (SELF_SKIP, coincident_pages, k1_stress,
-                          masked_occluder, masked_windows, ragged_rays,
-                          self_skip, two_pages, two_windows)
+from _torch_cases import (SELF_SKIP, coincident_pages, grouped_stress,
+                          k1_stress, masked_occluder, masked_windows,
+                          ragged_rays, self_skip, two_pages, two_windows)
 
 pytestmark = pytest.mark.cuda
 
@@ -84,9 +84,10 @@ def test_kernels_build():
     assert len(info["paths"]) == len(build.SOURCES)
     assert all(p.endswith(".so") for p in info["paths"])
     lib = build.library()
-    for name in ("srt_nearest_k1", "srt_k1_shape", "srt_nearest_rays", "srt_anyhit_from_t", "srt_anyhit_rays",
-                 "srt_prepass", "srt_fixed_probe", "srt_attr_gather",
-                 "srt_attr_window"):
+    for name in ("srt_nearest_k1", "srt_k1_shape", "srt_nearest_rays",
+                 "srt_nearest_rays_shape", "srt_anyhit_from_t",
+                 "srt_anyhit_rays", "srt_anyhit_rays_shape", "srt_prepass",
+                 "srt_fixed_probe", "srt_attr_gather", "srt_attr_window"):
         assert hasattr(lib, name)
 
 
@@ -630,7 +631,7 @@ def test_k1_work_items_match_plain(scene, mode_scenes, mode, tpx):
                                 list_span=4)
     assert torch.equal(outs[0], pt) and torch.equal(outs[1], pi)
     # the schedule: every (tile, span) row once, walk lengths non-increasing
-    rows, _length = nearest.k1_work_rows(plan, nw, list_span=4)
+    rows, _length = nearest.work_rows(plan, nw, list_span=4)
     got = sched[2:2 + 2 * int(sched[1])].reshape(-1, 2)
     assert int(sched[1]) == rows.shape[0]
     assert int((rows[:, 0] == 0).sum()) > 1           # a range row's spans
@@ -639,7 +640,7 @@ def test_k1_work_items_match_plain(scene, mode_scenes, mode, tpx):
     def key(r):
         return (r[:, 0].long() << 20) + r[:, 1].long()
     assert torch.equal(key(got).sort().values, key(rows).sort().values)
-    glen = nearest.k1_row_lengths(plan, got, nw, list_span=4)
+    glen = nearest.row_lengths(plan, got, nw, list_span=4)
     assert bool((glen[1:] <= glen[:-1]).all())
 
 
@@ -692,3 +693,207 @@ def test_k1_shape_matches_the_port():
     shape = nearest.k1_shape(64)
     assert shape["slice_rays"] == nearest.K1_SLICE
     assert shape["ctas_per_sm"] >= 2 and shape["registers"] <= 128
+
+
+# the walks over explicit rays as work items: spans short enough to cut the
+# scene's lists and ranges, and the stressed plans of _torch_cases
+SPANS = (3, 4)
+G = 4
+
+
+def _stressed(plan, tri, wt: int, groups: int):
+    if groups > 1:
+        return grouped_stress(plan, tri, wt, groups)
+    p, t, _, _ = k1_stress(plan, tri, tri[:, :4], None, wt)
+    return p, t.contiguous()
+
+
+def _primary_tiles(prep, cfg, kind: str, m: int):
+    """K1's rays mode ("rays"), K4 ("grouped") or K6 ("pages") on the
+    moved view's primary rays in tiles of ``m``, the plan stressed:
+    (plan, tri, o, d, window_tris, groups)."""
+    (o, d), _ = _rays(VIEWS["moved"], TPX * TPX)
+    if kind == "pages":
+        plan = paged.cull(prep, cfg, o, d, m, cfg.cull_maxv, apex=True)
+        wt, groups = prep.page_tris, 1
+    else:
+        groups = G if kind == "grouped" else 1
+        plan = pl.cull_rays(prep, o, d, m, cfg.cull_maxv, 2, groups=groups)
+        wt = 2 * prep.block_size
+    plan, tri = _stressed(plan, prep.tri, wt, groups)
+    op, dp, _ = pl.pad_rays(o, d, m)
+    n = op.shape[0] // m
+    return (plan, tri, op.reshape(n, m, 3).contiguous(),
+            dp.reshape(n, m, 3).contiguous(), wt, groups)
+
+
+def _nearest_split_plain(plan, tri, o, d, wt, eps, groups, list_span):
+    n, m = o.shape[:2]
+    kw = dict(slice_rays=nearest.slice_rays(m, groups), list_span=list_span)
+    if groups == 1:
+        return nearest.walk_plain(plan, tri, tuple(o.unbind(-1)),
+                                  tuple(d.unbind(-1)), wt, eps, **kw)
+    sub, mask = nearest.group_walk_masks(plan, groups)
+    g = m // groups
+    t, idx = nearest.walk_plain(
+        sub, tri, tuple(o.reshape(-1, g, 3).unbind(-1)),
+        tuple(d.reshape(-1, g, 3).unbind(-1)), wt, eps, walk_mask=mask, **kw)
+    return t.reshape(n, m), idx.reshape(n, m)
+
+
+def _schedule_equal(plan, sched, n_windows: int, spans) -> None:
+    """The card's schedule lists the plain schedule's rows, longest
+    first."""
+    rows, _ = nearest.work_rows(plan, n_windows, *spans)
+    got = sched[2:2 + 2 * int(sched[1])].reshape(-1, 2)
+    assert int(sched[1]) == rows.shape[0]
+
+    def key(r):
+        return (r[:, 0].long() << 20) + r[:, 1].long()
+    assert torch.equal(key(got).sort().values, key(rows).sort().values)
+    glen = nearest.row_lengths(plan, got, n_windows, *spans)
+    assert bool((glen[1:] <= glen[:-1]).all())
+
+
+@pytest.mark.parametrize("kind, m", [("rays", 4096), ("rays", 1000),
+                                     ("grouped", 4096), ("grouped", 768),
+                                     ("pages", 4096), ("pages", 1024)])
+def test_rays_items_nearest_match_plain(scene, kind, m):
+    """The nearest walk over explicit rays (K1's rays mode, K4, K6) on a
+    stressed plan (a range row of several spans, deep lists, empty rows,
+    hits tied with copies), tiles of whole and of cut-short slices: t and
+    idx bit for bit the plain walk's in the same slices and spans, at
+    short spans and at the wrapper's own; the card's schedule equals the
+    plain one."""
+    prep, cfg = scene
+    plan, tri, o, d, wt, groups = _primary_tiles(prep, cfg, kind, m)
+    launch, (t, idx), sched = nearest.rays_call(
+        plan, tri, o, d, wt, cfg.mt_eps, groups, *SPANS)
+    launch()
+    pt, pi = _nearest_split_plain(plan, tri, o, d, wt, cfg.mt_eps, groups,
+                                  SPANS[1])
+    assert torch.equal(t, pt) and torch.equal(idx, pi)
+    hit = torch.isfinite(t)
+    assert hit.sum() > 1000 and not bool(hit[2::4].any())
+    assert bool((idx[hit] < tri.shape[0] // 2).all())   # ties: lower id
+    _schedule_equal(plan, sched, tri.shape[0] // wt, SPANS)
+    if groups > 1:
+        kt, ki = nearest.tiled_nearest_grouped(plan, tri, o, d, wt,
+                                               cfg.mt_eps, groups)
+        pt, pi = nearest.tiled_nearest_grouped_plain(plan, tri, o, d, wt,
+                                                     cfg.mt_eps, groups)
+    else:
+        fn = paged.tiled_nearest if kind == "pages" else \
+            nearest.tiled_nearest_rays
+        kt, ki = fn(plan, tri, o, d, wt, cfg.mt_eps)
+        pt, pi = nearest.tiled_nearest_rays_plain(plan, tri, o, d, wt,
+                                                  cfg.mt_eps)
+    assert torch.equal(kt, pt) and torch.equal(ki, pi)
+
+
+def _shadow_tiles(prep, cfg, kind: str, m: int):
+    """K2′ ("rays"), K5 ("grouped") or K7 ("pages") on shadow rays from the
+    moved view's hit points in tiles of ``m`` (S = 4 samples folded in
+    tiles of 768 or 1,024 rays, else hard), the plan stressed: (plan, tri,
+    block_obj, o, d, self_obj, window_tris, groups)."""
+    (o, d), _ = _rays(VIEWS["moved"], TPX * TPX)
+    t, idx = paged.hits(prep, cfg, o, d, TPX * TPX, cfg.cull_maxv,
+                        apex=True, kernel=paged.tiled_nearest_plain)
+    hit = torch.isfinite(t)
+    p = (o + torch.where(hit, t, 0.0)[:, None] * d)[hit]
+    so = prep.scene.tri_obj[idx[hit].long()].to(torch.int32)
+    S = 4 if m in (768, 1024) else 1
+    ts = m // S
+    step = p.shape[0] // (8 * ts)
+    p = p[::step][:8 * ts].reshape(8, 1, ts, 3).expand(8, S, ts, 3)
+    so = so[::step][:8 * ts].reshape(8, 1, ts).expand(8, S, ts)
+    light = torch.tensor(P.BENCH_LIGHT, device="cuda")
+    L = (light + torch.arange(S, device="cuda")[:, None] * 0.5)
+    o2 = p.reshape(8, m, 3).contiguous()
+    d2 = (L[None, :, None] - p).reshape(8, m, 3).contiguous()
+    so = so.reshape(8, m).contiguous()
+    if kind == "pages":
+        plan = paged.cull_occl(prep, cfg, o2.reshape(-1, 3),
+                               d2.reshape(-1, 3), m, cfg.cull_maxv,
+                               hourglass=False)
+        wt, groups = prep.page_tris, 1
+    else:
+        groups = G if kind == "grouped" else 1
+        plan = pl.cull_occl(prep, o2.reshape(-1, 3), d2.reshape(-1, 3), m,
+                            cfg.cull_maxv, 4, None, hourglass=False,
+                            groups=groups)
+        wt = 4 * prep.block_size
+    plan, tri = _stressed(plan, prep.tri, wt, groups)
+    bobj = torch.cat([prep.block_obj, prep.block_obj]).contiguous()
+    return plan, tri, bobj, o2, d2, so, wt, groups
+
+
+@pytest.mark.parametrize("kind, m", [("rays", 1024), ("rays", 256),
+                                     ("rays", 1000), ("grouped", 1024),
+                                     ("grouped", 768), ("pages", 1024),
+                                     ("pages", 256)])
+def test_rays_items_anyhit_match_plain(scene, kind, m):
+    """The any-hit walk over explicit rays (K2′, K5, K7) on a stressed plan:
+    found equal to the plain walk's on every lane, at short spans and at
+    the wrapper's own; the card's schedule equals the plain one."""
+    prep, cfg = scene
+    plan, tri, bobj, o, d, so, wt, groups = _shadow_tiles(prep, cfg, kind,
+                                                          m)
+    args = (tri, bobj, o, d, so, wt, prep.block_size, cfg.mt_eps, True)
+    pf = (anyhit.tiled_anyhit_grouped_plain(plan, *args, groups)
+          if groups > 1 else anyhit.tiled_anyhit_plain(plan, *args))
+    launch, found, sched = anyhit.anyhit_rays_call(plan, *args, groups,
+                                                   *SPANS)
+    launch()
+    assert torch.equal(found, pf)
+    assert 50 < int(pf.sum()) < pf.numel()
+    _schedule_equal(plan, sched, tri.shape[0] // wt, SPANS)
+    if groups > 1:
+        kf = anyhit.tiled_anyhit_grouped(plan, *args, groups)
+    else:
+        fn = paged.tiled_anyhit if kind == "pages" else anyhit.tiled_anyhit
+        kf = fn(plan, *args)
+    assert torch.equal(kf, pf)
+
+
+@pytest.mark.parametrize("list_span, want", [(0, 0), (1, 128)])
+def test_rays_items_list_spans_walk_from_their_own_start(list_span, want):
+    """A lying bound holds a list walked as one span (the wrapper's own
+    spans); a span of one entry walks the second page from its own start
+    and finds the nearer hit, as the plain walk in the same spans does
+    (tests/test_torch_rays_split.py)."""
+    (plan, tri, o, d), (wt, eps) = two_pages(1.0)
+    launch, (t, idx), _ = nearest.rays_call(
+        plan.cuda(), tri.cuda(), o.cuda(), d.cuda(), wt, eps,
+        list_span=list_span or None)
+    launch()
+    assert (idx == want).all() and torch.isfinite(t).all()
+
+
+def test_rays_items_add_no_host_sync(scene):
+    """The walks over explicit rays queue their launches without a host
+    synchronisation (the schedule lives on the card)."""
+    prep, cfg = scene
+    near = _primary_tiles(prep, cfg, "grouped", 4096)
+    occ = _shadow_tiles(prep, cfg, "rays", 1024)
+    nearest.tiled_nearest_grouped(*near[:4], near[4], cfg.mt_eps, near[5])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        nearest.tiled_nearest_grouped(*near[:4], near[4], cfg.mt_eps,
+                                      near[5])
+        anyhit.tiled_anyhit(*occ[:6], occ[6], prep.block_size, cfg.mt_eps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_rays_items_shapes():
+    """The walks over explicit rays: 256-thread CTAs, several to an SM,
+    slices of the port's size."""
+    for m, groups, rays in ((4096, 1, 512), (1024, 4, 256), (1000, 1, 512)):
+        for shape in (nearest.rays_shape(64, m, groups),
+                      anyhit.rays_shape(128, 32, m, groups)):
+            assert shape["slice_rays"] == rays == nearest.slice_rays(m,
+                                                                     groups)
+            assert shape["threads"] == 256 and shape["ctas_per_sm"] >= 2

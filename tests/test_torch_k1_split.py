@@ -20,7 +20,7 @@ that decomposition on the CPU:
   row walked as spans and merged in random order equals the whole walk,
   ties go to the lowest id, -0.0 packs as +0.0, and infinite t and misses
   decode as misses;
-* the schedule's plain version ``k1_work_rows``: every (tile, span) once,
+* the schedule's plain version ``work_rows``: every (tile, span) once,
   longest walk first.
 """
 
@@ -234,7 +234,7 @@ def test_work_rows_each_once_longest_first(frames, tpx):
     plan, tri, *_ = k1_stress(args[0], args[1], args[2], None, args[6])
     nw = tri.shape[0] // args[6]
     for list_span in (nearest.K1_LIST_SPAN, 8):
-        rows, length = nearest.k1_work_rows(plan, nw, list_span=list_span)
+        rows, length = nearest.work_rows(plan, nw, list_span=list_span)
         want = []
         for t in range(plan.shape[0]):
             lst = int(plan[t, 3]) == 1
