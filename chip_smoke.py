@@ -79,8 +79,10 @@ Phases, each of which must pass:
    stage;
 8. the three gather frames, each: its kernels against their plain versions
    on the frame's arguments (as in 7; K3's flags equal on every plan
-   position; the prepass frame's (t, idx) equal to its unrefined walk's,
-   with the windows per tile before and after the refine); the frame through
+   position to its plain model of the work items; the prepass frame's (t,
+   idx) equal to its unrefined walk's, with the windows per tile before and
+   after the refine; a ``K3 schedule`` line and K3's span sweep, below);
+   the frame through
    the public entry points with the counters reset just before (the
    branch's kernels launched, no other); the image within 1 of the plain
    versions' image on >= 99.9% of pixels; 32 (textured) or 20 (bench)
@@ -139,6 +141,16 @@ line for it (``rays_schedule``): the card's schedule against
 SM and registers, the windows each slice needed, the walk's time split
 into schedule, walk and (nearest) key decode, and its time at other range
 and list spans (``RAYS_RANGE_SPANS``, ``RAYS_LIST_SPANS``).
+
+The prepass frame prints a ``K3 schedule`` line (``k3_schedule``): K3's
+schedule on the card against its plain version (``prepass.work_rows``:
+no rows for range rows longer than the plan's entries), items, slices per
+tile, the longest span, the walk's CTAs per SM and registers, schedule and
+walk ms; and K3's span sweep: for each (range span, list span) of
+``K3_RANGE_SPANS`` x ``K3_LIST_SPANS``, K3's ms, the refined plan's
+windows (total and most a tile), the nearest walk's ms over it and the sum
+of the two, the refined walk equal to the unrefined walk bit for bit at
+every pair.
 
 Each kernel's entry in the kernels line carries its bound: the larger of
 its operations over the peak rate of their type and its bytes over 3.35
@@ -228,6 +240,11 @@ SRC = "simple_raytracer_tpu_torch/csrc/"
 K1_NAME = "schedule_kernel + k1_walk_kernel + k1_epilogue_kernel"
 RAYS_NAME = "schedule_kernel + rays_walk_kernel + rays_decode_kernel"
 ANYHIT_NAME = "anyhit_schedule_kernel + anyhit_items_kernel"
+K3_NAME = "prepass_schedule_kernel + prepass_items_kernel"
+# K3's span sweep on the prepass bench: range spans (windows) x list spans
+# (entries); 1023 keeps every row whole
+K3_RANGE_SPANS = (4, 8, 16, 32, 1023)
+K3_LIST_SPANS = (4, 8, 16, 32, 64, 1023)
 # the walks over explicit rays timed at other range spans (windows) and list
 # spans (entries) beside the port's (nearest.rays_spans, anyhit.rays_spans)
 RAYS_RANGE_SPANS = (2, 4, 8, 16, 32)
@@ -1102,9 +1119,10 @@ def paged_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
               via="tiled_anyhit (tiled.py:1090)")]
 
 
-def check_prepass(k3, inside, label: str) -> dict:
-    """K3 against its plain version on the arguments ``k3``: flags equal on
-    every plan position."""
+def check_prepass(k3, inside, label: str) -> tuple:
+    """K3 against its plain version, the model of its work items, on the
+    arguments ``k3``: flags equal on every plan position.  Returns (the
+    check's record, the plain model's walk record)."""
     import torch
     from simple_raytracer_tpu_torch.kernels import prepass
     kf = prepass.tiled_prepass(*k3)
@@ -1125,6 +1143,75 @@ def check_prepass(k3, inside, label: str) -> dict:
                    bf16_ops_per_pair=OPS_PREPASS_BF16)}
     emit(**res)
     require(equal == 1.0, f"K3 flags equal on {equal} ({label})")
+    return res, walk
+
+
+def k3_schedule(k3, kn, near_fn, unrefined, label: str, walk) -> dict:
+    """K3's work items on its arguments ``k3``: the schedule on the card
+    against its plain version (``prepass.work_rows``), items, slices, the
+    longest span, the walk's CTAs per SM and registers, the windows each
+    slice walked (from the plain model's record ``walk``), K3's time split
+    into the schedule (with the flags' zeroing) and the walk; then the span
+    sweep: K3 at each pair of K3_RANGE_SPANS x K3_LIST_SPANS, the plan
+    refined by its flags, and the nearest walk ``near_fn`` over it (the
+    rest of its arguments ``kn``), whose (t, idx) must equal ``unrefined``
+    bit for bit at every pair."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels import nearest, prepass
+    plan, gram, o, d, wt, eps = k3[:6]
+    n, m = o.shape[:2]
+    n_windows = gram.shape[0] // wt
+
+    def call(**spans):
+        return prepass.prepass_call(plan, gram, o, d, wt, eps, **spans)
+    launch, _flags, sched = call()
+    launch()
+    torch.cuda.synchronize()
+    slices, sr = nearest.rays_slices(m), nearest.slice_rays(m)
+    shape = prepass.prepass_shape(wt, m)
+    sl = torch.arange(m, device=plan.device) // sr
+    need = torch.zeros((n, slices), dtype=torch.int64, device=plan.device)
+    need.scatter_reduce_(1, sl.expand(n, m), walk[0] // wt, "amax")
+    stats = schedule_stats(prepass.walked_plan(plan), sched, n_windows,
+                           prepass.PREPASS_RANGE_SPAN,
+                           prepass.PREPASS_LIST_SPAN, need)
+    sched_ms = cuda_ms(lambda: launch(1), 20)
+    whole = cuda_ms(launch, 20)
+    sweep, exact = [], True
+    for rs in K3_RANGE_SPANS:
+        for ls in K3_LIST_SPANS:
+            run, flags, _ = call(range_span=rs, list_span=ls)
+            k3_ms = cuda_ms(run, 10)
+            ref = prepass.refine_plan(plan, flags)
+            t, idx = near_fn(ref, *kn[1:])
+            same = bool(torch.equal(t, unrefined[0])
+                        and torch.equal(idx, unrefined[1]))
+            exact = exact and same
+            walk_ms = cuda_ms(lambda: near_fn(ref, *kn[1:]), 10)
+            cnt = torch.where(ref[:, 3] == 1, ref[:, 2], ref[:, 1])
+            sweep.append({"range_span": rs, "list_span": ls, "k3_ms": k3_ms,
+                          "refined_windows": int(cnt.sum()),
+                          "refined_windows_max": int(cnt.max()),
+                          "refined_walk_ms": walk_ms,
+                          "sum_ms": k3_ms + walk_ms, "exact": same})
+    best = min(sweep, key=lambda r: r["sum_ms"])
+    res = {"check": f"K3 schedule ({label})",
+           "items": stats["rows"] * slices, "rays_per_tile": m,
+           "slices_per_tile": slices, "slice_rays": shape["slice_rays"],
+           "window_tris": wt, **stats, "ctas_per_sm": shape["ctas_per_sm"],
+           "sms": shape["sms"], "walk_threads": shape["threads"],
+           "registers": shape["registers"], "schedule_ms": sched_ms,
+           "walk_ms": whole - sched_ms, "ms": whole,
+           "sweep_best": {k: best[k] for k in ("range_span", "list_span",
+                                               "sum_ms")}}
+    emit(**res)
+    for row in sweep:
+        emit(check=f"K3 span sweep ({label})", **row)
+    require(stats["rows_equal_plain"] and stats["longest_first"],
+            f"K3 schedule differs from its plain version ({label})")
+    require(shape["slice_rays"] == sr,
+            f"K3 slices of {shape['slice_rays']} rays, the port's {sr}")
+    require(exact, f"a refined walk of the K3 span sweep differs ({label})")
     return res
 
 
@@ -1188,7 +1275,7 @@ def gather_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
     # K3 vs plain, and the refined walk against the unrefined one
     if kc.prepass:
         k3 = args["prepass"]
-        k3_res = check_prepass(k3, inside, label)
+        k3_res, k3_walk = check_prepass(k3, inside, label)
         rt, ri = near_fn(*kn)
         ut, ui = near_fn(k3[0], *kn[1:])
         torch.cuda.synchronize()
@@ -1197,6 +1284,7 @@ def gather_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
              t_idx_equal=exact, windows_before=plan_stats(k3[0]),
              windows_after=plan_stats(kn[0]))
         require(exact, f"the refined walk differs ({label})")
+        k3_schedule(k3, kn, near_fn, (ut, ui), label, k3_walk)
         times["k3_ms"] = cuda_ms(lambda: prepass.tiled_prepass(*k3), 10)
         times["k3_plain_ms"] = cuda_ms(
             lambda: prepass.tiled_prepass_plain(*k3), 2)
@@ -1244,7 +1332,7 @@ def gather_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
          **times)
     if kc.prepass:
         entries.append(entry(
-            "prepass_kernel", "prepass.cu",
+            K3_NAME, "prepass.cu",
             "simple_raytracer_tpu/kernels/tiled_t.py:1249", label,
             launches["prepass"], k3_res["flags_max_abs_err"],
             times["k3_ms"], times["k3_plain_ms"], k3_res,

@@ -110,8 +110,8 @@ __device__ __forceinline__ bool occludes(const Tri& g, float ox, float oy,
          t_num * det >= 0.0f && (no_max_t || fabsf(t_num) <= adet);
 }
 
-// ---- Work items: the schedule shared by the walks of nearest.cu and
-// anyhit.cu (K1, nearest_rays, anyhit_rays) ----
+// ---- Work items: the schedule shared by the walks of nearest.cu,
+// anyhit.cu and prepass.cu (K1, nearest_rays, anyhit_rays, K3) ----
 //
 // A walk's work items are (tile, ray slice, span).  A row (tile, span) is a
 // span of the tile's plan row: a range row's covering range in spans of
@@ -144,6 +144,13 @@ __device__ __forceinline__ int bucket(int len) {
   return kBuckets - 1 - min(len, kBuckets - 1);
 }
 
+// Windows a row walks, none for a range row of more than `range_max`
+// windows (K3 leaves those whole; the other walks pass no limit).
+__device__ __forceinline__ int row_len(const TilePlan& P, int n_windows,
+                                       int range_max) {
+  return !P.use_list && P.cnt > range_max ? 0 : walk_len(P, n_windows);
+}
+
 // sched (int32): [0] the item counter (zeroed), [1] the rows, then (tile,
 // span) per row, longest walk first; rows of equal length land in any
 // order.  Run by one block of kBuckets threads: it counts the rows by walk
@@ -152,7 +159,8 @@ __device__ __forceinline__ void schedule_rows(const int* __restrict__ plan,
                                               int plan_w, int n_tiles,
                                               int n_windows, Spans spans,
                                               int rows_max,
-                                              int* __restrict__ sched) {
+                                              int* __restrict__ sched,
+                                              int range_max = 0x7fffffff) {
   __shared__ int off[kBuckets];
   __shared__ int s_warp[kBuckets / 32];
   const int tid = threadIdx.x;
@@ -160,7 +168,7 @@ __device__ __forceinline__ void schedule_rows(const int* __restrict__ plan,
   __syncthreads();
   for (int t = tid; t < n_tiles; t += kBuckets) {
     const TilePlan P(plan, plan_w, t);
-    const int len = walk_len(P, n_windows), span = spans.of(P);
+    const int len = row_len(P, n_windows, range_max), span = spans.of(P);
     if (len <= 0) continue;
     const int full = len / span, rem = len - full * span;
     if (full) atomicAdd(&off[bucket(span)], full);
@@ -194,7 +202,7 @@ __device__ __forceinline__ void schedule_rows(const int* __restrict__ plan,
   __syncthreads();
   for (int t = tid; t < n_tiles; t += kBuckets) {
     const TilePlan P(plan, plan_w, t);
-    const int len = walk_len(P, n_windows), span = spans.of(P);
+    const int len = row_len(P, n_windows, range_max), span = spans.of(P);
     for (int s = 0; s * span < len; ++s) {
       const int pos = atomicAdd(&off[bucket(min(span, len - s * span))], 1);
       if (pos < rows_max) {

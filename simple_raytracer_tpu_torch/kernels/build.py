@@ -88,8 +88,10 @@ SIGNATURES = {
             _P, _I,              # gram, n_windows
             _P, _P, _I,          # o, d, rays per tile
             _I, _F, _F,          # window_tris, eps, margin factor
-            _P,                  # flags
-            _I, _P),             # threads, stream
+            _P, _P, _I,          # flags, sched, rows_max
+            _I, _I,              # range span, list span
+            _I, _P),             # stages, stream
+        "srt_prepass_shape": (_I, _I, _P),  # window_tris, m, out[5]
     },
     "probe_fixed.cu": {
         "srt_fixed_probe": (

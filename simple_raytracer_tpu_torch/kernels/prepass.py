@@ -1,14 +1,16 @@
 """Kernel 3: the bf16 classification walk of the exact two-pass nearest walk.
 
-``tiled_prepass`` wraps the CUDA kernel ``prepass_kernel``
-(csrc/prepass.cu) and replaces the JAX package's Pallas kernel
-``kernels/tiled_t.py::_prepass_kernel_t`` (reached through
-``tiled_prepass_t`` from ``hits`` with ``SRT_TILED_PREPASS=1``; here
-``KernelConfig.prepass``).  ``tiled_prepass_plain`` is its plain PyTorch
-version: same arguments, same flags, the kernel's bf16 roundings and f32
-sums in the same order.  The wrapper runs the plain version for tensors on
-the CPU and the kernel for tensors on a CUDA device; it adds one to its
-``launches`` at each kernel launch.
+``tiled_prepass`` wraps the CUDA kernels of csrc/prepass.cu, a schedule
+launch (``prepass_schedule_kernel``) and a persistent walk over (tile, ray
+slice, span) work items (``prepass_items_kernel``), and replaces the JAX
+package's Pallas kernel ``kernels/tiled_t.py::_prepass_kernel_t`` (reached
+through ``tiled_prepass_t`` from ``hits`` with ``SRT_TILED_PREPASS=1``;
+here ``KernelConfig.prepass``).  ``tiled_prepass_plain`` is its plain
+PyTorch version, a model of the items: same arguments, same flags, the
+kernel's bf16 roundings and f32 sums in the same order.  The wrapper runs
+the plain version for tensors on the CPU and the kernels for tensors on a
+CUDA device; it adds one to its ``launches`` at each call of the kernels
+(a call is two launches).
 
 :func:`refine_plan` (JAX ``tiled_t._refine_plan``) keeps the flagged
 windows of each plan row; the nearest walk over the refined plan gives the
@@ -16,6 +18,8 @@ same (t, idx) as over the whole plan (kernels/nearest.py::hits).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -26,25 +30,24 @@ from . import build, plan as pl
 # alpha_k, twice the operand rounding's 2^-7 (JAX tiled_t.PREPASS_M)
 PREPASS_M = 2.0 ** -6
 PLAIN_ELEMS = 1 << 22   # ray-triangle pairs per step of the plain walk
-MAX_RAYS = 8192         # rays per tile (their best_hi: 32 KB of shared memory)
+MAX_RAYS = 8192         # rays per tile the wrapper takes
+# K3's work items (csrc/prepass.cu): slices of nearest.slice_rays(M) lanes,
+# range rows in spans of PREPASS_RANGE_SPAN windows, lists in spans of
+# PREPASS_LIST_SPAN entries, each span walked from its own start (best_hi
+# +inf); the pair of least K3 + refined nearest walk time in chip_smoke.py's
+# span sweep on the prepass bench
+PREPASS_RANGE_SPAN = 4
+PREPASS_LIST_SPAN = 8
 
 
-def tiled_prepass(plan, gram, o, d, window_tris: int, eps: float,
-                  threads: int = 512):
-    """Window flags of every tile of ``plan``.
-
-    plan [n, W] i32 (kernels/plan.py layout, windows of ``window_tris``
-    triangles); gram [Tp, 40] f32 (accel/prepared.py); o, d [n, M, 3] f32
-    the rays of each tile.  Returns flags [n, W] bool: flag k is set when
-    the window at plan position k may hold the nearest hit of some ray of
-    the tile under the bf16 error bound ``PREPASS_M * sum_k |G_k| alpha_k``.
-    Positions past the walk (and rows in range mode longer than the plan's
-    entries) read False."""
-    if plan.device.type == "cpu":
-        return tiled_prepass_plain(plan, gram, o, d, window_tris, eps,
-                                   threads)
-    if plan.device.type != "cuda":
-        raise ValueError(f"no prepass kernel for device {plan.device}")
+def prepass_call(plan, gram, o, d, window_tris: int, eps: float,
+                 range_span: int = None, list_span: int = None):
+    """Check the operands of K3 (CUDA tensors, as :func:`tiled_prepass`),
+    allocate its output and scratch, and return (launch, flags [n, W],
+    sched): ``launch(stages=3)`` queues the schedule, which zeroes the
+    flags (1), and the walk (2).  Spans default to PREPASS_RANGE_SPAN and
+    PREPASS_LIST_SPAN; callers count their own launches."""
+    from . import nearest
     build.check_tensors(plan.device, plan=(plan, torch.int32),
                         gram=(gram, torch.float32), o=(o, torch.float32),
                         d=(d, torch.float32))
@@ -60,18 +63,59 @@ def tiled_prepass(plan, gram, o, d, window_tris: int, eps: float,
         raise ValueError(f"o {tuple(o.shape)} / d {tuple(d.shape)} for {n} "
                          f"tiles")
     m = o.shape[1]
-    threads = min(threads, -(-m // 32) * 32)
-    if threads % 32 or not 0 < m <= MAX_RAYS:
-        raise ValueError(f"{m} rays per tile over {threads} threads (at most "
-                         f"{MAX_RAYS} rays, whole warps)")
+    if not 0 < m <= MAX_RAYS:
+        raise ValueError(f"{m} rays per tile (at most {MAX_RAYS})")
+    rs = range_span or PREPASS_RANGE_SPAN
+    ls = list_span or PREPASS_LIST_SPAN
+    n_windows = gram.shape[0] // window_tris
+    rmax = nearest.rows_max(plan, n_windows, rs, ls)
     flags = torch.empty(plan.shape, dtype=torch.bool, device=plan.device)
-    with torch.cuda.device(plan.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = build.library().srt_prepass(
-            plan.data_ptr(), plan.shape[1], n, gram.data_ptr(),
-            gram.shape[0] // window_tris, o.data_ptr(), d.data_ptr(), m,
-            window_tris, eps, PREPASS_M, flags.data_ptr(), threads, stream)
-    build.check(rc, "prepass_kernel")
+    sched = torch.empty(2 + 2 * rmax, dtype=torch.int32, device=plan.device)
+
+    def launch(stages: int = 3):
+        with torch.cuda.device(plan.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = build.library().srt_prepass(
+                plan.data_ptr(), plan.shape[1], n, gram.data_ptr(),
+                n_windows, o.data_ptr(), d.data_ptr(), m, window_tris, eps,
+                PREPASS_M, flags.data_ptr(), sched.data_ptr(), rmax, rs, ls,
+                stages, stream)
+        build.check(rc, "prepass_items_kernel")
+    return launch, flags, sched
+
+
+def prepass_shape(window_tris: int, m: int) -> dict:
+    """K3's walk on the current card for windows of ``window_tris``
+    triangles and tiles of ``m`` rays: CTAs per SM, registers per thread,
+    SMs, rays per slice and threads per CTA."""
+    out = (ctypes.c_int * 5)()
+    build.check(build.library().srt_prepass_shape(
+        window_tris, m, ctypes.cast(out, ctypes.c_void_p)),
+        "srt_prepass_shape")
+    return dict(zip(("ctas_per_sm", "registers", "sms", "slice_rays",
+                     "threads"), out))
+
+
+def tiled_prepass(plan, gram, o, d, window_tris: int, eps: float,
+                  threads: int = 512):
+    """Window flags of every tile of ``plan``.
+
+    plan [n, W] i32 (kernels/plan.py layout, windows of ``window_tris``
+    triangles); gram [Tp, 40] f32 (accel/prepared.py); o, d [n, M, 3] f32
+    the rays of each tile.  Returns flags [n, W] bool: flag k is set when
+    the window at plan position k may hold the nearest hit of some ray of
+    the tile under the bf16 error bound ``PREPASS_M * sum_k |G_k| alpha_k``
+    (as the work items of :func:`tiled_prepass_plain` find it).  Positions
+    past the walk (and rows in range mode longer than the plan's entries)
+    read False.  ``threads`` is not read: the walk's CTAs are the
+    kernel's own."""
+    if plan.device.type == "cpu":
+        return tiled_prepass_plain(plan, gram, o, d, window_tris, eps,
+                                   threads)
+    if plan.device.type != "cuda":
+        raise ValueError(f"no prepass kernel for device {plan.device}")
+    launch, flags, _ = prepass_call(plan, gram, o, d, window_tris, eps)
+    launch()
     tiled_prepass.launches += 1
     return flags
 
@@ -84,17 +128,84 @@ def _bf16(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.bfloat16).to(torch.float32)
 
 
+def walked_plan(plan):
+    """``plan`` with its range rows longer than the plan's entries emptied:
+    K3 walks none of them (refine_plan keeps their plans whole)."""
+    mv = plan.shape[1] - pl.PLAN_AUX
+    out = plan.clone()
+    out[(plan[:, 3] != 1) & (plan[:, 1] > mv), 1] = 0
+    return out
+
+
+def work_rows(plan, n_windows: int, range_span: int = PREPASS_RANGE_SPAN,
+              list_span: int = PREPASS_LIST_SPAN):
+    """The plain version of K3's schedule: the rows (tile, span) [N, 2] i32
+    and their walk lengths [N], longest first, of :func:`walked_plan`
+    (kernels/nearest.py::work_rows)."""
+    from . import nearest
+    return nearest.work_rows(walked_plan(plan), n_windows, range_span,
+                             list_span)
+
+
 def tiled_prepass_plain(plan, gram, o, d, window_tris: int, eps: float,
-                        threads: int = 512):
+                        threads: int = 512, slice_rays: int = None,
+                        range_span: int = None, list_span: int = None):
     """Plain PyTorch version of :func:`tiled_prepass` (same arguments and
-    flags; ``threads`` is ignored).  Walks every tile's plan in step, a few
-    tiles at a time.  Records the work as the plain nearest walk does:
+    flags; ``threads`` is ignored), a model of the kernel's work items.
+    Each tile's rays are cut into slices of ``slice_rays`` consecutive
+    lanes (default nearest.slice_rays(M); a last slice cut short walks with
+    copies of its first ray, which change nothing), each slice walks every
+    span of the tile's row (:func:`work_rows`: ranges in spans of
+    ``range_span`` windows, lists in spans of ``list_span`` entries) with
+    :func:`walk_plain` (its own alpha, best_hi from +inf at the span's
+    start, its own break), and a position's flag is the OR over the items.
+    One slice a tile and spans longer than every row walk each tile
+    whole.  Records the items' work as the plain nearest walk does:
     ``tiled_prepass_plain.lane_pairs`` [n, M] i64 (each ray's tests) and
     ``tiled_prepass_plain.staged`` [windows] bool."""
+    from . import nearest
     n, m = o.shape[:2]
     dev = plan.device
+    sr = slice_rays or nearest.slice_rays(m)
+    rs = range_span or PREPASS_RANGE_SPAN
+    ls = list_span or PREPASS_LIST_SPAN
+    ns, src = nearest.slice_lanes(m, sr, dev)
+    f = ray_features(o, d)[:, src].reshape(n * ns, sr, 10)
+    rows = walked_plan(plan).repeat_interleave(ns, dim=0)
+    lst = rows[:, 3] == 1
+    span = torch.where(lst, ls, rs)
+    spans = -(-torch.where(lst, rows[:, 2], rows[:, 1]) // span)
+    flags = torch.zeros(rows.shape, dtype=torch.bool, device=dev)
+    pairs = torch.zeros((n * ns, sr), dtype=torch.int64, device=dev)
+    staged = torch.zeros(gram.shape[0] // window_tris, dtype=torch.bool,
+                         device=dev)
+    for s in range(int(spans.max()) if spans.numel() else 0):
+        sub, _ = nearest.span_plan(rows, s, rs, ls)
+        r, j = torch.nonzero(walk_plain(sub, gram, f, window_tris, eps),
+                             as_tuple=True)
+        flags[r, s * span[r] + j] = True
+        pairs += walk_plain.lane_pairs
+        staged |= walk_plain.staged
+    tiled_prepass_plain.lane_pairs = pairs.reshape(n, ns * sr)[:, :m]
+    tiled_prepass_plain.staged = staged
+    return flags.reshape(n, ns, -1).any(dim=1)
+
+
+tiled_prepass_plain.lane_pairs = tiled_prepass_plain.staged = None
+
+
+def walk_plain(plan, gram, f, window_tris: int, eps: float):
+    """K3's walk of whole rows: row i of ``plan`` walks its positions in
+    order over the rays whose f32 features are f [n, M, 10]
+    (ops/intersect.py::ray_features), with alpha the rows' largest |F_k|,
+    best_hi from +inf, and (list rows) a break once every ray's best_hi is
+    below the next entry's bound; range rows longer than the plan's
+    entries are not walked.  Walks the rows in step, a few at a time.
+    Returns flags [n, W] bool; records ``walk_plain.lane_pairs`` [n, M]
+    i64 and ``walk_plain.staged`` [windows] bool."""
+    n, m = f.shape[:2]
+    dev = plan.device
     wt = window_tris
-    f = ray_features(o, d)                                      # [n, M, 10]
     alpha = f.abs().amax(dim=1)                                 # [n, 10]
     fb = _bf16(f)
     g = gram.reshape(-1, 10, 4)
@@ -126,9 +237,11 @@ def tiled_prepass_plain(plan, gram, o, d, window_tris: int, eps: float,
                 s = s + Ga[:, :, kk, :] * al[:, None, kk, None]
             err = (PREPASS_M * s)[:, None]                      # [c, 1, wt, 4]
             F = fb[ids]
+            # the ten-term sums: each product of two bf16 values is exact,
+            # so q + G * F rounds once, fused or not (the kernel's FMAs)
             q = G[:, None, :, 0, :] * F[:, :, None, 0, None]    # [c, M, wt, 4]
             for kk in range(1, 10):
-                q = q + G[:, None, :, kk, :] * F[:, :, None, kk, None]
+                q.addcmul_(G[:, None, :, kk, :], F[:, :, None, kk, None])
             sgn = torch.where(q[..., 0] >= 0.0, 1.0, -1.0)
             adet, un, vn, tn = (q[..., c] * sgn for c in range(4))
             eD, eU, eV, eT = (err[..., c] for c in range(4))
@@ -149,12 +262,11 @@ def tiled_prepass_plain(plan, gram, o, d, window_tris: int, eps: float,
         nb16 = plan[live, pl.PLAN_AUX + min(k + 1, mv - 1)] >> 16
         worst = ((bh[live].view(torch.int32) >> 16) & 0xFFFF).amax(dim=1)
         done[live] = use_list[live] & (k + 1 < cnt[live]) & (worst < nb16)
-    tiled_prepass_plain.lane_pairs = lane_pairs
-    tiled_prepass_plain.staged = staged
+    walk_plain.lane_pairs, walk_plain.staged = lane_pairs, staged
     return flags
 
 
-tiled_prepass_plain.lane_pairs = tiled_prepass_plain.staged = None
+walk_plain.lane_pairs = walk_plain.staged = None
 
 
 def refine_plan(plan: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:

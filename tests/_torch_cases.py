@@ -242,3 +242,25 @@ def grouped_stress(plan, tri, window_tris: int, groups: int):
     for k in range(8):
         packed |= m4[:, k::8] << (4 * k)
     return torch.cat([flat, packed], dim=1).contiguous(), tri2
+
+
+def k3_stress(plan, tri, gram, window_tris: int, lie: bool = False):
+    """K3's operands rewritten to reach every kind of work row:
+    :func:`k1_stress` with the Gram table doubled beside the triangles (a
+    range row of all 2 NW windows, lists twice as deep, empty rows), then
+    tile 2 (an empty row) made a range row of more windows than the plan
+    has entries, from window 0 (K3 walks none of it; refine_plan keeps it
+    whole), the tables repeated until those windows exist.  ``lie`` sets
+    every list entry's bound to the largest finite one, so each slice
+    breaks as soon as all its rays have a confident hit.  Returns (plan,
+    tri, gram)."""
+    p, t, g, _ = k1_stress(plan, tri, gram, None, window_tris)
+    mv = p.shape[1] - pl.PLAN_AUX
+    if p.shape[0] > 2:
+        p[2, 0], p[2, 1], p[2, 3] = 0, mv + 1, 0
+        reps = -(-(mv + 1) * window_tris // t.shape[0])
+        t, g = t.repeat(reps, 1), g.repeat(reps, 1)
+    if lie:
+        lst = p[:, 3] == 1
+        p[lst, pl.PLAN_AUX:] = (p[lst, pl.PLAN_AUX:] & 0xFFFF) | (0x7F7F << 16)
+    return p, t.contiguous(), g.contiguous()

@@ -25,8 +25,9 @@ from simple_raytracer_tpu_torch.scene import procedural as P
 from simple_raytracer_tpu_torch.scene import transforms as T
 
 from _torch_cases import (SELF_SKIP, coincident_pages, grouped_stress,
-                          k1_stress, masked_occluder, masked_windows,
-                          ragged_rays, self_skip, two_pages, two_windows)
+                          k1_stress, k3_stress, masked_occluder,
+                          masked_windows, ragged_rays, self_skip, two_pages,
+                          two_windows)
 
 pytestmark = pytest.mark.cuda
 
@@ -87,6 +88,7 @@ def test_kernels_build():
     for name in ("srt_nearest_k1", "srt_k1_shape", "srt_nearest_rays",
                  "srt_nearest_rays_shape", "srt_anyhit_from_t",
                  "srt_anyhit_rays", "srt_anyhit_rays_shape", "srt_prepass",
+                 "srt_prepass_shape",
                  "srt_fixed_probe", "srt_attr_gather", "srt_attr_window"):
         assert hasattr(lib, name)
 
@@ -897,3 +899,113 @@ def test_rays_items_shapes():
             assert shape["slice_rays"] == rays == nearest.slice_rays(m,
                                                                      groups)
             assert shape["threads"] == 256 and shape["ctas_per_sm"] >= 2
+
+
+# K3 as work items: the stressed plans of _torch_cases.k3_stress (a range
+# row of several spans, one longer than the plan's entries, deep lists,
+# empty rows), tiles of whole and of cut-short slices, short spans and the
+# kernel's own
+K3_SPANS = ((3, 4), (prepass.PREPASS_RANGE_SPAN, prepass.PREPASS_LIST_SPAN))
+
+
+def _k3_tiles(prep, cfg, m: int, lie: bool = False):
+    """K3's operands on the moved view's primary rays in tiles of ``m``
+    (padded by repeating the last ray), the plan stressed: (plan, gram, o,
+    d, tri)."""
+    (o, d), _ = _rays(VIEWS["moved"], TPX * TPX)
+    plan = pl.cull_rays(prep, o, d, m, cfg.cull_maxv, 2)
+    plan, tri, gram = k3_stress(plan, prep.tri, prep.gram, 64, lie)
+    op, dp, _ = pl.pad_rays(o, d, m)
+    n = op.shape[0] // m
+    return (plan, gram, op.reshape(n, m, 3).contiguous(),
+            dp.reshape(n, m, 3).contiguous(), tri)
+
+
+@pytest.mark.parametrize("m, lie", [(4096, False), (1000, False),
+                                    (768, False), (4096, True)])
+def test_prepass_items_match_plain(scene, m, lie):
+    """K3's work items on stressed plans, tiles of whole and cut-short
+    slices, and lying entry bounds (each slice breaks on its own rays):
+    the flags equal the item model's on every plan position, at short
+    spans and at the kernel's own; the card's schedule equals the plain
+    one (no rows for the long range row); with sound bounds the nearest
+    walk over the refined plan equals the unrefined walk bit for bit."""
+    prep, cfg = scene
+    plan, gram, o, d, tri = _k3_tiles(prep, cfg, m, lie)
+    mv = plan.shape[1] - pl.PLAN_AUX
+    assert int(plan[2, 1]) > mv and int(plan[2, 3]) == 0
+    for rs, ls in K3_SPANS:
+        launch, flags, sched = prepass.prepass_call(plan, gram, o, d, 64,
+                                                    cfg.mt_eps, rs, ls)
+        launch()
+        want = prepass.tiled_prepass_plain(plan, gram, o, d, 64, cfg.mt_eps,
+                                           range_span=rs, list_span=ls)
+        assert torch.equal(flags, want) and bool(flags.any())
+        assert not bool(flags[2].any())
+        _schedule_equal(prepass.walked_plan(plan), sched, gram.shape[0] // 64,
+                        (rs, ls))
+        if not lie:
+            ref = prepass.refine_plan(plan, flags)
+            t0, i0 = nearest.tiled_nearest_rays(plan, tri, o, d, 64,
+                                                cfg.mt_eps)
+            t1, i1 = nearest.tiled_nearest_rays(ref, tri, o, d, 64,
+                                                cfg.mt_eps)
+            assert torch.equal(t0, t1) and torch.equal(i0, i1)
+    n0 = prepass.tiled_prepass.launches
+    assert torch.equal(prepass.tiled_prepass(plan, gram, o, d, 64,
+                                             cfg.mt_eps), flags)
+    assert prepass.tiled_prepass.launches == n0 + 1
+
+
+def test_prepass_items_calls_do_not_leak_flags(scene):
+    """Two frames' operands back to back: each call's flags are its own
+    operands' plain flags (the schedule zeroes them)."""
+    prep, cfg = scene
+    a = _k3_tiles(prep, cfg, 4096)[:4]
+    b = _k3_tiles(prep, cfg, 1000)[:4]
+    for first, second in ((a, b), (b, a)):
+        prepass.tiled_prepass(*first, 64, cfg.mt_eps)
+        kf = prepass.tiled_prepass(*second, 64, cfg.mt_eps)
+        assert torch.equal(kf, prepass.tiled_prepass_plain(*second, 64,
+                                                           cfg.mt_eps))
+
+
+def test_prepass_items_add_no_host_sync(scene):
+    """K3 queues its launches without a host synchronisation (the schedule
+    lives on the card)."""
+    prep, cfg = scene
+    args = _k3_tiles(prep, cfg, 4096)[:4]
+    prepass.tiled_prepass(*args, 64, cfg.mt_eps)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        prepass.tiled_prepass(*args, 64, cfg.mt_eps)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def _spills(log: str, kernel: str) -> list:
+    """The ``-Xptxas -v`` lines on the spills of each compiled instance of
+    ``kernel`` in the build log."""
+    out, inside = [], False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            inside = kernel in ln
+        elif inside and "spill" in ln:
+            out.append(ln.strip())
+    return out
+
+
+def test_prepass_items_shape():
+    """K3's walk: 256-thread CTAs over slices of the port's size, at least
+    two CTAs an SM, and no instance spills registers."""
+    for m, rays in ((4096, 512), (1000, 512), (256, 256)):
+        shape = prepass.prepass_shape(64, m)
+        assert shape["slice_rays"] == rays == nearest.slice_rays(m)
+        assert shape["threads"] == 256 and shape["ctas_per_sm"] >= 2
+        assert shape["registers"] <= 128
+    spills = _spills(build.build()["log"], "prepass_items_kernel")
+    assert len(spills) == 2
+    assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+               for ln in spills), spills
