@@ -13,6 +13,10 @@ by ``finalize_image``, on these frames:
   directory (the JAX CLI's ``--root``) it is the Stanford bunny of
   ``bench.py`` instead, from ASSETS/obj/stanford-bunny.obj on
   ASSETS/cube.obj;
+* **shadow bench**: the bench's scene, light and camera at focal 1080, the
+  reference's field of view (600x400 at focal 400,
+  simple_raytracer.cpp:506) at 1080 rows, where the mesh's shadow on the
+  ground is in view: the fused branch with K2 walking deep shadow plans;
 * **soft**: ``bench.py::run_soft_shadow``'s frame: the same mesh and light
   at 600x400, focal 400, 16 light samples (K1 in its fetch mode, then K2′
   over the folded shadow rays);
@@ -52,15 +56,17 @@ Phases, each of which must pass:
 1. device and toolchain: the card's name and power limit, torch, CUDA, nvcc;
 2. build the kernels from simple_raytracer_tpu_torch/csrc/, one nvcc per
    source, all at once;
-3. bench: hold K1 and K2 against their plain PyTorch versions on the
-   arguments the frame gives them on the card, at the frame's shapes and on
-   a small scene whose shadow falls in view;
-4. bench: render through the public entry points, with the kernels' launch
-   counters reset just before: coverage in (0.05, 0.99), both kernels of
-   the branch launched and no other, and the image within 1 of the plain
-   versions' image on >= 99.9% of pixels;
-5. bench: time 20 view-varied frames (as bench.py does), each kernel alone,
-   and each stage of the frame alone;
+3. bench, then shadow bench: hold K1 and K2 against their plain PyTorch
+   versions on the arguments the frame gives them on the card, at the
+   frame's shapes (K2's found equal on every lane; on the shadow bench
+   more than 1,000 shadowed hit lanes and a tile with a non-empty shadow
+   plan), and on a small scene whose shadow falls in view;
+4. bench, shadow bench: render through the public entry points, with the
+   kernels' launch counters reset just before: coverage in (0.05, 0.99),
+   K1 launched once, in its flat mode, K2 once, no other kernel, and the
+   image within 1 of the plain versions' image on >= 99.9% of pixels;
+5. bench, shadow bench: time 20 view-varied frames (as bench.py does), each
+   kernel alone, and each stage of the frame alone;
 6. soft and dense, each: the frame's K1 and K2′ against their plain
    versions on the frame's arguments (K2′ found equal on every lane, >
    1,000 shadowed hit lanes); the frame through the public entry
@@ -138,9 +144,12 @@ nearest walk's t and idx to the plain walk in its slices and spans bit for
 bit, and the any-hit walk's found on every lane, and prints a ``schedule``
 line for it (``rays_schedule``): the card's schedule against
 ``nearest.work_rows``, items, slices per tile, the longest span, CTAs per
-SM and registers, the windows each slice needed, the walk's time split
-into schedule, walk and (nearest) key decode, and its time at other range
-and list spans (``RAYS_RANGE_SPANS``, ``RAYS_LIST_SPANS``).
+SM, registers and spills, the windows each slice needed, the walk's time
+split into schedule, walk and (nearest) key decode, and its time at other
+range and list spans (``RAYS_RANGE_SPANS``, ``RAYS_LIST_SPANS``).  Every
+fused frame (bench, shadow bench, textured bench, smooth bench, and
+phase 3's small scene) prints the same ``K2 schedule`` line for K2, the
+same walk over the shadow rays it rebuilds from t.
 
 The prepass frame prints a ``K3 schedule`` line (``k3_schedule``): K3's
 schedule on the card against its plain version (``prepass.work_rows``:
@@ -192,13 +201,19 @@ OCC_WIDTH, OCC_HEIGHT, OCC_FOCAL = 600, 400, 400.0
 OCC_FRAMES = 32
 SOFT_SAMPLES = 16
 SHADOWED_MIN = 1000
+# the shadow bench: the bench's scene at the reference's field of view
+# (600x400 at focal 400, simple_raytracer.cpp:506: the focal is the image
+# height), scaled to 1080 rows as bench.py:317 scales its own; the mesh's
+# shadow on the ground is in view
+SHADOW_FOCAL = 1080.0
 TEXTURED_MIN = 10000     # textured hit rays of the complex frame
+# queued_ms's spin, in the card's cycles (~20 ms at 1.98 GHz)
+SPIN_CYCLES = 40_000_000
 # kernel vs plain version on the card (ISSUE tolerances: equal expressions,
 # contraction off, so only the transcendental functions round apart)
 T_RTOL, T_ATOL = 1e-5, 1e-6
 RGB_ATOL = 1e-4
 IDX_MIN = 0.9999
-FOUND_MIN = 0.9999
 IMAGE_MIN = 0.999
 # the bound of a kernel (NVIDIA H100 SXM data sheet: f32 outside the tensor
 # cores, dense bf16 on the tensor cores, HBM3), and the f32 additions,
@@ -240,6 +255,7 @@ SRC = "simple_raytracer_tpu_torch/csrc/"
 K1_NAME = "schedule_kernel + k1_walk_kernel + k1_epilogue_kernel"
 RAYS_NAME = "schedule_kernel + rays_walk_kernel + rays_decode_kernel"
 ANYHIT_NAME = "anyhit_schedule_kernel + anyhit_items_kernel"
+K2_NAME = ANYHIT_NAME + " (from t)"
 K3_NAME = "prepass_schedule_kernel + prepass_items_kernel"
 # K3's span sweep on the prepass bench: range spans (windows) x list spans
 # (entries); 1023 keeps every row whole
@@ -308,6 +324,28 @@ def cuda_ms(fn, reps: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def queued_ms(fn, reps: int) -> tuple:
+    """(device ms, host ms) of one run of ``fn``, the mean over ``reps``
+    runs queued behind a spin of the card (``torch.cuda._sleep``, ~20 ms):
+    the host queues every run before the card reaches the first, so the
+    events time the card's work alone, the gaps between launches included,
+    and the host's clock times the calls."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps, host
 
 
 def capture(fn, store: list):
@@ -602,36 +640,64 @@ def k1_schedule(k1, label: str, walk, fetch: bool = False) -> dict:
     return res
 
 
+def spill_lines(*keys) -> list:
+    """The ``-Xptxas -v`` lines on the spills of each compiled kernel whose
+    entry name holds every one of ``keys``, from the build's log."""
+    from simple_raytracer_tpu_torch.kernels import build
+    out, inside = [], False
+    for ln in build.build()["log"].splitlines():
+        if "Compiling entry function" in ln:
+            inside = all(k in ln for k in keys)
+        elif inside and "spill" in ln:
+            out.append(ln.strip())
+    return out
+
+
 def rays_schedule(args, label: str, walk, what: str, groups: int = 1,
-                  occlusion: bool = False) -> dict:
+                  occlusion: bool = False, from_t: bool = False) -> dict:
     """The work items of a walk over explicit rays on its wrapper's
     arguments ``args`` (the nearest walk's, or with ``occlusion`` the
-    any-hit walk's): the schedule on the card against its plain version
+    any-hit walk's; with ``from_t`` K2's, the any-hit walk over rays
+    rebuilt from t): the schedule on the card against its plain version
     (``nearest.work_rows``), items, slices, the longest span, the walk's
-    CTAs per SM and registers, the windows each slice needed (from the
-    plain walk's record ``walk``), and the walk's time split by launch
+    CTAs per SM, registers and spills, the windows each slice needed (from
+    the plain walk's record ``walk``), and the walk's time split by launch
     (the schedule alone, the walk as schedule + walk less the schedule,
     and the nearest walk's key decode alone), and at other range and list
-    spans."""
+    spans; for K2 also its wrapper's call, and the card's and the host's
+    time of it and of each launch apart (``queued_ms``)."""
     import torch
     from simple_raytracer_tpu_torch.kernels import anyhit, nearest
-    if occlusion:
+    if from_t:
+        plan, tri, bobj, t, obj, cam, tpx, wt, bs, eps, nmt = args[:11]
+
+        def call(**spans):
+            return anyhit.anyhit_from_t_call(plan, tri, bobj, t, obj, cam,
+                                             tpx, wt, bs, eps, nmt, **spans)
+        n, m = t.shape
+        shape = anyhit.rays_shape(wt, bs, m, from_t=True)
+        rs, ls = anyhit.rays_spans(wt)
+        spills = spill_lines("anyhit_items_kernel", "RaysFromT")
+    elif occlusion:
         plan, tri, bobj, o, d, so, wt, bs, eps, nmt = args[:10]
 
         def call(**spans):
             return anyhit.anyhit_rays_call(plan, tri, bobj, o, d, so, wt, bs,
                                            eps, nmt, groups, **spans)
-        shape = anyhit.rays_shape(wt, bs, o.shape[1], groups)
+        n, m = o.shape[:2]
+        shape = anyhit.rays_shape(wt, bs, m, groups)
         rs, ls = anyhit.rays_spans(wt)
+        spills = spill_lines("anyhit_items_kernel", "RaysIn")
     else:
         plan, tri, o, d, wt, eps = args[:6]
 
         def call(**spans):
             return nearest.rays_call(plan, tri, o, d, wt, eps, groups,
                                      **spans)
-        shape = nearest.rays_shape(wt, o.shape[1], groups)
+        n, m = o.shape[:2]
+        shape = nearest.rays_shape(wt, m, groups)
         rs, ls = nearest.rays_spans(wt)
-    n, m = o.shape[:2]
+        spills = spill_lines("rays_walk_kernel")
     launch, _out, sched = call()
     launch()
     torch.cuda.synchronize()
@@ -652,14 +718,26 @@ def rays_schedule(args, label: str, walk, what: str, groups: int = 1,
            "slice_rays": shape["slice_rays"], "window_tris": wt, **stats,
            "ctas_per_sm": shape["ctas_per_sm"], "sms": shape["sms"],
            "walk_threads": shape["threads"],
-           "registers": shape["registers"], "schedule_ms": fill,
-           "walk_ms": fill_walk - fill, "ms": whole,
+           "registers": shape["registers"], "spills": spills,
+           "schedule_ms": fill, "walk_ms": fill_walk - fill, "ms": whole,
            "ms_by_range_span": {str(sp): cuda_ms(call(range_span=sp)[0], 10)
                                 for sp in RAYS_RANGE_SPANS},
            "ms_by_list_span": {str(sp): cuda_ms(call(list_span=sp)[0], 10)
                                for sp in RAYS_LIST_SPANS}}
-    if not occlusion:
+    if not (occlusion or from_t):
         res["decode_ms"] = cuda_ms(lambda: launch(4), 20)
+    if from_t:
+        # the wrapper's call as the kernels line times it, then the card's
+        # time and the host's apart: which of them K2's two launches cost
+        def k2_call():
+            return anyhit.tiled_anyhit_from_t(*args)
+        fill_dev = queued_ms(lambda: launch(1), 20)[0]
+        res.update(call_ms=cuda_ms(k2_call, 20),
+                   **dict(zip(("call_device_ms", "call_host_ms"),
+                              queued_ms(k2_call, 20))),
+                   schedule_device_ms=fill_dev,
+                   walk_device_ms=queued_ms(lambda: launch(3), 20)[0]
+                   - fill_dev)
     emit(**res)
     require(stats["rows_equal_plain"] and stats["longest_first"],
             f"{what} schedule differs from its plain version ({label})")
@@ -669,28 +747,33 @@ def rays_schedule(args, label: str, walk, what: str, groups: int = 1,
 
 
 def check_k2(k2, label: str, size) -> dict:
-    """K2 (any-hit from t) vs its plain version on the arguments ``k2``, on
-    the lanes of hits inside the image."""
+    """K2 (any-hit from t) vs its plain version on the arguments ``k2``:
+    found equal on every lane (an OR is exact in any order of the work
+    items), reported on the lanes of hits inside the image; then its
+    ``K2 schedule`` line."""
     import torch
     from simple_raytracer_tpu_torch.kernels import anyhit
     kf = anyhit.tiled_anyhit_from_t(*k2)
     pf, walk = plain_walk(anyhit.tiled_anyhit_from_t_plain, k2)
     torch.cuda.synchronize()
     hit = torch.isfinite(k2[3])
-    f_frac = float((kf[hit] == pf[hit]).float().mean()) if bool(hit.any()) \
-        else 1.0
+    lanes = hit & frame_lanes(k2[0][:, 4], k2[0][:, 5], k2[6], *size)
+    f_frac = float((kf[lanes] == pf[lanes]).float().mean()) \
+        if bool(lanes.any()) else 1.0
     res = {"check": f"K2 vs plain ({label})", "hit_rays": int(hit.sum()),
            "shadowed_rays": int((kf & hit).sum()),
-           "found_equal": f_frac, "plan": plan_stats(k2[0]),
-           "found_max_abs_err": float((kf[hit].int() - pf[hit].int())
-                                      .abs().max()) if bool(hit.any())
-           else 0.0,
-           **bound(walk, hit & frame_lanes(k2[0][:, 4], k2[0][:, 5],
-                                           k2[6], *size),
-                   OPS_OCCLUDES, k2[0], window_bytes(k2[1], k2[7], k2[8]),
-                   8, kf, (k2[5],))}
+           "shadowed_hit_lanes": int((kf & lanes).sum()),
+           "found_equal": f_frac, "found_differ": int((kf != pf).sum()),
+           "found_equal_every_lane": bool(torch.equal(kf, pf)),
+           "found_max_abs_err": float((kf.int() - pf.int()).abs().max()),
+           "miss_lanes_found": bool(kf[~hit].all()),
+           "plan": plan_stats(k2[0]),
+           **bound(walk, lanes, OPS_OCCLUDES, k2[0],
+                   window_bytes(k2[1], k2[7], k2[8]), 8, kf, (k2[5],))}
     emit(**res)
-    require(f_frac >= FOUND_MIN, f"K2 found equal on {f_frac} ({label})")
+    require(res["found_equal_every_lane"] and res["miss_lanes_found"],
+            f"K2 found differs from the plain walk's ({label})")
+    rays_schedule(k2, label, walk, "K2", from_t=True)
     return res
 
 
@@ -833,6 +916,64 @@ def view_varied_ms(sr, prep, cfg, light, frames: int, label: str) -> float:
         V[0, 3] += i * 1e-5
         shots.append((V, light + i * 1e-4))
     return frames_ms(sr, prep, cfg, shots, label)
+
+
+def fused_frame(sr, prep, cfg, light, label: str, gpu: str,
+                frames: int) -> tuple:
+    """A flat one-sample frame of the fused branch (K1 in mode 0, K2 from
+    t; phases 3-5): K1 and K2 against their plain versions on the frame's
+    arguments, with their ``K1 schedule`` and ``K2 schedule`` lines; the
+    frame through the public entry points with the counts reset just
+    before (K1 once, in mode 0, K2 once, no other) and its image against
+    the plain versions'; ``frames`` view-varied frames timed, each kernel
+    and its plain version, and each stage alone.  Returns (the
+    kernels-line entries, K2's check line)."""
+    from simple_raytracer_tpu_torch.kernels import anyhit, nearest
+    from simple_raytracer_tpu_torch.kernels import plan as pl
+    from simple_raytracer_tpu_torch.kernels.tiled import frame_branch
+    from simple_raytracer_tpu_torch.render.integrator import finalize_image
+    cam = cfg.camera
+    tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
+    require(frame_branch(prep, cfg, tpx * tpx) == "fused"
+            and nearest.attr_mode(prep, cfg) == nearest.FLAT,
+            f"{label} does not take the fused branch in K1's flat mode")
+    cam_spec = (None, cam.focal, cam.width, cam.height, tpx)
+    k1_res, k2_res, times = compare_kernels(prep, cfg, light, cam_spec,
+                                            label, time_it=True)
+    render = render_checked(sr, prep, cfg, light, label,
+                            ("nearest_shaded", "anyhit_from_t"))
+    launches = render["launches"]
+    require(launches["nearest_shaded"] == 1
+            and launches["anyhit_from_t"] == 1
+            and render["k1_modes"] == {m: int(m == nearest.FLAT)
+                                       for m in nearest.MODES},
+            f"{label}: launches {launches}, K1 by mode {render['k1_modes']}")
+    ms_frame = view_varied_ms(sr, prep, cfg, light, frames, label)
+    maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
+                                  cfg.kernel.window_blocks)
+    t, _i, obj, _rgb, bounds = nearest.hits_shaded(prep, cfg, light,
+                                                   cam_spec, maxv)
+    stages = {
+        "plan_and_k1_ms": cuda_ms(lambda: nearest.hits_shaded(
+            prep, cfg, light, cam_spec, maxv), 10),
+        "shadow_plan_and_k2_ms": cuda_ms(lambda: anyhit.anyhit_from_t(
+            prep, cfg, t, obj, bounds, light, cam_spec, maxv), 10),
+        "frame_ms": cuda_ms(lambda: finalize_image(
+            *sr.render_radiance(prep, cfg, light), cfg), 10)}
+    emit(phase=f"timing ({label})", width=cam.width, height=cam.height,
+         focal=cam.focal, frames=frames, ms_per_frame=ms_frame,
+         rays_per_s=cam.width * cam.height * 1e3 / ms_frame, gpu=gpu,
+         **times, **stages)
+    return [
+        entry(K1_NAME, "nearest.cu",
+              "simple_raytracer_tpu/kernels/tiled_t.py:855", label,
+              launches["nearest_shaded"], k1_res["t_max_abs_err"],
+              times["k1_ms"], times["k1_plain_ms"], k1_res),
+        entry(K2_NAME, "anyhit.cu",
+              "simple_raytracer_tpu/kernels/tiled_t.py:1374", label,
+              launches["anyhit_from_t"], k2_res["found_max_abs_err"],
+              times["k2_ms"], times["k2_plain_ms"], k2_res,
+              via="tiled_anyhit_from_t (tiled_t.py:1878)")], k2_res
 
 
 def check_found(kernel, plain, args, pts, S: int, what: str, label: str,
@@ -1444,8 +1585,8 @@ def mode_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
          rays_per_s=cam.width * cam.height * 1e3 / ms_frame, gpu=gpu,
          **times)
     name = {nearest.TEXTURED: "textured", nearest.SMOOTH: "smooth"}[mode]
-    sh_entry = (("anyhit_from_t_kernel", "tiled_anyhit_from_t (tiled_t.py:"
-                 "1878)") if branch == "fused" else
+    sh_entry = ((K2_NAME, "tiled_anyhit_from_t (tiled_t.py:1878)")
+                if branch == "fused" else
                 (ANYHIT_NAME, "tiled_anyhit_t (tiled_t.py:1815)"))
     return [
         entry(f"{K1_NAME} ({name} mode)", "nearest.cu",
@@ -1697,15 +1838,14 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     if not os.path.isdir(os.path.join(HERE, "simple_raytracer_tpu_torch")):
-        print("chip_smoke: simple_raytracer_tpu_torch/ is not beside this "
-              "script", file=sys.stderr)
+        print(f"chip_smoke: no simple_raytracer_tpu_torch/ in {HERE}",
+              file=sys.stderr)
         return 1
     sys.path.insert(0, HERE)
     import simple_raytracer_tpu_torch as sr
     from simple_raytracer_tpu_torch.accel.prepared import prepare
-    from simple_raytracer_tpu_torch.kernels import anyhit, build, nearest
+    from simple_raytracer_tpu_torch.kernels import build
     from simple_raytracer_tpu_torch.kernels import plan as pl
-    from simple_raytracer_tpu_torch.render.integrator import finalize_image
     from simple_raytracer_tpu_torch.scene import procedural as P
     require("jax" not in sys.modules, "the port imported jax")
 
@@ -1743,13 +1883,13 @@ def main() -> int:
          padded_triangles=prep.scene.num_triangles, blocks=prep.num_blocks,
          seconds=round(time.time() - t0, 3))
     light = torch.tensor(P.BENCH_LIGHT, dtype=torch.float32, device=dev)
-    tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
-    cam_spec = (None, focal, WIDTH, HEIGHT, tpx)
 
-    # 3. kernels vs plain versions
-    k1_res, k2_res, times = compare_kernels(prep, cfg, light, cam_spec,
-                                            f"{source}, {WIDTH}x{HEIGHT}",
-                                            time_it=True)
+    # 3-5. the bench frame: K1 and K2 vs their plain versions, the frame
+    # through the public entry points, timed view-varied frames, and where
+    # a frame's time goes (each stage alone, CUDA events)
+    bench = f"bench: {source}, {WIDTH}x{HEIGHT}"
+    entries, _ = fused_frame(sr, prep, cfg, light, bench, gpu, FRAMES)
+    # 3. K1 and K2 on a small scene whose shadow falls in view
     small = sr.default_config().replace(
         mode="tiled", camera=sr.CameraConfig(width=128, height=128,
                                              focal=400.0),
@@ -1762,37 +1902,26 @@ def main() -> int:
          pl.effective_tile_px(small, small_prep.scene.num_triangles)),
         "icosphere(3) + box ground, 128x128", time_it=False)
     require(s2["shadowed_rays"] > 50, "no shadow in the small scene")
-
-    # 4. the main path through the public entry points
-    bench = f"bench: {source}, {WIDTH}x{HEIGHT}"
-    launches = render_checked(sr, prep, cfg, light, bench,
-                              ("nearest_shaded", "anyhit_from_t"))["launches"]
-
-    # 5. timed view-varied frames, and where a frame's time goes: each
-    # stage alone (device time, CUDA events)
-    ms_frame = view_varied_ms(sr, prep, cfg, light, FRAMES, bench)
-    maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
-                                  cfg.kernel.window_blocks)
-    t, _i, obj, _rgb, bounds = nearest.hits_shaded(prep, cfg, light,
-                                                   cam_spec, maxv)
-    stages = {
-        "plan_and_k1_ms": cuda_ms(lambda: nearest.hits_shaded(
-            prep, cfg, light, cam_spec, maxv), 10),
-        "shadow_plan_and_k2_ms": cuda_ms(lambda: anyhit.anyhit_from_t(
-            prep, cfg, t, obj, bounds, light, cam_spec, maxv), 10),
-        "frame_ms": cuda_ms(lambda: finalize_image(
-            *sr.render_radiance(prep, cfg, light), cfg), 10)}
-    emit(phase="timing", scene=source, width=WIDTH, height=HEIGHT,
-         frames=FRAMES, ms_per_frame=ms_frame,
-         rays_per_s=WIDTH * HEIGHT * 1e3 / ms_frame, gpu=gpu, **times,
-         **stages)
+    # 3-5 again on the shadow bench: the bench's scene at the reference's
+    # field of view, its shadow in view
+    shadow_bench = (f"shadow bench: {source}, {WIDTH}x{HEIGHT}, focal "
+                    f"{SHADOW_FOCAL:g}")
+    sb_entries, sb_k2 = fused_frame(
+        sr, prep, cfg.replace(camera=sr.CameraConfig(
+            width=WIDTH, height=HEIGHT, focal=SHADOW_FOCAL)), light,
+        shadow_bench, gpu, FRAMES)
+    require(sb_k2["shadowed_hit_lanes"] > SHADOWED_MIN
+            and sb_k2["plan"]["empty_tiles"] < sb_k2["plan"]["tiles"],
+            f"the shadow bench's shadow is not in view: "
+            f"{sb_k2['shadowed_hit_lanes']} shadowed hit lanes")
+    entries += sb_entries
 
     # 6. the soft-shadow and the dense frames
     occ_cam = sr.CameraConfig(width=OCC_WIDTH, height=OCC_HEIGHT,
                               focal=OCC_FOCAL)
     soft = cfg.replace(camera=occ_cam,
                        light=sr.LightConfig(num_samples=SOFT_SAMPLES))
-    entries = occlusion_frame(
+    entries += occlusion_frame(
         sr, prep, soft, light,
         f"soft: {source}, {OCC_WIDTH}x{OCC_HEIGHT}, S={SOFT_SAMPLES}", gpu)
     t0 = time.time()
@@ -1877,16 +2006,7 @@ def main() -> int:
     # 10. the probes: K1's fixed-cost parts and the winner fetch
     entries += probe_phase(prep, cfg, light, f"probes on the {bench}", gpu)
 
-    print(json.dumps({"kernels": [
-        entry(K1_NAME, "nearest.cu",
-              "simple_raytracer_tpu/kernels/tiled_t.py:855", bench,
-              launches["nearest_shaded"], k1_res["t_max_abs_err"],
-              times["k1_ms"], times["k1_plain_ms"], k1_res),
-        entry("anyhit_from_t_kernel", "anyhit.cu",
-              "simple_raytracer_tpu/kernels/tiled_t.py:1374", bench,
-              launches["anyhit_from_t"], k2_res["found_max_abs_err"],
-              times["k2_ms"], times["k2_plain_ms"], k2_res),
-    ] + entries}))
+    print(json.dumps({"kernels": entries}))
     print(gpu)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

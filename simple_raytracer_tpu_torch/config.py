@@ -101,14 +101,13 @@ class KernelConfig:
     break.  The widths are the JAX package's (WINDOW_BLOCKS 2 for the
     nearest walk, whose break rewards short windows; 4 for the any-hit walk,
     which has no ordering gain), so the two packages walk the same plans.
-    ``threads`` is the CUDA block size of the one kernel that still runs
-    one block per tile, ``anyhit_from_t_kernel`` (K2); each thread owns
-    ``tile // threads`` rays of the tile.  Not tuned on the H100 yet.  The
-    walks that run as work items do not read it: K1's walk runs CTAs of
-    256 threads x 2 rays over 512-ray slices and its epilogue blocks of
-    256 threads, and the walks over explicit rays (K1's rays mode, K4, K6;
-    K2′, K5, K7) and K3 run CTAs of 256 threads over slices of up to 512
-    rays (csrc/nearest.cu, csrc/anyhit.cu, csrc/prepass.cu).
+    ``threads`` (the JAX field) is read by no kernel: every walk runs as
+    work items in CTAs of its own.  K1's walk runs CTAs of 256 threads x 2
+    rays over 512-ray slices and its epilogue blocks of 256 threads; the
+    any-hit walk (K2 from t; K2′, K5, K7 over explicit rays), the walks
+    over explicit rays of the nearest pass (K1's rays mode, K4, K6) and K3
+    run CTAs of 256 threads over slices of up to 512 rays (csrc/nearest.cu,
+    csrc/anyhit.cu, csrc/prepass.cu).
 
     The branch switches carry the JAX ``KernelConfig`` fields and
     environment switches of the same meaning:

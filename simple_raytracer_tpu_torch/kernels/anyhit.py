@@ -1,25 +1,25 @@
-"""Kernels 2, 2′, 5 and 7: the any-hit (occlusion) walks.
+"""Kernels 2, 2′, 5 and 7: the any-hit (occlusion) walk.
 
-``tiled_anyhit_from_t`` wraps the CUDA kernel ``anyhit_from_t_kernel`` and
-``tiled_anyhit`` the walk over explicit rays ``anyhit_rays`` (a schedule
-launch and a persistent walk over (tile, ray slice, window span) work
-items; both csrc/anyhit.cu).  They replace the JAX package's Pallas kernel
-``kernels/tiled_t.py::_anyhit_kernel_t`` in its two forms: shadow rays
-rebuilt from the nearest pass's t (reached through ``tiled_anyhit_from_t``,
-the fused frame) and explicit rays (reached through ``tiled_anyhit_t``, the
-legacy hard-shadow, soft-shadow and gather paths).  ``tiled_anyhit_grouped``
-wraps ``anyhit_rays`` over a grouped plan and replaces
-``tiled_t.py::_anyhit_kernel_g`` (K5, ``KernelConfig.groups_ah`` > 1).
-``tiled_anyhit_from_t_plain``, ``tiled_anyhit_plain`` and
-``tiled_anyhit_grouped_plain`` are their plain PyTorch versions: same
-arguments, same results.  Each wrapper runs its plain version for tensors
-on the CPU and the kernel for tensors on a CUDA device; it adds one to its
-own ``launches`` at each call of its kernel.
+``tiled_anyhit_from_t`` (K2) and ``tiled_anyhit`` (K2′) wrap the one walk
+of csrc/anyhit.cu over its two ray sources: two launches, a schedule and a
+persistent walk over (tile, ray slice, window span) work items
+(``anyhit_schedule_kernel``, ``anyhit_items_kernel``).  They replace the
+JAX package's Pallas kernel ``kernels/tiled_t.py::_anyhit_kernel_t`` in
+its two forms: shadow rays rebuilt from the nearest pass's t (reached
+through ``tiled_anyhit_from_t``, the fused frame) and explicit rays
+(reached through ``tiled_anyhit_t``, the legacy hard-shadow, soft-shadow
+and gather paths).  ``tiled_anyhit_grouped`` wraps the walk over explicit
+rays on a grouped plan and replaces ``tiled_t.py::_anyhit_kernel_g`` (K5,
+``KernelConfig.groups_ah`` > 1).  ``tiled_anyhit_from_t_plain``,
+``tiled_anyhit_plain`` and ``tiled_anyhit_grouped_plain`` are their plain
+PyTorch versions: same arguments, same results.  Each wrapper runs its
+plain version for tensors on the CPU and the kernel for tensors on a CUDA
+device; it adds one to its own ``launches`` at each call of its kernel.
 
 ``anyhit_from_t`` and ``anyhit`` are the counterparts of the JAX
 ``tiled_t.anyhit_from_t`` and ``tiled_t.anyhit``.  Kernel 7
-(kernels/paged.py) is ``anyhit_rays`` over page windows: it launches
-through :func:`launch_anyhit_rays` and walks plainly through
+(kernels/paged.py) is the walk over explicit rays on page windows: it
+launches through :func:`launch_anyhit_rays` and walks plainly through
 :func:`tiled_anyhit_plain`.
 
 found is the OR of one predicate over the plan's windows, so the work
@@ -41,28 +41,12 @@ from .nearest import (check_groups, group_walk_masks, rows_max, slice_lanes,
                       span_plan)
 
 PLAIN_ELEMS = 1 << 24   # ray-triangle pairs per step of the plain walks
-# the walk over explicit rays in spans of RANGE_SPAN_TRIS / LIST_SPAN_TRIS
-# triangles, in whole windows: it has no bound to break on, so short spans
-# only spread the work (4 and 2 windows of 128 triangles, the fastest on
-# every frame that chip_smoke.py sweeps)
+# the any-hit walk (both ray sources) in spans of RANGE_SPAN_TRIS /
+# LIST_SPAN_TRIS triangles, in whole windows: it has no bound to break on,
+# so short spans only spread the work (4 and 2 windows of 128 triangles,
+# the fastest on every frame that chip_smoke.py sweeps)
 RANGE_SPAN_TRIS = 512
 LIST_SPAN_TRIS = 256
-
-
-def _check(plan, tri, block_obj, t, obj, cam, tile_px, threads):
-    f32 = torch.float32
-    build.check_operands(plan.device, tile_px, threads,
-                         plan=(plan, torch.int32), tri=(tri, f32),
-                         block_obj=(block_obj, torch.int32), t=(t, f32),
-                         obj=(obj, torch.int32), cam=(cam, f32))
-    n, tile = plan.shape[0], tile_px * tile_px
-    if plan.dim() != 2 or plan.shape[1] <= pl.PLAN_AUX:
-        raise ValueError(f"plan shape {tuple(plan.shape)}")
-    if tri.dim() != 2 or tri.shape[1] != 9:
-        raise ValueError(f"tri shape {tuple(tri.shape)}")
-    if t.shape != (n, tile) or obj.shape != (n, tile) or cam.shape != (24,):
-        raise ValueError(f"t {tuple(t.shape)} / obj {tuple(obj.shape)} / "
-                         f"cam {tuple(cam.shape)} for {n} tiles of {tile}")
 
 
 def tiled_anyhit_from_t(plan, tri, block_obj, t, obj, cam, tile_px: int,
@@ -76,34 +60,83 @@ def tiled_anyhit_from_t(plan, tri, block_obj, t, obj, cam, tile_px: int,
     from the nearest pass; cam [24] (plan.make_cam: the camera and the
     light).  Returns found [n, tile] bool: the ray from the hit point toward
     the light meets a triangle of another object, at any t >= 0 (no max-t
-    unless ``no_max_t`` is False).  Miss lanes read True; callers mask."""
+    unless ``no_max_t`` is False).  Miss lanes read True; callers mask.
+    ``threads`` is not read: the walk's CTAs are the kernel's own."""
     if plan.device.type == "cpu":
         return tiled_anyhit_from_t_plain(plan, tri, block_obj, t, obj, cam,
                                          tile_px, window_tris, block_size,
                                          eps, no_max_t, threads)
     if plan.device.type != "cuda":
         raise ValueError(f"no any-hit kernel for device {plan.device}")
-    threads = min(threads, tile_px * tile_px)
-    _check(plan, tri, block_obj, t, obj, cam, tile_px, threads)
-    if window_tris % block_size:
-        raise ValueError(f"window of {window_tris} triangles is not whole "
-                         f"blocks of {block_size}")
-    n = plan.shape[0]
-    found = torch.empty((n, tile_px * tile_px), dtype=torch.bool,
-                        device=plan.device)
-    with torch.cuda.device(plan.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = build.library().srt_anyhit_from_t(
-            plan.data_ptr(), plan.shape[1], n, tri.data_ptr(),
-            block_obj.data_ptr(), tri.shape[0] // window_tris, t.data_ptr(),
-            obj.data_ptr(), cam.data_ptr(), tile_px, window_tris, block_size,
-            eps, int(no_max_t), found.data_ptr(), threads, stream)
-    build.check(rc, "anyhit_from_t_kernel")
+    launch, found, _ = anyhit_from_t_call(plan, tri, block_obj, t, obj, cam,
+                                          tile_px, window_tris, block_size,
+                                          eps, no_max_t)
+    launch()
     tiled_anyhit_from_t.launches += 1
     return found
 
 
 tiled_anyhit_from_t.launches = 0
+
+
+def anyhit_from_t_call(plan, tri, block_obj, t, obj, cam, tile_px: int,
+                       window_tris: int, block_size: int, eps: float,
+                       no_max_t: bool = True, range_span: int = None,
+                       list_span: int = None):
+    """Check the operands of K2 (CUDA tensors; arguments as
+    :func:`tiled_anyhit_from_t`), allocate its output and scratch, and
+    return (launch, found [n, tile], sched): ``launch(stages=3)`` queues
+    the schedule, which starts found at the miss lanes (1), and the walk
+    over (tile, slice, span) items (2).  Spans default to
+    :func:`rays_spans`."""
+    f32 = torch.float32
+    build.check_tensors(plan.device, plan=(plan, torch.int32),
+                        tri=(tri, f32), block_obj=(block_obj, torch.int32),
+                        t=(t, f32), obj=(obj, torch.int32), cam=(cam, f32))
+    n, tile = plan.shape[0], tile_px * tile_px
+    if tile_px <= 0 or t.shape != (n, tile) or obj.shape != (n, tile) \
+            or cam.shape != (24,):
+        raise ValueError(f"t {tuple(t.shape)} / obj {tuple(obj.shape)} / "
+                         f"cam {tuple(cam.shape)} for {n} tiles of {tile}")
+    n_windows, range_span, list_span, rmax, found, sched = _walk_operands(
+        plan, tri, window_tris, block_size, tile, 1, range_span, list_span)
+
+    def launch(stages: int = 3):
+        with torch.cuda.device(plan.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            rc = build.library().srt_anyhit_from_t(
+                plan.data_ptr(), plan.shape[1], n, tri.data_ptr(),
+                block_obj.data_ptr(), n_windows, t.data_ptr(),
+                obj.data_ptr(), cam.data_ptr(), tile_px, window_tris,
+                block_size, eps, int(no_max_t), found.data_ptr(),
+                sched.data_ptr(), rmax, range_span, list_span, stages,
+                stream)
+        build.check(rc, "anyhit_items_kernel (from t)")
+    return launch, found, sched
+
+
+def _walk_operands(plan, tri, window_tris: int, block_size: int, m: int,
+                   groups: int, range_span, list_span):
+    """The checks and allocations of the any-hit walk over either ray
+    source: the plan and triangle table, windows of whole blocks;
+    returns (windows, range span, list span (:func:`rays_spans` by
+    default), rows_max, found [n, m] bool, sched [2 + 2 rows_max] i32)."""
+    if plan.dim() != 2 or plan.shape[1] <= pl.PLAN_AUX:
+        raise ValueError(f"plan shape {tuple(plan.shape)}")
+    if tri.dim() != 2 or tri.shape[1] != 9 or tri.data_ptr() % 16:
+        raise ValueError(f"tri {tuple(tri.shape)}: want [T, 9], 16-byte "
+                         f"aligned")
+    if window_tris % block_size or window_tris % 4:
+        raise ValueError(f"window of {window_tris} triangles is not whole "
+                         f"blocks of {block_size}")
+    rs, ls = rays_spans(window_tris)
+    range_span, list_span = range_span or rs, list_span or ls
+    n_windows = tri.shape[0] // window_tris
+    rmax = rows_max(plan, n_windows, range_span, list_span, groups)
+    dev = plan.device
+    return (n_windows, range_span, list_span, rmax,
+            torch.empty((plan.shape[0], m), dtype=torch.bool, device=dev),
+            torch.empty(2 + 2 * rmax, dtype=torch.int32, device=dev))
 
 
 def walk_plain(plan, tri, block_obj, p, s, self_obj, found,
@@ -210,16 +243,20 @@ def _walk_spans(plan, tri, block_obj, p, s, self_obj, found,
 def tiled_anyhit_from_t_plain(plan, tri, block_obj, t, obj, cam,
                               tile_px: int, window_tris: int,
                               block_size: int, eps: float,
-                              no_max_t: bool = True, threads: int = 512):
+                              no_max_t: bool = True, threads: int = 512,
+                              slice_rays: int = 0, spans=None):
     """Plain PyTorch version of :func:`tiled_anyhit_from_t` (same arguments
-    and results; ``threads`` is ignored)."""
+    and results; ``threads`` is ignored).  Walks each tile whole, or with
+    ``slice_rays`` and ``spans`` the kernel's work items
+    (:func:`walk_plain`): the same found either way."""
     dx, dy, dz = tile_ray_dirs(cam, plan[:, 4], plan[:, 5], tile_px)
     hit = torch.isfinite(t)
     ts = torch.where(hit, t, 0.0)
     p = (cam[9] + ts * dx, cam[10] + ts * dy, cam[11] + ts * dz)
     s = (cam[12] - p[0], cam[13] - p[1], cam[14] - p[2])
     return walk_plain(plan, tri, block_obj, p, s, obj, ~hit, window_tris,
-                       block_size, eps, no_max_t)
+                       block_size, eps, no_max_t, slice_rays=slice_rays,
+                       spans=spans)
 
 
 def anyhit_from_t(prep, cfg, t, obj, bounds, light_pos, cam_spec, maxv: int,
@@ -271,11 +308,6 @@ def anyhit_rays_call(plan, tri, block_obj, o, d, self_obj,
                         o=(o, torch.float32), d=(d, torch.float32),
                         self_obj=(self_obj, torch.int32))
     n = plan.shape[0]
-    if plan.dim() != 2 or plan.shape[1] <= pl.PLAN_AUX:
-        raise ValueError(f"plan shape {tuple(plan.shape)}")
-    if tri.dim() != 2 or tri.shape[1] != 9 or tri.data_ptr() % 16:
-        raise ValueError(f"tri {tuple(tri.shape)}: want [T, 9], 16-byte "
-                         f"aligned")
     if o.dim() != 3 or o.shape[0] != n or o.shape[2] != 3 \
             or d.shape != o.shape or self_obj.shape != o.shape[:2] \
             or o.shape[1] == 0:
@@ -283,15 +315,8 @@ def anyhit_rays_call(plan, tri, block_obj, o, d, self_obj,
                          f"self_obj {tuple(self_obj.shape)} for {n} tiles")
     m = o.shape[1]
     check_groups(m, groups)
-    if window_tris % block_size or window_tris % 4:
-        raise ValueError(f"window of {window_tris} triangles is not whole "
-                         f"blocks of {block_size}")
-    rs, ls = rays_spans(window_tris)
-    range_span, list_span = range_span or rs, list_span or ls
-    n_windows = tri.shape[0] // window_tris
-    rmax = rows_max(plan, n_windows, range_span, list_span, groups)
-    found = torch.empty((n, m), dtype=torch.bool, device=plan.device)
-    sched = torch.empty(2 + 2 * rmax, dtype=torch.int32, device=plan.device)
+    n_windows, range_span, list_span, rmax, found, sched = _walk_operands(
+        plan, tri, window_tris, block_size, m, groups, range_span, list_span)
 
     def launch(stages: int = 3):
         with torch.cuda.device(plan.device):
@@ -307,8 +332,9 @@ def anyhit_rays_call(plan, tri, block_obj, o, d, self_obj,
 
 
 def rays_spans(window_tris: int) -> tuple:
-    """(range span in windows, list span in entries) of the walk over
-    explicit rays at windows of ``window_tris`` triangles."""
+    """(range span in windows, list span in entries) of the any-hit walk
+    (K2 and the walk over explicit rays) at windows of ``window_tris``
+    triangles."""
     return (max(1, RANGE_SPAN_TRIS // window_tris),
             max(1, LIST_SPAN_TRIS // window_tris))
 
@@ -326,15 +352,17 @@ def launch_anyhit_rays(plan, tri, block_obj, o, d, self_obj,
 
 
 def rays_shape(window_tris: int, block_size: int, m: int,
-               groups: int = 1) -> dict:
-    """The walk over explicit rays on the current card for windows of
-    ``window_tris`` triangles and tiles of ``m`` rays in ``groups``
-    sub-groups: CTAs per SM, registers per thread, SMs, rays per slice and
-    threads per CTA."""
+               groups: int = 1, from_t: bool = False) -> dict:
+    """The walk over explicit rays (or with ``from_t`` K2's walk, one
+    group) on the current card for windows of ``window_tris`` triangles
+    and tiles of ``m`` rays in ``groups`` sub-groups: CTAs per SM,
+    registers per thread, SMs, rays per slice and threads per CTA."""
     out = (ctypes.c_int * 5)()
-    build.check(build.library().srt_anyhit_rays_shape(
-        window_tris, block_size, m, groups, ctypes.cast(out, ctypes.c_void_p)),
-        "srt_anyhit_rays_shape")
+    lib, ptr = build.library(), ctypes.cast(out, ctypes.c_void_p)
+    rc = (lib.srt_anyhit_from_t_shape(window_tris, block_size, m, ptr)
+          if from_t else
+          lib.srt_anyhit_rays_shape(window_tris, block_size, m, groups, ptr))
+    build.check(rc, "srt_anyhit_rays_shape")
     return dict(zip(("ctas_per_sm", "registers", "sms", "slice_rays",
                      "threads"), out))
 

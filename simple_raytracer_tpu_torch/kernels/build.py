@@ -69,8 +69,9 @@ SIGNATURES = {
             _P, _P,              # t, obj
             _P, _I, _I, _I,      # cam, tile_px, window_tris, block_size
             _F, _I,              # eps, no_max_t
-            _P,                  # found
-            _I, _P),             # threads, stream
+            _P, _P, _I,          # found, sched, rows_max
+            _I, _I,              # range span, list span
+            _I, _P),             # stages, stream
         "srt_anyhit_rays": (
             _P, _I, _I, _I,      # plan, plan_w, n_tiles, sub-groups
             _P, _P, _I,          # tri, block_obj, n_windows
@@ -81,6 +82,7 @@ SIGNATURES = {
             _I, _P),             # stages, stream
         "srt_anyhit_rays_shape": (_I, _I, _I, _I, _P),  # wt, bs, m, groups,
                                                        # out[5]
+        "srt_anyhit_from_t_shape": (_I, _I, _I, _P),   # wt, bs, m, out[5]
     },
     "prepass.cu": {
         "srt_prepass": (

@@ -539,7 +539,8 @@ def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
     if maxv <= 0 or NB // wb > 65536:
         raise NotImplementedError(
             "range-only plans (cull_maxv <= 0, or more than 65,536 windows) "
-            "are not ported yet (ROADMAP.md, Open items §1 item 7f)")
+            "are not ported yet (ROADMAP.md, Open items §1: the tiled "
+            "configurations that still raise)")
     pw = plan_width(NB // wb)
     if widen:
         need = PLAN_AUX + maxv + (maxv // 8 + 8 if groups > 1 else 0)

@@ -80,9 +80,10 @@ PLAIN = {"nearest_shaded": tiled_nearest_shaded_plain,
 IMPLS = (None, "sublane", "paged")
 
 
-def _todo(what: str, item: str):
+def _todo(what: str):
     return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Open items §1 item {item})")
+        f"{what} is not ported yet (ROADMAP.md, Open items §1: the tiled "
+        f"configurations that still raise)")
 
 
 def _takes_gather(prep, cfg: RenderConfig) -> bool:
@@ -104,9 +105,9 @@ def check_supported(prep, cfg: RenderConfig, tile: int) -> None:
     if cfg.tiled_impl not in IMPLS:
         raise ValueError(f"unknown tiled kernel impl {cfg.tiled_impl!r}")
     if cfg.camera.normalize_dirs:
-        raise _todo("normalized primary directions", "7f")
+        raise _todo("normalized primary directions")
     if _hit_tile(cfg, tile) != tile:
-        raise _todo("hit_tile sub-tiles", "7f")
+        raise _todo("hit_tile sub-tiles")
 
 
 def _hit_tile(cfg: RenderConfig, tile: int) -> int:

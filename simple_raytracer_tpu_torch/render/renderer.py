@@ -19,7 +19,7 @@ from ..kernels import plan as pl
 from ..kernels.tiled import frame_branch, render_flat_tiled
 from . import integrator
 
-_MODE_ITEMS = {"bruteforce": "3", "bvh": "8"}
+_MODE_ITEMS = {"bruteforce": "bruteforce mode", "bvh": "BVH mode"}
 
 
 def ensure_prepared(scene, cfg: RenderConfig, device="cuda") -> PreparedScene:
@@ -53,7 +53,7 @@ def render_radiance(prep: PreparedScene, cfg: RenderConfig, light_pos,
         if cfg.mode in _MODE_ITEMS:
             raise NotImplementedError(
                 f"mode {cfg.mode!r} is not ported yet (ROADMAP.md, Open "
-                f"items §1 item {_MODE_ITEMS[cfg.mode]})")
+                f"items §1: {_MODE_ITEMS[cfg.mode]})")
         raise ValueError(f"unknown render mode: {cfg.mode}")
     if not isinstance(prep, PreparedScene):
         raise TypeError("mode 'tiled' needs a PreparedScene; call "

@@ -218,6 +218,22 @@ def k1_stress(plan, tri, tri_attr, attr_map, window_tris: int):
     return p, twice(tri), twice(tri_attr), twice(attr_map)
 
 
+def k2_stress(plan, tri, block_obj, t, window_tris: int):
+    """K2's operands (the fused frame's shadow plan, triangle and block
+    tables, t) rewritten as :func:`k1_stress` rewrites K1's (the tables
+    doubled; by (tile - 1) % 4 a range row of all 2 NW windows, longer
+    than one span, a list twice as deep, an empty row, the plan as it is),
+    and every lane of each tile i with i % 8 == 6 a miss.  Returns (plan,
+    tri, block_obj, t)."""
+    n = plan.shape[0]
+    roll = (torch.arange(n, device=plan.device) + 1) % n
+    p, t2, _, _ = k1_stress(plan[roll], tri, tri[:, :4], None, window_tris)
+    p = p[torch.argsort(roll)]
+    miss = torch.arange(n, device=p.device) % 8 == 6
+    t = torch.where(miss[:, None], float("inf"), t)
+    return p, t2, torch.cat([block_obj, block_obj]).contiguous(), t
+
+
 def grouped_stress(plan, tri, window_tris: int, groups: int):
     """:func:`k1_stress` of a grouped plan (plan.group_mask_words layout):
     the entry columns rewritten as k1_stress does (the triangle table

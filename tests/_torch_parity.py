@@ -67,11 +67,12 @@ def configs(split: str = "sah", **light):
 
 
 def jax_frame(jprep, jcfg, view, monkeypatch,
-              spied=("hits_shaded", "anyhit_from_t"), expect=None):
+              spied=("hits_shaded", "anyhit_from_t"), expect=None,
+              tile_px: int = TILE_PX):
     """The JAX tiled frame of the parity camera (its image, uint8), asserting
     that of the ``spied`` steps of ``tiled_t`` exactly ``expect`` ran, in
     order (default: all of them, once each; the fused kernels by
-    default)."""
+    default).  ``tile_px`` is the tile of ``jcfg`` (``jcfg.tile_px``)."""
     called = []
     for name in spied:
         orig = getattr(tiled_t, name)
@@ -80,14 +81,14 @@ def jax_frame(jprep, jcfg, view, monkeypatch,
             lambda *a, _o=orig, _n=name, **k: (called.append(_n),
                                                _o(*a, **k))[1])
     V = None if view is None else jnp.asarray(view, jnp.float32)
-    o, d, tx, ty = primary_rays_tiled(WIDTH, HEIGHT, TILE_PX, FOCAL, False,
+    o, d, tx, ty = primary_rays_tiled(WIDTH, HEIGHT, tile_px, FOCAL, False,
                                       view_matrix=V)
     rad, hit = jtiled.render_flat_tiled(
         jprep, jcfg, o.reshape(-1, 3), d.reshape(-1, 3), jnp.asarray(LIGHT),
-        cam_spec=(V, FOCAL, WIDTH, HEIGHT, TILE_PX))
+        cam_spec=(V, FOCAL, WIDTH, HEIGHT, tile_px))
     assert called == list(spied if expect is None else expect), called
-    rad = untile_image(rad.reshape(-1, 3), WIDTH, HEIGHT, TILE_PX, tx, ty)
-    hit = untile_image(hit.reshape(-1), WIDTH, HEIGHT, TILE_PX, tx, ty)
+    rad = untile_image(rad.reshape(-1, 3), WIDTH, HEIGHT, tile_px, tx, ty)
+    hit = untile_image(hit.reshape(-1), WIDTH, HEIGHT, tile_px, tx, ty)
     return np.asarray(jint.finalize_image(rad, hit, jcfg))
 
 

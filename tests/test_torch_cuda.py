@@ -25,7 +25,7 @@ from simple_raytracer_tpu_torch.scene import procedural as P
 from simple_raytracer_tpu_torch.scene import transforms as T
 
 from _torch_cases import (SELF_SKIP, coincident_pages, grouped_stress,
-                          k1_stress, k3_stress, masked_occluder,
+                          k1_stress, k2_stress, k3_stress, masked_occluder,
                           masked_windows, ragged_rays, self_skip, two_pages,
                           two_windows)
 
@@ -87,7 +87,8 @@ def test_kernels_build():
     lib = build.library()
     for name in ("srt_nearest_k1", "srt_k1_shape", "srt_nearest_rays",
                  "srt_nearest_rays_shape", "srt_anyhit_from_t",
-                 "srt_anyhit_rays", "srt_anyhit_rays_shape", "srt_prepass",
+                 "srt_anyhit_from_t_shape", "srt_anyhit_rays",
+                 "srt_anyhit_rays_shape", "srt_prepass",
                  "srt_prepass_shape",
                  "srt_fixed_probe", "srt_attr_gather", "srt_attr_window"):
         assert hasattr(lib, name)
@@ -899,6 +900,80 @@ def test_rays_items_shapes():
             assert shape["slice_rays"] == rays == nearest.slice_rays(m,
                                                                      groups)
             assert shape["threads"] == 256 and shape["ctas_per_sm"] >= 2
+
+
+# K2 as work items: the fused frame of the in-view scene at the moved view,
+# its shadow plan stressed (_torch_cases.k2_stress), at tiles of 4,096,
+# 1,024 and 256 rays, short spans, single ones and the walk's own (None)
+K2_CASES = [(64, SPANS), (64, None), (32, (1, 1)), (32, SPANS), (16, (2, 3))]
+
+
+def _k2_args(prep, cfg, tpx: int):
+    """K2's arguments on the moved view's fused frame at ``tpx``-pixel
+    tiles, stressed: a range row of every window, deep lists, empty plans,
+    all-miss tiles."""
+    k2 = list(_frame_args(prep, cfg.replace(tile_px=tpx), VIEWS["moved"],
+                          tpx)["anyhit_from_t"])
+    assert k2[6] == tpx
+    k2[:4] = k2_stress(*k2[:4], k2[7])
+    return tuple(k2)
+
+
+@pytest.mark.parametrize("tpx, spans", K2_CASES)
+def test_k2_items_match_plain(scene, tpx, spans):
+    """K2's work items on the stressed plans: found equal on every lane to
+    the plain model of the items in the same slices and spans and to the
+    whole-tile walk; tiles with an empty plan read !hit, miss lanes (and
+    all-miss tiles) read 1; the card's schedule equals the plain one; the
+    wrapper counts its launch."""
+    prep, cfg = scene
+    k2 = _k2_args(prep, cfg, tpx)
+    plan, tri, t, wt = k2[0], k2[1], k2[3], k2[7]
+    sp = spans or anyhit.rays_spans(wt)
+    whole = anyhit.tiled_anyhit_from_t_plain(*k2)
+    model = anyhit.tiled_anyhit_from_t_plain(
+        *k2, slice_rays=nearest.slice_rays(tpx * tpx), spans=sp)
+    launch, found, sched = anyhit.anyhit_from_t_call(*k2[:11], *sp)
+    launch()
+    assert torch.equal(model, whole) and torch.equal(found, whole)
+    hit = torch.isfinite(t)
+    assert int((found & hit).sum()) > 50 and bool(found[~hit].all())
+    cnt = torch.where(plan[:, 3] == 1, plan[:, 2], plan[:, 1])
+    empty = cnt == 0
+    assert bool((empty[:, None] & hit).any())
+    assert torch.equal(found[empty], ~hit[empty])
+    assert int(cnt[plan[:, 3] != 1].max()) > sp[0]   # a range row's spans
+    _schedule_equal(plan, sched, tri.shape[0] // wt, sp)
+    n0 = anyhit.tiled_anyhit_from_t.launches
+    assert torch.equal(anyhit.tiled_anyhit_from_t(*k2), whole)
+    assert anyhit.tiled_anyhit_from_t.launches == n0 + 1
+
+
+def test_k2_items_add_no_host_sync(scene):
+    """K2 queues its two launches without a host synchronisation."""
+    prep, cfg = scene
+    k2 = _frame_args(prep, cfg, VIEWS["moved"])["anyhit_from_t"]
+    anyhit.tiled_anyhit_from_t(*k2)                # build and load first
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        anyhit.tiled_anyhit_from_t(*k2)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def test_k2_items_shape():
+    """K2's walk: 256-thread CTAs over slices of the port's size, at least
+    two CTAs an SM, and no instance over rays from t spills registers."""
+    for m, rays in ((4096, 512), (1024, 512), (256, 256)):
+        shape = anyhit.rays_shape(128, 32, m, from_t=True)
+        assert shape["slice_rays"] == rays == nearest.slice_rays(m)
+        assert shape["threads"] == 256 and shape["ctas_per_sm"] >= 2
+    spills = _spills(build.build()["log"], "RaysFromT")
+    assert len(spills) == 2
+    assert all("0 bytes spill stores, 0 bytes spill loads" in ln
+               for ln in spills), spills
 
 
 # K3 as work items: the stressed plans of _torch_cases.k3_stress (a range

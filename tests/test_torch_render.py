@@ -120,6 +120,11 @@ def test_ragged_frame_size():
 # test_switch_frame_matches_jax and tests/test_torch_fused_modes.py hold
 # their images to JAX's
 PORTED = {"item 7e": "gather", "item 7d": "fused"}
+# what the message of each case still to be ported names: the ROADMAP.md
+# item by its title (the cases keep the ids of their first version, the
+# items' numbers then)
+TITLES = {"item 3": "bruteforce mode", "item 8": "BVH mode",
+          "item 7f": "the tiled configurations that still raise"}
 
 
 @pytest.mark.parametrize("change, item", [
@@ -145,7 +150,7 @@ def test_unported_branches_raise(change, item):
         tiled.check_supported(prep, c, TILE_PX * TILE_PX)
         assert tiled.frame_branch(prep, c, TILE_PX * TILE_PX) == PORTED[item]
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match=TITLES[item]):
         render(prep, cfg.replace(**change), LIGHT)
 
 
