@@ -49,7 +49,17 @@ by ``finalize_image``, on these frames:
   ``procedural.dense_textured_on_ground`` (the dense frame's spheres and
   ground, the ground and the second sphere textured); with ``--root`` it is
   ``scene/catalog.py::complex_scene`` on the 36 turntable views of
-  ``bench.py::run_complex``.
+  ``bench.py::run_complex``;
+* **bruteforce, bruteforce soft textured, BVH, turntable**: the modes in
+  plain PyTorch (``mode="bruteforce"``, ``"bvh"``) and the command line
+  that selects them: ``catalog.six_spheres`` on stand-in assets written to
+  a temporary directory (sphere.obj ``procedural.icosphere(3)`` at radius
+  2.5, cube.obj ``procedural.box()``) at the CLI's defaults, 600x400, focal
+  400, one hard shadow, the reference's frame; ``procedural
+  .textured_on_ground(3)`` at 600x400, focal 400, 4 light samples; the
+  bench's scene, pose and light in BVH mode at ``__graft_entry__.py``'s
+  256x192 (focal ``procedural.bench_focal(192)``); the turntable of
+  ``python -m simple_raytracer_tpu_torch animate``.
 
 Phases, each of which must pass:
 
@@ -126,7 +136,25 @@ Phases, each of which must pass:
    points are timed back to back).  A probe's
    bound is its bytes (the inputs it reads and its outputs, once each; the
    fetch kernels' table rows that some ray needs) over 3.35 TB/s, or its
-   few f32 operations over 67 TFLOP/s where larger.
+   few f32 operations over 67 TFLOP/s where larger;
+11. the plain PyTorch modes and the command line, each frame through the
+   public entry points with every count reset just before and read just
+   after (no kernel of ``csrc/`` launched; coverage in (0.05, 0.99), finite
+   radiance of the frame's shape), 3 frames timed (host clock ending in a
+   synchronize), the card's peak allocated memory: the bruteforce
+   reference frame, also rendered by ``python -m simple_raytracer_tpu_torch
+   render --mode bruteforce`` in a subprocess (its BMP equal to the
+   in-process image), held to the tiled and the BVH frame of the same scene
+   (within 1 on >= 99.9% of pixels, equal on >= 98%: the JAX package's
+   bars); the bruteforce soft textured frame held to the tiled gather frame
+   at those bars (the pixels that differ counted); the BVH flagship frame
+   held to the tiled frame at those bars, with the walk's lockstep steps and
+   the BVH's nodes; ``animate --step-deg 120 --fmt bmp`` writing three
+   frames, then, run again, none (resume); ``render --mode tiled --profile
+   DIR`` writing a Chrome trace with kernels in it, and
+   ``utils.metrics.profile_trace`` around 3 frames of the bench: the card's
+   busy share of that traced window (its kernels' summed time over the
+   window).
 
 Every frame that runs K1 (phases 3, 6, 8, 9, and 10's cut plans) holds
 K1's t and idx to the plain walk in K1's slices bit for bit, and prints a
@@ -267,6 +295,16 @@ RAYS_RANGE_SPANS = (2, 4, 8, 16, 32)
 RAYS_LIST_SPANS = (1, 2, 4, 8, 16, 32, 64)
 # no kernel may beat its bound by more than the timing's noise
 SHARE_MAX = 1.05
+# phase 11: frames timed per plain-mode frame; the stand-in sphere.obj's
+# radius (the six spheres stand 6 apart); the soft textured frame's light
+# samples and mesh; __graft_entry__.py's BVH frame; the CLI's subprocesses'
+# time limit (seconds)
+MODE_FRAMES = 3
+SPHERE_RADIUS = 2.5
+TEX_SAMPLES = 4
+TEX_SUBDIV = 3
+FLAGSHIP_WIDTH, FLAGSHIP_HEIGHT = 256, 192
+CLI_TIMEOUT = 240
 
 
 class SmokeFailure(RuntimeError):
@@ -495,7 +533,7 @@ def check_k1_shaded(k1, label: str, size) -> dict:
     the bounds rows."""
     import torch
     from simple_raytracer_tpu_torch.kernels import nearest
-    mode, amap = k1[11], k1[12]
+    mode, amap = k1[10], k1[11]
     out = nearest.tiled_nearest_shaded(*k1)
     kt, ki, ko, ks, kb = out
     (pt, pi, po, ps, pb), walk = plain_walk(
@@ -600,7 +638,7 @@ def k1_schedule(k1, label: str, walk, fetch: bool = False) -> dict:
         extra = {}
     else:
         plan, tri, tri_attr, mat, cam, tpx, wt, eps, ds, snl = k1[:10]
-        extra = dict(mode=k1[11], mat=mat, attr_map=k1[12], double_sided=ds,
+        extra = dict(mode=k1[10], mat=mat, attr_map=k1[11], double_sided=ds,
                      specular_nl=snl)
 
     def call(**spans):
@@ -1522,7 +1560,7 @@ def mode_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
         rays = (o.reshape(-1, 3), d.reshape(-1, 3))
     args = frame_args(prep, cfg, light, cam_spec, rays)
     k1, ks = args["nearest_shaded"], args[shadow]
-    require(k1[11] == mode, f"{label}: K1 called in mode {k1[11]}")
+    require(k1[10] == mode, f"{label}: K1 called in mode {k1[10]}")
     size = (cam.width, cam.height)
 
     # K1 in its mode vs plain, then the shadow kernel vs plain
@@ -1826,6 +1864,210 @@ def probe_phase(prep, cfg, light, label: str, gpu: str) -> list:
     return entries
 
 
+def write_assets(root: str) -> None:
+    """Stand-in assets of the reference's layout under ``root``:
+    sphere.obj an icosphere(3) of radius SPHERE_RADIUS, cube.obj the unit
+    box, as OBJ text."""
+    from simple_raytracer_tpu_torch.scene import procedural as P
+    sphere = P.icosphere(3)
+    sphere.verts[..., :3] *= SPHERE_RADIUS
+    for name, mesh in (("sphere.obj", sphere), ("cube.obj", P.box())):
+        with open(os.path.join(root, name), "w") as f:
+            f.write(P.obj_text(mesh))
+
+
+def run_cli(args, label: str) -> str:
+    """``python -m simple_raytracer_tpu_torch ARGS`` from this checkout, on
+    the card (the CLI's default device); its standard output."""
+    res = subprocess.run([sys.executable, "-m", "simple_raytracer_tpu_torch",
+                          *args], cwd=HERE, capture_output=True, text=True,
+                         timeout=CLI_TIMEOUT)
+    require(res.returncode == 0,
+            f"CLI {label} exited {res.returncode}: {res.stderr[-2000:]}")
+    return res.stdout
+
+
+def agreement(img, ref, what: str, label: str) -> dict:
+    """``img`` against ``ref`` (uint8 [H, W, 3]) at the JAX package's bars:
+    within 1 on >= 99.9% of pixels, equal on >= 98%."""
+    import torch
+    img, ref = (torch.as_tensor(x).cpu() for x in (img, ref))
+    require(img.shape == ref.shape, f"{label}: {what} shape {img.shape}")
+    diff = (img.int() - ref.int()).abs().amax(dim=-1)
+    within1 = float((diff <= 1).float().mean())
+    equal = float((diff == 0).float().mean())
+    require(within1 >= IMAGE_MIN and equal >= 0.98,
+            f"{label} vs {what}: {within1} within 1, {equal} equal")
+    return {f"vs_{what}_within_1": within1, f"vs_{what}_equal": equal,
+            f"vs_{what}_pixels_differ": int((diff > 0).sum())}
+
+
+def plain_mode_frame(sr, operand, cfg, light, label: str, gpu: str,
+                     view=None) -> tuple:
+    """A frame of the bruteforce or BVH mode through ``render`` with the
+    counts reset just before and read just after: no kernel of csrc/
+    launched, coverage in (0.05, 0.99), finite radiance of the frame's
+    shape; then MODE_FRAMES frames timed and the card's peak allocated
+    memory.  Returns (image, the emitted line)."""
+    import torch
+    from simple_raytracer_tpu_torch.accel import traverse
+    from simple_raytracer_tpu_torch.render.integrator import finalize_image
+    cam = cfg.camera
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    rad, hit = sr.render_radiance(operand, cfg, light, view_matrix=view)
+    img = finalize_image(rad, hit, cfg)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    require(all(n == 0 for n in launches.values()),
+            f"{label} launched kernels of csrc/: {launches}")
+    require(tuple(img.shape) == (cam.height, cam.width, 3)
+            and img.device.type == "cuda"
+            and bool(torch.isfinite(rad).all()), f"bad radiance ({label})")
+    bg = (img == torch.tensor(cfg.background, dtype=torch.uint8,
+                              device=img.device)).all(dim=-1)
+    coverage = float((~bg).float().mean())
+    require(0.05 < coverage < 0.99, f"{label}: coverage {coverage}")
+    peak = torch.cuda.max_memory_allocated()
+    steps = {}
+    if cfg.mode == "bvh":
+        steps = {"nearest_steps": traverse.nearest_hit.steps,
+                 "shadow_steps": traverse.any_hit_other.steps}
+    t0 = time.time()
+    for _ in range(MODE_FRAMES):
+        out = sr.render(operand, cfg, light, view_matrix=view,
+                        device=operand.device)
+    torch.cuda.synchronize()
+    ms = (time.time() - t0) * 1e3 / MODE_FRAMES
+    require(bool(torch.equal(out, img)), f"{label}: timed frames differ")
+    res = {"phase": f"render ({label})", "mode": cfg.mode,
+           "width": cam.width, "height": cam.height, "focal": cam.focal,
+           "coverage": coverage, "launches": launches, "frames": MODE_FRAMES,
+           "ms_per_frame": ms, "peak_allocated_bytes": peak, **steps,
+           "gpu": gpu}
+    return img, res
+
+
+def plain_mode_phase(sr, prep, cfg, light, gpu: str) -> None:
+    """Phase 11: the bruteforce reference frame (in process and through
+    the CLI), the bruteforce soft textured frame, the BVH flagship frame,
+    the CLI's turntable with its resume, and the profiler's traces."""
+    import tempfile
+    import torch
+    from simple_raytracer_tpu_torch.accel.prepared import prepare
+    from simple_raytracer_tpu_torch.io.image import read_bmp
+    from simple_raytracer_tpu_torch.kernels import plan as pl
+    from simple_raytracer_tpu_torch.kernels.tiled import frame_branch
+    from simple_raytracer_tpu_torch.render.renderer import ensure_prepared
+    from simple_raytracer_tpu_torch.scene import catalog
+    from simple_raytracer_tpu_torch.scene import procedural as P
+    from simple_raytracer_tpu_torch.utils import metrics
+    dev = prep.device
+    with tempfile.TemporaryDirectory() as tmp:
+        write_assets(tmp)
+        # the reference frame: six spheres at the CLI's defaults
+        sm, view, slight = catalog.six_spheres(tmp, 0.0, bake_view=False)
+        scene = sm.build()
+        bf = sr.default_config()
+        require(bf.mode == "bruteforce", f"default mode {bf.mode}")
+        operand = ensure_prepared(scene, bf, dev)
+        label = (f"bruteforce: six_spheres, {scene.num_triangles} "
+                 f"triangles, {bf.camera.width}x{bf.camera.height}")
+        img, res = plain_mode_frame(sr, operand, bf, slight, label, gpu,
+                                    view)
+        out = os.path.join(tmp, "bf.bmp")
+        run_cli(["render", "--scene", "six_spheres", "--root", tmp,
+                 "--mode", "bruteforce", "--out", out], "render")
+        cli_img = torch.from_numpy(read_bmp(out))
+        require(torch.equal(cli_img, img.cpu()),
+                f"{label}: the CLI's BMP differs from render()")
+        tiled = sr.render(scene, bf.replace(mode="tiled"), slight, view,
+                          device=dev)
+        bvh = sr.render(scene, bf.replace(mode="bvh"), slight, view,
+                        device=dev)
+        emit(**res, triangles=scene.num_triangles, cli_bmp_equal=True,
+             **agreement(img, tiled, "tiled", label),
+             **agreement(img, bvh, "bvh", label))
+
+        # bruteforce soft textured against the tiled gather frame
+        tex_scene = P.textured_on_ground(sr.SceneManager(),
+                                         TEX_SUBDIV).build()
+        tcfg = bf.replace(camera=sr.CameraConfig(
+            width=OCC_WIDTH, height=OCC_HEIGHT, focal=OCC_FOCAL),
+            light=sr.LightConfig(num_samples=TEX_SAMPLES),
+            bvh=sr.BVHConfig(split="sah"))
+        label = (f"bruteforce soft textured: procedural textured_on_ground"
+                 f"({TEX_SUBDIV}), {tex_scene.num_triangles} triangles, "
+                 f"{OCC_WIDTH}x{OCC_HEIGHT}, S={TEX_SAMPLES}")
+        timg, res = plain_mode_frame(sr, tex_scene.to(dev), tcfg, light,
+                                     label, gpu)
+        gcfg = tcfg.replace(mode="tiled")
+        gprep = prepare(tex_scene, gcfg, dev)
+        tpx = pl.effective_tile_px(gcfg, gprep.scene.num_triangles)
+        require(frame_branch(gprep, gcfg, tpx * tpx) == "gather",
+                f"{label}: the tiled frame is not the gather branch")
+        gimg = sr.render(gprep, gcfg, light)
+        emit(**res, triangles=tex_scene.num_triangles,
+             **agreement(timg, gimg, "tiled_gather", label))
+
+        # the BVH flagship frame: the bench's scene at 256x192
+        fcam = sr.CameraConfig(width=FLAGSHIP_WIDTH, height=FLAGSHIP_HEIGHT,
+                               focal=P.bench_focal(FLAGSHIP_HEIGHT))
+        fcfg = cfg.replace(mode="bvh", camera=fcam)
+        label = (f"bvh flagship: {prep.num_triangles} triangles, "
+                 f"{FLAGSHIP_WIDTH}x{FLAGSHIP_HEIGHT}")
+        fimg, res = plain_mode_frame(sr, prep, fcfg, light, label, gpu)
+        ftiled = sr.render(prep, fcfg.replace(mode="tiled"), light)
+        emit(**res, triangles=prep.num_triangles, num_nodes=prep.num_nodes,
+             max_leaf=prep.max_leaf,
+             **agreement(fimg, ftiled, "tiled", label))
+
+        # the turntable through the CLI, then again: nothing to write
+        gen = os.path.join(tmp, "gen")
+        anim = ["animate", "--scene", "six_spheres", "--root", tmp,
+                "--step-deg", "120", "--fmt", "bmp", "--out-dir", gen]
+        first = run_cli(anim, "animate")
+        names = sorted(os.listdir(gen))
+        require(names == ["output0.bmp", "output120.bmp", "output240.bmp"],
+                f"animate wrote {names}")
+        mtimes = [os.path.getmtime(os.path.join(gen, n)) for n in names]
+        second = run_cli(anim, "animate (resume)")
+        require('"sweep"' in first and '"sweep"' not in second
+                and [os.path.getmtime(os.path.join(gen, n))
+                     for n in names] == mtimes
+                and sorted(os.listdir(gen)) == names,
+                "animate did not resume past its frames")
+        sweep = [json.loads(x) for x in first.splitlines()
+                 if '"sweep"' in x][0]
+        emit(phase="turntable (six_spheres, tiled, CLI)", files=names,
+             ms_per_frame=sweep["ms_per_frame"], resumed=True, gpu=gpu)
+
+        # the profiler: the CLI's trace, then 3 bench frames traced
+        trace_dir = os.path.join(tmp, "trace")
+        run_cli(["render", "--scene", "six_spheres", "--root", tmp,
+                 "--mode", "tiled", "--profile", trace_dir,
+                 "--out", os.path.join(tmp, "t.png")], "render --profile")
+        path = os.path.join(trace_dir, metrics.TRACE_FILE)
+        require(os.path.isfile(path), f"no trace at {path}")
+        # its window holds prepare and the kernels' first build as well as
+        # the frame, so it checks the trace, not the card's busy share
+        cli_kernels = metrics.busy_share(path)["kernels"]
+        require(cli_kernels > 0, "the CLI's trace has no kernels")
+        emit(phase="profile (CLI render, six_spheres, tiled)",
+             trace=os.path.relpath(path, tmp), trace_bytes=os.path.getsize(
+                 path), kernels=cli_kernels, gpu=gpu)
+        bench_dir = os.path.join(tmp, "bench_trace")
+        view_varied_ms(sr, prep, cfg, light, 2, "profile warm-up")
+        with metrics.profile_trace(bench_dir):
+            view_varied_ms(sr, prep, cfg, light, MODE_FRAMES, "profile")
+        bpath = os.path.join(bench_dir, metrics.TRACE_FILE)
+        share = metrics.busy_share(bpath)
+        require(share["kernels"] > 0, "the bench trace has no kernels")
+        emit(phase="profile (bench, 3 view-varied frames)",
+             trace_bytes=os.path.getsize(bpath), **share, gpu=gpu)
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2005,6 +2247,9 @@ def main() -> int:
 
     # 10. the probes: K1's fixed-cost parts and the winner fetch
     entries += probe_phase(prep, cfg, light, f"probes on the {bench}", gpu)
+
+    # 11. the plain PyTorch modes (bruteforce, BVH) and the command line
+    plain_mode_phase(sr, prep, cfg, light, gpu)
 
     print(json.dumps({"kernels": entries}))
     print(gpu)

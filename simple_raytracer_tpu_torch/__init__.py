@@ -2,10 +2,14 @@
 CUDA kernels for NVIDIA Hopper.
 
 A port of the JAX package ``simple_raytracer_tpu`` (the reference it is held
-against; it imports no JAX).  So far it renders ``mode="tiled"``: flat,
-textured and smooth-normal frames with hard or soft shadows, through the
-nearest-hit, any-hit and classification kernels in ``csrc/``.  Their plain
-PyTorch versions serve CPU tensors.
+against; it imports no JAX).  It renders every ``RenderConfig.mode``:
+``"tiled"`` (flat, textured and smooth-normal frames with hard or soft
+shadows, through the nearest-hit, any-hit and classification kernels in
+``csrc/``, whose plain PyTorch versions serve CPU tensors), and
+``"bruteforce"`` and ``"bvh"`` in plain PyTorch, as the JAX package runs
+them in jnp.  ``python -m simple_raytracer_tpu_torch render|animate`` is its
+command line (cli.py); every entry point runs on the card unless the caller
+asks for the CPU.
 """
 
 from .config import (AnimationConfig, BVHConfig, CameraConfig, KernelConfig,

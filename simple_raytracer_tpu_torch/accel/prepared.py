@@ -7,8 +7,10 @@ numpy, and the finished arrays are put on the device the caller names
 Counterpart of the JAX package's ``accel/prepared.py::prepare``.  The JAX
 PreparedScene also carries TPU matrix-unit operands (``gram``, ``gram_t``,
 ``gram_s``, ``attr_t``: Möller–Trumbore factors and bf16 attribute limbs laid
-out for MXU contractions) and the flattened BVH nodes of its ``bvh`` mode.
-The port keeps one Gram table, ``gram`` [Tp, 40]: each triangle's factors
+out for MXU contractions).  The port keeps the flattened BVH of the ``bvh``
+mode (``node_min``, ``node_max``, ``skip``, ``leaf_first``,
+``leaf_count``: the skip-pointer walk of accel/traverse.py) and one Gram
+table, ``gram`` [Tp, 40]: each triangle's factors
 (ops/intersect.py::pack_mt_gram, rows d, o×d, o, 1 by columns det, u, v, t)
 in the order of ``tri``, because the bf16 classification walk K3
 (kernels/prepass.py) states its error bound on the Gram contraction.  The
@@ -61,12 +63,23 @@ class PreparedScene:
     gram: torch.Tensor          # [Tp, 40] f32 — Gram factors [10, 4] (K3)
     tri_tex_map: torch.Tensor   # [Tp, 12] f32 — Au, cu, Av, cv, tex id, 0 0 0
     tri_nrm_map: torch.Tensor   # [Tp, 12] f32 — cn xyz, An row-major
+    node_min: torch.Tensor      # [M, 3] f32 — flattened BVH node AABBs,
+    node_max: torch.Tensor      # [M, 3] f32   preorder over every object
+    skip: torch.Tensor          # [M] i32 — next node on a miss or after a leaf
+    leaf_first: torch.Tensor    # [M] i32 — a leaf's first triangle; -1 interior
+    leaf_count: torch.Tensor    # [M] i32 — a leaf's triangles; 0 interior
     num_triangles: int = 0      # real (unpadded) triangle count
     block_size: int = 32
     page_tris: int = 128        # triangles per page of the paged walks
+    max_leaf: int = 8           # the largest leaf (the walk's window rows)
 
     TENSOR_FIELDS = ("block_min", "block_max", "block_obj", "tri", "tri_attr",
-                     "gram", "tri_tex_map", "tri_nrm_map")
+                     "gram", "tri_tex_map", "tri_nrm_map", "node_min",
+                     "node_max", "skip", "leaf_first", "leaf_count")
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.skip.shape[0])
 
     @property
     def num_blocks(self) -> int:
@@ -160,6 +173,12 @@ def map_tables(verts: np.ndarray, uvs: np.ndarray, vnormals: np.ndarray,
     return tex.astype(np.float32), nrm.astype(np.float32)
 
 
+# the flattened BVH's arrays (accel/bvh.py::FlatBVHHost) and their dtypes
+NODE_FIELDS = {"node_min": np.float32, "node_max": np.float32,
+               "skip": np.int32, "leaf_first": np.int32,
+               "leaf_count": np.int32}
+
+
 def _block_obj(tri_obj: np.ndarray, nb: int, bs: int) -> np.ndarray:
     """Per-block object id.  Per-object padding (``prepare``) makes every
     block single-object; padding rows (-1) do not count."""
@@ -172,8 +191,9 @@ def _block_obj(tri_obj: np.ndarray, nb: int, bs: int) -> np.ndarray:
 
 
 def _finish(scene_np: Dict[str, np.ndarray], has_textures: bool,
-            block_min, block_max, block_obj, num_triangles: int,
-            block_size: int, page_tris: int, device) -> PreparedScene:
+            block_min, block_max, block_obj, nodes: Dict[str, np.ndarray],
+            num_triangles: int, block_size: int, page_tris: int,
+            device) -> PreparedScene:
     tri, attr = kernel_tables(scene_np["verts"], scene_np["tri_normal"],
                               scene_np["tri_obj"])
     gram = gram_table(scene_np["verts"])
@@ -188,8 +208,11 @@ def _finish(scene_np: Dict[str, np.ndarray], has_textures: bool,
         block_obj=t(block_obj, np.int32), tri=t(tri, np.float32),
         tri_attr=t(attr, np.float32), gram=t(gram, np.float32),
         tri_tex_map=t(tex_map, np.float32), tri_nrm_map=t(nrm_map, np.float32),
+        **{n: t(nodes[n], dt) for n, dt in NODE_FIELDS.items()},
         num_triangles=int(num_triangles),
-        block_size=int(block_size), page_tris=int(page_tris)).to(device)
+        block_size=int(block_size), page_tris=int(page_tris),
+        max_leaf=max(1, int(np.max(nodes["leaf_count"], initial=0)))
+    ).to(device)
 
 
 def prepare(scene: Scene, cfg: RenderConfig,
@@ -264,9 +287,8 @@ def prepare(scene: Scene, cfg: RenderConfig,
             pad_mask[po:po + c] = False
     sc = reorder(sc, src)
 
-    # tail slack kept from the JAX layout (its BVH leaf windows read up to
-    # max_leaf rows past their first triangle), so triangle ids and block
-    # counts agree between the packages
+    # tail slack: the BVH walk's leaf windows read max_leaf rows from their
+    # first triangle (accel/traverse.py), so keep the array that long
     pad_to = max(-(-max(Tp, 1) // pt) * pt, Tp + flat.max_leaf)
     pad_to = -(-pad_to // pt) * pt
     pad = pad_to - Tp
@@ -300,7 +322,9 @@ def prepare(scene: Scene, cfg: RenderConfig,
     vc = sc["verts"][..., :3] / sc["verts"][..., 3:4]
     bmin, bmax, nb = triangle_blocks(vc, bs)
     return _finish(sc, scene.has_textures, bmin, bmax,
-                   _block_obj(sc["tri_obj"], nb, bs), T, bs, pt, dev)
+                   _block_obj(sc["tri_obj"], nb, bs),
+                   {n: getattr(flat, n) for n in NODE_FIELDS}, T, bs, pt,
+                   dev)
 
 
 def from_jax_prepared(arrays: Dict[str, np.ndarray], has_textures: bool = False,
@@ -308,7 +332,9 @@ def from_jax_prepared(arrays: Dict[str, np.ndarray], has_textures: bool = False,
                       page_tris: int = 128, device="cuda") -> PreparedScene:
     """The fields of a JAX ``PreparedScene`` that the port keeps, as numpy
     arrays keyed by name: every ``Scene`` field (its padded, BVH-ordered
-    triangles) plus ``block_min``, ``block_max`` and ``block_obj`` ->
+    triangles) plus ``block_min``, ``block_max``, ``block_obj`` and the
+    flattened BVH (``node_min``, ``node_max``, ``skip``, ``leaf_first``,
+    ``leaf_count``) ->
     the port's :class:`PreparedScene` on ``device`` (as :func:`prepare`).
     Triangle ids then mean the same thing in both packages."""
     dev = target_device(device)
@@ -318,5 +344,5 @@ def from_jax_prepared(arrays: Dict[str, np.ndarray], has_textures: bool = False,
     sc = {n: np.asarray(arrays[n], dtypes.get(n, np.float32))
           for n in Scene.ARRAY_FIELDS}
     return _finish(sc, has_textures, arrays["block_min"], arrays["block_max"],
-                   arrays["block_obj"], num_triangles, block_size, page_tris,
-                   dev)
+                   arrays["block_obj"], {n: arrays[n] for n in NODE_FIELDS},
+                   num_triangles, block_size, page_tris, dev)

@@ -101,8 +101,8 @@ class KernelConfig:
     break.  The widths are the JAX package's (WINDOW_BLOCKS 2 for the
     nearest walk, whose break rewards short windows; 4 for the any-hit walk,
     which has no ordering gain), so the two packages walk the same plans.
-    ``threads`` (the JAX field) is read by no kernel: every walk runs as
-    work items in CTAs of its own.  K1's walk runs CTAs of 256 threads x 2
+    The JAX field ``threads`` has no counterpart: every walk runs as work
+    items in CTAs of its own.  K1's walk runs CTAs of 256 threads x 2
     rays over 512-ray slices and its epilogue blocks of 256 threads; the
     any-hit walk (K2 from t; K2′, K5, K7 over explicit rays), the walks
     over explicit rays of the nearest pass (K1's rays mode, K4, K6) and K3
@@ -133,7 +133,6 @@ class KernelConfig:
     (kernels/plan.py::effective_cull_maxv).
     """
 
-    threads: int = 512
     window_blocks: int = 2
     window_blocks_ah: int = 4
     attr_fetch: bool = True
@@ -165,8 +164,12 @@ class RenderConfig:
     bvh: BVHConfig = dataclasses.field(default_factory=BVHConfig)
     kernel: KernelConfig = dataclasses.field(default_factory=KernelConfig)
 
-    # 'tiled' is the only mode ported so far (render/renderer.py); the JAX
-    # package's default 'bruteforce' and 'bvh' raise NotImplementedError.
+    # 'bruteforce' — all ray x triangle pairs in plain PyTorch (the exact
+    #                oracle; render/renderer.py)
+    # 'bvh'        — the stackless flattened-BVH walk in plain PyTorch,
+    #                batched over rays (accel/traverse.py)
+    # 'tiled'      — per-tile cull plans + the hand-written CUDA kernels
+    #                (kernels/tiled.py)
     mode: str = "bruteforce"
 
     # Pixel tile edge for the tiled path (tile = tile_px * tile_px rays).
@@ -195,6 +198,11 @@ class RenderConfig:
     # get an exact front-to-back list; heavier tiles walk the covering
     # contiguous window range (no early break).
     cull_maxv: int = 248
+
+    # Rays per chunk of the bvh and bruteforce modes (bounds the per-ray
+    # scratch of the leaf-window gathers and the ray x triangle passes).
+    # 0 = a single chunk.
+    ray_chunk: int = 131072
 
     # Background for pixels with no hit OR hits shading to exactly (0,0,0):
     # light blue 173,216,230 (simple_raytracer.cpp:476-487).

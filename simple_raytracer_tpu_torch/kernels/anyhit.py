@@ -51,7 +51,7 @@ LIST_SPAN_TRIS = 256
 
 def tiled_anyhit_from_t(plan, tri, block_obj, t, obj, cam, tile_px: int,
                         window_tris: int, block_size: int, eps: float,
-                        no_max_t: bool = True, threads: int = 512):
+                        no_max_t: bool = True):
     """Hard-shadow query of every tile of ``plan``.
 
     plan [n, W] i32 (kernels/plan.py layout, windows of ``window_tris``
@@ -60,12 +60,11 @@ def tiled_anyhit_from_t(plan, tri, block_obj, t, obj, cam, tile_px: int,
     from the nearest pass; cam [24] (plan.make_cam: the camera and the
     light).  Returns found [n, tile] bool: the ray from the hit point toward
     the light meets a triangle of another object, at any t >= 0 (no max-t
-    unless ``no_max_t`` is False).  Miss lanes read True; callers mask.
-    ``threads`` is not read: the walk's CTAs are the kernel's own."""
+    unless ``no_max_t`` is False).  Miss lanes read True; callers mask."""
     if plan.device.type == "cpu":
         return tiled_anyhit_from_t_plain(plan, tri, block_obj, t, obj, cam,
                                          tile_px, window_tris, block_size,
-                                         eps, no_max_t, threads)
+                                         eps, no_max_t)
     if plan.device.type != "cuda":
         raise ValueError(f"no any-hit kernel for device {plan.device}")
     launch, found, _ = anyhit_from_t_call(plan, tri, block_obj, t, obj, cam,
@@ -243,10 +242,10 @@ def _walk_spans(plan, tri, block_obj, p, s, self_obj, found,
 def tiled_anyhit_from_t_plain(plan, tri, block_obj, t, obj, cam,
                               tile_px: int, window_tris: int,
                               block_size: int, eps: float,
-                              no_max_t: bool = True, threads: int = 512,
-                              slice_rays: int = 0, spans=None):
+                              no_max_t: bool = True, slice_rays: int = 0,
+                              spans=None):
     """Plain PyTorch version of :func:`tiled_anyhit_from_t` (same arguments
-    and results; ``threads`` is ignored).  Walks each tile whole, or with
+    and results).  Walks each tile whole, or with
     ``slice_rays`` and ``spans`` the kernel's work items
     (:func:`walk_plain`): the same found either way."""
     dx, dy, dz = tile_ray_dirs(cam, plan[:, 4], plan[:, 5], tile_px)
@@ -286,8 +285,7 @@ def anyhit_from_t(prep, cfg, t, obj, bounds, light_pos, cam_spec, maxv: int,
     cam = pl.make_cam(vmx, focal, light_pos, None, dev)
     found = kernel(plan, prep.tri, prep.block_obj, t.reshape(n, tile),
                    obj.reshape(n, tile), cam, tpx, wb * prep.block_size,
-                   prep.block_size, cfg.mt_eps, cfg.light.shadow_no_max_t,
-                   cfg.kernel.threads)
+                   prep.block_size, cfg.mt_eps, cfg.light.shadow_no_max_t)
     return found.reshape(-1)
 
 
@@ -368,8 +366,7 @@ def rays_shape(window_tris: int, block_size: int, m: int,
 
 
 def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
-                 block_size: int, eps: float, no_max_t: bool = True,
-                 threads: int = 512):
+                 block_size: int, eps: float, no_max_t: bool = True):
     """Occlusion query over explicit rays, one plan row per tile.
 
     plan [n, W] i32 (kernels/plan.py layout, windows of ``window_tris``
@@ -377,12 +374,10 @@ def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
     i32 (accel/prepared.py); o, d [n, M, 3] f32 the rays o + t*d of each
     tile (any M); self_obj [n, M] i32 each ray's own object.  Returns
     found [n, M] bool: the ray meets a triangle of another object at t >= 0
-    (and t <= 1 unless ``no_max_t``).  ``threads`` is not read: the walk's
-    CTAs are the kernel's own."""
+    (and t <= 1 unless ``no_max_t``)."""
     if plan.device.type == "cpu":
         return tiled_anyhit_plain(plan, tri, block_obj, o, d, self_obj,
-                                  window_tris, block_size, eps, no_max_t,
-                                  threads)
+                                  window_tris, block_size, eps, no_max_t)
     if plan.device.type != "cuda":
         raise ValueError(f"no any-hit kernel for device {plan.device}")
     found = launch_anyhit_rays(plan, tri, block_obj, o, d, self_obj,
@@ -396,9 +391,9 @@ tiled_anyhit.launches = 0
 
 def tiled_anyhit_plain(plan, tri, block_obj, o, d, self_obj,
                        window_tris: int, block_size: int, eps: float,
-                       no_max_t: bool = True, threads: int = 512):
+                       no_max_t: bool = True):
     """Plain PyTorch version of :func:`tiled_anyhit` (same arguments and
-    results; ``threads`` is ignored)."""
+    results)."""
     p = (o[..., 0], o[..., 1], o[..., 2])
     s = (d[..., 0], d[..., 1], d[..., 2])
     found = torch.zeros(self_obj.shape, dtype=torch.bool, device=plan.device)
@@ -408,7 +403,7 @@ def tiled_anyhit_plain(plan, tri, block_obj, o, d, self_obj,
 
 def tiled_anyhit_grouped(plan, tri, block_obj, o, d, self_obj,
                          window_tris: int, block_size: int, eps: float,
-                         no_max_t: bool, groups: int, threads: int = 512):
+                         no_max_t: bool, groups: int):
     """K5: :func:`tiled_anyhit` over a grouped plan
     (plan.group_mask_words): the tile's M rays are ``groups`` sub-groups
     of M / groups consecutive lanes (a multiple of 32); a sub-group skips
@@ -417,7 +412,7 @@ def tiled_anyhit_grouped(plan, tri, block_obj, o, d, self_obj,
     if plan.device.type == "cpu":
         return tiled_anyhit_grouped_plain(plan, tri, block_obj, o, d,
                                           self_obj, window_tris, block_size,
-                                          eps, no_max_t, groups, threads)
+                                          eps, no_max_t, groups)
     if plan.device.type != "cuda":
         raise ValueError(f"no any-hit kernel for device {plan.device}")
     found = launch_anyhit_rays(plan, tri, block_obj, o, d, self_obj,
@@ -432,10 +427,9 @@ tiled_anyhit_grouped.launches = 0
 
 def tiled_anyhit_grouped_plain(plan, tri, block_obj, o, d, self_obj,
                                window_tris: int, block_size: int, eps: float,
-                               no_max_t: bool, groups: int,
-                               threads: int = 512):
+                               no_max_t: bool, groups: int):
     """Plain PyTorch version of :func:`tiled_anyhit_grouped` (same
-    arguments and results; ``threads`` is ignored): :func:`walk_plain` over
+    arguments and results): :func:`walk_plain` over
     the n * groups sub-tiles, each with its mask."""
     n, m = self_obj.shape
     check_groups(m, groups)
@@ -468,5 +462,5 @@ def anyhit(prep, cfg, o, d, self_obj2d, plan, tile: int,
             self_obj2d.to(torch.int32).contiguous(), wt, prep.block_size,
             cfg.mt_eps, cfg.light.shadow_no_max_t)
     if groups > 1:
-        return kernel(*args, groups, cfg.kernel.threads)
-    return kernel(*args, cfg.kernel.threads)
+        return kernel(*args, groups)
+    return kernel(*args)

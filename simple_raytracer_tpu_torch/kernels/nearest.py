@@ -205,8 +205,8 @@ def k1_shape(window_tris: int) -> dict:
 def tiled_nearest_shaded(plan, tri, tri_attr, mat, cam, tile_px: int,
                          window_tris: int, eps: float,
                          double_sided: bool = True,
-                         specular_nl: bool = True, threads: int = 512,
-                         mode: int = FLAT, attr_map=None):
+                         specular_nl: bool = True, mode: int = FLAT,
+                         attr_map=None):
     """Nearest hit + Phong + bounds of every tile of ``plan``.
 
     plan [n, W] i32 (kernels/plan.py layout, pixel origins in columns 4/5);
@@ -216,8 +216,8 @@ def tiled_nearest_shaded(plan, tri, tri_attr, mat, cam, tile_px: int,
     (JAX ``_fused_phong`` attr_mode): FLAT shades with the flat normal;
     SMOOTH with normalize(An p + cn) from ``attr_map`` = tri_nrm_map;
     TEXTURED emits the colour-free Phong factors and the texel coordinates
-    of ``attr_map`` = tri_tex_map at the hit point.  ``threads`` is not
-    read: K1's blocks are the kernel's own (csrc/nearest.cu).
+    of ``attr_map`` = tri_tex_map at the hit point.  K1's blocks are the
+    kernel's own (csrc/nearest.cu).
     Returns t [n, tile] f32 (inf on a miss), idx [n, tile] i32 (-1),
     obj [n, tile] i32 (-1), the shading rows [n * tile, 3 or 6] f32 (FLAT,
     SMOOTH: unshadowed pre-tonemap rgb, 0 on a miss; TEXTURED: dw = n.l
@@ -227,8 +227,8 @@ def tiled_nearest_shaded(plan, tri, tri_attr, mat, cam, tile_px: int,
     if plan.device.type == "cpu":
         return tiled_nearest_shaded_plain(plan, tri, tri_attr, mat, cam,
                                           tile_px, window_tris, eps,
-                                          double_sided, specular_nl, threads,
-                                          mode, attr_map)
+                                          double_sided, specular_nl, mode,
+                                          attr_map)
     if plan.device.type != "cuda":
         raise ValueError(f"no nearest kernel for device {plan.device}")
     shade_width(mode)
@@ -247,7 +247,7 @@ tiled_nearest_shaded.mode_launches = dict.fromkeys(MODES, 0)
 
 
 def tiled_nearest_attrs(plan, tri, tri_attr, cam, tile_px: int,
-                        window_tris: int, eps: float, threads: int = 512):
+                        window_tris: int, eps: float):
     """Nearest hit + the winner's attribute row over every tile of ``plan``
     (K1's fetch mode).  Arguments as :func:`tiled_nearest_shaded` (``cam``'s
     light and frame are not read).  Returns t [n, tile] f32 (inf on a
@@ -256,7 +256,7 @@ def tiled_nearest_attrs(plan, tri, tri_attr, cam, tile_px: int,
     miss."""
     if plan.device.type == "cpu":
         return tiled_nearest_attrs_plain(plan, tri, tri_attr, cam, tile_px,
-                                         window_tris, eps, threads)
+                                         window_tris, eps)
     if plan.device.type != "cuda":
         raise ValueError(f"no nearest kernel for device {plan.device}")
     launch, outs, _ = k1_call(plan, tri, tri_attr, cam, tile_px,
@@ -489,16 +489,13 @@ def check_groups(m: int, groups: int) -> None:
                          f"warps")
 
 
-def tiled_nearest_rays(plan, tri, o, d, window_tris: int, eps: float,
-                       threads: int = 512):
+def tiled_nearest_rays(plan, tri, o, d, window_tris: int, eps: float):
     """K1 over explicit rays: the nearest hit of rays o, d [n, M, 3] over
     every tile of ``plan`` (windows of ``window_tris`` triangles; the
     prepass walk's refined plan).  Returns t [n, M] f32 (inf on a miss) and
-    idx [n, M] i32 (-1); equal t goes to the lowest triangle id.
-    ``threads`` is not read: the walk's CTAs are the kernel's own."""
+    idx [n, M] i32 (-1); equal t goes to the lowest triangle id."""
     if plan.device.type == "cpu":
-        return tiled_nearest_rays_plain(plan, tri, o, d, window_tris, eps,
-                                        threads)
+        return tiled_nearest_rays_plain(plan, tri, o, d, window_tris, eps)
     if plan.device.type != "cuda":
         raise ValueError(f"no nearest kernel for device {plan.device}")
     out = launch_nearest_rays(plan, tri, o, d, window_tris, eps)
@@ -509,10 +506,9 @@ def tiled_nearest_rays(plan, tri, o, d, window_tris: int, eps: float,
 tiled_nearest_rays.launches = 0
 
 
-def tiled_nearest_rays_plain(plan, tri, o, d, window_tris: int, eps: float,
-                             threads: int = 512):
+def tiled_nearest_rays_plain(plan, tri, o, d, window_tris: int, eps: float):
     """Plain PyTorch version of :func:`tiled_nearest_rays` (same arguments
-    and results; ``threads`` is ignored): :func:`walk_plain` in the
+    and results): :func:`walk_plain` in the
     kernel's slices and list spans."""
     return walk_plain(plan, tri, xyz(o), xyz(d), window_tris, eps,
                       slice_rays=slice_rays(o.shape[1]),
@@ -520,7 +516,7 @@ def tiled_nearest_rays_plain(plan, tri, o, d, window_tris: int, eps: float,
 
 
 def tiled_nearest_grouped(plan, tri, o, d, window_tris: int, eps: float,
-                          groups: int, threads: int = 512):
+                          groups: int):
     """K4: :func:`tiled_nearest_rays` over a grouped plan
     (plan.group_mask_words): the tile's M rays are ``groups`` sub-groups
     of M / groups consecutive lanes (a multiple of 32); a sub-group skips
@@ -528,7 +524,7 @@ def tiled_nearest_grouped(plan, tri, o, d, window_tris: int, eps: float,
     Same results as the ungrouped walk of the plan's entries."""
     if plan.device.type == "cpu":
         return tiled_nearest_grouped_plain(plan, tri, o, d, window_tris, eps,
-                                           groups, threads)
+                                           groups)
     if plan.device.type != "cuda":
         raise ValueError(f"no nearest kernel for device {plan.device}")
     out = launch_nearest_rays(plan, tri, o, d, window_tris, eps, groups,
@@ -557,9 +553,9 @@ def group_walk_masks(plan, groups: int):
 
 
 def tiled_nearest_grouped_plain(plan, tri, o, d, window_tris: int,
-                                eps: float, groups: int, threads: int = 512):
+                                eps: float, groups: int):
     """Plain PyTorch version of :func:`tiled_nearest_grouped` (same
-    arguments and results; ``threads`` is ignored): :func:`walk_plain` over
+    arguments and results): :func:`walk_plain` over
     the n * groups sub-tiles, each with its mask, in the kernel's slices
     and list spans."""
     n, m = o.shape[:2]
@@ -775,10 +771,9 @@ def _walk_plain(plan, tri, cam, tile_px: int, window_tris: int, eps: float):
 
 
 def tiled_nearest_attrs_plain(plan, tri, tri_attr, cam, tile_px: int,
-                              window_tris: int, eps: float,
-                              threads: int = 512):
+                              window_tris: int, eps: float):
     """Plain PyTorch version of :func:`tiled_nearest_attrs` (same arguments
-    and results; ``threads`` is ignored)."""
+    and results)."""
     bt, idx, *_ = _walk_plain(plan, tri, cam, tile_px, window_tris, eps)
     miss = torch.tensor([0.0, 0.0, 0.0, -1.0], device=plan.device)
     attrs = torch.where((idx >= 0)[..., None],
@@ -789,10 +784,10 @@ def tiled_nearest_attrs_plain(plan, tri, tri_attr, cam, tile_px: int,
 def tiled_nearest_shaded_plain(plan, tri, tri_attr, mat, cam, tile_px: int,
                                window_tris: int, eps: float,
                                double_sided: bool = True,
-                               specular_nl: bool = True, threads: int = 512,
-                               mode: int = FLAT, attr_map=None):
+                               specular_nl: bool = True, mode: int = FLAT,
+                               attr_map=None):
     """Plain PyTorch version of :func:`tiled_nearest_shaded` (same
-    arguments and results; ``threads`` is ignored)."""
+    arguments and results)."""
     n, tile = plan.shape[0], tile_px * tile_px
     width = shade_width(mode)
     bt, idx, dx, dy, dz = _walk_plain(plan, tri, cam, tile_px, window_tris,
@@ -902,7 +897,7 @@ def shaded_args(prep, cfg, light_pos, cam_spec, maxv: int) -> tuple:
     return (plan, prep.tri, prep.tri_attr, mat, cam, tpx,
             cfg.kernel.window_blocks * prep.block_size, cfg.mt_eps,
             cfg.shading.double_sided_diffuse, cfg.shading.specular_nl_factor,
-            cfg.kernel.threads, mode, amap)
+            mode, amap)
 
 
 def hits_attrs(prep, cfg, cam_spec, maxv: int, kernel=tiled_nearest_attrs):
@@ -915,7 +910,7 @@ def hits_attrs(prep, cfg, cam_spec, maxv: int, kernel=tiled_nearest_attrs):
     cam = pl.make_cam(vmx, focal, (0.0, 0.0, 0.0), None, prep.device)
     t, idx, attrs = kernel(plan, prep.tri, prep.tri_attr, cam, tpx,
                            cfg.kernel.window_blocks * prep.block_size,
-                           cfg.mt_eps, cfg.kernel.threads)
+                           cfg.mt_eps)
     return t.reshape(-1), idx.reshape(-1), attrs
 
 
@@ -958,8 +953,7 @@ def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = True,
         plan = primary_plan(prep, cfg, cam_spec, maxv)
         cam = pl.make_cam(vmx, focal, (0.0, 0.0, 0.0), None, prep.device)
         t, idx, _ = kernels["nearest_attrs"](plan, prep.tri, prep.tri_attr,
-                                             cam, tpx, wt, cfg.mt_eps,
-                                             kc.threads)
+                                             cam, tpx, wt, cfg.mt_eps)
         return t.reshape(-1)[:R], idx.reshape(-1)[:R]
     plan = pl.cull_rays(prep, o, d, tile, maxv, wb, groups=groups,
                         apex=apex)
@@ -969,12 +963,12 @@ def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = True,
     d3 = dp.reshape(n, tile, 3).contiguous()
     if groups > 1:
         t, idx = kernels["nearest_grouped"](plan, prep.tri, o3, d3, wt,
-                                            cfg.mt_eps, groups, kc.threads)
+                                            cfg.mt_eps, groups)
     else:
         if kc.prepass:
             flags = kernels["prepass"](plan, prep.gram, o3, d3, wt,
-                                       cfg.mt_eps, kc.threads)
+                                       cfg.mt_eps)
             plan = refine_plan(plan, flags)
         t, idx = kernels["nearest_rays"](plan, prep.tri, o3, d3, wt,
-                                         cfg.mt_eps, kc.threads)
+                                         cfg.mt_eps)
     return t.reshape(-1)[:R], idx.reshape(-1)[:R]

@@ -37,17 +37,16 @@ def page_blocks(prep) -> int:
     return prep.page_tris // prep.block_size
 
 
-def tiled_nearest(plan, tri, o, d, window_tris: int, eps: float,
-                  threads: int = 512):
+def tiled_nearest(plan, tri, o, d, window_tris: int, eps: float):
     """Nearest hit of explicit rays over every tile of ``plan``.
 
     plan [n, W] i32 (kernels/plan.py layout, windows of ``window_tris``
     triangles: pages); tri [Tp, 9] (accel/prepared.py); o, d [n, M, 3] f32
     the rays of each tile (any M).  Returns t [n, M] f32 (inf on a miss)
     and idx [n, M] i32 (-1 on a miss); equal t goes to the lowest triangle
-    id.  ``threads`` is not read: the walk's CTAs are the kernel's own."""
+    id."""
     if plan.device.type == "cpu":
-        return tiled_nearest_plain(plan, tri, o, d, window_tris, eps, threads)
+        return tiled_nearest_plain(plan, tri, o, d, window_tris, eps)
     if plan.device.type != "cuda":
         raise ValueError(f"no nearest kernel for device {plan.device}")
     out = _nearest.launch_nearest_rays(plan, tri, o, d, window_tris, eps,
@@ -59,26 +58,23 @@ def tiled_nearest(plan, tri, o, d, window_tris: int, eps: float,
 tiled_nearest.launches = 0
 
 
-def tiled_nearest_plain(plan, tri, o, d, window_tris: int, eps: float,
-                        threads: int = 512):
+def tiled_nearest_plain(plan, tri, o, d, window_tris: int, eps: float):
     """Plain PyTorch version of :func:`tiled_nearest` (same arguments and
-    results; ``threads`` is ignored): kernels/nearest.py::walk_plain in the
+    results): kernels/nearest.py::walk_plain in the
     kernel's slices and list spans."""
     return _nearest.tiled_nearest_rays_plain(plan, tri, o, d, window_tris,
                                              eps)
 
 
 def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
-                 block_size: int, eps: float, no_max_t: bool = True,
-                 threads: int = 512):
+                 block_size: int, eps: float, no_max_t: bool = True):
     """Occlusion of explicit rays over every tile of a page plan (K7):
     arguments and result as kernels/anyhit.py::tiled_anyhit, with
     ``window_tris`` the page size.  Runs the same device walk as K2′ and
     counts its launches apart."""
     if plan.device.type == "cpu":
         return tiled_anyhit_plain(plan, tri, block_obj, o, d, self_obj,
-                                  window_tris, block_size, eps, no_max_t,
-                                  threads)
+                                  window_tris, block_size, eps, no_max_t)
     if plan.device.type != "cuda":
         raise ValueError(f"no any-hit kernel for device {plan.device}")
     found = _anyhit.launch_anyhit_rays(
@@ -137,5 +133,5 @@ def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = False,
     n = o.shape[0] // tile
     t, idx = kernel(plan, prep.tri, o.reshape(n, tile, 3).contiguous(),
                     d.reshape(n, tile, 3).contiguous(), prep.page_tris,
-                    cfg.mt_eps, cfg.kernel.threads)
+                    cfg.mt_eps)
     return t.reshape(-1)[:R], idx.reshape(-1)[:R]

@@ -96,8 +96,7 @@ def prepass_shape(window_tris: int, m: int) -> dict:
                      "threads"), out))
 
 
-def tiled_prepass(plan, gram, o, d, window_tris: int, eps: float,
-                  threads: int = 512):
+def tiled_prepass(plan, gram, o, d, window_tris: int, eps: float):
     """Window flags of every tile of ``plan``.
 
     plan [n, W] i32 (kernels/plan.py layout, windows of ``window_tris``
@@ -107,11 +106,9 @@ def tiled_prepass(plan, gram, o, d, window_tris: int, eps: float,
     the tile under the bf16 error bound ``PREPASS_M * sum_k |G_k| alpha_k``
     (as the work items of :func:`tiled_prepass_plain` find it).  Positions
     past the walk (and rows in range mode longer than the plan's entries)
-    read False.  ``threads`` is not read: the walk's CTAs are the
-    kernel's own."""
+    read False."""
     if plan.device.type == "cpu":
-        return tiled_prepass_plain(plan, gram, o, d, window_tris, eps,
-                                   threads)
+        return tiled_prepass_plain(plan, gram, o, d, window_tris, eps)
     if plan.device.type != "cuda":
         raise ValueError(f"no prepass kernel for device {plan.device}")
     launch, flags, _ = prepass_call(plan, gram, o, d, window_tris, eps)
@@ -148,10 +145,10 @@ def work_rows(plan, n_windows: int, range_span: int = PREPASS_RANGE_SPAN,
 
 
 def tiled_prepass_plain(plan, gram, o, d, window_tris: int, eps: float,
-                        threads: int = 512, slice_rays: int = None,
-                        range_span: int = None, list_span: int = None):
+                        slice_rays: int = None, range_span: int = None,
+                        list_span: int = None):
     """Plain PyTorch version of :func:`tiled_prepass` (same arguments and
-    flags; ``threads`` is ignored), a model of the kernel's work items.
+    flags), a model of the kernel's work items.
     Each tile's rays are cut into slices of ``slice_rays`` consecutive
     lanes (default nearest.slice_rays(M); a last slice cut short walks with
     copies of its first ray, which change nothing), each slice walks every

@@ -6,7 +6,9 @@ directions NOT normalized.  With a view matrix V (Transformation.cpp:84-90)
 the rays move instead of the world: origin V[:3, 3], direction
 V[:3, :3] @ (i, j, focal).
 
-The tiled renderer works in 2D-TILE-MAJOR order: flat ray index
+The bruteforce and BVH modes take rays in row-major image order
+(:func:`primary_rays`, :func:`primary_rays_world`).  The tiled renderer
+works in 2D-TILE-MAJOR order: flat ray index
 ``((tyi * tx + txi) * tile_px + y_in_tile) * tile_px + x_in_tile``.  Its
 kernels rebuild each ray from its pixel index and a few per-frame constants
 (:func:`tile_ray_dirs`), so no ray array is ever stored.
@@ -15,6 +17,38 @@ kernels rebuild each ray from its pixel index and a few per-frame constants
 from __future__ import annotations
 
 import torch
+
+
+def primary_rays(width: int, height: int, focal: float = 400.0,
+                 normalize: bool = False, device=None):
+    """All primary rays of a W x H image in row-major order: origins
+    [H, W, 3] at 0 and directions (i, j, focal) with column i in
+    [-W/2, W - W/2) and row j in [-H/2, H - H/2)."""
+    i = torch.arange(-(width // 2), width - width // 2, dtype=torch.float32,
+                     device=device)
+    j = torch.arange(-(height // 2), height - height // 2,
+                     dtype=torch.float32, device=device)
+    jj, ii = torch.meshgrid(j, i, indexing="ij")          # [H, W]
+    d = torch.stack([ii, jj, torch.full_like(ii, float(focal))], dim=-1)
+    if normalize:
+        d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    return torch.zeros_like(d), d
+
+
+def primary_rays_world(width: int, height: int, view_matrix,
+                       focal: float = 400.0, normalize: bool = False,
+                       device=None):
+    """World-space primary rays of the camera ``view_matrix`` V
+    (Transformation.cpp:84-90 convention): origin V[:3, 3], direction
+    V[:3, :3] @ (i, j, focal), normalized after the rotation if asked.
+    The scene stays static and the rays move (JAX
+    ops/camera.py::primary_rays_world).  [H, W, 3] each."""
+    _, d = primary_rays(width, height, focal, normalize=False, device=device)
+    V = torch.as_tensor(view_matrix, dtype=torch.float32, device=d.device)
+    d = torch.einsum("ij,hwj->hwi", V[:3, :3], d)
+    if normalize:
+        d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
+    return V[:3, 3].expand(d.shape), d
 
 
 def primary_rays_tiled(width: int, height: int, tile_px: int,

@@ -1,5 +1,7 @@
-"""Möller–Trumbore in plain PyTorch: the arithmetic both kernels' plain
-versions share (kernels/nearest.py, kernels/anyhit.py).
+"""Möller–Trumbore and the slab AABB tests in plain PyTorch: the arithmetic
+the kernels' plain versions share (kernels/nearest.py, kernels/anyhit.py),
+and the ops of the bruteforce and BVH modes (render/renderer.py,
+accel/traverse.py).
 
 Conventions (from the reference, simple_raytracer.cpp:42-75):
 
@@ -133,3 +135,40 @@ def moller_trumbore(origin: torch.Tensor, direction: torch.Tensor,
     e2 = verts_cart[..., 2, :] - p1
     return mt_distance(*mt_numerators(xyz(origin), xyz(direction), xyz(p1),
                                       xyz(e1), xyz(e2)), eps)
+
+
+def slab_test_origin(direction: torch.Tensor, box_min: torch.Tensor,
+                     box_max: torch.Tensor) -> torch.Tensor:
+    """Slab AABB test of rays from the view-space origin
+    (simple_raytracer.cpp:204-248); bool, broadcasting over leading dims.
+    A zero direction component divides to +-inf, and 0/0 (a box plane
+    through the origin) to NaN; minimum, maximum, amax and amin carry the
+    NaN through, as jnp's do, so such a test reads False."""
+    t0 = box_min / direction
+    t1 = box_max / direction
+    lo = torch.minimum(t0, t1).amax(dim=-1)
+    hi = torch.maximum(t0, t1).amin(dim=-1)
+    return lo <= hi
+
+
+def slab_test(origin: torch.Tensor, direction: torch.Tensor,
+              box_min: torch.Tensor, box_max: torch.Tensor) -> torch.Tensor:
+    """General-origin slab test (simple_raytracer.cpp:252-293), for shadow
+    rays and the BVH walk.  Like the reference there is no t-range
+    clipping: a box wholly behind the origin is a hit."""
+    t0 = (box_min - origin) / direction
+    t1 = (box_max - origin) / direction
+    lo = torch.minimum(t0, t1).amax(dim=-1)
+    hi = torch.maximum(t0, t1).amin(dim=-1)
+    return lo <= hi
+
+
+def nearest_hit(origin: torch.Tensor, direction: torch.Tensor,
+                verts_cart: torch.Tensor, eps: float = 1e-12):
+    """Brute-force nearest hit of one ray ([3] each) against every triangle
+    of verts_cart [T, 3, 3] -> (t, tri_idx), +inf and -1 on a miss; ties
+    go to the lowest triangle index."""
+    ts = moller_trumbore(origin[None, :], direction[None, :], verts_cart, eps)
+    idx = torch.argmin(ts)
+    t = ts[idx]
+    return t, torch.where(torch.isinf(t), -1, idx.to(torch.int32))

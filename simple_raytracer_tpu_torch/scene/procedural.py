@@ -36,6 +36,19 @@ def mesh_from_triangles(tris: np.ndarray) -> MeshData:
                     textures=[])
 
 
+def obj_text(mesh: MeshData) -> str:
+    """``mesh``'s triangles as Wavefront OBJ text: three ``v`` lines per
+    triangle (the w-divided vertices, each f32 written exactly) and one
+    ``f`` line, so that loading it gives back the same triangles.  Stands
+    in for an asset file of the reference's layout."""
+    v = mesh.verts[..., :3] / mesh.verts[..., 3:4]
+    lines = [f"v {float(x)!r} {float(y)!r} {float(z)!r}"
+             for x, y, z in v.reshape(-1, 3)]
+    lines += [f"f {3 * k + 1} {3 * k + 2} {3 * k + 3}"
+              for k in range(v.shape[0])]
+    return "\n".join(lines) + "\n"
+
+
 def icosphere(subdivisions: int, displacement: float = 0.0,
               seed: int = 0) -> MeshData:
     """Unit icosphere with 20 * 4**subdivisions triangles, outward winding.

@@ -72,6 +72,11 @@ class Scene:
     def device(self) -> torch.device:
         return self.verts.device
 
+    def verts_cart(self) -> torch.Tensor:
+        """Cartesian vertices [T, 3, 3]: the homogeneous divide of the
+        reference's Möller–Trumbore prologue (simple_raytracer.cpp:45-47)."""
+        return self.verts[..., :3] / self.verts[..., 3:4]
+
     def to(self, device) -> "Scene":
         return dataclasses.replace(self, **{
             n: getattr(self, n).to(device) for n in self.ARRAY_FIELDS})

@@ -96,6 +96,7 @@ def jax_prepared_arrays(jprep) -> dict:
     """The JAX PreparedScene fields the port keeps, as numpy arrays."""
     out = {n: np.asarray(getattr(jprep.scene, n))
            for n in jscene.Scene._ARRAY_FIELDS}
-    for n in ("block_min", "block_max", "block_obj"):
+    for n in ("block_min", "block_max", "block_obj", "node_min", "node_max",
+              "skip", "leaf_first", "leaf_count"):
         out[n] = np.asarray(getattr(jprep, n))
     return out

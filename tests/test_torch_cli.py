@@ -1,0 +1,329 @@
+"""PyTorch port, the command line and what it drives, against the JAX
+package's: image output (``io/image.py``), metrics and traces
+(``utils/metrics.py``), the turntable driver (``driver/animation.py``) and
+``python -m simple_raytracer_tpu_torch render|animate`` (``cli.py``).
+
+* ``write_bmp`` writes JAX's bytes (with and without row padding); the
+  standard-library PNG decodes, through PIL, to the same array;
+  ``read_bmp`` reads a BMP back;
+* ``sweep_angles`` and ``frame_filename`` equal JAX's; ``render_turntable``
+  saves each frame as soon as it is rendered (a failed frame keeps the ones
+  before it) and writes every frame of the sweep, in world and bake mode,
+  images at JAX's bars (within 1 on >= 99.9% of pixels, equal on >= 98%),
+  and resumes past the files that exist; ``frames_batched`` equals per-frame ``render``;
+* ``Metrics`` writes the JSONL keys JAX's writes; ``profile_trace`` writes
+  a Chrome trace that ``busy_share`` reads;
+* the CLI's flags and defaults are JAX's (``--root`` relative, plus
+  ``--device``); ``render`` and ``animate`` with ``--device cpu`` write
+  their files from stand-in OBJ assets written here, the rendered frame
+  at JAX's bars against the JAX CLI's; ``train`` and ``--frame-parallel``
+  raise, naming their ROADMAP.md items; with no CUDA device and no
+  ``--device cpu`` the CLI raises; ``--show`` without PIL raises a clear
+  error.
+"""
+
+import argparse
+import json
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import simple_raytracer_tpu_torch as sr
+from simple_raytracer_tpu_torch import cli
+from simple_raytracer_tpu_torch.driver import animation
+from simple_raytracer_tpu_torch.io import image
+from simple_raytracer_tpu_torch.render.renderer import ensure_prepared, render
+from simple_raytracer_tpu_torch.scene import catalog
+from simple_raytracer_tpu_torch.scene import procedural as P
+from simple_raytracer_tpu_torch.utils import metrics
+
+from simple_raytracer_tpu import cli as jcli
+from simple_raytracer_tpu import config as jconfig
+from simple_raytracer_tpu.driver import animation as janimation
+from simple_raytracer_tpu.io import image as jimage
+from simple_raytracer_tpu.utils import metrics as jmetrics
+
+CAM = dict(width=60, height=40)
+SMALL = ["--width", "60", "--height", "40"]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """Many small tensor ops: one intra-op thread keeps them fast when
+    other test processes load every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def assets(tmp_path_factory):
+    """Stand-in assets of the reference's layout: sphere.obj an
+    icosphere(1) of radius 2.5, cube.obj the unit box."""
+    root = tmp_path_factory.mktemp("assets")
+    sphere = P.icosphere(1)
+    sphere.verts[..., :3] *= 2.5
+    (root / "sphere.obj").write_text(P.obj_text(sphere))
+    (root / "cube.obj").write_text(P.obj_text(P.box()))
+    return str(root)
+
+
+def _image_bars(img, jimg):
+    diff = np.abs(np.asarray(img).astype(int) - np.asarray(jimg).astype(int))
+    assert img.shape == jimg.shape
+    assert (diff <= 1).mean() >= 0.999, diff.max()
+    assert (diff == 0).mean() >= 0.98
+
+
+def _picture(h=13, w=7, seed=0):
+    return np.random.default_rng(seed).integers(0, 256, (h, w, 3),
+                                                dtype=np.uint8)
+
+
+@pytest.mark.parametrize("w", [7, 8])
+def test_write_bmp_writes_jax_bytes(tmp_path, w):
+    img = _picture(w=w)
+    image.write_bmp(str(tmp_path / "a.bmp"), torch.from_numpy(img))
+    jimage.write_bmp(str(tmp_path / "b.bmp"), img)
+    ours, theirs = (tmp_path / "a.bmp"), (tmp_path / "b.bmp")
+    assert ours.read_bytes() == theirs.read_bytes()
+    np.testing.assert_array_equal(image.read_bmp(str(tmp_path / "a.bmp")),
+                                  img)
+
+
+def test_png_decodes_to_the_same_array(tmp_path):
+    from PIL import Image
+    img = _picture(37, 21, 1)
+    path = str(tmp_path / "sub" / "a.png")
+    image.save_image(path, img)
+    with Image.open(path) as f:
+        assert f.mode == "RGB"
+        np.testing.assert_array_equal(np.asarray(f), img)
+    image.save_image(str(tmp_path / "a.BMP"), img)
+    np.testing.assert_array_equal(image.read_bmp(str(tmp_path / "a.BMP")),
+                                  img)
+
+
+@pytest.mark.parametrize("step", [10.0, 120.0, 0.75])
+def test_sweep_angles_and_names_match_jax(step):
+    anim, janim = sr.AnimationConfig(step_deg=step), \
+        jconfig.AnimationConfig(step_deg=step)
+    a, ja = animation.sweep_angles(anim), janimation.sweep_angles(janim)
+    np.testing.assert_array_equal(a, ja)
+    assert a.dtype == ja.dtype
+    for x in a[:5]:
+        for fmt in ("bmp", "png"):
+            assert animation.frame_filename(x, fmt) == \
+                janimation.frame_filename(x, fmt)
+
+
+def test_metrics_write_jax_keys(tmp_path, capsys):
+    paths = [str(tmp_path / "ours.jsonl"), str(tmp_path / "theirs.jsonl")]
+    for cls, path in zip((metrics.Metrics, jmetrics.Metrics), paths):
+        m = cls(path)
+        m.emit(event="frame", angle=10.0, ms=1.5)
+        with m.timer("sweep", frames=3):
+            pass
+        m.close()
+    ours, theirs = ([json.loads(x) for x in open(p)] for p in paths)
+    assert [sorted(r) for r in ours] == [sorted(r) for r in theirs]
+    assert [r["event"] for r in ours] == ["frame", "sweep"]
+    assert capsys.readouterr().out.count('"event"') == 4
+
+
+def test_profile_trace_writes_a_trace(tmp_path):
+    with metrics.profile_trace(None):
+        pass
+    d = str(tmp_path / "trace")
+    with metrics.profile_trace(d):
+        torch.ones(64).cumsum(0)
+    path = os.path.join(d, metrics.TRACE_FILE)
+    share = metrics.busy_share(path)
+    assert os.path.getsize(path) > 0 and share["window_ms"] > 0
+    assert share["kernels"] == 0 and share["busy_share"] == 0.0
+
+
+@pytest.mark.parametrize("mode", ["bvh", "bruteforce"])
+def test_turntable_writes_matches_jax_and_resumes(tmp_path, assets, mode):
+    """Three frames of the four-cube turntable in world mode: each file
+    written, each image at JAX's bars against JAX's turntable; a second
+    run writes nothing; bake mode writes the same frames."""
+    from simple_raytracer_tpu.driver.animation import render_turntable as jtt
+    cfg = sr.default_config().replace(mode=mode,
+                                      camera=sr.CameraConfig(**CAM))
+    jcfg = jconfig.default_config().replace(
+        mode=mode, camera=jconfig.CameraConfig(**CAM))
+    anim = sr.AnimationConfig(step_deg=120.0, orbit_radius=100.0,
+                              camera_y=0.0, pitch_deg=0.0)
+    janim = jconfig.AnimationConfig(step_deg=120.0, orbit_radius=100.0,
+                                    camera_y=0.0, pitch_deg=0.0)
+    out, jout = str(tmp_path / "ours"), str(tmp_path / "theirs")
+    files = animation.render_turntable(
+        "four_cubes", assets, cfg, anim, out_dir=out, device="cpu",
+        metrics_path=str(tmp_path / "m.jsonl"))
+    jfiles = jtt("four_cubes", assets, jcfg, janim, out_dir=jout)
+    assert [os.path.basename(f) for f in files] == \
+        [os.path.basename(f) for f in jfiles] == \
+        ["output0.bmp", "output120.bmp", "output240.bmp"]
+    for f, jf in zip(files, jfiles):
+        _image_bars(image.read_bmp(f), image.read_bmp(jf))
+    events = [json.loads(x)["event"] for x in open(tmp_path / "m.jsonl")]
+    assert events == ["prepare", "sweep"]
+    mtimes = [os.path.getmtime(f) for f in files]
+    again = animation.render_turntable("four_cubes", assets, cfg, anim,
+                                       out_dir=out, device="cpu")
+    assert again == files and [os.path.getmtime(f) for f in files] == mtimes
+    baked = animation.render_turntable("four_cubes", assets, cfg, anim,
+                                       out_dir=str(tmp_path / "baked"),
+                                       world_space=False, device="cpu")
+    for f, b in zip(files, baked):
+        _image_bars(image.read_bmp(b), image.read_bmp(f))
+
+
+@pytest.mark.parametrize("world_space", [True, False])
+def test_turntable_keeps_the_frames_before_a_failure(tmp_path, assets,
+                                                     monkeypatch,
+                                                     world_space):
+    """Each frame is saved as soon as it is rendered: when the second
+    frame's render fails, the first frame's file is on disk, and a resumed
+    sweep writes only the frames that are missing."""
+    cfg = sr.default_config().replace(mode="bvh",
+                                      camera=sr.CameraConfig(**CAM))
+    anim = sr.AnimationConfig(step_deg=120.0, orbit_radius=100.0,
+                              camera_y=0.0, pitch_deg=0.0)
+    out = str(tmp_path / "gen")
+    calls = []
+
+    def failing(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError("render failed")
+        return render(*args, **kwargs)
+
+    monkeypatch.setattr(animation, "render", failing)
+    with pytest.raises(RuntimeError, match="render failed"):
+        animation.render_turntable("four_cubes", assets, cfg, anim,
+                                   out_dir=out, world_space=world_space,
+                                   device="cpu")
+    assert os.listdir(out) == ["output0.bmp"]
+    first = os.path.getmtime(os.path.join(out, "output0.bmp"))
+    animation.render_turntable("four_cubes", assets, cfg, anim, out_dir=out,
+                               world_space=world_space, device="cpu")
+    assert sorted(os.listdir(out)) == ["output0.bmp", "output120.bmp",
+                                       "output240.bmp"]
+    assert os.path.getmtime(os.path.join(out, "output0.bmp")) == first
+    assert len(calls) == 4
+
+
+def test_frames_batched_equals_per_frame_render(assets):
+    cfg = sr.default_config().replace(mode="bvh",
+                                      camera=sr.CameraConfig(**CAM))
+    sm, _, light = catalog.four_cubes(assets, 0.0, bake_view=False)
+    prep = ensure_prepared(sm.build(), cfg, "cpu")
+    views = np.stack([catalog.orbit_view(a, 100.0, 0.0, 0.0)
+                      for a in (0.0, 50.0, 200.0)])
+    imgs = animation.frames_batched(prep, cfg, views, light)
+    assert imgs.shape == (3, 40, 60, 3) and imgs.dtype == torch.uint8
+    for k in range(3):
+        assert torch.equal(imgs[k], render(prep, cfg, light,
+                                           view_matrix=views[k]))
+    with pytest.raises(NotImplementedError, match="Distribution"):
+        animation.frames_parallel(prep, cfg, views, light, mesh=object())
+    with pytest.raises(NotImplementedError, match="Distribution"):
+        animation.render_turntable("four_cubes", assets, cfg,
+                                   mesh=object(), device="cpu")
+
+
+def _flags(add):
+    p = argparse.ArgumentParser()
+    add(p)
+    return {a.dest: a.default for a in p._actions if a.dest != "help"}
+
+
+def test_cli_flags_are_jax_flags_plus_device():
+    ours, theirs = _flags(cli._add_render_flags), _flags(
+        jcli._add_render_flags)
+    assert ours.pop("device") == "cuda"
+    assert ours.pop("root") == "reference" and theirs.pop("root")
+    assert ours == theirs
+    assert ours["mode"] == "tiled"
+
+
+@pytest.mark.parametrize("mode", ["bruteforce", "bvh", "tiled"])
+def test_cli_render_writes_the_frame(tmp_path, assets, mode):
+    """``render`` of the six spheres on the CPU: the BMP equals the port's
+    ``render`` of the same scene, and is at JAX's bars against the JAX
+    CLI's BMP; the PNG decodes to the same image; the metrics file has
+    the scene, render and saved events."""
+    out = str(tmp_path / "f.bmp")
+    args = ["render", "--scene", "six_spheres", "--root", assets, "--mode",
+            mode, *SMALL, "--focal", "40"]
+    assert cli.main(args + ["--device", "cpu", "--out", out, "--metrics",
+                            str(tmp_path / "m.jsonl")]) == 0
+    img = image.read_bmp(out)
+    sm, view, light = catalog.six_spheres(assets, 0.0, bake_view=False)
+    cfg = sr.default_config().replace(
+        mode=mode, camera=sr.CameraConfig(width=60, height=40, focal=40.0))
+    want = render(sm.build(), cfg, light, view_matrix=view, device="cpu")
+    np.testing.assert_array_equal(img, want.numpy())
+    bg = (img == np.array([173, 216, 230])).all(-1)
+    assert 0.05 < (~bg).mean() < 0.99
+    assert jcli.main(args + ["--out", str(tmp_path / "j.bmp")]) == 0
+    _image_bars(img, image.read_bmp(str(tmp_path / "j.bmp")))
+    events = [json.loads(x)["event"] for x in open(tmp_path / "m.jsonl")]
+    assert events == ["scene", "render", "saved"]
+    if mode == "bvh":
+        from PIL import Image
+        png = str(tmp_path / "f.png")
+        assert cli.main(args + ["--device", "cpu", "--out", png]) == 0
+        with Image.open(png) as f:
+            np.testing.assert_array_equal(np.asarray(f), img)
+
+
+def test_cli_animate_writes_and_resumes(tmp_path, assets, capsys):
+    out = str(tmp_path / "gen")
+    args = ["animate", "--scene", "one_cube", "--root", assets, *SMALL,
+            "--step-deg", "120", "--fmt", "png", "--out-dir", out,
+            "--mode", "bvh", "--device", "cpu"]
+    assert cli.main(args) == 0
+    names = sorted(os.listdir(out))
+    assert names == ["output0.png", "output120.png", "output240.png"]
+    mtimes = [os.path.getmtime(os.path.join(out, n)) for n in names]
+    capsys.readouterr()
+    assert cli.main(args) == 0
+    assert '"sweep"' not in capsys.readouterr().out
+    assert [os.path.getmtime(os.path.join(out, n)) for n in names] == mtimes
+
+
+def test_cli_unported_commands_raise(tmp_path, assets):
+    with pytest.raises(NotImplementedError,
+                       match="Differentiable rendering and training"):
+        cli.main(["train", "--scene", "one_cube", "--root", assets,
+                  "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="Distribution"):
+        cli.main(["animate", "--scene", "one_cube", "--root", assets,
+                  "--frame-parallel", "--device", "cpu",
+                  "--out-dir", str(tmp_path)])
+    assert not os.listdir(tmp_path)
+
+
+def test_cli_needs_the_card_unless_asked(tmp_path, assets, monkeypatch):
+    """Without ``--device cpu`` and with no CUDA device the CLI raises and
+    writes nothing; ``--show`` without PIL raises a clear error."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    out = str(tmp_path / "f.bmp")
+    for cmd in (["render", "--out", out], ["animate", "--out-dir",
+                                           str(tmp_path / "gen")]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(cmd + ["--scene", "one_cube", "--root", assets,
+                            "--mode", "bruteforce", *SMALL])
+    assert not os.listdir(tmp_path)
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    with pytest.raises(RuntimeError, match="PIL"):
+        cli.main(["render", "--scene", "one_cube", "--root", assets,
+                  "--device", "cpu", "--show", "--out", out, *SMALL])
+    assert not os.path.exists(out)

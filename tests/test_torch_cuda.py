@@ -439,7 +439,7 @@ def test_nearest_kernel_modes_match_plain(mode_scenes, mode, tpx):
     prep, cfg = mode_scenes[m]
     k1 = _frame_args(prep, cfg.replace(tile_px=tpx), VIEWS["moved"],
                      tpx)["nearest_shaded"]
-    assert k1[5] == tpx and k1[11] == m
+    assert k1[5] == tpx and k1[10] == m
     n0, m0 = (nearest.tiled_nearest_shaded.launches,
               nearest.tiled_nearest_shaded.mode_launches[m])
     kt, ki, ko, ks, kb = nearest.tiled_nearest_shaded(*k1)
@@ -570,7 +570,7 @@ def _k1_mode_args(scene, mode_scenes, mode: str, tpx: int, view="moved"):
     prep, cfg = scene if m == nearest.FLAT else mode_scenes[m]
     k1 = _frame_args(prep, cfg.replace(tile_px=tpx), VIEWS[view],
                      tpx)["nearest_shaded"]
-    assert k1[5] == tpx and k1[11] == m
+    assert k1[5] == tpx and k1[10] == m
     return k1 if mode != "fetch" else (k1[0], k1[1], k1[2], k1[4], tpx,
                                        k1[6], k1[7])
 
@@ -608,13 +608,13 @@ def test_k1_work_items_match_plain(scene, mode_scenes, mode, tpx):
     spans of 4 entries t and idx equal the plain walk in those spans; and
     the schedule lists each row once, longest first."""
     args = list(_k1_mode_args(scene, mode_scenes, mode, tpx))
-    amap = args[12] if mode in ("textured", "smooth") else None
+    amap = args[11] if mode in ("textured", "smooth") else None
     wt = args[5] if mode == "fetch" else args[6]
     plan, tri, tri_attr, amap = k1_stress(args[0], args[1], args[2], amap,
                                           wt)
     args[:3] = plan, tri, tri_attr
     if amap is not None:
-        args[12] = amap
+        args[11] = amap
     kt, ki = _k1_equal(mode, tuple(args))
     hit = torch.isfinite(kt)
     assert hit.sum() > 1000
@@ -623,7 +623,7 @@ def test_k1_work_items_match_plain(scene, mode_scenes, mode, tpx):
     assert not bool(hit[2::4].any())                  # empty rows miss
     cam, eps = (args[3], args[6]) if mode == "fetch" else (args[4], args[7])
     kw = {} if mode == "fetch" else dict(
-        mode=args[11], mat=args[3], attr_map=amap, double_sided=args[8],
+        mode=args[10], mat=args[3], attr_map=amap, double_sided=args[8],
         specular_nl=args[9])
     launch, outs, sched = nearest.k1_call(plan, tri, tri_attr, cam, tpx, wt,
                                           eps, list_span=4, **kw)
@@ -1084,3 +1084,68 @@ def test_prepass_items_shape():
     assert len(spills) == 2
     assert all("0 bytes spill stores, 0 bytes spill loads" in ln
                for ln in spills), spills
+
+
+def _launch_counts():
+    return {role: fn.launches for role, fn in KERNELS.items()}
+
+
+@pytest.mark.parametrize("mode", ["bruteforce", "bvh"])
+@pytest.mark.parametrize("view", list(VIEWS))
+def test_plain_mode_frame_on_the_card(mode, view):
+    """The bruteforce and BVH frames render on the card by default (a raw
+    Scene moved or prepared there), launch no kernel of csrc/, and are
+    within 1 of the same frame on the CPU on >= 99.9% of pixels, equal on
+    >= 98%; ray chunks of 5,000 (a padded last chunk) change nothing."""
+    from simple_raytracer_tpu_torch.accel import traverse
+    cfg = sr.default_config().replace(
+        mode=mode, camera=sr.CameraConfig(width=SIZE, height=SIZE,
+                                          focal=FOCAL),
+        light=sr.LightConfig(num_samples=2), bvh=sr.BVHConfig(split="sah"))
+    scene = P.sphere_on_ground(sr.SceneManager(), 3).build()
+    before = _launch_counts()
+    img = sr.render(scene, cfg, P.BENCH_LIGHT, view_matrix=VIEWS[view])
+    torch.cuda.synchronize()
+    assert _launch_counts() == before
+    assert img.is_cuda and img.shape == (SIZE, SIZE, 3)
+    cpu = sr.render(scene, cfg, P.BENCH_LIGHT, view_matrix=VIEWS[view],
+                    device="cpu")
+    diff = (img.cpu().int() - cpu.int()).abs().amax(-1)
+    assert (diff <= 1).float().mean() >= 0.999
+    assert (diff == 0).float().mean() >= 0.98
+    chunked = sr.render(scene, cfg.replace(ray_chunk=5000), P.BENCH_LIGHT,
+                        view_matrix=VIEWS[view])
+    assert torch.equal(chunked, img)
+    if mode == "bvh":
+        assert 0 < traverse.nearest_hit.steps and \
+            0 < traverse.any_hit_other.steps
+
+
+def test_cli_renders_on_the_card(tmp_path):
+    """``python -m simple_raytracer_tpu_torch render`` with no --device
+    renders on the card: the BMP it writes equals ``render`` on the card
+    of the same catalog scene."""
+    import os
+    import subprocess
+    import sys
+    from simple_raytracer_tpu_torch.io.image import read_bmp
+    from simple_raytracer_tpu_torch.scene import catalog
+    sphere = P.icosphere(2)
+    sphere.verts[..., :3] *= 2.5
+    (tmp_path / "sphere.obj").write_text(P.obj_text(sphere))
+    out = str(tmp_path / "f.bmp")
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, "-m", "simple_raytracer_tpu_torch", "render",
+         "--scene", "six_spheres", "--root", str(tmp_path), "--mode", "bvh",
+         "--width", "160", "--height", "120", "--focal", "120",
+         "--out", out], cwd=here, capture_output=True, text=True,
+        timeout=300)
+    assert res.returncode == 0, res.stderr
+    sm, view, light = catalog.six_spheres(str(tmp_path), 0.0,
+                                          bake_view=False)
+    cfg = sr.default_config().replace(
+        mode="bvh", camera=sr.CameraConfig(width=160, height=120,
+                                           focal=120.0))
+    want = sr.render(sm.build(), cfg, light, view_matrix=view)
+    assert torch.equal(torch.from_numpy(read_bmp(out)), want.cpu())

@@ -118,13 +118,16 @@ def test_ragged_frame_size():
 # scenes) is the sublane gather branch, 7d (one-sample smooth-normal
 # frames) the fused branch in K1's smooth mode;
 # test_switch_frame_matches_jax and tests/test_torch_fused_modes.py hold
-# their images to JAX's
-PORTED = {"item 7e": "gather", "item 7d": "fused"}
+# their images to JAX's.  3 (bruteforce) and 8 (BVH) are modes of their
+# own, with no tiled branch (None): they render;
+# tests/test_torch_bruteforce.py and tests/test_torch_bvh.py hold their
+# images to JAX's
+PORTED = {"item 7e": "gather", "item 7d": "fused", "item 3": None,
+          "item 8": None}
 # what the message of each case still to be ported names: the ROADMAP.md
 # item by its title (the cases keep the ids of their first version, the
 # items' numbers then)
-TITLES = {"item 3": "bruteforce mode", "item 8": "BVH mode",
-          "item 7f": "the tiled configurations that still raise"}
+TITLES = {"item 7f": "the tiled configurations that still raise"}
 
 
 @pytest.mark.parametrize("change, item", [
@@ -141,10 +144,16 @@ TITLES = {"item 3": "bruteforce mode", "item 8": "BVH mode",
 def test_unported_branches_raise(change, item):
     """Each frame of an unported item raises NotImplementedError naming it;
     a frame of an item ported since (``PORTED``) is accepted and takes its
-    branch."""
+    branch, or, in a mode of its own, renders."""
     sm, _ = managers(1)
     cfg, _ = configs()
     prep = prepare(sm.build(), cfg, device="cpu")
+    if item in PORTED and PORTED[item] is None:
+        img = render(prep, cfg.replace(**change), LIGHT)
+        bg = (img == torch.tensor([173, 216, 230], dtype=torch.uint8)).all(-1)
+        assert img.shape == (HEIGHT, WIDTH, 3) and 0.05 < float(
+            (~bg).float().mean()) < 0.99
+        return
     if item in PORTED:
         c = cfg.replace(**change)
         tiled.check_supported(prep, c, TILE_PX * TILE_PX)
