@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--root ASSETS]
 
 Drives the port's paths through ``render_radiance(mode="tiled")`` followed
-by ``finalize_image``, on these frames:
+by ``finalize_image``, on these frames (and, in phase 12, its training
+through ``make_train_step``):
 
 * **bench**: a mesh of bunny scale on a ground slab at 1920x1080, one hard
   shadow, flat Phong, a SAH BVH (the fused branch: K1 with fused Phong, K2
@@ -154,7 +155,29 @@ Phases, each of which must pass:
    DIR`` writing a Chrome trace with kernels in it, and
    ``utils.metrics.profile_trace`` around 3 frames of the bench: the card's
    busy share of that traced window (its kernels' summed time over the
-   window).
+   window);
+12. training (``make_train_step``, ``diff/render.py``): the **train
+   bench**, one SGD step of the bench's scene at 1920x1080, focal 1080 (the
+   shadow bench's view, its shadow in view), tiled: the explicit rays'
+   plan, K1's rays walk, the shadow plan, K2′, the recompute and shading,
+   the backward (autograd), the update.  5 steps from obj_color x 0.7 at
+   lr 1e-3 with the counts reset just before the first and read just after
+   it (K1's rays walk once, K2′ once, no other kernel; losses finite and
+   falling); K1's rays walk and K2′ against their plain versions on the
+   step's arguments (t, idx and found bit for bit, > 1,000 shadowed hit
+   lanes); the step's winners through ``nearest.hits`` on the CUDA walks
+   and on the plain ones equal on every ray; the step on the plain walks
+   (``kernels=PLAIN``): the loss within rtol 1e-6, each gradient within
+   1e-4 of its field's largest magnitude (the backward's scatter-adds sum
+   in any order); the ``remat`` step (the walks launched twice) with the
+   same 5 losses; 10 steps timed (host clock ending in a synchronize), the
+   step's parts timed alone (CUDA events) and the peak allocated memory;
+   the tiled gradients against the bruteforce ones at 256x192 (rtol 2e-4,
+   atol 1e-5, the JAX package's bars); ``python -m
+   simple_raytracer_tpu_torch train`` on the stand-in six spheres, 5 steps
+   with a checkpoint every 2, then 7 steps that resume at step 5; the
+   texture fit (``examples/fit_texture.py``: 30 Adam steps at 48x36 that
+   cut the loss by more than 5x).
 
 Every frame that runs K1 (phases 3, 6, 8, 9, and 10's cut plans) holds
 K1's t and idx to the plain walk in K1's slices bit for bit, and prints a
@@ -305,6 +328,19 @@ TEX_SAMPLES = 4
 TEX_SUBDIV = 3
 FLAGSHIP_WIDTH, FLAGSHIP_HEIGHT = 256, 192
 CLI_TIMEOUT = 240
+# phase 12: the train bench's steps from obj_color x TRAIN_COLOR at lr
+# TRAIN_LR, the steps timed; the kernel step's gradients against the plain
+# step's, each field within GRAD_REL of its largest magnitude (the same
+# winners, so only the order of the backward's scatter-adds differs); the
+# tiled gradients against the bruteforce ones at the JAX package's bars
+# (tests/test_grad.py); the texture fit's frame and steps
+TRAIN_STEPS = 5
+TRAIN_TIMED = 10
+TRAIN_LR = 1e-3
+TRAIN_COLOR = 0.7
+GRAD_REL = 1e-4
+GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-5
+FIT_WIDTH, FIT_HEIGHT, FIT_STEPS = 48, 36, 30
 
 
 class SmokeFailure(RuntimeError):
@@ -2068,6 +2104,270 @@ def plain_mode_phase(sr, prep, cfg, light, gpu: str) -> None:
              trace_bytes=os.path.getsize(bpath), **share, gpu=gpu)
 
 
+def train_losses(step, params, target, steps: int) -> tuple:
+    """(the last params, the losses of ``steps`` steps from ``params``)."""
+    losses = []
+    for _ in range(steps):
+        params, loss = step(params, target)
+        losses.append(float(loss))
+    return params, losses
+
+
+def falling(losses, what: str) -> None:
+    import math
+    require(all(math.isfinite(x) for x in losses)
+            and all(b < a for a, b in zip(losses, losses[1:])),
+            f"{what}: losses {losses} not finite and falling")
+
+
+def grads_within(got, want, what: str, rel=None, rtol=0.0,
+                 atol=0.0) -> dict:
+    """Each field of the DiffParams ``got`` against ``want``: within
+    ``rel`` of the field's largest magnitude, or within rtol / atol
+    elementwise; finite.  Returns the max abs error of each field."""
+    import dataclasses
+    import torch
+    errs = {}
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        require(bool(torch.isfinite(a).all()), f"{what}: {f.name} not finite")
+        err = float((a - b).abs().max()) if a.numel() else 0.0
+        ok = (err <= rel * float(b.abs().max()) if rel is not None else
+              bool(torch.allclose(a, b, rtol=rtol, atol=atol)))
+        require(ok, f"{what}: {f.name} differs by {err}")
+        errs[f.name] = err
+    return errs
+
+
+def train_phase(sr, prep, light, root, gpu: str) -> list:
+    """Phase 12: the train bench's step through ``make_train_step`` with
+    the counts read around its first step, its walks and the whole step
+    against their plain versions, remat, the times, the tiled gradients
+    against the bruteforce ones, the CLI's ``train`` with its resume, and
+    the texture fit.  Returns the kernels-line entries."""
+    import tempfile
+    import torch
+    from simple_raytracer_tpu_torch.dist.train import DiffParams
+    from simple_raytracer_tpu_torch.examples import fit_texture
+    from simple_raytracer_tpu_torch.kernels import anyhit, nearest, tiled
+    from simple_raytracer_tpu_torch.kernels import plan as pl
+    from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
+    from simple_raytracer_tpu_torch.scene import procedural as P
+    dev = prep.device
+    cfg = sr.default_config().replace(
+        mode="tiled", camera=sr.CameraConfig(width=WIDTH, height=HEIGHT,
+                                             focal=SHADOW_FOCAL),
+        light=sr.LightConfig(enable_shadows=True),
+        bvh=sr.BVHConfig(split="sah"))
+    label = (f"train bench: {prep.num_triangles} triangles, {WIDTH}x"
+             f"{HEIGHT}, focal {SHADOW_FOCAL:g}")
+    with torch.no_grad():
+        rad, hit = sr.render_radiance(prep, cfg, light)
+        target = torch.where(hit[..., None], rad, 0.0)
+    start = sr.extract_params(prep.scene, light)
+    start.obj_color = start.obj_color * TRAIN_COLOR
+    step = sr.make_train_step(prep, cfg, lr=TRAIN_LR)
+
+    # the main path: the counts reset just before the first step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    params, loss = step(start, target)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    roles = ("nearest_rays", "anyhit")
+    require(launches == {r: int(r in roles) for r in launches},
+            f"{label}: a step launched {launches}, not {roles} once each")
+    params, more = train_losses(step, params, target, TRAIN_STEPS - 1)
+    losses = [float(loss)] + more
+    falling(losses, label)
+    require(all(bool(torch.isfinite(p).all()) for p in params.leaves()),
+            f"{label}: params not finite")
+
+    # the step's walks against their plain versions, on the step's
+    # arguments; the shadow front end's inputs for its time
+    stores = {role: [] for role in tiled.KERNELS}
+    shadow_in = []
+    real_shadow_fn = tiled.tiled_shadow_fn
+
+    def spy(*a, **k):
+        fn = real_shadow_fn(*a, **k)
+        return lambda *x, **y: (shadow_in.append((fn, x, y)), fn(*x, **y))[1]
+    tiled.tiled_shadow_fn = spy
+    try:
+        sr.make_train_step(prep, cfg, kernels={
+            role: capture(fn, stores[role])
+            for role, fn in tiled.KERNELS.items()}).value_and_grad(
+                start, target)
+    finally:
+        tiled.tiled_shadow_fn = real_shadow_fn
+    kn, ks = stores["nearest_rays"][0], stores["anyhit"][0]
+    tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
+    tile = tpx * tpx
+    inside = frame_lanes(*pl.tile_origins(kn[0].shape[0],
+                                          -(-WIDTH // tpx), tpx, WIDTH,
+                                          HEIGHT, dev),
+                         tpx, WIDTH, HEIGHT)
+    near_res, kt, _ki, _walk = check_nearest(
+        nearest.tiled_nearest_rays, nearest.tiled_nearest_rays_plain, kn,
+        inside, "K1 rays mode", label, nearest_ops(kn[2]),
+        window_bytes(kn[1], kn[4]), 24, exact=True)
+    sh_res, _walk = check_found(anyhit.tiled_anyhit,
+                                anyhit.tiled_anyhit_plain, ks,
+                                torch.isfinite(kt) & inside, 1, "K2'", label,
+                                SHADOWED_MIN)
+
+    # the whole step on the plain walks: the same winners on every ray
+    o, d, _, _ = primary_rays_tiled(WIDTH, HEIGHT, tpx, SHADOW_FOCAL,
+                                    device=dev)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
+                                  cfg.kernel.window_blocks)
+    tk, ik = nearest.hits(prep, cfg, o, d, tile, maxv, apex=True)
+    tp, ip = nearest.hits(prep, cfg, o, d, tile, maxv, apex=True,
+                          kernels=tiled.PLAIN)
+    require(torch.equal(ik, ip) and torch.equal(tk, tp),
+            f"{label}: the step's winners differ from the plain walks'")
+    plain = sr.make_train_step(prep, cfg, lr=TRAIN_LR, kernels=tiled.PLAIN)
+    lk, gk = step.value_and_grad(start, target)
+    lp, gp = plain.value_and_grad(start, target)
+    loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
+    require(loss_err <= 1e-6, f"{label}: loss vs plain {loss_err}")
+    errs = grads_within(gk, gp, f"{label} vs plain", rel=GRAD_REL)
+    emit(check=f"train step vs plain walks ({label})",
+         idx_equal_every_ray=True, rays=int(ik.numel()),
+         hit_rays=int((ik >= 0).sum()), loss=float(lk),
+         loss_rel_err=loss_err, grad_max_abs_err=errs,
+         grad_max_abs={f: float(g.abs().max()) for f, g in
+                       zip(errs, gp.leaves())}, grad_rel_bound=GRAD_REL)
+
+    # remat: the forward again in the backward, the walks twice a step
+    rstep = sr.make_train_step(prep, cfg, lr=TRAIN_LR, remat=True)
+    reset_launches()
+    rparams, rloss = rstep(start, target)
+    torch.cuda.synchronize()
+    rlaunches = read_launches()
+    require(rlaunches == {r: 2 * int(r in roles) for r in rlaunches},
+            f"{label}: a remat step launched {rlaunches}")
+    _, rmore = train_losses(rstep, rparams, target, TRAIN_STEPS - 1)
+    rlosses = [float(rloss)] + rmore
+    rerr = max(abs(a - b) / abs(b) for a, b in zip(rlosses, losses))
+    require(rerr <= 1e-6, f"{label}: remat losses {rlosses} vs {losses}")
+
+    # the times: steps on the host clock, the parts alone (CUDA events)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    train_losses(step, start, target, TRAIN_TIMED)
+    torch.cuda.synchronize()
+    ms_step = (time.time() - t0) * 1e3 / TRAIN_TIMED
+    shadow_fn, sx, sy = shadow_in[0]
+    leaves = [x.detach().requires_grad_(True) for x in start.leaves()]
+    times = {
+        "plan_and_k1_ms": cuda_ms(lambda: nearest.hits(
+            prep, cfg, o, d, tile, maxv, apex=True), 10),
+        "k1_rays_ms": cuda_ms(lambda: nearest.tiled_nearest_rays(*kn), 20),
+        "k1_rays_plain_ms": cuda_ms(
+            lambda: nearest.tiled_nearest_rays_plain(*kn), 2),
+        "shadow_ms": cuda_ms(lambda: shadow_fn(*sx, **sy), 10),
+        "k2r_ms": cuda_ms(lambda: anyhit.tiled_anyhit(*ks), 20),
+        "k2r_plain_ms": cuda_ms(lambda: anyhit.tiled_anyhit_plain(*ks), 2),
+        "forward_ms": cuda_ms(lambda: step.loss_fn(DiffParams(*leaves),
+                                                   target), 10),
+        "forward_backward_ms": cuda_ms(
+            lambda: step.value_and_grad(start, target), 10),
+        "step_ms": cuda_ms(lambda: step(start, target), 10),
+        "remat_step_ms": cuda_ms(lambda: rstep(start, target), 5)}
+    times["recompute_and_shade_ms"] = (times["forward_ms"]
+                                       - times["plan_and_k1_ms"]
+                                       - times["shadow_ms"])
+    times["backward_ms"] = times["forward_backward_ms"] - times["forward_ms"]
+    times["update_ms"] = times["step_ms"] - times["forward_backward_ms"]
+    emit(phase=f"train ({label})", rays=int(o.shape[0]),
+         tiles=int(kn[0].shape[0]), steps=TRAIN_STEPS, lr=TRAIN_LR,
+         losses=losses, remat_losses=rlosses, remat_max_rel_err=rerr,
+         launches=launches, remat_launches=rlaunches,
+         peak_allocated_bytes=peak, steps_timed=TRAIN_TIMED,
+         ms_per_step=ms_step, **times, gpu=gpu)
+
+    # the tiled gradients against the bruteforce ones, at 256x192
+    ccfg = cfg.replace(camera=sr.CameraConfig(
+        width=FLAGSHIP_WIDTH, height=FLAGSHIP_HEIGHT,
+        focal=P.bench_focal(FLAGSHIP_HEIGHT)))
+    with torch.no_grad():
+        crad, chit = sr.render_radiance(prep, ccfg, light)
+        ctarget = torch.where(chit[..., None], crad, 0.0)
+    t0 = time.time()
+    ltl, gtl = sr.make_train_step(prep, ccfg).value_and_grad(start, ctarget)
+    torch.cuda.synchronize()
+    tiled_s = time.time() - t0
+    t0 = time.time()
+    lbf, gbf = sr.make_train_step(
+        prep, ccfg.replace(mode="bruteforce")).value_and_grad(start, ctarget)
+    torch.cuda.synchronize()
+    bf_s = time.time() - t0
+    cerrs = grads_within(gtl, gbf, "tiled vs bruteforce grads",
+                         rtol=GRAD_RTOL, atol=GRAD_ATOL)
+    emit(check=f"tiled grads vs bruteforce grads ({prep.num_triangles} "
+               f"triangles, {FLAGSHIP_WIDTH}x{FLAGSHIP_HEIGHT})",
+         loss_tiled=float(ltl), loss_bruteforce=float(lbf),
+         grad_max_abs_err=cerrs, rtol=GRAD_RTOL, atol=GRAD_ATOL,
+         tiled_step_s=tiled_s, bruteforce_step_s=bf_s, gpu=gpu)
+
+    # the command line: train, then resume from its checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        write_assets(tmp)
+        ck = os.path.join(tmp, "train.npz")
+        args = ["train", "--scene", "six_spheres", "--root", tmp,
+                "--checkpoint", ck, "--ckpt-every", "2", "--lr", "1e-3",
+                "--log-every", "1"]
+        first = [json.loads(x) for x in run_cli(
+            args + ["--steps", "5"], "train").splitlines()
+            if x.startswith("{")]
+        cli_losses = [e["loss"] for e in first if e["event"] == "train"]
+        require(len(cli_losses) == 5, f"train logged {cli_losses}")
+        falling(cli_losses, "CLI train")
+        second = [json.loads(x) for x in run_cli(
+            args + ["--steps", "7"], "train (resume)").splitlines()
+            if x.startswith("{")]
+        resumed = [e["step"] for e in second if e["event"] == "resumed"]
+        more = [e for e in second if e["event"] == "train"]
+        require(resumed == [5] and [e["step"] for e in more] == [5, 6]
+                and more[0]["loss"] < cli_losses[-1],
+                f"train did not resume at step 5: {second}")
+        emit(phase="train (CLI, six_spheres, bruteforce)", losses=cli_losses,
+             resumed_at=resumed[0],
+             resumed_losses=[e["loss"] for e in more], gpu=gpu)
+
+    # the texture fit
+    fscene, fcfg = fit_texture.scene_and_config(root, FIT_WIDTH, FIT_HEIGHT,
+                                                device=dev)
+    t0 = time.time()
+    _tex, fit_losses, _t, _h = fit_texture.fit(fscene, fcfg, light,
+                                               FIT_STEPS)
+    torch.cuda.synchronize()
+    fit_s = time.time() - t0
+    require(fit_losses[-1] < fit_losses[0] / 5.0,
+            f"texture fit: loss {fit_losses[0]} -> {fit_losses[-1]}")
+    emit(phase="texture fit", source="the tree" if root else
+         "procedural textured_on_ground(3)", width=FIT_WIDTH,
+         height=FIT_HEIGHT, steps=FIT_STEPS, loss_first=fit_losses[0],
+         loss_last=fit_losses[-1], ms_per_step=fit_s * 1e3 / FIT_STEPS,
+         gpu=gpu)
+
+    return [
+        entry(RAYS_NAME, "nearest.cu",
+              "simple_raytracer_tpu/kernels/tiled_t.py:855", label,
+              launches["nearest_rays"], near_res["t_max_abs_err"],
+              times["k1_rays_ms"], times["k1_rays_plain_ms"], near_res,
+              via="tiled_nearest_t over explicit rays (tiled_t.py:1616)"),
+        entry(ANYHIT_NAME, "anyhit.cu",
+              "simple_raytracer_tpu/kernels/tiled_t.py:1374", label,
+              launches["anyhit"], sh_res["found_max_abs_err"],
+              times["k2r_ms"], times["k2r_plain_ms"], sh_res,
+              via="tiled_anyhit_t (tiled_t.py:1815)")]
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2250,6 +2550,9 @@ def main() -> int:
 
     # 11. the plain PyTorch modes (bruteforce, BVH) and the command line
     plain_mode_phase(sr, prep, cfg, light, gpu)
+
+    # 12. training: the train bench, the CLI's train and the texture fit
+    entries += train_phase(sr, prep, light, args.root, gpu)
 
     print(json.dumps({"kernels": entries}))
     print(gpu)

@@ -7,18 +7,26 @@ against; it imports no JAX).  It renders every ``RenderConfig.mode``:
 shadows, through the nearest-hit, any-hit and classification kernels in
 ``csrc/``, whose plain PyTorch versions serve CPU tensors), and
 ``"bruteforce"`` and ``"bvh"`` in plain PyTorch, as the JAX package runs
-them in jnp.  ``python -m simple_raytracer_tpu_torch render|animate`` is its
-command line (cli.py); every entry point runs on the card unless the caller
-asks for the CPU.
+them in jnp.  Every mode is differentiable (``render_radiance_diff``: the
+intersector's winners under ``no_grad``, autograd through Möller–Trumbore at
+them), and ``make_train_step`` fits scene parameters to a target image.
+``python -m simple_raytracer_tpu_torch render|animate|train`` is its command
+line (cli.py); every entry point runs on the card unless the caller asks for
+the CPU.
 """
 
 from .config import (AnimationConfig, BVHConfig, CameraConfig, KernelConfig,
                      LightConfig, RenderConfig, ShadingConfig, default_config)
 from .scene.scene import Scene, SceneManager
 from .render.renderer import render, render_radiance
+from .diff.render import render_radiance_diff
+from .dist.train import (DiffParams, apply_params, extract_params,
+                         make_train_step)
 
 __all__ = [
     "AnimationConfig", "BVHConfig", "CameraConfig", "KernelConfig",
     "LightConfig", "RenderConfig", "ShadingConfig", "default_config",
     "Scene", "SceneManager", "render", "render_radiance",
+    "render_radiance_diff", "DiffParams", "make_train_step",
+    "extract_params", "apply_params",
 ]

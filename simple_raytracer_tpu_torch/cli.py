@@ -10,9 +10,10 @@ versions; without a CUDA device it raises.
   python -m simple_raytracer_tpu_torch render  --scene complex --out f.png
   python -m simple_raytracer_tpu_torch animate --scene complex --out-dir gen/
   python -m simple_raytracer_tpu_torch render  --device cpu --mode bvh ...
+  python -m simple_raytracer_tpu_torch train   --scene six_spheres --steps 50
 
-``train`` and ``animate --frame-parallel`` are not ported yet (ROADMAP.md,
-Open items §1: Differentiable rendering and training; Distribution).
+``animate --frame-parallel`` and ``train --data-parallel`` are not ported
+yet (ROADMAP.md, Open items §1: Distribution).
 """
 
 from __future__ import annotations
@@ -21,10 +22,10 @@ import argparse
 import sys
 import time
 
-TRAINING = ("the train command is not ported yet (ROADMAP.md, Open items "
-            "§1: Differentiable rendering and training)")
 FRAME_PARALLEL = ("--frame-parallel is not ported yet (ROADMAP.md, Open "
                   "items §1: Distribution)")
+DATA_PARALLEL = ("--data-parallel is not ported yet (ROADMAP.md, Open items "
+                 "§1: Distribution)")
 
 
 def _add_render_flags(p: argparse.ArgumentParser) -> None:
@@ -151,7 +152,50 @@ def cmd_animate(args) -> int:
 
 
 def cmd_train(args) -> int:
-    raise NotImplementedError(TRAINING)
+    """Fit the scene's params, from a perturbed start (the light moved by
+    ``--perturb``, the colours halved), to its own rendered image, in
+    bruteforce mode, as JAX's ``train``; ``--checkpoint`` saves every
+    ``--ckpt-every`` steps and at the end, and a rerun resumes from it."""
+    import torch
+    from .accel.prepared import target_device
+    from .dist import extract_params, make_train_step
+    from .render.renderer import render_radiance
+    from .scene import catalog
+    from .utils.checkpoint import load_checkpoint, save_checkpoint
+    from .utils.metrics import Metrics
+
+    if args.data_parallel:
+        raise NotImplementedError(DATA_PARALLEL)
+    dev = target_device(args.device)
+    cfg = _config_from(args).replace(mode="bruteforce")
+    m = Metrics(args.metrics)
+    sm, _view, light = catalog.CATALOG[args.scene](args.root, args.angle,
+                                                   bake_view=True)
+    scene = sm.build().to(dev)
+    with torch.no_grad():
+        target, hit = render_radiance(scene, cfg, light)
+        target = torch.where(hit[..., None], target, 0.0)
+
+    params = extract_params(scene, light)
+    params.light_pos = params.light_pos + args.perturb
+    params.obj_color = params.obj_color * 0.5
+    start = 0
+    if args.checkpoint:
+        restored = load_checkpoint(args.checkpoint, params)
+        if restored:
+            params, start = restored
+            m.emit(event="resumed", step=start)
+    step = make_train_step(scene, cfg, lr=args.lr)
+    for i in range(start, args.steps):
+        params, loss = step(params, target)
+        if i % args.log_every == 0 or i == args.steps - 1:
+            m.emit(event="train", step=i, loss=float(loss))
+        if args.checkpoint and (i + 1) % args.ckpt_every == 0:
+            save_checkpoint(args.checkpoint, params, i + 1)
+    if args.checkpoint:
+        save_checkpoint(args.checkpoint, params, args.steps)
+    m.close()
+    return 0
 
 
 def main(argv=None) -> int:
@@ -178,9 +222,16 @@ def main(argv=None) -> int:
     pa.add_argument("--no-resume", action="store_true")
     pa.set_defaults(fn=cmd_animate)
 
-    pt = sub.add_parser("train", help="fit scene params to a rendered target "
-                                      "(not ported yet)")
+    pt = sub.add_parser("train", help="fit scene params to a rendered target")
     _add_render_flags(pt)
+    pt.add_argument("--angle", type=float, default=0.0)
+    pt.add_argument("--steps", type=int, default=50)
+    pt.add_argument("--lr", type=float, default=1e-5)
+    pt.add_argument("--perturb", type=float, default=20.0)
+    pt.add_argument("--data-parallel", action="store_true")
+    pt.add_argument("--checkpoint", default=None)
+    pt.add_argument("--ckpt-every", type=int, default=20)
+    pt.add_argument("--log-every", type=int, default=10)
     pt.set_defaults(fn=cmd_train)
 
     args = parser.parse_args(argv)

@@ -180,7 +180,8 @@ class RenderConfig:
     # Nearest-pass ray-tile size; 0, or any value of at least the pixel
     # tile, = the full pixel tile (kernels/tiled.py::_hit_tile).  Sub-tiles
     # (a divisor of the tile, a multiple of 128 rays) raise
-    # NotImplementedError.
+    # NotImplementedError in a frame; the differentiable render
+    # (diff/render.py) walks them.
     hit_tile: int = 0
 
     # Shadow-pass ray-tile size; 0 = adaptive (kernels.plan.shadow_tile):

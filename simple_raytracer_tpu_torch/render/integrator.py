@@ -35,7 +35,7 @@ def light_sample_positions(light_pos, num_samples: int,
 
 
 def gather_hit_records(scene, tri_idx: torch.Tensor,
-                       cfg: RenderConfig) -> dict:
+                       cfg: RenderConfig, gather=None) -> dict:
     """Per-ray shading record by global triangle id (JAX
     render/integrator.py::gather_hit_records).  Only the columns the config
     uses are packed into one [T, K] table (object and texture ids as f32,
@@ -43,7 +43,7 @@ def gather_hit_records(scene, tri_idx: torch.Tensor,
     Cartesian vertices for smooth or textured shading; the vertex normals
     for smooth shading, else the flat normal; the texel UVs for textured
     scenes), and one row gather by ``tri_idx`` (-1 reads row 0) reads
-    them."""
+    them: ``table[idx]``, or ``gather(table, idx)``."""
     idx = tri_idx.clamp_min(0).long()
     smooth = bool(cfg.shading.smooth_normals)
     textured = scene.has_textures
@@ -59,7 +59,9 @@ def gather_hit_records(scene, tri_idx: torch.Tensor,
     cols.append(scene.vnormals.reshape(-1, 9) if smooth else scene.tri_normal)
     if textured:
         cols.append(scene.uvs.reshape(-1, 6))
-    packed = torch.cat(cols, dim=1)[idx]             # ONE [R, K] gather
+    table = torch.cat(cols, dim=1)
+    # ONE [R, K] gather
+    packed = table[idx] if gather is None else gather(table, idx)
     rec = {"obj": packed[:, 0].to(torch.int32),
            "tex_id": packed[:, 1].to(torch.int32),
            "color": packed[:, 2:5], "ambient": packed[:, 5],

@@ -100,3 +100,20 @@ def jax_prepared_arrays(jprep) -> dict:
               "skip", "leaf_first", "leaf_count"):
         out[n] = np.asarray(getattr(jprep, n))
     return out
+
+
+def tilted_ground(manager, subdivisions: int):
+    """The parity scene (procedural.sphere_on_ground) with its ground box
+    turned 7 degrees about y and 3 about x around its centre, so no face
+    of it is parallel to an axis.  On the axis-aligned box, the rays of
+    the image's centre row and column lie in the planes of its faces
+    (Möller–Trumbore's determinant is exactly 0): autograd through every
+    ray-triangle pair (JAX's bruteforce training step, the port's
+    ``render_radiance``) then multiplies a zero gradient by 1/0 and gives
+    NaN.  Returns the manager."""
+    P.sphere_on_ground(manager, subdivisions)
+    c = (0.0, 9.0, 60.0)
+    manager.transform_triangles(
+        "ground", T.translate(c) @ T.rotate_y(math.radians(7.0))
+        @ T.rotate_x(math.radians(3.0)) @ T.translate([-x for x in c]))
+    return manager

@@ -16,10 +16,15 @@ package's: image output (``io/image.py``), metrics and traces
 * the CLI's flags and defaults are JAX's (``--root`` relative, plus
   ``--device``); ``render`` and ``animate`` with ``--device cpu`` write
   their files from stand-in OBJ assets written here, the rendered frame
-  at JAX's bars against the JAX CLI's; ``train`` and ``--frame-parallel``
-  raise, naming their ROADMAP.md items; with no CUDA device and no
-  ``--device cpu`` the CLI raises; ``--show`` without PIL raises a clear
-  error.
+  at JAX's bars against the JAX CLI's; ``train --data-parallel`` and
+  ``--frame-parallel`` raise, naming their ROADMAP.md item; with no CUDA
+  device and no ``--device cpu`` the CLI raises; ``--show`` without PIL
+  raises a clear error;
+* ``train --device cpu`` on the stand-in OBJ files: its flags are JAX's,
+  its losses are emitted and fall, equal to JAX's ``train``'s; it saves a
+  checkpoint every ``--ckpt-every`` steps and at the end, and a rerun
+  resumes from it (``resumed``); without a CUDA device and without
+  ``--device cpu`` it raises before it trains.
 """
 
 import argparse
@@ -300,10 +305,9 @@ def test_cli_animate_writes_and_resumes(tmp_path, assets, capsys):
 
 
 def test_cli_unported_commands_raise(tmp_path, assets):
-    with pytest.raises(NotImplementedError,
-                       match="Differentiable rendering and training"):
+    with pytest.raises(NotImplementedError, match="Distribution"):
         cli.main(["train", "--scene", "one_cube", "--root", assets,
-                  "--device", "cpu"])
+                  "--data-parallel", "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="Distribution"):
         cli.main(["animate", "--scene", "one_cube", "--root", assets,
                   "--frame-parallel", "--device", "cpu",
@@ -327,3 +331,88 @@ def test_cli_needs_the_card_unless_asked(tmp_path, assets, monkeypatch):
         cli.main(["render", "--scene", "one_cube", "--root", assets,
                   "--device", "cpu", "--show", "--out", out, *SMALL])
     assert not os.path.exists(out)
+
+
+TRAIN = ["train", "--scene", "six_spheres", *SMALL, "--focal", "40",
+         "--lr", "1e-3", "--log-every", "1"]
+
+
+def _events(out: str, event: str) -> list:
+    return [json.loads(x) for x in out.splitlines()
+            if x.startswith("{") and json.loads(x)["event"] == event]
+
+
+def test_cli_train_flags_are_jax_flags_plus_device(monkeypatch):
+    """``train`` parses JAX's flags with JAX's defaults, plus
+    ``--device``."""
+    got = {}
+    monkeypatch.setattr(cli, "cmd_train", lambda a: got.setdefault("t", a))
+    monkeypatch.setattr(jcli, "cmd_train", lambda a: got.setdefault("j", a))
+    cli.main(["train"])
+    jcli.main(["train"])
+    ours, theirs = vars(got["t"]), vars(got["j"])
+    for d in (ours, theirs):
+        d.pop("fn")
+    assert ours.pop("device") == "cuda"
+    assert ours.pop("root") == "reference" and theirs.pop("root")
+    assert ours == theirs
+    assert (ours["steps"], ours["lr"], ours["ckpt_every"]) == (50, 1e-5, 20)
+
+
+def test_cli_train_losses_fall_and_match_jax(tmp_path, assets, capsys):
+    """Five steps on the CPU: a ``train`` event a step, the losses finite
+    and falling, the first (the same params, the same target) equal to the
+    JAX CLI's within rtol 1e-5.  JAX's later losses jump: its bruteforce
+    step differentiates every ray-triangle pair, and the icosphere's faces
+    that contain the centre column's rays give NaN vertices
+    (tests/test_torch_train.py)."""
+    args = TRAIN + ["--root", assets, "--steps", "5"]
+    assert cli.main(args + ["--device", "cpu", "--metrics",
+                            str(tmp_path / "m.jsonl")]) == 0
+    losses = [e["loss"] for e in _events(capsys.readouterr().out, "train")]
+    assert [e["step"] for e in _events(open(tmp_path / "m.jsonl").read(),
+                                       "train")] == list(range(5))
+    assert all(np.isfinite(losses)) and len(losses) == 5
+    assert all(b < a for a, b in zip(losses, losses[1:])), losses
+    assert jcli.main(args) == 0
+    want = [e["loss"] for e in _events(capsys.readouterr().out, "train")]
+    assert losses[0] == pytest.approx(want[0], rel=1e-5)
+
+
+def test_cli_train_checkpoints_and_resumes(tmp_path, assets, capsys):
+    """``--checkpoint`` every 2 steps and at the end; a rerun to 7 steps
+    resumes at step 5 and runs only steps 5 and 6, its first loss below
+    the first run's last; the checkpoint holds the params' seven leaves
+    and the step, as JAX's does."""
+    ck = str(tmp_path / "ck" / "train.npz")
+    args = TRAIN + ["--root", assets, "--device", "cpu", "--checkpoint", ck,
+                    "--ckpt-every", "2"]
+    assert cli.main(args + ["--steps", "5"]) == 0
+    first = _events(capsys.readouterr().out, "train")
+    with np.load(ck) as z:
+        assert int(z["__step__"]) == 5
+        assert sorted(z.files) == sorted([f"leaf_{i}" for i in range(7)]
+                                         + ["__step__"])
+    assert cli.main(args + ["--steps", "7"]) == 0
+    out = capsys.readouterr().out
+    assert _events(out, "resumed") == [
+        dict(_events(out, "resumed")[0], event="resumed", step=5)]
+    second = _events(out, "train")
+    assert [e["step"] for e in second] == [5, 6]
+    assert second[0]["loss"] < first[-1]["loss"]
+    with np.load(ck) as z:
+        assert int(z["__step__"]) == 7
+    assert [n for n in os.listdir(tmp_path / "ck")] == ["train.npz"]
+
+
+def test_cli_train_needs_the_card_unless_asked(tmp_path, assets,
+                                               monkeypatch, capsys):
+    """Without ``--device cpu`` and with no CUDA device ``train`` raises
+    before it trains or writes a checkpoint."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ck = str(tmp_path / "ck.npz")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(TRAIN + ["--root", assets, "--steps", "2",
+                          "--checkpoint", ck])
+    assert not os.path.exists(ck)
+    assert '"train"' not in capsys.readouterr().out

@@ -1149,3 +1149,63 @@ def test_cli_renders_on_the_card(tmp_path):
                                            focal=120.0))
     want = sr.render(sm.build(), cfg, light, view_matrix=view)
     assert torch.equal(torch.from_numpy(read_bmp(out)), want.cpu())
+
+
+def _train_setup(scene):
+    """The parity scene's train step on the card (tiled, its shadow in
+    view at 128x128), the start params (colours x 0.7) and the target (the
+    frame of the true params)."""
+    prep, cfg = scene
+    light = torch.tensor(P.BENCH_LIGHT, device="cuda")
+    with torch.no_grad():
+        rad, hit = sr.render_radiance(prep, cfg, light)
+    target = torch.where(hit[..., None], rad, 0.0)
+    params = sr.extract_params(prep.scene, light)
+    params.obj_color = params.obj_color * 0.7
+    return prep, cfg, params, target
+
+
+def _launches():
+    return {role: fn.launches for role, fn in KERNELS.items()}
+
+
+def _reset():
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_runs_the_cuda_walks(scene, remat):
+    """A tiled train step on a CUDA prepared scene launches K1's rays walk
+    and K2′ once each (twice with ``remat``, whose backward reruns the
+    forward) and no other kernel; its losses fall."""
+    prep, cfg, params, target = _train_setup(scene)
+    step = sr.make_train_step(prep, cfg, lr=1e-3, remat=remat)
+    _reset()
+    params, loss = step(params, target)
+    torch.cuda.synchronize()
+    n = 2 if remat else 1
+    assert _launches() == {r: n if r in ("nearest_rays", "anyhit") else 0
+                           for r in KERNELS}
+    losses = [float(loss)]
+    for _ in range(3):
+        params, loss = step(params, target)
+        losses.append(float(loss))
+    assert all(b < a for a, b in zip(losses, losses[1:])), losses
+
+
+def test_train_step_equals_the_plain_walks(scene):
+    """The step's loss and gradients on the CUDA walks against the same
+    step on their plain versions (``kernels=PLAIN``): the winners equal
+    bit for bit, so the loss agrees to rtol 1e-6 and the gradients to
+    1e-4 of each field's largest (the backward's scatter-adds sum in any
+    order)."""
+    from simple_raytracer_tpu_torch.kernels.tiled import PLAIN
+    prep, cfg, params, target = _train_setup(scene)
+    got = sr.make_train_step(prep, cfg).value_and_grad(params, target)
+    want = sr.make_train_step(prep, cfg, kernels=PLAIN).value_and_grad(
+        params, target)
+    assert float(got[0]) == pytest.approx(float(want[0]), rel=1e-6)
+    for a, b in zip(got[1].leaves(), want[1].leaves()):
+        assert torch.isfinite(a).all()
+        assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
