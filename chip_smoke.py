@@ -60,7 +60,14 @@ through ``make_train_step``):
   .textured_on_ground(3)`` at 600x400, focal 400, 4 light samples; the
   bench's scene, pose and light in BVH mode at ``__graft_entry__.py``'s
   256x192 (focal ``procedural.bench_focal(192)``); the turntable of
-  ``python -m simple_raytracer_tpu_torch animate``.
+  ``python -m simple_raytracer_tpu_torch animate``;
+* **sub-tile, normalized, range-only, paged range-only**: the tiled
+  configurations whose rays K1 cannot rebuild from the pixels or whose
+  plans hold no lists: the shadow bench with ``hit_tile=1024`` and with
+  ``normalize_dirs`` (the soft branch: K1's fetch mode over the explicit
+  rays, then K2′), with ``cull_maxv=0`` (the gather branch over range-only
+  plans: K1's rays walk, K2′), and the bench's scene at 600x400, focal
+  400, paged with ``cull_maxv=0`` (K6 and K7 over page ranges).
 
 Phases, each of which must pass:
 
@@ -177,7 +184,24 @@ Phases, each of which must pass:
    simple_raytracer_tpu_torch train`` on the stand-in six spheres, 5 steps
    with a checkpoint every 2, then 7 steps that resume at step 5; the
    texture fit (``examples/fit_texture.py``: 30 Adam steps at 48x36 that
-   cut the loss by more than 5x).
+   cut the loss by more than 5x);
+13. the sub-tile, normalized, range-only and paged range-only frames, each:
+   its nearest walk (K1's fetch mode over rays, K1's rays mode, K6) and its
+   any-hit walk (K2′, K7) against their plain versions on the frame's
+   arguments, bit for bit (t, idx, the fetched attribute rows; found on
+   every lane; > 1,000 shadowed hit lanes on the shadow bench); the
+   sub-tile frame's (t, idx) equal on every lane to the fetch mode over
+   the same rays in whole tiles, the range-only frames' to the walk of the
+   same rays over list plans; the frame through the public entry points
+   with the counts reset just before (its branch's two kernels launched,
+   no other); the image within 1 of the plain versions' image on >= 99.9%
+   of pixels (the plain walks already run on the same arguments are
+   reused); 20 (sub-tile, normalized) or 3 (range-only) view-varied frames
+   timed, each kernel and its plain version.  K1's fused flat mode is held
+   to its plain version, and to its list walk on every lane, over the
+   range-only frame's primary plan, as a scene of more than 65,536
+   windows plans it.  The range-only walks print their ``schedule`` lines
+   without the span sweeps.
 
 Every frame that runs K1 (phases 3, 6, 8, 9, and 10's cut plans) holds
 K1's t and idx to the plain walk in K1's slices bit for bit, and prints a
@@ -341,6 +365,14 @@ TRAIN_COLOR = 0.7
 GRAD_REL = 1e-4
 GRAD_RTOL, GRAD_ATOL = 2e-4, 1e-5
 FIT_WIDTH, FIT_HEIGHT, FIT_STEPS = 48, 36, 30
+# phase 13: the sub-tile frame's hit_tile (a quarter of the 4,096-ray
+# tile), the range-only frames' timed frames (each walks every window of
+# its covering range: most of a second at 1080p), and the reference walks'
+# list capacity (RenderConfig.cull_maxv's default)
+SUB_TILE = 1024
+RANGE_FRAMES = 3
+LIST_MAXV = 248
+K1_FETCH_RAYS_NAME = "K1 fetch over rays: " + RAYS_NAME + "<kFetch>"
 
 
 class SmokeFailure(RuntimeError):
@@ -561,19 +593,22 @@ def frame_args(prep, cfg, light, cam_spec, rays=None) -> dict:
     return {role: st[0] for role, st in stores.items() if st}
 
 
-def check_k1_shaded(k1, label: str, size) -> dict:
-    """K1 (a fused mode: flat, textured or smooth) vs its plain version on
-    the arguments ``k1``, in an image of ``size`` = (width, height): t, idx,
-    obj, the shading rows (rgb, or dw, sw, texu, texv, obj, tex id) within
-    RGB_ATOL on the rays whose idx agrees, obj and tex id equal there, and
-    the bounds rows."""
+def check_k1_shaded(k1, label: str, size, plain=None,
+                    sweep: bool = True) -> dict:
+    """K1 (a fused mode: flat, textured or smooth) vs its plain version
+    (``plain``, default ``tiled_nearest_shaded_plain``) on the arguments
+    ``k1``, in an image of ``size`` = (width, height): t, idx, obj, the
+    shading rows (rgb, or dw, sw, texu, texv, obj, tex id) within RGB_ATOL
+    on the rays whose idx agrees, obj and tex id equal there, and the
+    bounds rows; then its ``K1 schedule`` line (``sweep``: with the span
+    sweeps)."""
     import torch
     from simple_raytracer_tpu_torch.kernels import nearest
     mode, amap = k1[10], k1[11]
     out = nearest.tiled_nearest_shaded(*k1)
     kt, ki, ko, ks, kb = out
     (pt, pi, po, ps, pb), walk = plain_walk(
-        nearest.tiled_nearest_shaded_plain, k1)
+        plain or nearest.tiled_nearest_shaded_plain, k1)
     torch.cuda.synchronize()
     hk, hp = torch.isfinite(kt), torch.isfinite(pt)
     both = hk & hp
@@ -615,7 +650,7 @@ def check_k1_shaded(k1, label: str, size) -> dict:
     require(exact, f"K1 t, idx not bit for bit the plain walk's ({label})")
     require(shade_err <= RGB_ATOL and obj_ok, f"K1 shading differs ({label})")
     require(b_ok, f"K1 bounds rows differ ({label})")
-    k1_schedule(k1, label, walk)
+    k1_schedule(k1, label, walk, sweep=sweep)
     return res
 
 
@@ -657,7 +692,8 @@ def schedule_stats(plan, sched, n_windows: int, range_span: int,
                 "sum": int(need.sum())}}
 
 
-def k1_schedule(k1, label: str, walk, fetch: bool = False) -> dict:
+def k1_schedule(k1, label: str, walk, fetch: bool = False,
+                sweep: bool = True) -> dict:
     """K1's work items on the arguments ``k1`` (its fused modes', or with
     ``fetch`` the fetch mode's): the schedule on the card against its
     plain version (the same (tile, span) rows, walk lengths never growing),
@@ -665,8 +701,9 @@ def k1_schedule(k1, label: str, walk, fetch: bool = False) -> dict:
     each slice needed (from the plain walk's record ``walk``), and K1's
     time split by launch (CUDA events around repeated launches: the
     schedule + key fill alone, the walk as schedule + walk less the
-    schedule alone, the epilogue alone on the last keys), and K1 at other
-    range and list spans."""
+    schedule alone, the epilogue alone on the last keys), and with
+    ``sweep`` K1 at other range and list spans (without, each launch is
+    timed over 2 runs: a range-only plan's walk takes most of a second)."""
     import torch
     from simple_raytracer_tpu_torch.kernels import nearest
     if fetch:
@@ -688,14 +725,15 @@ def k1_schedule(k1, label: str, walk, fetch: bool = False) -> dict:
     need = walk[0].reshape(plan.shape[0] * slices, -1).amax(dim=1) // wt
     stats = schedule_stats(plan, sched, tri.shape[0] // wt,
                            nearest.K1_RANGE_SPAN, nearest.K1_LIST_SPAN, need)
-    fill = cuda_ms(lambda: launch(1), 20)
-    fill_walk = cuda_ms(lambda: launch(3), 20)
-    epilogue = cuda_ms(lambda: launch(4), 20)
-    whole = cuda_ms(lambda: launch(), 20)
+    reps = 20 if sweep else 2
+    fill = cuda_ms(lambda: launch(1), reps)
+    fill_walk = cuda_ms(lambda: launch(3), reps)
+    epilogue = cuda_ms(lambda: launch(4), reps)
+    whole = cuda_ms(lambda: launch(), reps)
     by_range = {str(sp): cuda_ms(call(range_span=sp)[0], 10)
-                for sp in K1_RANGE_SPANS}
+                for sp in (K1_RANGE_SPANS if sweep else ())}
     by_list = {str(sp): cuda_ms(call(list_span=sp)[0], 10)
-               for sp in K1_LIST_SPANS}
+               for sp in (K1_LIST_SPANS if sweep else ())}
     res = {"check": f"K1 schedule ({label})",
            "items": stats["rows"] * slices, "slices_per_tile": slices,
            "slice_rays": shape["slice_rays"], **stats,
@@ -728,7 +766,8 @@ def spill_lines(*keys) -> list:
 
 
 def rays_schedule(args, label: str, walk, what: str, groups: int = 1,
-                  occlusion: bool = False, from_t: bool = False) -> dict:
+                  occlusion: bool = False, from_t: bool = False,
+                  sweep: bool = True) -> dict:
     """The work items of a walk over explicit rays on its wrapper's
     arguments ``args`` (the nearest walk's, or with ``occlusion`` the
     any-hit walk's; with ``from_t`` K2's, the any-hit walk over rays
@@ -737,9 +776,10 @@ def rays_schedule(args, label: str, walk, what: str, groups: int = 1,
     CTAs per SM, registers and spills, the windows each slice needed (from
     the plain walk's record ``walk``), and the walk's time split by launch
     (the schedule alone, the walk as schedule + walk less the schedule,
-    and the nearest walk's key decode alone), and at other range and list
-    spans; for K2 also its wrapper's call, and the card's and the host's
-    time of it and of each launch apart (``queued_ms``)."""
+    and the nearest walk's key decode alone), and with ``sweep`` at other
+    range and list spans (without, each launch is timed over 2 runs); for
+    K2 also its wrapper's call, and the card's and the host's time of it
+    and of each launch apart (``queued_ms``)."""
     import torch
     from simple_raytracer_tpu_torch.kernels import anyhit, nearest
     if from_t:
@@ -783,9 +823,10 @@ def rays_schedule(args, label: str, walk, what: str, groups: int = 1,
     need = torch.zeros((n, slices), dtype=torch.int64, device=plan.device)
     need.scatter_reduce_(1, sl.expand(n, m), walk[0] // wt, "amax")
     stats = schedule_stats(plan, sched, tri.shape[0] // wt, rs, ls, need)
-    fill = cuda_ms(lambda: launch(1), 20)
-    fill_walk = cuda_ms(lambda: launch(3), 20)
-    whole = cuda_ms(launch, 20)
+    reps = 20 if sweep else 2
+    fill = cuda_ms(lambda: launch(1), reps)
+    fill_walk = cuda_ms(lambda: launch(3), reps)
+    whole = cuda_ms(launch, reps)
     res = {"check": f"{what} schedule ({label})",
            "items": stats["rows"] * slices, "rays_per_tile": m,
            "groups": groups, "slices_per_tile": slices,
@@ -795,11 +836,12 @@ def rays_schedule(args, label: str, walk, what: str, groups: int = 1,
            "registers": shape["registers"], "spills": spills,
            "schedule_ms": fill, "walk_ms": fill_walk - fill, "ms": whole,
            "ms_by_range_span": {str(sp): cuda_ms(call(range_span=sp)[0], 10)
-                                for sp in RAYS_RANGE_SPANS},
+                                for sp in (RAYS_RANGE_SPANS if sweep
+                                           else ())},
            "ms_by_list_span": {str(sp): cuda_ms(call(list_span=sp)[0], 10)
-                               for sp in RAYS_LIST_SPANS}}
+                               for sp in (RAYS_LIST_SPANS if sweep else ())}}
     if not (occlusion or from_t):
-        res["decode_ms"] = cuda_ms(lambda: launch(4), 20)
+        res["decode_ms"] = cuda_ms(lambda: launch(4), reps)
     if from_t:
         # the wrapper's call as the kernels line times it, then the card's
         # time and the host's apart: which of them K2's two launches cost
@@ -889,29 +931,29 @@ def read_launches() -> dict:
 
 
 def image_vs_plain(sr, prep, cfg, light, img, label: str,
-                   view=None) -> dict:
+                   view=None, plains=None) -> dict:
     """The frame (seen through ``view``, a view matrix or None) through the
-    plain versions, on the card, against ``img`` (within 1 on >= IMAGE_MIN
-    of pixels)."""
+    plain versions (``plains``, by role; default ``tiled.PLAIN``), on the
+    card, against ``img`` (within 1 on >= IMAGE_MIN of pixels)."""
     import torch
     from simple_raytracer_tpu_torch.kernels import plan as pl
     from simple_raytracer_tpu_torch.kernels.tiled import (PLAIN,
-                                                          frame_branch,
-                                                          render_flat_tiled)
+                                                          render_flat_tiled,
+                                                          wants_rays)
     from simple_raytracer_tpu_torch.ops.camera import (primary_rays_tiled,
                                                        untile_image)
     from simple_raytracer_tpu_torch.render.integrator import finalize_image
     cam = cfg.camera
     tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
     rays = None
-    if frame_branch(prep, cfg, tpx * tpx) != "fused":
+    if wants_rays(prep, cfg, tpx * tpx):
         o, d, _, _ = primary_rays_tiled(cam.width, cam.height, tpx,
-                                        cam.focal, view_matrix=view,
-                                        device=prep.device)
+                                        cam.focal, cam.normalize_dirs,
+                                        view_matrix=view, device=prep.device)
         rays = (o.reshape(-1, 3), d.reshape(-1, 3))
     prad, phit = render_flat_tiled(
         prep, cfg, light, (view, cam.focal, cam.width, cam.height, tpx),
-        rays=rays, kernels=PLAIN)
+        rays=rays, kernels=plains or PLAIN)
     tx, ty = -(-cam.width // tpx), -(-cam.height // tpx)
     pimg = finalize_image(
         untile_image(prad, cam.width, cam.height, tpx, tx, ty),
@@ -925,13 +967,14 @@ def image_vs_plain(sr, prep, cfg, light, img, label: str,
 
 
 def render_checked(sr, prep, cfg, light, label: str, roles,
-                   view=None) -> dict:
+                   view=None, plains=None) -> dict:
     """The frame (seen through ``view``) through the public entry points,
     with the kernels' launch counters reset just before and read just
     after: every kernel of ``roles`` launched and no other; coverage in
     (0.05, 0.99), the frame's shape and finite radiance; the image within 1
-    of the plain versions' image.  Emits and returns the ``render`` line,
-    with K1's launches by attribute mode."""
+    of the plain versions' image (``plains``: see :func:`image_vs_plain`).
+    Emits and returns the ``render`` line, with K1's launches by attribute
+    mode."""
     import torch
     from simple_raytracer_tpu_torch.kernels import nearest
     from simple_raytracer_tpu_torch.kernels import plan as pl
@@ -957,7 +1000,7 @@ def render_checked(sr, prep, cfg, light, label: str, roles,
     res = {"phase": f"render ({label})",
            "branch": frame_branch(prep, cfg, tpx * tpx),
            "coverage": coverage, "launches": launches, "k1_modes": k1_modes,
-           **image_vs_plain(sr, prep, cfg, light, img, label, view)}
+           **image_vs_plain(sr, prep, cfg, light, img, label, view, plains)}
     emit(**res)
     return res
 
@@ -2368,6 +2411,249 @@ def train_phase(sr, prep, light, root, gpu: str) -> list:
               via="tiled_anyhit_t (tiled_t.py:1815)")]
 
 
+def timed_plains() -> dict:
+    """The plain versions by role (``tiled.PLAIN``), each timed on the card
+    (CUDA events, ``.ms``) at its first call on a set of arguments and kept
+    with its result: a later call on equal arguments returns that result
+    again.  The plain image of a frame whose kernels were just held to
+    these versions then reuses their walks on the same inputs (a range-only
+    walk at 1080p takes some 20 s in plain PyTorch)."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels.tiled import PLAIN
+
+    def same(a, b):
+        if torch.is_tensor(a) or torch.is_tensor(b):
+            return (torch.is_tensor(a) and torch.is_tensor(b)
+                    and a.shape == b.shape and a.dtype == b.dtype
+                    and a.device == b.device and torch.equal(a, b))
+        return a == b
+
+    def kept(fn):
+        def call(*args):
+            if call.args is not None and len(args) == len(call.args) and all(
+                    same(a, b) for a, b in zip(args, call.args)):
+                return call.out
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            t0.record()
+            out = fn(*args)
+            t1.record()
+            torch.cuda.synchronize()
+            call.ms, call.args, call.out = t0.elapsed_time(t1), args, out
+            return out
+        call.ms = call.args = call.out = None
+        return call
+    return {role: kept(fn) for role, fn in PLAIN.items()}
+
+
+def config_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
+                 reference=None, shadowed_min=None) -> tuple:
+    """A frame of phase 13 (``hit_tile`` sub-tiles, normalized directions or
+    range-only plans: the soft, gather or paged branch over the explicit
+    primary rays, as JAX's render_flat_tiled picks it): the nearest walk
+    (K1's fetch mode over rays, K1's rays mode or K6) and the any-hit walk
+    (K2′ or K7) against their plain versions on the frame's arguments, bit
+    for bit (t, idx and the fetch mode's attribute rows; found on every
+    lane), with their ``schedule`` lines; with ``reference`` ("full tile":
+    the fetch mode over the same rays in whole tiles; "lists": the walk of
+    the same rays over list plans of LIST_MAXV entries), the frame's (t,
+    idx) equal on every lane to that walk's; the frame through the public
+    entry points with the counts reset just before (its branch's two
+    kernels launched, no other) against the plain image; ``frames``
+    view-varied frames timed, each kernel and its plain version.  Returns
+    (the kernels-line entries, the frame's primary rays (o, d))."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels import nearest, paged
+    from simple_raytracer_tpu_torch.kernels import plan as pl
+    from simple_raytracer_tpu_torch.kernels import tiled
+    from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
+    from simple_raytracer_tpu_torch.render.integrator import finalize_image
+    dev = prep.device
+    cam = cfg.camera
+    S = cfg.light.num_samples
+    tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
+    tile = tpx * tpx
+    branch = tiled.frame_branch(prep, cfg, tile)
+    near = {"soft": "nearest_rays_attrs", "gather": "nearest_rays",
+            "paged": "nearest_pages"}[branch]
+    occ = "anyhit_pages" if branch == "paged" else "anyhit"
+    fetch = near == "nearest_rays_attrs"
+    what = {"nearest_rays_attrs": "K1 fetch over rays",
+            "nearest_rays": "K1 rays", "nearest_pages": "K6"}[near]
+    occ_what = "K7" if branch == "paged" else "K2'"
+    sweep = cfg.cull_maxv > 0          # range-only walks: no span sweeps
+    reps = 20 if sweep else 3
+    cam_spec = (None, cam.focal, cam.width, cam.height, tpx)
+    o, d, _, _ = primary_rays_tiled(cam.width, cam.height, tpx, cam.focal,
+                                    cam.normalize_dirs, device=dev)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    args = frame_args(prep, cfg, light, cam_spec, (o, d))
+    kn, ko = args[near], args[occ]
+    plains = timed_plains()
+    kernel = tiled.KERNELS[near]
+
+    # the nearest walk vs plain; the fetch mode's rows too
+    walk_args = (kn[0], kn[1], *kn[3:]) if fetch else kn
+    n, m = walk_args[2].shape[:2]
+    inside = frame_lanes(*pl.tile_origins(o.shape[0] // tile,
+                                          -(-cam.width // tpx), tpx,
+                                          cam.width, cam.height, dev),
+                         tpx, cam.width, cam.height).reshape(n, m)
+    n_res, kt, ki, n_walk = check_nearest(
+        kernel, plains[near], kn, inside, what, label,
+        nearest_ops(walk_args[2]), window_bytes(kn[1], walk_args[4]), 24,
+        winners=kn[2] if fetch else None, exact=True)
+    if fetch:
+        ka, pa = kernel(*kn)[2], plains[near](*kn)[2]
+        torch.cuda.synchronize()
+        rows_equal = bool(torch.equal(ka, pa))
+        emit(check=f"{what} rows vs plain ({label})", rows_equal=rows_equal,
+             hit_rows=int((ka[:, 3] >= 0).sum()))
+        require(rows_equal, f"{what} rows differ from the plain fetch "
+                            f"({label})")
+    rays_schedule(walk_args, label, n_walk, what, sweep=sweep)
+    if reference:
+        wb = cfg.kernel.window_blocks
+        if reference == "full tile":
+            maxv = pl.effective_cull_maxv(cfg, prep.num_blocks, wb)
+            rt, ri, _ = nearest.hits_attrs(prep, cfg, None, maxv,
+                                           rays=(o, d), tile=tile)
+        elif branch == "paged":
+            rt, ri = paged.hits(prep, cfg, o, d, tile, LIST_MAXV, apex=True)
+        else:
+            rt, ri = nearest.hits(prep, cfg.replace(cull_maxv=LIST_MAXV), o,
+                                  d, tile, pl.effective_cull_maxv(
+                                      cfg.replace(cull_maxv=LIST_MAXV),
+                                      prep.num_blocks, wb), apex=True)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(rt, kt.reshape(-1))
+                    and torch.equal(ri, ki.reshape(-1)))
+        emit(check=f"{what} vs the {reference} walk ({label})",
+             t_idx_equal_every_lane=same, hit_rays=int(torch.isfinite(rt)
+                                                       .sum()),
+             lanes=int(rt.numel()))
+        require(same, f"{what} (t, idx) differ from the {reference} walk of "
+                      f"the same rays ({label})")
+
+    # the any-hit walk vs plain, on the lanes whose point is a hit
+    o_res, o_walk = check_found(tiled.KERNELS[occ], plains[occ], ko,
+                                (torch.isfinite(kt) & inside).reshape(-1),
+                                S, occ_what, label, shadowed_min)
+    rays_schedule(ko, label, o_walk, occ_what, occlusion=True, sweep=sweep)
+
+    launches = render_checked(sr, prep, cfg, light, label, (near, occ),
+                              plains=plains)["launches"]
+    ms_frame = view_varied_ms(sr, prep, cfg, light, frames, label)
+    times = {"nearest_ms": cuda_ms(lambda: kernel(*kn), reps),
+             "nearest_plain_ms": plains[near].ms,
+             "anyhit_ms": cuda_ms(lambda: tiled.KERNELS[occ](*ko), reps),
+             "anyhit_plain_ms": plains[occ].ms,
+             "frame_ms": cuda_ms(lambda: finalize_image(
+                 *sr.render_radiance(prep, cfg, light), cfg), reps)}
+    emit(phase=f"timing ({label})", width=cam.width, height=cam.height,
+         samples=S, branch=branch, frames=frames, ms_per_frame=ms_frame,
+         rays_per_s=cam.width * cam.height * 1e3 / ms_frame, gpu=gpu,
+         **times)
+    near_entry = {
+        "nearest_rays_attrs": (K1_FETCH_RAYS_NAME,
+                               "simple_raytracer_tpu/kernels/tiled_t.py:855",
+                               "tiled_nearest_t with At and no cam "
+                               "(tiled_t.py:1616), from hits_attrs"),
+        "nearest_rays": (RAYS_NAME + " (K1 rays mode)",
+                         "simple_raytracer_tpu/kernels/tiled_t.py:855",
+                         "tiled_nearest_t (tiled_t.py:1616), from hits"),
+        "nearest_pages": (RAYS_NAME + " (pages)",
+                          "simple_raytracer_tpu/kernels/tiled.py:815",
+                          "tiled_nearest (tiled.py:1047)")}[near]
+    occ_entry = ((ANYHIT_NAME + " (page windows)",
+                  "simple_raytracer_tpu/kernels/tiled.py:905",
+                  "tiled_anyhit (tiled.py:1090)") if branch == "paged" else
+                 (ANYHIT_NAME, "simple_raytracer_tpu/kernels/tiled_t.py:1374",
+                  "tiled_anyhit_t (tiled_t.py:1815)"))
+    return [
+        entry(near_entry[0], "nearest.cu", near_entry[1], label,
+              launches[near], n_res["t_max_abs_err"], times["nearest_ms"],
+              times["nearest_plain_ms"], n_res, via=near_entry[2]),
+        entry(occ_entry[0], "anyhit.cu", occ_entry[1], label,
+              launches[occ], o_res["found_max_abs_err"],
+              times["anyhit_ms"], times["anyhit_plain_ms"], o_res,
+              via=occ_entry[2])], (o, d)
+
+
+def fused_over_range_plan(prep, cfg, light, label: str, rays) -> dict:
+    """K1's fused flat mode over the frame's range-only primary plan (built
+    from its rays ``rays`` with the pixel origins in columns 4/5, as a
+    scene of more than 65,536 windows plans it): against its plain version
+    (t and idx bit for bit, rows within RGB_ATOL, bounds rows) and, on
+    every lane, K1's (t, idx) over the frame's list plan; timed.  No frame
+    of this run has more than 65,536 windows, so no frame launches it."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels import nearest
+    from simple_raytracer_tpu_torch.kernels import plan as pl
+    cam = cfg.camera
+    tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
+    cam_spec = (None, cam.focal, cam.width, cam.height, tpx)
+    maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
+                                  cfg.kernel.window_blocks)
+    k1 = list(nearest.shaded_args(prep, cfg, light, cam_spec, maxv))
+    lt, li = nearest.tiled_nearest_shaded(*k1)[:2]
+    k1[0] = nearest.primary_plan(prep, cfg, cam_spec, 0, rays)
+    k1 = tuple(k1)
+    require(bool((k1[0][:, 3] == 0).all()), "the plan is not range-only")
+    plain = timed_plains()["nearest_shaded"]
+    res = check_k1_shaded(k1, label, (cam.width, cam.height), plain=plain,
+                          sweep=False)
+    kt, ki = nearest.tiled_nearest_shaded(*k1)[:2]
+    torch.cuda.synchronize()
+    same = bool(torch.equal(kt, lt) and torch.equal(ki, li))
+    out = {"check": f"K1 fused over its range-only plan ({label})",
+           "t_idx_equal_list_walk_every_lane": same,
+           "ms": cuda_ms(lambda: nearest.tiled_nearest_shaded(*k1), 3),
+           "plain_ms": plain.ms, "bound_ms": res["bound_ms"],
+           "bound_by": res["bound_by"], "pairs": res["pairs"],
+           "launches_on_a_frame": 0, "library_ms": None}
+    emit(**out)
+    require(same, f"K1 fused over the range-only plan differs from its list "
+                  f"walk ({label})")
+    return out
+
+
+def config_phase(sr, prep, cfg, light, source: str, gpu: str) -> list:
+    """Phase 13: the tiled configurations that walk explicit rays or
+    range-only plans, on the shadow bench (sub-tiles, normalized
+    directions, cull_maxv=0, K1's fused mode over the range-only plan) and
+    the paged frame at 600x400 with cull_maxv=0.  Returns the
+    kernels-line entries."""
+    sb = cfg.replace(camera=sr.CameraConfig(width=WIDTH, height=HEIGHT,
+                                            focal=SHADOW_FOCAL))
+    sb_label = (f"shadow bench: {source}, {WIDTH}x{HEIGHT}, focal "
+                f"{SHADOW_FOCAL:g}")
+    entries, _ = config_frame(
+        sr, prep, sb.replace(hit_tile=SUB_TILE), light,
+        f"sub-tile {sb_label}, hit_tile {SUB_TILE}", gpu, FRAMES,
+        "full tile", SHADOWED_MIN)
+    more, _ = config_frame(
+        sr, prep, sb.replace(camera=sr.CameraConfig(
+            width=WIDTH, height=HEIGHT, focal=SHADOW_FOCAL,
+            normalize_dirs=True)), light, f"normalized {sb_label}", gpu,
+        FRAMES, None, SHADOWED_MIN)
+    entries += more
+    range_label = f"range-only {sb_label}, cull_maxv 0"
+    more, rays = config_frame(sr, prep, sb.replace(cull_maxv=0), light,
+                              range_label, gpu, RANGE_FRAMES, "lists",
+                              SHADOWED_MIN)
+    entries += more
+    fused_over_range_plan(prep, sb, light, range_label, rays)
+    more, _ = config_frame(
+        sr, prep, cfg.replace(camera=sr.CameraConfig(
+            width=OCC_WIDTH, height=OCC_HEIGHT, focal=OCC_FOCAL),
+            tiled_impl="paged", cull_maxv=0), light,
+        f"paged range-only: {source}, {OCC_WIDTH}x{OCC_HEIGHT}, cull_maxv 0",
+        gpu, RANGE_FRAMES, "lists")
+    return entries + more
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2553,6 +2839,9 @@ def main() -> int:
 
     # 12. training: the train bench, the CLI's train and the texture fit
     entries += train_phase(sr, prep, light, args.root, gpu)
+
+    # 13. the tiled configurations over explicit rays or range-only plans
+    entries += config_phase(sr, prep, cfg, light, source, gpu)
 
     print(json.dumps({"kernels": entries}))
     print(gpu)

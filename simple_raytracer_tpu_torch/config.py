@@ -178,10 +178,11 @@ class RenderConfig:
     tile_px: int = 0
 
     # Nearest-pass ray-tile size; 0, or any value of at least the pixel
-    # tile, = the full pixel tile (kernels/tiled.py::_hit_tile).  Sub-tiles
-    # (a divisor of the tile, a multiple of 128 rays) raise
-    # NotImplementedError in a frame; the differentiable render
-    # (diff/render.py) walks them.
+    # tile, = the full pixel tile (kernels/tiled.py::_hit_tile).  A sub-tile
+    # (a divisor of the tile, a multiple of 128 rays) walks the explicit
+    # primary rays in chunks of that many: a flat frame takes K1's fetch
+    # mode over them (the "soft" branch), other scenes the gather or paged
+    # branch; the shadow pass keeps its own tile (shadow_tile).
     hit_tile: int = 0
 
     # Shadow-pass ray-tile size; 0 = adaptive (kernels.plan.shadow_tile):
@@ -197,7 +198,8 @@ class RenderConfig:
 
     # Tiled-path cull-list capacity: tiles with <= cull_maxv visible windows
     # get an exact front-to-back list; heavier tiles walk the covering
-    # contiguous window range (no early break).
+    # contiguous window range (no early break).  <= 0: every plan is
+    # range-only (kernels/plan.py::cull_ranges) and the frame gathers.
     cull_maxv: int = 248
 
     # Rays per chunk of the bvh and bruteforce modes (bounds the per-ray

@@ -15,14 +15,18 @@
 // index and the camera constants, so no ray array exists.
 //
 // nearest_rays (schedule_kernel, rays_walk_kernel<RPT>,
-// rays_decode_kernel): nearest hit (t, id) of explicit rays o, d [n, m, 3]
-// over a plan of windows of wt consecutive triangles.  It replaces three TPU
-// kernels: simple_raytracer_tpu/kernels/tiled.py::_nearest_kernel (K6:
-// pages of page_tris triangles, reached through tiled_nearest from
+// rays_decode_kernel<kFetch>): nearest hit (t, id) of explicit rays o, d
+// [n, m, 3] over a plan of windows of wt consecutive triangles.  It replaces
+// three TPU kernels: simple_raytracer_tpu/kernels/tiled.py::_nearest_kernel
+// (K6: pages of page_tris triangles, reached through tiled_nearest from
 // tiled_hits: tiled_impl="paged"; plain version kernels/paged.py::
 // tiled_nearest_plain), tiled_t.py::_nearest_kernel_t over explicit rays
 // (K1's rays mode: 64-triangle windows, the refined plan of the prepass
-// walk; plain version kernels/nearest.py::tiled_nearest_rays_plain) and,
+// walk and every range-only plan; plain version kernels/nearest.py::
+// tiled_nearest_rays_plain; and its fetch mode over explicit rays, the
+// decode also writing the winner's tri_attr row, reached through
+// hits_attrs with no cam on the flat frames of hit_tile sub-tiles and of
+// normalized directions; plain version tiled_nearest_rays_attrs_plain) and,
 // with groups > 1, tiled_t.py::_nearest_kernel_g (K4: sub-groups of
 // m / groups lanes skip the entries their mask bit clears and stop on
 // their own bound test; plain version kernels/nearest.py::
@@ -638,10 +642,15 @@ __global__ void __launch_bounds__(srt::kItemThreads) rays_walk_kernel(
 }
 
 // keys [n] -> t [n] f32, idx [n] i32: a key whose t is not finite (the miss
-// key's bits are a NaN) is a miss, t = inf, idx = -1.
+// key's bits are a NaN) is a miss, t = inf, idx = -1.  kFetch (the fetch
+// mode over explicit rays) also writes the winner's tri_attr row to
+// attr_out [n] as one float4, (0, 0, 0, -1) on a miss, as K1's fetch
+// epilogue does.
+template <bool kFetch>
 __global__ void __launch_bounds__(kDecodeThreads) rays_decode_kernel(
     const unsigned long long* __restrict__ keys, long long n,
-    float* __restrict__ t_out, int* __restrict__ idx_out) {
+    const float4* __restrict__ attr, float* __restrict__ t_out,
+    int* __restrict__ idx_out, float4* __restrict__ attr_out) {
   const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
   for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
                      threadIdx.x;
@@ -649,8 +658,11 @@ __global__ void __launch_bounds__(kDecodeThreads) rays_decode_kernel(
     const unsigned long long key = keys[i];
     const float kt = __uint_as_float(static_cast<unsigned>(key >> 32));
     const bool hit = isfinite(kt);
+    const int id = hit ? static_cast<int>(static_cast<unsigned>(key)) : -1;
     t_out[i] = hit ? kt : INFINITY;
-    idx_out[i] = hit ? static_cast<int>(static_cast<unsigned>(key)) : -1;
+    idx_out[i] = id;
+    if constexpr (kFetch)
+      attr_out[i] = hit ? attr[id] : make_float4(0.0f, 0.0f, 0.0f, -1.0f);
   }
 }
 
@@ -776,18 +788,24 @@ extern "C" int srt_k1_shape(int wt, int* out) {
 // windows of wt triangles -> t [n_tiles, m] f32 (inf on a miss), idx
 // [n_tiles, m] i32 (-1 on a miss).  groups > 1: the plan carries the
 // sub-group masks of `groups` groups of m / groups lanes (a multiple of 32).
-// Scratch: keys [n_tiles * m] u64 and sched [2 + 2 * rows_max] i32, as K1's.
-// `stages`: 1 schedule and key fill, 2 walk, 4 decode; 7 for all.
+// attr_out [n_tiles * m] float4 (the fetch mode over explicit rays; null
+// for none): the winner's row of attr [Tp] float4 (tri_attr), (0, 0, 0, -1)
+// on a miss.  Scratch: keys [n_tiles * m] u64 and sched [2 + 2 * rows_max]
+// i32, as K1's.  `stages`: 1 schedule and key fill, 2 walk, 4 decode; 7 for
+// all.
 extern "C" int srt_nearest_rays(
     const void* plan, int plan_w, int n_tiles, int groups, const void* tri,
     int n_windows, const void* o_in, const void* d_in, int m, int wt,
-    float eps, void* t, void* idx, void* keys, void* sched, int rows_max,
-    int range_span, int list_span, int stages, void* stream) {
+    float eps, void* t, void* idx, const void* attr, void* attr_out,
+    void* keys, void* sched, int rows_max, int range_span, int list_span,
+    int stages, void* stream) {
   if (n_tiles == 0) return 0;
   if (m <= 0 || groups < 1 || groups > 4 || m % groups ||
       (groups > 1 && (m / groups) % 32) || wt <= 0 || wt % 4 ||
       srt::bad_spans(range_span, list_span) || walk_smem(wt) > 48 * 1024 ||
-      reinterpret_cast<uintptr_t>(tri) % 16)
+      reinterpret_cast<uintptr_t>(tri) % 16 ||
+      (attr_out && (!attr || reinterpret_cast<uintptr_t>(attr) % 16 ||
+                    reinterpret_cast<uintptr_t>(attr_out) % 16)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long n_keys = static_cast<long long>(n_tiles) * m;
@@ -808,11 +826,18 @@ extern "C" int srt_nearest_rays(
                               d_in, m, wt, eps, spans, sched, keys, s);
     if (rc) return rc;
   }
-  if (stages & 4)
-    rays_decode_kernel<<<srt::fill_blocks(n_keys, kDecodeThreads),
-                         kDecodeThreads, 0, s>>>(
-        static_cast<const unsigned long long*>(keys), n_keys,
-        static_cast<float*>(t), static_cast<int*>(idx));
+  if (stages & 4) {
+    const int blocks = srt::fill_blocks(n_keys, kDecodeThreads);
+    const auto* k = static_cast<const unsigned long long*>(keys);
+    const auto* a = static_cast<const float4*>(attr);
+    auto* ao = static_cast<float4*>(attr_out);
+    if (ao)
+      rays_decode_kernel<true><<<blocks, kDecodeThreads, 0, s>>>(
+          k, n_keys, a, static_cast<float*>(t), static_cast<int*>(idx), ao);
+    else
+      rays_decode_kernel<false><<<blocks, kDecodeThreads, 0, s>>>(
+          k, n_keys, a, static_cast<float*>(t), static_cast<int*>(idx), ao);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

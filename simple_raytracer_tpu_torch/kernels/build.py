@@ -57,6 +57,7 @@ SIGNATURES = {
             _P, _P, _I,          # o, d, rays per tile
             _I, _F,              # window_tris, eps
             _P, _P,              # t, idx
+            _P, _P,              # tri_attr, attr_out (fetch mode) or 0, 0
             _P, _P, _I,          # keys, sched, rows_max
             _I, _I,              # range span, list span
             _I, _P),             # stages, stream

@@ -6,10 +6,14 @@ epilogue launch) in its fused modes (JAX ``_fused_phong``'s attribute
 modes: 0 flat, 1 textured, 2 smooth normals) and ``tiled_nearest_attrs``
 in its fetch mode; ``tiled_nearest_rays`` wraps the walk over the explicit
 rays of each tile (csrc/nearest.cu ``nearest_rays``: the same schedule, a
-persistent walk over work items, and a key decode).  Together they replace
-the JAX package's Pallas kernel ``kernels/tiled_t.py::_nearest_kernel_t``
-(fused on the fused frame's path, fetch on the soft-shadow and sublane
-gather paths, explicit rays on the prepass walk's rerun).
+persistent walk over work items, and a key decode), and
+``tiled_nearest_rays_attrs`` the same walk in the fetch mode over explicit
+rays (the decode also fetches the winner's attribute row).  Together they
+replace the JAX package's Pallas kernel
+``kernels/tiled_t.py::_nearest_kernel_t`` (fused on the fused frame's path,
+fetch on the soft-shadow and sublane gather paths, explicit rays on the
+prepass walk's rerun and on range-only plans, fetch over explicit rays on
+the flat frames of ``hit_tile`` sub-tiles and of normalized directions).
 ``tiled_nearest_grouped`` wraps the walk over explicit rays on a grouped
 plan and replaces ``tiled_t.py::_nearest_kernel_g`` (K4,
 ``KernelConfig.groups`` > 1).  Each ``*_plain`` function is the plain
@@ -408,19 +412,25 @@ def decode_keys(keys):
 
 def rays_call(plan, tri, o, d, window_tris: int, eps: float,
               groups: int = 1, range_span: int = None,
-              list_span: int = None, what: str = "nearest_rays"):
+              list_span: int = None, what: str = "nearest_rays",
+              tri_attr=None):
     """Check the operands of the walk over explicit rays (CUDA tensors:
     plan [n, W] i32, windows of ``window_tris`` triangles, with ``groups``
     > 1 a grouped plan; tri [Tp, 9]; o, d [n, M, 3] f32, any M, with
     groups M / groups a multiple of 32), allocate its outputs and scratch,
     and return (launch, (t [n, M], idx [n, M]), sched) as :func:`k1_call`
     does: ``launch(stages=RAYS_STAGES)`` queues the schedule and key fill
-    (1), the walk (2) and the key decode (4).  Spans default to
-    :func:`rays_spans`.  The walk of K1's rays mode, K4 and K6
-    (kernels/paged.py); each caller counts its own launches."""
-    build.check_tensors(plan.device, plan=(plan, torch.int32),
-                        tri=(tri, torch.float32), o=(o, torch.float32),
-                        d=(d, torch.float32))
+    (1), the walk (2) and the key decode (4).  With ``tri_attr`` [Tp, 4]
+    (the fetch mode over explicit rays) the decode also writes the
+    winner's row, and the outputs are (t, idx, attrs [n * M, 4]).  Spans
+    default to :func:`rays_spans`.  The walk of K1's rays and fetch-over-
+    rays modes, K4 and K6 (kernels/paged.py); each caller counts its own
+    launches."""
+    ops = dict(plan=(plan, torch.int32), tri=(tri, torch.float32),
+               o=(o, torch.float32), d=(d, torch.float32))
+    if tri_attr is not None:
+        ops["tri_attr"] = (tri_attr, torch.float32)
+    build.check_tensors(plan.device, **ops)
     n = plan.shape[0]
     if plan.dim() != 2 or plan.shape[1] <= pl.PLAN_AUX:
         raise ValueError(f"plan shape {tuple(plan.shape)}")
@@ -430,6 +440,10 @@ def rays_call(plan, tri, o, d, window_tris: int, eps: float,
                          f"{window_tris}")
     if tri.data_ptr() % 16:
         raise ValueError("tri is not 16-byte aligned")
+    if tri_attr is not None and (tri_attr.shape != (tri.shape[0], 4)
+                                 or tri_attr.data_ptr() % 16):
+        raise ValueError(f"tri_attr {tuple(tri_attr.shape)} for "
+                         f"{tri.shape[0]} triangles, 16-byte aligned")
     if o.dim() != 3 or o.shape[0] != n or o.shape[2] != 3 \
             or d.shape != o.shape or o.shape[1] == 0:
         raise ValueError(f"o {tuple(o.shape)} / d {tuple(d.shape)} for {n} "
@@ -445,6 +459,11 @@ def rays_call(plan, tri, o, d, window_tris: int, eps: float,
     idx = torch.empty((n, m), dtype=torch.int32, **kw)
     keys = torch.empty(n * m, dtype=torch.int64, **kw)
     sched = torch.empty(2 + 2 * rmax, dtype=torch.int32, **kw)
+    outs = (t, idx)
+    if tri_attr is not None:
+        outs += (torch.empty((n * m, 4), dtype=torch.float32, **kw),)
+    fetch = ((tri_attr.data_ptr(), outs[2].data_ptr())
+             if tri_attr is not None else (0, 0))
 
     def launch(stages: int = RAYS_STAGES):
         with torch.cuda.device(plan.device):
@@ -452,10 +471,10 @@ def rays_call(plan, tri, o, d, window_tris: int, eps: float,
             rc = build.library().srt_nearest_rays(
                 plan.data_ptr(), plan.shape[1], n, groups, tri.data_ptr(),
                 n_windows, o.data_ptr(), d.data_ptr(), m, window_tris, eps,
-                t.data_ptr(), idx.data_ptr(), keys.data_ptr(),
+                t.data_ptr(), idx.data_ptr(), *fetch, keys.data_ptr(),
                 sched.data_ptr(), rmax, range_span, list_span, stages, stream)
         build.check(rc, what)
-    return launch, (t, idx), sched
+    return launch, outs, sched
 
 
 def launch_nearest_rays(plan, tri, o, d, window_tris: int, eps: float,
@@ -513,6 +532,38 @@ def tiled_nearest_rays_plain(plan, tri, o, d, window_tris: int, eps: float):
     return walk_plain(plan, tri, xyz(o), xyz(d), window_tris, eps,
                       slice_rays=slice_rays(o.shape[1]),
                       list_span=rays_spans(window_tris)[1])
+
+
+def tiled_nearest_rays_attrs(plan, tri, tri_attr, o, d, window_tris: int,
+                             eps: float):
+    """K1's fetch mode over explicit rays: :func:`tiled_nearest_rays` and
+    the winner's ``tri_attr`` [Tp, 4] row, fetched by the key decode.
+    Returns t [n, M] f32 (inf on a miss), idx [n, M] i32 (-1) and attrs
+    [n * M, 4] f32 (flat normal xyz, object id; (0, 0, 0, -1) on a miss),
+    as :func:`tiled_nearest_attrs`."""
+    if plan.device.type == "cpu":
+        return tiled_nearest_rays_attrs_plain(plan, tri, tri_attr, o, d,
+                                              window_tris, eps)
+    if plan.device.type != "cuda":
+        raise ValueError(f"no nearest kernel for device {plan.device}")
+    launch, outs, _ = rays_call(plan, tri, o, d, window_tris, eps,
+                                what="nearest_rays (fetch mode)",
+                                tri_attr=tri_attr)
+    launch()
+    tiled_nearest_rays_attrs.launches += 1
+    return outs
+
+
+tiled_nearest_rays_attrs.launches = 0
+
+
+def tiled_nearest_rays_attrs_plain(plan, tri, tri_attr, o, d,
+                                   window_tris: int, eps: float):
+    """Plain PyTorch version of :func:`tiled_nearest_rays_attrs` (same
+    arguments and results): :func:`tiled_nearest_rays_plain`, then the
+    winners' rows."""
+    t, idx = tiled_nearest_rays_plain(plan, tri, o, d, window_tris, eps)
+    return t, idx, fetch_rows(tri_attr, idx)
 
 
 def tiled_nearest_grouped(plan, tri, o, d, window_tris: int, eps: float,
@@ -770,15 +821,21 @@ def _walk_plain(plan, tri, cam, tile_px: int, window_tris: int, eps: float):
     return bt, idx, dx, dy, dz
 
 
+def fetch_rows(tri_attr, idx):
+    """The fetch modes' rows: ``tri_attr`` [Tp, 4] at the winners ``idx``
+    [n, M], (0, 0, 0, -1) on a miss, as [n * M, 4]."""
+    miss = torch.tensor([0.0, 0.0, 0.0, -1.0], device=idx.device)
+    attrs = torch.where((idx >= 0)[..., None],
+                        tri_attr[idx.clamp_min(0).long()], miss)
+    return attrs.reshape(-1, 4)
+
+
 def tiled_nearest_attrs_plain(plan, tri, tri_attr, cam, tile_px: int,
                               window_tris: int, eps: float):
     """Plain PyTorch version of :func:`tiled_nearest_attrs` (same arguments
     and results)."""
     bt, idx, *_ = _walk_plain(plan, tri, cam, tile_px, window_tris, eps)
-    miss = torch.tensor([0.0, 0.0, 0.0, -1.0], device=plan.device)
-    attrs = torch.where((idx >= 0)[..., None],
-                        tri_attr[idx.clamp_min(0).long()], miss)
-    return bt, idx, attrs.reshape(-1, 4)
+    return bt, idx, fetch_rows(tri_attr, idx)
 
 
 def tiled_nearest_shaded_plain(plan, tri, tri_attr, mat, cam, tile_px: int,
@@ -838,16 +895,22 @@ def tiled_nearest_shaded_plain(plan, tri, tri_attr, mat, cam, tile_px: int,
     return bt, idx, obj, rgb.reshape(n * tile, width), bounds
 
 
-def primary_plan(prep, cfg, cam_spec, maxv: int):
+def primary_plan(prep, cfg, cam_spec, maxv: int, rays=None):
     """The primary plan of the frame (interval + projective tests from
     O(tiles) analytic bounds) with each tile's pixel origin in columns 4/5.
-    ``cam_spec`` = (view_matrix or None, focal, width, height, tile_px)."""
+    ``cam_spec`` = (view_matrix or None, focal, width, height, tile_px).
+    A range-only plan (:func:`plan.range_only`) is built from the frame's
+    tile-major primary rays ``rays`` = (o, d) [R, 3] instead, as JAX
+    builds it (tiled_t.cull drops the analytic bounds there)."""
     vmx, focal, wd, hd, tpx = cam_spec
     dev = prep.device
     tiles_x, tiles_y = -(-wd // tpx), -(-hd // tpx)
     n = tiles_x * tiles_y
-    plan = pl.cull(prep, maxv, cfg.kernel.window_blocks,
-                   pl.analytic_tile_bounds(cam_spec, n, dev), apex=True)
+    wb = cfg.kernel.window_blocks
+    ab = (None if pl.range_only(maxv, prep.num_blocks // wb)
+          else pl.analytic_tile_bounds(cam_spec, n, dev))
+    plan = pl.cull(prep, maxv, wb, ab, apex=True,
+                   rays=None if rays is None else (*rays, tpx * tpx))
     plan[:, 4], plan[:, 5] = pl.tile_origins(n, tiles_x, tpx, wd, hd, dev)
     return plan
 
@@ -865,21 +928,23 @@ def attr_mode(prep, cfg):
 
 
 def hits_shaded(prep, cfg, light_pos, cam_spec, maxv: int,
-                kernel=tiled_nearest_shaded):
+                kernel=tiled_nearest_shaded, rays=None):
     """Nearest hit + fused Phong over the frame's primary rays in tile-major
     order (JAX kernels/tiled_t.py::hits_shaded with want_bounds=1).
 
-    Builds the primary plan, the camera constants with the shared shadow
-    frame, and runs ``kernel`` (the CUDA wrapper by default) in the scene's
-    :func:`attr_mode`.  Returns (t [R], idx [R], obj [R], rgb [R, 3] or, in
-    the TEXTURED mode, comp [R, 6] = (dw, sw, texu, texv, obj, tex id),
-    bounds [n, 15]), R = n * tile_px**2, misses t = inf."""
+    Builds the primary plan (from ``rays``, the tile-major primary rays
+    (o, d), where it is range-only), the camera constants with the shared
+    shadow frame, and runs ``kernel`` (the CUDA wrapper by default) in the
+    scene's :func:`attr_mode`.  Returns (t [R], idx [R], obj [R], rgb
+    [R, 3] or, in the TEXTURED mode, comp [R, 6] = (dw, sw, texu, texv,
+    obj, tex id), bounds [n, 15]), R = n * tile_px**2, misses t = inf."""
     t, idx, obj, rgb, bounds = kernel(*shaded_args(prep, cfg, light_pos,
-                                                   cam_spec, maxv))
+                                                   cam_spec, maxv, rays))
     return t.reshape(-1), idx.reshape(-1), obj.reshape(-1), rgb, bounds
 
 
-def shaded_args(prep, cfg, light_pos, cam_spec, maxv: int) -> tuple:
+def shaded_args(prep, cfg, light_pos, cam_spec, maxv: int,
+                rays=None) -> tuple:
     """The arguments :func:`hits_shaded` gives K1
     (:func:`tiled_nearest_shaded`) on the frame: the primary plan, the
     scene's tables, the camera constants with the shared shadow frame, and
@@ -890,7 +955,7 @@ def shaded_args(prep, cfg, light_pos, cam_spec, maxv: int) -> tuple:
         raise ValueError("no fused mode for a textured smooth-normal scene")
     amap = {FLAT: None, TEXTURED: prep.tri_tex_map,
             SMOOTH: prep.tri_nrm_map}[mode]
-    plan = primary_plan(prep, cfg, cam_spec, maxv)
+    plan = primary_plan(prep, cfg, cam_spec, maxv, rays)
     frame = pl.shadow_frame(prep.block_min, prep.block_max, light_pos)
     cam = pl.make_cam(vmx, focal, light_pos, frame, prep.device)
     mat = material_table(prep.scene, cfg.light.color)
@@ -900,18 +965,64 @@ def shaded_args(prep, cfg, light_pos, cam_spec, maxv: int) -> tuple:
             mode, amap)
 
 
-def hits_attrs(prep, cfg, cam_spec, maxv: int, kernel=tiled_nearest_attrs):
+def _roles(kernels):
+    """The wrappers by role (kernels/tiled.py::KERNELS): the CUDA ones of
+    this module, overridden by ``kernels``."""
+    return {"prepass": tiled_prepass, "nearest_rays": tiled_nearest_rays,
+            "nearest_grouped": tiled_nearest_grouped,
+            "nearest_attrs": tiled_nearest_attrs,
+            "nearest_rays_attrs": tiled_nearest_rays_attrs,
+            **(kernels or {})}
+
+
+def _iota(cam_spec, apex: bool, maxv: int, tile: int) -> bool:
+    """Whether the walk rebuilds its rays from the pixels (JAX
+    tiled_t._use_iota): primary rays of ``cam_spec`` whose ray tiles are
+    its pixel tiles, sharing one origin (``apex``), with list capacity."""
+    return (cam_spec is not None and apex and maxv > 0
+            and cam_spec[4] ** 2 == tile)
+
+
+def _tiles_of(o, d, tile: int):
+    """Rays o, d [R, 3] padded to whole tiles (the last ray repeated) as
+    [n, tile, 3] each, and R."""
+    op, dp, R = pl.pad_rays(o, d, tile)
+    n = op.shape[0] // tile
+    return (op.reshape(n, tile, 3).contiguous(),
+            dp.reshape(n, tile, 3).contiguous(), R)
+
+
+def hits_attrs(prep, cfg, cam_spec, maxv: int, kernels=None, rays=None,
+               tile: int = 0):
     """Nearest hit + the winner's attribute row over the frame's primary
-    rays in tile-major order (JAX kernels/tiled_t.py::hits_attrs with the
-    iota rays of ``cam_spec``).  Returns (t [R], idx [R], attrs [R, 4]) for
+    rays (JAX kernels/tiled_t.py::hits_attrs with apex).  ``rays`` = (o, d)
+    [R, 3] in tiles of ``tile`` (0: the pixel tile of ``cam_spec``).
+    Where the walk can rebuild the rays of ``cam_spec`` from the pixels
+    (ray tiles = pixel tiles, list capacity), K1's fetch mode walks the
+    primary plan ("nearest_attrs"; ``rays`` only for a range-only plan);
+    otherwise (sub-tiles, normalized directions: ``cam_spec`` None) its
+    fetch mode over the explicit rays walks their plan
+    ("nearest_rays_attrs").  ``kernels`` maps roles to wrappers (the CUDA
+    ones by default).  Returns (t [R], idx [R], attrs [R, 4]) for
     :func:`render.integrator.records_from_attrs`; misses t = inf."""
-    vmx, focal, _wd, _hd, tpx = cam_spec
-    plan = primary_plan(prep, cfg, cam_spec, maxv)
-    cam = pl.make_cam(vmx, focal, (0.0, 0.0, 0.0), None, prep.device)
-    t, idx, attrs = kernel(plan, prep.tri, prep.tri_attr, cam, tpx,
-                           cfg.kernel.window_blocks * prep.block_size,
-                           cfg.mt_eps)
-    return t.reshape(-1), idx.reshape(-1), attrs
+    kernels = _roles(kernels)
+    wt = cfg.kernel.window_blocks * prep.block_size
+    tile = tile or cam_spec[4] ** 2
+    if _iota(cam_spec, True, maxv, tile):
+        vmx, focal, _wd, _hd, tpx = cam_spec
+        plan = primary_plan(prep, cfg, cam_spec, maxv, rays)
+        cam = pl.make_cam(vmx, focal, (0.0, 0.0, 0.0), None, prep.device)
+        t, idx, attrs = kernels["nearest_attrs"](plan, prep.tri,
+                                                 prep.tri_attr, cam, tpx, wt,
+                                                 cfg.mt_eps)
+        R = t.numel() if rays is None else rays[0].shape[0]
+    else:
+        o, d = rays
+        plan = pl.cull_rays(prep, o, d, tile, maxv, cfg.kernel.window_blocks)
+        o3, d3, R = _tiles_of(o, d, tile)
+        t, idx, attrs = kernels["nearest_rays_attrs"](
+            plan, prep.tri, prep.tri_attr, o3, d3, wt, cfg.mt_eps)
+    return t.reshape(-1)[:R], idx.reshape(-1)[:R], attrs[:R]
 
 
 def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = True,
@@ -920,52 +1031,45 @@ def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = True,
     (JAX kernels/tiled_t.py::hits).  ``kernels`` maps the roles of
     kernels/tiled.py::KERNELS to wrappers (the CUDA ones by default).
 
-    * ``KernelConfig.prepass`` (whatever ``groups`` says, as in JAX): the
-      ungrouped plan of the explicit rays, then K3
-      flags the windows that may hold some ray's nearest hit,
-      :func:`prepass.refine_plan` keeps only those, and K1 walks the
-      refined plan over the rays ("prepass", then "nearest_rays"): the same
-      (t, idx) as the walk of the whole plan;
-    * otherwise, ``KernelConfig.groups`` > 1: the grouped plan of the
-      explicit rays, then K4 ("nearest_grouped");
+    * ``KernelConfig.prepass`` with list capacity (``maxv`` > 0), whatever
+      ``groups`` says, as in JAX: the ungrouped plan of the explicit
+      rays, then K3 flags the windows that may hold some ray's nearest
+      hit, :func:`prepass.refine_plan` keeps only those, and K1 walks the
+      refined plan over the rays ("prepass", then "nearest_rays"): the
+      same (t, idx) as the walk of the whole plan;
+    * otherwise, ``KernelConfig.groups`` > 1 with list capacity: the
+      grouped plan of the explicit rays, then K4 ("nearest_grouped");
     * otherwise, for primary rays of a ``cam_spec`` whose tiles are the
-      pixel tiles (``apex``): the analytic primary plan, then K1's fetch
-      mode over rays rebuilt from the pixels ("nearest_attrs"), whose
-      attribute rows are dropped; other rays take K1 over the explicit
-      rays' plan ("nearest_rays").
+      pixel tiles (``apex``, list capacity): the primary plan, then K1's
+      fetch mode over rays rebuilt from the pixels ("nearest_attrs"),
+      whose attribute rows are dropped; other rays (sub-tiles, normalized
+      directions, ``maxv`` <= 0) take K1 over the explicit rays' plan
+      ("nearest_rays"), range-only where ``maxv`` <= 0.
 
     Windows are ``window_blocks`` blocks.  Returns (t [R], idx [R]);
     misses t = inf, idx = -1."""
-    if kernels is None:
-        kernels = {"prepass": tiled_prepass,
-                   "nearest_rays": tiled_nearest_rays,
-                   "nearest_grouped": tiled_nearest_grouped,
-                   "nearest_attrs": tiled_nearest_attrs}
+    kernels = _roles(kernels)
     kc = cfg.kernel
     wb = kc.window_blocks
     wt = wb * prep.block_size
-    groups = 1 if kc.prepass else kc.nearest_groups
+    prepass = kc.prepass and maxv > 0
+    groups = 1 if prepass or maxv <= 0 else kc.nearest_groups
     R = o.shape[0]
-    iota = (cam_spec is not None and apex and cam_spec[4] ** 2 == tile
-            and not kc.prepass and groups == 1)
-    if iota:
+    if groups == 1 and not prepass and _iota(cam_spec, apex, maxv, tile):
         vmx, focal, _wd, _hd, tpx = cam_spec
-        plan = primary_plan(prep, cfg, cam_spec, maxv)
+        plan = primary_plan(prep, cfg, cam_spec, maxv, (o, d))
         cam = pl.make_cam(vmx, focal, (0.0, 0.0, 0.0), None, prep.device)
         t, idx, _ = kernels["nearest_attrs"](plan, prep.tri, prep.tri_attr,
                                              cam, tpx, wt, cfg.mt_eps)
         return t.reshape(-1)[:R], idx.reshape(-1)[:R]
     plan = pl.cull_rays(prep, o, d, tile, maxv, wb, groups=groups,
                         apex=apex)
-    op, dp, _ = pl.pad_rays(o, d, tile)
-    n = op.shape[0] // tile
-    o3 = op.reshape(n, tile, 3).contiguous()
-    d3 = dp.reshape(n, tile, 3).contiguous()
+    o3, d3, _ = _tiles_of(o, d, tile)
     if groups > 1:
         t, idx = kernels["nearest_grouped"](plan, prep.tri, o3, d3, wt,
                                             cfg.mt_eps, groups)
     else:
-        if kc.prepass:
+        if prepass:
             flags = kernels["prepass"](plan, prep.gram, o3, d3, wt,
                                        cfg.mt_eps)
             plan = refine_plan(plan, flags)

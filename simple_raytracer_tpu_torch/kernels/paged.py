@@ -21,7 +21,8 @@ the kernel for tensors on a CUDA device; it adds one to its own
 the JAX ``kernels/tiled.py`` functions of the same names (lines
 1216-1258); they take (prep, cfg, ...) like kernels/anyhit.py::anyhit.
 Page plans are ``plan_width(num_pages)`` wide and are not widened to fit
-``maxv`` (plan.cull with ``widen=False``).
+``maxv`` (plan.cull with ``widen=False``); with ``maxv`` <= 0, or more than
+65,536 pages, they are pure page ranges (JAX ``_cull``, lines 1194-1210).
 """
 
 from __future__ import annotations
@@ -96,10 +97,11 @@ def cull(prep, cfg, o, d, tile: int, maxv: int, excl=None,
     kernels/tiled.py::cull → _cull): the interval test from the rays'
     per-tile bounds, refined by the projective test when every ray leaves
     one origin (``apex``: primary rays).  ``excl`` [n] drops each tile's
-    own object."""
+    own object.  ``maxv`` <= 0, or more than 65,536 pages: pure page
+    ranges (plan.cull_ranges)."""
     ab = pl.ray_tile_bounds(o, d, tile, apex="primary" if apex else None)
     return pl.cull(prep, maxv, page_blocks(prep), ab, excl=excl, apex=apex,
-                   widen=False)
+                   widen=False, rays=(o, d, tile))
 
 
 def cull_occl(prep, cfg, o, d, tile: int, maxv: int, excl=None,
@@ -107,7 +109,7 @@ def cull_occl(prep, cfg, o, d, tile: int, maxv: int, excl=None,
     """Occlusion page plan (JAX kernels/tiled.py::cull_occl): the hourglass
     test on dense scenes unless ``apex_rev`` (``hourglass`` None: by
     plan.hourglass_for), and the light-apex test when every ray ends at one
-    light (``apex_rev``, hard shadows)."""
+    light (``apex_rev``, hard shadows); pure page ranges as :func:`cull`."""
     return pl.cull_occl(prep, o, d, tile, maxv, page_blocks(prep), excl,
                         apex_rev=apex_rev, hourglass=hourglass, widen=False)
 

@@ -9,15 +9,16 @@ so the nearest-hit walk may stop once every ray's best t is below the next
 entry's bound.
 
 Counterparts in the JAX package: ``kernels/tiled.py`` (cull_blocks_lists,
-_visibility, _visibility_hourglass, _px_frame, _px_block_corners,
+cull_blocks, _visibility, _visibility_hourglass, _px_frame, _px_block_corners,
 _visibility_px, _visibility_px_rev, effective_tile_px, _shadow_tile,
 effective_cull_maxv), ``utils/vma.py`` (pad_rays) and ``kernels/tiled_t.py``
 (cull, cull_occl, _hourglass_for, make_cam, analytic_tile_bounds,
 shadow_frame, analytic_shadow_bounds_exact).  Tile bounds come in two
 kinds, read by the same visibility tests: analytic O(tiles) bounds of the
 fused frame's primary and shadow tiles, and per-ray reductions
-(:func:`ray_tile_bounds`) of the explicit shadow rays of the legacy and
-soft-shadow paths.
+(:func:`ray_tile_bounds`) of explicit rays: the shadow rays of the legacy
+and soft-shadow paths, the primary rays of the paths with no pixel
+rebuild, and the rays of every range-only plan.
 
 Plan layout, one int32 row of ``plan_width`` per tile (the JAX layout):
 columns 0-7 are (lo, range_cnt, list_cnt, use_list, px0, py0, 0, 0), then
@@ -29,6 +30,11 @@ rays from it.  A grouped plan (``groups`` > 1) carries, after its
 entries, one mask word per 8 entries: 4 bits per entry, bit g set when
 sub-group g of the tile's rays may reach the entry's window
 (:func:`group_mask_words`); range-mode rows read all groups.
+
+A range-only plan (:func:`cull_ranges`: ``maxv <= 0``, or more windows
+than a 16-bit entry can name, :data:`MAX_LIST_WINDOWS`) holds every tile in
+range mode: the covering range of the blocks the interval test of its rays
+reaches, in aligned windows, with no projective test and no entries.
 """
 
 from __future__ import annotations
@@ -47,6 +53,9 @@ DENSE_TRIS = 131072     # the tile-size and shadow-tile density gate
 BIG = 3.0e38
 EPS = 1e-12
 INF = float("inf")
+# list entries name their window in 16 bits: scenes of more windows (or
+# pages) take range-only plans
+MAX_LIST_WINDOWS = 65536
 
 
 def effective_tile_px(cfg, num_tris: int) -> int:
@@ -73,6 +82,12 @@ def hourglass_for(prep) -> bool:
 
 def plan_width(num_windows: int) -> int:
     return PLAN_W if num_windows <= 1500 else PLAN_W_BIG
+
+
+def range_only(maxv: int, num_windows: int) -> bool:
+    """Whether a plan over ``num_windows`` windows holds ranges only: no
+    list capacity (``maxv <= 0``), or window ids past 16 bits."""
+    return maxv <= 0 or num_windows > MAX_LIST_WINDOWS
 
 
 def effective_cull_maxv(cfg, num_blocks: int, wb: int) -> int:
@@ -518,6 +533,45 @@ def group_mask_words(prep, plan: torch.Tensor, wb: int, o: torch.Tensor,
     return words
 
 
+def cull_blocks(prep, o, d, tile: int, excl=None, hourglass: bool = False):
+    """Each tile's covering block range (JAX kernels/tiled.py::cull_blocks):
+    the interval test (:func:`visibility`, or :func:`visibility_hourglass`)
+    of the bounds of the rays o, d [R, 3] in tiles of ``tile``, with no
+    projective test.  ``excl`` [n] drops each tile's own object.  Returns
+    (lo [n] i32, cnt [n] i32): [lo, lo + cnt) covers every visible block,
+    cnt 0 where none is."""
+    ab = ray_tile_bounds(o, d, tile, hourglass=hourglass)
+    bobj = prep.block_obj if excl is not None else None
+    test = visibility_hourglass if hourglass else visibility
+    visible = test(ab, prep.block_min, prep.block_max, bobj, excl)[0]
+    NB = visible.shape[1]
+    idx = torch.arange(NB, dtype=torch.int32, device=visible.device)
+    first = torch.where(visible, idx, NB).amin(dim=-1)
+    last = torch.where(visible, idx, -1).amax(dim=-1)
+    cnt = (last - first + 1).clamp_min(0).to(torch.int32)
+    return torch.where(cnt > 0, first, 0).to(torch.int32), cnt
+
+
+def cull_ranges(prep, o, d, tile: int, wb: int, plan_w: int, excl=None,
+                hourglass: bool = False, groups: int = 1) -> torch.Tensor:
+    """The range-only plan [n, plan_w] of rays o, d [R, 3] in tiles of
+    ``tile`` (JAX tiled_t.cull and kernels/tiled.py::_cull without list
+    capacity): :func:`cull_blocks` converted to the covering range of
+    aligned windows of ``wb`` blocks, columns (lo, cnt, 0, ...), no
+    entries; a grouped plan (``groups`` > 1) keeps its width with zero mask
+    words."""
+    lo, cnt = cull_blocks(prep, o, d, tile, excl, hourglass)
+    ulo = lo // wb
+    ucnt = torch.where(cnt > 0, (lo + cnt + wb - 1) // wb - ulo, 0)
+    tail = plan_w - PLAN_AUX
+    if groups > 1:
+        tail += tail // 8
+    plan = torch.zeros((lo.shape[0], PLAN_AUX + tail), dtype=torch.int32,
+                       device=lo.device)
+    plan[:, 0], plan[:, 1] = ulo, ucnt.to(torch.int32)
+    return plan
+
+
 def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
          apex_rev: bool = False, hourglass: bool = False,
          widen: bool = True, groups: int = 1, rays=None) -> torch.Tensor:
@@ -530,21 +584,25 @@ def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
     kernels/tiled_t.py) it is widened to hold ``maxv`` entries, without
     (the page planner, JAX kernels/tiled.py::_cull) ``maxv`` is clamped to
     the width instead.  ``groups`` > 1 (JAX tiled_t.cull with groups):
-    ``rays`` = (o, d, tile) of the tiles, the width also holds the mask
-    words (``8 + maxv + maxv // 8 + 8`` widened to a multiple of 128 entries
-    before them) and :func:`group_mask_words` follow the entries."""
+    the width also holds the mask words (``8 + maxv + maxv // 8 + 8``
+    widened to a multiple of 128 entries before them) and
+    :func:`group_mask_words` follow the entries.  ``rays`` = (o, d, tile),
+    the tiles' rays: the mask words' sub-groups, and the whole plan where
+    it is range-only (:func:`range_only`), which JAX builds from the rays
+    alone (:func:`cull_ranges`, the apex tests dropped); ``ab`` is then not
+    read."""
     NB = prep.num_blocks
     if NB % wb:
         raise ValueError(f"{NB} blocks do not split into windows of {wb}")
-    if maxv <= 0 or NB // wb > 65536:
-        raise NotImplementedError(
-            "range-only plans (cull_maxv <= 0, or more than 65,536 windows) "
-            "are not ported yet (ROADMAP.md, Open items §1: the tiled "
-            "configurations that still raise)")
     pw = plan_width(NB // wb)
-    if widen:
+    if widen and maxv > 0:
         need = PLAN_AUX + maxv + (maxv // 8 + 8 if groups > 1 else 0)
         pw = max(pw, -(-need // 128) * 128)
+    if range_only(maxv, NB // wb):
+        if rays is None:
+            raise ValueError("a range-only plan is built from the rays")
+        o, d, tile = rays
+        return cull_ranges(prep, o, d, tile, wb, pw, excl, hourglass, groups)
     bobj = prep.block_obj if excl is not None else None
     test = visibility_hourglass if hourglass else visibility
     visible, tlo = test(ab, prep.block_min, prep.block_max, bobj, excl)

@@ -1,33 +1,44 @@
 """The tiled frame and its shadow front end.
 
 Counterpart of the JAX package's ``kernels/tiled.py::render_flat_tiled``
-(lines 1496-1666), in five branches:
+(lines 1496-1666), in five branches.  K1 rebuilds the primary rays from
+the pixels (the "iota") where the directions are not normalized, the
+nearest pass walks the whole pixel tile (``hit_tile``) and the plan has
+list capacity (``cull_maxv`` > 0); every other frame walks its explicit
+primary rays.
 
-* **fused** (one light sample, shadow tile = primary tile; flat, textured
-  or smooth-normal, not both): primary plan -> K1 with fused Phong and
-  bounds rows (attribute mode 0 flat, 1 textured: the colour-free factors
-  and texel coordinates, then the texel finish; 2 smooth normals) ->
-  shadow plan from the bounds -> K2 rebuilds the shadow rays from t ->
-  shadow dim -> tone map;
-* **legacy** (one light sample, another shadow tile, e.g. the 256-ray tiles
-  of scenes over 131,072 triangles, or ``KernelConfig.fused_shadow`` off):
-  fused K1, then the hard shadow of explicit rays from the hit points,
-  :func:`tiled_shadow_fn` -> K2′;
-* **soft** (flat, untextured, num_samples > 1 or ``fused_phong`` off): K1
-  in its fetch mode -> records -> ``integrator.shade`` with the S-sample
-  shadow (folded when S > 1; K2′);
-* **gather** (``prepass``, ``groups`` > 1 or ``attr_fetch`` off; the
-  soft-shadow frames of textured or smooth-normal scenes, and every frame
-  of a scene both textured and smooth-normal): the nearest walk
-  of kernels/nearest.py::hits (K1's fetch mode; K3 then K1 over the
-  refined plan; or K4) -> :func:`tiled_shadow_fn` (K2′, or K5 with
-  ``groups_ah`` > 1) -> ``integrator.shade`` with the record gather (JAX
-  ``tiled.py:1654-1666``);
+* **fused** (flat, textured or smooth-normal, not both; one light sample,
+  fused Phong, the iota; shadow tile = primary tile and at most 65,536
+  any-hit windows): primary plan -> K1 with fused Phong and bounds rows
+  (attribute mode 0 flat, 1 textured: the colour-free factors and texel
+  coordinates, then the texel finish; 2 smooth normals) -> shadow plan
+  from the bounds -> K2 rebuilds the shadow rays from t -> shadow dim ->
+  tone map;
+* **legacy** (as fused, with another shadow tile, e.g. the 256-ray tiles
+  of scenes over 131,072 triangles, ``KernelConfig.fused_shadow`` off, or
+  more than 65,536 any-hit windows): fused K1, then the hard shadow of
+  explicit rays from the hit points, :func:`tiled_shadow_fn` -> K2′;
+* **soft** (flat, untextured, list capacity; num_samples > 1,
+  ``fused_phong`` off, or no iota: ``hit_tile`` sub-tiles, normalized
+  directions): K1 in its fetch mode (over the explicit rays at the
+  nearest-pass tile where there is no iota) -> records ->
+  ``integrator.shade`` with the S-sample shadow (folded when S > 1; K2′);
+* **gather** (``prepass``, ``groups`` > 1, ``attr_fetch`` off or
+  ``cull_maxv`` <= 0; textured or smooth-normal frames that cannot fuse,
+  and every frame of a scene both textured and smooth-normal): the nearest
+  walk of kernels/nearest.py::hits at the nearest-pass tile (K1's fetch
+  mode; K3 then K1 over the refined plan; K4; or K1 over the explicit
+  rays, over range-only plans where ``cull_maxv`` <= 0) ->
+  :func:`tiled_shadow_fn` (K2′, or K5 with ``groups_ah`` > 1) ->
+  ``integrator.shade`` with the record gather (JAX ``tiled.py:1654-1666``);
 * **paged** (``RenderConfig.tiled_impl="paged"``; any scene kind, any S):
-  the page plan of the primary rays -> K6 -> :func:`tiled_shadow_fn` over
+  the page plan of the primary rays at the nearest-pass tile (pure page
+  ranges where ``cull_maxv`` <= 0) -> K6 -> :func:`tiled_shadow_fn` over
   page plans (K7) -> ``integrator.shade`` with the record gather.
 
-The first four are the JAX "sublane" layout (``kernels/tiled_t.py``).  JAX
+Plans over more than 65,536 windows (or pages) are range-only
+(kernels/plan.py::range_only), built from the explicit rays.  The first
+four branches are the JAX "sublane" layout (``kernels/tiled_t.py``).  JAX
 gates its fetch and fused branches on TPU memory as well (``_resident``,
 ``_fetch_vmem_ok``); the port has no such gates.
 """
@@ -52,7 +63,9 @@ from .nearest import (FLAT, TEXTURED, attr_mode, hits, hits_attrs,
                       hits_shaded, tiled_nearest_attrs,
                       tiled_nearest_attrs_plain,
                       tiled_nearest_grouped, tiled_nearest_grouped_plain,
-                      tiled_nearest_rays, tiled_nearest_rays_plain,
+                      tiled_nearest_rays, tiled_nearest_rays_attrs,
+                      tiled_nearest_rays_attrs_plain,
+                      tiled_nearest_rays_plain,
                       tiled_nearest_shaded, tiled_nearest_shaded_plain)
 from .prepass import tiled_prepass, tiled_prepass_plain
 
@@ -60,6 +73,7 @@ from .prepass import tiled_prepass, tiled_prepass_plain
 KERNELS = {"nearest_shaded": tiled_nearest_shaded,
            "nearest_attrs": tiled_nearest_attrs,
            "nearest_rays": tiled_nearest_rays,
+           "nearest_rays_attrs": tiled_nearest_rays_attrs,
            "nearest_grouped": tiled_nearest_grouped,
            "prepass": tiled_prepass,
            "anyhit_from_t": tiled_anyhit_from_t,
@@ -70,6 +84,7 @@ KERNELS = {"nearest_shaded": tiled_nearest_shaded,
 PLAIN = {"nearest_shaded": tiled_nearest_shaded_plain,
          "nearest_attrs": tiled_nearest_attrs_plain,
          "nearest_rays": tiled_nearest_rays_plain,
+         "nearest_rays_attrs": tiled_nearest_rays_attrs_plain,
          "nearest_grouped": tiled_nearest_grouped_plain,
          "prepass": tiled_prepass_plain,
          "anyhit_from_t": tiled_anyhit_from_t_plain,
@@ -80,34 +95,38 @@ PLAIN = {"nearest_shaded": tiled_nearest_shaded_plain,
 IMPLS = (None, "sublane", "paged")
 
 
-def _todo(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md, Open items §1: the tiled "
-        f"configurations that still raise)")
+def _uses_iota(cfg: RenderConfig, tile: int) -> bool:
+    """Whether K1 rebuilds the frame's primary rays from the pixels (JAX
+    tiled_t._use_iota with the renderer's cam_spec): directions not
+    normalized (JAX drops cam_spec then), the nearest pass at the whole
+    pixel tile, list capacity."""
+    return (not cfg.camera.normalize_dirs and cfg.cull_maxv > 0
+            and _hit_tile(cfg, tile) == tile)
 
 
-def _takes_gather(prep, cfg: RenderConfig) -> bool:
+def _takes_gather(prep, cfg: RenderConfig, tile: int) -> bool:
     """Whether a sublane frame takes the gather branch (JAX tiled.py:
-    1538-1558, 1646-1657 without the TPU memory gates).  A scene both
-    textured and smooth-normal has no fused mode (JAX's prepare gives it no
-    attribute layout, accel/prepared.py:538-545), so it always gathers."""
+    1538-1558, 1646-1657 without the TPU memory gates): no fetch without
+    list capacity, and the fused modes other than flat have no fetch
+    branch.  A scene both textured and smooth-normal has no fused mode
+    (JAX's prepare gives it no attribute layout, accel/prepared.py:
+    538-545), so it always gathers."""
     kc = cfg.kernel
-    if kc.prepass or kc.nearest_groups > 1 or not kc.attr_fetch:
+    if (kc.prepass or kc.nearest_groups > 1 or not kc.attr_fetch
+            or cfg.cull_maxv <= 0):
         return True
     mode = attr_mode(prep, cfg)
     return mode is None or (mode != FLAT and (cfg.light.num_samples > 1
-                                              or not kc.fused_phong))
+                                              or not kc.fused_phong
+                                              or not _uses_iota(cfg, tile)))
 
 
 def check_supported(prep, cfg: RenderConfig, tile: int) -> None:
-    """Raise ValueError for an unknown ``tiled_impl`` and
-    NotImplementedError unless the frame takes a ported branch."""
+    """Raise ValueError for an unknown ``tiled_impl`` or a ``hit_tile``
+    that is no sub-tile of ``tile``."""
     if cfg.tiled_impl not in IMPLS:
         raise ValueError(f"unknown tiled kernel impl {cfg.tiled_impl!r}")
-    if cfg.camera.normalize_dirs:
-        raise _todo("normalized primary directions")
-    if _hit_tile(cfg, tile) != tile:
-        raise _todo("hit_tile sub-tiles")
+    _hit_tile(cfg, tile)
 
 
 def _hit_tile(cfg: RenderConfig, tile: int) -> int:
@@ -129,16 +148,28 @@ def frame_branch(prep, cfg: RenderConfig, tile: int) -> str:
     check_supported(prep, cfg, tile)
     if cfg.tiled_impl == "paged":
         return "paged"
-    if _takes_gather(prep, cfg):
+    if _takes_gather(prep, cfg, tile):
         return "gather"
-    if cfg.light.num_samples > 1 or not cfg.kernel.fused_phong:
+    if (cfg.light.num_samples > 1 or not cfg.kernel.fused_phong
+            or not _uses_iota(cfg, tile)):
         return "soft"
     ntris = prep.num_blocks * prep.block_size
     if (cfg.light.enable_shadows and prep.scene.num_objects > 1
             and (pl.shadow_tile(cfg, tile, ntris) != tile
-                 or not cfg.kernel.fused_shadow)):
+                 or not cfg.kernel.fused_shadow
+                 or pl.range_only(cfg.cull_maxv, prep.num_blocks
+                                  // cfg.kernel.window_blocks_ah))):
         return "legacy"
     return "fused"
+
+
+def wants_rays(prep, cfg: RenderConfig, tile: int) -> bool:
+    """Whether :func:`render_flat_tiled` needs the frame's primary rays:
+    every branch but the fused one, and a fused frame whose primary plan
+    is range-only (more than 65,536 windows), which is built from them."""
+    return (frame_branch(prep, cfg, tile) != "fused"
+            or pl.range_only(cfg.cull_maxv, prep.num_blocks
+                             // cfg.kernel.window_blocks))
 
 
 def _cull_occl_windows(prep, cfg, o, d, tile: int, maxv: int, excl=None,
@@ -307,25 +338,29 @@ def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
 
     ``cam_spec`` = (view_matrix or None, focal, width, height, tile_px).
     ``rays`` = (o, d) [R, 3], the tile-major primary rays
-    (ops/camera.py::primary_rays_tiled); every branch but the fused one
-    needs them (:func:`frame_branch`).  ``kernels`` maps each role of
+    (ops/camera.py::primary_rays_tiled, normalized where
+    ``cfg.camera.normalize_dirs`` says so); the frames of
+    :func:`wants_rays` need them.  ``kernels`` maps each role of
     :data:`KERNELS` to its wrapper; ``chip_smoke.py`` passes :data:`PLAIN`
     to render the reference image on the card."""
     tile = cam_spec[4] ** 2
     branch = frame_branch(prep, cfg, tile)
-    if branch != "fused" and rays is None:
-        raise ValueError(f"the {branch} branch needs the primary rays")
+    if rays is None and wants_rays(prep, cfg, tile):
+        raise ValueError(f"the {branch} frame needs the primary rays")
     maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
                                   cfg.kernel.window_blocks)
+    htile = _hit_tile(cfg, tile)
     stile = pl.shadow_tile(cfg, tile, prep.num_blocks * prep.block_size)
+    # normalized rays are no affine function of the pixel: no rebuild
+    cspec = None if cfg.camera.normalize_dirs else cam_spec
     if branch in ("paged", "gather"):
         o, d = rays
         if branch == "paged":
-            t, idx = paged.hits(prep, cfg, o, d, tile, maxv, apex=True,
+            t, idx = paged.hits(prep, cfg, o, d, htile, maxv, apex=True,
                                 kernel=kernels["nearest_pages"])
         else:
-            t, idx = hits(prep, cfg, o, d, tile, maxv, apex=True,
-                          cam_spec=cam_spec, kernels=kernels)
+            t, idx = hits(prep, cfg, o, d, htile, maxv, apex=True,
+                          cam_spec=cspec, kernels=kernels)
         shadow_fn = tiled_shadow_fn(
             prep, cfg, stile, maxv, cfg.light.num_samples,
             shadow_impl("paged" if branch == "paged" else None, kernels)) \
@@ -335,8 +370,8 @@ def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
         return rad, torch.isfinite(t)
     if branch == "soft":
         o, d = rays
-        t, idx, attrs = hits_attrs(prep, cfg, cam_spec, maxv,
-                                   kernel=kernels["nearest_attrs"])
+        t, idx, attrs = hits_attrs(prep, cfg, cspec, maxv, kernels=kernels,
+                                   rays=rays, tile=htile)
         record = integrator.records_from_attrs(prep.scene, attrs)
         shadow_fn = tiled_shadow_fn(
             prep, cfg, stile, maxv, cfg.light.num_samples,
@@ -346,7 +381,7 @@ def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
         return rad, torch.isfinite(t)
     t, _idx, obj, rgb, bounds = hits_shaded(
         prep, cfg, light_pos, cam_spec, maxv,
-        kernel=kernels["nearest_shaded"])
+        kernel=kernels["nearest_shaded"], rays=rays)
     hit = torch.isfinite(t)
     if attr_mode(prep, cfg) == TEXTURED:
         rgb = texel_finish(prep.scene, cfg, obj, rgb)

@@ -29,7 +29,7 @@ from ..ops import intersect as isect
 from ..ops.camera import (primary_rays, primary_rays_tiled,
                           primary_rays_world, untile_image)
 from ..kernels import plan as pl
-from ..kernels.tiled import frame_branch, render_flat_tiled
+from ..kernels.tiled import render_flat_tiled, wants_rays
 from ..utils import pad_rays
 from . import integrator
 
@@ -222,11 +222,12 @@ def _render_tiled(prep: PreparedScene, cfg: RenderConfig, light_pos,
     vm = None if view_matrix is None else torch.as_tensor(
         view_matrix, dtype=torch.float32, device=dev)
     rays = None
-    if frame_branch(prep, cfg, tpx * tpx) != "fused":
-        # every branch but the fused one starts from these rays
+    if wants_rays(prep, cfg, tpx * tpx):
+        # every branch but the fused one starts from these rays, and so
+        # does a range-only primary plan
         o, d, _, _ = primary_rays_tiled(cam.width, cam.height, tpx,
-                                        cam.focal, view_matrix=vm,
-                                        device=dev)
+                                        cam.focal, cam.normalize_dirs,
+                                        view_matrix=vm, device=dev)
         rays = (o.reshape(-1, 3), d.reshape(-1, 3))
     rad, hit = render_flat_tiled(prep, cfg, light,
                                  (vm, cam.focal, cam.width, cam.height, tpx),

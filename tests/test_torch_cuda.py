@@ -1209,3 +1209,84 @@ def test_train_step_equals_the_plain_walks(scene):
     for a, b in zip(got[1].leaves(), want[1].leaves()):
         assert torch.isfinite(a).all()
         assert float((a - b).abs().max()) <= 1e-4 * float(b.abs().max())
+
+
+# the tiled configurations over explicit rays or range-only plans: the
+# frame's change, its branch, and the roles its frame launches
+CONFIGS = {
+    "sub_tile": (dict(hit_tile=1024), "soft",
+                 ("nearest_rays_attrs", "anyhit")),
+    "normalized": (dict(camera=sr.CameraConfig(width=SIZE, height=SIZE,
+                                               focal=FOCAL,
+                                               normalize_dirs=True)),
+                   "soft", ("nearest_rays_attrs", "anyhit")),
+    "range_only": (dict(cull_maxv=0), "gather", ("nearest_rays", "anyhit")),
+    "paged_range_only": (dict(cull_maxv=0, tiled_impl="paged"), "paged",
+                         ("nearest_pages", "anyhit_pages")),
+}
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_config_frame_launches_its_kernels(scene, config):
+    """Each configuration's frame launches its branch's two kernels once and
+    no other, and its image matches the plain versions' on the CPU."""
+    from simple_raytracer_tpu_torch.kernels import tiled
+    prep, cfg = scene
+    change, branch, roles = CONFIGS[config]
+    c = cfg.replace(**change)
+    assert tiled.frame_branch(prep, c, TPX * TPX) == branch
+    n0 = {k: f.launches for k, f in KERNELS.items()}
+    img = sr.render(prep, c, P.BENCH_LIGHT)
+    n1 = {k: f.launches for k, f in KERNELS.items()}
+    assert {k for k in n0 if n1[k] != n0[k]} == set(roles)
+    assert all(n1[k] == n0[k] + 1 for k in roles)
+    cpu = sr.render(prep.to("cpu"), c, P.BENCH_LIGHT)
+    diff = (img.cpu().int() - cpu.int()).abs()
+    assert (diff <= 1).float().mean() >= 0.999
+
+
+@pytest.mark.parametrize("config", ["sub_tile", "normalized", "range_only",
+                                    "paged_range_only"])
+@pytest.mark.parametrize("view", list(VIEWS))
+def test_config_walks_match_plain(scene, config, view):
+    """The nearest walk of each configuration (K1's fetch mode over rays,
+    K1's rays mode over a range-only plan, K6 over page ranges) equals its
+    plain version bit for bit, the fetched rows too."""
+    prep, cfg = scene
+    change, _branch, roles = CONFIGS[config]
+    c = cfg.replace(**change)
+    cam = c.camera
+    vm = None if VIEWS[view] is None else torch.tensor(VIEWS[view],
+                                                        device="cuda")
+    o, d, _, _ = primary_rays_tiled(SIZE, SIZE, TPX, FOCAL,
+                                    cam.normalize_dirs, view_matrix=vm,
+                                    device="cuda")
+    caught = {}
+    from simple_raytracer_tpu_torch.kernels import tiled
+    render_flat_tiled(prep, c, torch.tensor(P.BENCH_LIGHT, device="cuda"),
+                      (vm, FOCAL, SIZE, SIZE, TPX),
+                      rays=(o.reshape(-1, 3), d.reshape(-1, 3)),
+                      kernels={k: (lambda *a, _k=k, _f=f:
+                                   caught.setdefault(_k, a) and _f(*a))
+                               for k, f in KERNELS.items()})
+    args = caught[roles[0]]
+    got = KERNELS[roles[0]](*args)
+    want = tiled.PLAIN[roles[0]](*args)
+    assert torch.isfinite(want[0]).sum() > 4000
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_fetch_over_rays_wrapper_rejects_bad_inputs(scene):
+    prep, cfg = scene
+    o, d, _, _ = primary_rays_tiled(SIZE, SIZE, TPX, FOCAL, device="cuda")
+    o, d = o.reshape(-1, 1024, 3), d.reshape(-1, 1024, 3)
+    plan = pl.cull_rays(prep, o.reshape(-1, 3), d.reshape(-1, 3), 1024, 0,
+                        2)
+    wt = 2 * prep.block_size
+    with pytest.raises(ValueError):                # tri_attr rows short
+        nearest.tiled_nearest_rays_attrs(plan, prep.tri, prep.tri_attr[:-1],
+                                         o, d, wt, 1e-9)
+    with pytest.raises(ValueError):                # tri_attr on the CPU
+        nearest.tiled_nearest_rays_attrs(plan, prep.tri, prep.tri_attr.cpu(),
+                                         o, d, wt, 1e-9)

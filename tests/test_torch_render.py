@@ -23,6 +23,7 @@ import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import (from_jax_prepared,
                                                         prepare)
 from simple_raytracer_tpu_torch.kernels import anyhit, nearest, tiled
+from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
 from simple_raytracer_tpu_torch.render.renderer import render, render_radiance
 
 from simple_raytracer_tpu.accel.prepared import prepare as jprepare
@@ -121,13 +122,15 @@ def test_ragged_frame_size():
 # their images to JAX's.  3 (bruteforce) and 8 (BVH) are modes of their
 # own, with no tiled branch (None): they render;
 # tests/test_torch_bruteforce.py and tests/test_torch_bvh.py hold their
-# images to JAX's
+# images to JAX's.  7f (the tiled configurations that raised) takes a
+# branch by the field it changes: a hit_tile sub-tile and normalized
+# directions K1's fetch mode over the explicit rays (soft), cull_maxv=0
+# the range-only walks (gather); tests/test_torch_tiled_configs.py holds
+# their images to JAX's
 PORTED = {"item 7e": "gather", "item 7d": "fused", "item 3": None,
-          "item 8": None}
-# what the message of each case still to be ported names: the ROADMAP.md
-# item by its title (the cases keep the ids of their first version, the
-# items' numbers then)
-TITLES = {"item 7f": "the tiled configurations that still raise"}
+          "item 8": None,
+          "item 7f": {"hit_tile": "soft", "cull_maxv": "gather",
+                      "camera": "soft"}}
 
 
 @pytest.mark.parametrize("change, item", [
@@ -142,31 +145,32 @@ TITLES = {"item 7f": "the tiled configurations that still raise"}
                                  normalize_dirs=True)), "item 7f"),
 ])
 def test_unported_branches_raise(change, item):
-    """Each frame of an unported item raises NotImplementedError naming it;
-    a frame of an item ported since (``PORTED``) is accepted and takes its
-    branch, or, in a mode of its own, renders."""
+    """Every item these cases were written for is ported (``PORTED``): a
+    frame of each is accepted and takes its branch, or, in a mode of its
+    own, renders; the tiled frames of item 7f render too."""
     sm, _ = managers(1)
     cfg, _ = configs()
     prep = prepare(sm.build(), cfg, device="cpu")
-    if item in PORTED and PORTED[item] is None:
-        img = render(prep, cfg.replace(**change), LIGHT)
-        bg = (img == torch.tensor([173, 216, 230], dtype=torch.uint8)).all(-1)
-        assert img.shape == (HEIGHT, WIDTH, 3) and 0.05 < float(
-            (~bg).float().mean()) < 0.99
-        return
-    if item in PORTED:
-        c = cfg.replace(**change)
+    c = cfg.replace(**change)
+    if PORTED[item] is not None:
+        want = PORTED[item]
+        if isinstance(want, dict):
+            want = want[next(iter(change))]
         tiled.check_supported(prep, c, TILE_PX * TILE_PX)
-        assert tiled.frame_branch(prep, c, TILE_PX * TILE_PX) == PORTED[item]
-        return
-    with pytest.raises(NotImplementedError, match=TITLES[item]):
-        render(prep, cfg.replace(**change), LIGHT)
+        assert tiled.frame_branch(prep, c, TILE_PX * TILE_PX) == want
+        if item != "item 7f":
+            return
+    img = render(prep, c, LIGHT)
+    bg = (img == torch.tensor([173, 216, 230], dtype=torch.uint8)).all(-1)
+    assert img.shape == (HEIGHT, WIDTH, 3) and 0.05 < float(
+        (~bg).float().mean()) < 0.99
 
 
 def test_hit_tile_at_least_the_tile_renders_the_full_tile():
     """hit_tile >= the tile is the full tile, as in JAX: a 128x64 frame
     with hit_tile = 2 x tile equals the hit_tile=0 frame pixel for pixel;
-    a sub-tile still raises."""
+    a sub-tile renders the explicit rays in quarter tiles, with the full
+    tile's winners on every lane and its image at JAX's bars."""
     sm, _ = managers(1)
     cfg, _ = configs()
     cfg = cfg.replace(camera=sr.CameraConfig(width=128, height=64,
@@ -177,8 +181,21 @@ def test_hit_tile_at_least_the_tile_renders_the_full_tile():
     big = render(prep, cfg.replace(hit_tile=2 * tile), LIGHT).numpy()
     assert img.shape == (64, 128, 3)
     assert np.array_equal(big, img)
-    with pytest.raises(NotImplementedError, match="hit_tile sub-tiles"):
-        render(prep, cfg.replace(hit_tile=tile // 4), LIGHT)
+    sub = cfg.replace(hit_tile=tile // 4)
+    assert tiled.frame_branch(prep, sub, tile) == "soft"
+    simg = render(prep, sub, LIGHT).numpy()
+    diff = np.abs(simg.astype(int) - img.astype(int))
+    assert (diff <= 1).mean() > 0.999 and (diff == 0).mean() > 0.98
+    cs = (None, FOCAL, 128, 64, TILE_PX)
+    o, d, _, _ = primary_rays_tiled(128, 64, TILE_PX, FOCAL)
+    t, idx, *_ = nearest.hits_shaded(prep, cfg, torch.tensor(LIGHT), cs,
+                                     cfg.cull_maxv)
+    st, sidx, _ = nearest.hits_attrs(prep, cfg, None, cfg.cull_maxv,
+                                     rays=(o.reshape(-1, 3),
+                                           d.reshape(-1, 3)),
+                                     tile=tile // 4)
+    assert torch.isfinite(t).any()
+    assert torch.equal(st, t) and torch.equal(sidx, idx)
 
 
 def test_render_radiance_needs_prepared_scene():
