@@ -373,6 +373,16 @@ SUB_TILE = 1024
 RANGE_FRAMES = 3
 LIST_MAXV = 248
 K1_FETCH_RAYS_NAME = "K1 fetch over rays: " + RAYS_NAME + "<kFetch>"
+# phase 14: the ring's geometry shards on the one card (through the local
+# schedule: NCCL takes one process per card), its ray tile and list
+# capacity (dist/ring.py's defaults, JAX ring.py:132), the DP frames timed,
+# the composed steps, and the ring frame's bars against the unsharded frame
+# (JAX's own ring bar: equal on >= 99.5% of pixels)
+RING_SHARDS = 4
+RING_TILE, RING_MAXV = 256, 64
+DIST_FRAMES = 3
+COMPOSED_STEPS = 3
+RING_EQUAL_MIN = 0.995
 
 
 class SmokeFailure(RuntimeError):
@@ -2654,6 +2664,410 @@ def config_phase(sr, prep, cfg, light, source: str, gpu: str) -> list:
     return entries + more
 
 
+def image_bars(img, ref, what: str, within_min: float, equal_min: float
+               ) -> dict:
+    """Two uint8 frames: within 1 on >= ``within_min`` of the pixels, equal
+    on >= ``equal_min``."""
+    diff = (img.int() - ref.int()).abs().amax(dim=-1)
+    out = {"within_1": float((diff <= 1).float().mean()),
+           "equal": float((diff == 0).float().mean())}
+    require(out["within_1"] >= within_min and out["equal"] >= equal_min,
+            f"{what}: {out}")
+    return out
+
+
+def host_ms(fn, reps: int) -> float:
+    """Host ms per run of ``fn`` over ``reps`` runs ending in a
+    synchronize, after one warm-up."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.time() - t0) * 1e3 / reps
+
+
+def busiest_call(calls) -> int:
+    """The index of the call, of a list of captured kernel arguments, whose
+    plan holds the most windows."""
+    return max(range(len(calls)), key=lambda i: int(plan_stats(
+        calls[i][0])["windows_per_tile_mean"] * calls[i][0].shape[0]))
+
+
+def spied_run(fn, roles) -> tuple:
+    """``fn()`` with the counts reset just before and read just after, the
+    wrappers of ``roles`` in ``tiled.KERNELS`` capturing their arguments
+    meanwhile (every default ``kernels=`` argument is that dict).  Returns
+    (its result, the counts, the captured arguments by role)."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels import tiled
+    stores = {r: [] for r in roles}
+    saved = {r: tiled.KERNELS[r] for r in roles}
+    reset_launches()
+    tiled.KERNELS.update({r: capture(saved[r], stores[r]) for r in roles})
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        tiled.KERNELS.update(saved)
+    return out, read_launches(), stores
+
+
+def ray_walk_holds(near: str, occ: str, kn, ko, R: int, S: int, what,
+                   label: str) -> tuple:
+    """A nearest walk over explicit rays (role ``near``: K1's fetch mode
+    over rays, "nearest_rays_attrs", or K1's rays mode) and the any-hit
+    walk of the same rays' hit points (role ``occ``: K2′ or K7) held to
+    their plain versions on a path's captured arguments ``kn`` and ``ko``,
+    bit for bit (t, idx, the fetched rows; found on every lane); the first
+    ``R`` lanes of the nearest walk's tiles are real rays, the shadow's
+    lanes follow them, ``S`` samples each; ``what`` names the two walks.
+    Timed: each kernel (CUDA events) and its plain version (its one run).
+    Returns (the nearest walk's check line, the any-hit walk's, the
+    times)."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels import tiled
+    fetch = near == "nearest_rays_attrs"
+    plains = timed_plains()
+    walk_args = (kn[0], kn[1], *kn[3:]) if fetch else kn
+    n, m = walk_args[2].shape[:2]
+    dev = walk_args[2].device
+    inside = (torch.arange(n * m, device=dev) < R).reshape(n, m)
+    n_res, kt, _ki, _w = check_nearest(
+        tiled.KERNELS[near], plains[near], kn, inside, what[0], label,
+        nearest_ops(walk_args[2]), window_bytes(kn[1], walk_args[4]), 24,
+        winners=kn[2] if fetch else None, exact=True)
+    if fetch:
+        ka, pa = tiled.KERNELS[near](*kn)[2], plains[near](*kn)[2]
+        torch.cuda.synchronize()
+        rows_equal = bool(torch.equal(ka, pa))
+        emit(check=f"{what[0]} rows vs plain ({label})",
+             rows_equal=rows_equal, hit_rows=int((ka[:, 3] >= 0).sum()))
+        require(rows_equal, f"{what[0]} rows differ from the plain fetch "
+                            f"({label})")
+    o_res, _ = check_found(tiled.KERNELS[occ], plains[occ], ko,
+                           (torch.isfinite(kt) & inside).reshape(-1)[:R],
+                           S, what[1], label)
+    times = {"nearest_ms": cuda_ms(lambda: tiled.KERNELS[near](*kn), 3),
+             "nearest_plain_ms": plains[near].ms,
+             "anyhit_ms": cuda_ms(lambda: tiled.KERNELS[occ](*ko), 3),
+             "anyhit_plain_ms": plains[occ].ms}
+    return n_res, o_res, times
+
+
+def dp_world_of_one(sr, prep, scene, cfg, light, label: str, gpu: str):
+    """Phase 14 (a): the distribution layer on a one-process NCCL group on
+    the card.  The data-parallel frame (row-major slabs through the
+    explicit-ray entry: K1's fetch mode over rays, K2′) with the counts
+    reset just before, equal on every pixel to the explicit-ray entry's
+    render of the same unsharded rays and within the port's bars of the
+    fused frame; one DP train step equal to the step without a mesh bit
+    for bit; three composed steps (dp = gp = 1, the ring of one shard
+    inside the loss) with falling losses; ``frames_parallel`` of two
+    views equal to ``frames_batched``.  The DP frame's K1 fetch over rays
+    and K2′, and the composed steps' K1 rays walk and K7, held bit for bit
+    to their plain versions on the arguments those paths gave them.
+    Returns the kernels-line entries of the DP frame and the composed
+    steps."""
+    import numpy as np
+    import torch
+    from simple_raytracer_tpu_torch.dist import (make_mesh,
+                                                 make_train_step_composed,
+                                                 render_sharded)
+    from simple_raytracer_tpu_torch.driver.animation import (frames_batched,
+                                                             frames_parallel)
+    from simple_raytracer_tpu_torch.kernels.tiled import render_flat_tiled
+    from simple_raytracer_tpu_torch.ops.camera import primary_rays
+    from simple_raytracer_tpu_torch.render.integrator import finalize_image
+    from simple_raytracer_tpu_torch.scene.catalog import orbit_view
+    cam = cfg.camera
+    dev = prep.device
+    mesh = make_mesh(1, ("dp",), device=dev)
+    require(mesh.device == dev, f"mesh on {mesh.device}, scene on {dev}")
+
+    # the main path: the counts reset just before the DP frame; each
+    # kernel's arguments kept
+    roles = ("nearest_rays_attrs", "anyhit")
+    img, launches, stores = spied_run(
+        lambda: render_sharded(prep, cfg, light, mesh), roles)
+    require(all(launches[r] == len(stores[r]) == 1 for r in roles)
+            and all(n == 0 for r, n in launches.items() if r not in roles),
+            f"{label}: the DP frame launched {launches}, not one call of "
+            f"each of {roles}")
+    R = cam.width * cam.height
+    S = cfg.light.num_samples
+    dp_near, dp_occ, dp_times = ray_walk_holds(
+        *roles, stores[roles[0]][0], stores[roles[1]][0], R, S,
+        ("DP K1 fetch over rays", "DP K2'"), label)
+    o, d = primary_rays(cam.width, cam.height, cam.focal, device=dev)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+
+    def explicit():
+        rad, hit = render_flat_tiled(prep, cfg, light, None, rays=(o, d))
+        return finalize_image(rad.reshape(cam.height, cam.width, 3),
+                              hit.reshape(cam.height, cam.width), cfg)
+    one = explicit()
+    same = bool(torch.equal(img, one))
+    require(same, f"{label}: the DP frame differs from the explicit-ray "
+                  f"render of the same rays")
+    fused = sr.render(prep, cfg, light)
+    vs_fused = image_bars(img, fused, f"{label}: DP frame vs fused",
+                          IMAGE_MIN, 0.98)
+    bg = (img == torch.tensor(cfg.background, dtype=torch.uint8,
+                              device=dev)).all(dim=-1)
+    coverage = float((~bg).float().mean())
+    require(0.05 < coverage < 0.99, f"{label}: coverage {coverage}")
+    times = {"dp_frame_ms": host_ms(lambda: render_sharded(prep, cfg, light,
+                                                           mesh),
+                                    DIST_FRAMES),
+             "explicit_frame_ms": host_ms(explicit, DIST_FRAMES),
+             "fused_frame_ms": host_ms(lambda: sr.render(prep, cfg, light),
+                                       DIST_FRAMES)}
+
+    # one DP step over the mesh of one: the step without a mesh, bit for
+    # bit, with PyTorch's deterministic algorithms (the backward's
+    # index_select scatter-adds with atomics otherwise, in no fixed order)
+    with torch.no_grad():
+        rad, hit = sr.render_radiance(prep, cfg, light)
+        target = torch.where(hit[..., None], rad, 0.0)
+    start = sr.extract_params(prep.scene, light)
+    start.obj_color = start.obj_color * TRAIN_COLOR
+    torch.use_deterministic_algorithms(True)
+    try:
+        want = sr.make_train_step(prep, cfg, lr=TRAIN_LR).value_and_grad(
+            start, target)
+        got = sr.make_train_step(prep, cfg, mesh=mesh,
+                                 lr=TRAIN_LR).value_and_grad(start, target)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    step_equal = bool(torch.equal(got[0], want[0]) and all(
+        torch.equal(g, w) for g, w in zip(got[1].leaves(),
+                                          want[1].leaves())))
+    require(step_equal, f"{label}: the DP step over one process differs "
+                        f"from the step without a mesh")
+
+    # three composed steps, dp = gp = 1: the ring of one shard in the loss
+    mesh2 = make_mesh(1, ("dp", "gp"), (1, 1), device=dev)
+    cstep, cparams, _ = make_train_step_composed(scene, cfg, mesh2,
+                                                 lr=TRAIN_LR)
+    cparams.light_pos = light.clone()
+    cparams.obj_color = cparams.obj_color * TRAIN_COLOR
+    closses = []
+
+    def steps():
+        nonlocal cparams
+        for _ in range(COMPOSED_STEPS):
+            cparams, loss = cstep(cparams, target)
+            closses.append(float(loss))
+    croles = ("nearest_rays", "anyhit_pages")
+    t0 = time.time()
+    _, claunches, cstores = spied_run(steps, croles)
+    ms_composed = (time.time() - t0) * 1e3 / COMPOSED_STEPS
+    falling(closses, f"{label}: composed steps")
+    require(all(claunches[r] == len(cstores[r]) == COMPOSED_STEPS
+                for r in croles)
+            and all(n == 0 for r, n in claunches.items() if r not in croles),
+            f"{label}: the composed steps launched {claunches}, not one "
+            f"call of each of {croles} a step")
+    c_near, c_occ, c_times = ray_walk_holds(
+        *croles, cstores[croles[0]][0], cstores[croles[1]][0], R, 1,
+        ("composed K1 rays", "composed K7"), label + ", composed step 1")
+
+    # whole frames over the mesh
+    views = np.stack([orbit_view(a, 100.0, 0.0, 0.0) for a in (0.0, 60.0)])
+    pf = frames_parallel(prep, cfg, views, light, mesh, axis="dp")
+    frames_equal = bool(torch.equal(pf, frames_batched(prep, cfg, views,
+                                                       light)))
+    require(frames_equal, f"{label}: frames_parallel != frames_batched")
+    emit(phase=f"distribution, one process ({label})",
+         backend=torch.distributed.get_backend(), mesh=mesh.shape,
+         launches=launches, coverage=coverage,
+         dp_equal_explicit_every_pixel=same, dp_vs_fused=vs_fused,
+         dp_step_bit_equal=step_equal, composed_losses=closses,
+         composed_launches=claunches, composed_ms_per_step=ms_composed,
+         frames_parallel_equal=frames_equal, **times,
+         dp_kernels=dp_times, composed_kernels=c_times, gpu=gpu)
+    via_dp = ("sharding.py:81-84 render_flat_tiled with no cam_spec "
+              "(tiled.py:1496)")
+    via_c = "train.py:226-291 the composed step's ring (dp = gp = 1)"
+    return [
+        entry(K1_FETCH_RAYS_NAME + " (DP slab)", "nearest.cu",
+              "simple_raytracer_tpu/kernels/tiled_t.py:855", label,
+              launches[roles[0]], dp_near["t_max_abs_err"],
+              dp_times["nearest_ms"], dp_times["nearest_plain_ms"], dp_near,
+              via=via_dp + " -> hits_attrs -> tiled_nearest_t "
+                           "(tiled_t.py:1705)"),
+        entry(ANYHIT_NAME + " (DP slab)", "anyhit.cu",
+              "simple_raytracer_tpu/kernels/tiled_t.py:1374", label,
+              launches[roles[1]], dp_occ["found_max_abs_err"],
+              dp_times["anyhit_ms"], dp_times["anyhit_plain_ms"], dp_occ,
+              via=via_dp + " -> tiled_shadow_fn -> tiled_anyhit_t "
+                           "(tiled_t.py:1860)"),
+        entry(RAYS_NAME + " (composed step's ring K1 rays walk)",
+              "nearest.cu", "simple_raytracer_tpu/kernels/tiled_t.py:855",
+              label, claunches[croles[0]], c_near["t_max_abs_err"],
+              c_times["nearest_ms"], c_times["nearest_plain_ms"], c_near,
+              via=via_c + " -> ring.py:71-93 -> tiled_nearest_t; held on "
+                          "step 1"),
+        entry(ANYHIT_NAME + " (composed step's ring K7, page windows)",
+              "anyhit.cu", "simple_raytracer_tpu/kernels/tiled.py:905",
+              label, claunches[croles[1]], c_occ["found_max_abs_err"],
+              c_times["anyhit_ms"], c_times["anyhit_plain_ms"], c_occ,
+              via=via_c + " -> ring.py:270-277 -> tiled_anyhit "
+                          "(tiled.py:1119); held on step 1")]
+
+
+def ring_phase(sr, prep, scene, cfg, light, label: str, gpu: str) -> list:
+    """Phase 14 (b): the ring over RING_SHARDS geometry shards on the one
+    card, through the local schedule (every home block visits every shard
+    in the ring's order): the frame with the counts reset just before
+    (exactly RING_SHARDS**2 K1 rays-walk calls and at most as many K7
+    calls), its hit mask equal to the unsharded tiled frame's and its
+    image within JAX's ring bar of it; K1's rays walk and K7 bit for bit
+    with their plain versions on one (home block, shard) pair; the frame's
+    time, each shard's K1 and K7 time (CUDA events, every call of the
+    frame timed again), the planners' share, the shard sizes.  Returns the
+    kernels-line entries."""
+    import torch
+    from simple_raytracer_tpu_torch.dist import ring
+    from simple_raytracer_tpu_torch.kernels import nearest, paged, tiled
+    from simple_raytracer_tpu_torch.ops.camera import primary_rays
+    from simple_raytracer_tpu_torch.render.integrator import finalize_image
+    cam = cfg.camera
+    dev = prep.device
+    n = RING_SHARDS
+    t0 = time.time()
+    shards = ring.shard_geometry(scene, n, cfg, device=dev)
+    torch.cuda.synchronize()
+    sizes = {"real_triangles": [s.prep.num_triangles for s in shards],
+             "padded_triangles": [s.prep.scene.num_triangles
+                                  for s in shards],
+             "blocks": [s.prep.num_blocks for s in shards],
+             "seconds": round(time.time() - t0, 3)}
+    emit(phase=f"ring shards ({label})", shards=n, **sizes)
+    tables = ring.strip_scene_tables(scene).to(dev)
+    o, d = primary_rays(cam.width, cam.height, cam.focal, device=dev)
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    R = o.shape[0]
+    require(R % n == 0, f"{R} rays over {n} home blocks")
+
+    def frame(kernels=tiled.KERNELS):
+        rad, hit = ring.render_flat_ring_local(tables, shards, cfg, o, d,
+                                               light, apex=True,
+                                               kernels=kernels)
+        return finalize_image(rad.reshape(cam.height, cam.width, 3),
+                              hit.reshape(cam.height, cam.width), cfg), hit
+
+    # the main path: the counts reset just before the ring frame; every
+    # call's arguments kept, by role, for the per-shard times
+    stores = {r: [] for r in ("nearest_rays", "anyhit_pages")}
+    spies = {r: capture(tiled.KERNELS[r], stores[r]) for r in stores}
+    reset_launches()
+    img, hit = frame(spies)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    require(launches["nearest_rays"] == n * n
+            and 0 < launches["anyhit_pages"] <= n * n
+            and all(c == 0 for r, c in launches.items() if r not in stores),
+            f"{label}: the ring frame launched {launches}")
+    rad1, hit1 = sr.render_radiance(prep, cfg, light)
+    one = finalize_image(rad1, hit1, cfg)
+    hit_equal = bool(torch.equal(hit.reshape(cam.height, cam.width), hit1))
+    require(hit_equal, f"{label}: the ring's hit mask differs from the "
+                       f"unsharded frame's")
+    bars = image_bars(img, one, f"{label}: ring vs unsharded", IMAGE_MIN,
+                      RING_EQUAL_MIN)
+
+    # one (home block, shard) pair of each walk against its plain version:
+    # the call with the most windows in its plan (call c of the frame is
+    # home block c // n on shard (c // n + c % n) mod n)
+    def busiest(calls):
+        c = busiest_call(calls)
+        return c, c // n, (c // n + c % n) % n
+    c1, b1, s1 = busiest(stores["nearest_rays"])
+    kn = stores["nearest_rays"][c1]
+    m = kn[2].shape[1]
+    inside = (torch.arange(kn[2].shape[0] * m, device=dev)
+              < R // n).reshape(-1, m)
+    plain = tiled.PLAIN
+    n_res, _kt, _ki, _w = check_nearest(
+        tiled.KERNELS["nearest_rays"], plain["nearest_rays"], kn, inside,
+        f"ring K1 rays (home block {b1}, shard {s1})", label,
+        nearest_ops(kn[2]), window_bytes(kn[1], kn[4]), 24, exact=True)
+    c7, b7, s7 = busiest(stores["anyhit_pages"])
+    ko = stores["anyhit_pages"][c7]
+    o_res, _ = check_found(tiled.KERNELS["anyhit_pages"],
+                           plain["anyhit_pages"], ko,
+                           hit[b7 * (R // n):(b7 + 1) * (R // n)], 1,
+                           f"ring K7 (home block {b7}, shard {s7})", label)
+
+    # times: the frame, then each call of the frame again (CUDA events)
+    ms_frame = host_ms(lambda: frame(), DIST_FRAMES)
+    k1_calls = [cuda_ms(lambda a=a: tiled.KERNELS["nearest_rays"](*a), 3)
+                for a in stores["nearest_rays"]]
+    k7_calls = [cuda_ms(lambda a=a: tiled.KERNELS["anyhit_pages"](*a), 3)
+                for a in stores["anyhit_pages"]]
+    # call j of block i ran on shard (i + j) mod n
+    per_shard = {"k1_ms": [0.0] * n, "k7_ms": [0.0] * n}
+    for key, calls in (("k1_ms", k1_calls), ("k7_ms", k7_calls)):
+        if len(calls) == n * n:
+            for c, ms in enumerate(calls):
+                per_shard[key][(c // n + c % n) % n] += ms
+    kern = sum(k1_calls) + sum(k7_calls)
+    times = {"ms_per_frame": ms_frame, "k1_ms_frame": sum(k1_calls),
+             "k7_ms_frame": sum(k7_calls), "per_shard": per_shard,
+             "planners_and_rest_share": (ms_frame - kern) / ms_frame,
+             "k1_pair_ms": cuda_ms(lambda: tiled.KERNELS["nearest_rays"](
+                 *kn), 10),
+             "k1_pair_plain_ms": cuda_ms(lambda: plain["nearest_rays"](*kn),
+                                         1),
+             "k7_pair_ms": cuda_ms(lambda: tiled.KERNELS["anyhit_pages"](
+                 *ko), 10),
+             "k7_pair_plain_ms": cuda_ms(lambda: plain["anyhit_pages"](*ko),
+                                         1)}
+    emit(phase=f"ring ({label})", shards=n, home_rays=R // n,
+         ray_tile=RING_TILE, launches=launches, hit_mask_equal=hit_equal,
+         image_vs_unsharded=bars, **times, gpu=gpu)
+    return [
+        entry(RAYS_NAME + " (ring K1 rays walk)", "nearest.cu",
+              "simple_raytracer_tpu/kernels/tiled_t.py:855", label,
+              launches["nearest_rays"], n_res["t_max_abs_err"],
+              times["k1_pair_ms"], times["k1_pair_plain_ms"], n_res,
+              via="ring.py:71-93 _tt.hits -> tiled_nearest_t "
+                  f"(tiled_t.py:1705); held on home block {b1}, shard {s1}",
+              frame_ms=times["k1_ms_frame"]),
+        entry(ANYHIT_NAME + " (ring K7, page windows)", "anyhit.cu",
+              "simple_raytracer_tpu/kernels/tiled.py:905", label,
+              launches["anyhit_pages"], o_res["found_max_abs_err"],
+              times["k7_pair_ms"], times["k7_pair_plain_ms"], o_res,
+              via="ring.py:270-277 tiled_shadow_fn -> tiled_anyhit "
+                  f"(tiled.py:1119); held on home block {b7}, shard {s7}",
+              frame_ms=times["k7_ms_frame"])]
+
+
+def dist_phase(sr, prep, scene, cfg, light, source: str, gpu: str) -> list:
+    """Phase 14: the distribution layer on the shadow bench (one process
+    on the card, then the 4-shard ring).  Returns the kernels-line
+    entries."""
+    sb = cfg.replace(camera=sr.CameraConfig(width=WIDTH, height=HEIGHT,
+                                            focal=SHADOW_FOCAL))
+    label = (f"shadow bench: {source}, {WIDTH}x{HEIGHT}, focal "
+             f"{SHADOW_FOCAL:g}")
+    import torch.distributed as dist
+    try:
+        entries = dp_world_of_one(sr, prep, scene, sb, light, f"DP {label}",
+                                  gpu)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    return entries + ring_phase(sr, prep, scene, sb, light,
+                                f"ring of {RING_SHARDS} shards, {label}",
+                                gpu)
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -2842,6 +3256,9 @@ def main() -> int:
 
     # 13. the tiled configurations over explicit rays or range-only plans
     entries += config_phase(sr, prep, cfg, light, source, gpu)
+
+    # 14. distribution: a one-process NCCL group, the ring of 4 shards
+    entries += dist_phase(sr, prep, scene, cfg, light, source, gpu)
 
     print(json.dumps({"kernels": entries}))
     print(gpu)

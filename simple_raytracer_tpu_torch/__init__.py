@@ -10,6 +10,8 @@ shadows, through the nearest-hit, any-hit and classification kernels in
 them in jnp.  Every mode is differentiable (``render_radiance_diff``: the
 intersector's winners under ``no_grad``, autograd through Möller–Trumbore at
 them), and ``make_train_step`` fits scene parameters to a target image.
+``dist/`` shards rays, frames and triangles over processes, one per card
+(``torch.distributed``).
 ``python -m simple_raytracer_tpu_torch render|animate|train`` is its command
 line (cli.py); every entry point runs on the card unless the caller asks for
 the CPU.

@@ -12,8 +12,12 @@ versions; without a CUDA device it raises.
   python -m simple_raytracer_tpu_torch render  --device cpu --mode bvh ...
   python -m simple_raytracer_tpu_torch train   --scene six_spheres --steps 50
 
-``animate --frame-parallel`` and ``train --data-parallel`` are not ported
-yet (ROADMAP.md, Open items §1: Distribution).
+``animate --frame-parallel`` and ``train --data-parallel`` run on a mesh
+over every process of the group: ``torchrun --nproc-per-node N -m
+simple_raytracer_tpu_torch ...`` starts one process per card (or, with
+``--device cpu``, N CPU processes over gloo); started plainly, the command
+is a world of one process.  The first process of the mesh writes the
+files and the metrics.
 """
 
 from __future__ import annotations
@@ -21,12 +25,6 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-
-FRAME_PARALLEL = ("--frame-parallel is not ported yet (ROADMAP.md, Open "
-                  "items §1: Distribution)")
-DATA_PARALLEL = ("--data-parallel is not ported yet (ROADMAP.md, Open items "
-                 "§1: Distribution)")
-
 
 def _add_render_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--root", default="reference",
@@ -134,9 +132,11 @@ def cmd_animate(args) -> int:
     from .driver.animation import render_turntable
     from .utils.metrics import profile_trace
 
-    if args.frame_parallel:
-        raise NotImplementedError(FRAME_PARALLEL)
     target_device(args.device)
+    mesh = None
+    if args.frame_parallel:
+        from .dist.sharding import make_mesh
+        mesh = make_mesh(None, ("pp",), device=args.device)
     cfg = _config_from(args)
     anim = AnimationConfig(step_deg=args.step_deg,
                            orbit_radius=args.orbit_radius,
@@ -147,7 +147,8 @@ def cmd_animate(args) -> int:
                          out_dir=args.out_dir, fmt=args.fmt,
                          world_space=not args.bake_view,
                          resume=not args.no_resume,
-                         metrics_path=args.metrics, device=args.device)
+                         metrics_path=args.metrics, mesh=mesh,
+                         device=args.device)
     return 0
 
 
@@ -155,20 +156,24 @@ def cmd_train(args) -> int:
     """Fit the scene's params, from a perturbed start (the light moved by
     ``--perturb``, the colours halved), to its own rendered image, in
     bruteforce mode, as JAX's ``train``; ``--checkpoint`` saves every
-    ``--ckpt-every`` steps and at the end, and a rerun resumes from it."""
+    ``--ckpt-every`` steps and at the end, and a rerun resumes from it.
+    ``--data-parallel`` splits each step's rays over the processes."""
     import torch
     from .accel.prepared import target_device
-    from .dist import extract_params, make_train_step
+    from .dist import extract_params, make_mesh, make_train_step
     from .render.renderer import render_radiance
     from .scene import catalog
     from .utils.checkpoint import load_checkpoint, save_checkpoint
     from .utils.metrics import Metrics
 
-    if args.data_parallel:
-        raise NotImplementedError(DATA_PARALLEL)
     dev = target_device(args.device)
+    mesh = None
+    if args.data_parallel:
+        mesh = make_mesh(None, ("dp",), device=args.device)
+        dev = mesh.device
+    lead = mesh is None or mesh.index == 0
     cfg = _config_from(args).replace(mode="bruteforce")
-    m = Metrics(args.metrics)
+    m = Metrics(args.metrics if lead else None, echo=lead)
     sm, _view, light = catalog.CATALOG[args.scene](args.root, args.angle,
                                                    bake_view=True)
     scene = sm.build().to(dev)
@@ -185,14 +190,14 @@ def cmd_train(args) -> int:
         if restored:
             params, start = restored
             m.emit(event="resumed", step=start)
-    step = make_train_step(scene, cfg, lr=args.lr)
+    step = make_train_step(scene, cfg, mesh=mesh, lr=args.lr)
     for i in range(start, args.steps):
         params, loss = step(params, target)
         if i % args.log_every == 0 or i == args.steps - 1:
             m.emit(event="train", step=i, loss=float(loss))
-        if args.checkpoint and (i + 1) % args.ckpt_every == 0:
+        if lead and args.checkpoint and (i + 1) % args.ckpt_every == 0:
             save_checkpoint(args.checkpoint, params, i + 1)
-    if args.checkpoint:
+    if lead and args.checkpoint:
         save_checkpoint(args.checkpoint, params, args.steps)
     m.close()
     return 0

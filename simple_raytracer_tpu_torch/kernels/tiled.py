@@ -95,16 +95,17 @@ PLAIN = {"nearest_shaded": tiled_nearest_shaded_plain,
 IMPLS = (None, "sublane", "paged")
 
 
-def _uses_iota(cfg: RenderConfig, tile: int) -> bool:
+def _uses_iota(cfg: RenderConfig, tile: int, camera: bool = True) -> bool:
     """Whether K1 rebuilds the frame's primary rays from the pixels (JAX
-    tiled_t._use_iota with the renderer's cam_spec): directions not
-    normalized (JAX drops cam_spec then), the nearest pass at the whole
-    pixel tile, list capacity."""
-    return (not cfg.camera.normalize_dirs and cfg.cull_maxv > 0
+    tiled_t._use_iota with the renderer's cam_spec): a camera to rebuild
+    them from, directions not normalized (JAX drops cam_spec then), the
+    nearest pass at the whole pixel tile, list capacity."""
+    return (camera and not cfg.camera.normalize_dirs and cfg.cull_maxv > 0
             and _hit_tile(cfg, tile) == tile)
 
 
-def _takes_gather(prep, cfg: RenderConfig, tile: int) -> bool:
+def _takes_gather(prep, cfg: RenderConfig, tile: int,
+                  camera: bool = True) -> bool:
     """Whether a sublane frame takes the gather branch (JAX tiled.py:
     1538-1558, 1646-1657 without the TPU memory gates): no fetch without
     list capacity, and the fused modes other than flat have no fetch
@@ -116,9 +117,9 @@ def _takes_gather(prep, cfg: RenderConfig, tile: int) -> bool:
             or cfg.cull_maxv <= 0):
         return True
     mode = attr_mode(prep, cfg)
-    return mode is None or (mode != FLAT and (cfg.light.num_samples > 1
-                                              or not kc.fused_phong
-                                              or not _uses_iota(cfg, tile)))
+    return mode is None or (mode != FLAT and (
+        cfg.light.num_samples > 1 or not kc.fused_phong
+        or not _uses_iota(cfg, tile, camera)))
 
 
 def check_supported(prep, cfg: RenderConfig, tile: int) -> None:
@@ -142,16 +143,20 @@ def _hit_tile(cfg: RenderConfig, tile: int) -> int:
     return ht
 
 
-def frame_branch(prep, cfg: RenderConfig, tile: int) -> str:
+def frame_branch(prep, cfg: RenderConfig, tile: int,
+                 camera: bool = True) -> str:
     """"fused", "legacy", "soft", "gather" or "paged": the branch a frame
-    of primary tiles of ``tile`` rays takes (see the module docstring)."""
+    of primary tiles of ``tile`` rays takes (see the module docstring);
+    with ``camera`` False, that of primary rays given with no camera to
+    rebuild them from (JAX's ``cam_spec=None``): never the fused or the
+    legacy branch."""
     check_supported(prep, cfg, tile)
     if cfg.tiled_impl == "paged":
         return "paged"
-    if _takes_gather(prep, cfg, tile):
+    if _takes_gather(prep, cfg, tile, camera):
         return "gather"
     if (cfg.light.num_samples > 1 or not cfg.kernel.fused_phong
-            or not _uses_iota(cfg, tile)):
+            or not _uses_iota(cfg, tile, camera)):
         return "soft"
     ntris = prep.num_blocks * prep.block_size
     if (cfg.light.enable_shadows and prep.scene.num_objects > 1
@@ -342,9 +347,22 @@ def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
     ``cfg.camera.normalize_dirs`` says so); the frames of
     :func:`wants_rays` need them.  ``kernels`` maps each role of
     :data:`KERNELS` to its wrapper; ``chip_smoke.py`` passes :data:`PLAIN`
-    to render the reference image on the card."""
-    tile = cam_spec[4] ** 2
-    branch = frame_branch(prep, cfg, tile)
+    to render the reference image on the card.
+
+    With ``cam_spec`` None (JAX's ``cam_spec=None``, lines 1496-1507),
+    ``rays`` are any R primary rays of one camera, in any order (the
+    data-parallel slabs of dist/sharding.py are row-major): the tile is
+    ``effective_tile_px`` of the triangle count, the plans keep the apex
+    test, and the frame takes the branch of :func:`frame_branch` with no
+    camera (K1's fetch mode over the rays, then K2′, on flat scenes)."""
+    if cam_spec is None:
+        tile = pl.effective_tile_px(cfg, prep.scene.num_triangles) ** 2
+        branch = frame_branch(prep, cfg, tile, camera=False)
+        if rays is None:
+            raise ValueError("a frame with no camera needs its rays")
+    else:
+        tile = cam_spec[4] ** 2
+        branch = frame_branch(prep, cfg, tile)
     if rays is None and wants_rays(prep, cfg, tile):
         raise ValueError(f"the {branch} frame needs the primary rays")
     maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,

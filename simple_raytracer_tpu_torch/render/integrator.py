@@ -100,6 +100,15 @@ def material_select(scene, obj: torch.Tensor) -> dict:
             "shininess": shin}
 
 
+def _material_gather(scene, obj: torch.Tensor) -> dict:
+    """Per-ray material by gathers from the object tables (scenes of more
+    objects than :func:`material_select` unrolls)."""
+    o = obj.long()
+    return {"color": scene.obj_color[o], "ambient": scene.obj_ambient[o],
+            "specular": scene.obj_specular[o],
+            "shininess": scene.obj_shininess[o]}
+
+
 def records_from_attrs(scene, attrs: torch.Tensor) -> dict:
     """Shading record of flat, untextured hits from the fetch mode's rows
     (attrs [R, 4]: flat normal xyz, object id; kernels/nearest.py)."""
@@ -116,11 +125,14 @@ def shade_records(scene, cfg: RenderConfig, record: dict,
                   t: torch.Tensor, light_pos,
                   shadow_fn: Optional[Callable] = None) -> torch.Tensor:
     """Shading core over per-ray records (:func:`gather_hit_records` or
-    :func:`records_from_attrs`) -> tone-mapped radiance [R, 3] (misses
+    :func:`records_from_attrs`, or the ring's records of dist/ring.py,
+    which carry no material: it is then selected by object id, from
+    ``scene``'s small tables) -> tone-mapped radiance [R, 3] (misses
     hold garbage; mask with isfinite(t)).  The base color is the texel of
     a textured hit (the record's UVs at the hit's barycentrics), else the
     material color; the normal is the interpolated vertex normal with
-    smooth shading, else the record's flat normal.  S = num_samples Phong
+    smooth shading, else the record's flat normal (or that of its
+    vertices).  S = num_samples Phong
     evaluations, one per light sample, each divided by shadow_dim where
     ``shadow_fn`` (point, light, self_obj, hit) -> bool [S * R] says the
     sample is occluded, summed, then tone-mapped.  A single-object scene
@@ -134,6 +146,10 @@ def shade_records(scene, cfg: RenderConfig, record: dict,
     bary = None
     if has_uv or scfg.smooth_normals:
         bary = sh.barycentric(record["tri_v"], point)
+    if "color" not in record:
+        record = {**record, **(material_select(scene, obj)
+                               if scene.num_objects <= 8
+                               else _material_gather(scene, obj))}
     base = record["color"]
     if has_uv:
         tex_rgb = sh.texture_fetch(scene.tex_data, scene.tex_offset,
@@ -141,8 +157,12 @@ def shade_records(scene, cfg: RenderConfig, record: dict,
                                    record["tex_id"],
                                    sh.interpolate_uv(record["uvs"], bary))
         base = torch.where((record["tex_id"] >= 0)[:, None], tex_rgb, base)
-    normal = (sh.smooth_normal(record["vnormals"], bary)
-              if scfg.smooth_normals else record["normal"])
+    if scfg.smooth_normals:
+        normal = sh.smooth_normal(record["vnormals"], bary)
+    elif "normal" in record:
+        normal = record["normal"]
+    else:
+        normal = sh.flat_normal(record["tri_v"])
     light_color = torch.tensor(lcfg.color, dtype=point.dtype,
                                device=point.device)
     samples = light_sample_positions(light_pos, lcfg.num_samples,

@@ -17,9 +17,11 @@ package's: image output (``io/image.py``), metrics and traces
   ``--device``); ``render`` and ``animate`` with ``--device cpu`` write
   their files from stand-in OBJ assets written here, the rendered frame
   at JAX's bars against the JAX CLI's; ``train --data-parallel`` and
-  ``--frame-parallel`` raise, naming their ROADMAP.md item; with no CUDA
-  device and no ``--device cpu`` the CLI raises; ``--show`` without PIL
-  raises a clear error;
+  ``animate --frame-parallel`` run on a world of one process, equal to
+  the commands without them; ``frames_parallel`` and
+  ``render_turntable(mesh=)`` equal the frames of one process; with no
+  CUDA device and no ``--device cpu`` the CLI raises; ``--show`` without
+  PIL raises a clear error;
 * ``train --device cpu`` on the stand-in OBJ files: its flags are JAX's,
   its losses are emitted and fall, equal to JAX's ``train``'s; it saves a
   checkpoint every ``--ckpt-every`` steps and at the end, and a rerun
@@ -38,6 +40,7 @@ import torch
 
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch import cli
+from simple_raytracer_tpu_torch.dist import make_mesh
 from simple_raytracer_tpu_torch.driver import animation
 from simple_raytracer_tpu_torch.io import image
 from simple_raytracer_tpu_torch.render.renderer import ensure_prepared, render
@@ -224,7 +227,10 @@ def test_turntable_keeps_the_frames_before_a_failure(tmp_path, assets,
     assert len(calls) == 4
 
 
-def test_frames_batched_equals_per_frame_render(assets):
+def test_frames_batched_equals_per_frame_render(tmp_path, assets, capsys):
+    """``frames_batched`` equals per-frame ``render``; so do
+    ``frames_parallel`` and ``render_turntable(mesh=)`` over a mesh of one
+    process (a world of one, gloo), whose sweep event names 1 device."""
     cfg = sr.default_config().replace(mode="bvh",
                                       camera=sr.CameraConfig(**CAM))
     sm, _, light = catalog.four_cubes(assets, 0.0, bake_view=False)
@@ -236,11 +242,25 @@ def test_frames_batched_equals_per_frame_render(assets):
     for k in range(3):
         assert torch.equal(imgs[k], render(prep, cfg, light,
                                            view_matrix=views[k]))
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        animation.frames_parallel(prep, cfg, views, light, mesh=object())
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        animation.render_turntable("four_cubes", assets, cfg,
-                                   mesh=object(), device="cpu")
+    mesh = make_mesh(1, ("pp",), device="cpu")
+    assert torch.equal(animation.frames_parallel(prep, cfg, views, light,
+                                                 mesh), imgs)
+    anim = sr.AnimationConfig(step_deg=120.0, orbit_radius=100.0,
+                              camera_y=0.0, pitch_deg=0.0)
+    out = str(tmp_path / "gen")
+    capsys.readouterr()
+    paths = animation.render_turntable("four_cubes", assets, cfg, anim,
+                                       out_dir=out, mesh=mesh, device="cpu")
+    sweep = [json.loads(x) for x in capsys.readouterr().out.splitlines()
+             if '"sweep"' in x]
+    assert len(sweep) == 1 and sweep[0]["devices"] == 1
+    assert sweep[0]["frames"] == 3
+    for a, path in zip(animation.sweep_angles(anim), paths):
+        view = catalog.orbit_view(a, anim.orbit_radius, anim.camera_y,
+                                  anim.pitch_deg, anim.yaw_offset_deg)
+        np.testing.assert_array_equal(
+            image.read_bmp(path),
+            render(prep, cfg, light, view_matrix=view).numpy())
 
 
 def _flags(add):
@@ -304,15 +324,34 @@ def test_cli_animate_writes_and_resumes(tmp_path, assets, capsys):
     assert [os.path.getmtime(os.path.join(out, n)) for n in names] == mtimes
 
 
-def test_cli_unported_commands_raise(tmp_path, assets):
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        cli.main(["train", "--scene", "one_cube", "--root", assets,
-                  "--data-parallel", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        cli.main(["animate", "--scene", "one_cube", "--root", assets,
-                  "--frame-parallel", "--device", "cpu",
-                  "--out-dir", str(tmp_path)])
-    assert not os.listdir(tmp_path)
+def test_cli_unported_commands_raise(tmp_path, assets, capsys):
+    """``train --data-parallel`` and ``animate --frame-parallel``, started
+    plainly, run on a world of one process: the losses equal those of the
+    step without a mesh, and the frames those of the plain sweep."""
+    train = ["train", "--scene", "one_cube", "--root", assets, *SMALL,
+             "--focal", "40", "--steps", "2", "--log-every", "1",
+             "--device", "cpu"]
+    losses = []
+    for extra in ([], ["--data-parallel"]):
+        capsys.readouterr()
+        assert cli.main(train + extra) == 0
+        losses.append([json.loads(x)["loss"] for x in
+                       capsys.readouterr().out.splitlines()
+                       if '"train"' in x])
+    assert len(losses[0]) == 2 and losses[1] == losses[0]
+    frames = []
+    for extra in ([], ["--frame-parallel"]):
+        out = tmp_path / ("fp" if extra else "plain")
+        assert cli.main(["animate", "--scene", "one_cube", "--root", assets,
+                         *SMALL, "--step-deg", "120", "--mode", "bvh",
+                         "--device", "cpu", "--out-dir", str(out)]
+                        + extra) == 0
+        frames.append({n: image.read_bmp(str(out / n))
+                       for n in sorted(os.listdir(out))})
+    assert list(frames[1]) == ["output0.bmp", "output120.bmp",
+                               "output240.bmp"]
+    for n in frames[0]:
+        np.testing.assert_array_equal(frames[1][n], frames[0][n])
 
 
 def test_cli_needs_the_card_unless_asked(tmp_path, assets, monkeypatch):

@@ -1290,3 +1290,48 @@ def test_fetch_over_rays_wrapper_rejects_bad_inputs(scene):
     with pytest.raises(ValueError):                # tri_attr on the CPU
         nearest.tiled_nearest_rays_attrs(plan, prep.tri, prep.tri_attr.cpu(),
                                          o, d, wt, 1e-9)
+
+
+def test_ring_on_the_card_equals_the_plain_ring(scene):
+    """The ring of 4 geometry shards on the card, through the local
+    schedule: 16 K1 rays-walk calls and 16 K7 calls, and the frame equal
+    bit for bit to the same ring over the plain walks."""
+    from simple_raytracer_tpu_torch.dist import ring
+    from simple_raytracer_tpu_torch.kernels.tiled import PLAIN
+    from simple_raytracer_tpu_torch.ops.camera import primary_rays
+    _prep, cfg = scene
+    sc = P.sphere_on_ground(sr.SceneManager(), 3).build()
+    shards = ring.shard_geometry(sc, 4, cfg, device="cuda")
+    tables = ring.strip_scene_tables(sc).to("cuda")
+    o, d = primary_rays(SIZE, SIZE, FOCAL, device="cuda")
+    o, d = o.reshape(-1, 3), d.reshape(-1, 3)
+    light = torch.tensor(P.BENCH_LIGHT, device="cuda")
+    for fn in KERNELS.values():
+        fn.launches = 0
+    rad, hit = ring.render_flat_ring_local(tables, shards, cfg, o, d, light,
+                                           apex=True)
+    torch.cuda.synchronize()
+    assert KERNELS["nearest_rays"].launches == 16
+    assert KERNELS["anyhit_pages"].launches == 16
+    prad, phit = ring.render_flat_ring_local(tables, shards, cfg, o, d,
+                                             light, apex=True, kernels=PLAIN)
+    assert torch.equal(hit, phit) and 100 < int(hit.sum()) < hit.numel()
+    assert torch.equal(rad[hit], prad[phit])
+
+
+def test_dp_render_on_one_nccl_process(scene):
+    """A mesh of one process on the card (NCCL): the data-parallel frame
+    equals the explicit-ray render of the same rays on every pixel."""
+    from simple_raytracer_tpu_torch.dist import make_mesh, render_sharded
+    from simple_raytracer_tpu_torch.ops.camera import primary_rays
+    from simple_raytracer_tpu_torch.render.integrator import finalize_image
+    prep, cfg = scene
+    mesh = make_mesh(1, ("dp",), device="cuda")
+    light = torch.tensor(P.BENCH_LIGHT, device="cuda")
+    img = render_sharded(prep, cfg, light, mesh)
+    o, d = primary_rays(SIZE, SIZE, FOCAL, device="cuda")
+    rad, hit = render_flat_tiled(prep, cfg, light, None,
+                                 rays=(o.reshape(-1, 3), d.reshape(-1, 3)))
+    want = finalize_image(rad.reshape(SIZE, SIZE, 3), hit.reshape(SIZE, SIZE),
+                          cfg)
+    assert torch.equal(img, want)

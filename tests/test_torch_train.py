@@ -7,7 +7,7 @@
   step against JAX's; ``remat`` equal to the plain step (rtol 1e-6); the
   loss at the true params below 1e-10 with a padded band of tile rows
   (64x32 at 64-pixel tiles); ``torch.optim.Adam`` against ``optax.adam``;
-  ``mesh=`` raises, naming Distribution;
+  ``mesh=`` over one process equals the step without a mesh bit for bit;
 * on the axis-aligned ground JAX's bruteforce step (autograd through every
   ray-triangle pair) turns vertices to NaN (rays in faces' planes, and the
   prepared scene's degenerate pad triangles, divide by a determinant of 0);
@@ -32,6 +32,7 @@ import jax.numpy as jnp
 
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import from_jax_prepared
+from simple_raytracer_tpu_torch.dist import make_mesh
 from simple_raytracer_tpu_torch.dist import train as ttrain
 from simple_raytracer_tpu_torch.utils import checkpoint as tckpt
 
@@ -239,9 +240,25 @@ def test_adam_matches_optax():
 
 
 def test_mesh_raises_distribution():
-    prep, _jprep, _target = _setup()
-    with pytest.raises(NotImplementedError, match="Distribution"):
-        sr.make_train_step(prep, _configs()[0], mesh=object())
+    """``make_train_step(mesh=)`` over a mesh of one process (a world of
+    one, gloo) gives the loss and the gradients of the step without a
+    mesh, bit for bit: the all-reduce of one process is the identity; a
+    mesh of two processes, where one exists, raises."""
+    prep, _jprep, target = _setup()
+    cfg = _configs()[0].replace(mode="tiled")
+    mesh = make_mesh(1, ("dp",), device="cpu")
+    params = sr.extract_params(prep.scene, LIGHT)
+    params.obj_color = params.obj_color * 0.7
+    target = torch.from_numpy(np.array(target))
+    want = sr.make_train_step(prep, cfg, lr=LR).value_and_grad(params,
+                                                               target)
+    got = sr.make_train_step(prep, cfg, mesh=mesh,
+                             lr=LR).value_and_grad(params, target)
+    assert torch.equal(got[0], want[0])
+    for g, w in zip(got[1].leaves(), want[1].leaves()):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError, match="2 processes requested"):
+        make_mesh(2, ("dp",), device="cpu")
 
 
 def _jax_params(seed=0):
