@@ -202,8 +202,27 @@ Phases, each of which must pass:
    range-only frame's primary plan, as a scene of more than 65,536
    windows plans it.  The range-only walks print their ``schedule`` lines
    without the span sweeps.
+15. the native host code (simple_raytracer_tpu_torch/native/: the C++ OBJ
+   scan and median BVH build), on the card's host: g++ builds the library
+   (it must: a failed build fails the run), then the bench's meshes (the
+   icosphere(6) and the ground box written with ``procedural.obj_text``, or
+   with ``--root`` the bunny file itself and cube.obj) and the dense
+   scene's (its two spheres and the box, 163,852 triangles) are loaded
+   with ``load_obj`` natively and with ``SRT_NO_NATIVE=1``, and their BVHs
+   built by ``build_bvh(split="median")`` natively and with
+   ``use_native=False`` (the native scan and build must run on each file,
+   not defer): every array of the ``MeshData`` and the ``FlatBVHHost``
+   equal, each path's host seconds printed with the card's line and the
+   host CPU's model; then each scene is loaded and prepared on the card
+   with the default median split, natively and without; the natively
+   prepared 1920x1080 bench frame's two kernels are held to their plain
+   versions on the arguments it gives them (the bench's mesh: K1 and K2,
+   the fused branch, as phase 3 holds them; the dense scene, over 131,072
+   triangles: K1 and K2′, the legacy hard shadow, as phase 6 does); and
+   the frame is rendered through ``render`` from both: equal on every
+   pixel, those two kernels launched and no other.
 
-Every frame that runs K1 (phases 3, 6, 8, 9, and 10's cut plans) holds
+Every frame that runs K1 (phases 3, 6, 8, 9, 15, and 10's cut plans) holds
 K1's t and idx to the plain walk in K1's slices bit for bit, and prints a
 ``K1 schedule`` line: the schedule's rows on the card against its plain
 version (``nearest.work_rows``: the same (tile, span) rows, walk
@@ -262,8 +281,10 @@ non-zero, with no result line, when no CUDA device is present.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
+import platform
 import subprocess
 import sys
 import time
@@ -383,6 +404,9 @@ RING_TILE, RING_MAXV = 256, 64
 DIST_FRAMES = 3
 COMPOSED_STEPS = 3
 RING_EQUAL_MIN = 0.995
+# phase 15: the kernels each scene's bench frame launches, by branch
+NATIVE_ROLES = {"fused": ("nearest_shaded", "anyhit_from_t"),
+                "legacy": ("nearest_shaded", "anyhit")}
 
 
 class SmokeFailure(RuntimeError):
@@ -3068,6 +3092,226 @@ def dist_phase(sr, prep, scene, cfg, light, source: str, gpu: str) -> list:
                                 gpu)
 
 
+@contextlib.contextmanager
+def no_native():
+    """``SRT_NO_NATIVE=1`` inside the block: the Python host paths."""
+    os.environ["SRT_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["SRT_NO_NATIVE"]
+
+
+def cpu_model() -> str:
+    """The host CPU as /proc/cpuinfo's first processor describes it (a
+    virtual machine may report its model name as "unknown": the family and
+    model numbers say more), and the CPUs this process sees."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            if not line.strip():
+                break
+            k, _, v = line.partition(":")
+            info[k.strip()] = v.strip()
+    return (f"{info.get('vendor_id', platform.machine())} family "
+            f"{info.get('cpu family', '?')} model {info.get('model', '?')} "
+            f"({info.get('model name', 'no model name')}), "
+            f"{info.get('cpu MHz', '?')} MHz, {os.cpu_count()} CPUs")
+
+
+def native_objects(P, T, root, d: str) -> dict:
+    """Phase 15's scenes as OBJ files: {scene: [(key, path, pose, color)]}.
+    The procedural meshes are written to ``d`` with ``procedural.obj_text``;
+    with ``root`` the bench's are the reference's bunny and cube files."""
+    def write(name, mesh):
+        path = os.path.join(d, name)
+        with open(path, "w") as f:
+            f.write(P.obj_text(mesh))
+        return path
+    sphere = ("sphere", write("sphere.obj", P.icosphere(6, 0.08, seed=0)),
+              P.SPHERE_POSE, (0.8, 0.7, 0.6))
+    box = ("ground", write("ground.obj", P.box()), P.GROUND_POSE,
+           (0.0, 1.0, 0.0))
+    sphere2 = ("sphere2", write("sphere2.obj", P.icosphere(6, 0.08, seed=1)),
+               P.SPHERE2_POSE, (0.6, 0.6, 0.9))
+    bench = [sphere, box]
+    if root is not None:
+        bench = [("bunny", os.path.join(root, "obj", "stanford-bunny.obj"),
+                  T.translate((0.0, -5.5, 60.0)) @ T.rotate_y(3.14159265)
+                  @ T.scale(50.0, 50.0, 50.0), (0.8, 0.7, 0.6)),
+                 ("ground", os.path.join(root, "cube.obj"), P.GROUND_POSE,
+                  (0.0, 1.0, 0.0))]
+    return {"bench": bench, "dense": [sphere, sphere2, box]}
+
+
+def host_seconds(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def native_meshes(objects, leaf_size: int, gpu: str, cpu: str) -> None:
+    """Phase 15 (a): each file through ``load_obj`` and its triangles
+    through ``build_bvh(split="median")``, natively and on the Python
+    paths: every array equal, each path's host seconds."""
+    import numpy as np
+    from simple_raytracer_tpu_torch.accel.bvh import build_bvh
+    from simple_raytracer_tpu_torch.native import (bvh_build_native,
+                                                   obj_parse_native)
+    from simple_raytracer_tpu_torch.scene.obj_loader import load_obj
+    for key, path, _, _ in objects:
+        # load_obj and build_bvh fall back to Python quietly where the
+        # native code defers: here it must run
+        require(obj_parse_native(path) is not None,
+                f"the native scan defers on {key} ({path})")
+        mesh, load_s = host_seconds(lambda: load_obj(path))
+        with no_native():
+            pmesh, pload_s = host_seconds(lambda: load_obj(path))
+        for f in ("verts", "normals", "uvs", "tri_color", "tri_tex"):
+            a, b = getattr(mesh, f), getattr(pmesh, f)
+            require(a.dtype == b.dtype and np.array_equal(a, b),
+                    f"native load_obj {key}: {f} differs")
+        require(mesh.textures == pmesh.textures,
+                f"native load_obj {key}: textures differ")
+        tris = mesh.verts[..., :3]
+        require(bvh_build_native(tris, leaf_size) is not None,
+                f"the native BVH build defers on {key}")
+        bvh, bvh_s = host_seconds(lambda: build_bvh(tris, leaf_size))
+        pbvh, pbvh_s = host_seconds(
+            lambda: build_bvh(tris, leaf_size, use_native=False))
+        for f in ("node_min", "node_max", "skip", "leaf_first", "leaf_count",
+                  "perm"):
+            a, b = getattr(bvh, f), getattr(pbvh, f)
+            require(a.dtype == b.dtype and np.array_equal(a, b),
+                    f"native build_bvh {key}: {f} differs")
+        require((bvh.max_leaf, bvh.depth) == (pbvh.max_leaf, pbvh.depth),
+                f"native build_bvh {key}: max_leaf or depth differs")
+        emit(phase=f"native vs python ({key})", file=os.path.basename(path),
+             triangles=mesh.num_triangles, bvh_nodes=int(bvh.skip.shape[0]),
+             load_obj_native_s=load_s, load_obj_python_s=pload_s,
+             build_bvh_native_s=bvh_s, build_bvh_python_s=pbvh_s,
+             equal=True, host_cpu=cpu, gpu=gpu,
+             note="host seconds on the card's machine, one run each")
+
+
+def native_kernels(prep, cfg, light, branch: str, label: str) -> None:
+    """Phase 15 (b): the frame's two kernels against their plain versions
+    on the arguments the frame gives them from the natively prepared scene
+    (the median BVH's blocks and plans): K1 and K2 as phase 3 holds them
+    (the fused branch), or K1 and K2′ as phase 6 does (the legacy one)."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels import anyhit, nearest
+    from simple_raytracer_tpu_torch.kernels import plan as pl
+    from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
+    cam = cfg.camera
+    tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
+    cam_spec = (None, cam.focal, cam.width, cam.height, tpx)
+    if branch == "fused":
+        compare_kernels(prep, cfg, light, cam_spec, label, time_it=False)
+        return
+    o, d, _, _ = primary_rays_tiled(cam.width, cam.height, tpx, cam.focal,
+                                    cam.normalize_dirs, device=prep.device)
+    args = frame_args(prep, cfg, light, cam_spec,
+                      (o.reshape(-1, 3), d.reshape(-1, 3)))
+    k1, k2r = args["nearest_shaded"], args["anyhit"]
+    size = (cam.width, cam.height)
+    check_k1_shaded(k1, label, size, sweep=False)
+    kt = nearest.tiled_nearest_shaded(*k1)[0]
+    inside = frame_lanes(k1[0][:, 4], k1[0][:, 5], tpx, *size)
+    _, walk = check_found(anyhit.tiled_anyhit, anyhit.tiled_anyhit_plain,
+                          k2r, torch.isfinite(kt) & inside,
+                          cfg.light.num_samples, "K2'", label)
+    rays_schedule(k2r, label, walk, "K2'", occlusion=True, sweep=False)
+
+
+def native_frame(sr, objects, cfg, light, label: str, gpu: str,
+                 cpu: str) -> None:
+    """Phase 15 (c): the scene loaded and prepared on the card with the
+    median split, natively and on the Python paths; the natively prepared
+    frame's kernels held to their plain versions; the bench frame rendered
+    through ``render`` from each: equal on every pixel, the frame's
+    branch's two kernels launched and no other."""
+    import torch
+    from simple_raytracer_tpu_torch.accel.prepared import prepare
+    from simple_raytracer_tpu_torch.kernels import plan as pl
+    from simple_raytracer_tpu_torch.kernels.tiled import frame_branch
+
+    def scene_from_files():
+        sm = sr.SceneManager()
+        for key, path, pose, color in objects:
+            sm.load_obj_file(path, key=key)
+            sm.set_color(key, color)
+            sm.transform_triangles(key, pose)
+        return sm.build()
+
+    def prepared():
+        scene, load_s = host_seconds(scene_from_files)
+        prep, prep_s = host_seconds(lambda: prepare(scene, cfg, device=dev))
+        return prep, load_s, prep_s
+
+    dev = light.device
+    prep, load_s, prep_s = prepared()
+    with no_native():
+        pprep, pload_s, pprep_s = prepared()
+    tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
+    branch = frame_branch(prep, cfg, tpx * tpx)
+    roles = NATIVE_ROLES[branch]
+    native_kernels(prep, cfg, light, branch, label)
+    reset_launches()
+    img = sr.render(prep, cfg, light)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    require(all(launches[r] > 0 for r in roles)
+            and all(n == 0 for r, n in launches.items() if r not in roles),
+            f"{label} launched {launches}, not exactly {roles}")
+    pimg = sr.render(pprep, cfg, light)
+    require(tuple(img.shape) == (cfg.camera.height, cfg.camera.width, 3)
+            and torch.equal(img, pimg),
+            f"{label}: the native and the Python paths' frames differ")
+    bg = (img == torch.tensor(cfg.background, dtype=torch.uint8,
+                              device=dev)).all(dim=-1)
+    coverage = float((~bg).float().mean())
+    require(0.05 < coverage < 0.99, f"{label}: coverage {coverage}")
+    emit(phase=f"render ({label})", branch=branch, launches=launches,
+         coverage=coverage, image_equal_to_python_paths=True,
+         triangles=prep.num_triangles, load_native_s=load_s,
+         load_python_s=pload_s, prepare_native_s=prep_s,
+         prepare_python_s=pprep_s, host_cpu=cpu, gpu=gpu,
+         note="host seconds on the card's machine, one run each")
+
+
+def native_phase(sr, root, light, gpu: str) -> None:
+    """Phase 15: the native host code on the card's host (see the module
+    docstring)."""
+    import tempfile
+    from simple_raytracer_tpu_torch.native import build as native_build
+    from simple_raytracer_tpu_torch.native import native_available
+    from simple_raytracer_tpu_torch.scene import procedural as P
+    from simple_raytracer_tpu_torch.scene import transforms as T
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    b = native_build.build()
+    cpu = cpu_model()
+    emit(phase="native build", gxx=gxx, seconds=b["seconds"],
+         cached=b["cached"], library=os.path.relpath(b["path"], HERE),
+         host_cpu=cpu)
+    require(native_available(), "the native library does not load")
+    cfg = sr.default_config().replace(
+        mode="tiled",
+        camera=sr.CameraConfig(width=WIDTH, height=HEIGHT,
+                               focal=P.bench_focal(HEIGHT)),
+        light=sr.LightConfig(enable_shadows=True))
+    require(cfg.bvh.split == "median", "the default split is not median")
+    with tempfile.TemporaryDirectory() as d:
+        scenes = native_objects(P, T, root, d)
+        meshes = {o[1]: o for objs in scenes.values() for o in objs}
+        native_meshes(meshes.values(), cfg.bvh.leaf_size, gpu, cpu)
+        for name, objects in scenes.items():
+            native_frame(sr, objects, cfg, light,
+                         f"native {name}: {', '.join(o[0] for o in objects)}"
+                         f", median split, {WIDTH}x{HEIGHT}", gpu, cpu)
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3259,6 +3503,9 @@ def main() -> int:
 
     # 14. distribution: a one-process NCCL group, the ring of 4 shards
     entries += dist_phase(sr, prep, scene, cfg, light, source, gpu)
+
+    # 15. the native host code: the C++ OBJ scan and median BVH build
+    native_phase(sr, args.root, light, gpu)
 
     print(json.dumps({"kernels": entries}))
     print(gpu)

@@ -4,10 +4,11 @@ The reference builds a pointer-based binary tree per object (Object.cpp:225-284)
 and traverses it recursively, returning candidate-triangle COPIES per ray
 (simple_raytracer.cpp:296-317) — hostile to lockstep SIMD hardware.  Here:
 
-* Build (numpy, host): same topology as the reference — sort triangle indices
-  by ``pointOne`` along the node box's longest axis (Object.cpp:240-248,
-  including its quirky tie rule), split at the count median (:254-255),
-  leaf when count <= 8 (:261), and the root is ALWAYS split once (:282).
+* Build (host, the median rule in C++: native/): same topology as the
+  reference — sort triangle indices by ``pointOne`` along the node box's
+  longest axis (Object.cpp:240-248, including its quirky tie rule), split
+  at the count median (:254-255), leaf when count <= 8 (:261), and the
+  root is ALWAYS split once (:282).
 * Flatten: preorder node arrays with a skip ("miss") pointer.  Traversal is a
   bounded loop:  hit-interior -> i+1,  otherwise -> skip[i];  leaves test a
   contiguous triangle range.  Triangles are permuted leaf-contiguous so leaf
@@ -27,6 +28,8 @@ import dataclasses
 from typing import List, Tuple
 
 import numpy as np
+
+from ..native import bvh_build_native
 
 FLT_MAX = np.float32(3.4028235e38)
 
@@ -123,14 +126,15 @@ def _sah_split(verts_cart: np.ndarray, cent: np.ndarray, idx: np.ndarray,
 
 
 def build_bvh(verts_cart: np.ndarray, leaf_size: int = 8,
-              split: str = "median") -> FlatBVHHost:
+              split: str = "median", *,
+              use_native: bool = True) -> FlatBVHHost:
     """Build + flatten one object's BVH (see module docstring).
 
-    ``split='median'`` reproduces the reference topology (Object.cpp:240-255).
-    ``split='sah'`` is the binned surface-area-heuristic improvement.  Both
-    run in numpy here; the JAX package's C++ median builder
-    (simple_raytracer_tpu/native/) gives the same topology and is not
-    ported yet.
+    ``split='median'`` reproduces the reference topology (Object.cpp:240-255),
+    in the C++ builder (native/native.cpp::bvh_build: the same arrays, bit
+    for bit) unless ``use_native`` is False, ``SRT_NO_NATIVE`` is set or the
+    library cannot be built; then in numpy.  ``split='sah'`` is the binned
+    surface-area-heuristic improvement, in numpy.
 
     Args:
       verts_cart: [T, 3, 3] Cartesian triangle vertices.
@@ -138,6 +142,10 @@ def build_bvh(verts_cart: np.ndarray, leaf_size: int = 8,
     """
     if split not in ("median", "sah"):
         raise ValueError(f"unknown BVH split rule: {split!r}")
+    if use_native and split == "median":
+        res = bvh_build_native(verts_cart, leaf_size)
+        if res is not None:
+            return FlatBVHHost(*res)
     T = verts_cart.shape[0]
     cent = verts_cart.mean(axis=1) if (split == "sah" and T) else None
     mins: List[np.ndarray] = []

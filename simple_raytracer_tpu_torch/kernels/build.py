@@ -147,9 +147,12 @@ def build() -> dict:
     os.makedirs(BUILD_DIR, exist_ok=True)
     paths = {s: _lib_path(s) for s in SOURCES}
     todo = [s for s in SOURCES if not os.path.isfile(paths[s])]
+    # a temporary name of this process's own: processes that build at once
+    # never write one file
+    tmp = {s: f"{paths[s]}.{os.getpid()}.tmp" for s in todo}
     t0 = time.time()
     procs = {s: subprocess.Popen(
-        [nvcc_path(), *NVCC_FLAGS, "-o", paths[s] + ".tmp",
+        [nvcc_path(), *NVCC_FLAGS, "-o", tmp[s],
          os.path.join(CSRC, s)], stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for s in todo}
     failed = []
@@ -160,7 +163,7 @@ def build() -> dict:
             continue
         with open(paths[s] + ".log", "w") as f:
             f.write(out)
-        os.replace(paths[s] + ".tmp", paths[s])
+        os.replace(tmp[s], paths[s])
     if failed:
         raise RuntimeError("\n".join(failed))
     log = ""

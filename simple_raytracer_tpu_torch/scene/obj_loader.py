@@ -28,6 +28,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..native import obj_parse_native
+
 DEFAULT_COLOR = (1.0, 0.0, 0.0)          # Object.cpp:29
 DEFAULT_AMBIENT = 0.2                    # Object.cpp:31
 DEFAULT_SPECULAR = 0.5                   # Object.cpp:32
@@ -209,9 +211,11 @@ def load_obj(path: str, textures: Optional[TextureRegistry] = None,
     """Load an OBJ file into SoA arrays with reference-equivalent semantics
     (Object.cpp:25-170).  Missing file => empty mesh + stderr message.
 
-    The line scan is pure Python; the JAX package's native C++ scan
-    (simple_raytracer_tpu/native/) is not ported yet.  Assembly is
-    vectorized numpy.
+    The line scan runs in the native C++ scan (native/native.cpp::obj_scan:
+    the same arrays as the Python scan, bit for bit) unless
+    ``SRT_NO_NATIVE`` is set, the library cannot be built, or the scan
+    defers on a line it cannot read exactly as Python does; then in
+    Python.  Assembly is vectorized numpy either way.
     """
     if root is None:
         root = os.path.dirname(path) or "."
@@ -223,7 +227,9 @@ def load_obj(path: str, textures: Optional[TextureRegistry] = None,
         print(f"ObjReader: Cannot open file [{path}]", file=sys.stderr)
         return _empty_mesh()
 
-    parsed = _parse_obj_python(path)
+    parsed = obj_parse_native(path)
+    if parsed is None:
+        parsed = _parse_obj_python(path)
     pos_a, uv_a, nrm_a, faces, face_mtl, usemtl = parsed
     materials = _scan_mtllibs(path, obj_dir)
 
