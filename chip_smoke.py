@@ -161,8 +161,8 @@ Phases, each of which must pass:
    frames, then, run again, none (resume); ``render --mode tiled --profile
    DIR`` writing a Chrome trace with kernels in it, and
    ``utils.metrics.profile_trace`` around 3 frames of the bench: the card's
-   busy share of that traced window (its kernels' summed time over the
-   window);
+   busy share of that traced window (the union of its kernels, copies and
+   fills over the window);
 12. training (``make_train_step``, ``diff/render.py``): the **train
    bench**, one SGD step of the bench's scene at 1920x1080, focal 1080 (the
    shadow bench's view, its shadow in view), tiled: the explicit rays'

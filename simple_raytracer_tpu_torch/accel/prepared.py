@@ -47,6 +47,7 @@ import torch
 from ..config import RenderConfig
 from ..ops.intersect import pack_mt_gram
 from ..scene.scene import Scene, scene_from_numpy
+from ..utils.metrics import span
 from .bvh import build_bvh, concat_bvhs, triangle_blocks
 
 
@@ -225,6 +226,11 @@ def prepare(scene: Scene, cfg: RenderConfig,
 
     Same arrays as the JAX package's ``prepare`` for the fields both keep
     (tests/test_torch_scene.py holds them equal)."""
+    with span("srt.prepare"):
+        return _prepare(scene, cfg, device)
+
+
+def _prepare(scene: Scene, cfg: RenderConfig, device) -> PreparedScene:
     dev = target_device(device)
     sc = scene.numpy()
     verts_cart = sc["verts"][..., :3] / sc["verts"][..., 3:4]
@@ -247,17 +253,19 @@ def prepare(scene: Scene, cfg: RenderConfig,
 
     bvhs, offsets = [], []
     start = 0
-    while start < T:
-        end = start
-        while end < T and tri_obj[end] == tri_obj[start]:
-            end += 1
-        bvhs.append(build_bvh(verts_cart[start:end], cfg.bvh.leaf_size,
-                              split=cfg.bvh.split))
-        offsets.append(start)
-        start = end
-    if not bvhs:
-        bvhs = [build_bvh(np.zeros((0, 3, 3), np.float32), cfg.bvh.leaf_size)]
-        offsets = [0]
+    with span("srt.prepare.bvh"):
+        while start < T:
+            end = start
+            while end < T and tri_obj[end] == tri_obj[start]:
+                end += 1
+            bvhs.append(build_bvh(verts_cart[start:end], cfg.bvh.leaf_size,
+                                  split=cfg.bvh.split))
+            offsets.append(start)
+            start = end
+        if not bvhs:
+            bvhs = [build_bvh(np.zeros((0, 3, 3), np.float32),
+                              cfg.bvh.leaf_size)]
+            offsets = [0]
 
     # Pad each OBJECT's triangle range to a page multiple so every cull block
     # and every aligned window of blocks is single-object: the any-hit

@@ -30,7 +30,7 @@ from ..io.image import save_image
 from ..render import integrator
 from ..render.renderer import ensure_prepared, render, render_radiance
 from ..scene import catalog
-from ..utils.metrics import Metrics
+from ..utils.metrics import FRAME_SPAN, Metrics, span
 
 def sweep_angles(anim: AnimationConfig) -> np.ndarray:
     return np.arange(anim.start_deg, anim.stop_deg, anim.step_deg,
@@ -130,8 +130,10 @@ def frames_batched(prep_or_scene, cfg: RenderConfig, views, light,
     views = torch.as_tensor(views, dtype=torch.float32, device=dev)
     out = []
     for V in views:
-        radiance, hit = render_radiance(operand, cfg, light, view_matrix=V)
-        out.append(integrator.finalize_image(radiance, hit, cfg))
+        with span(FRAME_SPAN):
+            radiance, hit = render_radiance(operand, cfg, light,
+                                            view_matrix=V)
+            out.append(integrator.finalize_image(radiance, hit, cfg))
     return torch.stack(out)
 
 

@@ -36,6 +36,7 @@ import torch
 
 from ..ops.camera import tile_ray_dirs
 from ..ops.intersect import mt_numerators, mt_occludes, xyz
+from ..utils.metrics import span
 from . import build, plan as pl
 from .nearest import (check_groups, group_walk_masks, rows_max, slice_lanes,
                       span_plan)
@@ -271,21 +272,25 @@ def anyhit_from_t(prep, cfg, t, obj, bounds, light_pos, cam_spec, maxv: int,
     dev = prep.device
     n = bounds.shape[0]
     tile = tpx * tpx
-    ah = bounds[:, 6] > 0.0
-    # tiles whose every hit left one object drop that object's blocks
-    pure = ah & (bounds[:, 7] == bounds[:, 8])
-    excl = torch.where(pure, torch.round(bounds[:, 7]).to(torch.int32), -2)
-    frame = pl.shadow_frame(prep.block_min, prep.block_max, light_pos)
-    ab = pl.analytic_shadow_bounds_exact(bounds, light_pos, frame)
     wb = cfg.kernel.window_blocks_ah
-    plan = pl.cull(prep, maxv, wb, ab, excl=excl, apex_rev=True)
-    plan = torch.where(ah[:, None], plan, 0)         # hitless tiles: no walk
-    px0, py0 = pl.tile_origins(n, -(-wd // tpx), tpx, wd, hd, dev)
-    plan[:, 4], plan[:, 5] = px0, py0
+    with span("srt.plan.shadow"):
+        ah = bounds[:, 6] > 0.0
+        # tiles whose every hit left one object drop that object's blocks
+        pure = ah & (bounds[:, 7] == bounds[:, 8])
+        excl = torch.where(pure, torch.round(bounds[:, 7]).to(torch.int32),
+                           -2)
+        frame = pl.shadow_frame(prep.block_min, prep.block_max, light_pos)
+        ab = pl.analytic_shadow_bounds_exact(bounds, light_pos, frame)
+        plan = pl.cull(prep, maxv, wb, ab, excl=excl, apex_rev=True)
+        plan = torch.where(ah[:, None], plan, 0)     # hitless tiles: no walk
+        px0, py0 = pl.tile_origins(n, -(-wd // tpx), tpx, wd, hd, dev)
+        plan[:, 4], plan[:, 5] = px0, py0
     cam = pl.make_cam(vmx, focal, light_pos, None, dev)
-    found = kernel(plan, prep.tri, prep.block_obj, t.reshape(n, tile),
-                   obj.reshape(n, tile), cam, tpx, wb * prep.block_size,
-                   prep.block_size, cfg.mt_eps, cfg.light.shadow_no_max_t)
+    with span("srt.anyhit"):
+        found = kernel(plan, prep.tri, prep.block_obj, t.reshape(n, tile),
+                       obj.reshape(n, tile), cam, tpx, wb * prep.block_size,
+                       prep.block_size, cfg.mt_eps,
+                       cfg.light.shadow_no_max_t)
     return found.reshape(-1)
 
 
@@ -453,14 +458,13 @@ def anyhit(prep, cfg, o, d, self_obj2d, plan, tile: int,
     ``window_tris`` triangles (None: cfg.kernel.window_blocks_ah blocks).
     ``groups`` > 1: the plan is grouped and ``kernel`` is K5's wrapper
     (:func:`tiled_anyhit_grouped`).  Returns found [n, tile] bool."""
-    o, d, _ = pl.pad_rays(o, d, tile)
-    n = o.shape[0] // tile
-    wt = window_tris or cfg.kernel.window_blocks_ah * prep.block_size
-    args = (plan, prep.tri, prep.block_obj,
-            o.reshape(n, tile, 3).contiguous(),
-            d.reshape(n, tile, 3).contiguous(),
-            self_obj2d.to(torch.int32).contiguous(), wt, prep.block_size,
-            cfg.mt_eps, cfg.light.shadow_no_max_t)
-    if groups > 1:
-        return kernel(*args, groups)
-    return kernel(*args)
+    with span("srt.anyhit"):
+        o, d, _ = pl.pad_rays(o, d, tile)
+        n = o.shape[0] // tile
+        wt = window_tris or cfg.kernel.window_blocks_ah * prep.block_size
+        args = (plan, prep.tri, prep.block_obj,
+                o.reshape(n, tile, 3).contiguous(),
+                d.reshape(n, tile, 3).contiguous(),
+                self_obj2d.to(torch.int32).contiguous(), wt,
+                prep.block_size, cfg.mt_eps, cfg.light.shadow_no_max_t)
+        return kernel(*args, groups) if groups > 1 else kernel(*args)

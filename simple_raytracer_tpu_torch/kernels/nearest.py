@@ -40,6 +40,7 @@ import torch
 
 from ..ops.camera import tile_ray_dirs
 from ..ops.intersect import mt_distance, mt_numerators, xyz
+from ..utils.metrics import span
 from . import build, plan as pl
 from .prepass import refine_plan, tiled_prepass
 
@@ -907,12 +908,14 @@ def primary_plan(prep, cfg, cam_spec, maxv: int, rays=None):
     tiles_x, tiles_y = -(-wd // tpx), -(-hd // tpx)
     n = tiles_x * tiles_y
     wb = cfg.kernel.window_blocks
-    ab = (None if pl.range_only(maxv, prep.num_blocks // wb)
-          else pl.analytic_tile_bounds(cam_spec, n, dev))
-    plan = pl.cull(prep, maxv, wb, ab, apex=True,
-                   rays=None if rays is None else (*rays, tpx * tpx))
-    plan[:, 4], plan[:, 5] = pl.tile_origins(n, tiles_x, tpx, wd, hd, dev)
-    return plan
+    with span("srt.plan.primary"):
+        ab = (None if pl.range_only(maxv, prep.num_blocks // wb)
+              else pl.analytic_tile_bounds(cam_spec, n, dev))
+        plan = pl.cull(prep, maxv, wb, ab, apex=True,
+                       rays=None if rays is None else (*rays, tpx * tpx))
+        plan[:, 4], plan[:, 5] = pl.tile_origins(n, tiles_x, tpx, wd, hd,
+                                                 dev)
+        return plan
 
 
 def attr_mode(prep, cfg):
@@ -938,8 +941,9 @@ def hits_shaded(prep, cfg, light_pos, cam_spec, maxv: int,
     scene's :func:`attr_mode`.  Returns (t [R], idx [R], obj [R], rgb
     [R, 3] or, in the TEXTURED mode, comp [R, 6] = (dw, sw, texu, texv,
     obj, tex id), bounds [n, 15]), R = n * tile_px**2, misses t = inf."""
-    t, idx, obj, rgb, bounds = kernel(*shaded_args(prep, cfg, light_pos,
-                                                   cam_spec, maxv, rays))
+    args = shaded_args(prep, cfg, light_pos, cam_spec, maxv, rays)
+    with span("srt.k1"):
+        t, idx, obj, rgb, bounds = kernel(*args)
     return t.reshape(-1), idx.reshape(-1), obj.reshape(-1), rgb, bounds
 
 
@@ -1012,16 +1016,20 @@ def hits_attrs(prep, cfg, cam_spec, maxv: int, kernels=None, rays=None,
         vmx, focal, _wd, _hd, tpx = cam_spec
         plan = primary_plan(prep, cfg, cam_spec, maxv, rays)
         cam = pl.make_cam(vmx, focal, (0.0, 0.0, 0.0), None, prep.device)
-        t, idx, attrs = kernels["nearest_attrs"](plan, prep.tri,
-                                                 prep.tri_attr, cam, tpx, wt,
-                                                 cfg.mt_eps)
+        with span("srt.k1"):
+            t, idx, attrs = kernels["nearest_attrs"](plan, prep.tri,
+                                                     prep.tri_attr, cam, tpx,
+                                                     wt, cfg.mt_eps)
         R = t.numel() if rays is None else rays[0].shape[0]
     else:
         o, d = rays
-        plan = pl.cull_rays(prep, o, d, tile, maxv, cfg.kernel.window_blocks)
-        o3, d3, R = _tiles_of(o, d, tile)
-        t, idx, attrs = kernels["nearest_rays_attrs"](
-            plan, prep.tri, prep.tri_attr, o3, d3, wt, cfg.mt_eps)
+        with span("srt.plan.primary"):
+            plan = pl.cull_rays(prep, o, d, tile, maxv,
+                                cfg.kernel.window_blocks)
+        with span("srt.k1"):
+            o3, d3, R = _tiles_of(o, d, tile)
+            t, idx, attrs = kernels["nearest_rays_attrs"](
+                plan, prep.tri, prep.tri_attr, o3, d3, wt, cfg.mt_eps)
     return t.reshape(-1)[:R], idx.reshape(-1)[:R], attrs[:R]
 
 
@@ -1059,20 +1067,24 @@ def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = True,
         vmx, focal, _wd, _hd, tpx = cam_spec
         plan = primary_plan(prep, cfg, cam_spec, maxv, (o, d))
         cam = pl.make_cam(vmx, focal, (0.0, 0.0, 0.0), None, prep.device)
-        t, idx, _ = kernels["nearest_attrs"](plan, prep.tri, prep.tri_attr,
-                                             cam, tpx, wt, cfg.mt_eps)
+        with span("srt.k1"):
+            t, idx, _ = kernels["nearest_attrs"](plan, prep.tri,
+                                                 prep.tri_attr, cam, tpx, wt,
+                                                 cfg.mt_eps)
         return t.reshape(-1)[:R], idx.reshape(-1)[:R]
-    plan = pl.cull_rays(prep, o, d, tile, maxv, wb, groups=groups,
-                        apex=apex)
-    o3, d3, _ = _tiles_of(o, d, tile)
-    if groups > 1:
-        t, idx = kernels["nearest_grouped"](plan, prep.tri, o3, d3, wt,
-                                            cfg.mt_eps, groups)
-    else:
-        if prepass:
-            flags = kernels["prepass"](plan, prep.gram, o3, d3, wt,
-                                       cfg.mt_eps)
-            plan = refine_plan(plan, flags)
-        t, idx = kernels["nearest_rays"](plan, prep.tri, o3, d3, wt,
-                                         cfg.mt_eps)
+    with span("srt.plan.primary"):
+        plan = pl.cull_rays(prep, o, d, tile, maxv, wb, groups=groups,
+                            apex=apex)
+    with span("srt.k1"):
+        o3, d3, _ = _tiles_of(o, d, tile)
+        if groups > 1:
+            t, idx = kernels["nearest_grouped"](plan, prep.tri, o3, d3, wt,
+                                                cfg.mt_eps, groups)
+        else:
+            if prepass:
+                flags = kernels["prepass"](plan, prep.gram, o3, d3, wt,
+                                           cfg.mt_eps)
+                plan = refine_plan(plan, flags)
+            t, idx = kernels["nearest_rays"](plan, prep.tri, o3, d3, wt,
+                                             cfg.mt_eps)
     return t.reshape(-1)[:R], idx.reshape(-1)[:R]

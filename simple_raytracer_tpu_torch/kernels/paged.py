@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.metrics import span
 from . import anyhit as _anyhit
 from . import nearest as _nearest, plan as pl
 
@@ -130,10 +131,12 @@ def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = False,
     that share one origin), then ``kernel`` (K6's wrapper by default) over
     the rays padded to whole tiles by repeating the last one.  Returns
     (t [R], idx [R]); misses t = inf, idx = -1."""
-    plan = cull(prep, cfg, o, d, tile, maxv, apex=apex)
-    o, d, R = pl.pad_rays(o, d, tile)
-    n = o.shape[0] // tile
-    t, idx = kernel(plan, prep.tri, o.reshape(n, tile, 3).contiguous(),
-                    d.reshape(n, tile, 3).contiguous(), prep.page_tris,
-                    cfg.mt_eps)
+    with span("srt.plan.primary"):
+        plan = cull(prep, cfg, o, d, tile, maxv, apex=apex)
+    with span("srt.k1"):
+        o, d, R = pl.pad_rays(o, d, tile)
+        n = o.shape[0] // tile
+        t, idx = kernel(plan, prep.tri, o.reshape(n, tile, 3).contiguous(),
+                        d.reshape(n, tile, 3).contiguous(), prep.page_tris,
+                        cfg.mt_eps)
     return t.reshape(-1)[:R], idx.reshape(-1)[:R]

@@ -53,6 +53,7 @@ import torch
 from ..config import RenderConfig
 from ..ops import shading as sh
 from ..render import integrator
+from ..utils.metrics import span
 from . import paged
 from . import plan as pl
 from .anyhit import (anyhit, anyhit_from_t, tiled_anyhit,
@@ -258,26 +259,27 @@ def tiled_shadow_fn(prep, cfg: RenderConfig, tile: int, maxv: int,
         if S > 1 and point.shape[0] % S == 0:
             return _shadow_folded(prep, cfg, tile, maxv, S, point, light,
                                   self_obj, hit, impl)
-        so = self_obj.to(torch.int32)
-        if hit is not None:
-            R0 = point.shape[0]
-            padn = (-R0) % tile
-            point = _pad_rows(point, padn, 0.0)
-            hit = _pad_rows(hit, padn, False)
-            so = _pad_rows(so, padn)
-            nt = point.shape[0] // tile
-            p3, s2, any_hit = _first_hit_repair(
-                point.reshape(nt, tile, 3), hit.reshape(nt, tile),
-                so.reshape(nt, tile))
-            point, so = p3.reshape(-1, 3)[:R0], s2.reshape(-1)[:R0]
-        d = light - point
-        R = point.shape[0]
-        n = -(-R // tile)
-        s2 = _pad_rows(so, n * tile - R).reshape(n, tile)
-        plan = impl.cull_occl(prep, cfg, point, d, tile, maxv,
-                              _pure_excl(s2), apex_rev=True)
-        if hit is not None:
-            plan = torch.where(any_hit[:, None], plan, 0)
+        with span("srt.plan.shadow"):
+            so = self_obj.to(torch.int32)
+            if hit is not None:
+                R0 = point.shape[0]
+                padn = (-R0) % tile
+                point = _pad_rows(point, padn, 0.0)
+                hit = _pad_rows(hit, padn, False)
+                so = _pad_rows(so, padn)
+                nt = point.shape[0] // tile
+                p3, s2, any_hit = _first_hit_repair(
+                    point.reshape(nt, tile, 3), hit.reshape(nt, tile),
+                    so.reshape(nt, tile))
+                point, so = p3.reshape(-1, 3)[:R0], s2.reshape(-1)[:R0]
+            d = light - point
+            R = point.shape[0]
+            n = -(-R // tile)
+            s2 = _pad_rows(so, n * tile - R).reshape(n, tile)
+            plan = impl.cull_occl(prep, cfg, point, d, tile, maxv,
+                                  _pure_excl(s2), apex_rev=True)
+            if hit is not None:
+                plan = torch.where(any_hit[:, None], plan, 0)
         found = impl.anyhit(prep, cfg, point, d, s2, plan, tile)
         return found.reshape(-1)[:R]
 
@@ -293,25 +295,28 @@ def _shadow_folded(prep, cfg, tile, maxv, S, point, light, self_obj, hit,
     sample-major within the tile.  found comes back sample-major."""
     R = point.shape[0] // S
     ts = max(8, min(tile, 1024 // S))
-    padn = (-R) % ts
-    p0 = _pad_rows(point[:R], padn, 0.0)
-    self0 = _pad_rows(self_obj[:R].to(torch.int32), padn)
-    lights = light.reshape(S, R, 3)
-    if padn:
-        lights = torch.cat([lights, lights[:, -1:].expand(S, padn, 3)], 1)
-    nt = p0.shape[0] // ts
-    p3 = p0.reshape(nt, ts, 3)
-    s2 = self0.reshape(nt, ts)
-    any_hit = None
-    if hit is not None:
-        h2 = _pad_rows(hit[:R], padn, False).reshape(nt, ts)
-        p3, s2, any_hit = _first_hit_repair(p3, h2, s2)
-    o_g = p3[:, None].expand(nt, S, ts, 3)
-    d_g = lights.reshape(S, nt, ts, 3).permute(1, 0, 2, 3) - o_g
-    o_f, d_f = o_g.reshape(-1, 3), d_g.reshape(-1, 3)
-    plan = impl.cull_occl(prep, cfg, o_f, d_f, S * ts, maxv, _pure_excl(s2))
-    if any_hit is not None:
-        plan = torch.where(any_hit[:, None], plan, 0)
+    with span("srt.plan.shadow"):
+        padn = (-R) % ts
+        p0 = _pad_rows(point[:R], padn, 0.0)
+        self0 = _pad_rows(self_obj[:R].to(torch.int32), padn)
+        lights = light.reshape(S, R, 3)
+        if padn:
+            lights = torch.cat([lights, lights[:, -1:].expand(S, padn, 3)],
+                               1)
+        nt = p0.shape[0] // ts
+        p3 = p0.reshape(nt, ts, 3)
+        s2 = self0.reshape(nt, ts)
+        any_hit = None
+        if hit is not None:
+            h2 = _pad_rows(hit[:R], padn, False).reshape(nt, ts)
+            p3, s2, any_hit = _first_hit_repair(p3, h2, s2)
+        o_g = p3[:, None].expand(nt, S, ts, 3)
+        d_g = lights.reshape(S, nt, ts, 3).permute(1, 0, 2, 3) - o_g
+        o_f, d_f = o_g.reshape(-1, 3), d_g.reshape(-1, 3)
+        plan = impl.cull_occl(prep, cfg, o_f, d_f, S * ts, maxv,
+                              _pure_excl(s2))
+        if any_hit is not None:
+            plan = torch.where(any_hit[:, None], plan, 0)
     self_g = s2[:, None, :].expand(nt, S, ts).reshape(nt, S * ts)
     found = impl.anyhit(prep, cfg, o_f, d_f, self_g, plan, S * ts)
     found = found.reshape(nt, S, ts).permute(1, 0, 2).reshape(S, -1)
@@ -324,16 +329,17 @@ def texel_finish(scene, cfg: RenderConfig, obj, comp):
     and obj [R] -> unshadowed pre-tonemap rgb [R, 3]: the texel at (texu,
     texv) where the tex id is >= 0, else the object's colour, times
     (1/pi) light * dw, plus light * specular * sw."""
-    lc = torch.tensor(cfg.light.color, dtype=torch.float32,
-                      device=comp.device)
-    tex_id = torch.round(comp[:, 5]).to(torch.int32)
-    ms = integrator.material_select(scene, obj.clamp_min(0))
-    tex_rgb = sh.texture_fetch(scene.tex_data, scene.tex_offset,
-                               scene.tex_width, scene.tex_height, tex_id,
-                               comp[:, 2:4])
-    color = torch.where((tex_id >= 0)[:, None], tex_rgb, ms["color"])
-    return (sh.INV_PI * lc * color * comp[:, 0:1]
-            + lc * ms["specular"][:, None] * comp[:, 1:2])
+    with span("srt.shade"):
+        lc = torch.tensor(cfg.light.color, dtype=torch.float32,
+                          device=comp.device)
+        tex_id = torch.round(comp[:, 5]).to(torch.int32)
+        ms = integrator.material_select(scene, obj.clamp_min(0))
+        tex_rgb = sh.texture_fetch(scene.tex_data, scene.tex_offset,
+                                   scene.tex_width, scene.tex_height, tex_id,
+                                   comp[:, 2:4])
+        color = torch.where((tex_id >= 0)[:, None], tex_rgb, ms["color"])
+        return (sh.INV_PI * lc * color * comp[:, 0:1]
+                + lc * ms["specular"][:, None] * comp[:, 1:2])
 
 
 def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
@@ -417,7 +423,11 @@ def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
                                         shadow_impl(None, kernels))
             found = shadow_fn(point, light_pos.expand(point.shape), obj,
                               hit=hit)
-        rgb = torch.where(found[:, None], rgb / cfg.light.shadow_dim, rgb)
+        with span("srt.shade"):
+            rgb = torch.where(found[:, None], rgb / cfg.light.shadow_dim,
+                              rgb)
     if cfg.shading.tonemap_enabled:
-        rgb = sh.tonemap(rgb, cfg.shading.reinhard_offset, cfg.shading.gamma)
+        with span("srt.finish"):
+            rgb = sh.tonemap(rgb, cfg.shading.reinhard_offset,
+                             cfg.shading.gamma)
     return rgb, hit

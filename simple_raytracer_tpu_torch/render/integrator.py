@@ -18,6 +18,7 @@ import torch
 
 from ..config import RenderConfig
 from ..ops import shading as sh
+from ..utils.metrics import span
 
 
 def light_sample_positions(light_pos, num_samples: int,
@@ -112,12 +113,13 @@ def _material_gather(scene, obj: torch.Tensor) -> dict:
 def records_from_attrs(scene, attrs: torch.Tensor) -> dict:
     """Shading record of flat, untextured hits from the fetch mode's rows
     (attrs [R, 4]: flat normal xyz, object id; kernels/nearest.py)."""
-    obj = torch.round(attrs[:, 3]).to(torch.int32)
-    rec = {"obj": obj,
-           "tex_id": torch.full_like(obj, -1),
-           "normal": attrs[:, :3]}
-    rec.update(material_select(scene, obj))
-    return rec
+    with span("srt.shade"):
+        obj = torch.round(attrs[:, 3]).to(torch.int32)
+        rec = {"obj": obj,
+               "tex_id": torch.full_like(obj, -1),
+               "normal": attrs[:, :3]}
+        rec.update(material_select(scene, obj))
+        return rec
 
 
 def shade_records(scene, cfg: RenderConfig, record: dict,
@@ -206,10 +208,11 @@ def shade(scene, cfg: RenderConfig, origin: torch.Tensor,
     hold garbage."""
     if scene.num_triangles == 0 or scene.obj_color.shape[0] == 0:
         return torch.zeros_like(origin)
-    if record is None:
-        record = gather_hit_records(scene, tri_idx, cfg)
-    return shade_records(scene, cfg, record, origin, direction, t, light_pos,
-                         shadow_fn)
+    with span("srt.shade"):
+        if record is None:
+            record = gather_hit_records(scene, tri_idx, cfg)
+        return shade_records(scene, cfg, record, origin, direction, t,
+                             light_pos, shadow_fn)
 
 
 def finalize_image(radiance: torch.Tensor, hit: torch.Tensor,
@@ -219,10 +222,11 @@ def finalize_image(radiance: torch.Tensor, hit: torch.Tensor,
     Reproduces: int(c*255) truncation (:447-449); pixels that are missed OR
     shade to exactly (0,0,0) become light blue (173,216,230) (:476-487).
     """
-    q = sh.quantize_255(radiance) if cfg.shading.quantize_truncate \
-        else torch.round(radiance * 255.0)
-    q = torch.where(hit[..., None], q, torch.zeros_like(q))
-    is_black = (q == 0.0).all(dim=-1)
-    bg = torch.tensor(cfg.background, dtype=q.dtype, device=q.device)
-    out = torch.where(is_black[..., None], bg, q)
-    return out.clamp(0, 255).to(torch.uint8)
+    with span("srt.finish"):
+        q = sh.quantize_255(radiance) if cfg.shading.quantize_truncate \
+            else torch.round(radiance * 255.0)
+        q = torch.where(hit[..., None], q, torch.zeros_like(q))
+        is_black = (q == 0.0).all(dim=-1)
+        bg = torch.tensor(cfg.background, dtype=q.dtype, device=q.device)
+        out = torch.where(is_black[..., None], bg, q)
+        return out.clamp(0, 255).to(torch.uint8)

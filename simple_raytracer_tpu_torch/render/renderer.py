@@ -31,6 +31,7 @@ from ..ops.camera import (primary_rays, primary_rays_tiled,
 from ..kernels import plan as pl
 from ..kernels.tiled import render_flat_tiled, wants_rays
 from ..utils import pad_rays
+from ..utils.metrics import FRAME_SPAN, span
 from . import integrator
 
 MODES = ("bruteforce", "bvh", "tiled")
@@ -169,8 +170,9 @@ def render(scene, cfg: RenderConfig, light_pos, view_matrix=None,
     unless the caller asks for "cpu") or a PreparedScene (rendered on its
     device)."""
     operand = ensure_prepared(scene, cfg, device)
-    radiance, hit = render_radiance(operand, cfg, light_pos, view_matrix)
-    return integrator.finalize_image(radiance, hit, cfg)
+    with span(FRAME_SPAN):
+        radiance, hit = render_radiance(operand, cfg, light_pos, view_matrix)
+        return integrator.finalize_image(radiance, hit, cfg)
 
 
 def render_radiance(scene, cfg: RenderConfig, light_pos, view_matrix=None
@@ -233,5 +235,6 @@ def _render_tiled(prep: PreparedScene, cfg: RenderConfig, light_pos,
                                  (vm, cam.focal, cam.width, cam.height, tpx),
                                  rays=rays)
     tx, ty = -(-cam.width // tpx), -(-cam.height // tpx)
-    return (untile_image(rad, cam.width, cam.height, tpx, tx, ty),
-            untile_image(hit, cam.width, cam.height, tpx, tx, ty))
+    with span("srt.finish"):
+        return (untile_image(rad, cam.width, cam.height, tpx, tx, ty),
+                untile_image(hit, cam.width, cam.height, tpx, tx, ty))

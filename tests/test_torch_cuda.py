@@ -505,6 +505,54 @@ def test_render_gather_frame_launches_its_kernels():
     assert (diff <= 1).float().mean() >= 0.999
 
 
+SPAN_BRANCHES = {
+    "fused": (P.sphere_on_ground, {}),
+    "fused_textured": (P.textured_on_ground, {}),
+    "soft": (P.sphere_on_ground, dict(light=sr.LightConfig(num_samples=4))),
+    "gather": (P.sphere_on_ground,
+               dict(kernel=sr.KernelConfig(groups=4, groups_ah=4))),
+    "paged": (P.sphere_on_ground, dict(tiled_impl="paged")),
+}
+
+
+def _all_launches():
+    """Every kernel wrapper's ``launches`` counter, by name."""
+    from simple_raytracer_tpu_torch.kernels import prepass
+    return {f"{mod.__name__}.{k}": f.launches
+            for mod in (nearest, anyhit, paged, prepass)
+            for k, f in vars(mod).items() if hasattr(f, "launches")}
+
+
+@pytest.mark.parametrize("branch", sorted(SPAN_BRANCHES))
+def test_recording_spans_launches_nothing(branch):
+    """A frame of each branch of the tiled path renders the same image on
+    the card with the program's spans recording as without, and each
+    kernel wrapper's counter moves alike, some of them above 0; the
+    recorded walks' spans are there."""
+    from simple_raytracer_tpu_torch.kernels.tiled import frame_branch
+    from simple_raytracer_tpu_torch.utils import metrics
+    build, extra = SPAN_BRANCHES[branch]
+    cfg = sr.default_config().replace(
+        mode="tiled", camera=sr.CameraConfig(width=SIZE, height=SIZE,
+                                             focal=FOCAL), **extra)
+    prep = prepare(build(sr.SceneManager(), 3).build(), cfg, device="cuda")
+    assert frame_branch(prep, cfg, TPX * TPX) == branch.split("_")[0]
+    sr.render(prep, cfg, P.BENCH_LIGHT)
+    before = _all_launches()
+    off = sr.render(prep, cfg, P.BENCH_LIGHT)
+    mid = _all_launches()
+    with metrics.recording() as rec:
+        on = sr.render(prep, cfg, P.BENCH_LIGHT)
+    after = _all_launches()
+    assert torch.equal(off, on)
+    d_off = {k: mid[k] - before[k] for k in before}
+    d_on = {k: after[k] - mid[k] for k in before}
+    assert d_on == d_off
+    assert sum(d_on.values()) > 0
+    names = {s.name for s in rec.spans}
+    assert {"srt.frame", "srt.k1", "srt.anyhit"} <= names
+
+
 @pytest.mark.parametrize("tpx", [64, 32])
 @pytest.mark.parametrize("variant", fixed.VARIANTS)
 def test_fixed_probe_kernel_matches_plain(variant, tpx):
