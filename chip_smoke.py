@@ -221,6 +221,22 @@ Phases, each of which must pass:
    triangles: K1 and K2′, the legacy hard shadow, as phase 6 does); and
    the frame is rendered through ``render`` from both: equal on every
    pixel, those two kernels launched and no other.
+16. the planner kernel (csrc/plan.cu, ``plan.cull``'s CUDA route): each
+   plan of one bench frame, one shadow-bench frame and one soft frame
+   (the primary plan with the apex test, the hard-shadow plan with the
+   light-apex test and ``excl``, the soft frame's fold plan with ``excl``)
+   is captured, built by the kernel and by the plain planner
+   (``plan.cull_plain``): equal on every word, two plans a frame on the
+   card and none plain; then timed alone (``queued_ms``: the card's time
+   and the host's), in its call (CUDA events), and the plain planner's
+   call, with its bound (``planner_bound``).  The launches it prints are
+   ``plan.cull_cuda.launches``, counted at the launch.
+
+Every frame through ``render_checked`` (phases 3-9 and 13) and phase 15's
+frames print ``plans``: the plans the frame built on the card
+(``plan.cull_cuda.plans``), the planner kernel's launches, and the plans
+built in plain PyTorch (``plan.cull_plain.plans``: phase 13's range-only
+frames).
 
 Every frame that runs K1 (phases 3, 6, 8, 9, 15, and 10's cut plans) holds
 K1's t and idx to the plain walk in K1's slices bit for bit, and prints a
@@ -407,6 +423,19 @@ RING_EQUAL_MIN = 0.995
 # phase 15: the kernels each scene's bench frame launches, by branch
 NATIVE_ROLES = {"fused": ("nearest_shaded", "anyhit_from_t"),
                 "legacy": ("nearest_shaded", "anyhit")}
+# phase 16: the planner's f32 operations per (tile, block) pair: the
+# interval test's three axes (2 differences, 4 divisions, 3 minima and 3
+# maxima, 4 comparisons, 1 clamp), the axes' 4 combines and the 3 final
+# comparisons; 4 comparisons more with an apex test (the rect overlap), 1
+# with excl; and per block, with an apex test, its 8 corners' 3 differences,
+# 3 dot products (5 each), 2 divisions and 4 extrema, and the rect's
+# widening (4 x 4); the calls timed
+OPS_PLAN_PAIR = 58
+OPS_PLAN_APEX = 4
+OPS_PLAN_EXCL = 1
+OPS_PLAN_BLOCK = 8 * (3 + 15 + 2 + 4) + 16
+PLAN_REPS = 200
+PLAN_NAME = "plan_blocks_kernel + plan_tiles_kernel"
 
 
 class SmokeFailure(RuntimeError):
@@ -952,11 +981,21 @@ def compare_kernels(prep, cfg, light, cam_spec, label: str, time_it: bool):
 
 def reset_launches() -> None:
     from simple_raytracer_tpu_torch.kernels import nearest
+    from simple_raytracer_tpu_torch.kernels import plan as pl
     from simple_raytracer_tpu_torch.kernels.tiled import KERNELS
     for fn in KERNELS.values():
         fn.launches = 0
     nearest.tiled_nearest_shaded.mode_launches = dict.fromkeys(nearest.MODES,
                                                                 0)
+    pl.cull_cuda.plans = pl.cull_cuda.launches = pl.cull_plain.plans = 0
+
+
+def read_plans() -> dict:
+    """The planners' counts since :func:`reset_launches`: plans built by
+    csrc/plan.cu and its launches, plans built in plain PyTorch."""
+    from simple_raytracer_tpu_torch.kernels import plan as pl
+    return {"card": pl.cull_cuda.plans, "launches": pl.cull_cuda.launches,
+            "plain": pl.cull_plain.plans}
 
 
 def read_launches() -> dict:
@@ -1020,6 +1059,7 @@ def render_checked(sr, prep, cfg, light, label: str, roles,
     img = finalize_image(rad, hit, cfg)
     torch.cuda.synchronize()
     launches = read_launches()
+    plans = read_plans()
     k1_modes = dict(nearest.tiled_nearest_shaded.mode_launches)
     require(all(launches[r] > 0 for r in roles)
             and all(n == 0 for r, n in launches.items() if r not in roles),
@@ -1034,6 +1074,7 @@ def render_checked(sr, prep, cfg, light, label: str, roles,
     res = {"phase": f"render ({label})",
            "branch": frame_branch(prep, cfg, tpx * tpx),
            "coverage": coverage, "launches": launches, "k1_modes": k1_modes,
+           "plans": plans,
            **image_vs_plain(sr, prep, cfg, light, img, label, view, plains)}
     emit(**res)
     return res
@@ -3261,6 +3302,7 @@ def native_frame(sr, objects, cfg, light, label: str, gpu: str,
     img = sr.render(prep, cfg, light)
     torch.cuda.synchronize()
     launches = read_launches()
+    plans = read_plans()
     require(all(launches[r] > 0 for r in roles)
             and all(n == 0 for r, n in launches.items() if r not in roles),
             f"{label} launched {launches}, not exactly {roles}")
@@ -3273,7 +3315,7 @@ def native_frame(sr, objects, cfg, light, label: str, gpu: str,
     coverage = float((~bg).float().mean())
     require(0.05 < coverage < 0.99, f"{label}: coverage {coverage}")
     emit(phase=f"render ({label})", branch=branch, launches=launches,
-         coverage=coverage, image_equal_to_python_paths=True,
+         plans=plans, coverage=coverage, image_equal_to_python_paths=True,
          triangles=prep.num_triangles, load_native_s=load_s,
          load_python_s=pload_s, prepare_native_s=prep_s,
          prepare_python_s=pprep_s, host_cpu=cpu, gpu=gpu,
@@ -3310,6 +3352,90 @@ def native_phase(sr, root, light, gpu: str) -> None:
             native_frame(sr, objects, cfg, light,
                          f"native {name}: {', '.join(o[0] for o in objects)}"
                          f", median split, {WIDTH}x{HEIGHT}", gpu, cpu)
+
+
+def planner_bound(prep, n: int, wb: int, plan, apex: bool,
+                  excl: bool) -> dict:
+    """The least time of one plan: its (tile, block) tests at
+    OPS_PLAN_PAIR (+ the apex and excl terms) f32 operations and, with an
+    apex test, each block's rect, at 67 TFLOP/s; against the block tables
+    and the tile bounds read once and the plan written once."""
+    pairs = n * prep.num_blocks
+    ops = pairs * (OPS_PLAN_PAIR + OPS_PLAN_APEX * apex + OPS_PLAN_EXCL * excl)
+    ops += prep.num_blocks * OPS_PLAN_BLOCK * apex
+    moved = (nbytes(prep.block_min, prep.block_max, plan)
+             + prep.block_obj.numel() * 4 * excl + n * (12 + 4 * apex) * 4)
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "pairs": pairs, "f32_ops": ops, "bytes": moved}
+
+
+def planner_phase(sr, frames, light, gpu: str) -> list:
+    """Phase 16: the planner kernel on every plan of one frame of each of
+    ``frames`` ({label: (prep, cfg)}), held to the plain planner on every
+    word and timed (see the module's docstring)."""
+    import torch
+    from simple_raytracer_tpu_torch.kernels import plan as pl
+    entries = []
+    for label, (prep, cfg) in frames.items():
+        calls = []
+        real = pl.cull
+
+        def spy(*a, **k):
+            calls.append((a, k))
+            return real(*a, **k)
+        pl.cull = spy
+        try:
+            sr.render(prep, cfg, light)
+        finally:
+            pl.cull = real
+        reset_launches()
+        sr.render(prep, cfg, light)
+        torch.cuda.synchronize()
+        plans = read_plans()
+        require(plans["card"] == 2 and plans["plain"] == 0,
+                f"{label}: {plans} plans a frame, not 2 on the card")
+        require(len(calls) == 2, f"{label}: {len(calls)} plans a frame")
+        for a, k in calls:
+            prep_, maxv, wb, ab = a[:4]
+            apex, rev = bool(k.get("apex")), bool(k.get("apex_rev"))
+            excl = k.get("excl") is not None
+            what = ("primary" if apex else "hard shadow" if rev
+                    else "fold")
+            reset_launches()
+            got = pl.cull(*a, **k)
+            launches = pl.cull_cuda.launches
+            want = pl.cull_plain(*a, **k)
+            require(torch.equal(got, want),
+                    f"planner vs plain ({label}, {what}): "
+                    f"{int((got != want).sum())} words differ")
+            n = int(ab["dmin"].shape[0])
+            card_ms, host_ms = queued_ms(lambda: pl.cull(*a, **k), PLAN_REPS)
+            call_ms = cuda_ms(lambda: pl.cull(*a, **k), PLAN_REPS)
+            plain_ms = cuda_ms(lambda: pl.cull_plain(*a, **k), PLAN_REPS // 10)
+            plain_card_ms, plain_host_ms = queued_ms(
+                lambda: pl.cull_plain(*a, **k), PLAN_REPS // 10)
+            bnd = planner_bound(prep_, n, wb, want, apex or rev, excl)
+            frame = f"{label}: {what} plan"
+            entries.append(entry(
+                PLAN_NAME, "plan.cu",
+                "none: plans are jnp in the JAX package (tiled_t.py::cull, "
+                "cull_occl)", frame, launches, 0.0, card_ms,
+                plain_ms, bnd, call_ms=call_ms, host_ms=host_ms))
+            emit(phase=f"planner vs plain ({frame})", equal=True,
+                 launches=launches, frame_plans=plans, tiles=n,
+                 blocks=prep_.num_blocks, windows=prep_.num_blocks // wb,
+                 plan_w=int(want.shape[1]),
+                 listed_entries=int(want[:, 2].sum()),
+                 range_rows=int(((want[:, 3] == 0) & (want[:, 1] > 0))
+                                .sum()),
+                 card_ms=card_ms, host_ms=host_ms, call_ms=call_ms,
+                 plain_ms=plain_ms, plain_card_ms=plain_card_ms,
+                 plain_host_ms=plain_host_ms, gpu=gpu, **bnd,
+                 share=bnd["bound_ms"] / card_ms)
+    return entries
 
 
 def main() -> int:
@@ -3506,6 +3632,13 @@ def main() -> int:
 
     # 15. the native host code: the C++ OBJ scan and median BVH build
     native_phase(sr, args.root, light, gpu)
+
+    # 16. the planner kernel on the bench, shadow bench and soft plans
+    entries += planner_phase(sr, {
+        "bench": (prep, cfg),
+        "shadow bench": (prep, cfg.replace(camera=sr.CameraConfig(
+            width=WIDTH, height=HEIGHT, focal=SHADOW_FOCAL))),
+        "soft": (prep, soft)}, light, gpu)
 
     print(json.dumps({"kernels": entries}))
     print(gpu)

@@ -1,0 +1,455 @@
+// The cull planner: the plan rows of a tile set, from its bounds and the
+// block tables, in at most two launches.
+//
+// Replaces no TPU kernel: the JAX package builds its plans in jnp
+// (kernels/tiled_t.py::cull, cull_occl; kernels/tiled.py::
+// cull_blocks_lists), and XLA fuses them.  The port built them one PyTorch
+// op at a time (kernels/plan.py::cull_plain, its plain version: some
+// 300-380 small ops a plan), which held the card idle while the host
+// dispatched them.  Reached through kernels/plan.py::cull for CUDA tensors,
+// list-capable plans and the interval test (not the hourglass test).
+//
+// What bounds it on this card: the (tile, block) tests, ~60 f32 operations
+// a pair with four divisions per axis, over tiles x blocks pairs (510 x
+// 2,564 in a 1080p frame, 3,750 x 2,564 in the soft frame's fold); its
+// compulsory bytes (the block tables and the plan) are a few MB at most.
+// Design: one CTA a tile, its threads over the tile's windows; each
+// window's least entry bound kept in shared memory (or, past
+// kSmemWindows, in a scratch row); the window order of the entries built by
+// a partition, not a sort (below), so the row is finished in three passes
+// over the windows, with nothing read back by the host.
+//
+// plan_blocks_kernel<Apex> (apex tests only) computes what depends on the
+// block and the frame alone: each block's projected rect (bu, bv), widened
+// by 1e-4 (1 + |x|), and its empty and behind-the-apex flags.
+// plan_tiles_kernel<Apex, Excl> computes, per (tile, block), the interval
+// slab test (plan.py::visibility, _safe_div's a/0 -> +-inf, 0/0 -> 0), the
+// primary-apex or light-apex test (visibility_px, visibility_px_rev) and the
+// own-object drop (excl), then plan.py::cull_lists on the tile's row:
+// window visibility and least bound, the covering range, the list count,
+// tmin/tmax over the visible windows, the bucket qb and its floor, bound16,
+// and the entries.
+//
+// The entries' order without a sort: cull_lists sorts the keys
+// bound16 << 16 | window.  bound16 is the top half of floor(qb), and
+// floor(qb) = max(tmin + qb * qscale, 0) is non-decreasing in the bucket qb,
+// of which there are 8; so the sorted keys are the windows of each distinct
+// bound16 value, values ascending, windows ascending within each.  A rank
+// per bucket (its value's place among the distinct values), a count per
+// rank and a prefix over the windows in window order give each visible
+// window its place, exactly torch.sort's.
+//
+// Built with --fmad=false (kernels/build.py): each multiply and add rounds
+// on its own, in the order written, which is the plain version's order
+// (the projective dot products are written out there as here); divisions
+// are IEEE.  Minimum and maximum propagate NaN as torch.minimum does.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTBuckets = 8;          // plan.py::T_BUCKETS
+constexpr int kSmemWindows = 10240;   // window bounds held in shared memory
+constexpr float kEps = 1e-12f;        // plan.py::EPS
+constexpr float kBig = 3.0e38f;       // plan.py::BIG
+constexpr int kInvisible = 0x7FFFFFFF;
+
+enum Apex { kNoApex = 0, kPrimary = 1, kLight = 2 };
+
+// Tile and frame operands, each (pointer, stride 0, stride 1) in elements,
+// so expanded and sliced views need no copy (plan.py::cull_cuda).
+enum Op {
+  kOmin, kOmax, kDmin, kDmax,          // [n, 3] f32
+  kRuLo, kRuHi, kRvLo, kRvHi,          // [n] f32 (apex tests)
+  kTileBad,                            // [n] bool (primary apex)
+  kExcl,                               // [n] i32
+  kS, kV, kW, kApexPt,                 // [3] f32: frame and apex
+  kNumOps
+};
+
+struct Operands {
+  const void* p[kNumOps];
+  long long s0[kNumOps];
+  long long s1[kNumOps];
+
+  __device__ float f(int op, long long i, long long j = 0) const {
+    return static_cast<const float*>(p[op])[i * s0[op] + j * s1[op]];
+  }
+};
+
+__device__ __forceinline__ bool isnan_(float x) { return x != x; }
+
+// torch.minimum / torch.maximum / clamp_min: NaN in, NaN out
+__device__ __forceinline__ float nmin(float a, float b) {
+  return isnan_(a) ? a : isnan_(b) ? b : fminf(a, b);
+}
+__device__ __forceinline__ float nmax(float a, float b) {
+  return isnan_(a) ? a : isnan_(b) ? b : fmaxf(a, b);
+}
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return isnan_(x) ? x : fmaxf(x, lo);
+}
+
+// plan.py::_safe_div: a/0 -> sign(a) * inf, 0/0 -> 0
+__device__ __forceinline__ float safe_div(float a, float b) {
+  if (b != 0.0f) return a / b;
+  if (a == 0.0f) return 0.0f;
+  return a > 0.0f ? INFINITY : a < 0.0f ? -INFINITY : a;
+}
+
+// plan.py::visibility for one (tile, block): visible, and the entry bound
+// (t_lo clamped at 0) in tlo.
+__device__ __forceinline__ bool interval(const float* o_lo, const float* o_hi,
+                                         const float* d_lo, const float* d_hi,
+                                         const float* __restrict__ bmin,
+                                         const float* __restrict__ bmax,
+                                         int b, float& tlo) {
+  float t_lo = 0.0f, t_hi = 0.0f;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    const float lo_i = bmin[b * 3 + ax] - o_hi[ax];
+    const float hi_i = bmax[b * 3 + ax] - o_lo[ax];
+    const float dn = d_lo[ax], dx = d_hi[ax];
+    const float c0 = safe_div(lo_i, dn), c1 = safe_div(lo_i, dx);
+    const float c2 = safe_div(hi_i, dn), c3 = safe_div(hi_i, dx);
+    float tmin_ax = nmin(nmin(c0, c1), nmin(c2, c3));
+    float tmax_ax = nmax(nmax(c0, c1), nmax(c2, c3));
+    const bool spans = (dn <= 0.0f && dx >= 0.0f) ||
+                       (lo_i <= 0.0f && hi_i >= 0.0f);
+    tmin_ax = spans ? 0.0f : clamp_min(tmin_ax, 0.0f);
+    tmax_ax = spans ? INFINITY : tmax_ax;
+    t_lo = ax == 0 ? tmin_ax : nmax(t_lo, tmin_ax);
+    t_hi = ax == 0 ? tmax_ax : nmin(t_hi, tmax_ax);
+  }
+  tlo = clamp_min(t_lo, 0.0f);
+  return t_hi >= t_lo && t_hi >= 0.0f && t_lo < INFINITY;
+}
+
+// plan.py::_rect: a projected extent widened against f32 rounding
+__device__ __forceinline__ float widen_lo(float lo) {
+  return lo - 1e-4f * (1.0f + fabsf(lo));
+}
+__device__ __forceinline__ float widen_hi(float hi) {
+  return hi + 1e-4f * (1.0f + fabsf(hi));
+}
+
+// What the apex tests need of each block (plan.py::_block_corners, _rect,
+// visibility_px, visibility_px_rev): rect = (bu lo, bu hi, bv lo, bv hi),
+// flags bit 0 empty, bit 1 behind the primary apex plane.
+template <int A>
+__global__ void __launch_bounds__(kThreads) plan_blocks_kernel(
+    const float* __restrict__ bmin, const float* __restrict__ bmax,
+    Operands op, int nb, float4* __restrict__ rect, int* __restrict__ flags) {
+  const int b = blockIdx.x * kThreads + threadIdx.x;
+  if (b >= nb) return;
+  float s[3], v[3], w[3], ap[3], lo[3], hi[3];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    s[ax] = op.f(kS, ax);
+    v[ax] = op.f(kV, ax);
+    w[ax] = op.f(kW, ax);
+    ap[ax] = op.f(kApexPt, ax);
+    lo[ax] = bmin[b * 3 + ax];
+    hi[ax] = bmax[b * 3 + ax];
+  }
+  bool all_pos = true, all_neg = true, all_le = true;
+  float cw[8], cs[8], cv[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float cx = ((k >> 0) & 1 ? hi[0] : lo[0]) - ap[0];
+    const float cy = ((k >> 1) & 1 ? hi[1] : lo[1]) - ap[1];
+    const float cz = ((k >> 2) & 1 ? hi[2] : lo[2]) - ap[2];
+    cw[k] = cx * w[0] + cy * w[1] + cz * w[2];
+    cs[k] = cx * s[0] + cy * s[1] + cz * s[2];
+    cv[k] = cx * v[0] + cy * v[1] + cz * v[2];
+    all_pos = all_pos && cw[k] > kEps;
+    all_neg = all_neg && cw[k] < -kEps;
+    all_le = all_le && cw[k] <= kEps;
+  }
+  const bool ok = A == kPrimary ? all_pos : (all_pos || all_neg);
+  float ulo = 0.0f, uhi = 0.0f, vlo = 0.0f, vhi = 0.0f;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const float cws = A == kPrimary ? clamp_min(cw[k], kEps)
+                                    : (fabsf(cw[k]) > kEps ? cw[k] : kEps);
+    const float pu = cs[k] / cws, pv = cv[k] / cws;
+    ulo = k == 0 ? pu : nmin(ulo, pu);
+    uhi = k == 0 ? pu : nmax(uhi, pu);
+    vlo = k == 0 ? pv : nmin(vlo, pv);
+    vhi = k == 0 ? pv : nmax(vhi, pv);
+  }
+  rect[b] = ok ? make_float4(widen_lo(ulo), widen_hi(uhi), widen_lo(vlo),
+                             widen_hi(vhi))
+               : make_float4(-kBig, kBig, -kBig, kBig);
+  const bool empty = lo[0] > hi[0] || lo[1] > hi[1] || lo[2] > hi[2];
+  flags[b] = (empty ? 1 : 0) | (A == kPrimary && all_le ? 2 : 0);
+}
+
+// Block-wide reductions over the CTA's threads; `red` holds kWarps values.
+template <typename T, typename F>
+__device__ T block_reduce(T x, F op, T* red) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x = op(x, __shfl_xor_sync(0xFFFFFFFFu, x, off));
+  __syncthreads();
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = x;
+  __syncthreads();
+  T r = red[0];
+#pragma unroll
+  for (int i = 1; i < kWarps; ++i) r = op(r, red[i]);
+  return r;
+}
+
+// One CTA a tile: its plan row [plan_w] (plan.py::cull_lists' layout).
+template <int A, bool Excl>
+__global__ void __launch_bounds__(kThreads) plan_tiles_kernel(
+    Operands op, const float* __restrict__ bmin,
+    const float* __restrict__ bmax, const int* __restrict__ bobj,
+    const float4* __restrict__ rect, const int* __restrict__ flags, int nb,
+    int wb, int maxv, int plan_w, float* __restrict__ scratch,
+    int* __restrict__ plan) {
+  extern __shared__ float s_wt[];
+  __shared__ float s_redf[kWarps];
+  __shared__ int s_redi[kWarps];
+  __shared__ int s_rank[kTBuckets], s_b16[kTBuckets];
+  __shared__ int s_cnt[kTBuckets + 1], s_off[kTBuckets + 1];
+  __shared__ int s_run[kTBuckets + 1];
+  __shared__ int s_warp[kWarps][kTBuckets + 1];
+  __shared__ float s_tmin, s_qscale;
+
+  const int tile = blockIdx.x;
+  const int np = nb / wb;
+  const int mv_cap = plan_w - srt::kPlanAux;
+  float* wt = np <= kSmemWindows ? s_wt : scratch + (size_t)tile * np;
+  int* row = plan + (size_t)tile * plan_w;
+
+  float o_lo[3], o_hi[3], d_lo[3], d_hi[3];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    o_lo[ax] = op.f(kOmin, tile, ax);
+    o_hi[ax] = op.f(kOmax, tile, ax);
+    d_lo[ax] = op.f(kDmin, tile, ax);
+    d_hi[ax] = op.f(kDmax, tile, ax);
+  }
+  float ru_lo = 0.0f, ru_hi = 0.0f, rv_lo = 0.0f, rv_hi = 0.0f;
+  bool bad = false;
+  if (A != kNoApex) {
+    ru_lo = op.f(kRuLo, tile);
+    ru_hi = op.f(kRuHi, tile);
+    rv_lo = op.f(kRvLo, tile);
+    rv_hi = op.f(kRvHi, tile);
+  }
+  if (A == kPrimary)
+    bad = static_cast<const unsigned char*>(op.p[kTileBad])
+              [tile * op.s0[kTileBad]] != 0;
+  int excl = 0;
+  if (Excl) excl = static_cast<const int*>(op.p[kExcl])[tile * op.s0[kExcl]];
+
+  // pass 1: the tests, each window's least bound (+inf: not visible), and
+  // the tile's first / last visible window, count, tmin and tmax
+  int first = np, last = -1, cnt = 0;
+  float tmn = INFINITY, tmx = -INFINITY;
+  for (int w = threadIdx.x; w < np; w += kThreads) {
+    float tw = INFINITY;
+    bool vis = false;
+    for (int j = 0; j < wb; ++j) {
+      const int b = w * wb + j;
+      float tl;
+      bool v = interval(o_lo, o_hi, d_lo, d_hi, bmin, bmax, b, tl);
+      if (Excl) v = v && bobj[b] != excl;
+      if (A != kNoApex && v) {
+        const float4 r = rect[b];
+        const int fl = flags[b];
+        v = r.x <= ru_hi && r.y >= ru_lo && r.z <= rv_hi && r.w >= rv_lo &&
+            !(fl & 1) && !((fl & 2) && !bad);
+      }
+      if (v) {
+        vis = true;
+        tw = nmin(tw, tl);
+      }
+    }
+    wt[w] = tw;
+    if (vis) {
+      first = min(first, w);
+      last = max(last, w);
+      ++cnt;
+      tmn = fminf(tmn, tw);
+      tmx = fmaxf(tmx, tw);
+    }
+  }
+  first = block_reduce(first, [](int a, int b) { return min(a, b); }, s_redi);
+  last = block_reduce(last, [](int a, int b) { return max(a, b); }, s_redi);
+  cnt = block_reduce(cnt, [](int a, int b) { return a + b; }, s_redi);
+  tmn = block_reduce(tmn, [](float a, float b) { return fminf(a, b); },
+                     s_redf);
+  tmx = block_reduce(tmx, [](float a, float b) { return fmaxf(a, b); },
+                     s_redf);
+
+  // the row's columns, the buckets' floors and their ranks
+  const int maxv_c = min(maxv, mv_cap);
+  if (threadIdx.x == 0) {
+    const int range_cnt = max(last - first + 1, 0);
+    row[0] = range_cnt > 0 ? first : 0;
+    row[1] = range_cnt;
+    row[2] = min(cnt, maxv_c);
+    row[3] = cnt <= maxv_c ? 1 : 0;
+    row[4] = row[5] = row[6] = row[7] = 0;
+    const float tmin = fabsf(tmn) < INFINITY ? tmn : 0.0f;  // isfinite
+    const float qscale = clamp_min(tmx - tmin, 1e-20f) / kTBuckets;
+    s_tmin = tmin;
+    s_qscale = qscale;
+    int rank = 0;
+    for (int q = 0; q < kTBuckets; ++q) {
+      const float floor_t =
+          clamp_min(tmin + static_cast<float>(q) * qscale, 0.0f);
+      const int b16 = __float_as_int(floor_t) >> 16;
+      if (q > 0 && b16 != s_b16[q - 1]) ++rank;
+      s_b16[q] = b16;
+      s_rank[q] = rank;
+    }
+  }
+  if (threadIdx.x <= kTBuckets) s_cnt[threadIdx.x] = s_run[threadIdx.x] = 0;
+  __syncthreads();
+  const float tmin = s_tmin, qscale = s_qscale;
+
+  // a visible window's bucket (plan.py::cull_lists' qb)
+  auto bucket = [&](float tw) {
+    const int qb = static_cast<int>((tw - tmin) / qscale);
+    return min(max(qb, 0), kTBuckets - 1);
+  };
+
+  // pass 2: visible windows by rank
+  const unsigned lane_lt = (1u << (threadIdx.x & 31)) - 1u;
+  for (int w = threadIdx.x; w < np; w += kThreads) {
+    const float tw = wt[w];
+    if (tw < INFINITY) atomicAdd(&s_cnt[s_rank[bucket(tw)]], 1);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int acc = 0;
+    for (int r = 0; r < kTBuckets; ++r) {
+      s_off[r] = acc;
+      acc += s_cnt[r];
+    }
+  }
+  __syncthreads();
+
+  // pass 3: each visible window's place, in window order within its rank
+  const int k_emit = min(mv_cap, np);
+  const int warp = threadIdx.x >> 5;
+  for (int base = 0; base < np; base += kThreads) {
+    const int w = base + threadIdx.x;
+    int rank = kTBuckets, b16 = 0;  // kTBuckets: not visible
+    if (w < np) {
+      const float tw = wt[w];
+      if (tw < INFINITY) {
+        const int qb = bucket(tw);
+        rank = s_rank[qb];
+        b16 = s_b16[qb];
+      }
+    }
+    const unsigned same = __match_any_sync(0xFFFFFFFFu, rank);
+    if (threadIdx.x < kWarps * (kTBuckets + 1))
+      (&s_warp[0][0])[threadIdx.x] = 0;
+    __syncthreads();
+    if ((same & lane_lt) == 0) s_warp[warp][rank] = __popc(same);
+    __syncthreads();
+    if (rank < kTBuckets) {
+      int pos = s_off[rank] + s_run[rank] + __popc(same & lane_lt);
+      for (int i = 0; i < warp; ++i) pos += s_warp[i][rank];
+      if (pos < k_emit) row[srt::kPlanAux + pos] = (b16 << 16) | w;
+    }
+    __syncthreads();
+    if (threadIdx.x < kTBuckets) {
+      int add = 0;
+      for (int i = 0; i < kWarps; ++i) add += s_warp[i][threadIdx.x];
+      s_run[threadIdx.x] += add;
+    }
+    __syncthreads();
+  }
+
+  // invisible keys after the visible ones, zeros past the windows
+  for (int p = cnt + threadIdx.x; p < mv_cap; p += kThreads)
+    row[srt::kPlanAux + p] = p < k_emit ? kInvisible : 0;
+}
+
+template <int A, bool Excl>
+cudaError_t launch_tiles(const Operands& op, const float* bmin,
+                         const float* bmax, const int* bobj,
+                         const float4* rect, const int* flags, int nb, int wb,
+                         int maxv, int plan_w, int n_tiles, float* scratch,
+                         int* plan, cudaStream_t stream) {
+  const int np = nb / wb;
+  const size_t smem = np <= kSmemWindows ? sizeof(float) * np : 0;
+  plan_tiles_kernel<A, Excl><<<n_tiles, kThreads, smem, stream>>>(
+      op, bmin, bmax, bobj, rect, flags, nb, wb, maxv, plan_w, scratch, plan);
+  return cudaGetLastError();
+}
+
+template <int A>
+cudaError_t build_plan(const Operands& op, const float* bmin,
+                       const float* bmax, const int* bobj, int nb, int wb,
+                       int maxv, int plan_w, int n_tiles, void* blocks,
+                       float* scratch, int* out, cudaStream_t stream) {
+  float4* rect = nullptr;
+  int* flags = nullptr;
+  if (A != kNoApex) {
+    rect = static_cast<float4*>(blocks);
+    flags = reinterpret_cast<int*>(rect + nb);
+    plan_blocks_kernel<A><<<(nb + kThreads - 1) / kThreads, kThreads, 0,
+                            stream>>>(bmin, bmax, op, nb, rect, flags);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  return op.p[kExcl]
+             ? launch_tiles<A, true>(op, bmin, bmax, bobj, rect, flags, nb,
+                                     wb, maxv, plan_w, n_tiles, scratch, out,
+                                     stream)
+             : launch_tiles<A, false>(op, bmin, bmax, bobj, rect, flags, nb,
+                                      wb, maxv, plan_w, n_tiles, scratch, out,
+                                      stream);
+}
+
+}  // namespace
+
+// The plan [n_tiles, plan_w] i32 of windows of wb blocks over nb blocks
+// (bmin, bmax [nb, 3] f32, bobj [nb] i32), from the operands `ops`: a host
+// array of kNumOps (pointer, stride 0, stride 1) triples in the order of
+// enum Op (a null pointer where unused; excl null: no own-object drop).
+// apex: 0 none, 1 the primary-apex test, 2 the light-apex test.  Scratch:
+// `blocks` [nb * 5] words (apex tests), `scratch` [n_tiles * nb / wb] f32
+// where nb / wb > kSmemWindows (plan.py::SMEM_WINDOWS).
+extern "C" int srt_plan(const long long* ops, const void* bmin,
+                        const void* bmax, const void* bobj, int nb, int wb,
+                        int apex, int maxv, int plan_w, int n_tiles,
+                        void* blocks, void* scratch, void* out, void* stream) {
+  if (nb <= 0 || wb <= 0 || nb % wb || nb / wb > 65536 || n_tiles < 0 ||
+      plan_w <= srt::kPlanAux || apex < 0 || apex > 2 ||
+      (apex && !blocks) || (nb / wb > kSmemWindows && !scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_tiles == 0) return 0;
+  Operands op;
+  for (int i = 0; i < kNumOps; ++i) {
+    op.p[i] = reinterpret_cast<const void*>(ops[3 * i]);
+    op.s0[i] = ops[3 * i + 1];
+    op.s1[i] = ops[3 * i + 2];
+  }
+  const auto* bn = static_cast<const float*>(bmin);
+  const auto* bx = static_cast<const float*>(bmax);
+  const auto* bo = static_cast<const int*>(bobj);
+  auto* sc = static_cast<float*>(scratch);
+  auto* pl = static_cast<int*>(out);
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t e;
+  if (apex == kPrimary)
+    e = build_plan<kPrimary>(op, bn, bx, bo, nb, wb, maxv, plan_w, n_tiles,
+                             blocks, sc, pl, st);
+  else if (apex == kLight)
+    e = build_plan<kLight>(op, bn, bx, bo, nb, wb, maxv, plan_w, n_tiles,
+                           blocks, sc, pl, st);
+  else
+    e = build_plan<kNoApex>(op, bn, bx, bo, nb, wb, maxv, plan_w, n_tiles,
+                            blocks, sc, pl, st);
+  return static_cast<int>(e);
+}

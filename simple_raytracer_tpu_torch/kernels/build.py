@@ -96,6 +96,15 @@ SIGNATURES = {
             _I, _P),             # stages, stream
         "srt_prepass_shape": (_I, _I, _P),  # window_tris, m, out[5]
     },
+    "plan.cu": {
+        "srt_plan": (
+            ctypes.POINTER(_L),  # operands: (pointer, stride 0, stride 1)s
+            _P, _P, _P,          # block_min, block_max, block_obj
+            _I, _I, _I,          # n_blocks, window blocks, apex test
+            _I, _I, _I,          # maxv, plan_w, n_tiles
+            _P, _P, _P,          # block scratch, window scratch, plan
+            _P),                 # stream
+    },
     "probe_fixed.cu": {
         "srt_fixed_probe": (
             _I,                  # variant (probes/fixed.py::VARIANTS)

@@ -1,4 +1,4 @@
-"""Cull planners of the tiled path, in plain PyTorch.
+"""Cull planners of the tiled path: plain PyTorch, and csrc/plan.cu.
 
 For each ray tile a plan lists the aligned WINDOWS of cull blocks (a window
 = ``wb`` consecutive 32-triangle blocks; the paged walks' windows are pages
@@ -35,15 +35,23 @@ A range-only plan (:func:`cull_ranges`: ``maxv <= 0``, or more windows
 than a 16-bit entry can name, :data:`MAX_LIST_WINDOWS`) holds every tile in
 range mode: the covering range of the blocks the interval test of its rays
 reaches, in aligned windows, with no projective test and no entries.
+
+:func:`cull`, which every planner calls, routes by what it observes
+(:func:`cull_route`): on a CUDA device a list plan of the interval test
+and its apex tests is built by the hand-written kernel of csrc/plan.cu
+(:func:`cull_cuda`: at most two launches, no host read), everything else
+by its plain version :func:`cull_plain`, the same plan bit for bit.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional
 
 import torch
 
 from ..ops.intersect import cross
+from . import build
 
 PLAN_W = 256            # plan row width of scenes with <= 1500 windows
 PLAN_W_BIG = 1024       # ... and of denser scenes
@@ -378,6 +386,12 @@ def visibility_hourglass(ab, block_min, block_max, block_obj=None,
     return visible, t_lo
 
 
+def _dot(c, u):
+    """c [..., 3] . u [3], summed left to right: the order of csrc/plan.cu,
+    where a matmul would take cuBLAS's."""
+    return c[..., 0] * u[0] + c[..., 1] * u[1] + c[..., 2] * u[2]
+
+
 def _block_corners(block_min, block_max, apex):
     """Block AABB corners relative to the apex [NB, 8, 3] + the empty mask
     (inverted boxes)."""
@@ -413,12 +427,12 @@ def visibility_px(pxb, block_min, block_max):
     behind it are invisible to tiles whose rays are all in the cone;
     empty blocks are invisible.  Returns visible [n, NB]."""
     c, empty = _block_corners(block_min, block_max, pxb["apex"])
-    cw = c @ pxb["w"]
+    cw = _dot(c, pxb["w"])
     front = (cw > EPS).all(dim=1)
     behind = (cw <= EPS).all(dim=1)
     cws = cw.clamp_min(EPS)
-    bu = _rect((c @ pxb["s"]) / cws, front)
-    bv = _rect((c @ pxb["v"]) / cws, front)
+    bu = _rect(_dot(c, pxb["s"]) / cws, front)
+    bv = _rect(_dot(c, pxb["v"]) / cws, front)
     return (_overlap(bu, bv, pxb) & ~empty[None, :]
             & ~(behind[None, :] & ~pxb["tile_bad"][:, None]))
 
@@ -431,11 +445,11 @@ def visibility_px_rev(pxb, block_min, block_max):
     straddle L's w-plane are conservatively visible; empty blocks are
     not.  Returns visible [n, NB]."""
     c, empty = _block_corners(block_min, block_max, pxb["apex"])
-    cw = c @ pxb["w"]
+    cw = _dot(c, pxb["w"])
     ok = (cw > EPS).all(dim=1) | (cw < -EPS).all(dim=1)
     cws = torch.where(cw.abs() > EPS, cw, EPS)
-    bu = _rect((c @ pxb["s"]) / cws, ok)
-    bv = _rect((c @ pxb["v"]) / cws, ok)
+    bu = _rect(_dot(c, pxb["s"]) / cws, ok)
+    bv = _rect(_dot(c, pxb["v"]) / cws, ok)
     return _overlap(bu, bv, pxb) & ~empty[None, :]
 
 
@@ -572,6 +586,30 @@ def cull_ranges(prep, o, d, tile: int, wb: int, plan_w: int, excl=None,
     return plan
 
 
+def cull_width(num_windows: int, maxv: int, widen: bool = True,
+               groups: int = 1) -> int:
+    """Row width of :func:`cull`'s plans over ``num_windows`` windows
+    (mask words of a grouped plan not counted)."""
+    pw = plan_width(num_windows)
+    if widen and maxv > 0:
+        need = PLAN_AUX + maxv + (maxv // 8 + 8 if groups > 1 else 0)
+        pw = max(pw, -(-need // 128) * 128)
+    return pw
+
+
+def cull_route(device, maxv: int, num_windows: int,
+               hourglass: bool = False) -> str:
+    """Which planner :func:`cull` takes: ``"cuda"`` (csrc/plan.cu,
+    :func:`cull_cuda`) for tensors on a CUDA device, a plan with list
+    capacity and the interval test; ``"plain"`` (:func:`cull_plain`) for
+    everything else: tensors on the CPU, range-only plans
+    (:func:`range_only`) and the hourglass test."""
+    if (torch.device(device).type == "cuda"
+            and not range_only(maxv, num_windows) and not hourglass):
+        return "cuda"
+    return "plain"
+
+
 def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
          apex_rev: bool = False, hourglass: bool = False,
          widen: bool = True, groups: int = 1, rays=None) -> torch.Tensor:
@@ -590,14 +628,49 @@ def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
     the tiles' rays: the mask words' sub-groups, and the whole plan where
     it is range-only (:func:`range_only`), which JAX builds from the rays
     alone (:func:`cull_ranges`, the apex tests dropped); ``ab`` is then not
-    read."""
+    read.
+
+    The route is :func:`cull_route`'s: the base plan of a CUDA route is
+    built by csrc/plan.cu (:func:`cull_cuda`, equal to :func:`cull_plain`'s
+    bit for bit); every other plan is :func:`cull_plain`'s.  Each counts
+    its plans."""
     NB = prep.num_blocks
     if NB % wb:
         raise ValueError(f"{NB} blocks do not split into windows of {wb}")
-    pw = plan_width(NB // wb)
-    if widen and maxv > 0:
-        need = PLAN_AUX + maxv + (maxv // 8 + 8 if groups > 1 else 0)
-        pw = max(pw, -(-need // 128) * 128)
+    if apex and apex_rev:
+        raise ValueError("a plan takes the primary-apex test or the "
+                         "light-apex test, not both")
+    if cull_route(prep.block_min.device, maxv, NB // wb,
+                  hourglass) == "plain":
+        return cull_plain(prep, maxv, wb, ab, excl, apex, apex_rev,
+                          hourglass, widen, groups, rays)
+    plan = cull_cuda(prep, ab, wb, maxv, cull_width(NB // wb, maxv, widen,
+                                                    groups),
+                     excl, apex, apex_rev)
+    return _with_mask_words(prep, plan, wb, groups, rays, hourglass)
+
+
+def _with_mask_words(prep, plan, wb: int, groups: int, rays,
+                     hourglass: bool) -> torch.Tensor:
+    """The plan, followed by its mask words where ``groups`` > 1."""
+    if groups <= 1:
+        return plan
+    o, d, tile = rays
+    words = group_mask_words(prep, plan, wb, o, d, tile, groups, hourglass)
+    return torch.cat([plan, words], dim=1).contiguous()
+
+
+def cull_plain(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
+               apex_rev: bool = False, hourglass: bool = False,
+               widen: bool = True, groups: int = 1,
+               rays=None) -> torch.Tensor:
+    """:func:`cull` in plain PyTorch, on any device and for every flag;
+    ``cull_plain.plans`` counts the plans it builds."""
+    cull_plain.plans += 1
+    NB = prep.num_blocks
+    if NB % wb:
+        raise ValueError(f"{NB} blocks do not split into windows of {wb}")
+    pw = cull_width(NB // wb, maxv, widen, groups)
     if range_only(maxv, NB // wb):
         if rays is None:
             raise ValueError("a range-only plan is built from the rays")
@@ -612,11 +685,80 @@ def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
         visible = visible & visibility_px_rev(ab, prep.block_min,
                                               prep.block_max)
     plan = cull_lists(visible, tlo, wb, maxv, pw)
-    if groups <= 1:
-        return plan
-    o, d, tile = rays
-    words = group_mask_words(prep, plan, wb, o, d, tile, groups, hourglass)
-    return torch.cat([plan, words], dim=1).contiguous()
+    return _with_mask_words(prep, plan, wb, groups, rays, hourglass)
+
+
+cull_plain.plans = 0
+
+# csrc/plan.cu's operands, in its enum Op order
+CUDA_OPERANDS = ("omin", "omax", "dmin", "dmax", "ru_lo", "ru_hi", "rv_lo",
+                 "rv_hi", "tile_bad", "excl", "s", "v", "w", "apex")
+# window bounds a tile keeps in shared memory (plan.cu's kSmemWindows)
+SMEM_WINDOWS = 10240
+
+
+def cull_cuda(prep, ab, wb: int, maxv: int, plan_w: int, excl=None,
+              apex: bool = False, apex_rev: bool = False) -> torch.Tensor:
+    """The list plan [n, plan_w] of :func:`cull_lists` over the interval
+    test of the bounds ``ab``, refined by the primary-apex (``apex``) or
+    light-apex (``apex_rev``) test, minus each tile's own object
+    (``excl`` [n]), built on the card by csrc/plan.cu in one launch, two
+    with an apex test: equal to :func:`cull_plain`'s plan (one group) bit
+    for bit.  The operands are read in place, expanded or sliced; the host
+    reads nothing back.  ``cull_cuda.plans`` counts the plans it builds,
+    ``cull_cuda.launches`` the kernels it launches."""
+    dev = prep.block_min.device
+    n = ab["dmin"].shape[0]
+    nw = prep.num_blocks // wb
+    kind = 1 if apex else 2 if apex_rev else 0
+    want = {"omin": (n, 3), "omax": (n, 3), "dmin": (n, 3), "dmax": (n, 3)}
+    if kind:
+        want.update(dict.fromkeys(("ru_lo", "ru_hi", "rv_lo", "rv_hi"), (n,)))
+        want.update(dict.fromkeys(("s", "v", "w", "apex"), (3,)))
+    if apex:
+        want["tile_bad"] = (n,)
+    ops = {k: ab[k] for k in want}
+    if excl is not None:
+        want["excl"] = (n,)
+        ops["excl"] = excl.to(torch.int32)
+    words = []
+    for name in CUDA_OPERANDS:
+        x = ops.get(name)
+        if x is None:
+            words += [0, 0, 0]
+            continue
+        dtype = (torch.bool if name == "tile_bad" else torch.int32
+                 if name == "excl" else torch.float32)
+        if x.device != dev or x.dtype != dtype or x.shape != want[name]:
+            raise ValueError(f"{name}: want {dtype} {want[name]} on {dev}, "
+                             f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+        words += [x.data_ptr(), x.stride(0), x.stride(-1)]
+    i32 = torch.int32
+    build.check_tensors(dev, block_min=(prep.block_min, torch.float32),
+                        block_max=(prep.block_max, torch.float32),
+                        block_obj=(prep.block_obj, i32))
+    plan = torch.empty((n, plan_w), dtype=i32, device=dev)
+    blocks = (torch.empty(prep.num_blocks * 5, dtype=i32, device=dev)
+              if kind else None)
+    scratch = (torch.empty(n * nw, dtype=torch.float32, device=dev)
+               if nw > SMEM_WINDOWS else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = build.library().srt_plan(
+            (ctypes.c_longlong * len(words))(*words),
+            prep.block_min.data_ptr(), prep.block_max.data_ptr(),
+            prep.block_obj.data_ptr(), prep.num_blocks, wb, kind, maxv,
+            plan_w, n, None if blocks is None else blocks.data_ptr(),
+            None if scratch is None else scratch.data_ptr(),
+            plan.data_ptr(), stream)
+    build.check(rc, "plan_tiles_kernel")
+    cull_cuda.plans += 1
+    cull_cuda.launches += (2 if kind else 1) if n else 0
+    return plan
+
+
+cull_cuda.plans = 0
+cull_cuda.launches = 0
 
 
 def cull_rays(prep, o, d, tile: int, maxv: int, wb: int, groups: int = 1,
