@@ -221,22 +221,30 @@ Phases, each of which must pass:
    triangles: K1 and K2′, the legacy hard shadow, as phase 6 does); and
    the frame is rendered through ``render`` from both: equal on every
    pixel, those two kernels launched and no other.
-16. the planner kernel (csrc/plan.cu, ``plan.cull``'s CUDA route): each
-   plan of one bench frame, one shadow-bench frame and one soft frame
-   (the primary plan with the apex test, the hard-shadow plan with the
-   light-apex test and ``excl``, the soft frame's fold plan with ``excl``)
-   is captured, built by the kernel and by the plain planner
-   (``plan.cull_plain``): equal on every word, two plans a frame on the
-   card and none plain; then timed alone (``queued_ms``: the card's time
-   and the host's), in its call (CUDA events), and the plain planner's
-   call, with its bound (``planner_bound``).  The launches it prints are
+16. the planner kernels (csrc/plan.cu, ``plan.cull``'s CUDA route): each
+   plan of one bench frame, one shadow-bench frame, one soft frame and one
+   dense soft frame (``procedural.dense_textured_on_ground``, 163,852
+   triangles, the default median BVH, 600x400, focal 400, 16 light
+   samples: the gather branch at 32-pixel tiles, its fold over 131,072
+   triangles planned by the hourglass test) (the primary plan with the
+   apex test, the hard-shadow plan with the light-apex test and ``excl``,
+   the fold plan with ``excl``, the dense fold's by
+   ``plan_hourglass_kernel``) is captured, built by the kernel and by the
+   plain planner (``plan.cull_plain``): equal on every word, two plans a
+   frame on the card (the dense soft frame's fold counted in
+   ``plan.cull_cuda.hourglass_plans``) and none plain, and the frame equal
+   on every pixel to the frame of the plain planner; then each plan timed
+   alone (``queued_ms``: the card's time and the host's), in its call
+   (CUDA events), and the plain planner's call, with its bound
+   (``planner_bound``).  The launches it prints are
    ``plan.cull_cuda.launches``, counted at the launch.
 
 Every frame through ``render_checked`` (phases 3-9 and 13) and phase 15's
 frames print ``plans``: the plans the frame built on the card
 (``plan.cull_cuda.plans``), the planner kernel's launches, and the plans
 built in plain PyTorch (``plan.cull_plain.plans``: phase 13's range-only
-frames).
+frames), and of the card's plans those of the hourglass test
+(``plan.cull_cuda.hourglass_plans``).
 
 Every frame that runs K1 (phases 3, 6, 8, 9, 15, and 10's cut plans) holds
 K1's t and idx to the plain walk in K1's slices bit for bit, and prints a
@@ -434,8 +442,15 @@ OPS_PLAN_PAIR = 58
 OPS_PLAN_APEX = 4
 OPS_PLAN_EXCL = 1
 OPS_PLAN_BLOCK = 8 * (3 + 15 + 2 + 4) + 16
+# the hourglass test instead of the interval test: its 2 branches x 3 axes
+# x 2 lines (a difference, a division, the margin's |x|, add and multiply,
+# the widened bound and a minimum or maximum: 7 each), the 2 branches'
+# comparisons and the 3 of their combine (a minimum, a clamp, a finiteness
+# test)
+OPS_PLAN_HOURGLASS = 2 * 3 * 2 * 7 + 2 + 3
 PLAN_REPS = 200
 PLAN_NAME = "plan_blocks_kernel + plan_tiles_kernel"
+PLAN_HOURGLASS_NAME = "plan_hourglass_kernel"
 
 
 class SmokeFailure(RuntimeError):
@@ -988,14 +1003,17 @@ def reset_launches() -> None:
     nearest.tiled_nearest_shaded.mode_launches = dict.fromkeys(nearest.MODES,
                                                                 0)
     pl.cull_cuda.plans = pl.cull_cuda.launches = pl.cull_plain.plans = 0
+    pl.cull_cuda.hourglass_plans = 0
 
 
 def read_plans() -> dict:
     """The planners' counts since :func:`reset_launches`: plans built by
-    csrc/plan.cu and its launches, plans built in plain PyTorch."""
+    csrc/plan.cu, those of them by its hourglass kernel, its launches, and
+    plans built in plain PyTorch."""
     from simple_raytracer_tpu_torch.kernels import plan as pl
-    return {"card": pl.cull_cuda.plans, "launches": pl.cull_cuda.launches,
-            "plain": pl.cull_plain.plans}
+    return {"card": pl.cull_cuda.plans,
+            "hourglass": pl.cull_cuda.hourglass_plans,
+            "launches": pl.cull_cuda.launches, "plain": pl.cull_plain.plans}
 
 
 def read_launches() -> dict:
@@ -3355,13 +3373,15 @@ def native_phase(sr, root, light, gpu: str) -> None:
 
 
 def planner_bound(prep, n: int, wb: int, plan, apex: bool,
-                  excl: bool) -> dict:
+                  excl: bool, hourglass: bool = False) -> dict:
     """The least time of one plan: its (tile, block) tests at
-    OPS_PLAN_PAIR (+ the apex and excl terms) f32 operations and, with an
-    apex test, each block's rect, at 67 TFLOP/s; against the block tables
-    and the tile bounds read once and the plan written once."""
+    OPS_PLAN_PAIR (OPS_PLAN_HOURGLASS for the hourglass test; + the apex
+    and excl terms) f32 operations and, with an apex test, each block's
+    rect, at 67 TFLOP/s; against the block tables and the tile bounds read
+    once and the plan written once."""
     pairs = n * prep.num_blocks
-    ops = pairs * (OPS_PLAN_PAIR + OPS_PLAN_APEX * apex + OPS_PLAN_EXCL * excl)
+    test = OPS_PLAN_HOURGLASS if hourglass else OPS_PLAN_PAIR
+    ops = pairs * (test + OPS_PLAN_APEX * apex + OPS_PLAN_EXCL * excl)
     ops += prep.num_blocks * OPS_PLAN_BLOCK * apex
     moved = (nbytes(prep.block_min, prep.block_max, plan)
              + prep.block_obj.numel() * 4 * excl + n * (12 + 4 * apex) * 4)
@@ -3379,6 +3399,7 @@ def planner_phase(sr, frames, light, gpu: str) -> list:
     import torch
     from simple_raytracer_tpu_torch.kernels import plan as pl
     entries = []
+    route = pl.cull_route
     for label, (prep, cfg) in frames.items():
         calls = []
         real = pl.cull
@@ -3392,18 +3413,30 @@ def planner_phase(sr, frames, light, gpu: str) -> list:
         finally:
             pl.cull = real
         reset_launches()
-        sr.render(prep, cfg, light)
+        img = sr.render(prep, cfg, light)
         torch.cuda.synchronize()
         plans = read_plans()
-        require(plans["card"] == 2 and plans["plain"] == 0,
-                f"{label}: {plans} plans a frame, not 2 on the card")
+        hourglasses = sum(bool(k.get("hourglass")) for _, k in calls)
+        require(plans["card"] == 2 and plans["plain"] == 0
+                and plans["hourglass"] == hourglasses,
+                f"{label}: {plans} plans a frame, not 2 on the card "
+                f"({hourglasses} of the hourglass test)")
         require(len(calls) == 2, f"{label}: {len(calls)} plans a frame")
+        pl.cull_route = lambda *a, **k: "plain"
+        try:
+            ref = sr.render(prep, cfg, light)
+        finally:
+            pl.cull_route = route
+        require(torch.equal(img, ref),
+                f"{label}: the frame differs from the plain planner's on "
+                f"{int((img != ref).any(-1).sum())} pixels")
         for a, k in calls:
             prep_, maxv, wb, ab = a[:4]
             apex, rev = bool(k.get("apex")), bool(k.get("apex_rev"))
             excl = k.get("excl") is not None
+            hourglass = bool(k.get("hourglass"))
             what = ("primary" if apex else "hard shadow" if rev
-                    else "fold")
+                    else "hourglass fold" if hourglass else "fold")
             reset_launches()
             got = pl.cull(*a, **k)
             launches = pl.cull_cuda.launches
@@ -3411,20 +3444,22 @@ def planner_phase(sr, frames, light, gpu: str) -> list:
             require(torch.equal(got, want),
                     f"planner vs plain ({label}, {what}): "
                     f"{int((got != want).sum())} words differ")
-            n = int(ab["dmin"].shape[0])
+            n = int(ab["omin"].shape[0])
             card_ms, host_ms = queued_ms(lambda: pl.cull(*a, **k), PLAN_REPS)
             call_ms = cuda_ms(lambda: pl.cull(*a, **k), PLAN_REPS)
             plain_ms = cuda_ms(lambda: pl.cull_plain(*a, **k), PLAN_REPS // 10)
             plain_card_ms, plain_host_ms = queued_ms(
                 lambda: pl.cull_plain(*a, **k), PLAN_REPS // 10)
-            bnd = planner_bound(prep_, n, wb, want, apex or rev, excl)
+            bnd = planner_bound(prep_, n, wb, want, apex or rev, excl,
+                                hourglass)
             frame = f"{label}: {what} plan"
             entries.append(entry(
-                PLAN_NAME, "plan.cu",
+                PLAN_HOURGLASS_NAME if hourglass else PLAN_NAME, "plan.cu",
                 "none: plans are jnp in the JAX package (tiled_t.py::cull, "
                 "cull_occl)", frame, launches, 0.0, card_ms,
                 plain_ms, bnd, call_ms=call_ms, host_ms=host_ms))
             emit(phase=f"planner vs plain ({frame})", equal=True,
+                 image_equal_to_plain_planner=True,
                  launches=launches, frame_plans=plans, tiles=n,
                  blocks=prep_.num_blocks, windows=prep_.num_blocks // wb,
                  plan_w=int(want.shape[1]),
@@ -3633,12 +3668,28 @@ def main() -> int:
     # 15. the native host code: the C++ OBJ scan and median BVH build
     native_phase(sr, args.root, light, gpu)
 
-    # 16. the planner kernel on the bench, shadow bench and soft plans
+    # 16. the planner kernels on the bench, shadow bench, soft and dense
+    # soft plans
+    t0 = time.time()
+    dsoft = sr.default_config().replace(
+        mode="tiled", camera=occ_cam,
+        light=sr.LightConfig(num_samples=SOFT_SAMPLES))
+    dsoft_prep = prepare(P.dense_textured_on_ground(sr.SceneManager())
+                         .build(), dsoft, device=dev)
+    torch.cuda.synchronize()
+    emit(phase="scene (dense soft)",
+         source="procedural dense_textured_on_ground, median BVH",
+         triangles=dsoft_prep.num_triangles, blocks=dsoft_prep.num_blocks,
+         hourglass=pl.hourglass_for(dsoft_prep),
+         seconds=round(time.time() - t0, 3))
     entries += planner_phase(sr, {
         "bench": (prep, cfg),
         "shadow bench": (prep, cfg.replace(camera=sr.CameraConfig(
             width=WIDTH, height=HEIGHT, focal=SHADOW_FOCAL))),
-        "soft": (prep, soft)}, light, gpu)
+        "soft": (prep, soft),
+        f"dense soft: procedural, {dsoft_prep.num_triangles} triangles, "
+        f"{OCC_WIDTH}x{OCC_HEIGHT}, S={SOFT_SAMPLES}": (dsoft_prep, dsoft)},
+        light, gpu)
 
     print(json.dumps({"kernels": entries}))
     print(gpu)

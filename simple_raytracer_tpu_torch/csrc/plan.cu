@@ -6,13 +6,15 @@
 // cull_blocks_lists), and XLA fuses them.  The port built them one PyTorch
 // op at a time (kernels/plan.py::cull_plain, its plain version: some
 // 300-380 small ops a plan), which held the card idle while the host
-// dispatched them.  Reached through kernels/plan.py::cull for CUDA tensors,
-// list-capable plans and the interval test (not the hourglass test).
+// dispatched them.  Reached through kernels/plan.py::cull for CUDA tensors
+// and list-capable plans, with the interval test or the hourglass test.
 //
 // What bounds it on this card: the (tile, block) tests, ~60 f32 operations
-// a pair with four divisions per axis, over tiles x blocks pairs (510 x
-// 2,564 in a 1080p frame, 3,750 x 2,564 in the soft frame's fold); its
-// compulsory bytes (the block tables and the plan) are a few MB at most.
+// a pair with four divisions per axis (the hourglass test ~90, with twelve
+// divisions), over tiles x blocks pairs (510 x 2,564 in a 1080p frame,
+// 3,750 x 2,564 in the soft frame's fold, 3,750 x 5,122 in the dense soft
+// frame's); its compulsory bytes (the block tables and the plan) are a few
+// MB at most.
 // Design: one CTA a tile, its threads over the tile's windows; each
 // window's least entry bound kept in shared memory (or, past
 // kSmemWindows, in a scratch row); the window order of the entries built by
@@ -23,12 +25,15 @@
 // block and the frame alone: each block's projected rect (bu, bv), widened
 // by 1e-4 (1 + |x|), and its empty and behind-the-apex flags.
 // plan_tiles_kernel<Apex, Excl> computes, per (tile, block), the interval
-// slab test (plan.py::visibility, _safe_div's a/0 -> +-inf, 0/0 -> 0), the
-// primary-apex or light-apex test (visibility_px, visibility_px_rev) and the
-// own-object drop (excl), then plan.py::cull_lists on the tile's row:
-// window visibility and least bound, the covering range, the list count,
-// tmin/tmax over the visible windows, the bucket qb and its floor, bound16,
-// and the entries.
+// slab test (plan.py::visibility, _safe_div's a/0 -> +-inf, 0/0 -> 0);
+// plan_hourglass_kernel<Apex, Excl> instead the hourglass test of shadow
+// rays without a shared light (plan.py::visibility_hourglass: the lines
+// between the origin box and the endpoint box, for t in [0, 1] and t >= 1).
+// Then both apply the primary-apex or light-apex test (visibility_px,
+// visibility_px_rev) and the own-object drop (excl), and build the tile's
+// row in plan_row, plan.py::cull_lists: window visibility and least bound,
+// the covering range, the list count, tmin/tmax over the visible windows,
+// the bucket qb and its floor, bound16, and the entries.
 //
 // The entries' order without a sort: cull_lists sorts the keys
 // bound16 << 16 | window.  bound16 is the top half of floor(qb), and
@@ -65,6 +70,7 @@ enum Op {
   kTileBad,                            // [n] bool (primary apex)
   kExcl,                               // [n] i32
   kS, kV, kW, kApexPt,                 // [3] f32: frame and apex
+  kQmin, kQmax,                        // [n, 3] f32 (hourglass test)
   kNumOps
 };
 
@@ -77,6 +83,34 @@ struct Operands {
     return static_cast<const float*>(p[op])[i * s0[op] + j * s1[op]];
   }
 };
+
+// What the apex tests read of a tile: its projective rect and, for the
+// primary apex, whether one of its rays leaves the cone.
+struct ApexTile {
+  float ru_lo, ru_hi, rv_lo, rv_hi;
+  bool bad;
+};
+
+template <int A>
+__device__ __forceinline__ ApexTile apex_tile(const Operands& op, int tile) {
+  ApexTile t{0.0f, 0.0f, 0.0f, 0.0f, false};
+  if (A != kNoApex) {
+    t.ru_lo = op.f(kRuLo, tile);
+    t.ru_hi = op.f(kRuHi, tile);
+    t.rv_lo = op.f(kRvLo, tile);
+    t.rv_hi = op.f(kRvHi, tile);
+  }
+  if (A == kPrimary)
+    t.bad = static_cast<const unsigned char*>(op.p[kTileBad])
+                [tile * op.s0[kTileBad]] != 0;
+  return t;
+}
+
+// The tile's own object (excl), or 0 where unused.
+template <bool Excl>
+__device__ __forceinline__ int excl_of(const Operands& op, int tile) {
+  return Excl ? static_cast<const int*>(op.p[kExcl])[tile * op.s0[kExcl]] : 0;
+}
 
 __device__ __forceinline__ bool isnan_(float x) { return x != x; }
 
@@ -124,6 +158,94 @@ __device__ __forceinline__ bool interval(const float* o_lo, const float* o_hi,
   }
   tlo = clamp_min(t_lo, 0.0f);
   return t_hi >= t_lo && t_hi >= 0.0f && t_lo < INFINITY;
+}
+
+// plan.py::visibility_hourglass's margin against f32 rounding
+constexpr float kHourglassEps = 1e-5f;
+
+// A tile's lines of plan.py::visibility_hourglass: a ray's point o + t d =
+// (1 - t) o + t q lies, per axis, between two lines through the origin
+// box [olo, ohi] and the endpoint box [qlo, qhi].  For branch 0 (t in
+// [0, 1]) the lo line runs from olo to qlo and the hi line from ohi to qhi;
+// for branch 1 (t >= 1) from ohi to qlo and from olo to qhi.  c0 is a
+// line's value at t = 0 and sl its slope, negated for the hi line, so each
+// condition reads sl * t <= r.
+struct Hourglass {
+  float c0[2][3][2], sl[2][3][2];  // [branch][axis][lo line, hi line]
+};
+
+__device__ __forceinline__ Hourglass hourglass_lines(const float* olo,
+                                                     const float* ohi,
+                                                     const float* qlo,
+                                                     const float* qhi) {
+  Hourglass h;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    h.c0[0][ax][0] = olo[ax];
+    h.sl[0][ax][0] = qlo[ax] - olo[ax];
+    h.c0[0][ax][1] = ohi[ax];
+    h.sl[0][ax][1] = -(qhi[ax] - ohi[ax]);
+    h.c0[1][ax][0] = ohi[ax];
+    h.sl[1][ax][0] = qlo[ax] - ohi[ax];
+    h.c0[1][ax][1] = olo[ax];
+    h.sl[1][ax][1] = -(qhi[ax] - olo[ax]);
+  }
+  return h;
+}
+
+// One branch of visibility_hourglass for block b: each condition sl * t <=
+// r bounds t above (sl > 0) or below (sl < 0) by thr = r / sl, widened by
+// kHourglassEps (|thr| + 1); a parallel line (sl == 0) must meet the slab
+// (r >= -kHourglassEps (|bound| + 1)).  Feasible where the bounds leave an
+// interval of [t0, t1]; ta is its least t.  lo, hi: the block's box.
+__device__ __forceinline__ bool hourglass_branch(const Hourglass& h, int br,
+                                                 const float* lo,
+                                                 const float* hi, float t0,
+                                                 float t1, float& ta) {
+  float tb = t1;
+  bool feas = true;
+  ta = t0;
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+#pragma unroll
+    for (int side = 0; side < 2; ++side) {
+      // the lo line against the block's max, the hi line against its min
+      const float bnd = side == 0 ? hi[ax] : lo[ax];
+      const float sl = h.sl[br][ax][side];
+      float r = bnd - h.c0[br][ax][side];
+      if (side == 1) r = -r;
+      const float thr = r / (sl == 0.0f ? 1.0f : sl);
+      const float mgn = kHourglassEps * (fabsf(thr) + 1.0f);
+      if (sl > 0.0f) tb = nmin(tb, thr + mgn);
+      if (sl < 0.0f) ta = nmax(ta, thr - mgn);
+      if (sl == 0.0f && r < -kHourglassEps * (fabsf(bnd) + 1.0f))
+        feas = false;
+    }
+  }
+  return feas && tb >= ta;
+}
+
+// plan.py::visibility_hourglass for one (tile, block): visible on either
+// branch, and the entry bound (the least feasible t, 0 where not finite)
+// in tlo.
+__device__ __forceinline__ bool hourglass(const Hourglass& h,
+                                          const float* __restrict__ bmin,
+                                          const float* __restrict__ bmax,
+                                          int b, float& tlo) {
+  float lo[3], hi[3];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    lo[ax] = bmin[b * 3 + ax];
+    hi[ax] = bmax[b * 3 + ax];
+  }
+  float ta_a, ta_b;
+  const bool vis_a = hourglass_branch(h, 0, lo, hi, 0.0f, 1.0f, ta_a);
+  const bool vis_b = hourglass_branch(h, 1, lo, hi, 1.0f, 3.4e38f, ta_b);
+  const bool vis = vis_a || vis_b;
+  float t = nmin(vis_a ? ta_a : INFINITY, vis_b ? ta_b : INFINITY);
+  t = vis ? clamp_min(t, 0.0f) : INFINITY;
+  tlo = fabsf(t) < INFINITY ? t : 0.0f;  // isfinite
+  return vis;
 }
 
 // plan.py::_rect: a projected extent widened against f32 rounding
@@ -201,14 +323,13 @@ __device__ T block_reduce(T x, F op, T* red) {
   return r;
 }
 
-// One CTA a tile: its plan row [plan_w] (plan.py::cull_lists' layout).
-template <int A, bool Excl>
-__global__ void __launch_bounds__(kThreads) plan_tiles_kernel(
-    Operands op, const float* __restrict__ bmin,
-    const float* __restrict__ bmax, const int* __restrict__ bobj,
-    const float4* __restrict__ rect, const int* __restrict__ flags, int nb,
-    int wb, int maxv, int plan_w, float* __restrict__ scratch,
-    int* __restrict__ plan) {
+// One CTA a tile: its plan row [plan_w] (plan.py::cull_lists' layout),
+// from test(b, tlo), the visibility of block b with its entry bound in tlo.
+template <typename Test>
+__device__ __forceinline__ void plan_row(const Test& test, int nb, int wb,
+                                         int maxv, int plan_w,
+                                         float* __restrict__ scratch,
+                                         int* __restrict__ plan) {
   extern __shared__ float s_wt[];
   __shared__ float s_redf[kWarps];
   __shared__ int s_redi[kWarps];
@@ -224,28 +345,6 @@ __global__ void __launch_bounds__(kThreads) plan_tiles_kernel(
   float* wt = np <= kSmemWindows ? s_wt : scratch + (size_t)tile * np;
   int* row = plan + (size_t)tile * plan_w;
 
-  float o_lo[3], o_hi[3], d_lo[3], d_hi[3];
-#pragma unroll
-  for (int ax = 0; ax < 3; ++ax) {
-    o_lo[ax] = op.f(kOmin, tile, ax);
-    o_hi[ax] = op.f(kOmax, tile, ax);
-    d_lo[ax] = op.f(kDmin, tile, ax);
-    d_hi[ax] = op.f(kDmax, tile, ax);
-  }
-  float ru_lo = 0.0f, ru_hi = 0.0f, rv_lo = 0.0f, rv_hi = 0.0f;
-  bool bad = false;
-  if (A != kNoApex) {
-    ru_lo = op.f(kRuLo, tile);
-    ru_hi = op.f(kRuHi, tile);
-    rv_lo = op.f(kRvLo, tile);
-    rv_hi = op.f(kRvHi, tile);
-  }
-  if (A == kPrimary)
-    bad = static_cast<const unsigned char*>(op.p[kTileBad])
-              [tile * op.s0[kTileBad]] != 0;
-  int excl = 0;
-  if (Excl) excl = static_cast<const int*>(op.p[kExcl])[tile * op.s0[kExcl]];
-
   // pass 1: the tests, each window's least bound (+inf: not visible), and
   // the tile's first / last visible window, count, tmin and tmax
   int first = np, last = -1, cnt = 0;
@@ -254,17 +353,8 @@ __global__ void __launch_bounds__(kThreads) plan_tiles_kernel(
     float tw = INFINITY;
     bool vis = false;
     for (int j = 0; j < wb; ++j) {
-      const int b = w * wb + j;
       float tl;
-      bool v = interval(o_lo, o_hi, d_lo, d_hi, bmin, bmax, b, tl);
-      if (Excl) v = v && bobj[b] != excl;
-      if (A != kNoApex && v) {
-        const float4 r = rect[b];
-        const int fl = flags[b];
-        v = r.x <= ru_hi && r.y >= ru_lo && r.z <= rv_hi && r.w >= rv_lo &&
-            !(fl & 1) && !((fl & 2) && !bad);
-      }
-      if (v) {
+      if (test(w * wb + j, tl)) {
         vis = true;
         tw = nmin(tw, tl);
       }
@@ -374,21 +464,100 @@ __global__ void __launch_bounds__(kThreads) plan_tiles_kernel(
     row[srt::kPlanAux + p] = p < k_emit ? kInvisible : 0;
 }
 
+// plan.py::visibility_px / visibility_px_rev for a block of rect r and
+// flags fl (plan_blocks_kernel); true without an apex test.
+template <int A>
+__device__ __forceinline__ bool apex_visible(const ApexTile& t,
+                                             const float4* __restrict__ rect,
+                                             const int* __restrict__ flags,
+                                             int b) {
+  if (A == kNoApex) return true;
+  const float4 r = rect[b];
+  const int fl = flags[b];
+  return r.x <= t.ru_hi && r.y >= t.ru_lo && r.z <= t.rv_hi &&
+         r.w >= t.rv_lo && !(fl & 1) && !((fl & 2) && !t.bad);
+}
+
+// The plan of the interval test (plan.py::visibility), one CTA a tile.
 template <int A, bool Excl>
-cudaError_t launch_tiles(const Operands& op, const float* bmin,
-                         const float* bmax, const int* bobj,
-                         const float4* rect, const int* flags, int nb, int wb,
-                         int maxv, int plan_w, int n_tiles, float* scratch,
-                         int* plan, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads) plan_tiles_kernel(
+    Operands op, const float* __restrict__ bmin,
+    const float* __restrict__ bmax, const int* __restrict__ bobj,
+    const float4* __restrict__ rect, const int* __restrict__ flags, int nb,
+    int wb, int maxv, int plan_w, float* __restrict__ scratch,
+    int* __restrict__ plan) {
+  const int tile = blockIdx.x;
+  float o_lo[3], o_hi[3], d_lo[3], d_hi[3];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    o_lo[ax] = op.f(kOmin, tile, ax);
+    o_hi[ax] = op.f(kOmax, tile, ax);
+    d_lo[ax] = op.f(kDmin, tile, ax);
+    d_hi[ax] = op.f(kDmax, tile, ax);
+  }
+  const ApexTile at = apex_tile<A>(op, tile);
+  const int excl = excl_of<Excl>(op, tile);
+  plan_row(
+      [&](int b, float& tl) {
+        return interval(o_lo, o_hi, d_lo, d_hi, bmin, bmax, b, tl) &&
+               (!Excl || bobj[b] != excl) &&
+               apex_visible<A>(at, rect, flags, b);
+      },
+      nb, wb, maxv, plan_w, scratch, plan);
+}
+
+// The plan of the hourglass test (plan.py::visibility_hourglass) of shadow
+// rays with no shared light, one CTA a tile.
+template <int A, bool Excl>
+__global__ void __launch_bounds__(kThreads) plan_hourglass_kernel(
+    Operands op, const float* __restrict__ bmin,
+    const float* __restrict__ bmax, const int* __restrict__ bobj,
+    const float4* __restrict__ rect, const int* __restrict__ flags, int nb,
+    int wb, int maxv, int plan_w, float* __restrict__ scratch,
+    int* __restrict__ plan) {
+  const int tile = blockIdx.x;
+  float o_lo[3], o_hi[3], q_lo[3], q_hi[3];
+#pragma unroll
+  for (int ax = 0; ax < 3; ++ax) {
+    o_lo[ax] = op.f(kOmin, tile, ax);
+    o_hi[ax] = op.f(kOmax, tile, ax);
+    q_lo[ax] = op.f(kQmin, tile, ax);
+    q_hi[ax] = op.f(kQmax, tile, ax);
+  }
+  const Hourglass h = hourglass_lines(o_lo, o_hi, q_lo, q_hi);
+  const ApexTile at = apex_tile<A>(op, tile);
+  const int excl = excl_of<Excl>(op, tile);
+  plan_row(
+      [&](int b, float& tl) {
+        return hourglass(h, bmin, bmax, b, tl) &&
+               (!Excl || bobj[b] != excl) &&
+               apex_visible<A>(at, rect, flags, b);
+      },
+      nb, wb, maxv, plan_w, scratch, plan);
+}
+
+template <int A, bool Excl>
+cudaError_t launch_tiles(const Operands& op, bool hourglass,
+                         const float* bmin, const float* bmax,
+                         const int* bobj, const float4* rect,
+                         const int* flags, int nb, int wb, int maxv,
+                         int plan_w, int n_tiles, float* scratch, int* plan,
+                         cudaStream_t stream) {
   const int np = nb / wb;
   const size_t smem = np <= kSmemWindows ? sizeof(float) * np : 0;
-  plan_tiles_kernel<A, Excl><<<n_tiles, kThreads, smem, stream>>>(
-      op, bmin, bmax, bobj, rect, flags, nb, wb, maxv, plan_w, scratch, plan);
+  if (hourglass)
+    plan_hourglass_kernel<A, Excl><<<n_tiles, kThreads, smem, stream>>>(
+        op, bmin, bmax, bobj, rect, flags, nb, wb, maxv, plan_w, scratch,
+        plan);
+  else
+    plan_tiles_kernel<A, Excl><<<n_tiles, kThreads, smem, stream>>>(
+        op, bmin, bmax, bobj, rect, flags, nb, wb, maxv, plan_w, scratch,
+        plan);
   return cudaGetLastError();
 }
 
 template <int A>
-cudaError_t build_plan(const Operands& op, const float* bmin,
+cudaError_t build_plan(const Operands& op, bool hourglass, const float* bmin,
                        const float* bmax, const int* bobj, int nb, int wb,
                        int maxv, int plan_w, int n_tiles, void* blocks,
                        float* scratch, int* out, cudaStream_t stream) {
@@ -403,12 +572,12 @@ cudaError_t build_plan(const Operands& op, const float* bmin,
     if (e != cudaSuccess) return e;
   }
   return op.p[kExcl]
-             ? launch_tiles<A, true>(op, bmin, bmax, bobj, rect, flags, nb,
-                                     wb, maxv, plan_w, n_tiles, scratch, out,
-                                     stream)
-             : launch_tiles<A, false>(op, bmin, bmax, bobj, rect, flags, nb,
-                                      wb, maxv, plan_w, n_tiles, scratch, out,
-                                      stream);
+             ? launch_tiles<A, true>(op, hourglass, bmin, bmax, bobj, rect,
+                                     flags, nb, wb, maxv, plan_w, n_tiles,
+                                     scratch, out, stream)
+             : launch_tiles<A, false>(op, hourglass, bmin, bmax, bobj, rect,
+                                      flags, nb, wb, maxv, plan_w, n_tiles,
+                                      scratch, out, stream);
 }
 
 }  // namespace
@@ -417,16 +586,20 @@ cudaError_t build_plan(const Operands& op, const float* bmin,
 // (bmin, bmax [nb, 3] f32, bobj [nb] i32), from the operands `ops`: a host
 // array of kNumOps (pointer, stride 0, stride 1) triples in the order of
 // enum Op (a null pointer where unused; excl null: no own-object drop).
-// apex: 0 none, 1 the primary-apex test, 2 the light-apex test.  Scratch:
-// `blocks` [nb * 5] words (apex tests), `scratch` [n_tiles * nb / wb] f32
-// where nb / wb > kSmemWindows (plan.py::SMEM_WINDOWS).
+// apex: 0 none, 1 the primary-apex test, 2 the light-apex test; hourglass:
+// 0 the interval test (omin, omax, dmin, dmax), 1 the hourglass test (omin,
+// omax, qmin, qmax).  Scratch: `blocks` [nb * 5] words (apex tests),
+// `scratch` [n_tiles * nb / wb] f32 where nb / wb > kSmemWindows
+// (plan.py::SMEM_WINDOWS).
 extern "C" int srt_plan(const long long* ops, const void* bmin,
                         const void* bmax, const void* bobj, int nb, int wb,
-                        int apex, int maxv, int plan_w, int n_tiles,
-                        void* blocks, void* scratch, void* out, void* stream) {
+                        int apex, int hourglass, int maxv, int plan_w,
+                        int n_tiles, void* blocks, void* scratch, void* out,
+                        void* stream) {
   if (nb <= 0 || wb <= 0 || nb % wb || nb / wb > 65536 || n_tiles < 0 ||
-      plan_w <= srt::kPlanAux || apex < 0 || apex > 2 ||
-      (apex && !blocks) || (nb / wb > kSmemWindows && !scratch))
+      plan_w <= srt::kPlanAux || apex < 0 || apex > 2 || hourglass < 0 ||
+      hourglass > 1 || (apex && !blocks) ||
+      (nb / wb > kSmemWindows && !scratch))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles == 0) return 0;
   Operands op;
@@ -441,15 +614,16 @@ extern "C" int srt_plan(const long long* ops, const void* bmin,
   auto* sc = static_cast<float*>(scratch);
   auto* pl = static_cast<int*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
+  const bool hg = hourglass != 0;
   cudaError_t e;
   if (apex == kPrimary)
-    e = build_plan<kPrimary>(op, bn, bx, bo, nb, wb, maxv, plan_w, n_tiles,
-                             blocks, sc, pl, st);
+    e = build_plan<kPrimary>(op, hg, bn, bx, bo, nb, wb, maxv, plan_w,
+                             n_tiles, blocks, sc, pl, st);
   else if (apex == kLight)
-    e = build_plan<kLight>(op, bn, bx, bo, nb, wb, maxv, plan_w, n_tiles,
+    e = build_plan<kLight>(op, hg, bn, bx, bo, nb, wb, maxv, plan_w, n_tiles,
                            blocks, sc, pl, st);
   else
-    e = build_plan<kNoApex>(op, bn, bx, bo, nb, wb, maxv, plan_w, n_tiles,
-                            blocks, sc, pl, st);
+    e = build_plan<kNoApex>(op, hg, bn, bx, bo, nb, wb, maxv, plan_w,
+                            n_tiles, blocks, sc, pl, st);
   return static_cast<int>(e);
 }

@@ -100,7 +100,7 @@ SIGNATURES = {
         "srt_plan": (
             ctypes.POINTER(_L),  # operands: (pointer, stride 0, stride 1)s
             _P, _P, _P,          # block_min, block_max, block_obj
-            _I, _I, _I,          # n_blocks, window blocks, apex test
+            _I, _I, _I, _I,      # n_blocks, window blocks, apex, hourglass
             _I, _I, _I,          # maxv, plan_w, n_tiles
             _P, _P, _P,          # block scratch, window scratch, plan
             _P),                 # stream

@@ -37,10 +37,11 @@ range mode: the covering range of the blocks the interval test of its rays
 reaches, in aligned windows, with no projective test and no entries.
 
 :func:`cull`, which every planner calls, routes by what it observes
-(:func:`cull_route`): on a CUDA device a list plan of the interval test
-and its apex tests is built by the hand-written kernel of csrc/plan.cu
-(:func:`cull_cuda`: at most two launches, no host read), everything else
-by its plain version :func:`cull_plain`, the same plan bit for bit.
+(:func:`cull_route`): on a CUDA device a list plan of the interval or the
+hourglass test and its apex tests is built by the hand-written kernels of
+csrc/plan.cu (:func:`cull_cuda`: at most two launches, no host read),
+everything else by its plain version :func:`cull_plain`, the same plan bit
+for bit.
 """
 
 from __future__ import annotations
@@ -600,12 +601,13 @@ def cull_width(num_windows: int, maxv: int, widen: bool = True,
 def cull_route(device, maxv: int, num_windows: int,
                hourglass: bool = False) -> str:
     """Which planner :func:`cull` takes: ``"cuda"`` (csrc/plan.cu,
-    :func:`cull_cuda`) for tensors on a CUDA device, a plan with list
-    capacity and the interval test; ``"plain"`` (:func:`cull_plain`) for
-    everything else: tensors on the CPU, range-only plans
-    (:func:`range_only`) and the hourglass test."""
+    :func:`cull_cuda`) for tensors on a CUDA device and a plan with list
+    capacity, whether its test is the interval test or (``hourglass``) the
+    hourglass test; ``"plain"`` (:func:`cull_plain`) for everything else:
+    tensors on the CPU and range-only plans (:func:`range_only`)."""
+    del hourglass   # both tests have a kernel
     if (torch.device(device).type == "cuda"
-            and not range_only(maxv, num_windows) and not hourglass):
+            and not range_only(maxv, num_windows)):
         return "cuda"
     return "plain"
 
@@ -646,7 +648,7 @@ def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
                           hourglass, widen, groups, rays)
     plan = cull_cuda(prep, ab, wb, maxv, cull_width(NB // wb, maxv, widen,
                                                     groups),
-                     excl, apex, apex_rev)
+                     excl, apex, apex_rev, hourglass)
     return _with_mask_words(prep, plan, wb, groups, rays, hourglass)
 
 
@@ -692,27 +694,25 @@ cull_plain.plans = 0
 
 # csrc/plan.cu's operands, in its enum Op order
 CUDA_OPERANDS = ("omin", "omax", "dmin", "dmax", "ru_lo", "ru_hi", "rv_lo",
-                 "rv_hi", "tile_bad", "excl", "s", "v", "w", "apex")
+                 "rv_hi", "tile_bad", "excl", "s", "v", "w", "apex", "qmin",
+                 "qmax")
 # window bounds a tile keeps in shared memory (plan.cu's kSmemWindows)
 SMEM_WINDOWS = 10240
 
 
-def cull_cuda(prep, ab, wb: int, maxv: int, plan_w: int, excl=None,
-              apex: bool = False, apex_rev: bool = False) -> torch.Tensor:
-    """The list plan [n, plan_w] of :func:`cull_lists` over the interval
-    test of the bounds ``ab``, refined by the primary-apex (``apex``) or
-    light-apex (``apex_rev``) test, minus each tile's own object
-    (``excl`` [n]), built on the card by csrc/plan.cu in one launch, two
-    with an apex test: equal to :func:`cull_plain`'s plan (one group) bit
-    for bit.  The operands are read in place, expanded or sliced; the host
-    reads nothing back.  ``cull_cuda.plans`` counts the plans it builds,
-    ``cull_cuda.launches`` the kernels it launches."""
-    dev = prep.block_min.device
-    n = ab["dmin"].shape[0]
-    nw = prep.num_blocks // wb
-    kind = 1 if apex else 2 if apex_rev else 0
-    want = {"omin": (n, 3), "omax": (n, 3), "dmin": (n, 3), "dmax": (n, 3)}
-    if kind:
+def cuda_operands(ab, n: int, dev, excl=None, apex: bool = False,
+                  apex_rev: bool = False, hourglass: bool = False) -> list:
+    """csrc/plan.cu's operand words for the bounds ``ab`` of ``n`` tiles:
+    (pointer, stride 0, stride 1) of each of :data:`CUDA_OPERANDS`, in
+    elements, zeros where the plan does not read it: the origin box, then
+    the direction box of the interval test or (``hourglass``) the endpoint
+    box qmin/qmax of the hourglass test, the rects, frame and apex of an
+    apex test, ``tile_bad`` of the primary apex, and ``excl`` (int32).  The
+    tensors are read in place, expanded or sliced; each must be on ``dev``
+    with its dtype and shape, and outlive the launch."""
+    box = ("qmin", "qmax") if hourglass else ("dmin", "dmax")
+    want = dict.fromkeys(("omin", "omax") + box, (n, 3))
+    if apex or apex_rev:
         want.update(dict.fromkeys(("ru_lo", "ru_hi", "rv_lo", "rv_hi"), (n,)))
         want.update(dict.fromkeys(("s", "v", "w", "apex"), (3,)))
     if apex:
@@ -720,7 +720,7 @@ def cull_cuda(prep, ab, wb: int, maxv: int, plan_w: int, excl=None,
     ops = {k: ab[k] for k in want}
     if excl is not None:
         want["excl"] = (n,)
-        ops["excl"] = excl.to(torch.int32)
+        ops["excl"] = excl
     words = []
     for name in CUDA_OPERANDS:
         x = ops.get(name)
@@ -733,6 +733,28 @@ def cull_cuda(prep, ab, wb: int, maxv: int, plan_w: int, excl=None,
             raise ValueError(f"{name}: want {dtype} {want[name]} on {dev}, "
                              f"got {x.dtype} {tuple(x.shape)} on {x.device}")
         words += [x.data_ptr(), x.stride(0), x.stride(-1)]
+    return words
+
+
+def cull_cuda(prep, ab, wb: int, maxv: int, plan_w: int, excl=None,
+              apex: bool = False, apex_rev: bool = False,
+              hourglass: bool = False) -> torch.Tensor:
+    """The list plan [n, plan_w] of :func:`cull_lists` over the interval
+    test of the bounds ``ab`` (or, with ``hourglass``, the hourglass test:
+    ``plan_hourglass_kernel``), refined by the primary-apex (``apex``) or
+    light-apex (``apex_rev``) test, minus each tile's own object (``excl``
+    [n]), built on the card by csrc/plan.cu in one launch, two with an apex
+    test: equal to :func:`cull_plain`'s plan (one group) bit for bit.  The
+    operands (:func:`cuda_operands`) are read in place; the host reads
+    nothing back.  ``cull_cuda.plans`` counts the plans it builds,
+    ``cull_cuda.hourglass_plans`` those of the hourglass test and
+    ``cull_cuda.launches`` the kernels it launches."""
+    dev = prep.block_min.device
+    n = ab["omin"].shape[0]
+    nw = prep.num_blocks // wb
+    kind = 1 if apex else 2 if apex_rev else 0
+    excl = None if excl is None else excl.to(torch.int32)
+    words = cuda_operands(ab, n, dev, excl, apex, apex_rev, hourglass)
     i32 = torch.int32
     build.check_tensors(dev, block_min=(prep.block_min, torch.float32),
                         block_max=(prep.block_max, torch.float32),
@@ -747,17 +769,21 @@ def cull_cuda(prep, ab, wb: int, maxv: int, plan_w: int, excl=None,
         rc = build.library().srt_plan(
             (ctypes.c_longlong * len(words))(*words),
             prep.block_min.data_ptr(), prep.block_max.data_ptr(),
-            prep.block_obj.data_ptr(), prep.num_blocks, wb, kind, maxv,
-            plan_w, n, None if blocks is None else blocks.data_ptr(),
+            prep.block_obj.data_ptr(), prep.num_blocks, wb, kind,
+            int(hourglass), maxv, plan_w, n,
+            None if blocks is None else blocks.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
             plan.data_ptr(), stream)
-    build.check(rc, "plan_tiles_kernel")
+    build.check(rc, "plan_hourglass_kernel" if hourglass
+                else "plan_tiles_kernel")
     cull_cuda.plans += 1
+    cull_cuda.hourglass_plans += int(hourglass)
     cull_cuda.launches += (2 if kind else 1) if n else 0
     return plan
 
 
 cull_cuda.plans = 0
+cull_cuda.hourglass_plans = 0
 cull_cuda.launches = 0
 
 

@@ -243,8 +243,9 @@ def spherical_uvs(points: np.ndarray, size: int) -> np.ndarray:
 
 
 def dense_textured_on_ground(manager, subdivisions: int = 6):
-    """A stand-in for the reference's complex scene (a ground cube, the
-    bunny and three textured trees, about 177k triangles): the two spheres
+    """A stand-in for the reference's complex scene (a ground cube, two
+    cats, the bunny and three textured trees: about 125k triangles, 123,463
+    without the cats, whose OBJ file was never committed): the two spheres
     of :func:`dense_on_ground` (2 x 81,920 triangles at ``subdivisions``
     6, over 131,072 in all) on the checker ground of
     :func:`textured_on_ground`, the second sphere textured with the same

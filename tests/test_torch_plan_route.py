@@ -53,14 +53,13 @@ def _cam_spec(view):
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
 def test_route_by_flags(device):
-    """The kernel takes CUDA tensors, list plans and the interval test;
-    every other combination goes plain."""
+    """The kernels take CUDA tensors and list plans, of the interval test
+    or the hourglass test; every other combination goes plain."""
     for maxv, windows, listed in ((248, 1282, True), (0, 1282, False),
                                   (248, 70000, False),
                                   (1000, 65536, True)):
         for hourglass in (False, True):
-            want = ("cuda" if device == "cuda" and listed and not hourglass
-                    else "plain")
+            want = "cuda" if device == "cuda" and listed else "plain"
             got = pl.cull_route(torch.device(device), maxv, windows,
                                 hourglass)
             assert got == want, (device, maxv, windows, hourglass)
@@ -92,8 +91,8 @@ def test_cuda_route_wiring(scene, monkeypatch, groups):
                          groups=groups, rays=(o, d, tile))
     calls = []
 
-    def fake(prep_, ab_, wb, maxv, plan_w, excl, apex, apex_rev):
-        calls.append((wb, maxv, plan_w, apex, apex_rev))
+    def fake(prep_, ab_, wb, maxv, plan_w, excl, apex, apex_rev, hourglass):
+        calls.append((wb, maxv, plan_w, apex, apex_rev, hourglass))
         return pl.cull_plain(prep_, maxv, wb, ab_, excl, apex, apex_rev,
                              groups=groups, rays=(o, d, tile))[:, :plan_w]
 
@@ -107,7 +106,7 @@ def test_cuda_route_wiring(scene, monkeypatch, groups):
     assert pl.cull_plain.plans == plains + 1
     assert calls == [(2, cfg.cull_maxv,
                       pl.cull_width(prep.num_blocks // 2, cfg.cull_maxv,
-                                    True, groups), True, False)]
+                                    True, groups), True, False, False)]
     assert torch.equal(got, want)
 
 
