@@ -238,6 +238,21 @@ Phases, each of which must pass:
    (CUDA events), and the plain planner's call, with its bound
    (``planner_bound``).  The launches it prints are
    ``plan.cull_cuda.launches``, counted at the launch.
+17. the shading kernel (csrc/shade.cu, ``integrator.shade``'s CUDA route)
+   on one frame of each soft cell's scene (the gather textured frame's
+   smooth, textured ``textured_on_ground(6)``, and phase 16's dense soft
+   frame), both at 600x400, focal 400, 16 light samples: the frame with
+   the counts reset just before (one ``integrator.shade_cuda`` call and
+   launch, no ``shade_plain`` call); its uint8 image and radiance against
+   the frame shaded by the plain integrator (``shade_route`` forced
+   plain); the kernel's arguments captured (``shade_launch``: the rays, t,
+   ids, light samples and shadow flags), the kernel alone timed on the
+   card (``queued_ms``) with its bound (``shade_bound``: bytes), and the
+   plain integrator on the same hits and flags (its card and host ms), the
+   two radiances equal to the bit.  The launches it prints are
+   ``shade_cuda.launches`` over one ``render`` with the counts reset just
+   before; the frame's radiance (``render_radiance``) equals the plain
+   route's to the bit on every hit pixel.
 
 Every frame through ``render_checked`` (phases 3-9 and 13) and phase 15's
 frames print ``plans``: the plans the frame built on the card
@@ -451,6 +466,13 @@ OPS_PLAN_HOURGLASS = 2 * 3 * 2 * 7 + 2 + 3
 PLAN_REPS = 200
 PLAN_NAME = "plan_blocks_kernel + plan_tiles_kernel"
 PLAN_HOURGLASS_NAME = "plan_hourglass_kernel"
+# phase 17: the shading kernel's calls timed, and its compulsory bytes: a
+# ray's o, d, t, id and radiance; a hit triangle's vertices, normals (vertex
+# or flat), texel coordinates, object and texture ids; a texel
+SHADE_REPS = 50
+SHADE_NAME = "shade_kernel"
+SHADE_RAY_BYTES = 12 + 12 + 4 + 4 + 12
+SHADE_TEXEL_BYTES = 12
 
 
 class SmokeFailure(RuntimeError):
@@ -998,12 +1020,15 @@ def reset_launches() -> None:
     from simple_raytracer_tpu_torch.kernels import nearest
     from simple_raytracer_tpu_torch.kernels import plan as pl
     from simple_raytracer_tpu_torch.kernels.tiled import KERNELS
+    from simple_raytracer_tpu_torch.render import integrator
     for fn in KERNELS.values():
         fn.launches = 0
     nearest.tiled_nearest_shaded.mode_launches = dict.fromkeys(nearest.MODES,
                                                                 0)
     pl.cull_cuda.plans = pl.cull_cuda.launches = pl.cull_plain.plans = 0
     pl.cull_cuda.hourglass_plans = 0
+    integrator.shade_cuda.calls = integrator.shade_cuda.launches = 0
+    integrator.shade_plain.calls = 0
 
 
 def read_plans() -> dict:
@@ -1014,6 +1039,25 @@ def read_plans() -> dict:
     return {"card": pl.cull_cuda.plans,
             "hourglass": pl.cull_cuda.hourglass_plans,
             "launches": pl.cull_cuda.launches, "plain": pl.cull_plain.plans}
+
+
+def read_shading() -> dict:
+    """The shading's counts since :func:`reset_launches`: csrc/shade.cu's
+    calls and launches, and the plain integrator's calls."""
+    from simple_raytracer_tpu_torch.render import integrator
+    return {"cuda": integrator.shade_cuda.calls,
+            "launches": integrator.shade_cuda.launches,
+            "plain": integrator.shade_plain.calls}
+
+
+# the shading's counts a frame by branch: the gather and paged frames shade
+# by winner id on the card, the soft frame its fetched records in plain
+# PyTorch, the fused and legacy frames inside K1
+SHADING_BY_BRANCH = {"gather": {"cuda": 1, "launches": 1, "plain": 0},
+                     "paged": {"cuda": 1, "launches": 1, "plain": 0},
+                     "soft": {"cuda": 0, "launches": 0, "plain": 1},
+                     "fused": {"cuda": 0, "launches": 0, "plain": 0},
+                     "legacy": {"cuda": 0, "launches": 0, "plain": 0}}
 
 
 def read_launches() -> dict:
@@ -1078,21 +1122,25 @@ def render_checked(sr, prep, cfg, light, label: str, roles,
     torch.cuda.synchronize()
     launches = read_launches()
     plans = read_plans()
+    shading = read_shading()
     k1_modes = dict(nearest.tiled_nearest_shaded.mode_launches)
     require(all(launches[r] > 0 for r in roles)
             and all(n == 0 for r, n in launches.items() if r not in roles),
             f"{label} launched {launches}, not exactly {roles}")
+    tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
+    branch = frame_branch(prep, cfg, tpx * tpx)
+    require(shading == SHADING_BY_BRANCH[branch],
+            f"{label}: the {branch} frame shaded {shading}, not "
+            f"{SHADING_BY_BRANCH[branch]}")
     bg = (img == torch.tensor(cfg.background, dtype=torch.uint8,
                               device=prep.device)).all(dim=-1)
     coverage = float((~bg).float().mean())
     require(0.05 < coverage < 0.99, f"implausible coverage {coverage}")
     require(tuple(img.shape) == (cam.height, cam.width, 3)
             and bool(torch.isfinite(rad).all()), f"bad radiance ({label})")
-    tpx = pl.effective_tile_px(cfg, prep.scene.num_triangles)
-    res = {"phase": f"render ({label})",
-           "branch": frame_branch(prep, cfg, tpx * tpx),
+    res = {"phase": f"render ({label})", "branch": branch,
            "coverage": coverage, "launches": launches, "k1_modes": k1_modes,
-           "plans": plans,
+           "plans": plans, "shading": shading,
            **image_vs_plain(sr, prep, cfg, light, img, label, view, plains)}
     emit(**res)
     return res
@@ -2077,10 +2125,11 @@ def agreement(img, ref, what: str, label: str) -> dict:
 def plain_mode_frame(sr, operand, cfg, light, label: str, gpu: str,
                      view=None) -> tuple:
     """A frame of the bruteforce or BVH mode through ``render`` with the
-    counts reset just before and read just after: no kernel of csrc/
-    launched, coverage in (0.05, 0.99), finite radiance of the frame's
-    shape; then MODE_FRAMES frames timed and the card's peak allocated
-    memory.  Returns (image, the emitted line)."""
+    counts reset just before and read just after: no walk kernel of csrc/
+    launched, the shading on the card (one csrc/shade.cu call and launch
+    a ray chunk, none plain), coverage in (0.05, 0.99), finite radiance of
+    the frame's shape; then MODE_FRAMES frames timed and the card's peak
+    allocated memory.  Returns (image, the emitted line)."""
     import torch
     from simple_raytracer_tpu_torch.accel import traverse
     from simple_raytracer_tpu_torch.render.integrator import finalize_image
@@ -2092,8 +2141,12 @@ def plain_mode_frame(sr, operand, cfg, light, label: str, gpu: str,
     img = finalize_image(rad, hit, cfg)
     torch.cuda.synchronize()
     launches = read_launches()
+    shading = read_shading()
     require(all(n == 0 for n in launches.values()),
             f"{label} launched kernels of csrc/: {launches}")
+    require(shading["cuda"] >= 1 and shading["launches"] == shading["cuda"]
+            and shading["plain"] == 0,
+            f"{label}: shaded {shading}, not on the card alone")
     require(tuple(img.shape) == (cam.height, cam.width, 3)
             and img.device.type == "cuda"
             and bool(torch.isfinite(rad).all()), f"bad radiance ({label})")
@@ -2115,7 +2168,8 @@ def plain_mode_frame(sr, operand, cfg, light, label: str, gpu: str,
     require(bool(torch.equal(out, img)), f"{label}: timed frames differ")
     res = {"phase": f"render ({label})", "mode": cfg.mode,
            "width": cam.width, "height": cam.height, "focal": cam.focal,
-           "coverage": coverage, "launches": launches, "frames": MODE_FRAMES,
+           "coverage": coverage, "launches": launches, "shading": shading,
+           "frames": MODE_FRAMES,
            "ms_per_frame": ms, "peak_allocated_bytes": peak, **steps,
            "gpu": gpu}
     return img, res
@@ -3321,9 +3375,13 @@ def native_frame(sr, objects, cfg, light, label: str, gpu: str,
     torch.cuda.synchronize()
     launches = read_launches()
     plans = read_plans()
+    shading = read_shading()
     require(all(launches[r] > 0 for r in roles)
             and all(n == 0 for r, n in launches.items() if r not in roles),
             f"{label} launched {launches}, not exactly {roles}")
+    require(shading == SHADING_BY_BRANCH[branch],
+            f"{label}: the {branch} frame shaded {shading}, not "
+            f"{SHADING_BY_BRANCH[branch]}")
     pimg = sr.render(pprep, cfg, light)
     require(tuple(img.shape) == (cfg.camera.height, cfg.camera.width, 3)
             and torch.equal(img, pimg),
@@ -3333,7 +3391,8 @@ def native_frame(sr, objects, cfg, light, label: str, gpu: str,
     coverage = float((~bg).float().mean())
     require(0.05 < coverage < 0.99, f"{label}: coverage {coverage}")
     emit(phase=f"render ({label})", branch=branch, launches=launches,
-         plans=plans, coverage=coverage, image_equal_to_python_paths=True,
+         plans=plans, shading=shading, coverage=coverage,
+         image_equal_to_python_paths=True,
          triangles=prep.num_triangles, load_native_s=load_s,
          load_python_s=pload_s, prepare_native_s=prep_s,
          prepare_python_s=pprep_s, host_cpu=cpu, gpu=gpu,
@@ -3470,6 +3529,131 @@ def planner_phase(sr, frames, light, gpu: str) -> list:
                  plain_ms=plain_ms, plain_card_ms=plain_card_ms,
                  plain_host_ms=plain_host_ms, gpu=gpu, **bnd,
                  share=bnd["bound_ms"] / card_ms)
+    return entries
+
+
+def shade_bound(scene, cfg, args) -> dict:
+    """The least time of the shading kernel's work on ``args`` (those of
+    ``shade_launch``): the bytes it must move at 3.35 TB/s, each once: every
+    ray's SHADE_RAY_BYTES and its S shadow flags, the rows of the distinct
+    hit triangles, the distinct texels the textured hits read, the light
+    samples."""
+    import torch
+    from simple_raytracer_tpu_torch.ops import shading as sh
+    from simple_raytracer_tpu_torch.render import integrator
+    _, _, o, d, t, idx, samples, found = args
+    R, S = o.shape[0], samples.shape[0]
+    hit = torch.isfinite(t)
+    tris = torch.unique(idx[hit].long())
+    smooth = bool(cfg.shading.smooth_normals)
+    textured = bool(scene.has_textures)
+    row = 48 + (36 if smooth else 12) + 4 + (24 + 4 if textured else 0)
+    texels = 0
+    if textured:
+        rec = integrator.gather_hit_records(scene, idx[hit], cfg)
+        point = o[hit] + t[hit][:, None] * d[hit]
+        uv = sh.interpolate_uv(rec["uvs"], sh.barycentric(rec["tri_v"],
+                                                          point))
+        tid = rec["tex_id"].clamp_min(0).long()
+        w, h = scene.tex_width[tid].long(), scene.tex_height[tid].long()
+        x = torch.minimum(uv[:, 0].to(torch.int32).long().clamp_min(0),
+                          w - 1)
+        y = torch.minimum(uv[:, 1].to(torch.int32).long().clamp_min(0),
+                          h - 1)
+        lin = scene.tex_offset[tid].long() + y * w + x
+        texels = int(torch.unique(lin[rec["tex_id"] >= 0]).numel())
+    moved = (R * (SHADE_RAY_BYTES + (S if found is not None else 0))
+             + int(tris.numel()) * row + texels * SHADE_TEXEL_BYTES
+             + S * 12)
+    return {"bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": moved, "rays": R, "hit_rays": int(hit.sum()),
+            "distinct_triangles": int(tris.numel()), "texels": texels}
+
+
+def shade_phase(sr, frames, light, gpu: str) -> list:
+    """Phase 17: the shading kernel on one frame of each of ``frames``
+    ({label: (prep, cfg)}), held to the plain integrator and timed (see the
+    module's docstring)."""
+    import torch
+    from simple_raytracer_tpu_torch.render import integrator
+    entries = []
+    for label, (prep, cfg) in frames.items():
+        launches = []
+        real = integrator.shade_launch
+
+        def spy(*a):
+            launches.append(a)
+            return real(*a)
+        integrator.shade_launch = spy
+        try:
+            sr.render(prep, cfg, light)
+        finally:
+            integrator.shade_launch = real
+        require(len(launches) == 1, f"{label}: {len(launches)} shading "
+                                    f"launches a frame")
+        args = launches[0]
+        integrator.shade_cuda.calls = integrator.shade_cuda.launches = 0
+        integrator.shade_plain.calls = 0
+        img = sr.render(prep, cfg, light)
+        torch.cuda.synchronize()
+        counts = {"shade_cuda.calls": integrator.shade_cuda.calls,
+                  "shade_cuda.launches": integrator.shade_cuda.launches,
+                  "shade_plain.calls": integrator.shade_plain.calls}
+        require(list(counts.values()) == [1, 1, 0],
+                f"{label}: {counts} in one frame, not one CUDA call and "
+                f"launch")
+        rad, rad_hit = sr.render_radiance(prep, cfg, light)
+        route = integrator.shade_route
+        integrator.shade_route = lambda *a, **k: "plain"
+        try:
+            ref = sr.render(prep, cfg, light)
+            ref_rad, ref_hit = sr.render_radiance(prep, cfg, light)
+        finally:
+            integrator.shade_route = route
+        require(torch.equal(img, ref),
+                f"{label}: the frame differs from the plain integrator's on "
+                f"{int((img != ref).any(-1).sum())} pixels")
+        require(torch.equal(rad_hit, ref_hit),
+                f"{label}: the hit masks differ between the routes")
+        rad_bits = int((rad[rad_hit].contiguous().view(torch.int32)
+                        != ref_rad[rad_hit].contiguous().view(torch.int32))
+                       .sum())
+        require(rad_bits == 0,
+                f"{label}: the radiance of {rad_bits} channels of hit "
+                f"pixels differs from the plain route's")
+        scene, cfg_, o, d, t, idx, samples, found = args
+        flags = (None if found is None else
+                 lambda *a, **k: found.reshape(-1))
+        got = integrator.shade_launch(*args)
+        want = integrator.shade_plain(scene, cfg_, o, d, t, idx, light,
+                                      flags)
+        hit = torch.isfinite(t)
+        require(torch.equal(got[hit], want[hit]),
+                f"{label}: kernel vs plain integrator: "
+                f"{int((got[hit] != want[hit]).any(-1).sum())} hit rays "
+                f"differ")
+        card_ms, host_ms = queued_ms(lambda: integrator.shade_launch(*args),
+                                     SHADE_REPS)
+        call_ms = cuda_ms(lambda: integrator.shade_launch(*args), SHADE_REPS)
+        plain_ms = cuda_ms(lambda: integrator.shade_plain(
+            scene, cfg_, o, d, t, idx, light, flags), SHADE_REPS // 10)
+        plain_card_ms, plain_host_ms = queued_ms(
+            lambda: integrator.shade_plain(scene, cfg_, o, d, t, idx, light,
+                                           flags), SHADE_REPS // 10)
+        bnd = shade_bound(scene, cfg_, args)
+        entries.append(entry(
+            SHADE_NAME, "shade.cu",
+            "none: the JAX package shades in jnp (render/integrator.py::"
+            "shade_records)", label, counts["shade_cuda.launches"], 0.0,
+            card_ms, plain_ms, bnd,
+            call_ms=call_ms, host_ms=host_ms))
+        emit(phase=f"shading kernel vs plain ({label})", equal=True,
+             image_equal_to_plain=True, hit_radiance_bits_differing=rad_bits,
+             counts_in_one_frame=counts, samples=int(samples.shape[0]),
+             shadow=found is not None, card_ms=card_ms, host_ms=host_ms,
+             call_ms=call_ms, plain_ms=plain_ms, plain_card_ms=plain_card_ms,
+             plain_host_ms=plain_host_ms, gpu=gpu, **bnd,
+             share=bnd["bound_ms"] / card_ms)
     return entries
 
 
@@ -3687,6 +3871,13 @@ def main() -> int:
         "shadow bench": (prep, cfg.replace(camera=sr.CameraConfig(
             width=WIDTH, height=HEIGHT, focal=SHADOW_FOCAL))),
         "soft": (prep, soft),
+        f"dense soft: procedural, {dsoft_prep.num_triangles} triangles, "
+        f"{OCC_WIDTH}x{OCC_HEIGHT}, S={SOFT_SAMPLES}": (dsoft_prep, dsoft)},
+        light, gpu)
+
+    # 17. the shading kernel on the two soft scenes
+    entries += shade_phase(sr, {
+        f"gather textured: {tex_label}": (tex_prep, gtex),
         f"dense soft: procedural, {dsoft_prep.num_triangles} triangles, "
         f"{OCC_WIDTH}x{OCC_HEIGHT}, S={SOFT_SAMPLES}": (dsoft_prep, dsoft)},
         light, gpu)

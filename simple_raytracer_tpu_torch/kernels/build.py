@@ -105,6 +105,21 @@ SIGNATURES = {
             _P, _P, _P,          # block scratch, window scratch, plan
             _P),                 # stream
     },
+    "shade.cu": {
+        "srt_shade": (
+            _P, _P, _P, _P, _I,  # o, d, t, idx, rays
+            _P, _P, _P,          # verts, normals (vertex or flat), uvs
+            _P, _P,              # tri_obj, tri_tex
+            _P, _P, _P, _P,      # obj_color, ambient, specular, shininess
+            _P, _P, _P, _P,      # tex_data, tex_offset, width, height
+            _P, _I, _P,          # samples, light samples, found or 0
+            ctypes.POINTER(_F),  # light colour [3]
+            _F, _F, _F, _I,      # 1 / shadow_dim, reinhard offset, gamma,
+                                 # gamma kind
+            _I, _I, _I,          # smooth, textured, tonemap
+            _I, _I,              # double_sided, specular_nl
+            _P, _P),             # out, stream
+    },
     "probe_fixed.cu": {
         "srt_fixed_probe": (
             _I,                  # variant (probes/fixed.py::VARIANTS)

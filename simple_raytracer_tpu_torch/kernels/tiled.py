@@ -30,11 +30,12 @@ primary rays.
   mode; K3 then K1 over the refined plan; K4; or K1 over the explicit
   rays, over range-only plans where ``cull_maxv`` <= 0) ->
   :func:`tiled_shadow_fn` (K2′, or K5 with ``groups_ah`` > 1) ->
-  ``integrator.shade`` with the record gather (JAX ``tiled.py:1654-1666``);
+  ``integrator.shade`` by winner id (JAX ``tiled.py:1654-1666``: the
+  record gather; on the card csrc/shade.cu);
 * **paged** (``RenderConfig.tiled_impl="paged"``; any scene kind, any S):
   the page plan of the primary rays at the nearest-pass tile (pure page
   ranges where ``cull_maxv`` <= 0) -> K6 -> :func:`tiled_shadow_fn` over
-  page plans (K7) -> ``integrator.shade`` with the record gather.
+  page plans (K7) -> ``integrator.shade`` by winner id.
 
 Plans over more than 65,536 windows (or pages) are range-only
 (kernels/plan.py::range_only), built from the explicit rays.  The first

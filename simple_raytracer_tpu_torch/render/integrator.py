@@ -5,34 +5,55 @@ Counterpart of the JAX package's ``render/integrator.py``:
 ``records_from_attrs``, ``shade_records``, ``shade`` and
 ``finalize_image``.  The fused frame shades inside its nearest-hit kernel
 (kernels/nearest.py); the soft-shadow frame shades here, from the records
-the fetch mode of that kernel returns; the paged frame gathers its records
-by winner id (flat, textured or smooth-normal) and shades here.
+the fetch mode of that kernel returns; the gather and paged frames, and
+the bruteforce and BVH modes, shade here by winner id (flat, textured or
+smooth-normal): on the card in one kernel (csrc/shade.cu,
+:func:`shade_cuda`), elsewhere by gathering the records
+(:func:`shade_plain`).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..config import RenderConfig
+from ..kernels import build
 from ..ops import shading as sh
 from ..utils.metrics import span
+
+# torch.pow's own kernels for these exponents of the tone map's gamma
+# (ATen's pow_tensor_scalar), by csrc/shade.cu's pow_gamma kind; powf else
+POW_KINDS = {2.0: 1, 3.0: 2, -2.0: 3, 0.5: 4, -0.5: 5, -1.0: 6}
+
+
+@functools.lru_cache(maxsize=None)
+def _sample_offsets(num_samples: int, jitter_step: float,
+                    device: torch.device) -> torch.Tensor:
+    """The light samples' offsets from the light [S, 3], on ``device``,
+    made once per (S, jitter step, device)."""
+    offsets = np.zeros((num_samples, 3), dtype=np.float32)
+    acc = np.zeros(3, dtype=np.float32)
+    for s in range(num_samples):
+        offsets[s] = acc
+        acc[s % 3] += jitter_step
+    return torch.from_numpy(offsets).to(device)
 
 
 def light_sample_positions(light_pos, num_samples: int,
                            jitter_step: float) -> torch.Tensor:
     """Soft-shadow light sample positions (simple_raytracer.cpp:362-383):
     the reference moves the light cumulatively, +jitter on x, y, z in
-    rotation AFTER each sample, so sample 0 is the base light.  [S, 3]."""
-    offsets = np.zeros((num_samples, 3), dtype=np.float32)
-    acc = np.zeros(3, dtype=np.float32)
-    for s in range(num_samples):
-        offsets[s] = acc
-        acc[s % 3] += jitter_step
+    rotation AFTER each sample, so sample 0 is the base light.  [S, 3], on
+    the light's device, with no copy from the host once its offsets are
+    made."""
     light = torch.as_tensor(light_pos, dtype=torch.float32)
-    return light[None, :] + torch.from_numpy(offsets).to(light.device)
+    return light[None, :] + _sample_offsets(num_samples, float(jitter_step),
+                                            light.device)
 
 
 def gather_hit_records(scene, tri_idx: torch.Tensor,
@@ -174,14 +195,7 @@ def shade_records(scene, cfg: RenderConfig, record: dict,
         shadow_fn = None
     shadowed = None
     if shadow_fn is not None and lcfg.enable_shadows:
-        # one query for all S samples, sample-major; miss origins pinned to
-        # 0 (the shadow front end repairs them from the hit mask)
-        pts = torch.where(hit[:, None], point, 0.0)
-        shadowed = shadow_fn(
-            pts.expand(S, R, 3).reshape(S * R, 3),
-            samples[:, None, :].expand(S, R, 3).reshape(S * R, 3),
-            obj.expand(S, R).reshape(S * R),
-            hit=hit.expand(S, R).reshape(S * R)).reshape(S, R)
+        shadowed = _shadow_found(shadow_fn, point, hit, obj, samples)
     accum = torch.zeros_like(point)
     for s in range(S):
         c = sh.phong(normal, point, direction, samples[s].expand(R, 3),
@@ -197,22 +211,172 @@ def shade_records(scene, cfg: RenderConfig, record: dict,
     return accum
 
 
+def _shadow_found(shadow_fn, point, hit, obj, samples) -> torch.Tensor:
+    """One shadow query for all S light ``samples`` [S, 3], sample-major,
+    from the points [R, 3] of the hits ``hit`` [R] of objects ``obj`` [R]
+    -> found [S, R] bool.  Miss origins are pinned to 0 (the shadow front
+    end repairs them from the hit mask)."""
+    S, R = samples.shape[0], point.shape[0]
+    pts = torch.where(hit[:, None], point, 0.0)
+    return shadow_fn(
+        pts.expand(S, R, 3).reshape(S * R, 3),
+        samples[:, None, :].expand(S, R, 3).reshape(S * R, 3),
+        obj.expand(S, R).reshape(S * R),
+        hit=hit.expand(S, R).reshape(S * R)).reshape(S, R)
+
+
+def shade_route(device, record: Optional[dict] = None, inputs=()) -> str:
+    """Which shading :func:`shade` takes: ``"cuda"`` (csrc/shade.cu,
+    :func:`shade_cuda`) for tensors on a CUDA device, no ``record`` given
+    and no gradient to carry (not: autograd on and one of the tensors of
+    ``inputs`` requiring a gradient); ``"plain"`` (:func:`shade_plain`) for
+    everything else: tensors on the CPU, the records of the soft branch
+    (:func:`records_from_attrs`) and of dist/ring.py, and the
+    differentiated shading of diff/render.py."""
+    if (torch.device(device).type != "cuda" or record is not None
+            or (torch.is_grad_enabled()
+                and any(torch.is_tensor(x) and x.requires_grad
+                        for x in inputs))):
+        return "plain"
+    return "cuda"
+
+
 def shade(scene, cfg: RenderConfig, origin: torch.Tensor,
           direction: torch.Tensor, t: torch.Tensor, tri_idx: torch.Tensor,
           light_pos, shadow_fn: Optional[Callable] = None,
           record: Optional[dict] = None) -> torch.Tensor:
     """Shade rays [R, 3] from their nearest hits (t [R], inf = miss;
-    tri_idx [R], -1 = miss): the hits' ``record``, or with none the record
-    gathered by ``tri_idx`` (:func:`gather_hit_records`), through
-    :func:`shade_records`.  Returns tone-mapped radiance [R, 3]; misses
-    hold garbage."""
+    tri_idx [R], -1 = miss) by :func:`shade_route`'s route:
+    :func:`shade_cuda`, or :func:`shade_plain` (the hits' ``record``, or
+    with none the record gathered by ``tri_idx``).  Returns tone-mapped
+    radiance [R, 3]; misses hold garbage."""
     if scene.num_triangles == 0 or scene.obj_color.shape[0] == 0:
         return torch.zeros_like(origin)
     with span("srt.shade"):
-        if record is None:
-            record = gather_hit_records(scene, tri_idx, cfg)
-        return shade_records(scene, cfg, record, origin, direction, t,
-                             light_pos, shadow_fn)
+        inputs = (scene.verts, scene.vnormals, scene.tri_normal, scene.uvs,
+                  scene.obj_color, scene.obj_ambient, scene.obj_specular,
+                  scene.obj_shininess, scene.tex_data, origin, direction, t,
+                  light_pos)
+        if shade_route(origin.device, record, inputs) == "cuda":
+            return shade_cuda(scene, cfg, origin, direction, t, tri_idx,
+                              light_pos, shadow_fn)
+        return shade_plain(scene, cfg, origin, direction, t, tri_idx,
+                           light_pos, shadow_fn, record)
+
+
+def shade_plain(scene, cfg: RenderConfig, origin: torch.Tensor,
+                direction: torch.Tensor, t: torch.Tensor,
+                tri_idx: torch.Tensor, light_pos,
+                shadow_fn: Optional[Callable] = None,
+                record: Optional[dict] = None) -> torch.Tensor:
+    """:func:`shade` in plain PyTorch, on any device, for every record and
+    under autograd: the hits' ``record``, or with none the record gathered
+    by ``tri_idx`` (:func:`gather_hit_records`), through
+    :func:`shade_records`.  ``shade_plain.calls`` counts its calls."""
+    shade_plain.calls += 1
+    if record is None:
+        record = gather_hit_records(scene, tri_idx, cfg)
+    return shade_records(scene, cfg, record, origin, direction, t,
+                         light_pos, shadow_fn)
+
+
+shade_plain.calls = 0
+
+
+def shade_cuda(scene, cfg: RenderConfig, origin: torch.Tensor,
+               direction: torch.Tensor, t: torch.Tensor,
+               tri_idx: torch.Tensor, light_pos,
+               shadow_fn: Optional[Callable] = None) -> torch.Tensor:
+    """:func:`shade_plain`'s radiance with no record, on the card: the
+    light samples (their offsets made once on the device), one shadow query
+    of all of them through ``shadow_fn`` (as :func:`shade_records` makes
+    it), then csrc/shade.cu's kernel (:func:`shade_launch`), equal to
+    :func:`shade_plain` bit for bit; the host reads nothing back.
+    ``shade_cuda.calls`` counts its calls and ``shade_cuda.launches`` the
+    kernels launched."""
+    shade_cuda.calls += 1
+    lcfg = cfg.light
+    samples = light_sample_positions(
+        torch.as_tensor(light_pos, dtype=torch.float32, device=origin.device),
+        lcfg.num_samples, lcfg.jitter_step)
+    found = None
+    if (shadow_fn is not None and lcfg.enable_shadows
+            and scene.obj_color.shape[0] > 1):
+        hit = torch.isfinite(t)
+        point = origin + torch.where(hit, t, 0.0)[:, None] * direction
+        obj = scene.tri_obj[tri_idx.clamp_min(0).long()]
+        found = _shadow_found(shadow_fn, point, hit, obj, samples)
+    return shade_launch(scene, cfg, origin, direction, t, tri_idx, samples,
+                        found)
+
+
+shade_cuda.calls = 0
+shade_cuda.launches = 0
+
+
+def shade_launch(scene, cfg: RenderConfig, origin: torch.Tensor,
+                 direction: torch.Tensor, t: torch.Tensor,
+                 tri_idx: torch.Tensor, samples: torch.Tensor,
+                 found: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """csrc/shade.cu's kernel alone, one launch: the tone-mapped radiance
+    [R, 3] of the rays' hits under the light ``samples`` [S, 3], a sample
+    divided by ``shadow_dim`` where ``found`` [S, R] (bool; None: no
+    shadow) is set.  The scene's tensors are read in place; the rays, t,
+    ids (int32) and flags are made contiguous."""
+    scfg, lcfg = cfg.shading, cfg.light
+    dev = origin.device
+    R, S = origin.shape[0], samples.shape[0]
+    smooth = bool(scfg.smooth_normals)
+    f32, i32 = torch.float32, torch.int32
+    o, d, t = origin.contiguous(), direction.contiguous(), t.contiguous()
+    idx = tri_idx.to(i32).contiguous()
+    found = None if found is None else found.contiguous()
+    normals = scene.vnormals if smooth else scene.tri_normal
+    ops = {"origin": (o, f32), "direction": (d, f32), "t": (t, f32),
+           "tri_idx": (idx, i32), "verts": (scene.verts, f32),
+           "normals": (normals, f32), "uvs": (scene.uvs, f32),
+           "tri_obj": (scene.tri_obj, i32), "tri_tex": (scene.tri_tex, i32),
+           "obj_color": (scene.obj_color, f32),
+           "obj_ambient": (scene.obj_ambient, f32),
+           "obj_specular": (scene.obj_specular, f32),
+           "obj_shininess": (scene.obj_shininess, f32),
+           "tex_data": (scene.tex_data, f32),
+           "tex_offset": (scene.tex_offset, i32),
+           "tex_width": (scene.tex_width, i32),
+           "tex_height": (scene.tex_height, i32),
+           "samples": (samples, f32)}
+    if found is not None:
+        ops["found"] = (found, torch.bool)
+    build.check_tensors(dev, **ops)
+    if (o.shape != (R, 3) or d.shape != (R, 3) or t.shape != (R,)
+            or idx.shape != (R,) or samples.shape != (S, 3)
+            or (found is not None and found.shape != (S, R))):
+        raise ValueError("shade_launch: want o, d [R, 3], t, tri_idx [R], "
+                         "samples [S, 3] and found [S, R]")
+    out = torch.empty((R, 3), dtype=f32, device=dev)
+    # torch divides by a Python number as a product by its f32 reciprocal
+    inv_dim = float(np.float32(1.0) / np.float32(lcfg.shadow_dim))
+    light = (ctypes.c_float * 3)(*lcfg.color)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = build.library().srt_shade(
+            o.data_ptr(), d.data_ptr(), t.data_ptr(), idx.data_ptr(), R,
+            scene.verts.data_ptr(), normals.data_ptr(),
+            scene.uvs.data_ptr(), scene.tri_obj.data_ptr(),
+            scene.tri_tex.data_ptr(), scene.obj_color.data_ptr(),
+            scene.obj_ambient.data_ptr(), scene.obj_specular.data_ptr(),
+            scene.obj_shininess.data_ptr(), scene.tex_data.data_ptr(),
+            scene.tex_offset.data_ptr(), scene.tex_width.data_ptr(),
+            scene.tex_height.data_ptr(), samples.data_ptr(), S,
+            None if found is None else found.data_ptr(), light, inv_dim,
+            scfg.reinhard_offset, scfg.gamma,
+            POW_KINDS.get(float(scfg.gamma), 0), int(smooth),
+            int(scene.has_textures), int(scfg.tonemap_enabled),
+            int(scfg.double_sided_diffuse), int(scfg.specular_nl_factor),
+            out.data_ptr(), stream)
+    build.check(rc, "shade_kernel")
+    shade_cuda.launches += int(R > 0)
+    return out
 
 
 def finalize_image(radiance: torch.Tensor, hit: torch.Tensor,
