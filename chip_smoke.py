@@ -174,7 +174,7 @@ Phases, each of which must pass:
    step's arguments (t, idx and found bit for bit, > 1,000 shadowed hit
    lanes); the step's winners through ``nearest.hits`` on the CUDA walks
    and on the plain ones equal on every ray; the step on the plain walks
-   (``kernels=PLAIN``): the loss within rtol 1e-6, each gradient within
+   (``table.plain()``): the loss within rtol 1e-6, each gradient within
    1e-4 of its field's largest magnitude (the backward's scatter-adds sum
    in any order); the ``remat`` step (the walks launched twice) with the
    same 5 losses; 10 steps timed (host clock ending in a synchronize), the
@@ -244,9 +244,10 @@ Phases, each of which must pass:
    frame), both at 600x400, focal 400, 16 light samples: the frame with
    the counts reset just before (one ``integrator.shade_cuda`` call and
    launch, no ``shade_plain`` call); its uint8 image and radiance against
-   the frame shaded by the plain integrator (``shade_route`` forced
-   plain); the kernel's arguments captured (``shade_launch``: the rays, t,
-   ids, light samples and shadow flags), the kernel alone timed on the
+   the frame shaded by the plain integrator (the ``shade`` role of
+   kernels/table.py overridden to ``shade_plain``); the kernel's arguments
+   captured (``shade_launch``: the rays, t, ids, light samples and shadow
+   flags), the kernel alone timed on the
    card (``queued_ms``) with its bound (``shade_bound``: bytes), and the
    plain integrator on the same hits and flags (its card and host ms), the
    two radiances equal to the bit.  The launches it prints are
@@ -259,7 +260,12 @@ frames print ``plans``: the plans the frame built on the card
 (``plan.cull_cuda.plans``), the planner kernel's launches, and the plans
 built in plain PyTorch (``plan.cull_plain.plans``: phase 13's range-only
 frames), and of the card's plans those of the hourglass test
-(``plan.cull_cuda.hourglass_plans``).
+(``plan.cull_cuda.hourglass_plans``).  The counts are one snapshot of the
+program's registry (utils/metrics.py, :func:`read_counts`): the calls
+kernels/table.py made by role and the launches the wrappers report.  The
+plain image each of those frames is held to renders with every role of
+the table plain (``table.plain()``): no kernel of csrc/, the planner and
+the shading included.
 
 Every frame that runs K1 (phases 3, 6, 8, 9, 15, and 10's cut plans) holds
 K1's t and idx to the plain walk in K1's slices bit for bit, and prints a
@@ -443,6 +449,11 @@ RING_TILE, RING_MAXV = 256, 64
 DIST_FRAMES = 3
 COMPOSED_STEPS = 3
 RING_EQUAL_MIN = 0.995
+# the walks' roles of kernels/table.py: every kernel of a frame but the
+# planner's and the shading's
+WALKS = ("nearest_shaded", "nearest_attrs", "nearest_rays",
+         "nearest_rays_attrs", "nearest_grouped", "prepass", "anyhit_from_t",
+         "anyhit", "anyhit_grouped", "nearest_pages", "anyhit_pages")
 # phase 15: the kernels each scene's bench frame launches, by branch
 NATIVE_ROLES = {"fused": ("nearest_shaded", "anyhit_from_t"),
                 "legacy": ("nearest_shaded", "anyhit")}
@@ -552,14 +563,6 @@ def queued_ms(fn, reps: int) -> tuple:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps, host
-
-
-def capture(fn, store: list):
-    """``fn`` that also records the arguments of each call in ``store``."""
-    def wrapped(*args):
-        store.append(args)
-        return fn(*args)
-    return wrapped
 
 
 def plan_stats(plan) -> dict:
@@ -682,14 +685,13 @@ def plain_walk(plain, args):
 
 
 def frame_args(prep, cfg, light, cam_spec, rays=None) -> dict:
-    """The arguments the frame gives each kernel on its first call, by role
-    (kernels/tiled.py::KERNELS)."""
-    from simple_raytracer_tpu_torch.kernels.tiled import (KERNELS,
-                                                          render_flat_tiled)
-    stores = {role: [] for role in KERNELS}
-    render_flat_tiled(prep, cfg, light, cam_spec, rays=rays,
-                      kernels={role: capture(fn, stores[role])
-                               for role, fn in KERNELS.items()})
+    """The arguments the frame gives each walk on its first call, by role
+    (kernels/table.py)."""
+    from simple_raytracer_tpu_torch.kernels import table
+    from simple_raytracer_tpu_torch.kernels.tiled import render_flat_tiled
+    stores = {role: [] for role in WALKS}
+    with table.using({role: table.spy(role, stores[role]) for role in WALKS}):
+        render_flat_tiled(prep, cfg, light, cam_spec, rays=rays)
     return {role: st[0] for role, st in stores.items() if st}
 
 
@@ -1016,38 +1018,36 @@ def compare_kernels(prep, cfg, light, cam_spec, label: str, time_it: bool):
     return k1_res, k2_res, times
 
 
-def reset_launches() -> None:
-    from simple_raytracer_tpu_torch.kernels import nearest
-    from simple_raytracer_tpu_torch.kernels import plan as pl
-    from simple_raytracer_tpu_torch.kernels.tiled import KERNELS
-    from simple_raytracer_tpu_torch.render import integrator
-    for fn in KERNELS.values():
-        fn.launches = 0
-    nearest.tiled_nearest_shaded.mode_launches = dict.fromkeys(nearest.MODES,
-                                                                0)
-    pl.cull_cuda.plans = pl.cull_cuda.launches = pl.cull_plain.plans = 0
-    pl.cull_cuda.hourglass_plans = 0
-    integrator.shade_cuda.calls = integrator.shade_cuda.launches = 0
-    integrator.shade_plain.calls = 0
+def reset_counts() -> None:
+    """Zero the program's counters (utils/metrics.py's registry)."""
+    from simple_raytracer_tpu_torch.utils import metrics
+    metrics.reset_counts()
 
 
-def read_plans() -> dict:
-    """The planners' counts since :func:`reset_launches`: plans built by
-    csrc/plan.cu, those of them by its hourglass kernel, its launches, and
-    plans built in plain PyTorch."""
-    from simple_raytracer_tpu_torch.kernels import plan as pl
-    return {"card": pl.cull_cuda.plans,
-            "hourglass": pl.cull_cuda.hourglass_plans,
-            "launches": pl.cull_cuda.launches, "plain": pl.cull_plain.plans}
-
-
-def read_shading() -> dict:
-    """The shading's counts since :func:`reset_launches`: csrc/shade.cu's
-    calls and launches, and the plain integrator's calls."""
-    from simple_raytracer_tpu_torch.render import integrator
-    return {"cuda": integrator.shade_cuda.calls,
-            "launches": integrator.shade_cuda.launches,
-            "plain": integrator.shade_plain.calls}
+def read_counts() -> dict:
+    """One snapshot of the registry since :func:`reset_counts`, read as:
+    ``launches``, the walks' launches by role, as their CUDA wrappers count
+    them (kernels/table.py);
+    ``k1_modes``, K1's calls by attribute mode; ``plans``, the plans built
+    by csrc/plan.cu, those of them by its hourglass kernel, its launches,
+    and the plans built in plain PyTorch; ``shading``, csrc/shade.cu's
+    calls and launches and the plain integrator's calls."""
+    from simple_raytracer_tpu_torch.kernels import nearest, table
+    from simple_raytracer_tpu_torch.utils import metrics
+    now = metrics.counts()
+    cuda, plain = table.calls(), table.calls(twin=True)
+    launched = table.launches()
+    mode = "nearest.tiled_nearest_shaded.mode_launches."
+    return {"launches": {r: launched[r] for r in WALKS},
+            "k1_modes": {m: now.get(f"{mode}{m}", 0) for m in nearest.MODES},
+            "plans": {"card": cuda["plan"],
+                      "hourglass": now.get("plan.cull_cuda.hourglass_plans",
+                                           0),
+                      "launches": launched["plan"],
+                      "plain": plain["plan"]},
+            "shading": {"cuda": cuda["shade"],
+                        "launches": launched["shade"],
+                        "plain": plain["shade"]}}
 
 
 # the shading's counts a frame by branch: the gather and paged frames shade
@@ -1060,20 +1060,16 @@ SHADING_BY_BRANCH = {"gather": {"cuda": 1, "launches": 1, "plain": 0},
                      "legacy": {"cuda": 0, "launches": 0, "plain": 0}}
 
 
-def read_launches() -> dict:
-    from simple_raytracer_tpu_torch.kernels.tiled import KERNELS
-    return {role: fn.launches for role, fn in KERNELS.items()}
-
-
 def image_vs_plain(sr, prep, cfg, light, img, label: str,
                    view=None, plains=None) -> dict:
-    """The frame (seen through ``view``, a view matrix or None) through the
-    plain versions (``plains``, by role; default ``tiled.PLAIN``), on the
-    card, against ``img`` (within 1 on >= IMAGE_MIN of pixels)."""
+    """The frame (seen through ``view``, a view matrix or None) with every
+    role of kernels/table.py plain (``table.plain()``: no kernel of csrc/,
+    planner and shading included; ``plains`` by role in place of some
+    twins), on the card, against ``img`` (within 1 on >= IMAGE_MIN of
+    pixels)."""
     import torch
-    from simple_raytracer_tpu_torch.kernels import plan as pl
-    from simple_raytracer_tpu_torch.kernels.tiled import (PLAIN,
-                                                          render_flat_tiled,
+    from simple_raytracer_tpu_torch.kernels import plan as pl, table
+    from simple_raytracer_tpu_torch.kernels.tiled import (render_flat_tiled,
                                                           wants_rays)
     from simple_raytracer_tpu_torch.ops.camera import (primary_rays_tiled,
                                                        untile_image)
@@ -1086,9 +1082,10 @@ def image_vs_plain(sr, prep, cfg, light, img, label: str,
                                         cam.focal, cam.normalize_dirs,
                                         view_matrix=view, device=prep.device)
         rays = (o.reshape(-1, 3), d.reshape(-1, 3))
-    prad, phit = render_flat_tiled(
-        prep, cfg, light, (view, cam.focal, cam.width, cam.height, tpx),
-        rays=rays, kernels=plains or PLAIN)
+    with table.using({**table.plain(), **(plains or {})}):
+        prad, phit = render_flat_tiled(
+            prep, cfg, light, (view, cam.focal, cam.width, cam.height, tpx),
+            rays=rays)
     tx, ty = -(-cam.width // tpx), -(-cam.height // tpx)
     pimg = finalize_image(
         untile_image(prad, cam.width, cam.height, tpx, tx, ty),
@@ -1104,26 +1101,23 @@ def image_vs_plain(sr, prep, cfg, light, img, label: str,
 def render_checked(sr, prep, cfg, light, label: str, roles,
                    view=None, plains=None) -> dict:
     """The frame (seen through ``view``) through the public entry points,
-    with the kernels' launch counters reset just before and read just
-    after: every kernel of ``roles`` launched and no other; coverage in
+    with the counters reset just before and read just after: every walk of
+    ``roles`` launched and no other; coverage in
     (0.05, 0.99), the frame's shape and finite radiance; the image within 1
     of the plain versions' image (``plains``: see :func:`image_vs_plain`).
     Emits and returns the ``render`` line, with K1's launches by attribute
     mode."""
     import torch
-    from simple_raytracer_tpu_torch.kernels import nearest
     from simple_raytracer_tpu_torch.kernels import plan as pl
     from simple_raytracer_tpu_torch.kernels.tiled import frame_branch
     from simple_raytracer_tpu_torch.render.integrator import finalize_image
     cam = cfg.camera
-    reset_launches()
+    reset_counts()
     rad, hit = sr.render_radiance(prep, cfg, light, view_matrix=view)
     img = finalize_image(rad, hit, cfg)
     torch.cuda.synchronize()
-    launches = read_launches()
-    plans = read_plans()
-    shading = read_shading()
-    k1_modes = dict(nearest.tiled_nearest_shaded.mode_launches)
+    counts = read_counts()
+    launches, shading = counts["launches"], counts["shading"]
     require(all(launches[r] > 0 for r in roles)
             and all(n == 0 for r, n in launches.items() if r not in roles),
             f"{label} launched {launches}, not exactly {roles}")
@@ -1139,8 +1133,7 @@ def render_checked(sr, prep, cfg, light, label: str, roles,
     require(tuple(img.shape) == (cam.height, cam.width, 3)
             and bool(torch.isfinite(rad).all()), f"bad radiance ({label})")
     res = {"phase": f"render ({label})", "branch": branch,
-           "coverage": coverage, "launches": launches, "k1_modes": k1_modes,
-           "plans": plans, "shading": shading,
+           "coverage": coverage, **counts,
            **image_vs_plain(sr, prep, cfg, light, img, label, view, plains)}
     emit(**res)
     return res
@@ -1624,6 +1617,7 @@ def gather_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
     import torch
     from simple_raytracer_tpu_torch.kernels import nearest, prepass
     from simple_raytracer_tpu_torch.kernels import plan as pl
+    from simple_raytracer_tpu_torch.kernels import table
     from simple_raytracer_tpu_torch.kernels import tiled
     from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
     from simple_raytracer_tpu_torch.render.integrator import finalize_image
@@ -1663,8 +1657,8 @@ def gather_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
                "tiled_anyhit_t (tiled_t.py:1815)"))
     roles = (("prepass",) if kc.prepass else ()) + (near[0], shadow[0])
     kn, ks = args[near[0]], args[shadow[0]]
-    near_fn, near_plain = tiled.KERNELS[near[0]], tiled.PLAIN[near[0]]
-    sh_fn, sh_plain = tiled.KERNELS[shadow[0]], tiled.PLAIN[shadow[0]]
+    near_fn, near_plain = table.roles()[near[0]][:2]
+    sh_fn, sh_plain = table.roles()[shadow[0]][:2]
     inside = frame_lanes(*pl.tile_origins(kn[0].shape[0],
                                           -(-cam.width // tpx), tpx,
                                           cam.width, cam.height, dev),
@@ -1760,6 +1754,7 @@ def mode_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
     import torch
     from simple_raytracer_tpu_torch.kernels import anyhit, nearest
     from simple_raytracer_tpu_torch.kernels import plan as pl
+    from simple_raytracer_tpu_torch.kernels import table
     from simple_raytracer_tpu_torch.kernels import tiled
     from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
     from simple_raytracer_tpu_torch.render.integrator import finalize_image
@@ -1818,8 +1813,9 @@ def mode_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
         "k1_ms": cuda_ms(lambda: nearest.tiled_nearest_shaded(*k1), 20),
         "k1_plain_ms": cuda_ms(
             lambda: nearest.tiled_nearest_shaded_plain(*k1), 2),
-        "shadow_ms": cuda_ms(lambda: tiled.KERNELS[shadow](*ks), 20),
-        "shadow_plain_ms": cuda_ms(lambda: tiled.PLAIN[shadow](*ks), 2),
+        "shadow_ms": cuda_ms(lambda: table.roles()[shadow].cuda(*ks), 20),
+        "shadow_plain_ms": cuda_ms(lambda: table.roles()[shadow].plain(*ks),
+                                   2),
         "plan_and_k1_ms": cuda_ms(lambda: nearest.hits_shaded(
             prep, cfg, light, cam_spec, maxv), 10),
         "frame_ms": cuda_ms(lambda: finalize_image(
@@ -1955,18 +1951,18 @@ def probe_phase(prep, cfg, light, label: str, gpu: str) -> list:
     kernels-line entries."""
     import torch
     import torch.nn.functional as F
-    from simple_raytracer_tpu_torch.kernels import nearest
+    from simple_raytracer_tpu_torch.kernels import nearest, table
     from simple_raytracer_tpu_torch.probes import attr, device_ms, fixed
-    fixed.fixed_probe.launches = dict.fromkeys(fixed.VARIANTS, 0)
-    attr.attr_gather.launches = attr.attr_window.launches = 0
-    nearest.tiled_nearest_shaded.launches = 0
+    from simple_raytracer_tpu_torch.utils import metrics
+    reset_counts()
     frecs, inputs, points = fixed.run(prep, cfg, light, PROBE_FRAMES)
     arecs, ainputs = attr.run(iters=PROBE_FRAMES)
     torch.cuda.synchronize()
-    launches = {**fixed.fixed_probe.launches,
-                "attr_gather": attr.attr_gather.launches,
-                "attr_window": attr.attr_window.launches,
-                "nearest_shaded": nearest.tiled_nearest_shaded.launches}
+    now, calls = metrics.counts(), table.calls()
+    launches = {**{v: now.get(f"fixed.fixed_probe.launches.{v}", 0)
+                   for v in fixed.VARIANTS},
+                **{r: calls[r] for r in ("attr_gather", "attr_window",
+                                         "nearest_shaded")}}
     emit(phase=f"probes: launches ({label})", launches=launches)
     require(all(n > 0 for n in launches.values()),
             f"a probe kernel was not launched: {launches}")
@@ -2131,17 +2127,18 @@ def plain_mode_frame(sr, operand, cfg, light, label: str, gpu: str,
     the frame's shape; then MODE_FRAMES frames timed and the card's peak
     allocated memory.  Returns (image, the emitted line)."""
     import torch
-    from simple_raytracer_tpu_torch.accel import traverse
     from simple_raytracer_tpu_torch.render.integrator import finalize_image
+    from simple_raytracer_tpu_torch.utils import metrics
     cam = cfg.camera
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    reset_counts()
     rad, hit = sr.render_radiance(operand, cfg, light, view_matrix=view)
     img = finalize_image(rad, hit, cfg)
     torch.cuda.synchronize()
-    launches = read_launches()
-    shading = read_shading()
+    counts = read_counts()
+    launches, shading = counts["launches"], counts["shading"]
+    now = metrics.counts("traverse.")
     require(all(n == 0 for n in launches.values()),
             f"{label} launched kernels of csrc/: {launches}")
     require(shading["cuda"] >= 1 and shading["launches"] == shading["cuda"]
@@ -2157,8 +2154,8 @@ def plain_mode_frame(sr, operand, cfg, light, label: str, gpu: str,
     peak = torch.cuda.max_memory_allocated()
     steps = {}
     if cfg.mode == "bvh":
-        steps = {"nearest_steps": traverse.nearest_hit.steps,
-                 "shadow_steps": traverse.any_hit_other.steps}
+        steps = {"nearest_steps": now["traverse.nearest_hit.steps"],
+                 "shadow_steps": now["traverse.any_hit_other.steps"]}
     t0 = time.time()
     for _ in range(MODE_FRAMES):
         out = sr.render(operand, cfg, light, view_matrix=view,
@@ -2339,7 +2336,8 @@ def train_phase(sr, prep, light, root, gpu: str) -> list:
     import torch
     from simple_raytracer_tpu_torch.dist.train import DiffParams
     from simple_raytracer_tpu_torch.examples import fit_texture
-    from simple_raytracer_tpu_torch.kernels import anyhit, nearest, tiled
+    from simple_raytracer_tpu_torch.kernels import (anyhit, nearest, table,
+                                                    tiled)
     from simple_raytracer_tpu_torch.kernels import plan as pl
     from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
     from simple_raytracer_tpu_torch.scene import procedural as P
@@ -2361,10 +2359,10 @@ def train_phase(sr, prep, light, root, gpu: str) -> list:
     # the main path: the counts reset just before the first step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    reset_counts()
     params, loss = step(start, target)
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = read_counts()["launches"]
     peak = torch.cuda.max_memory_allocated()
     roles = ("nearest_rays", "anyhit")
     require(launches == {r: int(r in roles) for r in launches},
@@ -2377,19 +2375,18 @@ def train_phase(sr, prep, light, root, gpu: str) -> list:
 
     # the step's walks against their plain versions, on the step's
     # arguments; the shadow front end's inputs for its time
-    stores = {role: [] for role in tiled.KERNELS}
+    stores = {role: [] for role in WALKS}
     shadow_in = []
     real_shadow_fn = tiled.tiled_shadow_fn
 
-    def spy(*a, **k):
+    def shadow_spy(*a, **k):
         fn = real_shadow_fn(*a, **k)
         return lambda *x, **y: (shadow_in.append((fn, x, y)), fn(*x, **y))[1]
-    tiled.tiled_shadow_fn = spy
+    tiled.tiled_shadow_fn = shadow_spy
     try:
-        sr.make_train_step(prep, cfg, kernels={
-            role: capture(fn, stores[role])
-            for role, fn in tiled.KERNELS.items()}).value_and_grad(
-                start, target)
+        with table.using({role: table.spy(role, stores[role])
+                          for role in WALKS}):
+            sr.make_train_step(prep, cfg).value_and_grad(start, target)
     finally:
         tiled.tiled_shadow_fn = real_shadow_fn
     kn, ks = stores["nearest_rays"][0], stores["anyhit"][0]
@@ -2415,13 +2412,14 @@ def train_phase(sr, prep, light, root, gpu: str) -> list:
     maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
                                   cfg.kernel.window_blocks)
     tk, ik = nearest.hits(prep, cfg, o, d, tile, maxv, apex=True)
-    tp, ip = nearest.hits(prep, cfg, o, d, tile, maxv, apex=True,
-                          kernels=tiled.PLAIN)
+    with table.using(table.plain()):
+        tp, ip = nearest.hits(prep, cfg, o, d, tile, maxv, apex=True)
     require(torch.equal(ik, ip) and torch.equal(tk, tp),
             f"{label}: the step's winners differ from the plain walks'")
-    plain = sr.make_train_step(prep, cfg, lr=TRAIN_LR, kernels=tiled.PLAIN)
+    plain = sr.make_train_step(prep, cfg, lr=TRAIN_LR)
     lk, gk = step.value_and_grad(start, target)
-    lp, gp = plain.value_and_grad(start, target)
+    with table.using(table.plain()):
+        lp, gp = plain.value_and_grad(start, target)
     loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
     require(loss_err <= 1e-6, f"{label}: loss vs plain {loss_err}")
     errs = grads_within(gk, gp, f"{label} vs plain", rel=GRAD_REL)
@@ -2434,10 +2432,10 @@ def train_phase(sr, prep, light, root, gpu: str) -> list:
 
     # remat: the forward again in the backward, the walks twice a step
     rstep = sr.make_train_step(prep, cfg, lr=TRAIN_LR, remat=True)
-    reset_launches()
+    reset_counts()
     rparams, rloss = rstep(start, target)
     torch.cuda.synchronize()
-    rlaunches = read_launches()
+    rlaunches = read_counts()["launches"]
     require(rlaunches == {r: 2 * int(r in roles) for r in rlaunches},
             f"{label}: a remat step launched {rlaunches}")
     _, rmore = train_losses(rstep, rparams, target, TRAIN_STEPS - 1)
@@ -2559,14 +2557,15 @@ def train_phase(sr, prep, light, root, gpu: str) -> list:
 
 
 def timed_plains() -> dict:
-    """The plain versions by role (``tiled.PLAIN``), each timed on the card
+    """The walks' plain twins by role (kernels/table.py), each timed on the
+    card
     (CUDA events, ``.ms``) at its first call on a set of arguments and kept
     with its result: a later call on equal arguments returns that result
     again.  The plain image of a frame whose kernels were just held to
     these versions then reuses their walks on the same inputs (a range-only
     walk at 1080p takes some 20 s in plain PyTorch)."""
     import torch
-    from simple_raytracer_tpu_torch.kernels.tiled import PLAIN
+    from simple_raytracer_tpu_torch.kernels import table
 
     def same(a, b):
         if torch.is_tensor(a) or torch.is_tensor(b):
@@ -2591,7 +2590,7 @@ def timed_plains() -> dict:
             return out
         call.ms = call.args = call.out = None
         return call
-    return {role: kept(fn) for role, fn in PLAIN.items()}
+    return {role: kept(table.roles()[role].plain) for role in WALKS}
 
 
 def config_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
@@ -2613,6 +2612,7 @@ def config_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
     import torch
     from simple_raytracer_tpu_torch.kernels import nearest, paged
     from simple_raytracer_tpu_torch.kernels import plan as pl
+    from simple_raytracer_tpu_torch.kernels import table
     from simple_raytracer_tpu_torch.kernels import tiled
     from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
     from simple_raytracer_tpu_torch.render.integrator import finalize_image
@@ -2638,7 +2638,7 @@ def config_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
     args = frame_args(prep, cfg, light, cam_spec, (o, d))
     kn, ko = args[near], args[occ]
     plains = timed_plains()
-    kernel = tiled.KERNELS[near]
+    kernel = table.roles()[near].cuda
 
     # the nearest walk vs plain; the fetch mode's rows too
     walk_args = (kn[0], kn[1], *kn[3:]) if fetch else kn
@@ -2684,7 +2684,7 @@ def config_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
                       f"the same rays ({label})")
 
     # the any-hit walk vs plain, on the lanes whose point is a hit
-    o_res, o_walk = check_found(tiled.KERNELS[occ], plains[occ], ko,
+    o_res, o_walk = check_found(table.roles()[occ].cuda, plains[occ], ko,
                                 (torch.isfinite(kt) & inside).reshape(-1),
                                 S, occ_what, label, shadowed_min)
     rays_schedule(ko, label, o_walk, occ_what, occlusion=True, sweep=sweep)
@@ -2694,7 +2694,7 @@ def config_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
     ms_frame = view_varied_ms(sr, prep, cfg, light, frames, label)
     times = {"nearest_ms": cuda_ms(lambda: kernel(*kn), reps),
              "nearest_plain_ms": plains[near].ms,
-             "anyhit_ms": cuda_ms(lambda: tiled.KERNELS[occ](*ko), reps),
+             "anyhit_ms": cuda_ms(lambda: table.roles()[occ].cuda(*ko), reps),
              "anyhit_plain_ms": plains[occ].ms,
              "frame_ms": cuda_ms(lambda: finalize_image(
                  *sr.render_radiance(prep, cfg, light), cfg), reps)}
@@ -2834,22 +2834,18 @@ def busiest_call(calls) -> int:
 
 
 def spied_run(fn, roles) -> tuple:
-    """``fn()`` with the counts reset just before and read just after, the
-    wrappers of ``roles`` in ``tiled.KERNELS`` capturing their arguments
-    meanwhile (every default ``kernels=`` argument is that dict).  Returns
-    (its result, the counts, the captured arguments by role)."""
+    """``fn()`` with the counts reset just before and read just after, a
+    :func:`spy` in each of ``roles`` capturing its arguments meanwhile.
+    Returns (its result, the walks' counts, the captured arguments by
+    role)."""
     import torch
-    from simple_raytracer_tpu_torch.kernels import tiled
+    from simple_raytracer_tpu_torch.kernels import table
     stores = {r: [] for r in roles}
-    saved = {r: tiled.KERNELS[r] for r in roles}
-    reset_launches()
-    tiled.KERNELS.update({r: capture(saved[r], stores[r]) for r in roles})
-    try:
+    reset_counts()
+    with table.using({r: table.spy(r, stores[r]) for r in roles}):
         out = fn()
         torch.cuda.synchronize()
-    finally:
-        tiled.KERNELS.update(saved)
-    return out, read_launches(), stores
+    return out, read_counts()["launches"], stores
 
 
 def ray_walk_holds(near: str, occ: str, kn, ko, R: int, S: int, what,
@@ -2865,31 +2861,32 @@ def ray_walk_holds(near: str, occ: str, kn, ko, R: int, S: int, what,
     Returns (the nearest walk's check line, the any-hit walk's, the
     times)."""
     import torch
-    from simple_raytracer_tpu_torch.kernels import tiled
+    from simple_raytracer_tpu_torch.kernels import table
     fetch = near == "nearest_rays_attrs"
     plains = timed_plains()
+    near_fn, occ_fn = table.roles()[near].cuda, table.roles()[occ].cuda
     walk_args = (kn[0], kn[1], *kn[3:]) if fetch else kn
     n, m = walk_args[2].shape[:2]
     dev = walk_args[2].device
     inside = (torch.arange(n * m, device=dev) < R).reshape(n, m)
     n_res, kt, _ki, _w = check_nearest(
-        tiled.KERNELS[near], plains[near], kn, inside, what[0], label,
+        near_fn, plains[near], kn, inside, what[0], label,
         nearest_ops(walk_args[2]), window_bytes(kn[1], walk_args[4]), 24,
         winners=kn[2] if fetch else None, exact=True)
     if fetch:
-        ka, pa = tiled.KERNELS[near](*kn)[2], plains[near](*kn)[2]
+        ka, pa = near_fn(*kn)[2], plains[near](*kn)[2]
         torch.cuda.synchronize()
         rows_equal = bool(torch.equal(ka, pa))
         emit(check=f"{what[0]} rows vs plain ({label})",
              rows_equal=rows_equal, hit_rows=int((ka[:, 3] >= 0).sum()))
         require(rows_equal, f"{what[0]} rows differ from the plain fetch "
                             f"({label})")
-    o_res, _ = check_found(tiled.KERNELS[occ], plains[occ], ko,
+    o_res, _ = check_found(occ_fn, plains[occ], ko,
                            (torch.isfinite(kt) & inside).reshape(-1)[:R],
                            S, what[1], label)
-    times = {"nearest_ms": cuda_ms(lambda: tiled.KERNELS[near](*kn), 3),
+    times = {"nearest_ms": cuda_ms(lambda: near_fn(*kn), 3),
              "nearest_plain_ms": plains[near].ms,
-             "anyhit_ms": cuda_ms(lambda: tiled.KERNELS[occ](*ko), 3),
+             "anyhit_ms": cuda_ms(lambda: occ_fn(*ko), 3),
              "anyhit_plain_ms": plains[occ].ms}
     return n_res, o_res, times
 
@@ -3070,7 +3067,7 @@ def ring_phase(sr, prep, scene, cfg, light, label: str, gpu: str) -> list:
     kernels-line entries."""
     import torch
     from simple_raytracer_tpu_torch.dist import ring
-    from simple_raytracer_tpu_torch.kernels import nearest, paged, tiled
+    from simple_raytracer_tpu_torch.kernels import table
     from simple_raytracer_tpu_torch.ops.camera import primary_rays
     from simple_raytracer_tpu_torch.render.integrator import finalize_image
     cam = cfg.camera
@@ -3091,21 +3088,20 @@ def ring_phase(sr, prep, scene, cfg, light, label: str, gpu: str) -> list:
     R = o.shape[0]
     require(R % n == 0, f"{R} rays over {n} home blocks")
 
-    def frame(kernels=tiled.KERNELS):
+    def frame():
         rad, hit = ring.render_flat_ring_local(tables, shards, cfg, o, d,
-                                               light, apex=True,
-                                               kernels=kernels)
+                                               light, apex=True)
         return finalize_image(rad.reshape(cam.height, cam.width, 3),
                               hit.reshape(cam.height, cam.width), cfg), hit
 
     # the main path: the counts reset just before the ring frame; every
     # call's arguments kept, by role, for the per-shard times
     stores = {r: [] for r in ("nearest_rays", "anyhit_pages")}
-    spies = {r: capture(tiled.KERNELS[r], stores[r]) for r in stores}
-    reset_launches()
-    img, hit = frame(spies)
+    reset_counts()
+    with table.using({r: table.spy(r, stores[r]) for r in stores}):
+        img, hit = frame()
     torch.cuda.synchronize()
-    launches = read_launches()
+    launches = read_counts()["launches"]
     require(launches["nearest_rays"] == n * n
             and 0 < launches["anyhit_pages"] <= n * n
             and all(c == 0 for r, c in launches.items() if r not in stores),
@@ -3129,23 +3125,23 @@ def ring_phase(sr, prep, scene, cfg, light, label: str, gpu: str) -> list:
     m = kn[2].shape[1]
     inside = (torch.arange(kn[2].shape[0] * m, device=dev)
               < R // n).reshape(-1, m)
-    plain = tiled.PLAIN
+    k1_fn, k1_plain = table.roles()["nearest_rays"][:2]
+    k7_fn, k7_plain = table.roles()["anyhit_pages"][:2]
     n_res, _kt, _ki, _w = check_nearest(
-        tiled.KERNELS["nearest_rays"], plain["nearest_rays"], kn, inside,
+        k1_fn, k1_plain, kn, inside,
         f"ring K1 rays (home block {b1}, shard {s1})", label,
         nearest_ops(kn[2]), window_bytes(kn[1], kn[4]), 24, exact=True)
     c7, b7, s7 = busiest(stores["anyhit_pages"])
     ko = stores["anyhit_pages"][c7]
-    o_res, _ = check_found(tiled.KERNELS["anyhit_pages"],
-                           plain["anyhit_pages"], ko,
+    o_res, _ = check_found(k7_fn, k7_plain, ko,
                            hit[b7 * (R // n):(b7 + 1) * (R // n)], 1,
                            f"ring K7 (home block {b7}, shard {s7})", label)
 
     # times: the frame, then each call of the frame again (CUDA events)
     ms_frame = host_ms(lambda: frame(), DIST_FRAMES)
-    k1_calls = [cuda_ms(lambda a=a: tiled.KERNELS["nearest_rays"](*a), 3)
+    k1_calls = [cuda_ms(lambda a=a: k1_fn(*a), 3)
                 for a in stores["nearest_rays"]]
-    k7_calls = [cuda_ms(lambda a=a: tiled.KERNELS["anyhit_pages"](*a), 3)
+    k7_calls = [cuda_ms(lambda a=a: k7_fn(*a), 3)
                 for a in stores["anyhit_pages"]]
     # call j of block i ran on shard (i + j) mod n
     per_shard = {"k1_ms": [0.0] * n, "k7_ms": [0.0] * n}
@@ -3157,14 +3153,10 @@ def ring_phase(sr, prep, scene, cfg, light, label: str, gpu: str) -> list:
     times = {"ms_per_frame": ms_frame, "k1_ms_frame": sum(k1_calls),
              "k7_ms_frame": sum(k7_calls), "per_shard": per_shard,
              "planners_and_rest_share": (ms_frame - kern) / ms_frame,
-             "k1_pair_ms": cuda_ms(lambda: tiled.KERNELS["nearest_rays"](
-                 *kn), 10),
-             "k1_pair_plain_ms": cuda_ms(lambda: plain["nearest_rays"](*kn),
-                                         1),
-             "k7_pair_ms": cuda_ms(lambda: tiled.KERNELS["anyhit_pages"](
-                 *ko), 10),
-             "k7_pair_plain_ms": cuda_ms(lambda: plain["anyhit_pages"](*ko),
-                                         1)}
+             "k1_pair_ms": cuda_ms(lambda: k1_fn(*kn), 10),
+             "k1_pair_plain_ms": cuda_ms(lambda: k1_plain(*kn), 1),
+             "k7_pair_ms": cuda_ms(lambda: k7_fn(*ko), 10),
+             "k7_pair_plain_ms": cuda_ms(lambda: k7_plain(*ko), 1)}
     emit(phase=f"ring ({label})", shards=n, home_rays=R // n,
          ray_tile=RING_TILE, launches=launches, hit_mask_equal=hit_equal,
          image_vs_unsharded=bars, **times, gpu=gpu)
@@ -3370,12 +3362,12 @@ def native_frame(sr, objects, cfg, light, label: str, gpu: str,
     branch = frame_branch(prep, cfg, tpx * tpx)
     roles = NATIVE_ROLES[branch]
     native_kernels(prep, cfg, light, branch, label)
-    reset_launches()
+    reset_counts()
     img = sr.render(prep, cfg, light)
     torch.cuda.synchronize()
-    launches = read_launches()
-    plans = read_plans()
-    shading = read_shading()
+    counts = read_counts()
+    launches, plans = counts["launches"], counts["plans"]
+    shading = counts["shading"]
     require(all(launches[r] > 0 for r in roles)
             and all(n == 0 for r, n in launches.items() if r not in roles),
             f"{label} launched {launches}, not exactly {roles}")
@@ -3456,9 +3448,9 @@ def planner_phase(sr, frames, light, gpu: str) -> list:
     ``frames`` ({label: (prep, cfg)}), held to the plain planner on every
     word and timed (see the module's docstring)."""
     import torch
-    from simple_raytracer_tpu_torch.kernels import plan as pl
+    from simple_raytracer_tpu_torch.kernels import plan as pl, table
+    from simple_raytracer_tpu_torch.utils import metrics
     entries = []
-    route = pl.cull_route
     for label, (prep, cfg) in frames.items():
         calls = []
         real = pl.cull
@@ -3471,21 +3463,18 @@ def planner_phase(sr, frames, light, gpu: str) -> list:
             sr.render(prep, cfg, light)
         finally:
             pl.cull = real
-        reset_launches()
+        reset_counts()
         img = sr.render(prep, cfg, light)
         torch.cuda.synchronize()
-        plans = read_plans()
+        plans = read_counts()["plans"]
         hourglasses = sum(bool(k.get("hourglass")) for _, k in calls)
         require(plans["card"] == 2 and plans["plain"] == 0
                 and plans["hourglass"] == hourglasses,
                 f"{label}: {plans} plans a frame, not 2 on the card "
                 f"({hourglasses} of the hourglass test)")
         require(len(calls) == 2, f"{label}: {len(calls)} plans a frame")
-        pl.cull_route = lambda *a, **k: "plain"
-        try:
+        with table.using({"plan": pl.cull_plain}):
             ref = sr.render(prep, cfg, light)
-        finally:
-            pl.cull_route = route
         require(torch.equal(img, ref),
                 f"{label}: the frame differs from the plain planner's on "
                 f"{int((img != ref).any(-1).sum())} pixels")
@@ -3496,9 +3485,9 @@ def planner_phase(sr, frames, light, gpu: str) -> list:
             hourglass = bool(k.get("hourglass"))
             what = ("primary" if apex else "hard shadow" if rev
                     else "hourglass fold" if hourglass else "fold")
-            reset_launches()
+            reset_counts()
             got = pl.cull(*a, **k)
-            launches = pl.cull_cuda.launches
+            launches = metrics.counts()["plan.cull_cuda.launches"]
             want = pl.cull_plain(*a, **k)
             require(torch.equal(got, want),
                     f"planner vs plain ({label}, {what}): "
@@ -3575,6 +3564,7 @@ def shade_phase(sr, frames, light, gpu: str) -> list:
     ({label: (prep, cfg)}), held to the plain integrator and timed (see the
     module's docstring)."""
     import torch
+    from simple_raytracer_tpu_torch.kernels import table
     from simple_raytracer_tpu_torch.render import integrator
     entries = []
     for label, (prep, cfg) in frames.items():
@@ -3592,24 +3582,20 @@ def shade_phase(sr, frames, light, gpu: str) -> list:
         require(len(launches) == 1, f"{label}: {len(launches)} shading "
                                     f"launches a frame")
         args = launches[0]
-        integrator.shade_cuda.calls = integrator.shade_cuda.launches = 0
-        integrator.shade_plain.calls = 0
+        reset_counts()
         img = sr.render(prep, cfg, light)
         torch.cuda.synchronize()
-        counts = {"shade_cuda.calls": integrator.shade_cuda.calls,
-                  "shade_cuda.launches": integrator.shade_cuda.launches,
-                  "shade_plain.calls": integrator.shade_plain.calls}
+        shading = read_counts()["shading"]
+        counts = {"shade_cuda.calls": shading["cuda"],
+                  "shade_cuda.launches": shading["launches"],
+                  "shade_plain.calls": shading["plain"]}
         require(list(counts.values()) == [1, 1, 0],
                 f"{label}: {counts} in one frame, not one CUDA call and "
                 f"launch")
         rad, rad_hit = sr.render_radiance(prep, cfg, light)
-        route = integrator.shade_route
-        integrator.shade_route = lambda *a, **k: "plain"
-        try:
+        with table.using({"shade": integrator.shade_plain}):
             ref = sr.render(prep, cfg, light)
             ref_rad, ref_hit = sr.render_radiance(prep, cfg, light)
-        finally:
-            integrator.shade_route = route
         require(torch.equal(img, ref),
                 f"{label}: the frame differs from the plain integrator's on "
                 f"{int((img != ref).any(-1).sum())} pixels")

@@ -13,10 +13,11 @@ node array (or, walking for a shadow, finds an occluder) stops and keeps its
 state, as a finished lane of the JAX loop does; the rays still walking are
 kept as an index list, so a step costs only what they need.  Each step
 reads back whether any ray still walks (one host sync a step).
-``nearest_hit.steps`` / ``any_hit_other.steps`` hold the most steps one call
-took since ``reset_steps()``; ``render_radiance`` resets them at the start
-of each BVH frame, so after it they are the frame's lockstep steps over
-all of its ray chunks.
+The counters ``traverse.nearest_hit.steps`` / ``traverse.any_hit_other.steps``
+(utils/metrics.py) hold the most steps one call took since they were
+reset; ``render_radiance`` resets them (``reset_counts("traverse.")``) at
+the start of each BVH frame, so after it they are the frame's lockstep
+steps over all of its ray chunks.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 from ..config import RenderConfig
 from ..ops import intersect as isect
 from ..render import integrator
+from ..utils.metrics import count
 from .prepared import PreparedScene
 
 
@@ -76,7 +78,7 @@ def nearest_hit(prep: PreparedScene, o: torch.Tensor, d: torch.Tensor,
         node[live] = nxt
         live = live[nxt < prep.num_nodes]
         steps += 1
-    nearest_hit.steps = max(nearest_hit.steps, steps)
+    count("traverse.nearest_hit.steps", steps, peak=True)
     return best_t, best_idx
 
 
@@ -107,18 +109,8 @@ def any_hit_other(prep: PreparedScene, o: torch.Tensor, d: torch.Tensor,
         node[live] = nxt
         live = live[(nxt < prep.num_nodes) & ~f]
         steps += 1
-    any_hit_other.steps = max(any_hit_other.steps, steps)
+    count("traverse.any_hit_other.steps", steps, peak=True)
     return found
-
-
-def reset_steps() -> None:
-    """Zero the walks' step counts (``nearest_hit.steps``,
-    ``any_hit_other.steps``)."""
-    nearest_hit.steps = 0
-    any_hit_other.steps = 0
-
-
-reset_steps()
 
 
 def bvh_hits(prep: PreparedScene, origin, direction, eps: float = 1e-12):

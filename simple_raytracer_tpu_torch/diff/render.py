@@ -27,7 +27,6 @@ import torch
 
 from ..accel.prepared import PreparedScene
 from ..config import RenderConfig
-from ..kernels.tiled import KERNELS
 from ..ops import intersect as isect
 from ..ops.camera import primary_rays
 from ..render import integrator
@@ -91,8 +90,7 @@ def differentiable_hits(hit_fn: Callable, verts_cart: torch.Tensor,
     return recompute_t(tri, idx, t_walk, origin, direction, eps), idx
 
 
-def _intersectors(prep_or_scene, cfg: RenderConfig, flat: bool, apex: bool,
-                  kernels: dict):
+def _intersectors(prep_or_scene, cfg: RenderConfig, flat: bool, apex: bool):
     """(hit_fn, shadow_fn or None) of ``cfg.mode`` over the detached
     operand; the shadow function takes the integrator's contract."""
     from ..render.renderer import brute_force_hits, brute_force_shadow
@@ -133,14 +131,12 @@ def _intersectors(prep_or_scene, cfg: RenderConfig, flat: bool, apex: bool,
 
         def hit_fn(o, d):
             if paged_impl:
-                return paged.hits(op, cfg, o, d, htile, maxv, apex=apx,
-                                  kernel=kernels["nearest_pages"])
-            return nearest.hits(op, cfg, o, d, htile, maxv, apex=apx,
-                                kernels=kernels)
+                return paged.hits(op, cfg, o, d, htile, maxv, apex=apx)
+            return nearest.hits(op, cfg, o, d, htile, maxv, apex=apx)
         stile = pl.shadow_tile(cfg, tile, op.num_blocks * op.block_size)
         shadow_fn = tiled.tiled_shadow_fn(
             op, cfg, stile, maxv, lcfg.num_samples,
-            tiled.shadow_impl("paged" if paged_impl else None, kernels))
+            tiled.shadow_impl("paged" if paged_impl else None))
     else:
         raise ValueError(f"unknown render mode: {cfg.mode}")
     if not lcfg.enable_shadows:
@@ -156,7 +152,7 @@ def _intersectors(prep_or_scene, cfg: RenderConfig, flat: bool, apex: bool,
 def render_radiance_diff(prep_or_scene, cfg: RenderConfig, light_pos,
                          origin: Optional[torch.Tensor] = None,
                          direction: Optional[torch.Tensor] = None,
-                         apex: bool = False, kernels: dict = KERNELS):
+                         apex: bool = False):
     """Differentiable float render through the configured intersector.
 
     The output contract of ``render.renderer.render_radiance``: (radiance
@@ -168,8 +164,8 @@ def render_radiance_diff(prep_or_scene, cfg: RenderConfig, light_pos,
 
     ``apex``: the explicit rays share one origin (primary rays), so the
     tiled plans may use the projective test; unsound for rays that do not.
-    ``kernels`` maps the roles of ``kernels/tiled.py::KERNELS`` to
-    wrappers; ``PLAIN`` runs the same render on the plain walks.
+    The tiled walks are kernels/table.py's; under
+    ``table.using(table.plain())`` the same render runs the plain walks.
 
     Untextured scenes without smooth normals and with at most 8 objects
     take the lean path (JAX ``:126-160``): one [T, 13] table (the vertices,
@@ -190,8 +186,7 @@ def render_radiance_diff(prep_or_scene, cfg: RenderConfig, light_pos,
                             cam.normalize_dirs, device=dev)
         o, d = o.reshape(-1, 3), d.reshape(-1, 3)
     light_pos = torch.as_tensor(light_pos, dtype=d.dtype, device=dev)
-    hit_fn, shadow_fn = _intersectors(prep_or_scene, cfg, flat, apex,
-                                      kernels)
+    hit_fn, shadow_fn = _intersectors(prep_or_scene, cfg, flat, apex)
     verts_cart = scene.verts_cart()
     lean = (not scene.has_textures and not cfg.shading.smooth_normals
             and scene.num_objects <= 8 and scene.num_triangles > 0)

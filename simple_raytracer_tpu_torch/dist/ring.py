@@ -45,7 +45,6 @@ from ..accel.prepared import (NODE_FIELDS, PreparedScene, _block_obj,
                               _finish, prepare, target_device)
 from ..config import RenderConfig, default_config
 from ..kernels import nearest, tiled
-from ..kernels.tiled import KERNELS
 from ..ops import intersect as isect
 from ..ops.camera import primary_rays
 from ..render import integrator
@@ -216,15 +215,14 @@ def _ring_local(folds, blk: torch.Tensor) -> torch.Tensor:
 
 
 def _near_fold(shard: GeometryShard, cfg: RenderConfig, tile: int,
-               maxv: int, lean: bool, apex: bool, kernels):
+               maxv: int, lean: bool, apex: bool):
     """One rotation of the nearest walk on ``shard``: K1 over the block's
     rays, then the strict-< fold into the record."""
     table = shard.rec_flat if lean else shard.rec_pack
 
     def fold(blk):
         o, d, best = blk[:, 0:3], blk[:, 3:6], blk[:, 6]
-        t, li = nearest.hits(shard.prep, cfg, o, d, tile, maxv, apex=apex,
-                             kernels=kernels)
+        t, li = nearest.hits(shard.prep, cfg, o, d, tile, maxv, apex=apex)
         better = t < best
         rec = torch.where(better[:, None], table[li.clamp_min(0).long()],
                           blk[:, NEAR_HEAD:])
@@ -264,8 +262,7 @@ def _walk_cfg(cfg, eps: float, no_max_t: bool = True) -> RenderConfig:
 def ring_nearest_hit(shard: GeometryShard, o, d, group: Axis,
                      eps: float = 1e-12, tile: int = 256, maxv: int = 64,
                      lean: bool = False, *, apex: bool,
-                     overlap: bool = False, cfg: RenderConfig = None,
-                     kernels=KERNELS):
+                     overlap: bool = False, cfg: RenderConfig = None):
     """Global nearest hit of this process's home block o, d [R, 3] over
     the shards of the ring ``group`` (``shard`` the resident one).
 
@@ -275,16 +272,14 @@ def ring_nearest_hit(shard: GeometryShard, o, d, group: Axis,
     rays.  ``lean`` (flat, untextured shading) carries the 8-wide records;
     otherwise the 26-wide ones, and t is recomputed at the winner.
     ``cfg`` gives the walk's KernelConfig (default: the defaults); ``eps``
-    its Möller–Trumbore epsilon; ``kernels`` the walk's wrappers
-    (tiled.PLAIN: the plain walk).  The walks run under ``no_grad``.
+    its Möller–Trumbore epsilon.  The walks run under ``no_grad``.
     ``overlap`` selects the half-block schedule (JAX's default, bit-equal
     to the plain one); the port defaults to the plain schedule, because
     on H100s its halves double the host-bound planner calls while the
     transfer they hide takes a fraction of a millisecond over NVLink
     (``scripts/torch_dist_cards.py`` times both).
     Returns (t [R], record dict)."""
-    fold = _near_fold(shard, _walk_cfg(cfg, eps), tile, maxv, lean, apex,
-                      kernels)
+    fold = _near_fold(shard, _walk_cfg(cfg, eps), tile, maxv, lean, apex)
     with torch.no_grad():
         blk = _ring(fold, _near_block(o.detach(), d.detach(), lean), group,
                     overlap)
@@ -294,27 +289,25 @@ def ring_nearest_hit(shard: GeometryShard, o, d, group: Axis,
 def ring_nearest_hit_local(shards: List[GeometryShard], o, d,
                            eps: float = 1e-12, tile: int = 256,
                            maxv: int = 64, lean: bool = False, *,
-                           apex: bool, cfg: RenderConfig = None,
-                           kernels=KERNELS):
+                           apex: bool, cfg: RenderConfig = None):
     """:func:`ring_nearest_hit` of the ``n`` home blocks o, d [R, 3] (R a
     multiple of n, block i the i-th contiguous slab) with every shard in
     this process: block i folds shards i, i+1, ..., i+n-1 (mod n).
     Returns (t [R], record dict)."""
     c = _walk_cfg(cfg, eps)
     with torch.no_grad():
-        blk = _ring_local([_near_fold(s, c, tile, maxv, lean, apex, kernels)
+        blk = _ring_local([_near_fold(s, c, tile, maxv, lean, apex)
                            for s in shards],
                           _near_block(o.detach(), d.detach(), lean))
     return _near_result(blk, o, d, eps, lean)
 
 
-def _occ_fold(shard: GeometryShard, cfg: RenderConfig, tile: int,
-              maxv: int, kernels):
+def _occ_fold(shard: GeometryShard, cfg: RenderConfig, tile: int, maxv: int):
     """One rotation of the shadow on ``shard``: K7 over page plans of the
     block's rays (tiled_shadow_fn with the paged implementation, one
     sample: the light-apex test), ORed into found."""
     shadow = tiled.tiled_shadow_fn(shard.prep, cfg, tile, maxv, 1,
-                                   tiled.shadow_impl("paged", kernels))
+                                   tiled.shadow_impl("paged"))
 
     def fold(blk):
         o, d = blk[:, 0:3], blk[:, 3:6]
@@ -335,16 +328,15 @@ def _occ_block(o, d, self_obj, hit) -> torch.Tensor:
 def ring_any_hit_other(shard: GeometryShard, o, d, self_obj, group: Axis,
                        eps: float = 1e-12, no_max_t: bool = True,
                        hit=None, tile: int = 256, maxv: int = 64,
-                       overlap: bool = False, cfg: RenderConfig = None,
-                       kernels=KERNELS) -> torch.Tensor:
+                       overlap: bool = False,
+                       cfg: RenderConfig = None) -> torch.Tensor:
     """Shadow predicate over the ring: any hit (t >= 0; with ``no_max_t``
     False also t <= 1) of the rays o, d [R, 3] on a triangle of an object
     other than ``self_obj`` [R], on any shard.  ``hit`` [R] marks the rays
     whose origin is a real hit point (the shadow front end repairs the
     others from their tile's first hit).  ``overlap`` as in
     :func:`ring_nearest_hit`.  Returns found [R] bool."""
-    fold = _occ_fold(shard, _walk_cfg(cfg, eps, no_max_t), tile, maxv,
-                     kernels)
+    fold = _occ_fold(shard, _walk_cfg(cfg, eps, no_max_t), tile, maxv)
     with torch.no_grad():
         blk = _ring(fold, _occ_block(o, d, self_obj, hit), group, overlap)
     return blk[:, 8] != 0
@@ -353,14 +345,12 @@ def ring_any_hit_other(shard: GeometryShard, o, d, self_obj, group: Axis,
 def ring_any_hit_other_local(shards: List[GeometryShard], o, d, self_obj,
                              eps: float = 1e-12, no_max_t: bool = True,
                              hit=None, tile: int = 256, maxv: int = 64,
-                             cfg: RenderConfig = None,
-                             kernels=KERNELS) -> torch.Tensor:
+                             cfg: RenderConfig = None) -> torch.Tensor:
     """:func:`ring_any_hit_other` of the ``n`` home blocks with every shard
     in this process, as :func:`ring_nearest_hit_local`."""
     c = _walk_cfg(cfg, eps, no_max_t)
     with torch.no_grad():
-        blk = _ring_local([_occ_fold(s, c, tile, maxv, kernels)
-                           for s in shards],
+        blk = _ring_local([_occ_fold(s, c, tile, maxv) for s in shards],
                           _occ_block(o, d, self_obj, hit))
     return blk[:, 8] != 0
 
@@ -379,8 +369,7 @@ def _shade(scene, cfg: RenderConfig, o, d, light_pos, nearest_fn,
 
 
 def render_flat_ring(scene: Scene, shard: GeometryShard, cfg: RenderConfig,
-                     o, d, light_pos, group: Axis, *, apex: bool,
-                     kernels=KERNELS):
+                     o, d, light_pos, group: Axis, *, apex: bool):
     """Geometry-sharded renderer of this process's home block o, d [R, 3]:
     ``scene`` supplies only the small replicated tables (materials, texture
     atlas), all triangle data lives in the shards.  ``apex`` as
@@ -388,31 +377,29 @@ def render_flat_ring(scene: Scene, shard: GeometryShard, cfg: RenderConfig,
     return _shade(
         scene, cfg, o, d, light_pos,
         lambda lean: ring_nearest_hit(shard, o, d, group, cfg.mt_eps,
-                                      lean=lean, apex=apex, cfg=cfg,
-                                      kernels=kernels),
+                                      lean=lean, apex=apex, cfg=cfg),
         lambda p, dd, s, hit: ring_any_hit_other(
             shard, p, dd, s, group, cfg.mt_eps, cfg.light.shadow_no_max_t,
-            hit=hit, cfg=cfg, kernels=kernels))
+            hit=hit, cfg=cfg))
 
 
 def render_flat_ring_local(scene: Scene, shards: List[GeometryShard],
                            cfg: RenderConfig, o, d, light_pos, *,
-                           apex: bool, kernels=KERNELS):
+                           apex: bool):
     """:func:`render_flat_ring` of all ``n`` home blocks o, d [R, 3] (R a
     multiple of n) with every shard in this process."""
     return _shade(
         scene, cfg, o, d, light_pos,
         lambda lean: ring_nearest_hit_local(shards, o, d, cfg.mt_eps,
-                                            lean=lean, apex=apex, cfg=cfg,
-                                            kernels=kernels),
+                                            lean=lean, apex=apex, cfg=cfg),
         lambda p, dd, s, hit: ring_any_hit_other_local(
             shards, p, dd, s, cfg.mt_eps, cfg.light.shadow_no_max_t,
-            hit=hit, cfg=cfg, kernels=kernels))
+            hit=hit, cfg=cfg))
 
 
 def ring_frame(tables: Scene, shard: GeometryShard, cfg: RenderConfig,
-               light_pos, mesh: Mesh, ray_axes, gp_axis: str,
-               kernels=KERNELS) -> torch.Tensor:
+               light_pos, mesh: Mesh, ray_axes,
+               gp_axis: str) -> torch.Tensor:
     """A frame of the camera's row-major rays, sharded over ``ray_axes``,
     each process's home slab rotating around its ``gp_axis`` ring with its
     resident ``shard`` (on the mesh's device); ``tables`` the scene's
@@ -428,7 +415,7 @@ def ring_frame(tables: Scene, shard: GeometryShard, cfg: RenderConfig,
     rad, hit = render_flat_ring(
         tables, shard, cfg, slab(o, k, n_rays), slab(d, k, n_rays),
         torch.as_tensor(light_pos, dtype=torch.float32, device=dev),
-        mesh.axis(gp_axis), apex=True, kernels=kernels)
+        mesh.axis(gp_axis), apex=True)
     full = gather_slabs(mesh, ray_axes,
                         torch.cat([rad, hit.to(rad.dtype)[:, None]], 1))
     H, W = cam.height, cam.width

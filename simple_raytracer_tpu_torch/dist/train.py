@@ -24,7 +24,6 @@ from torch.utils.checkpoint import checkpoint
 from ..accel.prepared import PreparedScene, target_device
 from ..config import RenderConfig
 from ..diff.render import render_radiance_diff
-from ..kernels.tiled import KERNELS
 from ..kernels.plan import effective_tile_px
 from ..ops.camera import primary_rays, primary_rays_tiled
 from .sharding import slab, slab_index
@@ -116,8 +115,7 @@ def _reduced(leaves, loss, mesh, axes):
 
 def make_train_step(scene, cfg: RenderConfig, mesh=None, axis: str = "dp",
                     lr: float = 1e-3, remat: bool = False,
-                    optimizer: Optional[Callable] = None,
-                    kernels: dict = KERNELS):
+                    optimizer: Optional[Callable] = None):
     """A step fitting DiffParams to a target radiance image [H, W, 3].
 
     Returns ``step(params, target) -> (params, loss)``, the SGD update
@@ -142,8 +140,8 @@ def make_train_step(scene, cfg: RenderConfig, mesh=None, axis: str = "dp",
 
     ``remat`` recomputes the forward render in the backward
     (``torch.utils.checkpoint``): the intersectors run twice a step.
-    ``kernels`` maps the tiled roles to wrappers (``kernels/tiled.py``:
-    KERNELS, or PLAIN for the plain walks).
+    The tiled walks are kernels/table.py's (``table.using(table.plain())``
+    for the plain walks).
 
     With ``mesh`` (dist/sharding.py; the scene on its device), the step's
     rays (tile-major in tiled mode) are split into equal contiguous slabs
@@ -205,7 +203,7 @@ def make_train_step(scene, cfg: RenderConfig, mesh=None, axis: str = "dp",
         operand = dataclasses.replace(prep, scene=s) if fast else s
         radiance, hit = render_radiance_diff(
             operand, fwd_cfg, light, origin=o, direction=d,
-            apex=tile_layout is not None, kernels=kernels)
+            apex=tile_layout is not None)
         pred = torch.where(hit[:, None], radiance, 0.0) * mask
         return ((pred - target_flat) ** 2).sum()
 

@@ -12,9 +12,10 @@ and gather paths).  ``tiled_anyhit_grouped`` wraps the walk over explicit
 rays on a grouped plan and replaces ``tiled_t.py::_anyhit_kernel_g`` (K5,
 ``KernelConfig.groups_ah`` > 1).  ``tiled_anyhit_from_t_plain``,
 ``tiled_anyhit_plain`` and ``tiled_anyhit_grouped_plain`` are their plain
-PyTorch versions: same arguments, same results.  Each wrapper runs its
-plain version for tensors on the CPU and the kernel for tensors on a CUDA
-device; it adds one to its own ``launches`` at each call of its kernel.
+PyTorch versions: same arguments, same results.  Each wrapper takes CUDA
+tensors, launches its kernel and counts the launch
+(``anyhit.<wrapper>.launches``); kernels/table.py chooses between a
+wrapper and its plain version and counts the calls.
 
 ``anyhit_from_t`` and ``anyhit`` are the counterparts of the JAX
 ``tiled_t.anyhit_from_t`` and ``tiled_t.anyhit``.  Kernel 7
@@ -36,8 +37,8 @@ import torch
 
 from ..ops.camera import tile_ray_dirs
 from ..ops.intersect import mt_numerators, mt_occludes, xyz
-from ..utils.metrics import span
-from . import build, plan as pl
+from ..utils.metrics import count, span
+from . import build, plan as pl, table
 from .nearest import (check_groups, group_walk_masks, rows_max, slice_lanes,
                       span_plan)
 
@@ -62,21 +63,12 @@ def tiled_anyhit_from_t(plan, tri, block_obj, t, obj, cam, tile_px: int,
     light).  Returns found [n, tile] bool: the ray from the hit point toward
     the light meets a triangle of another object, at any t >= 0 (no max-t
     unless ``no_max_t`` is False).  Miss lanes read True; callers mask."""
-    if plan.device.type == "cpu":
-        return tiled_anyhit_from_t_plain(plan, tri, block_obj, t, obj, cam,
-                                         tile_px, window_tris, block_size,
-                                         eps, no_max_t)
-    if plan.device.type != "cuda":
-        raise ValueError(f"no any-hit kernel for device {plan.device}")
     launch, found, _ = anyhit_from_t_call(plan, tri, block_obj, t, obj, cam,
                                           tile_px, window_tris, block_size,
                                           eps, no_max_t)
     launch()
-    tiled_anyhit_from_t.launches += 1
+    count("anyhit.tiled_anyhit_from_t.launches")
     return found
-
-
-tiled_anyhit_from_t.launches = 0
 
 
 def anyhit_from_t_call(plan, tri, block_obj, t, obj, cam, tile_px: int,
@@ -259,13 +251,12 @@ def tiled_anyhit_from_t_plain(plan, tri, block_obj, t, obj, cam,
                        spans=spans)
 
 
-def anyhit_from_t(prep, cfg, t, obj, bounds, light_pos, cam_spec, maxv: int,
-                  kernel=tiled_anyhit_from_t):
+def anyhit_from_t(prep, cfg, t, obj, bounds, light_pos, cam_spec, maxv: int):
     """Hard-shadow query of the frame (JAX kernels/tiled_t.py::anyhit_from_t
     with sub=1): the shadow plan is built in O(tiles) from the nearest
     kernel's bounds rows — interval test, plus the projective light-apex
-    test, minus each pure tile's own object — and ``kernel`` (the CUDA
-    wrapper by default) rebuilds the shadow rays from t.  t [R], obj [R]
+    test, minus each pure tile's own object — and K2 ("anyhit_from_t")
+    rebuilds the shadow rays from t.  t [R], obj [R]
     from :func:`kernels.nearest.hits_shaded`; returns found [R] bool (miss
     lanes read True)."""
     vmx, focal, wd, hd, tpx = cam_spec
@@ -287,10 +278,10 @@ def anyhit_from_t(prep, cfg, t, obj, bounds, light_pos, cam_spec, maxv: int,
         plan[:, 4], plan[:, 5] = px0, py0
     cam = pl.make_cam(vmx, focal, light_pos, None, dev)
     with span("srt.anyhit"):
-        found = kernel(plan, prep.tri, prep.block_obj, t.reshape(n, tile),
-                       obj.reshape(n, tile), cam, tpx, wb * prep.block_size,
-                       prep.block_size, cfg.mt_eps,
-                       cfg.light.shadow_no_max_t)
+        found = table.run("anyhit_from_t", plan, prep.tri, prep.block_obj,
+                          t.reshape(n, tile), obj.reshape(n, tile), cam, tpx,
+                          wb * prep.block_size, prep.block_size, cfg.mt_eps,
+                          cfg.light.shadow_no_max_t)
     return found.reshape(-1)
 
 
@@ -304,7 +295,7 @@ def anyhit_rays_call(plan, tri, block_obj, o, d, self_obj,
     scratch, and return (launch, found [n, M], sched):
     ``launch(stages=3)`` queues the schedule, which zeroes found (1), and
     the walk (2).  Spans default to :func:`rays_spans`.  The walk of K2′,
-    K5 and K7 (kernels/paged.py); each caller counts its own launches."""
+    K5 and K7 (kernels/paged.py)."""
     build.check_tensors(plan.device, plan=(plan, torch.int32),
                         tri=(tri, torch.float32),
                         block_obj=(block_obj, torch.int32),
@@ -380,18 +371,10 @@ def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
     tile (any M); self_obj [n, M] i32 each ray's own object.  Returns
     found [n, M] bool: the ray meets a triangle of another object at t >= 0
     (and t <= 1 unless ``no_max_t``)."""
-    if plan.device.type == "cpu":
-        return tiled_anyhit_plain(plan, tri, block_obj, o, d, self_obj,
-                                  window_tris, block_size, eps, no_max_t)
-    if plan.device.type != "cuda":
-        raise ValueError(f"no any-hit kernel for device {plan.device}")
     found = launch_anyhit_rays(plan, tri, block_obj, o, d, self_obj,
                                window_tris, block_size, eps, no_max_t)
-    tiled_anyhit.launches += 1
+    count("anyhit.tiled_anyhit.launches")
     return found
-
-
-tiled_anyhit.launches = 0
 
 
 def tiled_anyhit_plain(plan, tri, block_obj, o, d, self_obj,
@@ -414,20 +397,11 @@ def tiled_anyhit_grouped(plan, tri, block_obj, o, d, self_obj,
     of M / groups consecutive lanes (a multiple of 32); a sub-group skips
     the entries whose mask bit it lacks.  Same results as the ungrouped
     walk of the plan's entries."""
-    if plan.device.type == "cpu":
-        return tiled_anyhit_grouped_plain(plan, tri, block_obj, o, d,
-                                          self_obj, window_tris, block_size,
-                                          eps, no_max_t, groups)
-    if plan.device.type != "cuda":
-        raise ValueError(f"no any-hit kernel for device {plan.device}")
     found = launch_anyhit_rays(plan, tri, block_obj, o, d, self_obj,
                                window_tris, block_size, eps, no_max_t,
                                groups, "anyhit_rays (sub-groups)")
-    tiled_anyhit_grouped.launches += 1
+    count("anyhit.tiled_anyhit_grouped.launches")
     return found
-
-
-tiled_anyhit_grouped.launches = 0
 
 
 def tiled_anyhit_grouped_plain(plan, tri, block_obj, o, d, self_obj,
@@ -451,13 +425,14 @@ def tiled_anyhit_grouped_plain(plan, tri, block_obj, o, d, self_obj,
 
 
 def anyhit(prep, cfg, o, d, self_obj2d, plan, tile: int,
-           kernel=tiled_anyhit, window_tris: int = None, groups: int = 1):
+           window_tris: int = None, groups: int = 1, role: str = "anyhit"):
     """Occlusion of explicit rays (JAX kernels/tiled_t.py::anyhit): o, d
     [R, 3] (padded here to whole tiles by repeating the last ray),
     self_obj2d [n, tile] i32, ``plan`` from plan.cull_occl with windows of
-    ``window_tris`` triangles (None: cfg.kernel.window_blocks_ah blocks).
-    ``groups`` > 1: the plan is grouped and ``kernel`` is K5's wrapper
-    (:func:`tiled_anyhit_grouped`).  Returns found [n, tile] bool."""
+    ``window_tris`` triangles (None: cfg.kernel.window_blocks_ah blocks),
+    walked by ``role`` of kernels/table.py (K2′; "anyhit_pages": K7).
+    ``groups`` > 1: the plan is grouped and K5 ("anyhit_grouped") walks
+    it.  Returns found [n, tile] bool."""
     with span("srt.anyhit"):
         o, d, _ = pl.pad_rays(o, d, tile)
         n = o.shape[0] // tile
@@ -467,4 +442,6 @@ def anyhit(prep, cfg, o, d, self_obj2d, plan, tile: int,
                 d.reshape(n, tile, 3).contiguous(),
                 self_obj2d.to(torch.int32).contiguous(), wt,
                 prep.block_size, cfg.mt_eps, cfg.light.shadow_no_max_t)
-        return kernel(*args, groups) if groups > 1 else kernel(*args)
+        if groups > 1:
+            return table.run("anyhit_grouped", *args, groups)
+        return table.run(role, *args)

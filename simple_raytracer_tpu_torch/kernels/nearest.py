@@ -18,9 +18,9 @@ the flat frames of ``hit_tile`` sub-tiles and of normalized directions).
 plan and replaces ``tiled_t.py::_nearest_kernel_g`` (K4,
 ``KernelConfig.groups`` > 1).  Each ``*_plain`` function is the plain
 PyTorch version of its wrapper: same arguments, same results.  Each wrapper
-runs its plain version for tensors on the CPU and the kernel for tensors
-on a CUDA device; it adds one to its own ``launches`` at each call of its
-kernel (a call is three launches).  :func:`work_rows`, :func:`hit_keys`,
+takes CUDA tensors, launches its kernel (a call is three launches) and
+counts the launch (``nearest.<wrapper>.launches``); kernels/table.py
+chooses between a wrapper and its plain version and counts the calls.  :func:`work_rows`, :func:`hit_keys`,
 :func:`merge_keys` and :func:`decode_keys` are the plain versions of the
 walks' schedule and of their per-ray merge keys.
 
@@ -40,9 +40,9 @@ import torch
 
 from ..ops.camera import tile_ray_dirs
 from ..ops.intersect import mt_distance, mt_numerators, xyz
-from ..utils.metrics import span
-from . import build, plan as pl
-from .prepass import refine_plan, tiled_prepass
+from ..utils.metrics import count, span
+from . import build, plan as pl, table
+from .prepass import refine_plan
 
 BOUNDS_W = 15
 MAP_W = 12              # floats of a tri_tex_map / tri_nrm_map row
@@ -229,26 +229,14 @@ def tiled_nearest_shaded(plan, tri, tri_attr, mat, cam, tile_px: int,
     term + ambient, sw = specular weight, texu, texv, obj, tex id;
     (0, 0, 0, 0, -1, -1) on a miss) and bounds [n, 15] f32 (see
     plan.analytic_shadow_bounds_exact)."""
-    if plan.device.type == "cpu":
-        return tiled_nearest_shaded_plain(plan, tri, tri_attr, mat, cam,
-                                          tile_px, window_tris, eps,
-                                          double_sided, specular_nl, mode,
-                                          attr_map)
-    if plan.device.type != "cuda":
-        raise ValueError(f"no nearest kernel for device {plan.device}")
     shade_width(mode)
     launch, outs, _ = k1_call(plan, tri, tri_attr, cam, tile_px,
                               window_tris, eps, mode, mat, attr_map,
                               double_sided, specular_nl)
     launch()
-    tiled_nearest_shaded.launches += 1
-    tiled_nearest_shaded.mode_launches[mode] += 1
+    count("nearest.tiled_nearest_shaded.launches")
+    count(f"nearest.tiled_nearest_shaded.mode_launches.{mode}")
     return outs
-
-
-# kernel launches, in all and by attribute mode
-tiled_nearest_shaded.launches = 0
-tiled_nearest_shaded.mode_launches = dict.fromkeys(MODES, 0)
 
 
 def tiled_nearest_attrs(plan, tri, tri_attr, cam, tile_px: int,
@@ -259,19 +247,11 @@ def tiled_nearest_attrs(plan, tri, tri_attr, cam, tile_px: int,
     miss), idx [n, tile] i32 (-1) and attrs [n * tile, 4] f32: the winner's
     ``tri_attr`` row (flat normal xyz, object id), (0, 0, 0, -1) on a
     miss."""
-    if plan.device.type == "cpu":
-        return tiled_nearest_attrs_plain(plan, tri, tri_attr, cam, tile_px,
-                                         window_tris, eps)
-    if plan.device.type != "cuda":
-        raise ValueError(f"no nearest kernel for device {plan.device}")
     launch, outs, _ = k1_call(plan, tri, tri_attr, cam, tile_px,
                               window_tris, eps)
     launch()
-    tiled_nearest_attrs.launches += 1
+    count("nearest.tiled_nearest_attrs.launches")
     return outs
-
-
-tiled_nearest_attrs.launches = 0
 
 
 def work_rows(plan, n_windows: int, range_span: int = K1_RANGE_SPAN,
@@ -425,8 +405,7 @@ def rays_call(plan, tri, o, d, window_tris: int, eps: float,
     (the fetch mode over explicit rays) the decode also writes the
     winner's row, and the outputs are (t, idx, attrs [n * M, 4]).  Spans
     default to :func:`rays_spans`.  The walk of K1's rays and fetch-over-
-    rays modes, K4 and K6 (kernels/paged.py); each caller counts its own
-    launches."""
+    rays modes, K4 and K6 (kernels/paged.py)."""
     ops = dict(plan=(plan, torch.int32), tri=(tri, torch.float32),
                o=(o, torch.float32), d=(d, torch.float32))
     if tri_attr is not None:
@@ -514,16 +493,9 @@ def tiled_nearest_rays(plan, tri, o, d, window_tris: int, eps: float):
     every tile of ``plan`` (windows of ``window_tris`` triangles; the
     prepass walk's refined plan).  Returns t [n, M] f32 (inf on a miss) and
     idx [n, M] i32 (-1); equal t goes to the lowest triangle id."""
-    if plan.device.type == "cpu":
-        return tiled_nearest_rays_plain(plan, tri, o, d, window_tris, eps)
-    if plan.device.type != "cuda":
-        raise ValueError(f"no nearest kernel for device {plan.device}")
-    out = launch_nearest_rays(plan, tri, o, d, window_tris, eps)
-    tiled_nearest_rays.launches += 1
-    return out
-
-
-tiled_nearest_rays.launches = 0
+    outs = launch_nearest_rays(plan, tri, o, d, window_tris, eps)
+    count("nearest.tiled_nearest_rays.launches")
+    return outs
 
 
 def tiled_nearest_rays_plain(plan, tri, o, d, window_tris: int, eps: float):
@@ -542,20 +514,12 @@ def tiled_nearest_rays_attrs(plan, tri, tri_attr, o, d, window_tris: int,
     Returns t [n, M] f32 (inf on a miss), idx [n, M] i32 (-1) and attrs
     [n * M, 4] f32 (flat normal xyz, object id; (0, 0, 0, -1) on a miss),
     as :func:`tiled_nearest_attrs`."""
-    if plan.device.type == "cpu":
-        return tiled_nearest_rays_attrs_plain(plan, tri, tri_attr, o, d,
-                                              window_tris, eps)
-    if plan.device.type != "cuda":
-        raise ValueError(f"no nearest kernel for device {plan.device}")
     launch, outs, _ = rays_call(plan, tri, o, d, window_tris, eps,
                                 what="nearest_rays (fetch mode)",
                                 tri_attr=tri_attr)
     launch()
-    tiled_nearest_rays_attrs.launches += 1
+    count("nearest.tiled_nearest_rays_attrs.launches")
     return outs
-
-
-tiled_nearest_rays_attrs.launches = 0
 
 
 def tiled_nearest_rays_attrs_plain(plan, tri, tri_attr, o, d,
@@ -574,18 +538,10 @@ def tiled_nearest_grouped(plan, tri, o, d, window_tris: int, eps: float,
     of M / groups consecutive lanes (a multiple of 32); a sub-group skips
     the entries whose mask bit it lacks and stops at its own bound test.
     Same results as the ungrouped walk of the plan's entries."""
-    if plan.device.type == "cpu":
-        return tiled_nearest_grouped_plain(plan, tri, o, d, window_tris, eps,
-                                           groups)
-    if plan.device.type != "cuda":
-        raise ValueError(f"no nearest kernel for device {plan.device}")
-    out = launch_nearest_rays(plan, tri, o, d, window_tris, eps, groups,
-                              "nearest_rays (sub-groups)")
-    tiled_nearest_grouped.launches += 1
-    return out
-
-
-tiled_nearest_grouped.launches = 0
+    outs = launch_nearest_rays(plan, tri, o, d, window_tris, eps, groups,
+                               "nearest_rays (sub-groups)")
+    count("nearest.tiled_nearest_grouped.launches")
+    return outs
 
 
 def group_walk_masks(plan, groups: int):
@@ -930,20 +886,19 @@ def attr_mode(prep, cfg):
     return TEXTURED if textured else SMOOTH if smooth else FLAT
 
 
-def hits_shaded(prep, cfg, light_pos, cam_spec, maxv: int,
-                kernel=tiled_nearest_shaded, rays=None):
+def hits_shaded(prep, cfg, light_pos, cam_spec, maxv: int, rays=None):
     """Nearest hit + fused Phong over the frame's primary rays in tile-major
     order (JAX kernels/tiled_t.py::hits_shaded with want_bounds=1).
 
     Builds the primary plan (from ``rays``, the tile-major primary rays
     (o, d), where it is range-only), the camera constants with the shared
-    shadow frame, and runs ``kernel`` (the CUDA wrapper by default) in the
-    scene's :func:`attr_mode`.  Returns (t [R], idx [R], obj [R], rgb
+    shadow frame, and runs K1 ("nearest_shaded") in the scene's
+    :func:`attr_mode`.  Returns (t [R], idx [R], obj [R], rgb
     [R, 3] or, in the TEXTURED mode, comp [R, 6] = (dw, sw, texu, texv,
     obj, tex id), bounds [n, 15]), R = n * tile_px**2, misses t = inf."""
     args = shaded_args(prep, cfg, light_pos, cam_spec, maxv, rays)
     with span("srt.k1"):
-        t, idx, obj, rgb, bounds = kernel(*args)
+        t, idx, obj, rgb, bounds = table.run("nearest_shaded", *args)
     return t.reshape(-1), idx.reshape(-1), obj.reshape(-1), rgb, bounds
 
 
@@ -969,16 +924,6 @@ def shaded_args(prep, cfg, light_pos, cam_spec, maxv: int,
             mode, amap)
 
 
-def _roles(kernels):
-    """The wrappers by role (kernels/tiled.py::KERNELS): the CUDA ones of
-    this module, overridden by ``kernels``."""
-    return {"prepass": tiled_prepass, "nearest_rays": tiled_nearest_rays,
-            "nearest_grouped": tiled_nearest_grouped,
-            "nearest_attrs": tiled_nearest_attrs,
-            "nearest_rays_attrs": tiled_nearest_rays_attrs,
-            **(kernels or {})}
-
-
 def _iota(cam_spec, apex: bool, maxv: int, tile: int) -> bool:
     """Whether the walk rebuilds its rays from the pixels (JAX
     tiled_t._use_iota): primary rays of ``cam_spec`` whose ray tiles are
@@ -996,8 +941,7 @@ def _tiles_of(o, d, tile: int):
             dp.reshape(n, tile, 3).contiguous(), R)
 
 
-def hits_attrs(prep, cfg, cam_spec, maxv: int, kernels=None, rays=None,
-               tile: int = 0):
+def hits_attrs(prep, cfg, cam_spec, maxv: int, rays=None, tile: int = 0):
     """Nearest hit + the winner's attribute row over the frame's primary
     rays (JAX kernels/tiled_t.py::hits_attrs with apex).  ``rays`` = (o, d)
     [R, 3] in tiles of ``tile`` (0: the pixel tile of ``cam_spec``).
@@ -1006,10 +950,8 @@ def hits_attrs(prep, cfg, cam_spec, maxv: int, kernels=None, rays=None,
     primary plan ("nearest_attrs"; ``rays`` only for a range-only plan);
     otherwise (sub-tiles, normalized directions: ``cam_spec`` None) its
     fetch mode over the explicit rays walks their plan
-    ("nearest_rays_attrs").  ``kernels`` maps roles to wrappers (the CUDA
-    ones by default).  Returns (t [R], idx [R], attrs [R, 4]) for
+    ("nearest_rays_attrs").  Returns (t [R], idx [R], attrs [R, 4]) for
     :func:`render.integrator.records_from_attrs`; misses t = inf."""
-    kernels = _roles(kernels)
     wt = cfg.kernel.window_blocks * prep.block_size
     tile = tile or cam_spec[4] ** 2
     if _iota(cam_spec, True, maxv, tile):
@@ -1017,9 +959,8 @@ def hits_attrs(prep, cfg, cam_spec, maxv: int, kernels=None, rays=None,
         plan = primary_plan(prep, cfg, cam_spec, maxv, rays)
         cam = pl.make_cam(vmx, focal, (0.0, 0.0, 0.0), None, prep.device)
         with span("srt.k1"):
-            t, idx, attrs = kernels["nearest_attrs"](plan, prep.tri,
-                                                     prep.tri_attr, cam, tpx,
-                                                     wt, cfg.mt_eps)
+            t, idx, attrs = table.run("nearest_attrs", plan, prep.tri,
+                                      prep.tri_attr, cam, tpx, wt, cfg.mt_eps)
         R = t.numel() if rays is None else rays[0].shape[0]
     else:
         o, d = rays
@@ -1028,16 +969,15 @@ def hits_attrs(prep, cfg, cam_spec, maxv: int, kernels=None, rays=None,
                                 cfg.kernel.window_blocks)
         with span("srt.k1"):
             o3, d3, R = _tiles_of(o, d, tile)
-            t, idx, attrs = kernels["nearest_rays_attrs"](
-                plan, prep.tri, prep.tri_attr, o3, d3, wt, cfg.mt_eps)
+            t, idx, attrs = table.run("nearest_rays_attrs", plan, prep.tri,
+                                      prep.tri_attr, o3, d3, wt, cfg.mt_eps)
     return t.reshape(-1)[:R], idx.reshape(-1)[:R], attrs[:R]
 
 
 def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = True,
-         cam_spec=None, kernels=None):
+         cam_spec=None):
     """Nearest hit of the frame's rays o, d [R, 3] in tiles of ``tile``
-    (JAX kernels/tiled_t.py::hits).  ``kernels`` maps the roles of
-    kernels/tiled.py::KERNELS to wrappers (the CUDA ones by default).
+    (JAX kernels/tiled_t.py::hits), by the roles of kernels/table.py:
 
     * ``KernelConfig.prepass`` with list capacity (``maxv`` > 0), whatever
       ``groups`` says, as in JAX: the ungrouped plan of the explicit
@@ -1056,7 +996,6 @@ def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = True,
 
     Windows are ``window_blocks`` blocks.  Returns (t [R], idx [R]);
     misses t = inf, idx = -1."""
-    kernels = _roles(kernels)
     kc = cfg.kernel
     wb = kc.window_blocks
     wt = wb * prep.block_size
@@ -1068,9 +1007,8 @@ def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = True,
         plan = primary_plan(prep, cfg, cam_spec, maxv, (o, d))
         cam = pl.make_cam(vmx, focal, (0.0, 0.0, 0.0), None, prep.device)
         with span("srt.k1"):
-            t, idx, _ = kernels["nearest_attrs"](plan, prep.tri,
-                                                 prep.tri_attr, cam, tpx, wt,
-                                                 cfg.mt_eps)
+            t, idx, _ = table.run("nearest_attrs", plan, prep.tri,
+                                  prep.tri_attr, cam, tpx, wt, cfg.mt_eps)
         return t.reshape(-1)[:R], idx.reshape(-1)[:R]
     with span("srt.plan.primary"):
         plan = pl.cull_rays(prep, o, d, tile, maxv, wb, groups=groups,
@@ -1078,13 +1016,13 @@ def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = True,
     with span("srt.k1"):
         o3, d3, _ = _tiles_of(o, d, tile)
         if groups > 1:
-            t, idx = kernels["nearest_grouped"](plan, prep.tri, o3, d3, wt,
-                                                cfg.mt_eps, groups)
+            t, idx = table.run("nearest_grouped", plan, prep.tri, o3, d3, wt,
+                               cfg.mt_eps, groups)
         else:
             if prepass:
-                flags = kernels["prepass"](plan, prep.gram, o3, d3, wt,
-                                           cfg.mt_eps)
+                flags = table.run("prepass", plan, prep.gram, o3, d3, wt,
+                                  cfg.mt_eps)
                 plan = refine_plan(plan, flags)
-            t, idx = kernels["nearest_rays"](plan, prep.tri, o3, d3, wt,
-                                             cfg.mt_eps)
+            t, idx = table.run("nearest_rays", plan, prep.tri, o3, d3, wt,
+                               cfg.mt_eps)
     return t.reshape(-1)[:R], idx.reshape(-1)[:R]

@@ -13,9 +13,9 @@ contraction per page and the object ids from Gram row 10; these read the
 plain ``tri`` table and ``block_obj`` (accel/prepared.py).
 ``tiled_nearest_plain`` and ``tiled_anyhit_plain`` are their plain PyTorch
 versions: same arguments, same results, the kernels' expressions in the
-same order.  Each wrapper runs its plain version for tensors on the CPU and
-the kernel for tensors on a CUDA device; it adds one to its own
-``launches`` at each kernel launch.
+same order.  Each wrapper takes CUDA tensors, launches its kernel and
+counts the launch (``paged.<wrapper>.launches``); kernels/table.py chooses
+between a wrapper and its plain version and counts the calls.
 
 ``hits``, ``cull``, ``cull_occl`` and ``anyhit`` are the counterparts of
 the JAX ``kernels/tiled.py`` functions of the same names (lines
@@ -29,9 +29,9 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.metrics import span
+from ..utils.metrics import count, span
 from . import anyhit as _anyhit
-from . import nearest as _nearest, plan as pl
+from . import nearest as _nearest, plan as pl, table
 
 
 def page_blocks(prep) -> int:
@@ -47,17 +47,10 @@ def tiled_nearest(plan, tri, o, d, window_tris: int, eps: float):
     the rays of each tile (any M).  Returns t [n, M] f32 (inf on a miss)
     and idx [n, M] i32 (-1 on a miss); equal t goes to the lowest triangle
     id."""
-    if plan.device.type == "cpu":
-        return tiled_nearest_plain(plan, tri, o, d, window_tris, eps)
-    if plan.device.type != "cuda":
-        raise ValueError(f"no nearest kernel for device {plan.device}")
-    out = _nearest.launch_nearest_rays(plan, tri, o, d, window_tris, eps,
-                                       what="nearest_rays (pages)")
-    tiled_nearest.launches += 1
-    return out
-
-
-tiled_nearest.launches = 0
+    outs = _nearest.launch_nearest_rays(plan, tri, o, d, window_tris, eps,
+                                        what="nearest_rays (pages)")
+    count("paged.tiled_nearest.launches")
+    return outs
 
 
 def tiled_nearest_plain(plan, tri, o, d, window_tris: int, eps: float):
@@ -72,21 +65,13 @@ def tiled_anyhit(plan, tri, block_obj, o, d, self_obj, window_tris: int,
                  block_size: int, eps: float, no_max_t: bool = True):
     """Occlusion of explicit rays over every tile of a page plan (K7):
     arguments and result as kernels/anyhit.py::tiled_anyhit, with
-    ``window_tris`` the page size.  Runs the same device walk as K2′ and
-    counts its launches apart."""
-    if plan.device.type == "cpu":
-        return tiled_anyhit_plain(plan, tri, block_obj, o, d, self_obj,
-                                  window_tris, block_size, eps, no_max_t)
-    if plan.device.type != "cuda":
-        raise ValueError(f"no any-hit kernel for device {plan.device}")
+    ``window_tris`` the page size.  Runs the same device walk as K2′,
+    counted apart."""
     found = _anyhit.launch_anyhit_rays(
         plan, tri, block_obj, o, d, self_obj, window_tris, block_size, eps,
         no_max_t, what="anyhit_rays (page windows)")
-    tiled_anyhit.launches += 1
+    count("paged.tiled_anyhit.launches")
     return found
-
-
-tiled_anyhit.launches = 0
 
 # K7's plain version is K2′'s: one walk over any window width
 tiled_anyhit_plain = _anyhit.tiled_anyhit_plain
@@ -115,28 +100,27 @@ def cull_occl(prep, cfg, o, d, tile: int, maxv: int, excl=None,
                         apex_rev=apex_rev, hourglass=hourglass, widen=False)
 
 
-def anyhit(prep, cfg, o, d, self_obj2d, plan, tile: int,
-           kernel=tiled_anyhit):
+def anyhit(prep, cfg, o, d, self_obj2d, plan, tile: int):
     """Occlusion of explicit rays o, d [R, 3] over a page plan (JAX
     kernels/tiled.py::anyhit): kernels/anyhit.py::anyhit with page
-    windows.  Returns found [n, tile] bool."""
+    windows (K7, "anyhit_pages").  Returns found [n, tile] bool."""
     return _anyhit.anyhit(prep, cfg, o, d, self_obj2d, plan, tile,
-                          kernel=kernel, window_tris=prep.page_tris)
+                          window_tris=prep.page_tris, role="anyhit_pages")
 
 
-def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = False,
-         kernel=tiled_nearest):
+def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = False):
     """Nearest hit of rays o, d [R, 3] in tiles of ``tile`` (JAX
     kernels/tiled.py::hits → tiled_hits): the page plan (``apex`` for rays
-    that share one origin), then ``kernel`` (K6's wrapper by default) over
-    the rays padded to whole tiles by repeating the last one.  Returns
+    that share one origin), then K6 ("nearest_pages") over the rays padded
+    to whole tiles by repeating the last one.  Returns
     (t [R], idx [R]); misses t = inf, idx = -1."""
     with span("srt.plan.primary"):
         plan = cull(prep, cfg, o, d, tile, maxv, apex=apex)
     with span("srt.k1"):
         o, d, R = pl.pad_rays(o, d, tile)
         n = o.shape[0] // tile
-        t, idx = kernel(plan, prep.tri, o.reshape(n, tile, 3).contiguous(),
-                        d.reshape(n, tile, 3).contiguous(), prep.page_tris,
-                        cfg.mt_eps)
+        t, idx = table.run("nearest_pages", plan, prep.tri,
+                           o.reshape(n, tile, 3).contiguous(),
+                           d.reshape(n, tile, 3).contiguous(),
+                           prep.page_tris, cfg.mt_eps)
     return t.reshape(-1)[:R], idx.reshape(-1)[:R]

@@ -36,12 +36,12 @@ than a 16-bit entry can name, :data:`MAX_LIST_WINDOWS`) holds every tile in
 range mode: the covering range of the blocks the interval test of its rays
 reaches, in aligned windows, with no projective test and no entries.
 
-:func:`cull`, which every planner calls, routes by what it observes
-(:func:`cull_route`): on a CUDA device a list plan of the interval or the
+:func:`cull`, which every planner calls, runs the ``plan`` role of
+kernels/table.py: on a CUDA device a list plan of the interval or the
 hourglass test and its apex tests is built by the hand-written kernels of
 csrc/plan.cu (:func:`cull_cuda`: at most two launches, no host read),
-everything else by its plain version :func:`cull_plain`, the same plan bit
-for bit.
+everything else (CPU tensors, range-only plans) by its plain version
+:func:`cull_plain`, the same plan bit for bit.
 """
 
 from __future__ import annotations
@@ -52,7 +52,8 @@ from typing import Optional
 import torch
 
 from ..ops.intersect import cross
-from . import build
+from ..utils.metrics import count
+from . import build, table
 
 PLAN_W = 256            # plan row width of scenes with <= 1500 windows
 PLAN_W_BIG = 1024       # ... and of denser scenes
@@ -598,20 +599,6 @@ def cull_width(num_windows: int, maxv: int, widen: bool = True,
     return pw
 
 
-def cull_route(device, maxv: int, num_windows: int,
-               hourglass: bool = False) -> str:
-    """Which planner :func:`cull` takes: ``"cuda"`` (csrc/plan.cu,
-    :func:`cull_cuda`) for tensors on a CUDA device and a plan with list
-    capacity, whether its test is the interval test or (``hourglass``) the
-    hourglass test; ``"plain"`` (:func:`cull_plain`) for everything else:
-    tensors on the CPU and range-only plans (:func:`range_only`)."""
-    del hourglass   # both tests have a kernel
-    if (torch.device(device).type == "cuda"
-            and not range_only(maxv, num_windows)):
-        return "cuda"
-    return "plain"
-
-
 def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
          apex_rev: bool = False, hourglass: bool = False,
          widen: bool = True, groups: int = 1, rays=None) -> torch.Tensor:
@@ -632,24 +619,17 @@ def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
     alone (:func:`cull_ranges`, the apex tests dropped); ``ab`` is then not
     read.
 
-    The route is :func:`cull_route`'s: the base plan of a CUDA route is
-    built by csrc/plan.cu (:func:`cull_cuda`, equal to :func:`cull_plain`'s
-    bit for bit); every other plan is :func:`cull_plain`'s.  Each counts
-    its plans."""
+    The plan is the ``plan`` role's of kernels/table.py: on a CUDA device
+    csrc/plan.cu's (:func:`cull_cuda`, equal to :func:`cull_plain`'s bit
+    for bit), for CPU tensors and range-only plans :func:`cull_plain`'s."""
     NB = prep.num_blocks
     if NB % wb:
         raise ValueError(f"{NB} blocks do not split into windows of {wb}")
     if apex and apex_rev:
         raise ValueError("a plan takes the primary-apex test or the "
                          "light-apex test, not both")
-    if cull_route(prep.block_min.device, maxv, NB // wb,
-                  hourglass) == "plain":
-        return cull_plain(prep, maxv, wb, ab, excl, apex, apex_rev,
-                          hourglass, widen, groups, rays)
-    plan = cull_cuda(prep, ab, wb, maxv, cull_width(NB // wb, maxv, widen,
-                                                    groups),
-                     excl, apex, apex_rev, hourglass)
-    return _with_mask_words(prep, plan, wb, groups, rays, hourglass)
+    return table.run("plan", prep, maxv, wb, ab, excl, apex, apex_rev,
+                     hourglass, widen, groups, rays)
 
 
 def _with_mask_words(prep, plan, wb: int, groups: int, rays,
@@ -666,12 +646,8 @@ def cull_plain(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
                apex_rev: bool = False, hourglass: bool = False,
                widen: bool = True, groups: int = 1,
                rays=None) -> torch.Tensor:
-    """:func:`cull` in plain PyTorch, on any device and for every flag;
-    ``cull_plain.plans`` counts the plans it builds."""
-    cull_plain.plans += 1
+    """:func:`cull` in plain PyTorch, on any device and for every flag."""
     NB = prep.num_blocks
-    if NB % wb:
-        raise ValueError(f"{NB} blocks do not split into windows of {wb}")
     pw = cull_width(NB // wb, maxv, widen, groups)
     if range_only(maxv, NB // wb):
         if rays is None:
@@ -688,9 +664,6 @@ def cull_plain(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
                                               prep.block_max)
     plan = cull_lists(visible, tlo, wb, maxv, pw)
     return _with_mask_words(prep, plan, wb, groups, rays, hourglass)
-
-
-cull_plain.plans = 0
 
 # csrc/plan.cu's operands, in its enum Op order
 CUDA_OPERANDS = ("omin", "omax", "dmin", "dmax", "ru_lo", "ru_hi", "rv_lo",
@@ -736,22 +709,24 @@ def cuda_operands(ab, n: int, dev, excl=None, apex: bool = False,
     return words
 
 
-def cull_cuda(prep, ab, wb: int, maxv: int, plan_w: int, excl=None,
-              apex: bool = False, apex_rev: bool = False,
-              hourglass: bool = False) -> torch.Tensor:
-    """The list plan [n, plan_w] of :func:`cull_lists` over the interval
-    test of the bounds ``ab`` (or, with ``hourglass``, the hourglass test:
-    ``plan_hourglass_kernel``), refined by the primary-apex (``apex``) or
-    light-apex (``apex_rev``) test, minus each tile's own object (``excl``
-    [n]), built on the card by csrc/plan.cu in one launch, two with an apex
-    test: equal to :func:`cull_plain`'s plan (one group) bit for bit.  The
-    operands (:func:`cuda_operands`) are read in place; the host reads
-    nothing back.  ``cull_cuda.plans`` counts the plans it builds,
-    ``cull_cuda.hourglass_plans`` those of the hourglass test and
-    ``cull_cuda.launches`` the kernels it launches."""
+def cull_cuda(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
+              apex_rev: bool = False, hourglass: bool = False,
+              widen: bool = True, groups: int = 1,
+              rays=None) -> torch.Tensor:
+    """:func:`cull`'s list plan on the card: :func:`cull_lists` over the
+    interval test of the bounds ``ab`` (or, with ``hourglass``, the
+    hourglass test: ``plan_hourglass_kernel``), refined by the primary-apex
+    (``apex``) or light-apex (``apex_rev``) test, minus each tile's own
+    object (``excl`` [n]), built by csrc/plan.cu in one launch, two with an
+    apex test, then the mask words of a grouped plan: equal to
+    :func:`cull_plain`'s plan bit for bit.  The operands
+    (:func:`cuda_operands`) are read in place; the host reads nothing back.
+    It counts its hourglass plans (``plan.cull_cuda.hourglass_plans``) and
+    its launches (``plan.cull_cuda.launches``)."""
     dev = prep.block_min.device
     n = ab["omin"].shape[0]
     nw = prep.num_blocks // wb
+    plan_w = cull_width(nw, maxv, widen, groups)
     kind = 1 if apex else 2 if apex_rev else 0
     excl = None if excl is None else excl.to(torch.int32)
     words = cuda_operands(ab, n, dev, excl, apex, apex_rev, hourglass)
@@ -776,15 +751,9 @@ def cull_cuda(prep, ab, wb: int, maxv: int, plan_w: int, excl=None,
             plan.data_ptr(), stream)
     build.check(rc, "plan_hourglass_kernel" if hourglass
                 else "plan_tiles_kernel")
-    cull_cuda.plans += 1
-    cull_cuda.hourglass_plans += int(hourglass)
-    cull_cuda.launches += (2 if kind else 1) if n else 0
-    return plan
-
-
-cull_cuda.plans = 0
-cull_cuda.hourglass_plans = 0
-cull_cuda.launches = 0
+    count("plan.cull_cuda.hourglass_plans", int(hourglass))
+    count("plan.cull_cuda.launches", (2 if kind else 1) if n else 0)
+    return _with_mask_words(prep, plan, wb, groups, rays, hourglass)
 
 
 def cull_rays(prep, o, d, tile: int, maxv: int, wb: int, groups: int = 1,

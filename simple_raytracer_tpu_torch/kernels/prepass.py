@@ -7,10 +7,10 @@ package's Pallas kernel ``kernels/tiled_t.py::_prepass_kernel_t`` (reached
 through ``tiled_prepass_t`` from ``hits`` with ``SRT_TILED_PREPASS=1``;
 here ``KernelConfig.prepass``).  ``tiled_prepass_plain`` is its plain
 PyTorch version, a model of the items: same arguments, same flags, the
-kernel's bf16 roundings and f32 sums in the same order.  The wrapper runs
-the plain version for tensors on the CPU and the kernels for tensors on a
-CUDA device; it adds one to its ``launches`` at each call of the kernels
-(a call is two launches).
+kernel's bf16 roundings and f32 sums in the same order.  The wrapper takes
+CUDA tensors, launches the kernels (a call is two launches) and counts the
+call (``prepass.tiled_prepass.launches``); kernels/table.py chooses between
+it and its plain version.
 
 :func:`refine_plan` (JAX ``tiled_t._refine_plan``) keeps the flagged
 windows of each plan row; the nearest walk over the refined plan gives the
@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from ..ops.intersect import ray_features
+from ..utils.metrics import count
 from . import build, plan as pl
 
 # error factor of the bf16 quad: |x_bf16 - x| <= PREPASS_M * sum_k |G_k| *
@@ -46,7 +47,7 @@ def prepass_call(plan, gram, o, d, window_tris: int, eps: float,
     allocate its output and scratch, and return (launch, flags [n, W],
     sched): ``launch(stages=3)`` queues the schedule, which zeroes the
     flags (1), and the walk (2).  Spans default to PREPASS_RANGE_SPAN and
-    PREPASS_LIST_SPAN; callers count their own launches."""
+    PREPASS_LIST_SPAN."""
     from . import nearest
     build.check_tensors(plan.device, plan=(plan, torch.int32),
                         gram=(gram, torch.float32), o=(o, torch.float32),
@@ -107,17 +108,10 @@ def tiled_prepass(plan, gram, o, d, window_tris: int, eps: float):
     (as the work items of :func:`tiled_prepass_plain` find it).  Positions
     past the walk (and rows in range mode longer than the plan's entries)
     read False."""
-    if plan.device.type == "cpu":
-        return tiled_prepass_plain(plan, gram, o, d, window_tris, eps)
-    if plan.device.type != "cuda":
-        raise ValueError(f"no prepass kernel for device {plan.device}")
     launch, flags, _ = prepass_call(plan, gram, o, d, window_tris, eps)
     launch()
-    tiled_prepass.launches += 1
+    count("prepass.tiled_prepass.launches")
     return flags
-
-
-tiled_prepass.launches = 0
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:

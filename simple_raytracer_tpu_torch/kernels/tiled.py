@@ -46,7 +46,6 @@ gates its fetch and fused branches on TPU memory as well (``_resident``,
 
 from __future__ import annotations
 
-import functools
 import types
 
 import torch
@@ -57,43 +56,9 @@ from ..render import integrator
 from ..utils.metrics import span
 from . import paged
 from . import plan as pl
-from .anyhit import (anyhit, anyhit_from_t, tiled_anyhit,
-                     tiled_anyhit_from_t, tiled_anyhit_from_t_plain,
-                     tiled_anyhit_grouped, tiled_anyhit_grouped_plain,
-                     tiled_anyhit_plain)
-from .nearest import (FLAT, TEXTURED, attr_mode, hits, hits_attrs,
-                      hits_shaded, tiled_nearest_attrs,
-                      tiled_nearest_attrs_plain,
-                      tiled_nearest_grouped, tiled_nearest_grouped_plain,
-                      tiled_nearest_rays, tiled_nearest_rays_attrs,
-                      tiled_nearest_rays_attrs_plain,
-                      tiled_nearest_rays_plain,
-                      tiled_nearest_shaded, tiled_nearest_shaded_plain)
-from .prepass import tiled_prepass, tiled_prepass_plain
+from .anyhit import anyhit, anyhit_from_t
+from .nearest import FLAT, TEXTURED, attr_mode, hits, hits_attrs, hits_shaded
 
-# the kernel wrappers a frame calls, by role, and their plain versions
-KERNELS = {"nearest_shaded": tiled_nearest_shaded,
-           "nearest_attrs": tiled_nearest_attrs,
-           "nearest_rays": tiled_nearest_rays,
-           "nearest_rays_attrs": tiled_nearest_rays_attrs,
-           "nearest_grouped": tiled_nearest_grouped,
-           "prepass": tiled_prepass,
-           "anyhit_from_t": tiled_anyhit_from_t,
-           "anyhit": tiled_anyhit,
-           "anyhit_grouped": tiled_anyhit_grouped,
-           "nearest_pages": paged.tiled_nearest,
-           "anyhit_pages": paged.tiled_anyhit}
-PLAIN = {"nearest_shaded": tiled_nearest_shaded_plain,
-         "nearest_attrs": tiled_nearest_attrs_plain,
-         "nearest_rays": tiled_nearest_rays_plain,
-         "nearest_rays_attrs": tiled_nearest_rays_attrs_plain,
-         "nearest_grouped": tiled_nearest_grouped_plain,
-         "prepass": tiled_prepass_plain,
-         "anyhit_from_t": tiled_anyhit_from_t_plain,
-         "anyhit": tiled_anyhit_plain,
-         "anyhit_grouped": tiled_anyhit_grouped_plain,
-         "nearest_pages": paged.tiled_nearest_plain,
-         "anyhit_pages": paged.tiled_anyhit_plain}
 IMPLS = (None, "sublane", "paged")
 
 
@@ -188,30 +153,23 @@ def _cull_occl_windows(prep, cfg, o, d, tile: int, maxv: int, excl=None,
                         groups=cfg.kernel.anyhit_groups)
 
 
-def _anyhit_windows(prep, cfg, o, d, self_obj2d, plan, tile: int,
-                    kernels=KERNELS):
+def _anyhit_windows(prep, cfg, o, d, self_obj2d, plan, tile: int):
     """The sublane occlusion walk: K2′, or K5 when ``groups_ah`` > 1."""
-    groups = cfg.kernel.anyhit_groups
-    kernel = kernels["anyhit_grouped" if groups > 1 else "anyhit"]
-    return anyhit(prep, cfg, o, d, self_obj2d, plan, tile, kernel=kernel,
-                  groups=groups)
+    return anyhit(prep, cfg, o, d, self_obj2d, plan, tile,
+                  groups=cfg.kernel.anyhit_groups)
 
 
-def shadow_impl(name=None, kernels=KERNELS):
+def shadow_impl(name=None):
     """The occlusion backend :func:`tiled_shadow_fn` reaches through
     ``cull_occl(prep, cfg, o, d, tile, maxv, excl, apex_rev=)`` and
     ``anyhit(prep, cfg, o, d, self_obj2d, plan, tile)`` (JAX ``impl``):
     "paged" plans pages for K7, the sublane default plans windows for K2′
-    (K5 with sub-groups); ``kernels`` maps roles to wrappers
-    (:data:`KERNELS` or :data:`PLAIN`)."""
+    (K5 with sub-groups)."""
     if name == "paged":
-        return types.SimpleNamespace(
-            cull_occl=paged.cull_occl,
-            anyhit=functools.partial(paged.anyhit,
-                                     kernel=kernels["anyhit_pages"]))
-    return types.SimpleNamespace(
-        cull_occl=_cull_occl_windows,
-        anyhit=functools.partial(_anyhit_windows, kernels=kernels))
+        return types.SimpleNamespace(cull_occl=paged.cull_occl,
+                                     anyhit=paged.anyhit)
+    return types.SimpleNamespace(cull_occl=_cull_occl_windows,
+                                 anyhit=_anyhit_windows)
 
 
 def _first_hit_repair(p3, h2, s2):
@@ -344,7 +302,7 @@ def texel_finish(scene, cfg: RenderConfig, obj, comp):
 
 
 def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
-                      rays=None, kernels=KERNELS):
+                      rays=None):
     """The frame's primary rays in tile-major order -> (radiance [R, 3]
     tone-mapped, hit [R] bool), R = n_tiles * tile_px**2.
 
@@ -352,9 +310,9 @@ def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
     ``rays`` = (o, d) [R, 3], the tile-major primary rays
     (ops/camera.py::primary_rays_tiled, normalized where
     ``cfg.camera.normalize_dirs`` says so); the frames of
-    :func:`wants_rays` need them.  ``kernels`` maps each role of
-    :data:`KERNELS` to its wrapper; ``chip_smoke.py`` passes :data:`PLAIN`
-    to render the reference image on the card.
+    :func:`wants_rays` need them.  The kernels are kernels/table.py's
+    (under ``table.using(table.plain())`` the frame runs no kernel of
+    csrc/: ``chip_smoke.py``'s reference image on the card).
 
     With ``cam_spec`` None (JAX's ``cam_spec=None``, lines 1496-1507),
     ``rays`` are any R primary rays of one camera, in any order (the
@@ -381,47 +339,43 @@ def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
     if branch in ("paged", "gather"):
         o, d = rays
         if branch == "paged":
-            t, idx = paged.hits(prep, cfg, o, d, htile, maxv, apex=True,
-                                kernel=kernels["nearest_pages"])
+            t, idx = paged.hits(prep, cfg, o, d, htile, maxv, apex=True)
         else:
             t, idx = hits(prep, cfg, o, d, htile, maxv, apex=True,
-                          cam_spec=cspec, kernels=kernels)
+                          cam_spec=cspec)
         shadow_fn = tiled_shadow_fn(
             prep, cfg, stile, maxv, cfg.light.num_samples,
-            shadow_impl("paged" if branch == "paged" else None, kernels)) \
+            shadow_impl("paged" if branch == "paged" else None)) \
             if cfg.light.enable_shadows else None
         rad = integrator.shade(prep.scene, cfg, o, d, t, idx, light_pos,
                                shadow_fn)
         return rad, torch.isfinite(t)
     if branch == "soft":
         o, d = rays
-        t, idx, attrs = hits_attrs(prep, cfg, cspec, maxv, kernels=kernels,
-                                   rays=rays, tile=htile)
+        t, idx, attrs = hits_attrs(prep, cfg, cspec, maxv, rays=rays,
+                                   tile=htile)
         record = integrator.records_from_attrs(prep.scene, attrs)
         shadow_fn = tiled_shadow_fn(
-            prep, cfg, stile, maxv, cfg.light.num_samples,
-            shadow_impl(None, kernels)) if cfg.light.enable_shadows else None
+            prep, cfg, stile, maxv, cfg.light.num_samples) \
+            if cfg.light.enable_shadows else None
         rad = integrator.shade(prep.scene, cfg, o, d, t, idx, light_pos,
                                shadow_fn, record=record)
         return rad, torch.isfinite(t)
-    t, _idx, obj, rgb, bounds = hits_shaded(
-        prep, cfg, light_pos, cam_spec, maxv,
-        kernel=kernels["nearest_shaded"], rays=rays)
+    t, _idx, obj, rgb, bounds = hits_shaded(prep, cfg, light_pos, cam_spec,
+                                            maxv, rays=rays)
     hit = torch.isfinite(t)
     if attr_mode(prep, cfg) == TEXTURED:
         rgb = texel_finish(prep.scene, cfg, obj, rgb)
     if cfg.light.enable_shadows and prep.scene.num_objects > 1:
         if branch == "fused":
             found = anyhit_from_t(prep, cfg, t, obj, bounds, light_pos,
-                                  cam_spec, maxv,
-                                  kernel=kernels["anyhit_from_t"])
+                                  cam_spec, maxv)
         else:
             o, d = rays
             point = torch.where(hit[:, None],
                                 o + torch.where(hit, t, 0.0)[:, None] * d,
                                 0.0)
-            shadow_fn = tiled_shadow_fn(prep, cfg, stile, maxv, 1,
-                                        shadow_impl(None, kernels))
+            shadow_fn = tiled_shadow_fn(prep, cfg, stile, maxv, 1)
             found = shadow_fn(point, light_pos.expand(point.shape), obj,
                               hit=hit)
         with span("srt.shade"):

@@ -11,7 +11,8 @@ Hopper kernel of its own with a plain PyTorch version beside it:
   (``scripts/attr_probe.py``, ``scripts/attr_fetch_probe.py``).
 
 No frame runs them.  Each module's wrappers launch its kernels on CUDA
-tensors and run the plain versions on CPU tensors; its ``main()`` times them
+tensors; kernels/table.py runs the plain versions for CPU tensors
+(roles ``fixed``, ``attr_gather``, ``attr_window``).  Its ``main()`` times them
 on a card (``python -m simple_raytracer_tpu_torch.probes.fixed`` or
 ``.attr``) and raises on a host with none.
 """

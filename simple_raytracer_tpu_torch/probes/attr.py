@@ -37,7 +37,8 @@ import argparse
 import numpy as np
 import torch
 
-from ..kernels import build
+from ..kernels import build, table
+from ..utils.metrics import count
 from . import device_ms, line, record, require_cuda
 
 AF = 16                  # attributes per triangle
@@ -94,10 +95,6 @@ def _aligned(**xs) -> None:
 def attr_gather(bid, at, threads: int = 256):
     """Winner ids bid [n, R] i32 in [-1, T) and the table at [T, 16] f32
     -> rows [n, R, 16] f32: at[bid], zeros where bid < 0."""
-    if bid.device.type == "cpu":
-        return attr_gather_plain(bid, at, threads)
-    if bid.device.type != "cuda":
-        raise ValueError(f"no probe kernel for device {bid.device}")
     build.check_tensors(bid.device, bid=(bid, torch.int32),
                         at=(at, torch.float32))
     if bid.dim() != 2 or at.dim() != 2 or at.shape[1] != AF:
@@ -111,11 +108,8 @@ def attr_gather(bid, at, threads: int = 256):
             bid.data_ptr(), at.data_ptr(), bid.numel(), out.data_ptr(),
             threads, stream)
     build.check(rc, "attr_gather_kernel")
-    attr_gather.launches += 1
+    count("attr.attr_gather.launches")
     return out
-
-
-attr_gather.launches = 0
 
 
 def attr_gather_plain(bid, at, threads: int = 256):
@@ -131,10 +125,6 @@ def attr_window(starts, bid, at, threads: int = 256):
     is bid[i, r] (see the module docstring), added in k order in f32;
     starts [tiles, windows] i32, bid [tiles, R] i32.  Returns
     [tiles, 16, R] f32 (``attr_fetch_probe.py``'s output layout)."""
-    if bid.device.type == "cpu":
-        return attr_window_plain(starts, bid, at, threads)
-    if bid.device.type != "cuda":
-        raise ValueError(f"no probe kernel for device {bid.device}")
     build.check_tensors(bid.device, starts=(starts, torch.int32),
                         bid=(bid, torch.int32), at=(at, torch.bfloat16))
     if (bid.dim() != 2 or starts.dim() != 2
@@ -151,11 +141,8 @@ def attr_window(starts, bid, at, threads: int = 256):
             starts.data_ptr(), starts.shape[1], bid.data_ptr(),
             at.data_ptr(), tiles, R, out.data_ptr(), threads, stream)
     build.check(rc, "attr_window_kernel")
-    attr_window.launches += 1
+    count("attr.attr_window.launches")
     return out
-
-
-attr_window.launches = 0
 
 
 def attr_window_plain(starts, bid, at, threads: int = 256):
@@ -184,11 +171,11 @@ def run(n: int = GATHER_N, tiles: int = 510, windows: int = 10,
               "attr_window": window_inputs(tiles, windows, tile_r,
                                            device=device)}
     out = [record("attr_gather", device_ms(
-               lambda: attr_gather(*inputs["attr_gather"]), iters,
-               flush=True), n, n * TILE_R),
+               lambda: table.run("attr_gather", *inputs["attr_gather"]),
+               iters, flush=True), n, n * TILE_R),
            record("attr_window", device_ms(
-               lambda: attr_window(*inputs["attr_window"]), iters,
-               flush=True), tiles, tiles * tile_r, windows=windows)]
+               lambda: table.run("attr_window", *inputs["attr_window"]),
+               iters, flush=True), tiles, tiles * tile_r, windows=windows)]
     return out, inputs
 
 

@@ -56,9 +56,10 @@ import math
 
 import torch
 
-from ..kernels import build, nearest
+from ..kernels import build, nearest, table
 from ..kernels import plan as pl
 from ..ops.camera import primary_rays_tiled, tile_ray_dirs, untile_image
+from ..utils.metrics import count
 from . import device_ms, line, record, require_cuda
 
 # the kernel's variants, in the order of csrc/probe_fixed.cu's Variant
@@ -145,11 +146,6 @@ def fixed_probe(variant: str, o, d, cam, origins, a: float, tile_px: int,
     all of them).  Returns (t, idx or None): [n, tile] tile-major, [1, tile]
     for ``empty`` (the row that block 0 stores) or [height, width] in image
     order; idx i32 where the variant writes one."""
-    if cam.device.type == "cpu":
-        return fixed_probe_plain(variant, o, d, cam, origins, a, tile_px,
-                                 width, height, threads)
-    if cam.device.type != "cuda":
-        raise ValueError(f"no probe kernel for device {cam.device}")
     if variant not in SPECS:
         raise ValueError(f"unknown probe variant {variant!r}")
     tile = tile_px * tile_px
@@ -169,12 +165,8 @@ def fixed_probe(variant: str, o, d, cam, origins, a: float, tile_px: int,
             height, t.data_ptr(), None if idx is None else idx.data_ptr(),
             threads, stream)
     build.check(rc, f"fixed_probe_kernel ({variant})")
-    fixed_probe.launches[variant] += 1
+    count(f"fixed.fixed_probe.launches.{variant}")
     return (t[:1] if variant == "empty" else t), idx
-
-
-# kernel launches by variant
-fixed_probe.launches = dict.fromkeys(VARIANTS, 0)
 
 
 def feature_rows(ox, oy, oz, dx, dy, dz) -> list:
@@ -277,8 +269,8 @@ def run(prep, cfg, light_pos, frames: int = 8, threads: int = 512):
     n, lanes = inputs["o"].shape[0], inputs["o"].shape[0] * tpx * tpx
     out = []
     for name, (variant, _src, _body) in PROBES.items():
-        times = device_ms(lambda: fixed_probe(variant, **inputs,
-                                              threads=threads), frames,
+        times = device_ms(lambda: table.run("fixed", variant, **inputs,
+                                            threads=threads), frames,
                           flush=True)
         out.append(record(name, times, n, lanes, variant=variant))
     maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
@@ -288,7 +280,7 @@ def run(prep, cfg, light_pos, frames: int = 8, threads: int = 512):
                                maxv)
     points = {"k1": args, **k1_points(args)}
     for name, a in points.items():
-        times = device_ms(lambda: nearest.tiled_nearest_shaded(*a), frames)
+        times = device_ms(lambda: table.run("nearest_shaded", *a), frames)
         out.append(record(name, times, n, lanes, variant=None))
     return out, inputs, points
 

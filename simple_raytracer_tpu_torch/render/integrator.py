@@ -22,9 +22,9 @@ import numpy as np
 import torch
 
 from ..config import RenderConfig
-from ..kernels import build
+from ..kernels import build, table
 from ..ops import shading as sh
-from ..utils.metrics import span
+from ..utils.metrics import count, span
 
 # torch.pow's own kernels for these exponents of the tone map's gamma
 # (ATen's pow_tensor_scalar), by csrc/shade.cu's pow_gamma kind; powf else
@@ -225,43 +225,21 @@ def _shadow_found(shadow_fn, point, hit, obj, samples) -> torch.Tensor:
         hit=hit.expand(S, R).reshape(S * R)).reshape(S, R)
 
 
-def shade_route(device, record: Optional[dict] = None, inputs=()) -> str:
-    """Which shading :func:`shade` takes: ``"cuda"`` (csrc/shade.cu,
-    :func:`shade_cuda`) for tensors on a CUDA device, no ``record`` given
-    and no gradient to carry (not: autograd on and one of the tensors of
-    ``inputs`` requiring a gradient); ``"plain"`` (:func:`shade_plain`) for
-    everything else: tensors on the CPU, the records of the soft branch
-    (:func:`records_from_attrs`) and of dist/ring.py, and the
-    differentiated shading of diff/render.py."""
-    if (torch.device(device).type != "cuda" or record is not None
-            or (torch.is_grad_enabled()
-                and any(torch.is_tensor(x) and x.requires_grad
-                        for x in inputs))):
-        return "plain"
-    return "cuda"
-
-
 def shade(scene, cfg: RenderConfig, origin: torch.Tensor,
           direction: torch.Tensor, t: torch.Tensor, tri_idx: torch.Tensor,
           light_pos, shadow_fn: Optional[Callable] = None,
           record: Optional[dict] = None) -> torch.Tensor:
     """Shade rays [R, 3] from their nearest hits (t [R], inf = miss;
-    tri_idx [R], -1 = miss) by :func:`shade_route`'s route:
-    :func:`shade_cuda`, or :func:`shade_plain` (the hits' ``record``, or
-    with none the record gathered by ``tri_idx``).  Returns tone-mapped
-    radiance [R, 3]; misses hold garbage."""
+    tri_idx [R], -1 = miss) by the ``shade`` role of kernels/table.py:
+    :func:`shade_cuda` on the card, :func:`shade_plain` for CPU tensors, a
+    given ``record`` (the soft branch's :func:`records_from_attrs`,
+    dist/ring.py's) or a gradient to carry (diff/render.py).  Returns
+    tone-mapped radiance [R, 3]; misses hold garbage."""
     if scene.num_triangles == 0 or scene.obj_color.shape[0] == 0:
         return torch.zeros_like(origin)
     with span("srt.shade"):
-        inputs = (scene.verts, scene.vnormals, scene.tri_normal, scene.uvs,
-                  scene.obj_color, scene.obj_ambient, scene.obj_specular,
-                  scene.obj_shininess, scene.tex_data, origin, direction, t,
-                  light_pos)
-        if shade_route(origin.device, record, inputs) == "cuda":
-            return shade_cuda(scene, cfg, origin, direction, t, tri_idx,
-                              light_pos, shadow_fn)
-        return shade_plain(scene, cfg, origin, direction, t, tri_idx,
-                           light_pos, shadow_fn, record)
+        return table.run("shade", scene, cfg, origin, direction, t, tri_idx,
+                         light_pos, shadow_fn, record)
 
 
 def shade_plain(scene, cfg: RenderConfig, origin: torch.Tensor,
@@ -272,29 +250,25 @@ def shade_plain(scene, cfg: RenderConfig, origin: torch.Tensor,
     """:func:`shade` in plain PyTorch, on any device, for every record and
     under autograd: the hits' ``record``, or with none the record gathered
     by ``tri_idx`` (:func:`gather_hit_records`), through
-    :func:`shade_records`.  ``shade_plain.calls`` counts its calls."""
-    shade_plain.calls += 1
+    :func:`shade_records`."""
     if record is None:
         record = gather_hit_records(scene, tri_idx, cfg)
     return shade_records(scene, cfg, record, origin, direction, t,
                          light_pos, shadow_fn)
 
 
-shade_plain.calls = 0
-
-
 def shade_cuda(scene, cfg: RenderConfig, origin: torch.Tensor,
                direction: torch.Tensor, t: torch.Tensor,
                tri_idx: torch.Tensor, light_pos,
-               shadow_fn: Optional[Callable] = None) -> torch.Tensor:
+               shadow_fn: Optional[Callable] = None,
+               record: Optional[dict] = None) -> torch.Tensor:
     """:func:`shade_plain`'s radiance with no record, on the card: the
     light samples (their offsets made once on the device), one shadow query
     of all of them through ``shadow_fn`` (as :func:`shade_records` makes
     it), then csrc/shade.cu's kernel (:func:`shade_launch`), equal to
     :func:`shade_plain` bit for bit; the host reads nothing back.
-    ``shade_cuda.calls`` counts its calls and ``shade_cuda.launches`` the
-    kernels launched."""
-    shade_cuda.calls += 1
+    ``record`` is never given (kernels/table.py sends a record to
+    :func:`shade_plain`)."""
     lcfg = cfg.light
     samples = light_sample_positions(
         torch.as_tensor(light_pos, dtype=torch.float32, device=origin.device),
@@ -310,10 +284,6 @@ def shade_cuda(scene, cfg: RenderConfig, origin: torch.Tensor,
                         found)
 
 
-shade_cuda.calls = 0
-shade_cuda.launches = 0
-
-
 def shade_launch(scene, cfg: RenderConfig, origin: torch.Tensor,
                  direction: torch.Tensor, t: torch.Tensor,
                  tri_idx: torch.Tensor, samples: torch.Tensor,
@@ -322,7 +292,8 @@ def shade_launch(scene, cfg: RenderConfig, origin: torch.Tensor,
     [R, 3] of the rays' hits under the light ``samples`` [S, 3], a sample
     divided by ``shadow_dim`` where ``found`` [S, R] (bool; None: no
     shadow) is set.  The scene's tensors are read in place; the rays, t,
-    ids (int32) and flags are made contiguous."""
+    ids (int32) and flags are made contiguous.  It counts its launches
+    (``integrator.shade_cuda.launches``)."""
     scfg, lcfg = cfg.shading, cfg.light
     dev = origin.device
     R, S = origin.shape[0], samples.shape[0]
@@ -375,7 +346,7 @@ def shade_launch(scene, cfg: RenderConfig, origin: torch.Tensor,
             int(scfg.double_sided_diffuse), int(scfg.specular_nl_factor),
             out.data_ptr(), stream)
     build.check(rc, "shade_kernel")
-    shade_cuda.launches += int(R > 0)
+    count("integrator.shade_cuda.launches", int(R > 0))
     return out
 
 

@@ -31,7 +31,7 @@ from ..ops.camera import (primary_rays, primary_rays_tiled,
 from ..kernels import plan as pl
 from ..kernels.tiled import render_flat_tiled, wants_rays
 from ..utils import pad_rays
-from ..utils.metrics import FRAME_SPAN, span
+from ..utils.metrics import FRAME_SPAN, reset_counts, span
 from . import integrator
 
 MODES = ("bruteforce", "bvh", "tiled")
@@ -207,7 +207,7 @@ def render_radiance(scene, cfg: RenderConfig, light_pos, view_matrix=None
         body = lambda oo, dd: render_flat(flat, cfg, oo, dd, light)
     else:
         from ..accel import traverse
-        traverse.reset_steps()
+        reset_counts("traverse.")
         body = lambda oo, dd: traverse.render_flat_bvh(scene, cfg, oo, dd,
                                                        light)
     radiance, hit = _map_ray_chunks(body, o, d, cfg.ray_chunk)

@@ -7,7 +7,10 @@ in memory inside :func:`recording` and free outside it; and
 :func:`profile_trace`, a ``torch.profiler`` scope that records the spans
 and writes a Chrome trace (host ops and spans, and the card's kernels where
 a CUDA device is present).  :func:`busy_share` reads such a trace back: the
-card's busy share of the traced window.
+card's busy share of the traced window.  :func:`count`, :func:`counts` and
+:func:`reset_counts` keep the program's counters: what ran, by name
+(``module.function.what``: the calls kernels/table.py makes by role, the
+launches some wrappers report, the BVH walks' steps).
 """
 
 from __future__ import annotations
@@ -17,13 +20,36 @@ import json
 import os
 import sys
 import time
-from typing import List, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 TRACE_FILE = "trace.json"
 # the span of one frame: every span inside it carries its index
 FRAME_SPAN = "srt.frame"
 # the card's operations in a Chrome trace: kernels, copies, fills
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+# the program's counters, by key (count, counts, reset_counts)
+_counts: Dict[str, int] = {}
+
+
+def count(key: str, n: int = 1, peak: bool = False) -> None:
+    """Add ``n`` to the counter ``key``; with ``peak``, keep the larger of
+    the counter and ``n`` instead (the most one call took)."""
+    old = _counts.get(key, 0)
+    _counts[key] = max(old, n) if peak else old + n
+
+
+def counts(prefix: str = "") -> Dict[str, int]:
+    """A snapshot of the counters whose keys start with ``prefix``."""
+    return {k: v for k, v in _counts.items() if k.startswith(prefix)}
+
+
+def reset_counts(prefix: str = "") -> None:
+    """Zero the counters whose keys start with ``prefix`` (all of them by
+    default)."""
+    for k in [k for k in _counts if k.startswith(prefix)]:
+        del _counts[k]
 
 
 class Metrics:

@@ -11,7 +11,7 @@ import torch
 import jax.numpy as jnp
 
 from simple_raytracer_tpu_torch.accel.prepared import from_jax_prepared
-from simple_raytracer_tpu_torch.kernels import anyhit, plan as pl
+from simple_raytracer_tpu_torch.kernels import anyhit, plan as pl, table
 
 from simple_raytracer_tpu.accel.prepared import prepare as jprepare
 from simple_raytracer_tpu.kernels import tiled_t
@@ -50,12 +50,12 @@ def results():
         cs = (None if vm is None else torch.from_numpy(vm), FOCAL, WIDTH,
               HEIGHT, TILE_PX)
         caught = []
-        f = anyhit.anyhit_from_t(
-            prep, c, torch.tensor(np.asarray(jt)),
-            torch.tensor(np.asarray(jo)), torch.tensor(np.asarray(jb)),
-            torch.tensor(LIGHT), cs, cfg.cull_maxv,
-            kernel=lambda *a: caught.append(a) or
-            anyhit.tiled_anyhit_from_t(*a))
+        spy = table.spy("anyhit_from_t", caught)
+        with table.using({"anyhit_from_t": spy}):
+            f = anyhit.anyhit_from_t(
+                prep, c, torch.tensor(np.asarray(jt)),
+                torch.tensor(np.asarray(jo)), torch.tensor(np.asarray(jb)),
+                torch.tensor(LIGHT), cs, cfg.cull_maxv)
         out[name] = (np.asarray(jt), np.asarray(jf), f.numpy(), caught[0])
     return out
 
@@ -88,6 +88,6 @@ def test_anyhit_self_object_skip(window, obj, want):
     """A ray never counts a triangle of its own object; miss lanes start
     found."""
     tensors, rest = self_skip(window, obj)
-    found = anyhit.tiled_anyhit_from_t(*tensors, *rest)
+    found = table.run("anyhit_from_t", *tensors, *rest)
     assert found[0, :16].all()
     assert (found[0, 16:] == want).all()

@@ -28,6 +28,7 @@ from simple_raytracer_tpu_torch.accel.prepared import prepare
 from simple_raytracer_tpu_torch.ops import camera as tcam
 from simple_raytracer_tpu_torch.render import renderer as trender
 from simple_raytracer_tpu_torch.scene import procedural as P
+from simple_raytracer_tpu_torch.utils import metrics
 
 from simple_raytracer_tpu import config as jconfig
 from simple_raytracer_tpu.accel import traverse as jtraverse
@@ -110,6 +111,12 @@ def test_bvh_arrays_equal_jax(prepared, split, textured):
     assert last <= prep.scene.num_triangles
 
 
+def _steps(walk: str) -> int:
+    """The most steps one call of ``walk`` took since the counters' reset
+    (the ``traverse.*.steps`` counters)."""
+    return metrics.counts().get(f"traverse.{walk}.steps", 0)
+
+
 def _rays(view):
     o, d = tcam.primary_rays_world(WIDTH, HEIGHT, view, FOCAL)
     return o.reshape(-1, 3), d.reshape(-1, 3)
@@ -122,7 +129,7 @@ def test_bvh_hits_match_jax_and_bruteforce(prepared, split):
     triangles."""
     prep, jprep = prepared[False, split]
     o, d = _rays(VIEW)
-    traverse.reset_steps()
+    metrics.reset_counts("traverse.")
     t, idx = traverse.bvh_hits(prep, o, d)
     jt, jidx = jtraverse.bvh_hits(jprep, jnp.asarray(o.numpy()),
                                   jnp.asarray(d.numpy()))
@@ -131,7 +138,7 @@ def test_bvh_hits_match_jax_and_bruteforce(prepared, split):
     bt, bidx = trender.brute_force_hits(prep.scene, o, d)
     _hit_bars(t, idx, bt, bidx)
     assert 0.2 < float(torch.isfinite(t).float().mean()) < 0.99
-    assert 0 < traverse.nearest_hit.steps <= prep.num_nodes
+    assert 0 < _steps("nearest_hit") <= prep.num_nodes
 
 
 @pytest.mark.parametrize("no_max_t", [True, False])
@@ -168,11 +175,11 @@ def test_any_hit_walk_stops_once_found(prepared):
     d = torch.stack([torch.linspace(-0.2, 0.2, n), torch.ones(n),
                      torch.zeros(n)], dim=1)
     obj = torch.full((n,), 5, dtype=torch.int32)        # no object's id
-    traverse.reset_steps()
+    metrics.reset_counts("traverse.")
     found = traverse.any_hit_other(prep, o, d, obj)
     assert bool(found.all())
     traverse.bvh_hits(prep, o, d)
-    assert traverse.any_hit_other.steps < traverse.nearest_hit.steps
+    assert _steps("any_hit_other") < _steps("nearest_hit")
 
 
 CASES = {
@@ -209,15 +216,15 @@ def test_frame_steps_span_its_ray_chunks(prepared):
     cfg, _ = _configs("sah")
     chunk = 97
     img = trender.render(prep, cfg, LIGHT, VIEW)
-    steps = (traverse.nearest_hit.steps, traverse.any_hit_other.steps)
+    steps = (_steps("nearest_hit"), _steps("any_hit_other"))
     chunked = trender.render(prep, cfg.replace(ray_chunk=chunk), LIGHT, VIEW)
     assert torch.equal(chunked, img)
-    assert (traverse.nearest_hit.steps, traverse.any_hit_other.steps) == steps
+    assert (_steps("nearest_hit"), _steps("any_hit_other")) == steps
     o, d = _rays(VIEW)
     tail = o.shape[0] - (o.shape[0] - 1) % chunk - 1
-    traverse.reset_steps()
+    metrics.reset_counts("traverse.")
     traverse.bvh_hits(prep, o[tail:], d[tail:])
-    assert 0 < traverse.nearest_hit.steps < steps[0]
+    assert 0 < _steps("nearest_hit") < steps[0]
 
 
 def test_raw_scene_renders_through_prepare(prepared):

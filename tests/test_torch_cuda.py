@@ -15,14 +15,15 @@ import torch
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import prepare
 from simple_raytracer_tpu_torch.kernels import (anyhit, build, nearest, paged,
-                                                prepass)
+                                                prepass, table)
 from simple_raytracer_tpu_torch.kernels import plan as pl
-from simple_raytracer_tpu_torch.kernels.tiled import KERNELS, render_flat_tiled
+from simple_raytracer_tpu_torch.kernels.tiled import render_flat_tiled
 from simple_raytracer_tpu_torch.ops.camera import (primary_rays_tiled,
                                                    tile_ray_dirs)
 from simple_raytracer_tpu_torch.probes import attr, fixed
 from simple_raytracer_tpu_torch.scene import procedural as P
 from simple_raytracer_tpu_torch.scene import transforms as T
+from simple_raytracer_tpu_torch.utils import metrics
 
 from _torch_cases import (SELF_SKIP, coincident_pages, grouped_stress,
                           k1_stress, k2_stress, k3_stress, masked_occluder,
@@ -32,6 +33,11 @@ from _torch_cases import (SELF_SKIP, coincident_pages, grouped_stress,
 pytestmark = pytest.mark.cuda
 
 SIZE, FOCAL, TPX = 128, 400.0, 64
+# the walks' roles of kernels/table.py (the frames' kernels but the
+# planner's and the shading's)
+WALKS = ("nearest_shaded", "nearest_attrs", "nearest_rays",
+         "nearest_rays_attrs", "nearest_grouped", "prepass", "anyhit_from_t",
+         "anyhit", "anyhit_grouped", "nearest_pages", "anyhit_pages")
 VIEWS = {"identity": None,
          "moved": T.view_matrix((-8.0, -6.0, 15.0),
                                 (math.radians(12.0), math.radians(-6.0), 0.0))}
@@ -59,20 +65,35 @@ def scene():
     return prep, cfg
 
 
-def _frame_args(prep, cfg, view, tpx=TPX):
-    """The arguments the frame hands each kernel, by role (tiled.KERNELS)."""
-    caught = {}
+def _launches(role: str) -> int:
+    """The launches ``role``'s CUDA wrapper has counted so far."""
+    return table.launches()[role]
 
-    def rec(role, fn):
-        return lambda *a: caught.setdefault(role, a) and fn(*a)
+
+def _mode_launches() -> dict:
+    """K1's launches counted so far by attribute mode."""
+    now = metrics.counts("nearest.tiled_nearest_shaded.mode_launches.")
+    return {m: now.get(f"nearest.tiled_nearest_shaded.mode_launches.{m}", 0)
+            for m in nearest.MODES}
+
+
+def _walk_launches() -> dict:
+    """The launches each walk's CUDA wrapper has counted so far, by role."""
+    return {r: n for r, n in table.launches().items() if r in WALKS}
+
+
+def _frame_args(prep, cfg, view, tpx=TPX):
+    """The arguments the frame hands each kernel, by role
+    (kernels/table.py)."""
+    stores = {k: [] for k in WALKS}
     vm = None if view is None else torch.tensor(view, device="cuda")
     light = torch.tensor(P.BENCH_LIGHT, device="cuda")
     o, d, _, _ = primary_rays_tiled(SIZE, SIZE, tpx, FOCAL, view_matrix=vm,
                                     device="cuda")
-    render_flat_tiled(prep, cfg, light, (vm, FOCAL, SIZE, SIZE, tpx),
-                      rays=(o.reshape(-1, 3), d.reshape(-1, 3)),
-                      kernels={k: rec(k, f) for k, f in KERNELS.items()})
-    return caught
+    with table.using({k: table.spy(k, stores[k]) for k in WALKS}):
+        render_flat_tiled(prep, cfg, light, (vm, FOCAL, SIZE, SIZE, tpx),
+                          rays=(o.reshape(-1, 3), d.reshape(-1, 3)))
+    return {k: s[0] for k, s in stores.items() if s}
 
 
 def _kernel_args(prep, cfg, view):
@@ -98,9 +119,9 @@ def test_kernels_build():
 def test_nearest_kernel_matches_plain(scene, view):
     prep, cfg = scene
     k1, _ = _kernel_args(prep, cfg, VIEWS[view])
-    n0 = nearest.tiled_nearest_shaded.launches
-    kt, ki, ko, krgb, kb = nearest.tiled_nearest_shaded(*k1)
-    assert nearest.tiled_nearest_shaded.launches == n0 + 1
+    n0 = _launches("nearest_shaded")
+    kt, ki, ko, krgb, kb = table.run("nearest_shaded", *k1)
+    assert _launches("nearest_shaded") == n0 + 1
     pt, pi, po, prgb, pb = nearest.tiled_nearest_shaded_plain(*k1)
     hit = torch.isfinite(pt)
     assert hit.sum() > 4000
@@ -120,9 +141,9 @@ def test_nearest_kernel_matches_plain(scene, view):
 def test_anyhit_kernel_matches_plain(scene, view):
     prep, cfg = scene
     _, k2 = _kernel_args(prep, cfg, VIEWS[view])
-    n0 = anyhit.tiled_anyhit_from_t.launches
-    kf = anyhit.tiled_anyhit_from_t(*k2)
-    assert anyhit.tiled_anyhit_from_t.launches == n0 + 1
+    n0 = _launches("anyhit_from_t")
+    kf = table.run("anyhit_from_t", *k2)
+    assert _launches("anyhit_from_t") == n0 + 1
     pf = anyhit.tiled_anyhit_from_t_plain(*k2)
     hit = torch.isfinite(k2[3])
     assert (kf[hit] == pf[hit]).float().mean() >= 0.9999
@@ -151,12 +172,12 @@ def test_anyhit_kernel_self_object_skip(window, obj, want):
 
 def test_render_launches_both_kernels(scene):
     prep, cfg = scene
-    n0 = nearest.tiled_nearest_shaded.launches
-    a0 = anyhit.tiled_anyhit_from_t.launches
+    n0 = _launches("nearest_shaded")
+    a0 = _launches("anyhit_from_t")
     img = sr.render(prep, cfg, P.BENCH_LIGHT)
     assert img.is_cuda and img.shape == (SIZE, SIZE, 3)
-    assert nearest.tiled_nearest_shaded.launches == n0 + 1
-    assert anyhit.tiled_anyhit_from_t.launches == a0 + 1
+    assert _launches("nearest_shaded") == n0 + 1
+    assert _launches("anyhit_from_t") == a0 + 1
     cpu = sr.render(prep.to("cpu"), cfg, P.BENCH_LIGHT)
     diff = (img.cpu().int() - cpu.int()).abs()
     assert (diff <= 1).float().mean() >= 0.999
@@ -168,9 +189,9 @@ def test_nearest_attrs_kernel_matches_plain(scene, view):
     prep, cfg = scene
     soft = cfg.replace(light=sr.LightConfig(num_samples=4))
     args = _frame_args(prep, soft, VIEWS[view])["nearest_attrs"]
-    n0 = nearest.tiled_nearest_attrs.launches
-    kt, ki, ka = nearest.tiled_nearest_attrs(*args)
-    assert nearest.tiled_nearest_attrs.launches == n0 + 1
+    n0 = _launches("nearest_attrs")
+    kt, ki, ka = table.run("nearest_attrs", *args)
+    assert _launches("nearest_attrs") == n0 + 1
     pt, pi, pa = nearest.tiled_nearest_attrs_plain(*args)
     hit = torch.isfinite(pt)
     assert hit.sum() > 4000 and torch.equal(torch.isfinite(kt), hit)
@@ -190,9 +211,9 @@ def test_anyhit_rays_kernel_matches_plain(scene, frame):
     else:
         cfg, tpx = cfg.replace(tile_px=32, shadow_tile=256), 32
     args = _frame_args(prep, cfg, VIEWS["moved"], tpx)["anyhit"]
-    n0 = anyhit.tiled_anyhit.launches
-    kf = anyhit.tiled_anyhit(*args)
-    assert anyhit.tiled_anyhit.launches == n0 + 1
+    n0 = _launches("anyhit")
+    kf = table.run("anyhit", *args)
+    assert _launches("anyhit") == n0 + 1
     pf = anyhit.tiled_anyhit_plain(*args)
     assert (kf == pf).float().mean() >= 0.9999
     assert kf.sum() > 50
@@ -230,9 +251,9 @@ def test_nearest_rays_kernel_matches_plain(scene, view):
     prep, cfg = scene
     args = _frame_args(prep, cfg.replace(tiled_impl="paged"),
                        VIEWS[view])["nearest_pages"]
-    n0 = paged.tiled_nearest.launches
-    kt, ki = paged.tiled_nearest(*args)
-    assert paged.tiled_nearest.launches == n0 + 1
+    n0 = _launches("nearest_pages")
+    kt, ki = table.run("nearest_pages", *args)
+    assert _launches("nearest_pages") == n0 + 1
     pt, pi = paged.tiled_nearest_plain(*args)
     hit = torch.isfinite(pt)
     assert hit.sum() > 4000 and torch.equal(torch.isfinite(kt), hit)
@@ -269,9 +290,9 @@ def test_anyhit_pages_kernel_matches_plain(scene, samples):
                       light=sr.LightConfig(num_samples=samples))
     args = _frame_args(prep, cfg, VIEWS["moved"])["anyhit_pages"]
     assert args[3].shape[1] == (4096 if samples == 1 else 1024)
-    n0 = paged.tiled_anyhit.launches
-    kf = paged.tiled_anyhit(*args)
-    assert paged.tiled_anyhit.launches == n0 + 1
+    n0 = _launches("anyhit_pages")
+    kf = table.run("anyhit_pages", *args)
+    assert _launches("anyhit_pages") == n0 + 1
     pf = paged.tiled_anyhit_plain(*args)
     assert (kf == pf).float().mean() >= 0.9999
     assert kf.sum() > 50
@@ -284,12 +305,12 @@ def test_render_defaults_to_the_card():
         mode="tiled", camera=sr.CameraConfig(width=SIZE, height=SIZE,
                                              focal=FOCAL),
         bvh=sr.BVHConfig(split="sah"), tiled_impl="paged")
-    n0, a0 = paged.tiled_nearest.launches, paged.tiled_anyhit.launches
+    n0, a0 = _launches("nearest_pages"), _launches("anyhit_pages")
     img = sr.render(P.sphere_on_ground(sr.SceneManager(), 3).build(), cfg,
                     P.BENCH_LIGHT)
     assert img.is_cuda and img.shape == (SIZE, SIZE, 3)
-    assert paged.tiled_nearest.launches == n0 + 1
-    assert paged.tiled_anyhit.launches == a0 + 1
+    assert _launches("nearest_pages") == n0 + 1
+    assert _launches("anyhit_pages") == a0 + 1
 
 
 def _rays(view, tile):
@@ -310,9 +331,9 @@ def test_gather_nearest_kernel_matches_plain(scene, view):
     prep, cfg = scene
     gather = cfg.replace(kernel=sr.KernelConfig(attr_fetch=False))
     args = _frame_args(prep, gather, VIEWS[view])["nearest_attrs"]
-    n0 = nearest.tiled_nearest_attrs.launches
-    kt, ki, _ = nearest.tiled_nearest_attrs(*args)
-    assert nearest.tiled_nearest_attrs.launches == n0 + 1
+    n0 = _launches("nearest_attrs")
+    kt, ki, _ = table.run("nearest_attrs", *args)
+    assert _launches("nearest_attrs") == n0 + 1
     pt, pi, _ = nearest.tiled_nearest_attrs_plain(*args)
     hit = torch.isfinite(pt)
     assert hit.sum() > 4000 and torch.equal(torch.isfinite(kt), hit)
@@ -327,9 +348,9 @@ def test_prepass_kernel_matches_plain(scene, view):
     prep, cfg = scene
     (o, d), (o3, d3) = _rays(VIEWS[view], TPX * TPX)
     plan = pl.cull_rays(prep, o, d, TPX * TPX, cfg.cull_maxv, 2)
-    n0 = prepass.tiled_prepass.launches
-    kf = prepass.tiled_prepass(plan, prep.gram, o3, d3, 64, cfg.mt_eps)
-    assert prepass.tiled_prepass.launches == n0 + 1
+    n0 = _launches("prepass")
+    kf = table.run("prepass", plan, prep.gram, o3, d3, 64, cfg.mt_eps)
+    assert _launches("prepass") == n0 + 1
     pf = prepass.tiled_prepass_plain(plan, prep.gram, o3, d3, 64, cfg.mt_eps)
     assert torch.equal(kf, pf) and kf.any()
     ref = prepass.refine_plan(plan, kf)
@@ -353,10 +374,10 @@ def test_nearest_grouped_kernel_matches_plain(scene, lanes):
     tile = 4 * lanes
     (o, d), (o3, d3) = _rays(VIEWS["moved"], tile)
     plan = pl.cull_rays(prep, o, d, tile, cfg.cull_maxv, 2, groups=4)
-    n0 = nearest.tiled_nearest_grouped.launches
-    kt, ki = nearest.tiled_nearest_grouped(plan, prep.tri, o3, d3, 64,
+    n0 = _launches("nearest_grouped")
+    kt, ki = table.run("nearest_grouped", plan, prep.tri, o3, d3, 64,
                                            cfg.mt_eps, 4)
-    assert nearest.tiled_nearest_grouped.launches == n0 + 1
+    assert _launches("nearest_grouped") == n0 + 1
     pt, pi = nearest.tiled_nearest_grouped_plain(plan, prep.tri, o3, d3, 64,
                                                  cfg.mt_eps, 4)
     hit = torch.isfinite(pt)
@@ -382,9 +403,9 @@ def test_anyhit_grouped_kernel_matches_plain(scene, lanes):
         cfg = cfg.replace(shadow_tile=128, kernel=kc)
     args = _frame_args(prep, cfg, VIEWS["moved"])["anyhit_grouped"]
     assert args[3].shape[1] == 4 * lanes
-    n0 = anyhit.tiled_anyhit_grouped.launches
-    kf = anyhit.tiled_anyhit_grouped(*args)
-    assert anyhit.tiled_anyhit_grouped.launches == n0 + 1
+    n0 = _launches("anyhit_grouped")
+    kf = table.run("anyhit_grouped", *args)
+    assert _launches("anyhit_grouped") == n0 + 1
     pf = anyhit.tiled_anyhit_grouped_plain(*args)
     assert (kf == pf).float().mean() >= 0.9999 and kf.sum() > 50
     flat = args[0][:, :pl.PLAN_AUX + (args[0].shape[1] - pl.PLAN_AUX) * 8 // 9]
@@ -440,11 +461,10 @@ def test_nearest_kernel_modes_match_plain(mode_scenes, mode, tpx):
     k1 = _frame_args(prep, cfg.replace(tile_px=tpx), VIEWS["moved"],
                      tpx)["nearest_shaded"]
     assert k1[5] == tpx and k1[10] == m
-    n0, m0 = (nearest.tiled_nearest_shaded.launches,
-              nearest.tiled_nearest_shaded.mode_launches[m])
-    kt, ki, ko, ks, kb = nearest.tiled_nearest_shaded(*k1)
-    assert nearest.tiled_nearest_shaded.launches == n0 + 1
-    assert nearest.tiled_nearest_shaded.mode_launches[m] == m0 + 1
+    n0, m0 = _launches("nearest_shaded"), _mode_launches()[m]
+    kt, ki, ko, ks, kb = table.run("nearest_shaded", *k1)
+    assert _launches("nearest_shaded") == n0 + 1
+    assert _mode_launches()[m] == m0 + 1
     pt, pi, po, ps, pb = nearest.tiled_nearest_shaded_plain(*k1)
     assert ks.shape == ps.shape == (kt.numel(), nearest.shade_width(m))
     hit = torch.isfinite(pt)
@@ -470,14 +490,13 @@ def test_render_mode_frame_launches_its_kernels(mode_scenes, mode):
     CPU."""
     m = nearest.TEXTURED if mode == "textured" else nearest.SMOOTH
     prep, cfg = mode_scenes[m]
-    n0 = {k: f.launches for k, f in KERNELS.items()}
-    m0 = dict(nearest.tiled_nearest_shaded.mode_launches)
+    n0 = _walk_launches()
+    m0 = _mode_launches()
     img = sr.render(prep, cfg, P.BENCH_LIGHT)
-    dn = {k: f.launches - n0[k] for k, f in KERNELS.items()}
+    dn = {k: v - n0[k] for k, v in _walk_launches().items()}
     assert dn == {k: int(k in ("nearest_shaded", "anyhit_from_t"))
-                  for k in KERNELS}
-    assert {k: v - m0[k] for k, v in
-            nearest.tiled_nearest_shaded.mode_launches.items()} == \
+                  for k in WALKS}
+    assert {k: v - m0[k] for k, v in _mode_launches().items()} == \
         {k: int(k == m) for k in nearest.MODES}
     cpu = sr.render(prep.to("cpu"), cfg, P.BENCH_LIGHT)
     diff = (img.cpu().int() - cpu.int()).abs()
@@ -495,11 +514,11 @@ def test_render_gather_frame_launches_its_kernels():
         shading=sr.ShadingConfig(smooth_normals=True))
     prep = prepare(P.textured_on_ground(sr.SceneManager(), 3).build(), cfg,
                    device="cuda")
-    n0 = nearest.tiled_nearest_attrs.launches
-    a0 = anyhit.tiled_anyhit.launches
+    n0 = _launches("nearest_attrs")
+    a0 = _launches("anyhit")
     img = sr.render(prep, cfg, P.BENCH_LIGHT)
-    assert nearest.tiled_nearest_attrs.launches == n0 + 1
-    assert anyhit.tiled_anyhit.launches == a0 + 1
+    assert _launches("nearest_attrs") == n0 + 1
+    assert _launches("anyhit") == a0 + 1
     cpu = sr.render(prep.to("cpu"), cfg, P.BENCH_LIGHT)
     diff = (img.cpu().int() - cpu.int()).abs()
     assert (diff <= 1).float().mean() >= 0.999
@@ -515,22 +534,13 @@ SPAN_BRANCHES = {
 }
 
 
-def _all_launches():
-    """Every kernel wrapper's ``launches`` counter, by name."""
-    from simple_raytracer_tpu_torch.kernels import prepass
-    return {f"{mod.__name__}.{k}": f.launches
-            for mod in (nearest, anyhit, paged, prepass)
-            for k, f in vars(mod).items() if hasattr(f, "launches")}
-
-
 @pytest.mark.parametrize("branch", sorted(SPAN_BRANCHES))
 def test_recording_spans_launches_nothing(branch):
     """A frame of each branch of the tiled path renders the same image on
     the card with the program's spans recording as without, and each
-    kernel wrapper's counter moves alike, some of them above 0; the
+    counter of the registry moves alike, some of them above 0; the
     recorded walks' spans are there."""
     from simple_raytracer_tpu_torch.kernels.tiled import frame_branch
-    from simple_raytracer_tpu_torch.utils import metrics
     build, extra = SPAN_BRANCHES[branch]
     cfg = sr.default_config().replace(
         mode="tiled", camera=sr.CameraConfig(width=SIZE, height=SIZE,
@@ -538,12 +548,12 @@ def test_recording_spans_launches_nothing(branch):
     prep = prepare(build(sr.SceneManager(), 3).build(), cfg, device="cuda")
     assert frame_branch(prep, cfg, TPX * TPX) == branch.split("_")[0]
     sr.render(prep, cfg, P.BENCH_LIGHT)
-    before = _all_launches()
+    before = metrics.counts()
     off = sr.render(prep, cfg, P.BENCH_LIGHT)
-    mid = _all_launches()
+    mid = metrics.counts()
     with metrics.recording() as rec:
         on = sr.render(prep, cfg, P.BENCH_LIGHT)
-    after = _all_launches()
+    after = metrics.counts()
     assert torch.equal(off, on)
     d_off = {k: mid[k] - before[k] for k in before}
     d_on = {k: after[k] - mid[k] for k in before}
@@ -561,11 +571,12 @@ def test_fixed_probe_kernel_matches_plain(variant, tpx):
     counts its launch."""
     inputs = fixed.frame_inputs(200, 136, tpx, FOCAL, "cuda")
     inputs["a"] = 3e-6
-    n0 = fixed.fixed_probe.launches[variant]
+    key = f"fixed.fixed_probe.launches.{variant}"
+    n0 = metrics.counts().get(key, 0)
     t, idx = fixed.fixed_probe(variant, **inputs)
     pt, pidx = fixed.fixed_probe_plain(variant, **inputs)
     torch.cuda.synchronize()
-    assert fixed.fixed_probe.launches[variant] == n0 + 1
+    assert metrics.counts()[key] == n0 + 1
     assert t.shape == pt.shape and torch.equal(t, pt)
     assert (idx is None) == (pidx is None)
     if idx is not None:
@@ -577,15 +588,15 @@ def test_attr_kernels_match_plain():
     versions exactly and count their launches."""
     bid, at = attr.gather_inputs(6, "cuda")
     bid[0, :5] = -1
-    g0, w0 = attr.attr_gather.launches, attr.attr_window.launches
-    assert torch.equal(attr.attr_gather(bid, at),
+    g0, w0 = _launches("attr_gather"), _launches("attr_window")
+    assert torch.equal(table.run("attr_gather", bid, at),
                        attr.attr_gather_plain(bid, at))
     starts, wbid, wat = attr.window_inputs(5, 10, 512, 64, "cuda")
-    out = attr.attr_window(starts, wbid, wat)
+    out = table.run("attr_window", starts, wbid, wat)
     assert torch.equal(out, attr.attr_window_plain(starts, wbid, wat))
     assert bool((out != 0).any())
-    assert attr.attr_gather.launches == g0 + 1
-    assert attr.attr_window.launches == w0 + 1
+    assert _launches("attr_gather") == g0 + 1
+    assert _launches("attr_window") == w0 + 1
 
 
 def test_probe_wrappers_reject_bad_inputs():
@@ -848,8 +859,9 @@ def _shadow_tiles(prep, cfg, kind: str, m: int):
     tiles of 768 or 1,024 rays, else hard), the plan stressed: (plan, tri,
     block_obj, o, d, self_obj, window_tris, groups)."""
     (o, d), _ = _rays(VIEWS["moved"], TPX * TPX)
-    t, idx = paged.hits(prep, cfg, o, d, TPX * TPX, cfg.cull_maxv,
-                        apex=True, kernel=paged.tiled_nearest_plain)
+    with table.using({"nearest_pages": paged.tiled_nearest_plain}):
+        t, idx = paged.hits(prep, cfg, o, d, TPX * TPX, cfg.cull_maxv,
+                            apex=True)
     hit = torch.isfinite(t)
     p = (o + torch.where(hit, t, 0.0)[:, None] * d)[hit]
     so = prep.scene.tri_obj[idx[hit].long()].to(torch.int32)
@@ -992,9 +1004,9 @@ def test_k2_items_match_plain(scene, tpx, spans):
     assert torch.equal(found[empty], ~hit[empty])
     assert int(cnt[plan[:, 3] != 1].max()) > sp[0]   # a range row's spans
     _schedule_equal(plan, sched, tri.shape[0] // wt, sp)
-    n0 = anyhit.tiled_anyhit_from_t.launches
-    assert torch.equal(anyhit.tiled_anyhit_from_t(*k2), whole)
-    assert anyhit.tiled_anyhit_from_t.launches == n0 + 1
+    n0 = _launches("anyhit_from_t")
+    assert torch.equal(table.run("anyhit_from_t", *k2), whole)
+    assert _launches("anyhit_from_t") == n0 + 1
 
 
 def test_k2_items_add_no_host_sync(scene):
@@ -1074,10 +1086,10 @@ def test_prepass_items_match_plain(scene, m, lie):
             t1, i1 = nearest.tiled_nearest_rays(ref, tri, o, d, 64,
                                                 cfg.mt_eps)
             assert torch.equal(t0, t1) and torch.equal(i0, i1)
-    n0 = prepass.tiled_prepass.launches
-    assert torch.equal(prepass.tiled_prepass(plan, gram, o, d, 64,
+    n0 = _launches("prepass")
+    assert torch.equal(table.run("prepass", plan, gram, o, d, 64,
                                              cfg.mt_eps), flags)
-    assert prepass.tiled_prepass.launches == n0 + 1
+    assert _launches("prepass") == n0 + 1
 
 
 def test_prepass_items_calls_do_not_leak_flags(scene):
@@ -1134,10 +1146,6 @@ def test_prepass_items_shape():
                for ln in spills), spills
 
 
-def _launch_counts():
-    return {role: fn.launches for role, fn in KERNELS.items()}
-
-
 @pytest.mark.parametrize("mode", ["bruteforce", "bvh"])
 @pytest.mark.parametrize("view", list(VIEWS))
 def test_plain_mode_frame_on_the_card(mode, view):
@@ -1145,16 +1153,15 @@ def test_plain_mode_frame_on_the_card(mode, view):
     Scene moved or prepared there), launch no kernel of csrc/, and are
     within 1 of the same frame on the CPU on >= 99.9% of pixels, equal on
     >= 98%; ray chunks of 5,000 (a padded last chunk) change nothing."""
-    from simple_raytracer_tpu_torch.accel import traverse
     cfg = sr.default_config().replace(
         mode=mode, camera=sr.CameraConfig(width=SIZE, height=SIZE,
                                           focal=FOCAL),
         light=sr.LightConfig(num_samples=2), bvh=sr.BVHConfig(split="sah"))
     scene = P.sphere_on_ground(sr.SceneManager(), 3).build()
-    before = _launch_counts()
+    before = _walk_launches()
     img = sr.render(scene, cfg, P.BENCH_LIGHT, view_matrix=VIEWS[view])
     torch.cuda.synchronize()
-    assert _launch_counts() == before
+    assert _walk_launches() == before
     assert img.is_cuda and img.shape == (SIZE, SIZE, 3)
     cpu = sr.render(scene, cfg, P.BENCH_LIGHT, view_matrix=VIEWS[view],
                     device="cpu")
@@ -1165,8 +1172,9 @@ def test_plain_mode_frame_on_the_card(mode, view):
                         view_matrix=VIEWS[view])
     assert torch.equal(chunked, img)
     if mode == "bvh":
-        assert 0 < traverse.nearest_hit.steps and \
-            0 < traverse.any_hit_other.steps
+        steps = metrics.counts("traverse.")
+        assert 0 < steps["traverse.nearest_hit.steps"] and \
+            0 < steps["traverse.any_hit_other.steps"]
 
 
 def test_cli_renders_on_the_card(tmp_path):
@@ -1213,15 +1221,6 @@ def _train_setup(scene):
     return prep, cfg, params, target
 
 
-def _launches():
-    return {role: fn.launches for role, fn in KERNELS.items()}
-
-
-def _reset():
-    for fn in KERNELS.values():
-        fn.launches = 0
-
-
 @pytest.mark.parametrize("remat", [False, True])
 def test_train_step_runs_the_cuda_walks(scene, remat):
     """A tiled train step on a CUDA prepared scene launches K1's rays walk
@@ -1229,12 +1228,12 @@ def test_train_step_runs_the_cuda_walks(scene, remat):
     forward) and no other kernel; its losses fall."""
     prep, cfg, params, target = _train_setup(scene)
     step = sr.make_train_step(prep, cfg, lr=1e-3, remat=remat)
-    _reset()
+    metrics.reset_counts()
     params, loss = step(params, target)
     torch.cuda.synchronize()
     n = 2 if remat else 1
-    assert _launches() == {r: n if r in ("nearest_rays", "anyhit") else 0
-                           for r in KERNELS}
+    assert _walk_launches() == {r: n if r in ("nearest_rays", "anyhit") else 0
+                             for r in WALKS}
     losses = [float(loss)]
     for _ in range(3):
         params, loss = step(params, target)
@@ -1244,15 +1243,14 @@ def test_train_step_runs_the_cuda_walks(scene, remat):
 
 def test_train_step_equals_the_plain_walks(scene):
     """The step's loss and gradients on the CUDA walks against the same
-    step on their plain versions (``kernels=PLAIN``): the winners equal
+    step on their plain versions (``table.plain()``): the winners equal
     bit for bit, so the loss agrees to rtol 1e-6 and the gradients to
     1e-4 of each field's largest (the backward's scatter-adds sum in any
     order)."""
-    from simple_raytracer_tpu_torch.kernels.tiled import PLAIN
     prep, cfg, params, target = _train_setup(scene)
     got = sr.make_train_step(prep, cfg).value_and_grad(params, target)
-    want = sr.make_train_step(prep, cfg, kernels=PLAIN).value_and_grad(
-        params, target)
+    with table.using(table.plain()):
+        want = sr.make_train_step(prep, cfg).value_and_grad(params, target)
     assert float(got[0]) == pytest.approx(float(want[0]), rel=1e-6)
     for a, b in zip(got[1].leaves(), want[1].leaves()):
         assert torch.isfinite(a).all()
@@ -1283,9 +1281,9 @@ def test_config_frame_launches_its_kernels(scene, config):
     change, branch, roles = CONFIGS[config]
     c = cfg.replace(**change)
     assert tiled.frame_branch(prep, c, TPX * TPX) == branch
-    n0 = {k: f.launches for k, f in KERNELS.items()}
+    n0 = _walk_launches()
     img = sr.render(prep, c, P.BENCH_LIGHT)
-    n1 = {k: f.launches for k, f in KERNELS.items()}
+    n1 = _walk_launches()
     assert {k for k in n0 if n1[k] != n0[k]} == set(roles)
     assert all(n1[k] == n0[k] + 1 for k in roles)
     cpu = sr.render(prep.to("cpu"), c, P.BENCH_LIGHT)
@@ -1309,17 +1307,15 @@ def test_config_walks_match_plain(scene, config, view):
     o, d, _, _ = primary_rays_tiled(SIZE, SIZE, TPX, FOCAL,
                                     cam.normalize_dirs, view_matrix=vm,
                                     device="cuda")
-    caught = {}
-    from simple_raytracer_tpu_torch.kernels import tiled
-    render_flat_tiled(prep, c, torch.tensor(P.BENCH_LIGHT, device="cuda"),
-                      (vm, FOCAL, SIZE, SIZE, TPX),
-                      rays=(o.reshape(-1, 3), d.reshape(-1, 3)),
-                      kernels={k: (lambda *a, _k=k, _f=f:
-                                   caught.setdefault(_k, a) and _f(*a))
-                               for k, f in KERNELS.items()})
-    args = caught[roles[0]]
-    got = KERNELS[roles[0]](*args)
-    want = tiled.PLAIN[roles[0]](*args)
+    stores = {k: [] for k in WALKS}
+    with table.using({k: table.spy(k, stores[k]) for k in WALKS}):
+        render_flat_tiled(prep, c,
+                          torch.tensor(P.BENCH_LIGHT, device="cuda"),
+                          (vm, FOCAL, SIZE, SIZE, TPX),
+                          rays=(o.reshape(-1, 3), d.reshape(-1, 3)))
+    args = stores[roles[0]][0]
+    got = table.roles()[roles[0]].cuda(*args)
+    want = table.roles()[roles[0]].plain(*args)
     assert torch.isfinite(want[0]).sum() > 4000
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -1345,7 +1341,6 @@ def test_ring_on_the_card_equals_the_plain_ring(scene):
     schedule: 16 K1 rays-walk calls and 16 K7 calls, and the frame equal
     bit for bit to the same ring over the plain walks."""
     from simple_raytracer_tpu_torch.dist import ring
-    from simple_raytracer_tpu_torch.kernels.tiled import PLAIN
     from simple_raytracer_tpu_torch.ops.camera import primary_rays
     _prep, cfg = scene
     sc = P.sphere_on_ground(sr.SceneManager(), 3).build()
@@ -1354,15 +1349,15 @@ def test_ring_on_the_card_equals_the_plain_ring(scene):
     o, d = primary_rays(SIZE, SIZE, FOCAL, device="cuda")
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
     light = torch.tensor(P.BENCH_LIGHT, device="cuda")
-    for fn in KERNELS.values():
-        fn.launches = 0
+    metrics.reset_counts()
     rad, hit = ring.render_flat_ring_local(tables, shards, cfg, o, d, light,
                                            apex=True)
     torch.cuda.synchronize()
-    assert KERNELS["nearest_rays"].launches == 16
-    assert KERNELS["anyhit_pages"].launches == 16
-    prad, phit = ring.render_flat_ring_local(tables, shards, cfg, o, d,
-                                             light, apex=True, kernels=PLAIN)
+    assert _launches("nearest_rays") == 16
+    assert _launches("anyhit_pages") == 16
+    with table.using(table.plain()):
+        prad, phit = ring.render_flat_ring_local(tables, shards, cfg, o, d,
+                                                 light, apex=True)
     assert torch.equal(hit, phit) and 100 < int(hit.sum()) < hit.numel()
     assert torch.equal(rad[hit], prad[phit])
 

@@ -16,6 +16,7 @@ Imports neither JAX nor the JAX package; on the card run
 """
 
 import math
+import types
 
 import numpy as np
 import pytest
@@ -23,7 +24,8 @@ import torch
 
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import prepare
-from simple_raytracer_tpu_torch.kernels import plan as pl
+from simple_raytracer_tpu_torch.kernels import plan as pl, table
+from simple_raytracer_tpu_torch.utils import metrics
 from rtbench import traffic as tr
 from rtbench.reference.render import Frame, Reference
 from rtbench.scenes import port
@@ -54,6 +56,15 @@ def frame_cfg(width: int, height: int, focal: float):
         light=sr.LightConfig(position=LIGHT, num_samples=S))
 
 
+def _counts(key: str) -> int:
+    return metrics.counts().get(key, 0)
+
+
+def _plans(twin: bool = False) -> int:
+    """The plans csrc/plan.cu (``twin``: the plain planner) built so far."""
+    return table.calls(twin)["plan"]
+
+
 def spy_culls(monkeypatch):
     """Record the arguments of every ``plan.cull``."""
     calls = []
@@ -70,15 +81,18 @@ def spy_culls(monkeypatch):
 def test_route_sends_hourglass_list_plans_to_the_kernel(device):
     """Hourglass list plans on a CUDA device take the kernel, as interval
     ones do; CPU tensors, range-only plans (past 65,536 windows) and plans
-    without list capacity stay plain."""
+    without list capacity stay plain (kernels/table.py's ``plan`` role)."""
     for maxv, windows, listed in ((248, 1282, True), (1000, 2561, True),
                                   (1000, 65536, True), (0, 1282, False),
                                   (-1, 1282, False), (248, 65537, False)):
         for hourglass in (False, True):
-            want = "cuda" if device == "cuda" and listed else "plain"
-            got = pl.cull_route(torch.device(device), maxv, windows,
-                                hourglass)
-            assert got == want, (device, maxv, windows, hourglass)
+            want = (pl.cull_cuda if device == "cuda" and listed
+                    else pl.cull_plain)
+            prep = types.SimpleNamespace(device=torch.device(device),
+                                         num_blocks=windows)
+            got = table.pick("plan", prep, maxv, 1, None, None, False,
+                             False, hourglass)
+            assert got is want, (device, maxv, windows, hourglass)
 
 
 def _words(words, name):
@@ -134,14 +148,13 @@ def test_the_hourglass_flag_reaches_the_kernel(monkeypatch):
     want = sr.render(prep, cfg, LIGHT, view_matrix=view)
     seen = []
 
-    def fake(prep_, ab, wb, maxv, plan_w, excl, apex, apex_rev, hourglass):
+    def fake(prep_, maxv, wb, ab, excl, apex, apex_rev, hourglass, *rest):
         seen.append((hourglass, apex, apex_rev, excl is not None,
                      "qmin" in ab))
         return pl.cull_plain(prep_, maxv, wb, ab, excl, apex, apex_rev,
-                             hourglass)[:, :plan_w]
-    monkeypatch.setattr(pl, "cull_route", lambda *a: "cuda")
-    monkeypatch.setattr(pl, "cull_cuda", fake)
-    got = sr.render(prep, cfg, LIGHT, view_matrix=view)
+                             hourglass, *rest)
+    with table.using({"plan": fake}):
+        got = sr.render(prep, cfg, LIGHT, view_matrix=view)
     assert torch.equal(got, want)
     assert sorted(seen) == [(False, True, False, False, False),
                             (True, False, False, True, True)]
@@ -157,8 +170,8 @@ def test_dense_soft_frame_equals_the_reference(monkeypatch, yaw):
     assert pl.hourglass_for(prep)
     assert pl.effective_tile_px(cfg, prep.scene.num_triangles) == 32
     calls = spy_culls(monkeypatch)
-    plains = pl.cull_plain.plans
-    cards = pl.cull_cuda.plans, pl.cull_cuda.hourglass_plans
+    plains = _plans(twin=True)
+    cards = _plans(), _counts("plan.cull_cuda.hourglass_plans")
     view = tr.yaw_about(PIVOT, yaw)
     img = sr.render(prep, cfg, LIGHT, view_matrix=view).numpy()
     W, H, f = cfg.camera.width, cfg.camera.height, cfg.camera.focal
@@ -170,8 +183,8 @@ def test_dense_soft_frame_equals_the_reference(monkeypatch, yaw):
     lit = ref.pixels(Frame(W, H, f, view, LIGHT, S, shadows=False), px)
     assert (lit != want).any(-1).sum() > 50
     assert [k.get("hourglass", False) for _, k in calls] == [False, True]
-    assert pl.cull_plain.plans == plains + 2
-    assert (pl.cull_cuda.plans, pl.cull_cuda.hourglass_plans) == cards
+    assert _plans(twin=True) == plains + 2
+    assert (_plans(), _counts("plan.cull_cuda.hourglass_plans")) == cards
 
 
 # -- on the card ------------------------------------------------------------
@@ -179,10 +192,6 @@ def test_dense_soft_frame_equals_the_reference(monkeypatch, yaw):
 def _need_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-
-
-def _plain_route(monkeypatch):
-    monkeypatch.setattr(pl, "cull_route", lambda *a, **k: "plain")
 
 
 @pytest.fixture(scope="module")
@@ -217,13 +226,12 @@ def test_dense_frame_plans_equal_plain(dense_full, monkeypatch, yaw):
         assert got.shape == want.shape
         assert torch.equal(got, want), (yaw, k)
         assert (want[:, 2] > 0).any()
-    pl.cull_cuda.plans = pl.cull_cuda.hourglass_plans = 0
-    pl.cull_cuda.launches = pl.cull_plain.plans = 0
+    metrics.reset_counts("plan.")
     img = sr.render(prep, cfg, light, view_matrix=view)
-    assert (pl.cull_cuda.plans, pl.cull_cuda.hourglass_plans,
-            pl.cull_cuda.launches, pl.cull_plain.plans) == (2, 1, 3, 0)
-    with monkeypatch.context() as m:
-        _plain_route(m)
+    assert (_plans(), _counts("plan.cull_cuda.hourglass_plans"),
+            _counts("plan.cull_cuda.launches"), _plans(twin=True)) == \
+        (2, 1, 3, 0)
+    with table.using({"plan": pl.cull_plain}):
         ref = sr.render(prep, cfg, light, view_matrix=view)
     assert torch.equal(img, ref), yaw
 
@@ -275,21 +283,20 @@ def test_random_hourglass_plans_equal_plain(monkeypatch, seed, nb, wb, maxv,
     without ``excl``, in lists and range rows, past 1,500 windows the wide
     plan and past the shared-memory windows (plan.SMEM_WINDOWS) the
     scratch rows."""
-    import types
     _need_cuda()
     n = 48
     lo, hi, ab = _random_hourglass_bounds(seed, n, nb)
     prep = types.SimpleNamespace(
-        num_blocks=nb, block_min=lo, block_max=hi,
+        device=torch.device("cuda"), num_blocks=nb, block_min=lo,
+        block_max=hi,
         block_obj=(torch.arange(nb, device="cuda") // max(nb // 4, 1))
         .to(torch.int32))
     i = torch.arange(n, dtype=torch.int32, device="cuda")
     ex = torch.where(i < 3, -2, i % 5 - 1) if excl else None
-    pl.cull_cuda.hourglass_plans = 0
+    metrics.reset_counts("plan.")
     got = pl.cull(prep, maxv, wb, ab, excl=ex, hourglass=True)
-    assert pl.cull_cuda.hourglass_plans == 1
-    with monkeypatch.context() as m:
-        _plain_route(m)
+    assert _counts("plan.cull_cuda.hourglass_plans") == 1
+    with table.using({"plan": pl.cull_plain}):
         want = pl.cull(prep, maxv, wb, ab, excl=ex, hourglass=True)
     assert got.shape == want.shape
     assert torch.equal(got, want), int((got != want).sum())
@@ -307,14 +314,14 @@ def test_ray_hourglass_plans_equal_plain(monkeypatch, apex):
     """Hourglass plans of shadow rays from points to 16 light samples (the
     fold's rays, points on both sides of the light's plane) with the
     light-apex test or none, through ``cull_occl``."""
-    import types
     _need_cuda()
     g = torch.Generator().manual_seed(7)
     nb = 4096
     ctr = torch.rand(nb, 3, generator=g) * 40.0 - 20.0
     half = torch.rand(nb, 3, generator=g) * 0.6
     prep = types.SimpleNamespace(
-        num_blocks=nb, block_min=(ctr - half).cuda(),
+        device=torch.device("cuda"), num_blocks=nb,
+        block_min=(ctr - half).cuda(),
         block_max=(ctr + half).cuda(),
         block_obj=(torch.arange(nb) // 1024).to(torch.int32).cuda())
     p = (torch.rand(64 * 1024, 3, generator=g) * 30.0 - 15.0).cuda()
@@ -324,8 +331,7 @@ def test_ray_hourglass_plans_equal_plain(monkeypatch, apex):
     excl = (torch.arange(64, device="cuda") % 5 - 1).to(torch.int32)
     got = pl.cull_occl(prep, p, d, 1024, 1000, 4, excl,
                        apex_rev=apex == "light", hourglass=True)
-    with monkeypatch.context() as m:
-        _plain_route(m)
+    with table.using({"plan": pl.cull_plain}):
         want = pl.cull_occl(prep, p, d, 1024, 1000, 4, excl,
                             apex_rev=apex == "light", hourglass=True)
     assert torch.equal(got, want), int((got != want).sum())
@@ -341,14 +347,13 @@ def test_hourglass_launch_count_and_kernel_name(dense_full):
     o = (torch.rand(3750 * 64, 3, generator=g) * 20.0 + 40.0).cuda()
     d = torch.tensor(LIGHT, device="cuda") - o
     ab = pl.ray_tile_bounds(o, d, 1024, hourglass=True)
-    pl.cull_cuda.plans = pl.cull_cuda.launches = 0
-    pl.cull_cuda.hourglass_plans = 0
+    metrics.reset_counts("plan.")
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         pl.cull(prep, 1000, 4, ab, hourglass=True)
         torch.cuda.synchronize()
-    assert (pl.cull_cuda.plans, pl.cull_cuda.hourglass_plans,
-            pl.cull_cuda.launches) == (1, 1, 1)
+    assert (_plans(), _counts("plan.cull_cuda.hourglass_plans"),
+            _counts("plan.cull_cuda.launches")) == (1, 1, 1)
     names = [e.name for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("plan_hourglass_kernel" in x for x in names) == 1

@@ -34,7 +34,7 @@ import jax.numpy as jnp
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import (from_jax_prepared,
                                                         prepare, uv_affine_np)
-from simple_raytracer_tpu_torch.kernels import nearest, tiled
+from simple_raytracer_tpu_torch.kernels import nearest, table, tiled
 from simple_raytracer_tpu_torch.render.renderer import render
 from simple_raytracer_tpu_torch.scene import catalog
 from simple_raytracer_tpu_torch.scene import procedural as P
@@ -254,10 +254,10 @@ def test_frame_matches_jax(scenes, frame, monkeypatch):
     assert tiled.frame_branch(prep, cfg, TILE) == branch
     jimg = jax_frame(jprep, jcfg, VIEW, monkeypatch, spied=SPIED,
                      expect=steps)
-    n0 = {k: f.launches for k, f in tiled.KERNELS.items()}
+    n0 = table.calls()
     img = render(prep, cfg, LIGHT, view_matrix=VIEW).numpy()
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert {k: f.launches for k, f in tiled.KERNELS.items()} == n0
+    assert table.calls() == n0
     diff = np.abs(img.astype(int) - jimg.astype(int))
     print(f"frame {frame}: {int((diff > 0).any(-1).sum())} pixels differ, "
           f"max {int(diff.max())}")

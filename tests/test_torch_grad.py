@@ -40,7 +40,6 @@ from simple_raytracer_tpu_torch.diff.render import _intersectors
 from simple_raytracer_tpu_torch.dist.train import (DiffParams, apply_params,
                                                    extract_params)
 from simple_raytracer_tpu_torch.examples import fit_texture
-from simple_raytracer_tpu_torch.kernels.tiled import KERNELS
 from simple_raytracer_tpu_torch.ops.camera import primary_rays
 from simple_raytracer_tpu_torch.ops.intersect import moller_trumbore
 from simple_raytracer_tpu_torch.render import integrator
@@ -291,7 +290,7 @@ def test_lean_path_equals_record_gather_path(mode):
               for x in extract_params(prep.scene, LIGHT).leaves()]
     s, lp = apply_params(prep.scene, DiffParams(*leaves))
     op = dataclasses.replace(prep, scene=s) if mode != "bruteforce" else s
-    hit_fn, shadow_fn = _intersectors(op, cfg, False, False, KERNELS)
+    hit_fn, shadow_fn = _intersectors(op, cfg, False, False)
     o, d = primary_rays(W, H, FOCAL)
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
     t, idx = differentiable_hits(hit_fn, s.verts_cart(), o, d, cfg.mt_eps)
@@ -400,7 +399,7 @@ def test_walk_verdict_stands_where_the_recompute_misses():
         np.nextafter(np.float32(1.0), np.float32(0.0)))
     moved = dataclasses.replace(prep, scene=dataclasses.replace(
         prep.scene, verts=verts))
-    hit_fn, _ = _intersectors(moved, cfg, False, False, KERNELS)
+    hit_fn, _ = _intersectors(moved, cfg, False, False)
     o, d = primary_rays(W, H, 30.0)
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
     t_walk, idx = hit_fn(o, d)

@@ -25,7 +25,7 @@ import torch
 import jax.numpy as jnp
 
 from simple_raytracer_tpu_torch.accel.prepared import from_jax_prepared
-from simple_raytracer_tpu_torch.kernels import anyhit, nearest
+from simple_raytracer_tpu_torch.kernels import anyhit, nearest, table
 from simple_raytracer_tpu_torch.kernels import plan as pl
 from simple_raytracer_tpu_torch.ops import camera as tcam
 from simple_raytracer_tpu_torch.render import integrator
@@ -234,7 +234,7 @@ def test_grouped_nearest_plain_honors_masks():
     other groups keep window 0's hit (the case the card's kernel is held
     to in tests/test_torch_cuda.py)."""
     tensors, rest, want = masked_windows()
-    t, idx = nearest.tiled_nearest_grouped(*tensors, *rest)
+    t, idx = table.run("nearest_grouped", *tensors, *rest)
     assert torch.equal(idx, want.to(torch.int32))
     torch.testing.assert_close(
         t, torch.where(want == 64, 5.0, 10.0).float() / 400.0)
@@ -244,7 +244,7 @@ def test_grouped_anyhit_plain_honors_masks():
     """The occluder's window is masked to sub-groups 0 and 2: only their
     rays find it."""
     tensors, rest, want = masked_occluder()
-    assert torch.equal(anyhit.tiled_anyhit_grouped(*tensors, *rest), want)
+    assert torch.equal(table.run("anyhit_grouped", *tensors, *rest), want)
 
 
 @pytest.mark.parametrize("m, groups", [(1000, 4), (96, 4), (128, 5)])

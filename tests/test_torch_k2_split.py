@@ -33,7 +33,7 @@ import torch
 import jax.numpy as jnp
 
 from simple_raytracer_tpu_torch.accel.prepared import from_jax_prepared
-from simple_raytracer_tpu_torch.kernels import anyhit, nearest, tiled
+from simple_raytracer_tpu_torch.kernels import anyhit, nearest, table, tiled
 from simple_raytracer_tpu_torch.kernels import plan as pl
 from simple_raytracer_tpu_torch.render.renderer import render
 
@@ -89,11 +89,11 @@ def base():
 def _frame_k2(prep, cfg, tpx: int):
     """The arguments the port's fused frame at the moved view hands K2."""
     caught = []
-    tiled.render_flat_tiled(
-        prep, cfg, torch.tensor(LIGHT),
-        (torch.from_numpy(VIEW), FOCAL, WIDTH, HEIGHT, tpx),
-        kernels={**tiled.PLAIN, "anyhit_from_t": lambda *a: (
-            caught.append(a), anyhit.tiled_anyhit_from_t(*a))[1]})
+    with table.using({**table.plain(),
+                      "anyhit_from_t": table.spy("anyhit_from_t", caught)}):
+        tiled.render_flat_tiled(
+            prep, cfg, torch.tensor(LIGHT),
+            (torch.from_numpy(VIEW), FOCAL, WIDTH, HEIGHT, tpx))
     assert len(caught) == 1 and caught[0][6] == tpx
     return caught[0]
 

@@ -31,7 +31,7 @@ import pytest
 import torch
 
 from simple_raytracer_tpu_torch.accel.prepared import from_jax_prepared
-from simple_raytracer_tpu_torch.kernels import nearest, prepass
+from simple_raytracer_tpu_torch.kernels import nearest, prepass, table
 from simple_raytracer_tpu_torch.kernels import plan as pl
 from simple_raytracer_tpu_torch.ops import camera as tcam
 from simple_raytracer_tpu_torch.ops.intersect import ray_features
@@ -93,8 +93,8 @@ def _case(b, m: int):
         o, d = o.reshape(n, m, 3)[:TILES], d.reshape(n, m, 3)[:TILES]
         plan = plan[:TILES]
         short = _short(plan)
-        unrefined = nearest.tiled_nearest_rays(plan[short], tri, o[short],
-                                               d[short], WT, b["eps"])
+        unrefined = table.run("nearest_rays", plan[short], tri, o[short],
+                              d[short], WT, b["eps"])
         _CASES[m] = (plan, tri, gram, o, d), unrefined
     return _CASES[m]
 
@@ -208,8 +208,8 @@ def test_refined_walk_over_the_items_equals_unrefined(base, m, spans):
     ref = prepass.refine_plan(plan, flags)
     assert torch.equal(ref[2], plan[2])
     assert bool((_cnt(ref) <= _cnt(plan)).all())
-    t1, i1 = nearest.tiled_nearest_rays(ref[short], tri, o[short], d[short],
-                                        WT, eps)
+    t1, i1 = table.run("nearest_rays", ref[short], tri, o[short], d[short],
+                       WT, eps)
     assert torch.equal(t1, t0) and torch.equal(i1, i0)
     print(f"m {m} spans {spans}: windows {_cnt(plan).tolist()} -> "
           f"{_cnt(ref).tolist()}")

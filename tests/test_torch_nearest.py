@@ -17,7 +17,7 @@ import torch
 import jax.numpy as jnp
 
 from simple_raytracer_tpu_torch.accel.prepared import from_jax_prepared
-from simple_raytracer_tpu_torch.kernels import nearest
+from simple_raytracer_tpu_torch.kernels import nearest, table
 
 from simple_raytracer_tpu.accel.prepared import prepare as jprepare
 from simple_raytracer_tpu.kernels import tiled_t
@@ -98,7 +98,7 @@ def test_plain_walk_trusts_the_entry_bound(bound):
     (window 1 holds a nearer hit at t = 5/400), so the walk keeps window 0's
     hit — proof that it stopped; a bound of 0 lets it find the nearer one."""
     tensors, rest = two_windows(bound)
-    t, idx, obj, _, _ = nearest.tiled_nearest_shaded(*tensors, *rest)
+    t, idx, obj, _, _ = table.run("nearest_shaded", *tensors, *rest)
     want = 0 if bound else 64
     assert (idx == want).all() and (obj == int(want > 0)).all()
     torch.testing.assert_close(t, torch.full_like(t, (10.0 if bound

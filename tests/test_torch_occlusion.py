@@ -20,7 +20,7 @@ import jax.numpy as jnp
 
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import from_jax_prepared
-from simple_raytracer_tpu_torch.kernels import anyhit, nearest
+from simple_raytracer_tpu_torch.kernels import anyhit, nearest, table
 from simple_raytracer_tpu_torch.kernels import plan as pl
 from simple_raytracer_tpu_torch.kernels import tiled
 from simple_raytracer_tpu_torch.ops import camera as tcam
@@ -172,8 +172,8 @@ def test_anyhit_plain_matches_jax(base, case):
     jf = np.asarray(tiled_t.anyhit(jprep, _j(o), _j(d),
                                    jnp.asarray(so.numpy(), jnp.float32),
                                    _j(plan), tile, cfg.mt_eps, True))
-    f = anyhit.anyhit(prep, cfg, o, d, so, plan, tile,
-                      kernel=anyhit.tiled_anyhit_plain)
+    with table.using({"anyhit": anyhit.tiled_anyhit_plain}):
+        f = anyhit.anyhit(prep, cfg, o, d, so, plan, tile)
     assert f.shape == (n, tile)
     R = o.shape[0]
     np.testing.assert_array_equal(f.numpy().reshape(-1)[:R],
@@ -360,10 +360,10 @@ def test_frame_matches_jax(base, frame, monkeypatch):
     cfg, jcfg = cfg.replace(**cfg_kw), jcfg.replace(**cfg_kw)
     jimg, called = _jax_frame(base["jprep"], jcfg, tpx, SPIES, monkeypatch)
     assert called == want_calls, called
-    n0 = {k: f.launches for k, f in tiled.KERNELS.items()}
+    n0 = table.calls()
     img = render(base["prep"], cfg, LIGHT).numpy()
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert {k: f.launches for k, f in tiled.KERNELS.items()} == n0
+    assert table.calls() == n0
     assert img.shape == (HEIGHT, WIDTH, 3)
     diff = np.abs(img.astype(int) - jimg.astype(int))
     assert (diff <= 1).mean() > 0.999, diff.max()

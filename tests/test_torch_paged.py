@@ -22,7 +22,7 @@ import jax.numpy as jnp
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import (from_jax_prepared,
                                                        prepare)
-from simple_raytracer_tpu_torch.kernels import paged
+from simple_raytracer_tpu_torch.kernels import paged, table
 from simple_raytracer_tpu_torch.kernels import plan as pl
 from simple_raytracer_tpu_torch.kernels import tiled
 from simple_raytracer_tpu_torch.ops import camera as tcam
@@ -233,8 +233,8 @@ def test_anyhit_plain_matches_jax(base, case):
     jf = np.asarray(jtiled.anyhit(jprep, _j(o), _j(d),
                                   jnp.asarray(so.numpy(), jnp.float32),
                                   _j(plan), tile, cfg.mt_eps, True))
-    f = paged.anyhit(prep, cfg, o, d, so, plan, tile,
-                     kernel=paged.tiled_anyhit_plain)
+    with table.using({"anyhit_pages": paged.tiled_anyhit_plain}):
+        f = paged.anyhit(prep, cfg, o, d, so, plan, tile)
     assert f.shape == (n, tile)
     R = o.shape[0]
     f, jf = f.numpy().reshape(-1)[:R], jf.reshape(-1)[:R]
@@ -304,10 +304,10 @@ def test_paged_frame_matches_jax(base, textured, frame):
         smooth_normals=smooth))
     assert tiled.frame_branch(prep, cfg, TILE) == "paged"
     jimg = np.asarray(jrender(jprep, jcfg, LIGHT))
-    n0 = {k: f.launches for k, f in tiled.KERNELS.items()}
+    n0 = table.calls()
     img = render(prep, cfg, LIGHT).numpy()
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert {k: f.launches for k, f in tiled.KERNELS.items()} == n0
+    assert table.calls() == n0
     assert img.shape == (HEIGHT, WIDTH, 3)
     diff = np.abs(img.astype(int) - jimg.astype(int))
     print(f"paged frame {frame}: {int((diff > 0).any(-1).sum())} pixels "

@@ -13,7 +13,7 @@ import torch
 import jax.numpy as jnp
 
 from simple_raytracer_tpu_torch.accel.prepared import prepare
-from simple_raytracer_tpu_torch.kernels import anyhit, nearest
+from simple_raytracer_tpu_torch.kernels import anyhit, nearest, table
 from simple_raytracer_tpu_torch.kernels import plan as pl
 from simple_raytracer_tpu_torch.ops import camera as tcam
 from simple_raytracer_tpu_torch.ops import intersect as tis
@@ -80,10 +80,10 @@ def unculled(scene):
 def test_primary_plan_walk_equals_unculled(scene, unculled, view):
     prep, _, cfg = scene
     caught = []
-    t, idx, obj, _rgb, _b = nearest.hits_shaded(
-        prep, cfg, torch.tensor(LIGHT), _cam_spec(VIEWS[view]), cfg.cull_maxv,
-        kernel=lambda *a: caught.append(a) or
-        nearest.tiled_nearest_shaded_plain(*a))
+    with table.using({"nearest_shaded": table.spy("nearest_shaded", caught)}):
+        t, idx, obj, _rgb, _b = nearest.hits_shaded(
+            prep, cfg, torch.tensor(LIGHT), _cam_spec(VIEWS[view]),
+            cfg.cull_maxv)
     bt, bi, _ = unculled(view)
     assert torch.isfinite(bt).sum() > 4000
     assert torch.equal(t, bt)
@@ -98,10 +98,9 @@ def test_range_mode_walk_equals_unculled(scene, unculled):
     """Tiles over the list capacity walk their covering window range."""
     prep, _, cfg = scene
     caught = []
-    t, idx, *_ = nearest.hits_shaded(
-        prep, cfg, torch.tensor(LIGHT), _cam_spec(None), 2,
-        kernel=lambda *a: caught.append(a) or
-        nearest.tiled_nearest_shaded_plain(*a))
+    with table.using({"nearest_shaded": table.spy("nearest_shaded", caught)}):
+        t, idx, *_ = nearest.hits_shaded(
+            prep, cfg, torch.tensor(LIGHT), _cam_spec(None), 2)
     bt, bi, _ = unculled("identity")
     assert (caught[0][0][:, 3] == 0).any()
     assert torch.equal(t, bt)

@@ -25,10 +25,11 @@ import torch
 
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import prepare
-from simple_raytracer_tpu_torch.kernels import paged
+from simple_raytracer_tpu_torch.kernels import paged, table
 from simple_raytracer_tpu_torch.kernels import plan as pl
 from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
 from simple_raytracer_tpu_torch.scene import procedural as P
+from simple_raytracer_tpu_torch.utils import metrics
 
 pytestmark = pytest.mark.cuda
 
@@ -84,21 +85,15 @@ def scenes():
     return out
 
 
-def _plain_route(monkeypatch):
-    monkeypatch.setattr(pl, "cull_route", lambda *a, **k: "plain")
-
-
-def _parent_planner(monkeypatch):
-    """The planner as it was: every plan plain, dot products by matmul."""
-    _plain_route(monkeypatch)
-    monkeypatch.setattr(pl, "_dot", lambda c, u: c @ u)
+def _plain_planner():
+    """Every plan plain (kernels/table.py's ``plan`` role)."""
+    return table.using({"plan": pl.cull_plain})
 
 
 def _both(fn, monkeypatch):
     """fn() on the CUDA route, then on the plain route."""
     got = fn()
-    with monkeypatch.context() as m:
-        _plain_route(m)
+    with _plain_planner():
         want = fn()
     return got, want
 
@@ -168,12 +163,14 @@ def test_cell_frames_equal_parent_planner(scenes, monkeypatch, name):
     amp = CELLS[name][5]
     launches = 3 if name == "soft600" else 4
     for deg in (-amp, amp):
-        pl.cull_cuda.plans = pl.cull_cuda.launches = pl.cull_plain.plans = 0
+        metrics.reset_counts("plan.")
         img = _render(prep, name, deg)
-        assert (pl.cull_cuda.plans, pl.cull_cuda.launches,
-                pl.cull_plain.plans) == (2, launches, 0)
-        with monkeypatch.context() as m:
-            _parent_planner(m)
+        plans = table.calls()["plan"], table.calls(twin=True)["plan"]
+        assert (plans[0], metrics.counts().get("plan.cull_cuda.launches"),
+                plans[1]) == (2, launches, 0)
+        # the planner as it was: every plan plain, dot products by matmul
+        with monkeypatch.context() as m, _plain_planner():
+            m.setattr(pl, "_dot", lambda c, u: c @ u)
             ref = _render(prep, name, deg)
         assert torch.equal(img, ref), (name, deg)
 
@@ -272,7 +269,8 @@ def _synthetic(seed: int, nb: int, n: int = 48, tile: int = 64):
     bmin, bmax = ctr - half, ctr + half
     bmin[-4:], bmax[-4:] = bmax[-4:].clone(), bmin[-4:].clone()       # empty
     prep = types.SimpleNamespace(
-        num_blocks=nb, block_min=bmin.cuda(), block_max=bmax.cuda(),
+        device=torch.device("cuda"), num_blocks=nb, block_min=bmin.cuda(),
+        block_max=bmax.cuda(),
         block_obj=(torch.arange(nb) // max(nb // 4, 1)).to(torch.int32)
         .cuda())
     aim = torch.stack([u(n, lo=-0.3, hi=0.3), u(n, lo=-0.2, hi=0.2),
@@ -340,14 +338,15 @@ def test_launch_counts_and_no_host_read(scenes):
     cfg = cell_cfg("bench1080")
     ab = pl.analytic_tile_bounds((None, 6000.0, 1920, 1080, 64), 510,
                                  "cuda")
-    pl.cull_cuda.plans = pl.cull_cuda.launches = 0
+    metrics.reset_counts("plan.")
     torch.cuda.set_sync_debug_mode("error")
     try:
         plan = pl.cull(prep, cfg.cull_maxv, 2, ab, apex=True)
         occl = pl.cull(prep, cfg.cull_maxv, 4, ab)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    assert (pl.cull_cuda.plans, pl.cull_cuda.launches) == (2, 3)
+    assert (table.calls()["plan"],
+            metrics.counts()["plan.cull_cuda.launches"]) == (2, 3)
     assert plan.shape == (510, pl.PLAN_W) and occl.shape == (510, pl.PLAN_W)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:

@@ -1,13 +1,16 @@
-"""PyTorch port: the planner's route (kernels/plan.py::cull) and the model of
-csrc/plan.cu's entry order, on the CPU.
+"""PyTorch port: the planner's route (kernels/plan.py::cull, the ``plan``
+role of kernels/table.py) and the model of csrc/plan.cu's entry order, on
+the CPU.
 
 The CUDA planner runs only on the card (tests/test_torch_plan_cuda.py holds
 it to the plain planner there).  Here: which planner ``cull`` takes for each
-flag, the wrapper's wiring and counters, a plain model of the kernel's
+flag, the wiring and counters, a plain model of the kernel's
 partition (distinct bound16 values ascending, window order within each)
 against ``cull_lists``' sort, and the plain planner's written-out dot
 products against the matmul they replace.
 """
+
+import types
 
 import numpy as np
 import pytest
@@ -15,11 +18,12 @@ import torch
 
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import prepare
-from simple_raytracer_tpu_torch.kernels import nearest
+from simple_raytracer_tpu_torch.kernels import nearest, table
 from simple_raytracer_tpu_torch.kernels import plan as pl
 from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
 from simple_raytracer_tpu_torch.scene import procedural as P
 from simple_raytracer_tpu_torch.scene import transforms as T
+from simple_raytracer_tpu_torch.utils import metrics
 
 SIZE, FOCAL, TPX = 128, 160.0, 32
 INT32_MAX = np.iinfo(np.int32).max
@@ -46,6 +50,11 @@ def scene():
     return prep, cfg
 
 
+def _plans(twin: bool = False) -> int:
+    """The plans csrc/plan.cu (``twin``: the plain planner) built so far."""
+    return table.calls(twin)["plan"]
+
+
 def _cam_spec(view):
     v = None if view is None else torch.from_numpy(view)
     return (v, FOCAL, SIZE, SIZE, TPX)
@@ -59,29 +68,33 @@ def test_route_by_flags(device):
                                   (248, 70000, False),
                                   (1000, 65536, True)):
         for hourglass in (False, True):
-            want = "cuda" if device == "cuda" and listed else "plain"
-            got = pl.cull_route(torch.device(device), maxv, windows,
-                                hourglass)
-            assert got == want, (device, maxv, windows, hourglass)
+            want = (pl.cull_cuda if device == "cuda" and listed
+                    else pl.cull_plain)
+            prep = types.SimpleNamespace(device=torch.device(device),
+                                         num_blocks=windows)
+            got = table.pick("plan", prep, maxv, 1, None, None, False,
+                             False, hourglass)
+            assert got is want, (device, maxv, windows, hourglass)
 
 
 def test_both_apex_tests_are_refused(scene):
     """A plan takes the primary-apex test or the light-apex test: both at
     once is refused on either route, before any plan is built."""
     prep, cfg = scene
-    plains = pl.cull_plain.plans
+    plains = _plans(twin=True)
     ab = pl.analytic_tile_bounds(_cam_spec(None), (SIZE // TPX) ** 2)
     with pytest.raises(ValueError, match="not both"):
         pl.cull(prep, cfg.cull_maxv, 2, ab, apex=True, apex_rev=True)
-    assert pl.cull_plain.plans == plains
+    assert _plans(twin=True) == plains
 
 
 @pytest.mark.parametrize("groups", [1, 2])
-def test_cuda_route_wiring(scene, monkeypatch, groups):
-    """On the CUDA route ``cull`` takes the kernel's base plan and appends
-    the mask words of a grouped plan; a stand-in kernel (the plain base
-    plan, counted as plain) shows the wiring on the CPU.  The kernel's own
-    counters move only on the card (tests/test_torch_plan_cuda.py)."""
+def test_cuda_route_wiring(scene, groups):
+    """``cull`` hands the ``plan`` role its arguments, the rays of a
+    grouped plan's mask words included, and returns its plan; a stand-in
+    kernel (the plain plan, a stand-in counted as nothing) shows the
+    wiring.  The kernel's own counters move only on the
+    card (tests/test_torch_plan_cuda.py)."""
     prep, cfg = scene
     o, d, _, _ = primary_rays_tiled(SIZE, SIZE, TPX, FOCAL)
     o, d = o.reshape(-1, 3), d.reshape(-1, 3)
@@ -91,22 +104,20 @@ def test_cuda_route_wiring(scene, monkeypatch, groups):
                          groups=groups, rays=(o, d, tile))
     calls = []
 
-    def fake(prep_, ab_, wb, maxv, plan_w, excl, apex, apex_rev, hourglass):
-        calls.append((wb, maxv, plan_w, apex, apex_rev, hourglass))
+    def fake(prep_, maxv, wb, ab_, excl, apex, apex_rev, hourglass, widen,
+             groups_, rays):
+        calls.append((wb, maxv, apex, apex_rev, hourglass, widen, groups_,
+                      rays[2]))
         return pl.cull_plain(prep_, maxv, wb, ab_, excl, apex, apex_rev,
-                             groups=groups, rays=(o, d, tile))[:, :plan_w]
+                             hourglass, widen, groups_, rays)
 
-    kernel = pl.cull_cuda
-    plans, plains = kernel.plans, pl.cull_plain.plans
-    monkeypatch.setattr(pl, "cull_route", lambda *a: "cuda")
-    monkeypatch.setattr(pl, "cull_cuda", fake)
-    got = pl.cull(prep, cfg.cull_maxv, 2, ab, apex=True, groups=groups,
-                  rays=(o, d, tile))
-    assert kernel.plans == plans
-    assert pl.cull_plain.plans == plains + 1
-    assert calls == [(2, cfg.cull_maxv,
-                      pl.cull_width(prep.num_blocks // 2, cfg.cull_maxv,
-                                    True, groups), True, False, False)]
+    plans, plains = _plans(), _plans(twin=True)
+    with table.using({"plan": fake}):
+        got = pl.cull(prep, cfg.cull_maxv, 2, ab, apex=True, groups=groups,
+                      rays=(o, d, tile))
+    assert (_plans(), _plans(twin=True)) == (plans, plains)
+    assert calls == [(2, cfg.cull_maxv, True, False, False, True, groups,
+                      tile)]
     assert torch.equal(got, want)
 
 
@@ -115,14 +126,15 @@ def test_plain_route_counts_on_cpu(scene):
     plans there and launches none."""
     prep, cfg = scene
     light = torch.tensor(P.BENCH_LIGHT)
-    counts = pl.cull_cuda.plans, pl.cull_cuda.launches
-    plains = pl.cull_plain.plans
+    counts = _plans(), metrics.counts().get("plan.cull_cuda.launches", 0)
+    plains = _plans(twin=True)
     ab = pl.analytic_tile_bounds(_cam_spec(None), (SIZE // TPX) ** 2)
     pl.cull(prep, cfg.cull_maxv, 2, ab, apex=True)
-    assert pl.cull_plain.plans == plains + 1
+    assert _plans(twin=True) == plains + 1
     sr.render(prep, cfg, light)
-    assert pl.cull_plain.plans == plains + 3
-    assert (pl.cull_cuda.plans, pl.cull_cuda.launches) == counts
+    assert _plans(twin=True) == plains + 3
+    assert (_plans(),
+            metrics.counts().get("plan.cull_cuda.launches", 0)) == counts
 
 
 def partition_model(visible_b, tlo_b, wb: int, maxv: int, plan_w: int):

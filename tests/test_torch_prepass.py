@@ -23,7 +23,7 @@ import jax.numpy as jnp
 
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import from_jax_prepared
-from simple_raytracer_tpu_torch.kernels import nearest, prepass
+from simple_raytracer_tpu_torch.kernels import nearest, prepass, table
 from simple_raytracer_tpu_torch.kernels import plan as pl
 from simple_raytracer_tpu_torch.ops import camera as tcam
 from simple_raytracer_tpu_torch.ops.intersect import ray_features
@@ -72,12 +72,13 @@ def walks(base):
     for name, vm in VIEWS.items():
         (o, d), (o3, d3) = _rays(vm)
         plan = pl.cull_rays(prep, o, d, TILE, MAXV, 2)
-        flags = prepass.tiled_prepass(plan, prep.gram, o3, d3, WT, cfg.mt_eps)
+        flags = table.run("prepass", plan, prep.gram, o3, d3, WT,
+                          cfg.mt_eps)
         ref = prepass.refine_plan(plan, flags)
-        t0, i0 = nearest.tiled_nearest_rays(plan, prep.tri, o3, d3, WT,
-                                            cfg.mt_eps)
-        t1, i1 = nearest.tiled_nearest_rays(ref, prep.tri, o3, d3, WT,
-                                            cfg.mt_eps)
+        t0, i0 = table.run("nearest_rays", plan, prep.tri, o3, d3, WT,
+                           cfg.mt_eps)
+        t1, i1 = table.run("nearest_rays", ref, prep.tri, o3, d3, WT,
+                           cfg.mt_eps)
         pcfg = cfg.replace(kernel=sr.KernelConfig(prepass=True))
         th, ih = nearest.hits(prep, pcfg, o, d, TILE, MAXV, apex=True)
         out[name] = dict(o=o, d=d, plan=plan, flags=flags, ref=ref,
@@ -217,19 +218,17 @@ def test_prepass_wins_over_groups(base, walks):
     w = walks["moved"]
     called = []
 
-    def record(role, fn):
+    def record(role):
         def run(*a):
             called.append(role)
-            return fn(*a)
+            return table.pick(role, *a)(*a)
         return run
 
-    roles = {"prepass": prepass.tiled_prepass,
-             "nearest_rays": nearest.tiled_nearest_rays,
-             "nearest_grouped": nearest.tiled_nearest_grouped,
-             "nearest_attrs": nearest.tiled_nearest_attrs}
+    roles = ("prepass", "nearest_rays", "nearest_grouped", "nearest_attrs")
     kcfg = cfg.replace(kernel=sr.KernelConfig(prepass=True, groups=4))
-    t, idx = nearest.hits(prep, kcfg, w["o"], w["d"], TILE, MAXV, apex=True,
-                          kernels={r: record(r, f) for r, f in roles.items()})
+    with table.using({r: record(r) for r in roles}):
+        t, idx = nearest.hits(prep, kcfg, w["o"], w["d"], TILE, MAXV,
+                              apex=True)
     assert called == ["prepass", "nearest_rays"]
     assert torch.equal(t, w["hits"][0]) and torch.equal(idx, w["hits"][1])
 

@@ -31,7 +31,7 @@ import jax.numpy as jnp
 
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import prepare
-from simple_raytracer_tpu_torch.kernels import nearest
+from simple_raytracer_tpu_torch.kernels import nearest, table
 from simple_raytracer_tpu_torch.kernels import plan as pl
 from simple_raytracer_tpu_torch.ops.camera import tile_ray_dirs
 from simple_raytracer_tpu_torch.probes import attr, fixed
@@ -77,7 +77,7 @@ def _image(flat, tpx):
 
 
 def _probe(name, inputs):
-    t, idx = fixed.fixed_probe(fixed.PROBES[name][0], **inputs)
+    t, idx = table.run("fixed", fixed.PROBES[name][0], **inputs)
     return t.numpy(), None if idx is None else idx.numpy()
 
 
@@ -152,7 +152,7 @@ def test_grid_probes_match_the_row_formula(frame, name):
 def test_unknown_variant_raises():
     inputs = fixed.frame_inputs(64, 64, 32, FOCAL)
     with pytest.raises(ValueError, match="unknown probe variant"):
-        fixed.fixed_probe("win", **inputs)
+        table.run("fixed", "win", **inputs)
 
 
 def _script(name):
@@ -176,7 +176,7 @@ def test_attr_gather_matches_attr_probe():
                                                                 A.T)
     bid[0, :8] = -1                      # misses, whatever the draws
     want = np.asarray(script.attr_fetch(jnp.asarray(bid), jnp.asarray(A)))
-    got = attr.attr_gather(torch.from_numpy(bid), at)
+    got = table.run("attr_gather", torch.from_numpy(bid), at)
     assert got.shape == (n, script.TILE_R, script.AF)
     assert np.array_equal(got.numpy(), want)
     assert not got.numpy()[bid < 0].any() and got.numpy()[bid >= 0].any()
@@ -206,7 +206,7 @@ def test_attr_window_matches_the_one_hot_contraction():
             oh = np.where((kind == 0) & (tri0 == b), 1.0, 0.0).astype(
                 np.float32)
             want[i] = want[i] + Af[:, s * attr.WL:(s + 1) * attr.WL] @ oh
-    got = attr.attr_window(starts, bid, at)
+    got = table.run("attr_window", starts, bid, at)
     assert got.shape == (tiles, attr.AF, R)
     assert np.array_equal(got.numpy(), want)
     assert (np.abs(want).sum(axis=1) > 0).mean() > 0.1

@@ -22,7 +22,7 @@ import jax.numpy as jnp
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import (from_jax_prepared,
                                                         prepare)
-from simple_raytracer_tpu_torch.kernels import anyhit, nearest, tiled
+from simple_raytracer_tpu_torch.kernels import anyhit, nearest, table, tiled
 from simple_raytracer_tpu_torch.ops.camera import primary_rays_tiled
 from simple_raytracer_tpu_torch.render.renderer import render, render_radiance
 
@@ -83,8 +83,7 @@ def test_frame_shadow_dims_pixels():
 def test_render_prepares_a_scene_and_counts_no_launch_on_cpu():
     sm, _ = managers(2)
     cfg, _ = configs()
-    n0 = nearest.tiled_nearest_shaded.launches
-    a0 = anyhit.tiled_anyhit_from_t.launches
+    n0 = table.calls()
     scene = sm.build()
     img = render(scene, cfg, LIGHT, device="cpu")
     rad, hit = render_radiance(prepare(scene, cfg, device="cpu"), cfg, LIGHT)
@@ -92,8 +91,7 @@ def test_render_prepares_a_scene_and_counts_no_launch_on_cpu():
     assert rad.shape == (HEIGHT, WIDTH, 3) and hit.shape == (HEIGHT, WIDTH)
     assert torch.isfinite(rad).all() and 0.2 < hit.float().mean() < 0.95
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert nearest.tiled_nearest_shaded.launches == n0
-    assert anyhit.tiled_anyhit_from_t.launches == a0
+    assert table.calls() == n0
 
 
 def test_ragged_frame_size():
@@ -268,10 +266,10 @@ def test_switch_frame_matches_jax(gather_scenes, frame, monkeypatch):
         monkeypatch.setenv(k, v)
     jimg = _jax_frame(jprep, jcfg, VIEW, monkeypatch, spied=SPIED,
                       expect=steps)
-    n0 = {k: f.launches for k, f in tiled.KERNELS.items()}
+    n0 = table.calls()
     img = render(prep, cfg, LIGHT, view_matrix=VIEW).numpy()
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert {k: f.launches for k, f in tiled.KERNELS.items()} == n0
+    assert table.calls() == n0
     diff = np.abs(img.astype(int) - jimg.astype(int))
     print(f"switch frame {frame}: {int((diff > 0).any(-1).sum())} pixels "
           f"differ, max {int(diff.max())}")

@@ -25,10 +25,12 @@ import torch
 
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import prepare
+from simple_raytracer_tpu_torch.kernels import table
 from simple_raytracer_tpu_torch.ops.camera import primary_rays_world
 from simple_raytracer_tpu_torch.render import integrator
 from simple_raytracer_tpu_torch.render.renderer import brute_force_hits
 from simple_raytracer_tpu_torch.scene import procedural as P
+from simple_raytracer_tpu_torch.utils import metrics
 from rtbench import traffic as tr
 
 pytestmark = pytest.mark.cuda
@@ -175,8 +177,12 @@ def cells():
     return out
 
 
-def _plain_route(monkeypatch):
-    monkeypatch.setattr(integrator, "shade_route", lambda *a, **k: "plain")
+def _counts():
+    """The shading's counters: csrc/shade.cu's calls and launches, and the
+    plain integrator's calls."""
+    now = metrics.counts("integrator.")
+    return tuple(now.get(f"integrator.{k}", 0) for k in (
+        "shade_cuda.calls", "shade_cuda.launches", "shade_plain.calls"))
 
 
 @pytest.mark.parametrize("name", list(CELLS))
@@ -188,18 +194,15 @@ def test_soft_frames_equal_plain(cells, monkeypatch, name):
     light = torch.tensor(LIGHT, device="cuda")
     for deg in YAWS:
         view = tr.yaw_about(PIVOT, deg)
-        integrator.shade_cuda.calls = integrator.shade_cuda.launches = 0
-        integrator.shade_plain.calls = 0
+        metrics.reset_counts("integrator.")
         img = sr.render(prep, cfg, light, view_matrix=view)
-        assert (integrator.shade_cuda.calls, integrator.shade_cuda.launches,
-                integrator.shade_plain.calls) == (1, 1, 0)
+        assert _counts() == (1, 1, 0)
         rad, _ = sr.render_radiance(prep, cfg, light, view_matrix=view)
-        with monkeypatch.context() as m:
-            _plain_route(m)
+        with table.using({"shade": integrator.shade_plain}):
             ref = sr.render(prep, cfg, light, view_matrix=view)
             ref_rad, _ = sr.render_radiance(prep, cfg, light,
                                             view_matrix=view)
-        assert integrator.shade_plain.calls == 2
+        assert _counts()[2] == 2
         assert torch.equal(img, ref), (name, deg, int((img != ref).sum()))
         assert _same_bits(rad, ref_rad), (name, deg)
 
@@ -220,17 +223,17 @@ def test_cuda_route_reads_nothing_back(cells, monkeypatch, name):
         m.setattr(integrator, "shade", spy)
         sr.render(prep, cfg, light, view_matrix=tr.yaw_about(PIVOT, 5.0))
     (a, k), = calls
-    assert integrator.shade_route(a[2].device, k.get("record")) == "cuda"
+    assert table.pick("shade", *a, **k) is integrator.shade_cuda
     real(*a, **k)
     torch.cuda.synchronize()
-    before = integrator.shade_cuda.calls
+    before = _counts()[0]
     torch.cuda.set_sync_debug_mode("error")
     try:
         real(*a, **k)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    assert integrator.shade_cuda.calls == before + 1
+    assert _counts()[0] == before + 1
 
 
 def test_autograd_on_the_card_takes_the_plain_route(small):
@@ -241,9 +244,8 @@ def test_autograd_on_the_card_takes_the_plain_route(small):
     color = scene.obj_color.clone().requires_grad_(True)
     s = dataclasses.replace(scene, obj_color=color)
     light = torch.tensor(LIGHT, device="cuda")
-    cuda, plain = integrator.shade_cuda.calls, integrator.shade_plain.calls
+    cuda, _, plain = _counts()
     rad = integrator.shade(s, _cfg(False, 4), o, d, t, idx, light)
-    assert (integrator.shade_cuda.calls,
-            integrator.shade_plain.calls) == (cuda, plain + 1)
+    assert (_counts()[0], _counts()[2]) == (cuda, plain + 1)
     rad[idx >= 0].sum().backward()
     assert color.grad is not None and bool((color.grad != 0).any())

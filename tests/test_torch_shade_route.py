@@ -1,5 +1,5 @@
-"""PyTorch port: the shading's route (render/integrator.py::shade_route)
-and the wiring of its CUDA wrapper, on the CPU.
+"""PyTorch port: the shading's route (the ``shade`` role of
+kernels/table.py) and the wiring of its CUDA wrapper, on the CPU.
 
 The shading kernel (csrc/shade.cu) runs only on the card
 (tests/test_torch_shade_cuda.py holds it to the plain integrator there).
@@ -11,6 +11,7 @@ device; and diff/render.py's gradients through the plain route.
 """
 
 import dataclasses
+import types
 
 import numpy as np
 import pytest
@@ -19,11 +20,13 @@ import torch
 import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch.accel.prepared import prepare
 from simple_raytracer_tpu_torch.diff.render import render_radiance_diff
+from simple_raytracer_tpu_torch.kernels import table
 from simple_raytracer_tpu_torch.ops.camera import primary_rays_world
 from simple_raytracer_tpu_torch.render import integrator
 from simple_raytracer_tpu_torch.render.renderer import (brute_force_hits,
                                                          brute_force_shadow)
 from simple_raytracer_tpu_torch.scene import procedural as P
+from simple_raytracer_tpu_torch.utils import metrics
 from rtbench import traffic as tr
 
 LIGHT = (500.0, -300.0, -200.0)
@@ -63,8 +66,9 @@ def _rays(scene, deg: float = 10.0):
 
 
 def _counts():
-    return (integrator.shade_cuda.calls, integrator.shade_cuda.launches,
-            integrator.shade_plain.calls)
+    now = metrics.counts("integrator.")
+    return tuple(now.get(f"integrator.{k}", 0) for k in (
+        "shade_cuda.calls", "shade_cuda.launches", "shade_plain.calls"))
 
 
 @pytest.mark.parametrize("device", ["cpu", "cuda"])
@@ -77,14 +81,20 @@ def test_route(device, grad, record):
     no_grad carries none."""
     x = torch.zeros(3, requires_grad=grad != "none")
     rec = {"obj": torch.zeros(1, dtype=torch.int32)} if record else None
-    want = ("cuda" if device == "cuda" and not record and grad != "on"
-            else "plain")
+    want = (integrator.shade_cuda
+            if device == "cuda" and not record and grad != "on"
+            else integrator.shade_plain)
+    # a scene on ``device`` whose tensors need no gradient, the rays x
+    scene = types.SimpleNamespace(device=torch.device(device), **dict.fromkeys(
+        ("verts", "vnormals", "tri_normal", "uvs", "obj_color", "obj_ambient",
+         "obj_specular", "obj_shininess", "tex_data")))
+    args = (scene, None, x, x, x, None, x, None, rec)
     if grad == "off":
         with torch.no_grad():
-            got = integrator.shade_route(torch.device(device), rec, (x,))
+            got = table.pick("shade", *args)
     else:
-        got = integrator.shade_route(torch.device(device), rec, (x,))
-    assert got == want, (device, grad, record)
+        got = table.pick("shade", *args)
+    assert got is want, (device, grad, record)
 
 
 @pytest.mark.parametrize("smooth", [False, True])
@@ -145,16 +155,17 @@ def test_cuda_wrapper_wiring(textured, monkeypatch, samples, shadows):
 
     def stand_in(scene, cfg_, o_, d_, t_, idx_, samples_, found=None):
         seen.update(samples=samples_, found=found)
-        integrator.shade_cuda.launches += 1
+        metrics.count("integrator.shade_cuda.launches")
         flags = (None if found is None else
                  lambda *a, **k: found.reshape(-1))
         rec = integrator.gather_hit_records(scene, idx_, cfg_)
         return integrator.shade_records(scene, cfg_, rec, o_, d_, t_, light,
                                         flags)
-    monkeypatch.setattr(integrator, "shade_route", lambda *a, **k: "cuda")
     monkeypatch.setattr(integrator, "shade_launch", stand_in)
     before = _counts()
-    got = integrator.shade(textured, cfg, o, d, t, idx, light, shadow_fn)
+    with table.using({"shade": integrator.shade_cuda}):
+        got = integrator.shade(textured, cfg, o, d, t, idx, light,
+                               shadow_fn)
     assert _counts() == (before[0] + 1, before[1] + 1, before[2])
     assert torch.equal(seen["samples"], integrator.light_sample_positions(
         light, samples, cfg.light.jitter_step))
@@ -184,9 +195,10 @@ def test_one_object_scene_has_no_shadow_query(monkeypatch):
 
     def query(*a, **k):
         raise AssertionError("a one-object scene made a shadow query")
-    monkeypatch.setattr(integrator, "shade_route", lambda *a, **k: "cuda")
     monkeypatch.setattr(integrator, "shade_launch", stand_in)
-    integrator.shade(one, _cfg(), o, d, t, idx, torch.tensor(LIGHT), query)
+    with table.using({"shade": integrator.shade_cuda}):
+        integrator.shade(one, _cfg(), o, d, t, idx, torch.tensor(LIGHT),
+                         query)
     assert seen["found"] is None
 
 

@@ -4,9 +4,8 @@ the tiled path's plain kernels.
 
 * off (outside ``recording``), ``span`` is one shared object that records
   nothing;
-* a frame renders the same image with recording on and off (the kernel
-  wrappers' ``launches`` counters move only on the card, where
-  ``test_torch_cuda.py`` holds them to move alike);
+* a frame renders the same image with recording on and off, and the
+  registry's counters (``metrics.counts``) move alike;
 * on, each stage's span is recorded where it runs in each branch of the
   tiled frame (the planners, the walks, the shading, the finish), nested
   under ``srt.frame`` with its parent and frame set, one frame id per
@@ -28,7 +27,7 @@ import simple_raytracer_tpu_torch as sr
 from simple_raytracer_tpu_torch import cli
 from simple_raytracer_tpu_torch.accel.prepared import prepare
 from simple_raytracer_tpu_torch.driver import animation
-from simple_raytracer_tpu_torch.kernels import paged, tiled
+from simple_raytracer_tpu_torch.kernels import tiled
 from simple_raytracer_tpu_torch.scene import procedural as P
 from simple_raytracer_tpu_torch.utils import metrics
 
@@ -76,13 +75,6 @@ def scenes():
     return out
 
 
-def _launches():
-    from simple_raytracer_tpu_torch.kernels import anyhit, nearest, prepass
-    fns = [f for mod in (nearest, anyhit, paged, prepass)
-           for f in vars(mod).values() if hasattr(f, "launches")]
-    return [f.launches for f in fns]
-
-
 def _chain(spans, i):
     """Names from span i out to the outermost span."""
     out = []
@@ -128,15 +120,15 @@ def test_stages_recorded_in_every_branch(scenes, branch):
     prep = scenes[build][0]
     cfg = sr.default_config().replace(mode="tiled", camera=CAM, **extra)
     assert tiled.frame_branch(prep, cfg, TILE) == branch.split("_")[0]
-    before = _launches()
+    before = metrics.counts()
     off = sr.render(prep, cfg, P.BENCH_LIGHT)
-    mid = _launches()
+    mid = metrics.counts()
     with metrics.recording() as rec:
         on = sr.render(prep, cfg, P.BENCH_LIGHT)
-    after = _launches()
+    after = metrics.counts()
     assert torch.equal(off, on)
-    assert [b - a for a, b in zip(before, mid)] == \
-        [b - a for a, b in zip(mid, after)]
+    assert {k: v - before.get(k, 0) for k, v in mid.items()} == \
+        {k: v - mid.get(k, 0) for k, v in after.items()}
     spans = rec.spans
     _check_nesting(spans)
     assert spans[0].name == "srt.frame" and spans[0].parent is None

@@ -28,7 +28,7 @@ from simple_raytracer_tpu_torch.accel.prepared import from_jax_prepared
 from simple_raytracer_tpu_torch.dist.train import (DiffParams, apply_params,
                                                    extract_params)
 from simple_raytracer_tpu_torch.diff.render import render_radiance_diff
-from simple_raytracer_tpu_torch.kernels import nearest, paged
+from simple_raytracer_tpu_torch.kernels import nearest, paged, table
 from simple_raytracer_tpu_torch.kernels import plan as pl
 from simple_raytracer_tpu_torch.kernels import tiled
 from simple_raytracer_tpu_torch.ops import camera as tcam
@@ -167,10 +167,10 @@ def test_frame_matches_jax(frame, monkeypatch):
     cfg, jcfg = _configs(S, **change)
     assert tiled.frame_branch(prep, cfg, TILE) == branch
     jimg = _jax_frame(jprep, jcfg, monkeypatch, module, steps)
-    n0 = {k: f.launches for k, f in tiled.KERNELS.items()}
+    n0 = table.calls()
     img = render(prep, cfg, LIGHT, view_matrix=VIEW).numpy()
     # CPU tensors take the plain versions: no kernel launch is counted
-    assert {k: f.launches for k, f in tiled.KERNELS.items()} == n0
+    assert table.calls() == n0
     assert img.shape == (H, W, 3)
     diff = np.abs(img.astype(int) - jimg.astype(int))
     print(f"frame {frame}: {int((diff > 0).any(-1).sum())} pixels differ, "
@@ -243,8 +243,8 @@ def test_range_plan_matches_jax(case):
 
 def _synthetic(num_blocks: int, seed: int = 7):
     """(port, JAX) stand-ins of a PreparedScene with ``num_blocks`` random
-    32-triangle block boxes, most of them in front of the camera: the cull
-    reads nothing else."""
+    32-triangle block boxes, most of them in front of the camera, on the
+    CPU: the cull reads nothing else."""
     rng = np.random.default_rng(seed)
     lo = rng.uniform([-40.0, -40.0, 20.0], [40.0, 40.0, 200.0],
                      (num_blocks, 3)).astype(np.float32)
@@ -253,9 +253,10 @@ def _synthetic(num_blocks: int, seed: int = 7):
     page_tris = 128
     num_pages = num_blocks * 32 // page_tris
     port = types.SimpleNamespace(
-        num_blocks=num_blocks, block_size=32, page_tris=page_tris,
-        num_pages=num_pages, block_min=torch.from_numpy(lo),
-        block_max=torch.from_numpy(hi), block_obj=torch.from_numpy(obj))
+        device=torch.device("cpu"), num_blocks=num_blocks, block_size=32,
+        page_tris=page_tris, num_pages=num_pages,
+        block_min=torch.from_numpy(lo), block_max=torch.from_numpy(hi),
+        block_obj=torch.from_numpy(obj))
     jax = types.SimpleNamespace(
         block_size=32, page_tris=page_tris, num_pages=num_pages,
         block_min=jnp.asarray(lo), block_max=jnp.asarray(hi),
