@@ -237,7 +237,14 @@ Phases, each of which must pass:
    alone (``queued_ms``: the card's time and the host's), in its call
    (CUDA events), and the plain planner's call, with its bound
    (``planner_bound``).  The launches it prints are
-   ``plan.cull_cuda.launches``, counted at the launch.
+   ``plan.cull_cuda.launches``, counted at the launch.  The frame's
+   bounds (the ``camera``, ``tile_bounds`` and ``shadow_bounds`` roles of
+   kernels/table.py: csrc/plan.cu's ``camera_kernel``,
+   ``tile_bounds_kernel``, ``shadow_bounds_kernel``) are captured too: on
+   the card once each (the hard-shadow bounds in the fused frames only), a
+   launch each, none plain, each equal to its plain twin to the bit, then
+   timed as the plans are (``bounds vs plain`` lines, bound
+   ``bounds_bound``); the plain reference frame takes the twins.
 17. the shading kernel (csrc/shade.cu, ``integrator.shade``'s CUDA route)
    on one frame of each soft cell's scene (the gather textured frame's
    smooth, textured ``textured_on_ground(6)``, and phase 16's dense soft
@@ -477,6 +484,18 @@ OPS_PLAN_HOURGLASS = 2 * 3 * 2 * 7 + 2 + 3
 PLAN_REPS = 200
 PLAN_NAME = "plan_blocks_kernel + plan_tiles_kernel"
 PLAN_HOURGLASS_NAME = "plan_hourglass_kernel"
+# phase 16: the planners' bounds (kernels/table.py's roles) and their
+# kernels; their f32 operations: a block's 6 extrema for the camera row's
+# shadow frame; a primary corner's direction (12), its row of the corner
+# sum (3), its 3 projections (15), 2 divisions, its clamp and comparison
+# and 10 extrema; a shadow tile's 6 differences, 6 selections and 4
+# comparisons
+BOUNDS_KERNELS = {"camera": "camera_kernel",
+                  "tile_bounds": "tile_bounds_kernel",
+                  "shadow_bounds": "shadow_bounds_kernel"}
+OPS_CAMERA_BLOCK = 6
+OPS_BOUNDS_CORNER = 12 + 3 + 15 + 2 + 2 + 10
+OPS_SHADOW_TILE = 6 + 6 + 4
 # phase 17: the shading kernel's calls timed, and its compulsory bytes: a
 # ray's o, d, t, id and radiance; a hit triangle's vertices, normals (vertex
 # or flat), texel coordinates, object and texture ids; a texel
@@ -1202,13 +1221,14 @@ def fused_frame(sr, prep, cfg, light, label: str, gpu: str,
     ms_frame = view_varied_ms(sr, prep, cfg, light, frames, label)
     maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
                                   cfg.kernel.window_blocks)
+    fcam = pl.camera(prep, cam_spec, light)
     t, _i, obj, _rgb, bounds = nearest.hits_shaded(prep, cfg, light,
-                                                   cam_spec, maxv)
+                                                   cam_spec, maxv, cam=fcam)
     stages = {
         "plan_and_k1_ms": cuda_ms(lambda: nearest.hits_shaded(
             prep, cfg, light, cam_spec, maxv), 10),
         "shadow_plan_and_k2_ms": cuda_ms(lambda: anyhit.anyhit_from_t(
-            prep, cfg, t, obj, bounds, light, cam_spec, maxv), 10),
+            prep, cfg, t, obj, bounds, fcam, cam_spec, maxv), 10),
         "frame_ms": cuda_ms(lambda: finalize_image(
             *sr.render_radiance(prep, cfg, light), cfg), 10)}
     emit(phase=f"timing ({label})", width=cam.width, height=cam.height,
@@ -1807,8 +1827,9 @@ def mode_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
     # each kernel and its plain version, and each stage alone
     maxv = pl.effective_cull_maxv(cfg, prep.num_blocks,
                                   cfg.kernel.window_blocks)
+    fcam = pl.camera(prep, cam_spec, light)
     t, _i, obj, shade, bounds = nearest.hits_shaded(prep, cfg, light,
-                                                    cam_spec, maxv)
+                                                    cam_spec, maxv, cam=fcam)
     times = {
         "k1_ms": cuda_ms(lambda: nearest.tiled_nearest_shaded(*k1), 20),
         "k1_plain_ms": cuda_ms(
@@ -1826,7 +1847,7 @@ def mode_frame(sr, prep, cfg, light, label: str, gpu: str, frames: int,
             prep.scene, cfg, obj, shade), 10)
     if branch == "fused":
         times["shadow_plan_and_k2_ms"] = cuda_ms(lambda: anyhit.anyhit_from_t(
-            prep, cfg, t, obj, bounds, light, cam_spec, maxv), 10)
+            prep, cfg, t, obj, bounds, fcam, cam_spec, maxv), 10)
     else:
         o2, d2, m = ks[3], ks[4], ks[3].shape[1]
         excl = tiled._pure_excl(ks[5])
@@ -3443,6 +3464,86 @@ def planner_bound(prep, n: int, wb: int, plan, apex: bool,
             "pairs": pairs, "f32_ops": ops, "bytes": moved}
 
 
+def bounds_bound(role: str, args, out) -> dict:
+    """The least time of one call of a bounds role on ``args`` (its
+    result ``out``): its f32 operations at 67 TFLOP/s against its inputs
+    read and its results written once (views of the camera row not
+    counted twice)."""
+    if role == "camera":
+        prep, _spec, light = args
+        ops = prep.num_blocks * OPS_CAMERA_BLOCK if light is not None else 0
+        moved = nbytes(out) + (nbytes(prep.block_min, prep.block_max)
+                               if light is not None else 0)
+    elif role == "tile_bounds":
+        cam, _spec, n = args
+        ops = 4 * n * OPS_BOUNDS_CORNER
+        moved = nbytes(cam) + nbytes(*(out[k] for k in (
+            "s", "v", "w", "dmin", "dmax", "ru_lo", "ru_hi", "rv_lo",
+            "rv_hi", "tile_bad", "dw_hi")))
+    else:
+        rows, cam = args
+        ops = rows.shape[0] * OPS_SHADOW_TILE
+        moved = nbytes(rows, cam) + nbytes(*(out[k] for k in (
+            "omin", "omax", "dmin", "dmax", "ru_lo", "ru_hi", "rv_lo",
+            "rv_hi", "live", "excl")))
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "f32_ops": ops, "bytes": moved}
+
+
+def bounds_equal(got, want) -> bool:
+    """A bounds role's results (a tensor or a dict of them) equal."""
+    import torch
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(
+            torch.equal(got[k], want[k]) for k in want)
+    return torch.equal(got, want)
+
+
+def bounds_timing(label: str, stores, gpu: str) -> list:
+    """Phase 16's bounds: each call of the frame's bounds roles
+    (``stores``, by role) on the card against its plain twin (equal to
+    the bit), timed alone (``queued_ms``), in its call (CUDA events), and
+    the twin's call, with its bound (:func:`bounds_bound`)."""
+    from simple_raytracer_tpu_torch.kernels import table
+    entries = []
+    for role, calls in stores.items():
+        e = table.roles()[role]
+        for a in calls:
+            reset_counts()
+            got = e.cuda(*a)
+            launches = table.launches()[role]
+            want = e.plain(*a)
+            require(bounds_equal(got, want),
+                    f"bounds vs plain ({label}, {role}): not equal")
+            require(launches == 1, f"bounds ({label}, {role}): {launches} "
+                    "launches a call, not 1")
+            card_ms, host_ms = queued_ms(lambda: e.cuda(*a), PLAN_REPS)
+            call_ms = cuda_ms(lambda: e.cuda(*a), PLAN_REPS)
+            plain_ms = cuda_ms(lambda: e.plain(*a), PLAN_REPS // 10)
+            plain_card_ms, plain_host_ms = queued_ms(lambda: e.plain(*a),
+                                                     PLAN_REPS // 10)
+            bnd = bounds_bound(role, a, got)
+            frame = f"{label}: {role}"
+            entries.append(entry(
+                BOUNDS_KERNELS[role], "plan.cu",
+                "none: the bounds are jnp in the JAX package "
+                "(tiled_t.py::make_cam, analytic_tile_bounds, shadow_frame, "
+                "analytic_shadow_bounds_exact)", frame, launches, 0.0, card_ms,
+                plain_ms, bnd, call_ms=call_ms, host_ms=host_ms))
+            emit(phase=f"bounds vs plain ({frame})", equal=True,
+                 launches=launches,
+                 tiles=(a[2] if role == "tile_bounds" else
+                        a[0].shape[0] if role == "shadow_bounds" else 0),
+                 card_ms=card_ms, host_ms=host_ms, call_ms=call_ms,
+                 plain_ms=plain_ms, plain_card_ms=plain_card_ms,
+                 plain_host_ms=plain_host_ms, gpu=gpu, **bnd,
+                 share=bnd["bound_ms"] / card_ms)
+    return entries
+
+
 def planner_phase(sr, frames, light, gpu: str) -> list:
     """Phase 16: the planner kernel on every plan of one frame of each of
     ``frames`` ({label: (prep, cfg)}), held to the plain planner on every
@@ -3453,6 +3554,7 @@ def planner_phase(sr, frames, light, gpu: str) -> list:
     entries = []
     for label, (prep, cfg) in frames.items():
         calls = []
+        stores = {r: [] for r in BOUNDS_KERNELS}
         real = pl.cull
 
         def spy(*a, **k):
@@ -3460,7 +3562,9 @@ def planner_phase(sr, frames, light, gpu: str) -> list:
             return real(*a, **k)
         pl.cull = spy
         try:
-            sr.render(prep, cfg, light)
+            with table.using({r: table.spy(r, stores[r])
+                              for r in BOUNDS_KERNELS}):
+                sr.render(prep, cfg, light)
         finally:
             pl.cull = real
         reset_counts()
@@ -3473,7 +3577,16 @@ def planner_phase(sr, frames, light, gpu: str) -> list:
                 f"{label}: {plans} plans a frame, not 2 on the card "
                 f"({hourglasses} of the hourglass test)")
         require(len(calls) == 2, f"{label}: {len(calls)} plans a frame")
-        with table.using({"plan": pl.cull_plain}):
+        bounds = {r: (table.calls()[r], table.calls(twin=True)[r],
+                      table.launches()[r]) for r in BOUNDS_KERNELS}
+        require(all(b == (len(stores[r]), 0, len(stores[r]))
+                    for r, b in bounds.items())
+                and len(stores["camera"]) == len(stores["tile_bounds"]) == 1,
+                f"{label}: the bounds a frame (card, plain, launches) "
+                f"{bounds}, calls {({r: len(c) for r, c in stores.items()})}")
+        with table.using({"plan": pl.cull_plain,
+                          **{r: table.roles()[r].plain
+                             for r in BOUNDS_KERNELS}}):
             ref = sr.render(prep, cfg, light)
         require(torch.equal(img, ref),
                 f"{label}: the frame differs from the plain planner's on "
@@ -3518,6 +3631,7 @@ def planner_phase(sr, frames, light, gpu: str) -> list:
                  plain_ms=plain_ms, plain_card_ms=plain_card_ms,
                  plain_host_ms=plain_host_ms, gpu=gpu, **bnd,
                  share=bnd["bound_ms"] / card_ms)
+        entries += bounds_timing(label, stores, gpu)
     return entries
 
 

@@ -104,11 +104,12 @@ def main() -> int:
         if cfg is shadow:
             maxv = pl.effective_cull_maxv(cfg, fprep.num_blocks,
                                           cfg.kernel.window_blocks)
+            fcam = pl.camera(fprep, cam_spec, light)
             t, _i, obj, _rgb, bounds = nearest.hits_shaded(
-                fprep, cfg, light, cam_spec, maxv)
+                fprep, cfg, light, cam_spec, maxv, cam=fcam)
             res["shadow_plan_and_k2_ms"] = cs.cuda_ms(
                 lambda: anyhit.anyhit_from_t(fprep, cfg, t, obj, bounds,
-                                             light, cam_spec, maxv), 10)
+                                             fcam, cam_spec, maxv), 10)
             res["ms_per_frame"] = cs.view_varied_ms(
                 sr, fprep, cfg, light, cs.FRAMES, label)
         cs.emit(**res, gpu=gpu)

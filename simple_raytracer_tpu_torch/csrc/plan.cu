@@ -1,5 +1,6 @@
 // The cull planner: the plan rows of a tile set, from its bounds and the
-// block tables, in at most two launches.
+// block tables, in at most two launches; and the O(tiles) bounds of the
+// fused frame's two plans, a launch each, with the frame's camera row.
 //
 // Replaces no TPU kernel: the JAX package builds its plans in jnp
 // (kernels/tiled_t.py::cull, cull_occl; kernels/tiled.py::
@@ -33,7 +34,14 @@
 // visibility_px_rev) and the own-object drop (excl), and build the tile's
 // row in plan_row, plan.py::cull_lists: window visibility and least bound,
 // the covering range, the list count, tmin/tmax over the visible windows,
-// the bucket qb and its floor, bound16, and the entries.
+// the bucket qb and its floor, bound16, and the entries, with the tile's
+// pixel origin in columns 4/5 and, for a tile not live (a shadow tile
+// without a hit), a row of zeros.
+//
+// The bounds (below, "The planners' bounds") replace the port's ~300
+// PyTorch ops a fused frame (plan.py::tile_bounds_plain, shadow_frame,
+// analytic_shadow_bounds_exact, tile_origins, _rows_of), whose constants
+// were copied to the card, each copy waiting for the work queued before it.
 //
 // The entries' order without a sort: cull_lists sorts the keys
 // bound16 << 16 | window.  bound16 is the top half of floor(qb), and
@@ -71,7 +79,18 @@ enum Op {
   kExcl,                               // [n] i32
   kS, kV, kW, kApexPt,                 // [3] f32: frame and apex
   kQmin, kQmax,                        // [n, 3] f32 (hourglass test)
+  kLive,                               // [n] bool: rows of other tiles are 0
   kNumOps
+};
+
+// The tile grid of a frame (plan.py::tile_origins): tile t's first pixel
+// relative to the image centre is ((t % tiles_x) * tpx - hw,
+// (t / tiles_x) * tpx - hh); tiles_x 0: no grid.
+struct Grid {
+  int tiles_x, tpx, hw, hh;
+
+  __device__ int px0(int t) const { return (t % tiles_x) * tpx - hw; }
+  __device__ int py0(int t) const { return (t / tiles_x) * tpx - hh; }
 };
 
 struct Operands {
@@ -324,10 +343,14 @@ __device__ T block_reduce(T x, F op, T* red) {
 }
 
 // One CTA a tile: its plan row [plan_w] (plan.py::cull_lists' layout),
-// from test(b, tlo), the visibility of block b with its entry bound in tlo.
+// from test(b, tlo), the visibility of block b with its entry bound in tlo;
+// the tile's origin in columns 4/5 where the grid org has one, and a row of
+// zeros (but for the origin) where op's kLive says the tile is not live
+// (plan.py::_rows_of).
 template <typename Test>
-__device__ __forceinline__ void plan_row(const Test& test, int nb, int wb,
-                                         int maxv, int plan_w,
+__device__ __forceinline__ void plan_row(const Test& test, const Operands& op,
+                                         Grid org, int nb, int wb, int maxv,
+                                         int plan_w,
                                          float* __restrict__ scratch,
                                          int* __restrict__ plan) {
   extern __shared__ float s_wt[];
@@ -344,6 +367,14 @@ __device__ __forceinline__ void plan_row(const Test& test, int nb, int wb,
   const int mv_cap = plan_w - srt::kPlanAux;
   float* wt = np <= kSmemWindows ? s_wt : scratch + (size_t)tile * np;
   int* row = plan + (size_t)tile * plan_w;
+  const int px0 = org.tiles_x > 0 ? org.px0(tile) : 0;
+  const int py0 = org.tiles_x > 0 ? org.py0(tile) : 0;
+  if (op.p[kLive] &&
+      !static_cast<const unsigned char*>(op.p[kLive])[tile * op.s0[kLive]]) {
+    for (int p = threadIdx.x; p < plan_w; p += kThreads)
+      row[p] = p == 4 ? px0 : p == 5 ? py0 : 0;
+    return;
+  }
 
   // pass 1: the tests, each window's least bound (+inf: not visible), and
   // the tile's first / last visible window, count, tmin and tmax
@@ -384,7 +415,9 @@ __device__ __forceinline__ void plan_row(const Test& test, int nb, int wb,
     row[1] = range_cnt;
     row[2] = min(cnt, maxv_c);
     row[3] = cnt <= maxv_c ? 1 : 0;
-    row[4] = row[5] = row[6] = row[7] = 0;
+    row[4] = px0;
+    row[5] = py0;
+    row[6] = row[7] = 0;
     const float tmin = fabsf(tmn) < INFINITY ? tmn : 0.0f;  // isfinite
     const float qscale = clamp_min(tmx - tmin, 1e-20f) / kTBuckets;
     s_tmin = tmin;
@@ -481,7 +514,7 @@ __device__ __forceinline__ bool apex_visible(const ApexTile& t,
 // The plan of the interval test (plan.py::visibility), one CTA a tile.
 template <int A, bool Excl>
 __global__ void __launch_bounds__(kThreads) plan_tiles_kernel(
-    Operands op, const float* __restrict__ bmin,
+    Operands op, Grid org, const float* __restrict__ bmin,
     const float* __restrict__ bmax, const int* __restrict__ bobj,
     const float4* __restrict__ rect, const int* __restrict__ flags, int nb,
     int wb, int maxv, int plan_w, float* __restrict__ scratch,
@@ -503,14 +536,14 @@ __global__ void __launch_bounds__(kThreads) plan_tiles_kernel(
                (!Excl || bobj[b] != excl) &&
                apex_visible<A>(at, rect, flags, b);
       },
-      nb, wb, maxv, plan_w, scratch, plan);
+      op, org, nb, wb, maxv, plan_w, scratch, plan);
 }
 
 // The plan of the hourglass test (plan.py::visibility_hourglass) of shadow
 // rays with no shared light, one CTA a tile.
 template <int A, bool Excl>
 __global__ void __launch_bounds__(kThreads) plan_hourglass_kernel(
-    Operands op, const float* __restrict__ bmin,
+    Operands op, Grid org, const float* __restrict__ bmin,
     const float* __restrict__ bmax, const int* __restrict__ bobj,
     const float4* __restrict__ rect, const int* __restrict__ flags, int nb,
     int wb, int maxv, int plan_w, float* __restrict__ scratch,
@@ -533,11 +566,11 @@ __global__ void __launch_bounds__(kThreads) plan_hourglass_kernel(
                (!Excl || bobj[b] != excl) &&
                apex_visible<A>(at, rect, flags, b);
       },
-      nb, wb, maxv, plan_w, scratch, plan);
+      op, org, nb, wb, maxv, plan_w, scratch, plan);
 }
 
 template <int A, bool Excl>
-cudaError_t launch_tiles(const Operands& op, bool hourglass,
+cudaError_t launch_tiles(const Operands& op, Grid org, bool hourglass,
                          const float* bmin, const float* bmax,
                          const int* bobj, const float4* rect,
                          const int* flags, int nb, int wb, int maxv,
@@ -547,20 +580,21 @@ cudaError_t launch_tiles(const Operands& op, bool hourglass,
   const size_t smem = np <= kSmemWindows ? sizeof(float) * np : 0;
   if (hourglass)
     plan_hourglass_kernel<A, Excl><<<n_tiles, kThreads, smem, stream>>>(
-        op, bmin, bmax, bobj, rect, flags, nb, wb, maxv, plan_w, scratch,
-        plan);
+        op, org, bmin, bmax, bobj, rect, flags, nb, wb, maxv, plan_w,
+        scratch, plan);
   else
     plan_tiles_kernel<A, Excl><<<n_tiles, kThreads, smem, stream>>>(
-        op, bmin, bmax, bobj, rect, flags, nb, wb, maxv, plan_w, scratch,
-        plan);
+        op, org, bmin, bmax, bobj, rect, flags, nb, wb, maxv, plan_w,
+        scratch, plan);
   return cudaGetLastError();
 }
 
 template <int A>
-cudaError_t build_plan(const Operands& op, bool hourglass, const float* bmin,
-                       const float* bmax, const int* bobj, int nb, int wb,
-                       int maxv, int plan_w, int n_tiles, void* blocks,
-                       float* scratch, int* out, cudaStream_t stream) {
+cudaError_t build_plan(const Operands& op, Grid org, bool hourglass,
+                       const float* bmin, const float* bmax, const int* bobj,
+                       int nb, int wb, int maxv, int plan_w, int n_tiles,
+                       void* blocks, float* scratch, int* out,
+                       cudaStream_t stream) {
   float4* rect = nullptr;
   int* flags = nullptr;
   if (A != kNoApex) {
@@ -572,12 +606,220 @@ cudaError_t build_plan(const Operands& op, bool hourglass, const float* bmin,
     if (e != cudaSuccess) return e;
   }
   return op.p[kExcl]
-             ? launch_tiles<A, true>(op, hourglass, bmin, bmax, bobj, rect,
-                                     flags, nb, wb, maxv, plan_w, n_tiles,
-                                     scratch, out, stream)
-             : launch_tiles<A, false>(op, hourglass, bmin, bmax, bobj, rect,
-                                      flags, nb, wb, maxv, plan_w, n_tiles,
-                                      scratch, out, stream);
+             ? launch_tiles<A, true>(op, org, hourglass, bmin, bmax, bobj,
+                                     rect, flags, nb, wb, maxv, plan_w,
+                                     n_tiles, scratch, out, stream)
+             : launch_tiles<A, false>(op, org, hourglass, bmin, bmax, bobj,
+                                      rect, flags, nb, wb, maxv, plan_w,
+                                      n_tiles, scratch, out, stream);
+}
+
+// ---- The planners' bounds --------------------------------------------------
+//
+// O(tiles) work a frame, from the camera row cam [24] (plan.py::make_cam:
+// A, B, C, origin, light, the shadow frame s, v, w) that K1 reads too.
+// camera_kernel writes that row, its shadow frame reduced from the block
+// tables; tile_bounds_kernel the primary tiles' bounds, one CTA (the frame
+// is a sum over every tile's corners); shadow_bounds_kernel the hard-shadow
+// tiles' bounds from K1's rows, a thread a tile.  Bound by launch and
+// latency, a few flops a corner or a tile.
+
+constexpr int kBoundsThreads = 1024;  // tile_bounds_kernel's one CTA
+constexpr int kSumRows = 2048;        // corner rows summed in shared memory
+                                      // (plan.py::SUM_SMEM_ROWS)
+constexpr int kRowLen = 15;           // K1's bounds row (nearest.cu)
+
+// plan.py::frame_of: (s, v, w) orthonormal, w along d ((0, 0, 1) where
+// |d| <= 1e-20), s against the axis least aligned with w (the first such).
+__device__ void frame_of(const float* d, float* s, float* v, float* w) {
+  const float nw = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    w[c] = nw > 1e-20f ? d[c] / fmaxf(nw, 1e-20f) : (c == 2 ? 1.0f : 0.0f);
+  int k = fabsf(w[1]) < fabsf(w[0]) ? 1 : 0;
+  if (fabsf(w[2]) < fabsf(w[k])) k = 2;
+  const float e0 = k == 0 ? 1.0f : 0.0f, e1 = k == 1 ? 1.0f : 0.0f,
+              e2 = k == 2 ? 1.0f : 0.0f;
+  s[0] = w[1] * e2 - w[2] * e1;
+  s[1] = w[2] * e0 - w[0] * e2;
+  s[2] = w[0] * e1 - w[1] * e0;
+  const float ns = sqrtf(s[0] * s[0] + s[1] * s[1] + s[2] * s[2]);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) s[c] = s[c] / ns;
+  v[0] = w[1] * s[2] - w[2] * s[1];
+  v[1] = w[2] * s[0] - w[0] * s[2];
+  v[2] = w[0] * s[1] - w[1] * s[0];
+}
+
+// plan.py::camera_plain: the row of make_cam, from the view V (rows 0-2,
+// columns 0-3, strides vs0, vs1; null: the origin camera), the focal, the
+// light L (null: 0, and a zero frame) and, for the frame, the centre of the
+// block boxes (plan.py::shadow_frame).  One CTA.
+__global__ void __launch_bounds__(kThreads) camera_kernel(
+    const float* __restrict__ V, long long vs0, long long vs1, float focal,
+    const float* __restrict__ L, long long ls, const float* __restrict__ bmin,
+    const float* __restrict__ bmax, int nb, float* __restrict__ cam) {
+  __shared__ float red[kWarps];
+  float ctr[3];
+  if (L) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      float mn = INFINITY, mx = -INFINITY;
+      for (int b = threadIdx.x; b < nb; b += kThreads) {
+        mn = fminf(mn, bmin[b * 3 + c]);
+        mx = fmaxf(mx, bmax[b * 3 + c]);
+      }
+      mn = block_reduce(mn, [](float a, float b) { return fminf(a, b); }, red);
+      mx = block_reduce(mx, [](float a, float b) { return fmaxf(a, b); }, red);
+      ctr[c] = 0.5f * (mn + mx);
+    }
+  }
+  if (threadIdx.x != 0) return;
+  float fr[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  if (L) {
+    const float d[3] = {ctr[0] - L[0], ctr[1] - L[ls], ctr[2] - L[2 * ls]};
+    frame_of(d, fr, fr + 3, fr + 6);
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    if (V) {
+      const float* vr = V + r * vs0;
+      cam[r] = vr[0];
+      cam[3 + r] = vr[vs1];
+      cam[6 + r] = vr[2 * vs1] * focal;
+      cam[9 + r] = vr[3 * vs1];
+    } else {
+      cam[r] = r == 0 ? 1.0f : 0.0f;
+      cam[3 + r] = r == 1 ? 1.0f : 0.0f;
+      cam[6 + r] = r == 2 ? focal : 0.0f;
+      cam[9 + r] = 0.0f;
+    }
+    cam[12 + r] = L ? L[r * ls] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < 9; ++i) cam[15 + i] = fr[i];
+}
+
+// plan.py::tile_bounds_plain's direction d [3] of tile t at pixel-rect
+// corner k: (px0 + (k & 1) e, py0 + (k >> 1) e), e = tpx - 1.
+__device__ __forceinline__ void corner_dir(const float* cam, const Grid& g,
+                                           int t, int k, float* d) {
+  const float px0 = static_cast<float>(g.px0(t));
+  const float py0 = static_cast<float>(g.py0(t));
+  const float e = static_cast<float>(g.tpx - 1);
+  const float fx = (k & 1) ? px0 + e : px0;
+  const float fy = (k & 2) ? py0 + e : py0;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) d[c] = fx * cam[c] + fy * cam[3 + c] + cam[6 + c];
+}
+
+// plan.py::tile_bounds_plain for n tiles, one CTA: the 4 n corner directions
+// summed by plan.py::sum_rows' halvings (in `scratch` [12 n] while over
+// kSumRows rows, then in shared memory), the frame of their sum, then each
+// tile's box and rects.  out: s, v, w [9], dmin, dmax [n, 3], ru_lo, ru_hi,
+// rv_lo, rv_hi, dw_hi [n]; tile_bad [n].
+__global__ void __launch_bounds__(kBoundsThreads) tile_bounds_kernel(
+    const float* __restrict__ cam_g, Grid g, int n, float* __restrict__ out,
+    bool* __restrict__ tile_bad, float* __restrict__ scratch) {
+  __shared__ float s_cam[9], s_f[9];
+  __shared__ float s_sum[3 * kSumRows];
+  if (threadIdx.x < 9) s_cam[threadIdx.x] = cam_g[threadIdx.x];
+  __syncthreads();
+  int m = 4 * n;
+  float* x = m <= kSumRows ? s_sum : scratch;
+  for (int r = threadIdx.x; r < m; r += kBoundsThreads)
+    corner_dir(s_cam, g, r >> 2, r & 3, x + 3 * r);
+  __syncthreads();
+  while (m > 1) {  // rows [0, h) += rows [h, 2h); row 2h (m odd) -> row h
+    const int h = m >> 1, next = h + (m & 1);
+    float* y = x != s_sum && next <= kSumRows ? s_sum : x;
+    for (int i = threadIdx.x; i < 3 * h; i += kBoundsThreads)
+      y[i] = x[i] + x[i + 3 * h];
+    __syncthreads();
+    if ((m & 1) && threadIdx.x < 3)
+      y[3 * h + threadIdx.x] = x[6 * h + threadIdx.x];
+    __syncthreads();
+    x = y;
+    m = next;
+  }
+  if (threadIdx.x == 0) {
+    frame_of(x, s_f, s_f + 3, s_f + 6);
+    for (int i = 0; i < 9; ++i) out[i] = s_f[i];
+  }
+  __syncthreads();
+  const float *s = s_f, *v = s_f + 3, *w = s_f + 6;
+  float* dmin = out + 9;
+  float* dmax = dmin + 3 * n;
+  float* rect = dmax + 3 * n;  // ru_lo, ru_hi, rv_lo, rv_hi, dw_hi
+  for (int t = threadIdx.x; t < n; t += kBoundsThreads) {
+    float lo[3], hi[3], ru_lo = 0.0f, ru_hi = 0.0f, rv_lo = 0.0f, rv_hi = 0.0f,
+                        dw_hi = 0.0f;
+    bool any_bad = false;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      float d[3];
+      corner_dir(s_cam, g, t, k, d);
+      const float dw = d[0] * w[0] + d[1] * w[1] + d[2] * w[2];
+      const bool bad = dw <= kEps;
+      const float dws = clamp_min(dw, kEps);
+      const float ru = (d[0] * s[0] + d[1] * s[1] + d[2] * s[2]) / dws;
+      const float rv = (d[0] * v[0] + d[1] * v[1] + d[2] * v[2]) / dws;
+      const float ul = bad ? -kBig : ru, uh = bad ? kBig : ru;
+      const float vl = bad ? -kBig : rv, vh = bad ? kBig : rv;
+      const float dh = bad ? 0.0f : dw;
+      ru_lo = k == 0 ? ul : nmin(ru_lo, ul);
+      ru_hi = k == 0 ? uh : nmax(ru_hi, uh);
+      rv_lo = k == 0 ? vl : nmin(rv_lo, vl);
+      rv_hi = k == 0 ? vh : nmax(rv_hi, vh);
+      dw_hi = k == 0 ? dh : nmax(dw_hi, dh);
+      any_bad = any_bad || bad;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        lo[c] = k == 0 ? d[c] : nmin(lo[c], d[c]);
+        hi[c] = k == 0 ? d[c] : nmax(hi[c], d[c]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      dmin[t * 3 + c] = lo[c];
+      dmax[t * 3 + c] = hi[c];
+    }
+    rect[t] = ru_lo;
+    rect[n + t] = ru_hi;
+    rect[2 * n + t] = rv_lo;
+    rect[3 * n + t] = rv_hi;
+    rect[4 * n + t] = dw_hi;
+    tile_bad[t] = any_bad;
+  }
+}
+
+// plan.py::analytic_shadow_bounds_exact for tile t of K1's rows [n, 15]
+// (hit box 6, any hit, obj lo/hi, ru lo/hi, rv lo/hi, dw lo/hi) and the
+// light of cam: out omin, omax, dmin, dmax [n, 3], ru_lo, ru_hi, rv_lo,
+// rv_hi [n]; excl, live [n].
+__global__ void __launch_bounds__(kThreads) shadow_bounds_kernel(
+    const float* __restrict__ rows, int n, const float* __restrict__ cam,
+    float* __restrict__ out, int* __restrict__ excl,
+    bool* __restrict__ live) {
+  const int t = blockIdx.x * kThreads + threadIdx.x;
+  if (t >= n) return;
+  const float* b = rows + (size_t)t * kRowLen;
+  const bool ah = b[6] > 0.0f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const float pmin = ah ? b[c] : 0.0f, pmax = ah ? b[3 + c] : 0.0f;
+    out[t * 3 + c] = pmin;
+    out[3 * n + t * 3 + c] = pmax;
+    out[6 * n + t * 3 + c] = cam[12 + c] - pmax;
+    out[9 * n + t * 3 + c] = cam[12 + c] - pmin;
+  }
+  const bool ok = ah && (b[13] > kEps || b[14] < -kEps);
+  out[12 * n + t] = ok ? b[9] : -kBig;
+  out[13 * n + t] = ok ? b[10] : kBig;
+  out[14 * n + t] = ok ? b[11] : -kBig;
+  out[15 * n + t] = ok ? b[12] : kBig;
+  excl[t] = ah && b[7] == b[8] ? static_cast<int>(rintf(b[7])) : -2;
+  live[t] = ah;
 }
 
 }  // namespace
@@ -588,18 +830,21 @@ cudaError_t build_plan(const Operands& op, bool hourglass, const float* bmin,
 // enum Op (a null pointer where unused; excl null: no own-object drop).
 // apex: 0 none, 1 the primary-apex test, 2 the light-apex test; hourglass:
 // 0 the interval test (omin, omax, dmin, dmax), 1 the hourglass test (omin,
-// omax, qmin, qmax).  Scratch: `blocks` [nb * 5] words (apex tests),
-// `scratch` [n_tiles * nb / wb] f32 where nb / wb > kSmemWindows
-// (plan.py::SMEM_WINDOWS).
+// omax, qmin, qmax).  Columns 4/5: the origins of the tile grid (tiles_x,
+// tile_px, half_w, half_h) (tiles_x 0: zeros).  Scratch: `blocks` [nb * 5]
+// words (apex tests), `scratch` [n_tiles * nb / wb] f32 where nb / wb >
+// kSmemWindows (plan.py::SMEM_WINDOWS).
 extern "C" int srt_plan(const long long* ops, const void* bmin,
                         const void* bmax, const void* bobj, int nb, int wb,
                         int apex, int hourglass, int maxv, int plan_w,
-                        int n_tiles, void* blocks, void* scratch, void* out,
+                        int n_tiles, int tiles_x, int tile_px, int half_w,
+                        int half_h, void* blocks, void* scratch, void* out,
                         void* stream) {
   if (nb <= 0 || wb <= 0 || nb % wb || nb / wb > 65536 || n_tiles < 0 ||
       plan_w <= srt::kPlanAux || apex < 0 || apex > 2 || hourglass < 0 ||
       hourglass > 1 || (apex && !blocks) ||
-      (nb / wb > kSmemWindows && !scratch))
+      (nb / wb > kSmemWindows && !scratch) || tiles_x < 0 ||
+      (tiles_x > 0 && tile_px <= 0))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_tiles == 0) return 0;
   Operands op;
@@ -615,15 +860,68 @@ extern "C" int srt_plan(const long long* ops, const void* bmin,
   auto* pl = static_cast<int*>(out);
   const auto st = static_cast<cudaStream_t>(stream);
   const bool hg = hourglass != 0;
+  const Grid org{tiles_x, tile_px, half_w, half_h};
   cudaError_t e;
   if (apex == kPrimary)
-    e = build_plan<kPrimary>(op, hg, bn, bx, bo, nb, wb, maxv, plan_w,
+    e = build_plan<kPrimary>(op, org, hg, bn, bx, bo, nb, wb, maxv, plan_w,
                              n_tiles, blocks, sc, pl, st);
   else if (apex == kLight)
-    e = build_plan<kLight>(op, hg, bn, bx, bo, nb, wb, maxv, plan_w, n_tiles,
-                           blocks, sc, pl, st);
+    e = build_plan<kLight>(op, org, hg, bn, bx, bo, nb, wb, maxv, plan_w,
+                           n_tiles, blocks, sc, pl, st);
   else
-    e = build_plan<kNoApex>(op, hg, bn, bx, bo, nb, wb, maxv, plan_w,
+    e = build_plan<kNoApex>(op, org, hg, bn, bx, bo, nb, wb, maxv, plan_w,
                             n_tiles, blocks, sc, pl, st);
   return static_cast<int>(e);
+}
+
+// The frame's camera row cam [24] (plan.py::camera): view V f32 (rows 0-2,
+// columns 0-3 at strides vs0, vs1; null: the origin camera), focal, light L
+// [3] f32 at stride ls (null: no light and a zero shadow frame), the block
+// boxes bmin, bmax [nb, 3] f32 for the shadow frame.  One launch.
+extern "C" int srt_camera(const void* V, long long vs0, long long vs1,
+                          float focal, const void* light, long long ls,
+                          const void* bmin, const void* bmax, int nb,
+                          void* cam, void* stream) {
+  if (!cam || (light && (nb <= 0 || !bmin || !bmax)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  camera_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(V), vs0, vs1, focal,
+      static_cast<const float*>(light), ls, static_cast<const float*>(bmin),
+      static_cast<const float*>(bmax), nb, static_cast<float*>(cam));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The bounds of the n primary tiles of a width x height frame in tiles of
+// tile_px (plan.py::tile_bounds) from the camera row cam [24]: out [9 + 11 n]
+// f32 and tile_bad [n] (tile_bounds_kernel's layout); scratch [12 n] f32
+// where 4 n > kSumRows (plan.py::SUM_SMEM_ROWS).  One launch.
+extern "C" int srt_tile_bounds(const void* cam, int width, int height,
+                               int tile_px, int n, void* out, void* tile_bad,
+                               void* scratch, void* stream) {
+  if (n <= 0 || n > (1 << 26) || tile_px <= 0 || width <= 0 || height <= 0 ||
+      (4 * n > kSumRows && !scratch))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Grid g{(width + tile_px - 1) / tile_px, tile_px, width / 2,
+               height / 2};
+  tile_bounds_kernel<<<1, kBoundsThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(cam), g, n, static_cast<float*>(out),
+      static_cast<bool*>(tile_bad), static_cast<float*>(scratch));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The hard-shadow bounds of n tiles (plan.py::shadow_bounds) from K1's rows
+// [n, 15] f32 and the camera row cam [24]: out [16 n] f32, excl [n] i32,
+// live [n] (shadow_bounds_kernel's layout).  One launch.
+extern "C" int srt_shadow_bounds(const void* rows, int n, const void* cam,
+                                 void* out, void* excl, void* live,
+                                 void* stream) {
+  if (n < 0 || n > (1 << 26)) return static_cast<int>(cudaErrorInvalidValue);
+  if (n == 0) return 0;
+  shadow_bounds_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(rows), n, static_cast<const float*>(cam),
+      static_cast<float*>(out), static_cast<int*>(excl),
+      static_cast<bool*>(live));
+  return static_cast<int>(cudaGetLastError());
 }

@@ -251,32 +251,24 @@ def tiled_anyhit_from_t_plain(plan, tri, block_obj, t, obj, cam,
                        spans=spans)
 
 
-def anyhit_from_t(prep, cfg, t, obj, bounds, light_pos, cam_spec, maxv: int):
+def anyhit_from_t(prep, cfg, t, obj, bounds, cam, cam_spec, maxv: int):
     """Hard-shadow query of the frame (JAX kernels/tiled_t.py::anyhit_from_t
     with sub=1): the shadow plan is built in O(tiles) from the nearest
-    kernel's bounds rows — interval test, plus the projective light-apex
-    test, minus each pure tile's own object — and K2 ("anyhit_from_t")
-    rebuilds the shadow rays from t.  t [R], obj [R]
-    from :func:`kernels.nearest.hits_shaded`; returns found [R] bool (miss
-    lanes read True)."""
-    vmx, focal, wd, hd, tpx = cam_spec
-    dev = prep.device
+    kernel's bounds rows (:func:`plan.shadow_bounds`) — interval test, plus
+    the projective light-apex test, minus each pure tile's own object, no
+    walk for hitless tiles — and K2 ("anyhit_from_t") rebuilds the shadow
+    rays from t.  t [R], obj [R], bounds from
+    :func:`kernels.nearest.hits_shaded`; ``cam``: the camera row it read
+    (:func:`plan.camera` of the light); returns found [R] bool (miss lanes
+    read True)."""
+    _vmx, _focal, wd, hd, tpx = cam_spec
     n = bounds.shape[0]
     tile = tpx * tpx
     wb = cfg.kernel.window_blocks_ah
     with span("srt.plan.shadow"):
-        ah = bounds[:, 6] > 0.0
-        # tiles whose every hit left one object drop that object's blocks
-        pure = ah & (bounds[:, 7] == bounds[:, 8])
-        excl = torch.where(pure, torch.round(bounds[:, 7]).to(torch.int32),
-                           -2)
-        frame = pl.shadow_frame(prep.block_min, prep.block_max, light_pos)
-        ab = pl.analytic_shadow_bounds_exact(bounds, light_pos, frame)
-        plan = pl.cull(prep, maxv, wb, ab, excl=excl, apex_rev=True)
-        plan = torch.where(ah[:, None], plan, 0)     # hitless tiles: no walk
-        px0, py0 = pl.tile_origins(n, -(-wd // tpx), tpx, wd, hd, dev)
-        plan[:, 4], plan[:, 5] = px0, py0
-    cam = pl.make_cam(vmx, focal, light_pos, None, dev)
+        ab = pl.shadow_bounds(bounds, cam)
+        plan = pl.cull(prep, maxv, wb, ab, excl=ab["excl"], apex_rev=True,
+                       live=ab["live"], origins=(-(-wd // tpx), tpx, wd, hd))
     with span("srt.anyhit"):
         found = table.run("anyhit_from_t", plan, prep.tri, prep.block_obj,
                           t.reshape(n, tile), obj.reshape(n, tile), cam, tpx,

@@ -102,7 +102,21 @@ SIGNATURES = {
             _P, _P, _P,          # block_min, block_max, block_obj
             _I, _I, _I, _I,      # n_blocks, window blocks, apex, hourglass
             _I, _I, _I,          # maxv, plan_w, n_tiles
+            _I, _I, _I, _I,      # tiles_x, tile_px, half width, half height
             _P, _P, _P,          # block scratch, window scratch, plan
+            _P),                 # stream
+        "srt_camera": (
+            _P, _L, _L, _F,      # view, its strides, focal
+            _P, _L,              # light, its stride
+            _P, _P, _I,          # block_min, block_max, n_blocks
+            _P, _P),             # cam, stream
+        "srt_tile_bounds": (
+            _P, _I, _I, _I, _I,  # cam, width, height, tile_px, n_tiles
+            _P, _P, _P,          # out, tile_bad, scratch
+            _P),                 # stream
+        "srt_shadow_bounds": (
+            _P, _I, _P,          # K1's bounds rows, n_tiles, cam
+            _P, _P, _P,          # out, excl, live
             _P),                 # stream
     },
     "shade.cu": {

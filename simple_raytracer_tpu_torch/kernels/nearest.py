@@ -852,26 +852,27 @@ def tiled_nearest_shaded_plain(plan, tri, tri_attr, mat, cam, tile_px: int,
     return bt, idx, obj, rgb.reshape(n * tile, width), bounds
 
 
-def primary_plan(prep, cfg, cam_spec, maxv: int, rays=None):
+def primary_plan(prep, cfg, cam_spec, maxv: int, rays=None, cam=None):
     """The primary plan of the frame (interval + projective tests from
-    O(tiles) analytic bounds) with each tile's pixel origin in columns 4/5.
-    ``cam_spec`` = (view_matrix or None, focal, width, height, tile_px).
-    A range-only plan (:func:`plan.range_only`) is built from the frame's
-    tile-major primary rays ``rays`` = (o, d) [R, 3] instead, as JAX
-    builds it (tiled_t.cull drops the analytic bounds there)."""
-    vmx, focal, wd, hd, tpx = cam_spec
-    dev = prep.device
+    O(tiles) analytic bounds, :func:`plan.tile_bounds` of the camera row
+    ``cam``, :func:`plan.camera`'s) with each tile's pixel origin in
+    columns 4/5.  ``cam_spec`` = (view_matrix or None, focal, width,
+    height, tile_px).  A range-only plan (:func:`plan.range_only`) is
+    built from the frame's tile-major primary rays ``rays`` = (o, d)
+    [R, 3] instead, as JAX builds it (tiled_t.cull drops the analytic
+    bounds there), and reads no ``cam``."""
+    _vmx, _focal, wd, hd, tpx = cam_spec
     tiles_x, tiles_y = -(-wd // tpx), -(-hd // tpx)
-    n = tiles_x * tiles_y
     wb = cfg.kernel.window_blocks
     with span("srt.plan.primary"):
-        ab = (None if pl.range_only(maxv, prep.num_blocks // wb)
-              else pl.analytic_tile_bounds(cam_spec, n, dev))
-        plan = pl.cull(prep, maxv, wb, ab, apex=True,
-                       rays=None if rays is None else (*rays, tpx * tpx))
-        plan[:, 4], plan[:, 5] = pl.tile_origins(n, tiles_x, tpx, wd, hd,
-                                                 dev)
-        return plan
+        ab = None
+        if not pl.range_only(maxv, prep.num_blocks // wb):
+            if cam is None:
+                raise ValueError("a list plan needs the camera row")
+            ab = pl.tile_bounds(cam, cam_spec, tiles_x * tiles_y)
+        return pl.cull(prep, maxv, wb, ab, apex=True,
+                       rays=None if rays is None else (*rays, tpx * tpx),
+                       origins=(tiles_x, tpx, wd, hd))
 
 
 def attr_mode(prep, cfg):
@@ -886,37 +887,40 @@ def attr_mode(prep, cfg):
     return TEXTURED if textured else SMOOTH if smooth else FLAT
 
 
-def hits_shaded(prep, cfg, light_pos, cam_spec, maxv: int, rays=None):
+def hits_shaded(prep, cfg, light_pos, cam_spec, maxv: int, rays=None,
+                cam=None):
     """Nearest hit + fused Phong over the frame's primary rays in tile-major
     order (JAX kernels/tiled_t.py::hits_shaded with want_bounds=1).
 
     Builds the primary plan (from ``rays``, the tile-major primary rays
-    (o, d), where it is range-only), the camera constants with the shared
-    shadow frame, and runs K1 ("nearest_shaded") in the scene's
-    :func:`attr_mode`.  Returns (t [R], idx [R], obj [R], rgb
-    [R, 3] or, in the TEXTURED mode, comp [R, 6] = (dw, sw, texu, texv,
-    obj, tex id), bounds [n, 15]), R = n * tile_px**2, misses t = inf."""
-    args = shaded_args(prep, cfg, light_pos, cam_spec, maxv, rays)
+    (o, d), where it is range-only) from the camera row with the shared
+    shadow frame (``cam``, by default :func:`plan.camera`'s), and runs K1
+    ("nearest_shaded") in the scene's :func:`attr_mode`.  Returns (t [R],
+    idx [R], obj [R], rgb [R, 3] or, in the TEXTURED mode, comp [R, 6] =
+    (dw, sw, texu, texv, obj, tex id), bounds [n, 15]), R = n *
+    tile_px**2, misses t = inf."""
+    args = shaded_args(prep, cfg, light_pos, cam_spec, maxv, rays, cam)
     with span("srt.k1"):
         t, idx, obj, rgb, bounds = table.run("nearest_shaded", *args)
     return t.reshape(-1), idx.reshape(-1), obj.reshape(-1), rgb, bounds
 
 
-def shaded_args(prep, cfg, light_pos, cam_spec, maxv: int,
-                rays=None) -> tuple:
+def shaded_args(prep, cfg, light_pos, cam_spec, maxv: int, rays=None,
+                cam=None) -> tuple:
     """The arguments :func:`hits_shaded` gives K1
     (:func:`tiled_nearest_shaded`) on the frame: the primary plan, the
-    scene's tables, the camera constants with the shared shadow frame, and
-    the scene's :func:`attr_mode`."""
-    vmx, focal, _wd, _hd, tpx = cam_spec
+    scene's tables, the camera row with the shared shadow frame (``cam``,
+    by default :func:`plan.camera` of ``light_pos``), and the scene's
+    :func:`attr_mode`."""
+    tpx = cam_spec[4]
     mode = attr_mode(prep, cfg)
     if mode is None:
         raise ValueError("no fused mode for a textured smooth-normal scene")
     amap = {FLAT: None, TEXTURED: prep.tri_tex_map,
             SMOOTH: prep.tri_nrm_map}[mode]
-    plan = primary_plan(prep, cfg, cam_spec, maxv, rays)
-    frame = pl.shadow_frame(prep.block_min, prep.block_max, light_pos)
-    cam = pl.make_cam(vmx, focal, light_pos, frame, prep.device)
+    if cam is None:
+        cam = pl.camera(prep, cam_spec, light_pos)
+    plan = primary_plan(prep, cfg, cam_spec, maxv, rays, cam)
     mat = material_table(prep.scene, cfg.light.color)
     return (plan, prep.tri, prep.tri_attr, mat, cam, tpx,
             cfg.kernel.window_blocks * prep.block_size, cfg.mt_eps,
@@ -955,12 +959,12 @@ def hits_attrs(prep, cfg, cam_spec, maxv: int, rays=None, tile: int = 0):
     wt = cfg.kernel.window_blocks * prep.block_size
     tile = tile or cam_spec[4] ** 2
     if _iota(cam_spec, True, maxv, tile):
-        vmx, focal, _wd, _hd, tpx = cam_spec
-        plan = primary_plan(prep, cfg, cam_spec, maxv, rays)
-        cam = pl.make_cam(vmx, focal, (0.0, 0.0, 0.0), None, prep.device)
+        cam = pl.camera(prep, cam_spec)
+        plan = primary_plan(prep, cfg, cam_spec, maxv, rays, cam)
         with span("srt.k1"):
             t, idx, attrs = table.run("nearest_attrs", plan, prep.tri,
-                                      prep.tri_attr, cam, tpx, wt, cfg.mt_eps)
+                                      prep.tri_attr, cam, cam_spec[4], wt,
+                                      cfg.mt_eps)
         R = t.numel() if rays is None else rays[0].shape[0]
     else:
         o, d = rays
@@ -1003,12 +1007,12 @@ def hits(prep, cfg, o, d, tile: int, maxv: int, apex: bool = True,
     groups = 1 if prepass or maxv <= 0 else kc.nearest_groups
     R = o.shape[0]
     if groups == 1 and not prepass and _iota(cam_spec, apex, maxv, tile):
-        vmx, focal, _wd, _hd, tpx = cam_spec
-        plan = primary_plan(prep, cfg, cam_spec, maxv, (o, d))
-        cam = pl.make_cam(vmx, focal, (0.0, 0.0, 0.0), None, prep.device)
+        cam = pl.camera(prep, cam_spec)
+        plan = primary_plan(prep, cfg, cam_spec, maxv, (o, d), cam)
         with span("srt.k1"):
             t, idx, _ = table.run("nearest_attrs", plan, prep.tri,
-                                  prep.tri_attr, cam, tpx, wt, cfg.mt_eps)
+                                  prep.tri_attr, cam, cam_spec[4], wt,
+                                  cfg.mt_eps)
         return t.reshape(-1)[:R], idx.reshape(-1)[:R]
     with span("srt.plan.primary"):
         plan = pl.cull_rays(prep, o, d, tile, maxv, wb, groups=groups,

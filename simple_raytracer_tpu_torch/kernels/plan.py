@@ -12,13 +12,15 @@ Counterparts in the JAX package: ``kernels/tiled.py`` (cull_blocks_lists,
 cull_blocks, _visibility, _visibility_hourglass, _px_frame, _px_block_corners,
 _visibility_px, _visibility_px_rev, effective_tile_px, _shadow_tile,
 effective_cull_maxv), ``utils/vma.py`` (pad_rays) and ``kernels/tiled_t.py``
-(cull, cull_occl, _hourglass_for, make_cam, analytic_tile_bounds,
-shadow_frame, analytic_shadow_bounds_exact).  Tile bounds come in two
+(cull, cull_occl, _hourglass_for, make_cam, analytic_tile_bounds: here
+:func:`tile_bounds_plain` of :func:`camera_plain`'s row, shadow_frame,
+analytic_shadow_bounds_exact).  Tile bounds come in two
 kinds, read by the same visibility tests: analytic O(tiles) bounds of the
-fused frame's primary and shadow tiles, and per-ray reductions
-(:func:`ray_tile_bounds`) of explicit rays: the shadow rays of the legacy
-and soft-shadow paths, the primary rays of the paths with no pixel
-rebuild, and the rays of every range-only plan.
+fused frame's primary and shadow tiles (:func:`tile_bounds`,
+:func:`shadow_bounds`, from the frame's camera row :func:`camera`), and
+per-ray reductions (:func:`ray_tile_bounds`) of explicit rays: the shadow
+rays of the legacy and soft-shadow paths, the primary rays of the paths
+with no pixel rebuild, and the rays of every range-only plan.
 
 Plan layout, one int32 row of ``plan_width`` per tile (the JAX layout):
 columns 0-7 are (lo, range_cnt, list_cnt, use_list, px0, py0, 0, 0), then
@@ -41,7 +43,11 @@ kernels/table.py: on a CUDA device a list plan of the interval or the
 hourglass test and its apex tests is built by the hand-written kernels of
 csrc/plan.cu (:func:`cull_cuda`: at most two launches, no host read),
 everything else (CPU tensors, range-only plans) by its plain version
-:func:`cull_plain`, the same plan bit for bit.
+:func:`cull_plain`, the same plan bit for bit.  The analytic bounds and
+the camera row are the roles ``tile_bounds``, ``shadow_bounds`` and
+``camera``: a launch each of csrc/plan.cu on a CUDA device, their plain
+twins (the same numbers bit for bit, their sums written in the kernels'
+order) on the CPU.
 """
 
 from __future__ import annotations
@@ -52,7 +58,7 @@ from typing import Optional
 import torch
 
 from ..ops.intersect import cross
-from ..utils.metrics import count
+from ..utils.metrics import count, span
 from . import build, table
 
 PLAN_W = 256            # plan row width of scenes with <= 1500 windows
@@ -119,21 +125,37 @@ def _stack(c):
     return torch.stack(c, dim=-1)
 
 
-def px_frame(d: torch.Tensor):
-    """Orthonormal (s, v, w) [3] each, with w along the mean of the
-    directions d [N, 3].  Any frame works for the projective tests (they
-    compare projections of the same rays and blocks); s is built against
-    the coordinate axis least aligned with w."""
-    w = d.sum(0)
-    nw = torch.sqrt((w * w).sum())
-    w = torch.where(nw > 1e-20, w / nw.clamp_min(1e-20),
-                    torch.tensor([0.0, 0.0, 1.0], dtype=d.dtype,
-                                 device=d.device))
-    e = (torch.arange(3, device=d.device) == torch.argmin(w.abs())).to(d.dtype)
+def sum_rows(x: torch.Tensor) -> torch.Tensor:
+    """x [N, 3] summed over its rows by halvings: each step adds the second
+    half of the rows to the first, an odd last row carried on, until one
+    row is left.  The order of csrc/plan.cu's tile bounds, where x.sum(0)
+    would take PyTorch's."""
+    while x.shape[0] > 1:
+        h = x.shape[0] // 2
+        x = torch.cat([x[:h] + x[h:2 * h], x[2 * h:]])
+    return x[0]
+
+
+def frame_of(w: torch.Tensor):
+    """Orthonormal (s, v, w) [3] each, with w along the direction w [3]
+    ((0, 0, 1) where it is near 0); s is built against the coordinate axis
+    least aligned with w.  Sums of three written out left to right, as in
+    csrc/plan.cu::frame_of."""
+    z = (torch.arange(3, device=w.device) == 2).to(w.dtype)
+    nw = torch.sqrt(w[0] * w[0] + w[1] * w[1] + w[2] * w[2])
+    w = torch.where(nw > 1e-20, w / nw.clamp_min(1e-20), z)
+    e = (torch.arange(3, device=w.device) == torch.argmin(w.abs())).to(w.dtype)
     s = _stack(cross(_vec(w), _vec(e)))
-    s = s / torch.sqrt((s * s).sum())
+    s = s / torch.sqrt(s[0] * s[0] + s[1] * s[1] + s[2] * s[2])
     v = _stack(cross(_vec(w), _vec(s)))
     return s, v, w
+
+
+def px_frame(d: torch.Tensor):
+    """The projective frame (s, v, w) of the directions d [N, 3]: w along
+    their sum (:func:`frame_of`).  Any frame works for the projective tests
+    (they compare projections of the same rays and blocks)."""
+    return frame_of(d.sum(0))
 
 
 def tile_origins(n: int, tiles_x: int, tile_px: int, width: int, height: int,
@@ -228,34 +250,60 @@ def ray_tile_bounds(o: torch.Tensor, d: torch.Tensor, tile: int,
     return ab
 
 
-def analytic_tile_bounds(cam_spec, n: int, device=None):
-    """O(tiles) cull bounds of primary-ray tiles.  d is affine in the pixel,
-    so a tile's direction box and its projective (ru, rv) rect are exact at
-    the 4 pixel-rect corners (valid while d.w > 0 over the rect, which the
-    corners certify).  Returns the interval bounds (omin/omax/dmin/dmax
-    [n, 3]) and the projective data (s, v, w, apex, ru/rv bounds, tile_bad,
-    dw_hi) consumed by :func:`visibility` and :func:`visibility_px`."""
-    vmx, focal, wd, hd, tpx = cam_spec
-    tiles_x = -(-wd // tpx)
-    px0, py0 = tile_origins(n, tiles_x, tpx, wd, hd, device)
+def camera(prep, cam_spec, light=None) -> torch.Tensor:
+    """The frame's camera row: :func:`make_cam` of ``cam_spec``'s view and
+    focal, with ``light`` and the shared shadow frame of
+    :func:`shadow_frame` (zeros for both where ``light`` is None).  The
+    ``camera`` role of kernels/table.py: csrc/plan.cu's
+    ``camera_kernel`` on a CUDA device (:func:`camera_cuda`), equal to
+    :func:`camera_plain`'s row bit for bit.  The frame's first work, so
+    it is issued within the primary plan's span."""
+    with span("srt.plan.primary"):
+        return table.run("camera", prep, cam_spec, light)
+
+
+def camera_plain(prep, cam_spec, light=None) -> torch.Tensor:
+    """:func:`camera` in plain PyTorch."""
+    vmx, focal = cam_spec[:2]
+    if light is None:
+        return make_cam(vmx, focal, (0.0, 0.0, 0.0), None, prep.device)
+    frame = shadow_frame(prep.block_min, prep.block_max, light)
+    return make_cam(vmx, focal, light, frame, prep.device)
+
+
+def tile_bounds(cam: torch.Tensor, cam_spec, n: int) -> dict:
+    """O(tiles) cull bounds of the frame's ``n`` primary-ray tiles, from
+    the camera row ``cam`` (:func:`camera`) and the tile grid of
+    ``cam_spec``.  d is affine in the pixel, so a tile's direction box and
+    its projective (ru, rv) rect are exact at the 4 pixel-rect corners
+    (valid while d.w > 0 over the rect, which the corners certify).
+    Returns the interval bounds (omin/omax/dmin/dmax [n, 3]) and the
+    projective data (s, v, w, apex, ru/rv bounds, tile_bad, dw_hi) read by
+    :func:`visibility` and :func:`visibility_px`.  The ``tile_bounds``
+    role of kernels/table.py: csrc/plan.cu's ``tile_bounds_kernel`` on a
+    CUDA device (:func:`tile_bounds_cuda`), equal to
+    :func:`tile_bounds_plain`'s bounds bit for bit."""
+    return table.run("tile_bounds", cam, cam_spec, n)
+
+
+def tile_bounds_plain(cam: torch.Tensor, cam_spec, n: int) -> dict:
+    """:func:`tile_bounds` in plain PyTorch, in the kernel's order: the
+    frame's w along the corner directions summed by :func:`sum_rows`, the
+    projections written out (:func:`_dot`)."""
+    _vmx, _focal, wd, hd, tpx = cam_spec
+    px0, py0 = tile_origins(n, -(-wd // tpx), tpx, wd, hd, cam.device)
     px0, py0 = px0.to(torch.float32), py0.to(torch.float32)
     e = float(tpx - 1)
     fx = torch.stack([px0, px0 + e, px0, px0 + e], dim=1)          # [n, 4]
     fy = torch.stack([py0, py0, py0 + e, py0 + e], dim=1)
-    if vmx is None:
-        dc = torch.stack([fx, fy, torch.full_like(fx, float(focal))], dim=-1)
-        o = torch.zeros(3, device=device)
-    else:
-        V = torch.as_tensor(vmx, dtype=torch.float32, device=device)
-        dc = (fx[..., None] * V[:3, 0] + fy[..., None] * V[:3, 1]
-              + float(focal) * V[:3, 2])
-        o = V[:3, 3]
-    s, v, w = px_frame(dc.reshape(-1, 3))
-    dw = dc @ w                                                     # [n, 4]
+    dc = fx[..., None] * cam[0:3] + fy[..., None] * cam[3:6] + cam[6:9]
+    o = cam[9:12]
+    s, v, w = frame_of(sum_rows(dc.reshape(-1, 3)))
+    dw = _dot(dc, w)                                                # [n, 4]
     bad = dw <= EPS
     dws = dw.clamp_min(EPS)
-    ru = (dc @ s) / dws
-    rv = (dc @ v) / dws
+    ru = _dot(dc, s) / dws
+    rv = _dot(dc, v) / dws
     ob = o.expand(n, 3)
     return {
         "omin": ob, "omax": ob, "dmin": dc.amin(dim=1), "dmax": dc.amax(dim=1),
@@ -272,33 +320,57 @@ def analytic_tile_bounds(cam_spec, n: int, device=None):
 def shadow_frame(block_min: torch.Tensor, block_max: torch.Tensor, light):
     """The shared projective frame of the shadow bounds, seeded with the
     light -> scene-centre direction so d.w is sign-definite for almost
-    every tile.  Computed once per frame and fed both to the nearest kernel
-    (its bounds row) and to :func:`analytic_shadow_bounds_exact`."""
+    every tile.  Computed once per frame (:func:`camera`) and read both by
+    the nearest kernel (its bounds row) and by :func:`shadow_bounds`."""
     ctr = 0.5 * (block_min.amin(dim=0) + block_max.amax(dim=0))
     L = torch.as_tensor(light, dtype=torch.float32, device=ctr.device)
-    return px_frame((ctr - L)[None, :])
+    return frame_of(ctr - L.reshape(3))
 
 
 def analytic_shadow_bounds_exact(bounds: torch.Tensor, light, frame):
     """O(tiles) shadow cull bounds from the nearest kernel's per-tile row
     (bounds [n, 15]: hit-point box 6, any-hit flag, obj lo/hi, ru lo/hi,
     rv lo/hi, dw lo/hi).  Tiles whose dw is not sign-definite (or that have
-    no hit) get an unbounded projective rect."""
-    light = torch.as_tensor(light, dtype=torch.float32, device=bounds.device)
+    no hit) get an unbounded projective rect.  Also ``live`` [n] bool, the
+    tiles with a hit, and ``excl`` [n] i32, the object every hit of a pure
+    tile left (-2 elsewhere: no block's)."""
+    light = torch.as_tensor(light, dtype=torch.float32,
+                            device=bounds.device).reshape(3)
     s, v, w = frame
     ah = bounds[:, 6] > 0.0
     ahc = ah[:, None]
     pmin = torch.where(ahc, bounds[:, 0:3], 0.0)
     pmax = torch.where(ahc, bounds[:, 3:6], 0.0)
     ok = ah & ((bounds[:, 13] > EPS) | (bounds[:, 14] < -EPS))
-    open_rect = torch.tensor([-BIG, BIG, -BIG, BIG], device=bounds.device)
-    ruv = torch.where(ok[:, None], bounds[:, 9:13], open_rect[None])
+    pure = ah & (bounds[:, 7] == bounds[:, 8])
     return {
         "omin": pmin, "omax": pmax, "dmin": light - pmax, "dmax": light - pmin,
         "s": s, "v": v, "w": w, "apex": light,
-        "ru_lo": ruv[:, 0], "ru_hi": ruv[:, 1],
-        "rv_lo": ruv[:, 2], "rv_hi": ruv[:, 3],
+        "ru_lo": torch.where(ok, bounds[:, 9], -BIG),
+        "ru_hi": torch.where(ok, bounds[:, 10], BIG),
+        "rv_lo": torch.where(ok, bounds[:, 11], -BIG),
+        "rv_hi": torch.where(ok, bounds[:, 12], BIG),
+        "live": ah,
+        "excl": torch.where(pure, torch.round(bounds[:, 7]).to(torch.int32),
+                            -2),
     }
+
+
+def shadow_bounds(bounds: torch.Tensor, cam: torch.Tensor) -> dict:
+    """The hard-shadow plan's O(tiles) bounds
+    (:func:`analytic_shadow_bounds_exact`) from the nearest kernel's rows
+    ``bounds`` [n, 15] and the camera row ``cam`` that kernel read (its
+    light and shared shadow frame).  The ``shadow_bounds`` role of
+    kernels/table.py: csrc/plan.cu's ``shadow_bounds_kernel`` on a CUDA
+    device (:func:`shadow_bounds_cuda`), equal to
+    :func:`shadow_bounds_plain`'s bit for bit."""
+    return table.run("shadow_bounds", bounds, cam)
+
+
+def shadow_bounds_plain(bounds: torch.Tensor, cam: torch.Tensor) -> dict:
+    """:func:`shadow_bounds` in plain PyTorch."""
+    return analytic_shadow_bounds_exact(
+        bounds, cam[12:15], (cam[15:18], cam[18:21], cam[21:24]))
 
 
 def _safe_div(a, b):
@@ -601,7 +673,8 @@ def cull_width(num_windows: int, maxv: int, widen: bool = True,
 
 def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
          apex_rev: bool = False, hourglass: bool = False,
-         widen: bool = True, groups: int = 1, rays=None) -> torch.Tensor:
+         widen: bool = True, groups: int = 1, rays=None, live=None,
+         origins=None) -> torch.Tensor:
     """Plan of a tile set described by bounds ``ab``: the interval test (or,
     with ``hourglass``, :func:`visibility_hourglass`), refined by the
     projective test of primary rays (``apex``) or of hard-shadow rays
@@ -617,7 +690,9 @@ def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
     the tiles' rays: the mask words' sub-groups, and the whole plan where
     it is range-only (:func:`range_only`), which JAX builds from the rays
     alone (:func:`cull_ranges`, the apex tests dropped); ``ab`` is then not
-    read.
+    read.  ``live`` [n] bool: rows of tiles not live are all zeros (no
+    walk).  ``origins`` = (tiles_x, tile_px, width, height): columns 4/5
+    hold each tile's :func:`tile_origins`, zeros without.
 
     The plan is the ``plan`` role's of kernels/table.py: on a CUDA device
     csrc/plan.cu's (:func:`cull_cuda`, equal to :func:`cull_plain`'s bit
@@ -629,7 +704,7 @@ def cull(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
         raise ValueError("a plan takes the primary-apex test or the "
                          "light-apex test, not both")
     return table.run("plan", prep, maxv, wb, ab, excl, apex, apex_rev,
-                     hourglass, widen, groups, rays)
+                     hourglass, widen, groups, rays, live, origins)
 
 
 def _with_mask_words(prep, plan, wb: int, groups: int, rays,
@@ -642,10 +717,21 @@ def _with_mask_words(prep, plan, wb: int, groups: int, rays,
     return torch.cat([plan, words], dim=1).contiguous()
 
 
+def _rows_of(plan, live, origins) -> torch.Tensor:
+    """The plan with the rows of tiles not ``live`` zeroed and the tiles'
+    origins in columns 4/5 (:func:`cull`)."""
+    if live is not None:
+        plan = torch.where(live[:, None], plan, 0)
+    if origins is not None:
+        plan[:, 4], plan[:, 5] = tile_origins(plan.shape[0], *origins,
+                                              device=plan.device)
+    return plan
+
+
 def cull_plain(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
                apex_rev: bool = False, hourglass: bool = False,
-               widen: bool = True, groups: int = 1,
-               rays=None) -> torch.Tensor:
+               widen: bool = True, groups: int = 1, rays=None, live=None,
+               origins=None) -> torch.Tensor:
     """:func:`cull` in plain PyTorch, on any device and for every flag."""
     NB = prep.num_blocks
     pw = cull_width(NB // wb, maxv, widen, groups)
@@ -653,7 +739,8 @@ def cull_plain(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
         if rays is None:
             raise ValueError("a range-only plan is built from the rays")
         o, d, tile = rays
-        return cull_ranges(prep, o, d, tile, wb, pw, excl, hourglass, groups)
+        return _rows_of(cull_ranges(prep, o, d, tile, wb, pw, excl,
+                                    hourglass, groups), live, origins)
     bobj = prep.block_obj if excl is not None else None
     test = visibility_hourglass if hourglass else visibility
     visible, tlo = test(ab, prep.block_min, prep.block_max, bobj, excl)
@@ -662,27 +749,41 @@ def cull_plain(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
     if apex_rev:
         visible = visible & visibility_px_rev(ab, prep.block_min,
                                               prep.block_max)
-    plan = cull_lists(visible, tlo, wb, maxv, pw)
+    plan = _rows_of(cull_lists(visible, tlo, wb, maxv, pw), live, origins)
     return _with_mask_words(prep, plan, wb, groups, rays, hourglass)
 
 # csrc/plan.cu's operands, in its enum Op order
 CUDA_OPERANDS = ("omin", "omax", "dmin", "dmax", "ru_lo", "ru_hi", "rv_lo",
                  "rv_hi", "tile_bad", "excl", "s", "v", "w", "apex", "qmin",
-                 "qmax")
+                 "qmax", "live")
 # window bounds a tile keeps in shared memory (plan.cu's kSmemWindows)
 SMEM_WINDOWS = 10240
+# corner rows of tile_bounds_kernel's sum held in shared memory (plan.cu's
+# kSumRows); past them it sums in a scratch row
+SUM_SMEM_ROWS = 2048
+
+
+def _launch(fn: str, what: str, dev, *args) -> None:
+    """Launch csrc/plan.cu's ``fn`` on ``dev``'s current stream (the last
+    argument) and raise on its error code."""
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(build.library(), fn)(*args, stream)
+    build.check(rc, what)
 
 
 def cuda_operands(ab, n: int, dev, excl=None, apex: bool = False,
-                  apex_rev: bool = False, hourglass: bool = False) -> list:
+                  apex_rev: bool = False, hourglass: bool = False,
+                  live=None) -> list:
     """csrc/plan.cu's operand words for the bounds ``ab`` of ``n`` tiles:
     (pointer, stride 0, stride 1) of each of :data:`CUDA_OPERANDS`, in
     elements, zeros where the plan does not read it: the origin box, then
     the direction box of the interval test or (``hourglass``) the endpoint
     box qmin/qmax of the hourglass test, the rects, frame and apex of an
-    apex test, ``tile_bad`` of the primary apex, and ``excl`` (int32).  The
-    tensors are read in place, expanded or sliced; each must be on ``dev``
-    with its dtype and shape, and outlive the launch."""
+    apex test, ``tile_bad`` of the primary apex, ``excl`` (int32) and
+    ``live`` (bool).  The tensors are read in place, expanded or sliced;
+    each must be on ``dev`` with its dtype and shape, and outlive the
+    launch."""
     box = ("qmin", "qmax") if hourglass else ("dmin", "dmax")
     want = dict.fromkeys(("omin", "omax") + box, (n, 3))
     if apex or apex_rev:
@@ -691,16 +792,17 @@ def cuda_operands(ab, n: int, dev, excl=None, apex: bool = False,
     if apex:
         want["tile_bad"] = (n,)
     ops = {k: ab[k] for k in want}
-    if excl is not None:
-        want["excl"] = (n,)
-        ops["excl"] = excl
+    for name, x in (("excl", excl), ("live", live)):
+        if x is not None:
+            want[name] = (n,)
+            ops[name] = x
     words = []
     for name in CUDA_OPERANDS:
         x = ops.get(name)
         if x is None:
             words += [0, 0, 0]
             continue
-        dtype = (torch.bool if name == "tile_bad" else torch.int32
+        dtype = (torch.bool if name in ("tile_bad", "live") else torch.int32
                  if name == "excl" else torch.float32)
         if x.device != dev or x.dtype != dtype or x.shape != want[name]:
             raise ValueError(f"{name}: want {dtype} {want[name]} on {dev}, "
@@ -711,14 +813,16 @@ def cuda_operands(ab, n: int, dev, excl=None, apex: bool = False,
 
 def cull_cuda(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
               apex_rev: bool = False, hourglass: bool = False,
-              widen: bool = True, groups: int = 1,
-              rays=None) -> torch.Tensor:
+              widen: bool = True, groups: int = 1, rays=None, live=None,
+              origins=None) -> torch.Tensor:
     """:func:`cull`'s list plan on the card: :func:`cull_lists` over the
     interval test of the bounds ``ab`` (or, with ``hourglass``, the
     hourglass test: ``plan_hourglass_kernel``), refined by the primary-apex
     (``apex``) or light-apex (``apex_rev``) test, minus each tile's own
-    object (``excl`` [n]), built by csrc/plan.cu in one launch, two with an
-    apex test, then the mask words of a grouped plan: equal to
+    object (``excl`` [n]), with the rows of tiles not ``live`` zeroed and
+    the tile ``origins`` in columns 4/5, built by csrc/plan.cu in one
+    launch, two with an apex test, then the mask words of a grouped plan:
+    equal to
     :func:`cull_plain`'s plan bit for bit.  The operands
     (:func:`cuda_operands`) are read in place; the host reads nothing back.
     It counts its hourglass plans (``plan.cull_cuda.hourglass_plans``) and
@@ -729,7 +833,8 @@ def cull_cuda(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
     plan_w = cull_width(nw, maxv, widen, groups)
     kind = 1 if apex else 2 if apex_rev else 0
     excl = None if excl is None else excl.to(torch.int32)
-    words = cuda_operands(ab, n, dev, excl, apex, apex_rev, hourglass)
+    words = cuda_operands(ab, n, dev, excl, apex, apex_rev, hourglass, live)
+    tiles_x, tpx, wd, hd = origins or (0, 0, 0, 0)
     i32 = torch.int32
     build.check_tensors(dev, block_min=(prep.block_min, torch.float32),
                         block_max=(prep.block_max, torch.float32),
@@ -739,21 +844,102 @@ def cull_cuda(prep, maxv: int, wb: int, ab, excl=None, apex: bool = False,
               if kind else None)
     scratch = (torch.empty(n * nw, dtype=torch.float32, device=dev)
                if nw > SMEM_WINDOWS else None)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = build.library().srt_plan(
+    _launch("srt_plan", "plan_hourglass_kernel" if hourglass
+            else "plan_tiles_kernel", dev,
             (ctypes.c_longlong * len(words))(*words),
             prep.block_min.data_ptr(), prep.block_max.data_ptr(),
             prep.block_obj.data_ptr(), prep.num_blocks, wb, kind,
-            int(hourglass), maxv, plan_w, n,
+            int(hourglass), maxv, plan_w, n, tiles_x, tpx, wd // 2, hd // 2,
             None if blocks is None else blocks.data_ptr(),
             None if scratch is None else scratch.data_ptr(),
-            plan.data_ptr(), stream)
-    build.check(rc, "plan_hourglass_kernel" if hourglass
-                else "plan_tiles_kernel")
+            plan.data_ptr())
     count("plan.cull_cuda.hourglass_plans", int(hourglass))
     count("plan.cull_cuda.launches", (2 if kind else 1) if n else 0)
     return _with_mask_words(prep, plan, wb, groups, rays, hourglass)
+
+
+def camera_cuda(prep, cam_spec, light=None) -> torch.Tensor:
+    """:func:`camera` on the card: ``camera_kernel``, one launch, reading
+    the view, the light and the block tables in place (no copy where they
+    are on the card).  It counts its launches
+    (``plan.camera_cuda.launches``)."""
+    vmx, focal = cam_spec[:2]
+    dev, f32 = prep.device, torch.float32
+    V = None if vmx is None else torch.as_tensor(vmx, dtype=f32, device=dev)
+    L = None if light is None else torch.as_tensor(
+        light, dtype=f32, device=dev).reshape(3)
+    if V is not None and (V.dim() != 2 or V.shape[0] < 3 or V.shape[1] < 4):
+        raise ValueError(f"view {tuple(V.shape)}: want [3 or 4, 4]")
+    build.check_tensors(dev, block_min=(prep.block_min, f32),
+                        block_max=(prep.block_max, f32))
+    cam = torch.empty(24, dtype=f32, device=dev)
+    _launch("srt_camera", "camera_kernel", dev,
+            None if V is None else V.data_ptr(),
+            0 if V is None else V.stride(0), 0 if V is None else V.stride(1),
+            float(focal), None if L is None else L.data_ptr(),
+            0 if L is None else L.stride(0), prep.block_min.data_ptr(),
+            prep.block_max.data_ptr(), prep.num_blocks, cam.data_ptr())
+    count("plan.camera_cuda.launches")
+    return cam
+
+
+def _check_cam(cam: torch.Tensor, dev) -> None:
+    build.check_tensors(dev, cam=(cam, torch.float32))
+    if cam.shape != (24,):
+        raise ValueError(f"cam {tuple(cam.shape)}: want [24]")
+
+
+def tile_bounds_cuda(cam: torch.Tensor, cam_spec, n: int) -> dict:
+    """:func:`tile_bounds` on the card: ``tile_bounds_kernel``, one launch
+    of one CTA; the origin box and the apex are views of ``cam``.  It
+    counts its launches (``plan.tile_bounds_cuda.launches``)."""
+    _vmx, _focal, wd, hd, tpx = cam_spec
+    dev, f32 = cam.device, torch.float32
+    _check_cam(cam, dev)
+    if n <= 0:
+        raise ValueError(f"{n} tiles")
+    out = torch.empty(9 + 11 * n, dtype=f32, device=dev)
+    bad = torch.empty(n, dtype=torch.bool, device=dev)
+    scratch = (torch.empty(12 * n, dtype=f32, device=dev)
+               if 4 * n > SUM_SMEM_ROWS else None)
+    _launch("srt_tile_bounds", "tile_bounds_kernel", dev, cam.data_ptr(), wd,
+            hd, tpx, n, out.data_ptr(), bad.data_ptr(),
+            None if scratch is None else scratch.data_ptr())
+    count("plan.tile_bounds_cuda.launches")
+    box = out[9:9 + 6 * n].view(2, n, 3)
+    rect = out[9 + 6 * n:].view(5, n)
+    o = cam[9:12]
+    return {"omin": o.expand(n, 3), "omax": o.expand(n, 3),
+            "dmin": box[0], "dmax": box[1], "s": out[0:3], "v": out[3:6],
+            "w": out[6:9], "apex": o, "ru_lo": rect[0], "ru_hi": rect[1],
+            "rv_lo": rect[2], "rv_hi": rect[3], "tile_bad": bad,
+            "dw_hi": rect[4]}
+
+
+def shadow_bounds_cuda(bounds: torch.Tensor, cam: torch.Tensor) -> dict:
+    """:func:`shadow_bounds` on the card: ``shadow_bounds_kernel``, one
+    launch, a thread a tile; the frame and the apex are views of ``cam``.
+    It counts its launches (``plan.shadow_bounds_cuda.launches``)."""
+    dev, f32 = bounds.device, torch.float32
+    build.check_tensors(dev, bounds=(bounds, f32))
+    _check_cam(cam, dev)
+    if bounds.dim() != 2 or bounds.shape[1] != 15:
+        raise ValueError(f"bounds {tuple(bounds.shape)}: want [n, 15]")
+    n = bounds.shape[0]
+    out = torch.empty(16 * n, dtype=f32, device=dev)
+    excl = torch.empty(n, dtype=torch.int32, device=dev)
+    live = torch.empty(n, dtype=torch.bool, device=dev)
+    if n:
+        _launch("srt_shadow_bounds", "shadow_bounds_kernel", dev,
+                bounds.data_ptr(), n, cam.data_ptr(), out.data_ptr(),
+                excl.data_ptr(), live.data_ptr())
+        count("plan.shadow_bounds_cuda.launches")
+    box = out[:12 * n].view(4, n, 3)
+    rect = out[12 * n:].view(4, n)
+    return {"omin": box[0], "omax": box[1], "dmin": box[2], "dmax": box[3],
+            "s": cam[15:18], "v": cam[18:21], "w": cam[21:24],
+            "apex": cam[12:15], "ru_lo": rect[0], "ru_hi": rect[1],
+            "rv_lo": rect[2], "rv_hi": rect[3], "live": live, "excl": excl}
 
 
 def cull_rays(prep, o, d, tile: int, maxv: int, wb: int, groups: int = 1,

@@ -98,6 +98,9 @@ def roles() -> dict:
         "nearest_pages": Role(paged.tiled_nearest, paged.tiled_nearest_plain),
         "anyhit_pages": Role(paged.tiled_anyhit, paged.tiled_anyhit_plain),
         "plan": Role(pl.cull_cuda, pl.cull_plain, range_only_plan, "plans"),
+        "camera": Role(pl.camera_cuda, pl.camera_plain),
+        "tile_bounds": Role(pl.tile_bounds_cuda, pl.tile_bounds_plain),
+        "shadow_bounds": Role(pl.shadow_bounds_cuda, pl.shadow_bounds_plain),
         "shade": Role(integrator.shade_cuda, integrator.shade_plain,
                       record_or_gradient),
         "attr_gather": Role(attr.attr_gather, attr.attr_gather_plain),

@@ -361,15 +361,17 @@ def render_flat_tiled(prep, cfg: RenderConfig, light_pos, cam_spec,
         rad = integrator.shade(prep.scene, cfg, o, d, t, idx, light_pos,
                                shadow_fn, record=record)
         return rad, torch.isfinite(t)
+    # the camera row with the shadow frame, read by K1 and the shadow plan
+    cam = pl.camera(prep, cam_spec, light_pos)
     t, _idx, obj, rgb, bounds = hits_shaded(prep, cfg, light_pos, cam_spec,
-                                            maxv, rays=rays)
+                                            maxv, rays=rays, cam=cam)
     hit = torch.isfinite(t)
     if attr_mode(prep, cfg) == TEXTURED:
         rgb = texel_finish(prep.scene, cfg, obj, rgb)
     if cfg.light.enable_shadows and prep.scene.num_objects > 1:
         if branch == "fused":
-            found = anyhit_from_t(prep, cfg, t, obj, bounds, light_pos,
-                                  cam_spec, maxv)
+            found = anyhit_from_t(prep, cfg, t, obj, bounds, cam, cam_spec,
+                                  maxv)
         else:
             o, d = rays
             point = torch.where(hit[:, None],

@@ -55,7 +55,7 @@ def results():
             f = anyhit.anyhit_from_t(
                 prep, c, torch.tensor(np.asarray(jt)),
                 torch.tensor(np.asarray(jo)), torch.tensor(np.asarray(jb)),
-                torch.tensor(LIGHT), cs, cfg.cull_maxv)
+                pl.camera(prep, cs, torch.tensor(LIGHT)), cs, cfg.cull_maxv)
         out[name] = (np.asarray(jt), np.asarray(jf), f.numpy(), caught[0])
     return out
 

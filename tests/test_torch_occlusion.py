@@ -234,9 +234,10 @@ def test_legacy_and_fused_hard_shadows_agree(base):
     light = torch.tensor(LIGHT)
     for vm in (None, torch.from_numpy(VIEW)):
         cs = (vm, FOCAL, WIDTH, HEIGHT, TILE_PX)
+        cam = pl.camera(prep, cs, light)
         t, _i, obj, _rgb, bounds = nearest.hits_shaded(prep, cfg, light, cs,
-                                                       MAXV)
-        fused = anyhit.anyhit_from_t(prep, cfg, t, obj, bounds, light, cs,
+                                                       MAXV, cam=cam)
+        fused = anyhit.anyhit_from_t(prep, cfg, t, obj, bounds, cam, cs,
                                      MAXV)
         o, d, _, _ = tcam.primary_rays_tiled(WIDTH, HEIGHT, TILE_PX, FOCAL,
                                              view_matrix=vm)

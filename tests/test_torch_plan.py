@@ -109,7 +109,8 @@ def test_range_mode_walk_equals_unculled(scene, unculled):
 
 def test_plan_entries_are_front_to_back(scene):
     prep, _, cfg = scene
-    ab = pl.analytic_tile_bounds(_cam_spec(None), 4)
+    cs = _cam_spec(None)
+    ab = pl.tile_bounds_plain(pl.camera_plain(prep, cs), cs, 4)
     plan = pl.cull(prep, cfg.cull_maxv, 2, ab, apex=True)
     for row in plan:
         cnt = int(row[2])
@@ -132,9 +133,10 @@ def test_shadow_plan_walk_equals_unculled(scene, unculled, view, no_max_t):
     cfg = cfg.replace(light=type(cfg.light)(shadow_no_max_t=no_max_t))
     cs = _cam_spec(VIEWS[view])
     light = torch.tensor(LIGHT)
+    cam = pl.camera(prep, cs, light)
     t, idx, obj, _rgb, bounds = nearest.hits_shaded(prep, cfg, light, cs,
-                                                    cfg.cull_maxv)
-    found = anyhit.anyhit_from_t(prep, cfg, t, obj, bounds, light, cs,
+                                                    cfg.cull_maxv, cam=cam)
+    found = anyhit.anyhit_from_t(prep, cfg, t, obj, bounds, cam, cs,
                                  cfg.cull_maxv)
     bt, _, occ = unculled(view)
     assert torch.equal(t, bt)
@@ -151,7 +153,7 @@ def test_analytic_bounds_match_jax(scene, view):
     cs = _cam_spec(vm)
     jcs = (None if vm is None else jnp.asarray(vm), FOCAL, WIDTH, HEIGHT,
            TILE_PX)
-    ours = pl.analytic_tile_bounds(cs, 4)
+    ours = pl.tile_bounds_plain(pl.camera_plain(scene[0], cs), cs, 4)
     theirs = tiled_t.analytic_tile_bounds(jcs, 4)
     for k in ("omin", "omax", "dmin", "dmax", "s", "v", "w", "apex",
               "ru_lo", "ru_hi", "rv_lo", "rv_hi", "dw_hi"):
@@ -165,8 +167,9 @@ def test_analytic_bounds_match_jax(scene, view):
 def test_primary_plan_matches_jax(scene, view):
     prep, jprep, cfg = scene
     vm = VIEWS[view]
-    ours = pl.cull(prep, cfg.cull_maxv, 2, pl.analytic_tile_bounds(
-        _cam_spec(vm), 4), apex=True)
+    cs = _cam_spec(vm)
+    ours = pl.cull(prep, cfg.cull_maxv, 2, pl.tile_bounds_plain(
+        pl.camera_plain(prep, cs), cs, 4), apex=True)
     jcs = (None if vm is None else jnp.asarray(vm), FOCAL, WIDTH, HEIGHT,
            TILE_PX)
     theirs = np.asarray(tiled_t.cull(

@@ -228,7 +228,8 @@ def test_dense_scene_plans_equal_plain(monkeypatch):
     tpx = pl.effective_tile_px(cfg, prep.num_triangles)
     maxv = pl.effective_cull_maxv(cfg, prep.num_blocks, wb)
     n = -(-600 // tpx) * -(-400 // tpx)
-    ab = pl.analytic_tile_bounds((None, 400.0, 600, 400, tpx), n, "cuda")
+    cs = (None, 400.0, 600, 400, tpx)
+    ab = pl.tile_bounds_plain(pl.camera_plain(prep, cs), cs, n)
     got, want = _both(lambda: pl.cull(prep, maxv, wb, ab, apex=True),
                       monkeypatch)
     assert want.shape[1] >= pl.PLAN_W_BIG
@@ -336,8 +337,8 @@ def test_launch_counts_and_no_host_read(scenes):
     and the interval plan one, with no synchronising host read."""
     prep = scenes["sphere"]
     cfg = cell_cfg("bench1080")
-    ab = pl.analytic_tile_bounds((None, 6000.0, 1920, 1080, 64), 510,
-                                 "cuda")
+    cs = (None, 6000.0, 1920, 1080, 64)
+    ab = pl.tile_bounds_plain(pl.camera_plain(prep, cs), cs, 510)
     metrics.reset_counts("plan.")
     torch.cuda.set_sync_debug_mode("error")
     try:

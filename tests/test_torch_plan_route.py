@@ -82,7 +82,9 @@ def test_both_apex_tests_are_refused(scene):
     once is refused on either route, before any plan is built."""
     prep, cfg = scene
     plains = _plans(twin=True)
-    ab = pl.analytic_tile_bounds(_cam_spec(None), (SIZE // TPX) ** 2)
+    cs = _cam_spec(None)
+    ab = pl.tile_bounds_plain(pl.camera_plain(prep, cs), cs,
+                              (SIZE // TPX) ** 2)
     with pytest.raises(ValueError, match="not both"):
         pl.cull(prep, cfg.cull_maxv, 2, ab, apex=True, apex_rev=True)
     assert _plans(twin=True) == plains
@@ -105,11 +107,11 @@ def test_cuda_route_wiring(scene, groups):
     calls = []
 
     def fake(prep_, maxv, wb, ab_, excl, apex, apex_rev, hourglass, widen,
-             groups_, rays):
+             groups_, rays, live, origins):
         calls.append((wb, maxv, apex, apex_rev, hourglass, widen, groups_,
-                      rays[2]))
+                      rays[2], live, origins))
         return pl.cull_plain(prep_, maxv, wb, ab_, excl, apex, apex_rev,
-                             hourglass, widen, groups_, rays)
+                             hourglass, widen, groups_, rays, live, origins)
 
     plans, plains = _plans(), _plans(twin=True)
     with table.using({"plan": fake}):
@@ -117,7 +119,7 @@ def test_cuda_route_wiring(scene, groups):
                       rays=(o, d, tile))
     assert (_plans(), _plans(twin=True)) == (plans, plains)
     assert calls == [(2, cfg.cull_maxv, True, False, False, True, groups,
-                      tile)]
+                      tile, None, None)]
     assert torch.equal(got, want)
 
 
@@ -128,7 +130,9 @@ def test_plain_route_counts_on_cpu(scene):
     light = torch.tensor(P.BENCH_LIGHT)
     counts = _plans(), metrics.counts().get("plan.cull_cuda.launches", 0)
     plains = _plans(twin=True)
-    ab = pl.analytic_tile_bounds(_cam_spec(None), (SIZE // TPX) ** 2)
+    cs = _cam_spec(None)
+    ab = pl.tile_bounds_plain(pl.camera_plain(prep, cs), cs,
+                              (SIZE // TPX) ** 2)
     pl.cull(prep, cfg.cull_maxv, 2, ab, apex=True)
     assert _plans(twin=True) == plains + 1
     sr.render(prep, cfg, light)
@@ -238,7 +242,8 @@ def test_written_out_dots_keep_the_plans(scene, monkeypatch, view):
     p = o + torch.where(hit, t, 0.0)[:, None] * d
     plans = {
         "primary": lambda: pl.cull(prep, cfg.cull_maxv, 2,
-                                   pl.analytic_tile_bounds(cs, n),
+                                   pl.tile_bounds_plain(
+                                       pl.camera_plain(prep, cs), cs, n),
                                    apex=True),
         "shadow": lambda: pl.cull(prep, cfg.cull_maxv, 4, sab, excl=excl,
                                   apex_rev=True),
